@@ -1,0 +1,170 @@
+"""Build and bind the hand-written CUDA kernels of ``csrc/``.
+
+All kernels build with ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, ``mpcgpu_tpu_torch/build/libmpcgpu_kernels.so``,
+at first use, and again whenever a source is newer than the library.  The
+library is bound with ``ctypes``: pointers and the stream pass as
+``c_void_p``, and every entry returns ``cudaGetLastError()``.
+
+The same sources also build with the host C++ compiler
+(``host_library``): a kernel "launch" then runs every block in turn on
+the calling thread, on CPU memory.  That build exists to check the
+kernels' arithmetic against the plain PyTorch versions on a machine
+without a GPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import weakref
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "build"
+SOURCES = ("rollout.cu", "merit.cu", "kkt_schur.cu", "pcg_dz.cu")
+HEADERS = ("lanedyn.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "mpc_rollout": [_P, _P, _P, _I, _P, _F, _F, _F, _F, _I, _F, _P, _P, _P],
+    "mpc_merits": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F,
+                   _F, _P, _P],
+    "mpc_kkt_schur": [_P, _I, _P, _P, _P, _I, _P, _F, _F, _F, _F, _I]
+                     + [_P] * 19,
+    "mpc_pcg_dz": [_I] + [_P] * 14 + [_I, _F] + [_P] * 6,
+    "mpc_pcg_max_knots": [],
+}
+
+_libs: dict = {}
+
+
+def _stale(lib: Path) -> bool:
+    if not lib.exists():
+        return True
+    newest = max((CSRC / f).stat().st_mtime for f in SOURCES + HEADERS)
+    return lib.stat().st_mtime < newest
+
+
+def _compile(cmd, out: Path) -> str:
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True,
+                          text=True, cwd=CSRC)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"kernel build failed ({' '.join(cmd[:1])}, rc {proc.returncode}):"
+            f"\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    (out.with_suffix(".log")).write_text(proc.stdout + proc.stderr)
+    return proc.stdout + proc.stderr
+
+
+def _bind(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def nvcc_path() -> str:
+    found = os.environ.get("NVCC") or shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set NVCC or put the CUDA toolkit on PATH)")
+
+
+def build(force: bool = False) -> Path:
+    """Compile the CUDA library if it is missing or stale; return its path."""
+    out = BUILD / "libmpcgpu_kernels.so"
+    if force or _stale(out):
+        _compile([nvcc_path(), *NVCC_FLAGS, *SOURCES], out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The bound CUDA library (built at first use)."""
+    if "cuda" not in _libs:
+        _libs["cuda"] = _bind(build())
+    return _libs["cuda"]
+
+
+def host_library() -> ctypes.CDLL:
+    """The same sources built by the host C++ compiler (see module doc)."""
+    if "host" not in _libs:
+        cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+        if not cxx:
+            raise RuntimeError("no host C++ compiler found")
+        out = BUILD / "libmpcgpu_kernels_host.so"
+        if _stale(out):
+            _compile([cxx, "-x", "c++", "-std=c++17", "-O2", "-shared",
+                      "-fPIC", "-Wno-unknown-pragmas", *SOURCES], out)
+        _libs["host"] = _bind(out)
+    return _libs["host"]
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+
+
+def stream_of(t: torch.Tensor):
+    """The current CUDA stream handle for t's device (None on the host)."""
+    if t.device.type == "cuda":
+        return torch.cuda.current_stream(t.device).cuda_stream
+    return None
+
+
+def expect(t: torch.Tensor, name: str, shape, device) -> None:
+    """Raise unless t is a contiguous float32 tensor of this shape on device."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+# Model tables packed in the csrc layout (lanedyn.cuh TAB_*), cached per
+# model: keyed by the identity of the model's Xc tensor and checked through
+# a weak reference, so a cached table never outlives or mismatches it.
+_TABLE_FIELDS = ("Xc", "Xs", "Xk", "I", "Hc", "Hs", "Hk", "dHc", "dHs", "dHk")
+_tables: dict = {}
+TAB_SIZE = 1680
+NJ = 7
+
+
+def model_tables(model) -> torch.Tensor:
+    """(1680,) float32 tables of a 7-joint model, on the model's device."""
+    if model.num_joints != NJ:
+        raise ValueError(f"the CUDA kernels serve {NJ}-joint robots, got "
+                         f"{model.num_joints}")
+    entry = _tables.get(id(model.Xc))
+    if entry is not None and entry[0]() is model.Xc:
+        return entry[1]
+    tab = torch.cat([getattr(model, f).to(torch.float32).reshape(-1)
+                     for f in _TABLE_FIELDS]).contiguous()
+    if tab.numel() != TAB_SIZE:
+        raise ValueError(f"model tables hold {tab.numel()} floats, the "
+                         f"kernels expect {TAB_SIZE}")
+    _tables[id(model.Xc)] = (weakref.ref(model.Xc), tab)
+    return tab

@@ -1,0 +1,109 @@
+"""K3: KKT linearization + Schur condensation + stair preconditioner
+(csrc/kkt_schur.cu).
+
+Counterpart of mpcgpu_tpu/ops/pallas/kkt_schur_kernel.py, in the
+knot-major layout: bands (N, nx, nx) as in ops/btridiag.BlockTri.  A CPU
+tensor runs the plain version (``ops.kkt.form_kkt`` +
+``ops.schur.form_schur``); a CUDA tensor launches the kernel or raises.
+The kernel serves the eepos tracking cost with the reference Hessian,
+explicit Euler and no angle wrap.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from mpcgpu_tpu_torch.ops.cuda import _lib
+from mpcgpu_tpu_torch.ops.kkt import form_kkt
+from mpcgpu_tpu_torch.ops.schur import form_schur
+
+
+class KnotSchur(NamedTuple):
+    """The Schur system and the blocks primal recovery needs, knot-major.
+
+    A, B, Rinv and r have a row for every knot; the last one (no control)
+    is zero."""
+
+    SL: torch.Tensor     # (N, nx, nx) lower band (row k, column k-1)
+    SD: torch.Tensor     # diagonal band
+    SU: torch.Tensor     # upper band
+    PL: torch.Tensor     # stair preconditioner bands
+    PD: torch.Tensor
+    PU: torch.Tensor
+    gamma: torch.Tensor  # (N, nx)
+    Qinv: torch.Tensor   # (N, nx, nx)
+    Rinv: torch.Tensor   # (N, nu, nu)
+    A: torch.Tensor      # (N, nx, nx)
+    B: torch.Tensor      # (N, nx, nu)
+    q: torch.Tensor      # (N, nx) cost gradient
+    r: torch.Tensor      # (N, nu) control gradient
+
+
+def _pad_last(t: torch.Tensor) -> torch.Tensor:
+    return torch.cat([t, torch.zeros_like(t[:1])], dim=0)
+
+
+def form_kkt_schur_reference(model, X, U, goals, xs, rho, dt, qd_cost, r_cost,
+                             gravity: float = 0.0,
+                             precond: bool = True) -> KnotSchur:
+    kkt = form_kkt(model, X, U, goals, xs, dt, qd_cost, r_cost, 0, gravity)
+    sd = form_schur(kkt, rho, preconditioned=precond)
+    return KnotSchur(
+        SL=sd.S.lower, SD=sd.S.diag, SU=sd.S.upper,
+        PL=sd.Pinv.lower, PD=sd.Pinv.diag, PU=sd.Pinv.upper,
+        gamma=sd.gamma, Qinv=sd.Qinv, Rinv=_pad_last(sd.Rinv),
+        A=_pad_last(kkt.A), B=_pad_last(kkt.B), q=kkt.q, r=_pad_last(kkt.r))
+
+
+def _launch(lib, tab, X, U, goals, rho, dt, qd_cost, r_cost, gravity,
+            precond: bool, stream) -> KnotSchur:
+    dev = X.device
+    nx, nu = 2 * _lib.NJ, _lib.NJ
+    if X.dim() != 2 or X.shape[1] != nx or X.shape[0] < 2:
+        raise ValueError(f"X must be (N >= 2, {nx}), got {tuple(X.shape)}")
+    n = X.shape[0]
+    _lib.expect(X, "X", (n, nx), dev)
+    _lib.expect(U, "U", (n - 1, nu), dev)
+    if goals.dim() != 2 or goals.shape[0] != n or goals.shape[1] < 3:
+        raise ValueError(f"goals must be ({n}, >=3), got {tuple(goals.shape)}")
+    _lib.expect(goals, "goals", tuple(goals.shape), dev)
+    _lib.expect(rho, "rho", (), dev)
+    _lib.expect(tab, "tables", (_lib.TAB_SIZE,), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    band = lambda: torch.empty((n, nx, nx), **f32)
+    out = KnotSchur(
+        SL=band(), SD=band(), SU=band(), PL=band(), PD=band(), PU=band(),
+        gamma=torch.empty((n, nx), **f32), Qinv=band(),
+        Rinv=torch.empty((n, nu, nu), **f32), A=band(),
+        B=torch.empty((n, nx, nu), **f32), q=torch.empty((n, nx), **f32),
+        r=torch.empty((n, nu), **f32))
+    scratch = (band(), band(), torch.empty((n, nx), **f32),
+               torch.empty((n, nx), **f32), torch.empty((n, nx), **f32))
+    rc = lib.mpc_kkt_schur(
+        tab.data_ptr(), n, X.data_ptr(), U.data_ptr(), goals.data_ptr(),
+        goals.shape[1], rho.data_ptr(), float(dt), float(qd_cost),
+        float(r_cost), float(gravity), int(bool(precond)),
+        *(t.data_ptr() for t in out), *(t.data_ptr() for t in scratch), stream)
+    _lib.check(rc, "mpc_kkt_schur")
+    return out
+
+
+def form_kkt_schur(model, X, U, goals, xs, rho, dt, qd_cost, r_cost,
+                   gravity: float = 0.0, precond: bool = True) -> KnotSchur:
+    """Linearize at (X (N, nx), U (N-1, nu)) and condense.  rho is a
+    0-d tensor on X's device (or a number); xs is unused by the kernel,
+    since c_0 is left out of gamma as in the reference."""
+    if X.device.type == "cpu":
+        return form_kkt_schur_reference(model, X, U, goals, xs, rho, dt,
+                                        qd_cost, r_cost, gravity, precond)
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    rho = torch.as_tensor(rho, dtype=torch.float32, device=X.device)
+    out = _launch(_lib.library(), _lib.model_tables(model), X, U, goals, rho,
+                  dt, qd_cost, r_cost, gravity, precond, _lib.stream_of(X))
+    form_kkt_schur.launches += 1
+    return out
+
+
+form_kkt_schur.launches = 0
