@@ -7,19 +7,30 @@ From the root of a checkout, on a machine with one NVIDIA H100 and the
 CUDA toolkit:
 
 1. prints the card's name and power limit (nvidia-smi) and the versions;
-2. builds the hand-written kernels (csrc/*.cu, nvcc, sm_90a) and prints
-   the build time and ptxas' register / spill report;
-3. checks each kernel K1-K4 against its plain PyTorch version on the card
-   at the slice's N = 64 inputs from fixture 0_0, with the tolerances of
-   the JAX package's own kernel tests, and times both (CUDA events,
-   median after warm-up);
-4. runs the slice -- fixture pair 0_0, N = 64, SolverConfig.for_knots(64,
-   sqp_max_iter=4), PCG cap 40, exit tol 5e-5, lam warm-started by 5
-   solves at tol 1e-11, simulate_mpc_scan for 16 control updates -- once
-   through the kernels (fused_stages=True) and once through the plain
-   modules, and checks tracking errors, their agreement, and the kernels'
-   launch counts in the fused run; for the fused run it also prints the
-   host clock per update and where the device time goes (torch.profiler);
+2. builds the hand-written kernels (csrc/*.cu, one nvcc per source, all at
+   once, sm_90a) and prints the build time and ptxas' register / spill
+   report;
+3. checks each kernel K1-K6 against its plain PyTorch version on the card
+   at the slice's N = 64 inputs from fixture 0_0 (K6 also on a seeded
+   well-conditioned system, K5 also at two larger carried rhos where its
+   CGs exit before the cap), with the tolerances of the JAX package's own
+   kernel tests, and times both (CUDA events, median after warm-up);
+4. runs three closed loops -- fixture pair 0_0, N = 64,
+   SolverConfig.for_knots(64, sqp_max_iter=4), PCG cap 40, exit tol
+   5e-5, lam warm-started by 5 solves at tol 1e-11, simulate_mpc_scan for
+   16 control updates -- each once through the kernels and once through
+   the plain modules:
+   - the staged pcg loop (K3, K4, K2, K1 per update);
+   - the bench's default, linsys="auto" with megakernel and
+     megakernel_solve (K2, K5, K1 per update), timed: CUDA-event update
+     median, host clock per update, device time by kernel
+     (torch.profiler);
+   - the same with the failover forced (both thresholds -1, the latch
+     read every 8 updates): K5 for 8 updates, then K3, K6, K2 per SQP
+     iteration, timed as the default;
+   and checks tracking errors, their agreement, SQP iterations, rho
+   bails, failed_over and each run's kernel launch counts (set to 0 just
+   before the run, read just after);
 5. prints one JSON line of the kernels, then the result line.
 
 Any failed build, launch or check ends the run with a non-zero exit code
@@ -28,6 +39,7 @@ before the result line.  Without CUDA it exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -40,6 +52,65 @@ N_UPDATES = 16
 SQP_ITERS = 4
 WARM_SOLVES = 5
 REPS = 20
+
+# The least time the card could take for a kernel's work: the
+# larger of the bytes a function must move (inputs read once, outputs
+# written once) over the H100's 3.35 TB/s and its operations over the
+# 67 TFLOP/s float32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+F32 = 4
+TAB = 1680          # model-table floats (lanedyn.cuh TAB_SIZE)
+NX, NU = 14, 7
+# Operations of the device library's routines per call, counted by hand
+# from csrc/lanedyn.cuh (a multiply-add counts 2; sin, cos and a division
+# 1): ABA forward dynamics, end-effector FK, one knot of one merit
+# candidate (FK + ABA + cost and defect), one knot of K3's three stages
+# (CRBA, RNEA, FK + Jacobian, 14 RNEA tangents, 7x7 and 14x14 inverses,
+# the Schur products, theta^-1, the stair products), one 14x14
+# Gauss-Jordan inverse, one 14x14 product and one 14x14 matrix-vector.
+OPS_ABA, OPS_FK, OPS_MERIT_KNOT = 11_900, 1_220, 13_300
+OPS_K3_KNOT, OPS_GJ14, OPS_MM14, OPS_MV14 = 120_000, 5_490, 5_488, 392
+
+
+def _spmv_ops(n):
+    return OPS_MV14 * (3 * n - 2)
+
+
+def _dz_ops(n):
+    return 2 * (n * NX * 2 * NX + (n - 1) * NU * (NX + NU))
+
+
+def _cg_ops(n, its, apply_ops):
+    """CG from a warm start: the first residual and apply, then per
+    iteration one S product, one preconditioner apply, two dots and
+    three axpys."""
+    return (_spmv_ops(n) + apply_ops) * (1 + its) + its * 10 * NX * n
+
+
+def _merits_ops(n, cands):
+    return cands * ((n - 1) * OPS_MERIT_KNOT + OPS_FK + 50)
+
+
+def _bcr_factor_ops(n):
+    levels = n.bit_length() - 1
+    return sum((n >> (l + 1)) * (OPS_GJ14 + 7 * OPS_MM14)
+               for l in range(levels)) + OPS_GJ14
+
+
+def _bcr_apply_ops(n):
+    return (n - 1) * 5 * OPS_MV14 + OPS_MV14
+
+
+def _knot_schur_floats(n):
+    """K3's outputs: SL SD SU PL PD PU Qinv A, Rinv, B, gamma, q, r."""
+    return n * (8 * NX * NX + NU * NU + NX * NU + 2 * NX + NU)
+
+
+def _bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def _event_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
@@ -101,7 +172,8 @@ def _device_breakdown(run, n_updates: int) -> None:
     print(f"profile: {len(evs)} device events, span {span / 1e3:.3f} ms, busy "
           f"{busy / 1e3:.3f} ms ({busy / 1e3 / n_updates:.4f} ms/update), "
           f"idle share {1 - busy / span:.3f}")
-    tags = {"K3": "k3_", "K4": "pcg_dz_kernel", "K2": "merit_kernel",
+    tags = {"K5": "sqp_mega_kernel", "K6": "bcr_pcg_dz_kernel", "K3": "k3_",
+            "K4": "pcg_dz_kernel", "K2": "merit_kernel",
             "K1": "rollout_kernel"}
     groups: dict = {}
     for s, e, name in evs:
@@ -114,6 +186,7 @@ def _device_breakdown(run, n_updates: int) -> None:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -124,19 +197,29 @@ def main() -> int:
     from mpcgpu_tpu_torch.config import (PCGConfig, SolverConfig,
                                          default_pcg_exit_tols)
     from mpcgpu_tpu_torch.models.robot import iiwa14
+    from mpcgpu_tpu_torch.ops.btridiag import BlockTri, spmv
     from mpcgpu_tpu_torch.ops.cuda import _lib, launch_counts
+    from mpcgpu_tpu_torch.ops.cuda import bcr_kernel as k6
     from mpcgpu_tpu_torch.ops.cuda import kkt_schur_kernel as k3
     from mpcgpu_tpu_torch.ops.cuda import merit_kernel as k2
     from mpcgpu_tpu_torch.ops.cuda import pcg_kernel as k4
     from mpcgpu_tpu_torch.ops.cuda import reset_launch_counts
     from mpcgpu_tpu_torch.ops.cuda import rollout_kernel as k1
+    from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k5
     from mpcgpu_tpu_torch.sim import max_substeps_for, simulate_mpc_scan
     from mpcgpu_tpu_torch.sqp import sqp_solve
     from mpcgpu_tpu_torch.utils.trajfiles import horizon_slices, load_fixture_pair
+    # the tests' seeded well-conditioned K6 system, loaded by path: the
+    # machine may have another package named "tests"
+    spec = importlib.util.spec_from_file_location(
+        "_torch_systems", repo / "tests" / "torch_systems.py")
+    systems = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(systems)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    sync = torch.cuda.synchronize
 
     # ---- 1. the card
     smi = subprocess.run(
@@ -149,17 +232,18 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     lib_path = _lib.build(force=True)
-    _lib.library()
+    lib = _lib.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
     # ---- 3. each kernel against its plain version, slice inputs
-    model = iiwa14(dev)
+    model = iiwa14(device=dev)
     xu, ee = load_fixture_pair(repo / "tests" / "fixtures", 0, 0)
     X, U, goals, xs = (torch.as_tensor(a, device=dev)
                        for a in horizon_slices(xu, ee, N_KNOTS))
+    n = N_KNOTS
     cap = PCGConfig.tpu_tuned_max_iter(N_KNOTS)
     tol = default_pcg_exit_tols(N_KNOTS)[0]
     cfg = SolverConfig.for_knots(N_KNOTS, sqp_max_iter=SQP_ITERS,
@@ -169,106 +253,245 @@ def main() -> int:
     rho = torch.tensor(cfg.rho_init, device=dev)
     print(f"slice: N={N_KNOTS} sqp_max_iter={SQP_ITERS} pcg cap={cap} "
           f"tol={tol:g} r_cost={cc.r_cost:g} updates={N_UPDATES}")
+    print(f"fit: K4 serves N <= {k4.check_pcg_smem_fit(n)}, K6 power-of-2 "
+          f"N <= {k6.check_bcr_fit(n)}, K5 N <= {lib.mpc_mega_max_knots()} "
+          f"(grid {k5.check_mega_fit(n)} blocks at N = {n})")
 
     kernels = []
 
-    def record(kid, name, source, replaces, pairs, rtol, atol, run, plain):
-        _assert_close(name, pairs, rtol, atol)
-        err = _max_err(pairs)
+    def record(kid, name, source, replaces, err, run, plain, ops, nbytes,
+               **extra):
         ms, plain_ms = _event_ms(run), _event_ms(plain)
-        print(f"{kid} {name}: max_abs_err {err:.3e} (rtol {rtol:g}, atol "
-              f"{atol:g})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+        bound_ms, bound_by = _bound(nbytes, ops)
+        print(f"{kid} {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
+              f"plain {plain_ms:.4f} ms  bound {bound_ms:.6f} ms "
+              f"({bound_by}: {nbytes} B, {ops} operations)")
         kernels.append({"name": f"{kid} {name}", "route": "cuda",
                         "source": source, "replaces": replaces,
                         "launches": 0, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms})
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None, **extra})
+
+    def checked(name, pairs, rtol, atol):
+        _assert_close(name, pairs, rtol, atol)
+        return _max_err(pairs)
 
     k3_args = (model, X, U, goals, xs, rho, cfg.timestep, cc.qd_cost,
                cc.r_cost, cfg.gravity)
     ks = k3.form_kkt_schur(*k3_args)
     ks_ref = k3.form_kkt_schur_reference(*k3_args)
-    torch.cuda.synchronize()
+    sync()
     record("K3", "form_kkt_schur", "mpcgpu_tpu_torch/csrc/kkt_schur.cu",
            "mpcgpu_tpu/ops/pallas/kkt_schur_kernel.py:379",
-           list(zip(ks, ks_ref)), 3e-3, 3e-3,
+           checked("K3", list(zip(ks, ks_ref)), 3e-3, 3e-3),
            lambda: k3.form_kkt_schur(*k3_args),
-           lambda: k3.form_kkt_schur_reference(*k3_args))
+           lambda: k3.form_kkt_schur_reference(*k3_args),
+           n * OPS_K3_KNOT,
+           F32 * (n * NX + (n - 1) * NU + n * 6 + 1 + TAB
+                  + _knot_schur_floats(n)))
 
     lam0 = torch.zeros_like(X)
     k4_out = k4.pcg_dz(ks_ref, lam0, cap, tol)
     k4_ref = k4.pcg_dz_reference(ks_ref, lam0, cap, tol)
-    torch.cuda.synchronize()
+    sync()
     it, it_ref = int(k4_out[3]), int(k4_ref[3])
     print(f"K4 CG iterations: kernel {it} (hit {bool(k4_out[4])}), plain "
-          f"{it_ref} (hit {bool(k4_ref[4])}); one block serves N <= "
-          f"{k4.check_pcg_smem_fit(N_KNOTS)} on this card")
+          f"{it_ref} (hit {bool(k4_ref[4])})")
     if not (abs(it - it_ref) <= 2 or it == it_ref == cap):
         raise AssertionError(f"K4 iteration counts disagree: {it} vs {it_ref}")
     record("K4", "pcg_dz", "mpcgpu_tpu_torch/csrc/pcg_dz.cu",
            "mpcgpu_tpu/ops/pallas/pcg_kernel.py:318",
-           list(zip(k4_out[:3], k4_ref[:3])), 5e-3, 5e-3,
+           checked("K4", list(zip(k4_out[:3], k4_ref[:3])), 5e-3, 5e-3),
            lambda: k4.pcg_dz(ks_ref, lam0, cap, tol),
-           lambda: k4.pcg_dz_reference(ks_ref, lam0, cap, tol))
+           lambda: k4.pcg_dz_reference(ks_ref, lam0, cap, tol),
+           _cg_ops(n, it, _spmv_ops(n)) + _dz_ops(n),
+           F32 * (_knot_schur_floats(n) + n * NX + 2 * n * NX
+                  + (n - 1) * NU) + 5)
 
     dX, dU = k4_ref[1], k4_ref[2]
     k2_args = (model, X, U, dX, dU, cfg.num_alphas, goals, xs, cfg.timestep,
                cfg.merit_mu, cc.qd_cost, cc.r_cost, cfg.gravity)
     m = k2.line_search_merits(*k2_args)
     m_ref = k2.line_search_merits_reference(*k2_args)
-    torch.cuda.synchronize()
+    sync()
     record("K2", "line_search_merits", "mpcgpu_tpu_torch/csrc/merit.cu",
-           "mpcgpu_tpu/ops/pallas/merit_kernel.py:145", [(m, m_ref)],
-           2e-4, 2e-4, lambda: k2.line_search_merits(*k2_args),
-           lambda: k2.line_search_merits_reference(*k2_args))
+           "mpcgpu_tpu/ops/pallas/merit_kernel.py:145",
+           checked("K2", [(m, m_ref)], 2e-4, 2e-4),
+           lambda: k2.line_search_merits(*k2_args),
+           lambda: k2.line_search_merits_reference(*k2_args),
+           _merits_ops(n, cfg.num_alphas + 1),
+           F32 * (2 * (n * NX + (n - 1) * NU) + n * 6 + NX + TAB
+                  + cfg.num_alphas + 1))
 
     period = cfg.simulation_period_us
     k1_args = (model, cfg, xs, U, goals[0], period, period,
                max_substeps_for(cfg))
     r = k1.plant_rollout(*k1_args)
     r_ref = k1.plant_rollout_reference(*k1_args)
-    torch.cuda.synchronize()
+    sync()
+    steps = int(period * 1e-6 / cfg.sim_step_time + 1e-9) + 1  # + remainder
     record("K1", "plant_rollout", "mpcgpu_tpu_torch/csrc/rollout.cu",
            "mpcgpu_tpu/ops/pallas/rollout_kernel.py:92",
-           list(zip(r, r_ref)), 1e-4, 1e-5,
+           checked("K1", list(zip(r, r_ref)), 1e-4, 1e-5),
            lambda: k1.plant_rollout(*k1_args),
-           lambda: k1.plant_rollout_reference(*k1_args))
+           lambda: k1.plant_rollout_reference(*k1_args),
+           steps * (OPS_ABA + 60) + OPS_FK,
+           F32 * (NX + (n - 1) * NU + 6 + TAB + NX + 1))
 
-    # ---- 4. the slice, through the kernels and through the plain modules
+    # a perturbed start (seeded), so that the CG loops iterate
+    pert = torch.as_tensor(0.02 * np.random.default_rng(5).normal(
+        size=(n, NX)), dtype=torch.float32, device=dev)
+    pert[0] = 0.0
+    Xp = X + pert
+    # K6 on a well-conditioned system (the JAX BCR tests' tolerances), and
+    # on the slice's K3 system at the perturbed start without the stair
+    # preconditioner, which is judged by residual: its condition (~1e7)
+    # puts any two float32 solves ~1e-3 of |lam| apart.
+    ks_rand = systems.random_knot_schur(n, device=dev)
+    k6_out = k6.bcr_pcg_dz(ks_rand, lam0, cap, tol)
+    k6_ref = k6.bcr_pcg_dz_reference(ks_rand, lam0, cap, tol)
+    sync()
+    scale = k6_ref[0].abs().max()
+    checked("K6 lam/max|lam|", [(k6_out[0] / scale, k6_ref[0] / scale)], 0,
+            2e-5)
+    err6 = checked("K6 dz", list(zip(k6_out[1:3], k6_ref[1:3])), 1e-3, 2e-4)
+    err6 = max(err6, _max_err([(k6_out[0], k6_ref[0])]))
+    if abs(int(k6_out[3]) - int(k6_ref[3])) > 1:
+        raise AssertionError(f"K6 iteration counts disagree: "
+                             f"{int(k6_out[3])} vs {int(k6_ref[3])}")
+    ks_np = k3.form_kkt_schur_reference(model, Xp, *k3_args[2:],
+                                        precond=False)
+    k6_slice = k6.bcr_pcg_dz(ks_np, lam0, cap, tol)
+    k6_slice_ref = k6.bcr_pcg_dz_reference(ks_np, lam0, cap, tol)
+    sync()
+    S = BlockTri(ks_np.SL, ks_np.SD, ks_np.SU)
+    res = [float((spmv(S, o[0]) - ks_np.gamma).abs().max()
+                 / ks_np.gamma.abs().max()) for o in (k6_slice, k6_slice_ref)]
+    its6 = int(k6_slice[3]), int(k6_slice_ref[3])
+    print(f"K6 random system: CG {int(k6_out[3])} vs {int(k6_ref[3])} "
+          f"iterations; slice system: CG {its6[0]} vs {its6[1]}, relative "
+          f"residual kernel {res[0]:.3e} plain {res[1]:.3e}")
+    if max(res) >= 1e-3 or abs(its6[0] - its6[1]) > 1:
+        raise AssertionError(f"K6 on the slice system: residuals {res}, "
+                             f"iterations {its6}")
+    err6_slice = _max_err(list(zip(k6_slice[:3], k6_slice_ref[:3])))
+    record("K6", "bcr_pcg_dz", "mpcgpu_tpu_torch/csrc/bcr_pcg_dz.cu",
+           "mpcgpu_tpu/ops/pallas/bcr_kernel.py:267", err6,
+           lambda: k6.bcr_pcg_dz(ks_np, lam0, cap, tol),
+           lambda: k6.bcr_pcg_dz_reference(ks_np, lam0, cap, tol),
+           _bcr_factor_ops(n) + _cg_ops(n, its6[0], _bcr_apply_ops(n))
+           + _dz_ops(n),
+           F32 * (n * (5 * NX * NX + NX * NU + NU * NU + 3 * NX + NU)
+                  + 2 * n * NX + (n - 1) * NU) + 5,
+           max_abs_err_slice=err6_slice)
+
+    # K5: 4 SQP iterations from the perturbed start, cold duals
+    merit0 = k2.line_search_merits_reference(
+        model, Xp, U, torch.zeros_like(Xp), torch.zeros_like(U),
+        cfg.num_alphas, goals, xs, cfg.timestep, cfg.merit_mu, cc.qd_cost,
+        cc.r_cost, cfg.gravity)[cfg.num_alphas]
+    k5_kw = dict(dt=cfg.timestep, qd_cost=cc.qd_cost, r_cost=cc.r_cost,
+                 gravity=cfg.gravity, mu=cfg.merit_mu,
+                 num_alphas=cfg.num_alphas, rho_factor=cfg.rho_factor,
+                 rho_min=cfg.rho_min, rho_max=cfg.rho_max,
+                 rho_reset=cfg.rho_reset)
+
+    def k5_pair(rho0, lam_rtol, lam_atol):
+        """K5 and its plain version from the perturbed start at carried
+        rho0: X, U at the JAX megakernel test's rtol 1e-3, atol 1e-5,
+        decisions identical, CG iterations within 2 per SQP iteration."""
+        args = (model, Xp, U, goals, xs, lam0,
+                torch.tensor(rho0, device=dev), 1.0, merit0, cap, tol,
+                SQP_ITERS)
+        out = k5.sqp_solve_mega_pcg(*args, **k5_kw)
+        ref = k5.sqp_solve_mega_pcg_reference(*args, **k5_kw)
+        sync()
+        print(f"K5 at rho {rho0:g}: pcg iters {out.pcg_iters.tolist()} vs "
+              f"{ref.pcg_iters.tolist()}, accepted {out.accepted.tolist()} "
+              f"vs {ref.accepted.tolist()}, sqp_iters {int(out.sqp_iters)} "
+              f"vs {int(ref.sqp_iters)}, bailed {bool(out.bailed)} vs "
+              f"{bool(ref.bailed)}, lam err "
+              f"{_max_err([(out.lam, ref.lam)]):.3e}")
+        for f in ("accepted", "sqp_iters", "bailed"):
+            if not torch.equal(getattr(out, f), getattr(ref, f)):
+                raise AssertionError(f"K5 at rho {rho0:g}: {f} differs from "
+                                     f"the plain version")
+        if int((out.pcg_iters - ref.pcg_iters).abs().max()) > 2:
+            raise AssertionError(f"K5 at rho {rho0:g}: CG iteration counts "
+                                 f"differ by more than 2")
+        err = max(checked(f"K5 X, U at rho {rho0:g}",
+                          [(out.X, ref.X), (out.U, ref.U)], 1e-3, 1e-5),
+                  checked(f"K5 lam at rho {rho0:g}", [(out.lam, ref.lam)],
+                          lam_rtol, lam_atol))
+        return args, out, ref, err
+
+    # at the slice's rho every CG stops at the cap, on a system of
+    # condition ~1e7 where two float32 CG loops summing in different orders
+    # part by up to 5.4e-4 in lam: lam at atol 1e-3
+    k5_args, k5_out, _, err5 = k5_pair(cfg.rho_init, 0, 1e-3)
+    # at rhos the schedule reaches after rejected steps the CGs exit before
+    # the cap, the exit every block must take alike: lam at the JAX
+    # megakernel test's rtol 1e-3, atol 1e-4
+    for rho_early in (0.1, 0.3):
+        _, _, ref, err = k5_pair(rho_early, 1e-3, 1e-4)
+        its = ref.pcg_iters
+        if not bool(((its >= 0) & (its < cap)).any()):
+            raise AssertionError(f"K5 at rho {rho_early:g}: no CG exited "
+                                 f"before the cap")
+        err5 = max(err5, err)
+    run_its = [int(i) for i in k5_out.pcg_iters.tolist() if i >= 0]
+    record("K5", "sqp_solve_mega_pcg", "mpcgpu_tpu_torch/csrc/sqp_mega.cu",
+           "mpcgpu_tpu/ops/pallas/sqp_megakernel.py:1027", err5,
+           lambda: k5.sqp_solve_mega_pcg(*k5_args, **k5_kw),
+           lambda: k5.sqp_solve_mega_pcg_reference(*k5_args, **k5_kw),
+           sum(n * OPS_K3_KNOT + _cg_ops(n, i, _spmv_ops(n)) + _dz_ops(n)
+               + _merits_ops(n, cfg.num_alphas) for i in run_its),
+           F32 * (2 * (2 * n * NX + (n - 1) * NU) + n * 6 + NX + TAB + 2
+                  + 3) + 4 * (2 + 3 * SQP_ITERS))
+
+    # ---- 4. the closed loops, through the kernels and the plain modules
     xu_d = torch.as_tensor(xu, device=dev)
     ee_d = torch.as_tensor(ee, device=dev)
 
-    def run_slice(run_cfg, count_launches: bool):
+    def run_loop(label, run_cfg, linsys, want=None, detail=False):
         lam = torch.zeros_like(X)
         r0 = torch.tensor(cfg.rho_init, device=dev)
         for _ in range(WARM_SOLVES):      # warm-start lam (bench.py:161-176)
             res = sqp_solve(model, run_cfg, X, U, lam, goals, xs, r0, 1e-11)
             lam, r0 = res.lam, res.rho
-        simulate_mpc_scan(model, run_cfg, xu_d, ee_d, X, U, lam, rho, tol, 2)
-        torch.cuda.synchronize()
-        if count_launches:
-            reset_launch_counts()
+        simulate_mpc_scan(model, run_cfg, xu_d, ee_d, X, U, lam, rho, tol, 2,
+                          linsys)
+        sync()
+        reset_launch_counts()
         out = simulate_mpc_scan(model, run_cfg, xu_d, ee_d, X, U, lam, rho,
-                                tol, N_UPDATES, timing=True)
-        counts = launch_counts() if count_launches else None
-        if count_launches:
-            def again():
-                return simulate_mpc_scan(model, run_cfg, xu_d, ee_d, X, U,
-                                         lam, rho, tol, N_UPDATES)
+                                tol, N_UPDATES, linsys, timing=True)
+        sync()
+        counts = launch_counts()
+        print(f"{label}: launches {counts}")
+        if want is not None and counts != want:
+            raise AssertionError(f"{label}: launch counts {counts}, expected "
+                                 f"{want}")
 
+        def again():
+            return simulate_mpc_scan(model, run_cfg, xu_d, ee_d, X, U, lam,
+                                     rho, tol, N_UPDATES, linsys)
+
+        if detail:
             t0 = time.perf_counter()
             again()
             t_enqueue = time.perf_counter() - t0
-            torch.cuda.synchronize()
+            sync()
             t_wall = time.perf_counter() - t0
-            print(f"fused slice host clock: enqueue {1e3 * t_enqueue / N_UPDATES:.3f}"
-                  f" ms/update, to the end of the device work "
-                  f"{1e3 * t_wall / N_UPDATES:.3f} ms/update")
+            print(f"{label} host clock: enqueue "
+                  f"{1e3 * t_enqueue / N_UPDATES:.3f} ms/update, to the end "
+                  f"of the device work {1e3 * t_wall / N_UPDATES:.3f} "
+                  f"ms/update")
             _device_breakdown(again, N_UPDATES)
         errs = out["tracking_errors"]
         if tuple(errs.shape) != (N_UPDATES,) or not torch.isfinite(errs).all():
-            raise AssertionError(f"tracking errors not finite: {errs}")
+            raise AssertionError(f"{label}: tracking errors not finite: {errs}")
         if not torch.isfinite(out["final_xs"]).all():
-            raise AssertionError("final state not finite")
+            raise AssertionError(f"{label}: final state not finite")
         shifted = out["shifted"].to(dev)
         summary = {
             "mean_err_m": float(errs.mean()),
@@ -279,28 +502,76 @@ def main() -> int:
             "pcg_iters_total": out["pcg_iters_total"].tolist(),
             "rho_bailed": int(out["rho_bailed"].sum()),
         }
+        if "failed_over" in out:
+            summary["failed_over"] = out["failed_over"].tolist()
+        print(f"{label}: {json.dumps(summary)}")
         return summary, counts
 
-    fused, counts = run_slice(cfg, True)
-    plain, _ = run_slice(dataclasses.replace(cfg, fused_stages=False), False)
-    for label, s in (("fused", fused), ("plain", plain)):
-        print(f"slice {label}: {json.dumps(s)}")
-    print(f"launches in the fused run: {counts}")
+    def compare(label, fused, plain):
+        # sqp_iters and rho bails must match; the CG totals are printed,
+        # not compared: on fixture 0_0's condition ~1e7 systems the float32
+        # trajectories part after some updates (PERF.md)
+        for key in ("sqp_iters", "rho_bailed"):
+            if fused[key] != plain[key]:
+                raise AssertionError(f"{label} {key}: fused {fused[key]} vs "
+                                     f"plain {plain[key]}")
+        for key in ("mean_err_m", "mean_err_at_shifts_m"):
+            a, b = fused[key], plain[key]
+            if not (a < 0.1 and b < 0.1):
+                raise AssertionError(f"{label} {key} not under 0.1 m: fused "
+                                     f"{a}, plain {b}")
+            if abs(a - b) > 5e-3:
+                raise AssertionError(f"{label} {key}: fused {a} vs plain {b} "
+                                     f"differ by more than 5e-3 m")
 
-    n_sqp = N_UPDATES * SQP_ITERS
-    want = {"K1": N_UPDATES, "K2": N_UPDATES + n_sqp, "K3": n_sqp,
-            "K4": n_sqp}
-    if counts != want:
-        raise AssertionError(f"launch counts {counts}, expected {want}")
+    plain_cfg = dataclasses.replace(cfg, fused_stages=False)
+    u, s = N_UPDATES, SQP_ITERS
+    none = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
+    staged, staged_counts = run_loop(
+        "staged pcg, fused", cfg, "pcg", detail=True,
+        want={**none, "K1": u, "K2": u + u * s, "K3": u * s, "K4": u * s})
+    compare("staged pcg", staged, run_loop("staged pcg, plain", plain_cfg,
+                                           "pcg")[0])
+
+    mega_cfg = dataclasses.replace(cfg, megakernel=True,
+                                   megakernel_solve=True)
+    auto, auto_counts = run_loop(
+        "auto, fused", mega_cfg, "auto", detail=True,
+        want={**none, "K1": u, "K2": u, "K5": u})
+    auto_plain = run_loop("auto, plain", plain_cfg, "auto")[0]
+    compare("auto", auto, auto_plain)
+    for label, sm in (("fused", auto), ("plain", auto_plain)):
+        if any(sm["failed_over"]):
+            raise AssertionError(f"auto, {label}: the latch tripped on 0_0")
+
+    trip = dict(failover_bail_rate=-1.0, failover_err_threshold_m=-1.0,
+                failover_check_every=8)
+    half = u // 2
+    fo, fo_counts = run_loop(
+        "forced failover, fused", dataclasses.replace(mega_cfg, **trip),
+        "auto", detail=True,
+        want={**none, "K1": u, "K2": half + half * (1 + s), "K3": half * s,
+              "K5": half, "K6": half * s})
+    fo_plain = run_loop("forced failover, plain",
+                        dataclasses.replace(plain_cfg, **trip), "auto")[0]
+    compare("forced failover", fo, fo_plain)
+    for label, sm in (("fused", fo), ("plain", fo_plain)):
+        if sm["failed_over"] != [False] * half + [True] * half:
+            raise AssertionError(f"forced failover, {label}: failed_over "
+                                 f"{sm['failed_over']}")
+
+    # each kernel's launches: the first run of this slice's paths that
+    # launched it (the default auto loop, its failover branch, then the
+    # staged loop)
+    paths = (("auto", auto_counts), ("failover", fo_counts),
+             ("staged", staged_counts))
     for k in kernels:
-        k["launches"] = counts[k["name"].split()[0]]
-    for key in ("mean_err_m", "mean_err_at_shifts_m"):
-        a, b = fused[key], plain[key]
-        if not (a < 0.1 and b < 0.1):
-            raise AssertionError(f"{key} not under 0.1 m: fused {a}, plain {b}")
-        if abs(a - b) > 5e-3:
-            raise AssertionError(f"{key}: fused {a} vs plain {b} differ by "
-                                 f"more than 5e-3 m")
+        kid = k["name"].split()[0]
+        path, count = next(((p, c[kid]) for p, c in paths if c[kid]),
+                           ("none", 0))
+        if not count:
+            raise AssertionError(f"{kid} was launched in no closed loop")
+        k["launches"], k["path"] = count, path
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -78,11 +78,30 @@ class SolverConfig:
 
     gravity: float = 0.0
 
-    # Run the SQP stages (K3 KKT+Schur, K4 PCG+dz, K2 merits) and the
-    # plant rollout (K1) through the CUDA kernels of ops/cuda.  The
-    # kernels serve the eepos tracking cost, the Euler integrator, the
-    # reference Hessian and the stair preconditioner, float32.
+    # Run the SQP stages (K3 KKT+Schur, K4 PCG+dz or K6 BCR-PCG+dz, K2
+    # merits) and the plant rollout (K1) through the CUDA kernels of
+    # ops/cuda.  The kernels serve the eepos tracking cost, the Euler
+    # integrator and the reference Hessian, float32.
     fused_stages: bool = False
+    # With fused_stages and linsys="pcg": the SQP iteration as one
+    # kernel.  megakernel_solve=True runs every SQP iteration of a solve
+    # in ONE launch (K5, ops/cuda/sqp_megakernel.py); megakernel alone
+    # (one launch per iteration, the JAX package's sqp_iter_mega_pcg) is
+    # not ported yet and raises.
+    megakernel: bool = False
+    megakernel_solve: bool = False
+
+    # linsys="auto" (sim.simulate_mpc_scan): run "pcg" and latch over to
+    # "bcr_pcg" once BOTH the EMA of the per-update rho-bail rate and the
+    # EMA of the tracking error exceed their thresholds (the JAX package's
+    # config.py documents the rule).  EMA update: ema <- d ema + (1-d) x.
+    failover_bail_rate: float = 0.10
+    failover_err_threshold_m: float = 0.20
+    failover_ema_decay: float = 0.90
+    # The latch is read on the host once per chunk of this many updates
+    # (when it divides n_updates; else once per update); a trip inside a
+    # chunk switches the backend at the next chunk boundary.
+    failover_check_every: int = 8
 
     @staticmethod
     def for_knots(knot_points: int, **kw) -> "SolverConfig":

@@ -18,13 +18,17 @@
 // The same sources also build with a host C++ compiler (no __CUDACC__):
 // a "block" is then one thread that runs every stride loop itself, which
 // lets the arithmetic be checked against the plain PyTorch versions on a
-// machine without a GPU.
+// machine without a GPU.  A cooperative kernel (K5) launches one block
+// there, which walks every knot of each stage in turn, so its grid
+// barrier (LD_GRID_SYNC) is a no-op.
 #pragma once
 
 #ifdef __CUDACC__
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #define LD_DEV __device__ inline
 #define LD_GLOBAL __global__
+#define LD_LAUNCH_BOUNDS(threads) __launch_bounds__(threads)
 #define LD_SHARED __shared__
 #define LD_SYNC() __syncthreads()
 #define LD_TID ((int)threadIdx.x)
@@ -35,11 +39,13 @@
 #define LD_LAUNCH(kern, grid, block, smem, stream, ...) \
   kern<<<(grid), (block), (smem), (cudaStream_t)(stream)>>>(__VA_ARGS__)
 #define LD_LAST_ERROR() ((int)cudaGetLastError())
+#define LD_GRID_SYNC() cooperative_groups::this_grid().sync()
 #else
 #include <math.h>
 #include <vector>
 #define LD_DEV inline
 #define LD_GLOBAL static
+#define LD_LAUNCH_BOUNDS(threads)
 #define LD_SHARED static
 #define LD_SYNC() ((void)0)
 #define LD_TID 0
@@ -59,6 +65,7 @@ inline std::vector<float> ld_emu_smem;
       kern(__VA_ARGS__);                                                   \
   } while (0)
 #define LD_LAST_ERROR() 0
+#define LD_GRID_SYNC() ((void)0)
 #endif
 
 namespace ld {

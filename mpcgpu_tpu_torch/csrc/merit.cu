@@ -14,8 +14,9 @@
 // per knot, N threads per block, 9 blocks on 9 SMs); the data are a few
 // KB.  The candidate iterate is formed in the kernel, x_{k+1} reaches
 // thread k through shared memory, and each block sums its knots in a
-// fixed order, so the merits are the same from run to run.
-#include "lanedyn.cuh"
+// fixed order, so the merits are the same from run to run.  The per-knot
+// contribution lives in merit.cuh, shared with K5.
+#include "merit.cuh"
 
 namespace {
 
@@ -44,37 +45,13 @@ LD_GLOBAL void merit_kernel(const float* __restrict__ tab_g,
   LD_SYNC();
 
   for (int k = LD_TID; k < N; k += LD_NTID) {
-    const float* x = xsh + ld::NX * k;
     const bool has_u = k < N - 1;
     float u[ld::NU];
     for (int i = 0; i < ld::NU; ++i)
       u[i] = has_u ? U[ld::NU * k + i] + alpha * dU[ld::NU * k + i] : 0.0f;
-
-    float s[ld::NJ], c[ld::NJ], ee[3];
-    for (int j = 0; j < ld::NJ; ++j) { s[j] = sinf(x[j]); c[j] = cosf(x[j]); }
-    ld::fk_ee(tab, s, c, ee);
-    const float* g = goals + gstride * k;
-    float e2 = 0.0f, qd2 = 0.0f, u2 = 0.0f;
-    for (int i = 0; i < 3; ++i) e2 += (ee[i] - g[i]) * (ee[i] - g[i]);
-    for (int i = 0; i < ld::NQ; ++i) qd2 += x[ld::NQ + i] * x[ld::NQ + i];
-    for (int i = 0; i < ld::NU; ++i) u2 += u[i] * u[i];
-    float cost = 0.5f * e2 + 0.5f * qd_cost * qd2;
-    if (has_u) cost += 0.5f * r_cost * u2;
-
-    float defect = 0.0f;
-    if (has_u) {
-      float qdd[ld::NJ];
-      ld::aba_qdd(tab, s, c, x + ld::NQ, u, grav, qdd);
-      const float* xn = xsh + ld::NX * (k + 1);
-      for (int j = 0; j < ld::NQ; ++j) {
-        defect += fabsf(xn[j] - (x[j] + dt * x[ld::NQ + j]));
-        defect += fabsf(xn[ld::NQ + j] - (x[ld::NQ + j] + dt * qdd[j]));
-      }
-    }
-    float c0 = 0.0f;
-    if (k == 0)
-      for (int i = 0; i < ld::NX; ++i) c0 += fabsf(x[i] - xs[i]);
-    contrib[k] = cost + mu * (defect + c0);
+    contrib[k] = k2::merit_contrib(
+        tab, xsh + ld::NX * k, xsh + ld::NX * (k + 1), u, has_u, k == 0,
+        goals + gstride * k, xs, dt, mu, qd_cost, r_cost, grav);
   }
   LD_SYNC();
 

@@ -12,12 +12,12 @@ vectors ordered [angular; linear].
 """
 from __future__ import annotations
 
-import importlib.util
-from pathlib import Path
 from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
+
+from mpcgpu_tpu_torch.models import iiwa14_params
 
 FIELDS = ("Xc", "Xs", "Xk", "I", "Hc", "Hs", "Hk", "dHc", "dHs", "dHk")
 
@@ -39,9 +39,10 @@ class RobotModel(NamedTuple):
         return self.Xc.shape[0]
 
 
-def robot_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu",
+def robot_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda",
                      dtype=torch.float32) -> RobotModel:
-    """Model from numpy tables keyed by the RobotModel field names."""
+    """Model from numpy tables keyed by the RobotModel field names, on the
+    card unless the caller names another device."""
     missing = [f for f in FIELDS if f not in arrays]
     if missing:
         raise KeyError(f"robot tables missing {missing}")
@@ -50,18 +51,8 @@ def robot_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu",
         for f in FIELDS))
 
 
-def _load_iiwa14_params():
-    # The parameter file is numpy-only; load it by path so that the JAX
-    # package's __init__ (which imports jax) never runs.
-    path = (Path(__file__).resolve().parents[2] / "mpcgpu_tpu" / "models"
-            / "iiwa14_params.py")
-    spec = importlib.util.spec_from_file_location("_iiwa14_params", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def iiwa14(device="cpu", dtype=torch.float32) -> RobotModel:
-    """The Kuka IIWA-14 7-DOF arm."""
-    p = _load_iiwa14_params()
-    return robot_from_numpy({f: getattr(p, f) for f in FIELDS}, device, dtype)
+def iiwa14(device="cuda", dtype=torch.float32) -> RobotModel:
+    """The Kuka IIWA-14 7-DOF arm (models/iiwa14_params.py), on the card
+    unless the caller names another device."""
+    return robot_from_numpy({f: getattr(iiwa14_params, f) for f in FIELDS},
+                            device, dtype)

@@ -2,9 +2,10 @@
 
 All kernels build with ``nvcc`` for ``sm_90a`` into one shared library
 with a plain C interface, ``mpcgpu_tpu_torch/build/libmpcgpu_kernels.so``,
-at first use, and again whenever a source is newer than the library.  The
-library is bound with ``ctypes``: pointers and the stream pass as
-``c_void_p``, and every entry returns ``cudaGetLastError()``.
+at first use, and again whenever a source is newer than the library: one
+``nvcc -c`` per source, all started together, then one link.  The library
+is bound with ``ctypes``: pointers and the stream pass as ``c_void_p``,
+and every entry returns ``cudaGetLastError()``.
 
 The same sources also build with the host C++ compiler
 (``host_library``): a kernel "launch" then runs every block in turn on
@@ -26,10 +27,12 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("rollout.cu", "merit.cu", "kkt_schur.cu", "pcg_dz.cu")
-HEADERS = ("lanedyn.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+SOURCES = ("rollout.cu", "merit.cu", "kkt_schur.cu", "pcg_dz.cu",
+           "bcr_pcg_dz.cu", "sqp_mega.cu")
+HEADERS = ("lanedyn.cuh", "kkt_schur.cuh", "merit.cuh", "pcg_common.cuh")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -40,7 +43,18 @@ _SIGNATURES = {
                      + [_P] * 19,
     "mpc_pcg_dz": [_I] + [_P] * 14 + [_I, _F] + [_P] * 6,
     "mpc_pcg_max_knots": [],
+    "mpc_bcr_pcg_dz": [_I] + [_P] * 11 + [_I, _F] + [_P] * 7,
+    "mpc_bcr_max_knots": [],
+    "mpc_bcr_scratch_floats": [_I],
+    "mpc_sqp_mega": [_P, _I, _P, _P, _P, _I] + [_P] * 4
+                    + [_F, _I, _F, _I] + [_F] * 5 + [_I] + [_F] * 4
+                    + [_P] * 8 + [_I, _P],
+    "mpc_mega_max_knots": [],
+    "mpc_mega_grid": [_I],
+    "mpc_sqp_mega_scratch_floats": [_I, _I],
 }
+_RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
+             "mpc_sqp_mega_scratch_floats": ctypes.c_longlong}
 
 _libs: dict = {}
 
@@ -52,19 +66,33 @@ def _stale(lib: Path) -> bool:
     return lib.stat().st_mtime < newest
 
 
-def _compile(cmd, out: Path) -> str:
+def _run(cmds, outs) -> str:
+    """Run the commands at once, each writing its output file (atomically:
+    to a temporary name, renamed on success); return their joined logs."""
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True,
-                          text=True, cwd=CSRC)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"kernel build failed ({' '.join(cmd[:1])}, rc {proc.returncode}):"
-            f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    (out.with_suffix(".log")).write_text(proc.stdout + proc.stderr)
-    return proc.stdout + proc.stderr
+    tmps = [out.with_name(f"{out.name}.{os.getpid()}.tmp") for out in outs]
+    procs = [subprocess.Popen([*cmd, "-o", str(tmp)], cwd=CSRC,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd, tmp in zip(cmds, tmps)]
+    logs, failed = [], []
+    for cmd, proc, tmp, out in zip(cmds, procs, tmps, outs):
+        log = proc.communicate()[0]
+        logs.append(log)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{' '.join(cmd[:1])} -> {out.name}, rc "
+                          f"{proc.returncode}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return "".join(logs)
+
+
+def _compile(cmd, out: Path) -> str:
+    log = _run([cmd], [out])
+    out.with_suffix(".log").write_text(log)
+    return log
 
 
 def _bind(path: Path) -> ctypes.CDLL:
@@ -72,7 +100,7 @@ def _bind(path: Path) -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 
@@ -88,10 +116,16 @@ def nvcc_path() -> str:
 
 
 def build(force: bool = False) -> Path:
-    """Compile the CUDA library if it is missing or stale; return its path."""
+    """Compile the CUDA library if it is missing or stale; return its path.
+    The build log (ptxas' registers and spills per kernel) is written
+    beside it with the suffix .log."""
     out = BUILD / "libmpcgpu_kernels.so"
     if force or _stale(out):
-        _compile([nvcc_path(), *NVCC_FLAGS, *SOURCES], out)
+        nvcc = nvcc_path()
+        objs = [BUILD / f"{Path(src).stem}.o" for src in SOURCES]
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", src] for src in SOURCES], objs)
+        log += _run([[nvcc, *ARCH, "-shared", *map(str, objs)]], [out])
+        out.with_suffix(".log").write_text(log)
     return out
 
 

@@ -14,9 +14,11 @@ from typing import NamedTuple
 
 import torch
 
+from mpcgpu_tpu_torch.ops.btridiag import BlockTri
 from mpcgpu_tpu_torch.ops.cuda import _lib
-from mpcgpu_tpu_torch.ops.kkt import form_kkt
-from mpcgpu_tpu_torch.ops.schur import form_schur
+from mpcgpu_tpu_torch.ops.dz import compute_dz
+from mpcgpu_tpu_torch.ops.kkt import KKTData, form_kkt
+from mpcgpu_tpu_torch.ops.schur import SchurData, form_schur
 
 
 class KnotSchur(NamedTuple):
@@ -38,6 +40,35 @@ class KnotSchur(NamedTuple):
     B: torch.Tensor      # (N, nx, nu)
     q: torch.Tensor      # (N, nx) cost gradient
     r: torch.Tensor      # (N, nu) control gradient
+
+
+def compute_dz_knots(ks: KnotSchur, lam):
+    """The primal step (ops.dz.compute_dz) from a KnotSchur system and the
+    dual solution lam (N, nx): (dX (N, nx), dU (N-1, nu))."""
+    kkt = KKTData(Q=None, q=ks.q, R=None, r=ks.r[:-1], A=ks.A[:-1],
+                  B=ks.B[:-1], c=None)
+    sd = SchurData(S=BlockTri(ks.SL, ks.SD, ks.SU),
+                   Pinv=BlockTri(ks.PL, ks.PD, ks.PU), gamma=ks.gamma,
+                   Qinv=ks.Qinv, Rinv=ks.Rinv[:-1])
+    return compute_dz(kkt, sd, lam)
+
+
+def expect_system(ks: KnotSchur, lam0, fields, device) -> int:
+    """Raise unless lam0 and the named KnotSchur fields are contiguous
+    float32 knot-major tensors on device; return N."""
+    nx, nu = 2 * _lib.NJ, _lib.NJ
+    if ks.gamma.dim() != 2 or ks.gamma.shape[1] != nx:
+        raise ValueError(f"gamma must be (N, {nx}), got "
+                         f"{tuple(ks.gamma.shape)}")
+    n = ks.gamma.shape[0]
+    shapes = dict(SL=(n, nx, nx), SD=(n, nx, nx), SU=(n, nx, nx),
+                  PL=(n, nx, nx), PD=(n, nx, nx), PU=(n, nx, nx),
+                  gamma=(n, nx), Qinv=(n, nx, nx), Rinv=(n, nu, nu),
+                  A=(n, nx, nx), B=(n, nx, nu), q=(n, nx), r=(n, nu))
+    for name in fields:
+        _lib.expect(getattr(ks, name), name, shapes[name], device)
+    _lib.expect(lam0, "lam0", (n, nx), device)
+    return n
 
 
 def _pad_last(t: torch.Tensor) -> torch.Tensor:

@@ -15,22 +15,16 @@ import torch
 
 from mpcgpu_tpu_torch.ops.btridiag import BlockTri
 from mpcgpu_tpu_torch.ops.cuda import _lib
-from mpcgpu_tpu_torch.ops.cuda.kkt_schur_kernel import KnotSchur
-from mpcgpu_tpu_torch.ops.dz import compute_dz
-from mpcgpu_tpu_torch.ops.kkt import KKTData
+from mpcgpu_tpu_torch.ops.cuda.kkt_schur_kernel import (KnotSchur,
+                                                        compute_dz_knots,
+                                                        expect_system)
 from mpcgpu_tpu_torch.ops.pcg import pcg
-from mpcgpu_tpu_torch.ops.schur import SchurData
 
 
 def pcg_dz_reference(ks: KnotSchur, lam0, max_iter: int, exit_tol):
-    S = BlockTri(ks.SL, ks.SD, ks.SU)
-    P = BlockTri(ks.PL, ks.PD, ks.PU)
-    res = pcg(S, P, ks.gamma, lam0, max_iter, exit_tol)
-    kkt = KKTData(Q=None, q=ks.q, R=None, r=ks.r[:-1], A=ks.A[:-1],
-                  B=ks.B[:-1], c=None)
-    sd = SchurData(S=S, Pinv=P, gamma=ks.gamma, Qinv=ks.Qinv,
-                   Rinv=ks.Rinv[:-1])
-    dX, dU = compute_dz(kkt, sd, res.lam)
+    res = pcg(BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU),
+              ks.gamma, lam0, max_iter, exit_tol)
+    dX, dU = compute_dz_knots(ks, res.lam)
     return res.lam, dX, dU, res.iters, res.hit_max
 
 
@@ -49,17 +43,7 @@ def check_pcg_smem_fit(knot_points: int) -> int:
 def _launch(lib, ks: KnotSchur, lam0, max_iter: int, exit_tol, stream):
     dev = ks.gamma.device
     nx, nu = 2 * _lib.NJ, _lib.NJ
-    if ks.gamma.dim() != 2 or ks.gamma.shape[1] != nx:
-        raise ValueError(f"gamma must be (N, {nx}), got "
-                         f"{tuple(ks.gamma.shape)}")
-    n = ks.gamma.shape[0]
-    shapes = dict(SL=(n, nx, nx), SD=(n, nx, nx), SU=(n, nx, nx),
-                  PL=(n, nx, nx), PD=(n, nx, nx), PU=(n, nx, nx),
-                  gamma=(n, nx), Qinv=(n, nx, nx), Rinv=(n, nu, nu),
-                  A=(n, nx, nx), B=(n, nx, nu), q=(n, nx), r=(n, nu))
-    for name, shape in shapes.items():
-        _lib.expect(getattr(ks, name), name, shape, dev)
-    _lib.expect(lam0, "lam0", (n, nx), dev)
+    n = expect_system(ks, lam0, KnotSchur._fields, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     lam = torch.empty((n, nx), **f32)
     dX = torch.empty((n, nx), **f32)

@@ -8,8 +8,20 @@ shift with tail refill when the trajectory clock crosses a timestep
 (mpcsim.cuh:394).
 
 ``simulate_mpc_scan`` is the device-resident loop: the shift schedule is
-computed on the host once, and no update reads a device value on the
-host, so the host only enqueues work.
+computed on the host once, and no update of a fixed backend reads a
+device value on the host, so the host only enqueues work.
+
+``linsys="auto"`` solves with "pcg" and latches over to "bcr_pcg" once
+the EMAs of the rho-bail rate and of the tracking error both pass their
+thresholds (SolverConfig.failover_*).  JAX picks the branch on the device
+with lax.cond; eager PyTorch cannot branch on a device bool without
+reading it, and running both branches to select one would double the
+work.  So the port reads the latch on the host once per chunk of
+``failover_check_every`` updates (once per update when the chunk does
+not divide n_updates): the EMAs and the trip test run on the device
+every update, and a trip inside a chunk switches the backend at the next
+chunk boundary, as the JAX chunked latch does.  Each read waits for the
+device to finish the chunk before the next one is enqueued.
 """
 from __future__ import annotations
 
@@ -134,8 +146,10 @@ def simulate_mpc_scan(model: RobotModel, cfg: SolverConfig, xu_traj, ee_traj,
     period), with per-update statistics stacked in the result.
 
     xu_traj (T, nx+nu) and ee_traj (T, 6) are tensors on the solver's
-    device.  timing=True (CUDA only) also returns "update_ms": each
-    update's time from CUDA events, read once after the loop.
+    device.  linsys="auto" runs the failover latch (module doc) and adds
+    "failed_over" (n_updates,) bool, True where "bcr_pcg" ran.
+    timing=True (CUDA only) also returns "update_ms": each update's time
+    from CUDA events, read once after the loop.
     """
     n = cfg.knot_points
     do_shift, offsets = make_shift_schedule(cfg, n_updates)
@@ -152,12 +166,29 @@ def simulate_mpc_scan(model: RobotModel, cfg: SolverConfig, xu_traj, ee_traj,
                   for _ in range(n_updates + 1)]
         events[0].record()
 
+    auto = linsys == "auto"
+    if auto:
+        chunk = cfg.failover_check_every
+        if chunk <= 1 or n_updates % chunk:
+            chunk = 1
+        zero = torch.zeros((), dtype=X.dtype, device=X.device)
+        ema, err_ema = zero, zero
+        tripped = torch.zeros((), dtype=torch.bool, device=X.device)
+        failed = False
+
     outs = {k: [] for k in ("tracking_errors", "sqp_iters", "pcg_iters_total",
                             "pcg_hit_max_total", "rho_bailed",
                             "tracking_path")}
+    failed_over = []
     for i in range(n_updates):
+        backend = linsys
+        if auto:
+            if i and i % chunk == 0 and not failed:
+                failed = bool(tripped)  # the latch read: once per chunk
+            backend = "bcr_pcg" if failed else "pcg"
+            failed_over.append(failed)
         res = sqp_solve(model, cfg, X, U, lam, goals, xs, rho, pcg_exit_tol,
-                        linsys)
+                        backend)
         X, U, lam, rho = res.X, res.U, res.lam, res.rho
 
         offset_us = 0.0 if i == 0 else period
@@ -170,6 +201,12 @@ def simulate_mpc_scan(model: RobotModel, cfg: SolverConfig, xu_traj, ee_traj,
         X = torch.cat([xs[None], X[1:]])  # measured-state re-injection
 
         st = res.stats
+        if auto:
+            d = cfg.failover_ema_decay
+            ema = d * ema + (1.0 - d) * st.rho_bailed.to(ema.dtype)
+            err_ema = d * err_ema + (1.0 - d) * err.to(err_ema.dtype)
+            tripped = tripped | ((ema > cfg.failover_bail_rate)
+                                 & (err_ema > cfg.failover_err_threshold_m))
         outs["tracking_errors"].append(err)
         outs["sqp_iters"].append(st.sqp_iters)
         outs["pcg_iters_total"].append(
@@ -183,6 +220,8 @@ def simulate_mpc_scan(model: RobotModel, cfg: SolverConfig, xu_traj, ee_traj,
     result = {k: torch.stack(v) for k, v in outs.items()}
     result["shifted"] = torch.as_tensor(do_shift)
     result["final_xs"] = xs
+    if auto:
+        result["failed_over"] = torch.as_tensor(failed_over)
     if timing:
         events[-1].synchronize()
         result["update_ms"] = [events[i].elapsed_time(events[i + 1])

@@ -15,9 +15,13 @@ happens, every later iteration is masked and leaves the state frozen, as
 the JAX package's whole-solve megakernel does.  So nothing in a solve
 reads a device value on the host.
 
-``cfg.fused_stages`` selects the hand-written kernels: K3 (KKT + Schur +
-stair preconditioner), K4 (PCG + dz) and K2 (line-search merits).  Off,
-the plain PyTorch modules run on any device.
+``cfg.fused_stages`` selects the hand-written kernels.  With
+``megakernel`` and ``megakernel_solve`` on the "pcg" backend, K2 computes
+the starting merit and ONE K5 launch runs every iteration of the solve;
+otherwise each iteration runs K3 (KKT + Schur, with the stair
+preconditioner for "pcg"), then K4 (stair-PCG + dz) or, for "bcr_pcg", K6
+(BCR-preconditioned CG + dz), then K2 (line-search merits).  Off, the
+plain PyTorch modules run on any device.
 """
 from __future__ import annotations
 
@@ -28,9 +32,13 @@ import torch
 from mpcgpu_tpu_torch.config import SolverConfig
 from mpcgpu_tpu_torch.models.robot import RobotModel
 from mpcgpu_tpu_torch.ops import merit as merit_ops
+from mpcgpu_tpu_torch.ops.btsolve import (_solve_linsys_bcr,
+                                          _solve_linsys_bcr_pcg)
+from mpcgpu_tpu_torch.ops.cuda.bcr_kernel import bcr_pcg_dz
 from mpcgpu_tpu_torch.ops.cuda.kkt_schur_kernel import form_kkt_schur
 from mpcgpu_tpu_torch.ops.cuda.merit_kernel import line_search_merits
 from mpcgpu_tpu_torch.ops.cuda.pcg_kernel import pcg_dz
+from mpcgpu_tpu_torch.ops.cuda.sqp_megakernel import sqp_solve_mega_pcg
 from mpcgpu_tpu_torch.ops.dz import compute_dz
 from mpcgpu_tpu_torch.ops.kkt import form_kkt
 from mpcgpu_tpu_torch.ops.pcg import pcg
@@ -62,7 +70,8 @@ def _solve_linsys_pcg(cfg: SolverConfig, schur, lam, pcg_exit_tol):
     return res.lam, res.iters, res.hit_max
 
 
-_LINSYS_BACKENDS = {"pcg": _solve_linsys_pcg}
+_LINSYS_BACKENDS = {"pcg": _solve_linsys_pcg, "bcr": _solve_linsys_bcr,
+                    "bcr_pcg": _solve_linsys_bcr_pcg}
 
 
 def register_linsys_backend(name: str, fn) -> None:
@@ -79,10 +88,27 @@ def get_linsys_backend(name: str):
                        f"{sorted(_LINSYS_BACKENDS)}") from None
 
 
+def megakernel_engages(cfg: SolverConfig, linsys: str) -> bool:
+    """Whether sqp_solve runs the SQP iteration as one kernel.  The port
+    has none of the TPU's envelope gates: the kernels' own fit checks
+    raise past the horizons they serve."""
+    return bool(cfg.fused_stages and cfg.megakernel and linsys == "pcg")
+
+
 def check_fused_config(cfg: SolverConfig, linsys: str) -> None:
-    """Raise unless the CUDA stage kernels serve this configuration."""
+    """Raise unless the CUDA kernels serve this configuration; name the
+    kernel where the configuration needs one not ported yet."""
+    if linsys == "bcr":
+        raise ValueError(
+            "fused_stages=True with linsys='bcr' runs the refined BCR solve "
+            "kernel K7 (bcr_dz_pallas_lanes), which is not ported yet")
+    if megakernel_engages(cfg, linsys) and not cfg.megakernel_solve:
+        raise ValueError(
+            "megakernel=True without megakernel_solve runs the "
+            "per-iteration megakernel K9 (sqp_iter_mega_pcg), which is not "
+            "ported yet")
     unsupported = []
-    if linsys != "pcg":
+    if linsys not in ("pcg", "bcr_pcg"):
         unsupported.append(f"linsys={linsys!r}")
     if cfg.cost.tracking != "eepos":
         unsupported.append(f"tracking={cfg.cost.tracking!r}")
@@ -131,12 +157,27 @@ def sqp_solve(model: RobotModel, cfg: SolverConfig, X, U, lam, goals, xs,
             return merits_with_base(Xc, Uc, torch.zeros_like(Xc),
                                     torch.zeros_like(Uc))[cfg.num_alphas]
 
+        if megakernel_engages(cfg, linsys):
+            r = sqp_solve_mega_pcg(
+                model, X, U, goals, xs, lam, rho, 1.0, merit_of(X, U),
+                cfg.pcg.max_iter, pcg_exit_tol, n_iter, cfg.timestep,
+                cc.qd_cost, cc.r_cost, cfg.gravity, cfg.merit_mu,
+                cfg.num_alphas, cfg.rho_factor, cfg.rho_min, cfg.rho_max,
+                cfg.rho_reset)
+            stats = SQPStats(pcg_iters=r.pcg_iters, pcg_hit_max=r.hit_max,
+                             accepted=r.accepted, sqp_iters=r.sqp_iters,
+                             rho_bailed=r.bailed, final_merit=r.merit)
+            return SQPResult(X=r.X, U=r.U, lam=r.lam, rho=r.rho, stats=stats)
+
+        bcr = linsys == "bcr_pcg"
+        dual_solve = bcr_pcg_dz if bcr else pcg_dz
+
         def linearize_and_solve(Xc, Uc, lamc, rhoc):
             ks = form_kkt_schur(model, Xc, Uc, goals, xs, rhoc, cfg.timestep,
                                 cc.qd_cost, cc.r_cost, cfg.gravity,
-                                cfg.pcg.preconditioned)
-            lam_new, dX, dU, it, hit = pcg_dz(ks, lamc, cfg.pcg.max_iter,
-                                              pcg_exit_tol)
+                                cfg.pcg.preconditioned and not bcr)
+            lam_new, dX, dU, it, hit = dual_solve(ks, lamc, cfg.pcg.max_iter,
+                                                  pcg_exit_tol)
             return lam_new, it, hit, dX, dU
     else:
         solve_fn = get_linsys_backend(linsys)
@@ -163,11 +204,28 @@ def sqp_solve(model: RobotModel, cfg: SolverConfig, X, U, lam, goals, xs,
             dX, dU = compute_dz(kkt, schur, lam_new)
             return lam_new, it, hit, dX, dU
 
-    merit = merit_of(X, U)
-    drho = torch.ones((), dtype=dt, device=dev)
+    (X, U, lam, rho, _drho, merit, iters, done, pcg_iters, hits,
+     accepts) = iterate(X, U, lam, rho, torch.ones((), dtype=dt, device=dev),
+                        merit_of(X, U), n_iter, linearize_and_solve,
+                        eval_merits, alphas, cfg.rho_factor, cfg.rho_min,
+                        cfg.rho_max, cfg.rho_reset)
+    stats = SQPStats(pcg_iters=pcg_iters, pcg_hit_max=hits, accepted=accepts,
+                     sqp_iters=iters, rho_bailed=done, final_merit=merit)
+    return SQPResult(X=X, U=U, lam=lam, rho=rho, stats=stats)
+
+
+def iterate(X, U, lam, rho, drho, merit, n_iter: int, linearize_and_solve,
+            eval_merits, alphas, rho_factor, rho_min, rho_max, rho_reset):
+    """The staged SQP loop: n_iter iterations from incumbent merit
+    `merit`, each linearize_and_solve(X, U, lam, rho) -> (lam', pcg iters,
+    hit, dX, dU), eval_merits(X, U, dX, dU) -> merits of the alphas, the
+    first minimum, the accept test and the rho schedule; after a bail
+    every iteration is masked.  Returns (X, U, lam, rho, drho, merit,
+    sqp_iters, bailed, pcg_iters, hit_max, accepted)."""
+    dev = X.device
     done = torch.zeros((), dtype=torch.bool, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
-    f = cfg.rho_factor
+    f = rho_factor
     pcg_iters, hits, accepts = [], [], []
     for _ in range(n_iter):
         active = ~done
@@ -182,13 +240,13 @@ def sqp_solve(model: RobotModel, cfg: SolverConfig, X, U, lam, goals, xs,
         alpha = alphas.gather(0, best)[0]
 
         drho_rej = torch.clamp(drho * f, min=f)
-        rho_rej = torch.clamp(rho * drho_rej, min=cfg.rho_min)
+        rho_rej = torch.clamp(rho * drho_rej, min=rho_min)
         drho_acc = torch.clamp(drho / f, max=1.0 / f)
-        rho_acc = torch.clamp(rho * drho_acc, min=cfg.rho_min)
+        rho_acc = torch.clamp(rho * drho_acc, min=rho_min)
         drho_n = torch.where(accept, drho_acc, drho_rej)
         rho_n = torch.where(accept, rho_acc, rho_rej)
-        bail = ~accept & (rho_n > cfg.rho_max)
-        rho_n = torch.where(bail, torch.full_like(rho_n, cfg.rho_reset), rho_n)
+        bail = ~accept & (rho_n > rho_max)
+        rho_n = torch.where(bail, torch.full_like(rho_n, rho_reset), rho_n)
 
         X_n = torch.where(accept, X + alpha * dX, X)
         U_n = torch.where(accept, U + alpha * dU, U)
@@ -212,8 +270,5 @@ def sqp_solve(model: RobotModel, cfg: SolverConfig, X, U, lam, goals, xs,
         stack = lambda xs_: torch.stack(xs_)
     else:
         stack = lambda xs_: torch.zeros(0, dtype=torch.int32, device=dev)
-    stats = SQPStats(
-        pcg_iters=stack(pcg_iters), pcg_hit_max=stack(hits).bool(),
-        accepted=stack(accepts).bool(), sqp_iters=iters, rho_bailed=done,
-        final_merit=merit)
-    return SQPResult(X=X, U=U, lam=lam, rho=rho, stats=stats)
+    return (X, U, lam, rho, drho, merit, iters, done, stack(pcg_iters),
+            stack(hits).bool(), stack(accepts).bool())

@@ -1,6 +1,8 @@
 """Port parity of the slice end to end: mpcgpu_tpu_torch.sqp.sqp_solve and
 sim.simulate_mpc_scan vs the JAX ones, on CPU at N = 8; and the port's
-import boundary (no JAX, no mpcgpu_tpu).
+boundary: no import of JAX or mpcgpu_tpu, no file path into mpcgpu_tpu,
+its own copy of the IIWA-14 tables, models built on the card by
+default.
 
 fused_stages=True on CPU tensors runs each kernel wrapper's plain
 version, so both settings are checked against the JAX portable path.
@@ -9,6 +11,7 @@ per-update tracking errors at atol 1e-3.
 """
 import ast
 import dataclasses
+import inspect
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -22,7 +25,7 @@ from mpcgpu_tpu.sim import make_shift_schedule as jax_make_shift_schedule
 from mpcgpu_tpu.sim import simulate_mpc_scan as jax_simulate_mpc_scan
 from mpcgpu_tpu.sqp import sqp_solve as jax_sqp_solve
 from mpcgpu_tpu_torch.config import SolverConfig
-from mpcgpu_tpu_torch.models.robot import iiwa14
+from mpcgpu_tpu_torch.models.robot import FIELDS, iiwa14, robot_from_numpy
 from mpcgpu_tpu_torch.sim import _shift_horizon, make_shift_schedule
 from mpcgpu_tpu_torch.sim import simulate_mpc_scan
 from mpcgpu_tpu_torch.sqp import sqp_solve
@@ -51,8 +54,8 @@ def test_sqp_solve_matches_jax(iiwa, traj_0_0, fused):
     ref = jax_sqp_solve(iiwa, JaxSolverConfig.for_knots(N, sqp_max_iter=2),
                         X, U, lam, goals, xs, 1e-3, 1e-8)
     cfg = SolverConfig.for_knots(N, sqp_max_iter=2, fused_stages=fused)
-    got = sqp_solve(iiwa14(), cfg, T(X), T(U), T(lam), T(goals), T(xs), 1e-3,
-                    1e-8)
+    got = sqp_solve(iiwa14(device="cpu"), cfg, T(X), T(U), T(lam), T(goals),
+                    T(xs), 1e-3, 1e-8)
     np.testing.assert_allclose(got.X.numpy(), np.asarray(ref.X), atol=5e-3)
     np.testing.assert_allclose(got.U.numpy(), np.asarray(ref.U), atol=5e-3)
     np.testing.assert_array_equal(got.stats.accepted.numpy(),
@@ -69,8 +72,8 @@ def test_rho_bail_freezes_the_state_as_jax_stops(iiwa, traj_0_0):
     ref = jax_sqp_solve(iiwa, JaxSolverConfig.for_knots(
         N, sqp_max_iter=6, rho_max=1e-3), X, U, lam, goals, xs, 1e-3, 1e-8)
     cfg = SolverConfig.for_knots(N, sqp_max_iter=6, rho_max=1e-3)
-    got = sqp_solve(iiwa14(), cfg, T(X), T(U), T(lam), T(goals), T(xs), 1e-3,
-                    1e-8)
+    got = sqp_solve(iiwa14(device="cpu"), cfg, T(X), T(U), T(lam), T(goals),
+                    T(xs), 1e-3, 1e-8)
     assert bool(ref.stats.rho_bailed) and bool(got.stats.rho_bailed)
     n_run = int(ref.stats.sqp_iters)
     assert n_run < 6 and int(got.stats.sqp_iters) == n_run
@@ -100,8 +103,8 @@ def test_simulate_mpc_scan_matches_jax(iiwa, traj_0_0, fused):
     cfg = SolverConfig.for_knots(N, sqp_max_iter=2, fused_stages=fused)
     cfg = dataclasses.replace(cfg, pcg=dataclasses.replace(cfg.pcg,
                                                            max_iter=40))
-    got = simulate_mpc_scan(iiwa14(), cfg, T(xu), T(ee), T(X), T(U), T(lam),
-                            1e-3, 5e-5, 4)
+    got = simulate_mpc_scan(iiwa14(device="cpu"), cfg, T(xu), T(ee), T(X),
+                            T(U), T(lam), 1e-3, 5e-5, 4)
     errs = got["tracking_errors"].numpy()
     assert errs.shape == (4,) and np.isfinite(errs).all()
     np.testing.assert_allclose(errs, np.asarray(ref["tracking_errors"]),
@@ -136,8 +139,8 @@ def test_fused_path_rejects_configs_the_kernels_do_not_serve(traj_0_0):
     cfg = SolverConfig.for_knots(N, sqp_max_iter=1, fused_stages=True,
                                  integrator_type=1)
     with pytest.raises(ValueError, match="integrator_type"):
-        sqp_solve(iiwa14(), cfg, T(X), T(U), torch.zeros(N, 14), T(goals),
-                  T(xs), 1e-3, 1e-8)
+        sqp_solve(iiwa14(device="cpu"), cfg, T(X), T(U), torch.zeros(N, 14),
+                  T(goals), T(xs), 1e-3, 1e-8)
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -150,20 +153,73 @@ def test_kernel_wrappers_refuse_other_devices():
         pcg_dz(None, meta, 10, 1e-5)
 
 
+def _docstrings(tree):
+    """ids of the docstring constants of a module, class or function."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if (isinstance(first, ast.Expr)
+                    and isinstance(first.value, ast.Constant)
+                    and isinstance(first.value.value, str)):
+                out.add(id(first.value))
+    return out
+
+
+def _jax_package_refs(tree):
+    """Imports of jax / mpcgpu_tpu, and string constants (docstrings
+    aside) that name a path into the JAX package: a path component
+    "mpcgpu_tpu", alone (as in Path(...) / "mpcgpu_tpu" / ...) or
+    followed by a module file."""
+    docs = _docstrings(tree)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
+              and id(node) not in docs):
+            parts = node.value.replace("\\", "/").split("/")
+            if "mpcgpu_tpu" in parts:
+                yield f"the path {node.value!r}"
+            continue
+        else:
+            continue
+        for name in names:
+            if name.split(".")[0] in ("jax", "jaxlib", "mpcgpu_tpu"):
+                yield f"an import of {name}"
+
+
 def test_port_imports_no_jax():
     pkg = Path(__file__).resolve().parents[1] / "mpcgpu_tpu_torch"
     files = sorted(pkg.rglob("*.py"))
     assert files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
-                continue
-            for name in names:
-                root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "mpcgpu_tpu"), (
-                    f"{path.relative_to(pkg.parent)} imports {name}")
+        refs = list(_jax_package_refs(tree))
+        assert not refs, f"{path.relative_to(pkg.parent)} has {refs}"
+
+
+def test_jax_package_guard_catches_a_file_path_load():
+    """The guard flags loading a JAX-package module by file path, the way
+    the port once read the IIWA-14 tables."""
+    src = ('from pathlib import Path\n'
+           'p = Path(__file__).parents[2] / "mpcgpu_tpu" / "models" / "x.py"\n'
+           'q = "mpcgpu_tpu/models/iiwa14_params.py"\n')
+    assert len(list(_jax_package_refs(ast.parse(src)))) == 2
+
+
+def test_iiwa14_tables_equal_the_jax_package_tables():
+    from mpcgpu_tpu.models import iiwa14_params as jax_params
+    from mpcgpu_tpu_torch.models import iiwa14_params
+
+    assert iiwa14_params.NUM_JOINTS == jax_params.NUM_JOINTS
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(iiwa14_params, f),
+                                      getattr(jax_params, f))
+
+
+def test_models_are_built_on_the_card_unless_asked():
+    for fn in (iiwa14, robot_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

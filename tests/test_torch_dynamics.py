@@ -29,7 +29,7 @@ def _close(t, j):
 
 @pytest.fixture(scope="module")
 def models(iiwa):
-    return iiwa, iiwa14()
+    return iiwa, iiwa14(device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -42,8 +42,8 @@ def states():
 
 def test_robot_from_numpy_matches_iiwa14(iiwa):
     got = robot_from_numpy({f: np.asarray(getattr(iiwa, f))
-                            for f in JaxRobotModel._fields})
-    for a, b in zip(got, iiwa14()):
+                            for f in JaxRobotModel._fields}, device="cpu")
+    for a, b in zip(got, iiwa14(device="cpu")):
         assert torch.equal(a, b)
 
 

@@ -35,8 +35,8 @@ def problem(traj_0_0, n=N, seed=0):
 
 def knot_schur(X, U, goals, xs, precond=True):
     t = torch.as_tensor
-    return form_kkt_schur(iiwa14(), t(X), t(U), t(goals), t(xs), RHO, DT,
-                          QD_COST, R_COST, precond=precond)
+    return form_kkt_schur(iiwa14(device="cpu"), t(X), t(U), t(goals), t(xs),
+                          RHO, DT, QD_COST, R_COST, precond=precond)
 
 
 @pytest.mark.parametrize("precond", [True, False])

@@ -33,8 +33,8 @@ def _inputs(traj_0_0):
 
 def _port(inputs):
     X, U, dX, dU, goals, xs = (torch.as_tensor(a) for a in inputs)
-    return line_search_merits(iiwa14(), X, U, dX, dU, 8, goals, xs, DT, MU,
-                              QD_COST, R_COST).numpy()
+    return line_search_merits(iiwa14(device="cpu"), X, U, dX, dU, 8, goals,
+                              xs, DT, MU, QD_COST, R_COST).numpy()
 
 
 def test_k2_plain_matches_jax_portable(iiwa, traj_0_0):

@@ -34,7 +34,7 @@ def test_k1_plain_matches_jax(iiwa, traj_0_0, offset_us, sim_time_us):
                            jnp.asarray(offset_us, jnp.float32),
                            jnp.asarray(sim_time_us, jnp.float32), 11)
     e_ref = _tracking_error(iiwa, x_ref, jnp.asarray(ee[0]))
-    x, e = plant_rollout(iiwa14(), SolverConfig.for_knots(16),
+    x, e = plant_rollout(iiwa14(device="cpu"), SolverConfig.for_knots(16),
                          torch.as_tensor(xs), torch.as_tensor(U_prev),
                          torch.as_tensor(ee[0]), offset_us, sim_time_us, 11)
     np.testing.assert_allclose(x.numpy(), np.asarray(x_ref), **TOL)
