@@ -10,11 +10,14 @@ CUDA toolkit:
 2. builds the hand-written kernels (csrc/*.cu, one nvcc per source, all at
    once, sm_90a) and prints the build time and ptxas' register / spill
    report;
-3. checks each kernel K1-K6 against its plain PyTorch version on the card
-   at the slice's N = 64 inputs from fixture 0_0 (K6 also on a seeded
-   well-conditioned system, K5 also at two larger carried rhos where its
-   CGs exit before the cap), with the tolerances of the JAX package's own
-   kernel tests, and times both (CUDA events, median after warm-up);
+3. checks each kernel K1-K6 and K10 against its plain PyTorch version on
+   the card at the slice's N = 64 inputs from fixture 0_0 (K6 also on a
+   seeded well-conditioned system, K5 and K10 also at larger carried rhos
+   where their CGs exit before the cap, K10 with two arms from seeded
+   perturbations and its shared CG exit shown to decide), and the
+   arm-batched K1 launch against single K1 launches (bit-equal), with the
+   tolerances of the JAX package's own kernel tests, and times both (CUDA
+   events, median after warm-up);
 4. runs three closed loops -- fixture pair 0_0, N = 64,
    SolverConfig.for_knots(64, sqp_max_iter=4), PCG cap 40, exit tol
    5e-5, lam warm-started by 5 solves at tol 1e-11, simulate_mpc_scan for
@@ -31,7 +34,14 @@ CUDA toolkit:
    and checks tracking errors, their agreement, SQP iterations, rho
    bails, failed_over and each run's kernel launch counts (set to 0 just
    before the run, read just after);
-5. prints one JSON line of the kernels, then the result line.
+5. runs the multi-arm loops from the same warm duals, two arms from
+   seeded start perturbations: simulate_mpc_scan_packed for 16 updates
+   through the kernels (K10 and the arm-batched K1, one launch each per
+   update) and through the plain modules, checked and timed as the auto
+   loop; simulate_mpc_scan_batched (plain modules, no kernel) for 8
+   updates; and the packed loop's arm-updates/s over B = 1, 2, 4, 8, 16
+   arms with K10's device time per call;
+6. prints one JSON line of the kernels, then the result line.
 
 Any failed build, launch or check ends the run with a non-zero exit code
 before the result line.  Without CUDA it exits non-zero at once.
@@ -52,6 +62,9 @@ N_UPDATES = 16
 SQP_ITERS = 4
 WARM_SOLVES = 5
 REPS = 20
+ARMS = 2                        # the packed loop's pack (bench.py --batch 2)
+BATCHED_UPDATES = 8
+SWEEP_ARMS = (1, 2, 4, 8, 16)
 
 # The least time the card could take for a kernel's work: the
 # larger of the bytes a function must move (inputs read once, outputs
@@ -145,9 +158,14 @@ def _assert_close(name, pairs, rtol, atol):
                                    msg=lambda m: f"{name} output {i}: {m}")
 
 
-def _device_breakdown(run, n_updates: int) -> None:
-    """Print where the device time of one call of run goes: busy span and
-    idle share, and device time by kernel (torch.profiler, CUPTI)."""
+_TAGS = {"K10": "sqp_mega_packed_kernel", "K5": "sqp_mega_kernel",
+         "K6": "bcr_pcg_dz_kernel", "K3": "k3_", "K4": "pcg_dz_kernel",
+         "K2": "merit_kernel", "K1": "rollout_kernel"}
+
+
+def _device_events(run):
+    """(start us, end us, name) of every device kernel of one call of run
+    (torch.profiler, CUPTI), sorted by start."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -155,12 +173,28 @@ def _device_breakdown(run, n_updates: int) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    evs = sorted((e.time_range.start, e.time_range.end, e.name)
-                 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _by_kernel(evs) -> dict:
+    """{kernel id or "torch glue": (device us, device kernels)}."""
+    groups: dict = {}
+    for s, e, name in evs:
+        key = next((k for k, t in _TAGS.items() if t in name), "torch glue")
+        t, n = groups.get(key, (0.0, 0))
+        groups[key] = (t + e - s, n + 1)
+    return groups
+
+
+def _device_breakdown(run, n_updates: int) -> dict:
+    """Print where the device time of one call of run goes: busy span and
+    idle share, and device time by kernel; return _by_kernel's groups."""
+    evs = _device_events(run)
     if not evs:
         print("profile: the profiler recorded no device events")
-        return
+        return {}
     busy, (cs, ce) = 0.0, evs[0][:2]
     for s, e, _ in evs[1:]:
         if s > ce:
@@ -172,17 +206,11 @@ def _device_breakdown(run, n_updates: int) -> None:
     print(f"profile: {len(evs)} device events, span {span / 1e3:.3f} ms, busy "
           f"{busy / 1e3:.3f} ms ({busy / 1e3 / n_updates:.4f} ms/update), "
           f"idle share {1 - busy / span:.3f}")
-    tags = {"K5": "sqp_mega_kernel", "K6": "bcr_pcg_dz_kernel", "K3": "k3_",
-            "K4": "pcg_dz_kernel", "K2": "merit_kernel",
-            "K1": "rollout_kernel"}
-    groups: dict = {}
-    for s, e, name in evs:
-        key = next((k for k, t in tags.items() if t in name), "torch glue")
-        t, n = groups.get(key, (0.0, 0))
-        groups[key] = (t + e - s, n + 1)
+    groups = _by_kernel(evs)
     for key, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {key:10s} {t / 1e3:8.3f} ms  {100 * t / busy:5.1f}%  "
               f"{n:5d} device kernels  {t / n:8.2f} us each")
+    return groups
 
 
 def main() -> int:
@@ -206,7 +234,11 @@ def main() -> int:
     from mpcgpu_tpu_torch.ops.cuda import reset_launch_counts
     from mpcgpu_tpu_torch.ops.cuda import rollout_kernel as k1
     from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k5
-    from mpcgpu_tpu_torch.sim import max_substeps_for, simulate_mpc_scan
+    from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k10
+    from mpcgpu_tpu_torch.sim import (arm_starts, max_substeps_for,
+                                      simulate_mpc_scan,
+                                      simulate_mpc_scan_batched,
+                                      simulate_mpc_scan_packed)
     from mpcgpu_tpu_torch.sqp import sqp_solve
     from mpcgpu_tpu_torch.utils.trajfiles import horizon_slices, load_fixture_pair
     # the tests' seeded well-conditioned K6 system, loaded by path: the
@@ -328,7 +360,26 @@ def main() -> int:
                max_substeps_for(cfg))
     r = k1.plant_rollout(*k1_args)
     r_ref = k1.plant_rollout_reference(*k1_args)
+    # the arm-batched launch (one block per arm) against one single launch
+    # per arm: bit-equal, the same per-arm arithmetic in the same order
+    gen = np.random.default_rng(9)
+    x_arms = xs + torch.as_tensor(0.01 * gen.normal(size=(ARMS, NX)),
+                                  dtype=torch.float32, device=dev)
+    U_arms = U + torch.as_tensor(0.01 * gen.normal(size=(ARMS, n - 1, NU)),
+                                 dtype=torch.float32, device=dev)
+    k1_arm_args = (model, cfg, x_arms, U_arms, goals[0], period, period,
+                   max_substeps_for(cfg))
+    r_arms = k1.plant_rollout(*k1_arm_args)
+    r_one = [k1.plant_rollout(model, cfg, x_arms[a], U_arms[a], *k1_args[4:])
+             for a in range(ARMS)]
     sync()
+    for a, (x1, e1) in enumerate(r_one):
+        if not (torch.equal(r_arms[0][a], x1) and torch.equal(r_arms[1][a], e1)):
+            raise AssertionError(f"K1 arm-batched launch, arm {a}: not "
+                                 f"bit-equal to a single launch")
+    k1_arms_ms = _event_ms(lambda: k1.plant_rollout(*k1_arm_args))
+    print(f"K1 arm-batched ({ARMS} arms, one launch): bit-equal to {ARMS} "
+          f"single launches; {k1_arms_ms:.4f} ms per call")
     steps = int(period * 1e-6 / cfg.sim_step_time + 1e-9) + 1  # + remainder
     record("K1", "plant_rollout", "mpcgpu_tpu_torch/csrc/rollout.cu",
            "mpcgpu_tpu/ops/pallas/rollout_kernel.py:92",
@@ -336,13 +387,18 @@ def main() -> int:
            lambda: k1.plant_rollout(*k1_args),
            lambda: k1.plant_rollout_reference(*k1_args),
            steps * (OPS_ABA + 60) + OPS_FK,
-           F32 * (NX + (n - 1) * NU + 6 + TAB + NX + 1))
+           F32 * (NX + (n - 1) * NU + 6 + TAB + NX + 1),
+           arm_batched_ms=k1_arms_ms, arm_batched_arms=ARMS)
 
-    # a perturbed start (seeded), so that the CG loops iterate
-    pert = torch.as_tensor(0.02 * np.random.default_rng(5).normal(
-        size=(n, NX)), dtype=torch.float32, device=dev)
-    pert[0] = 0.0
-    Xp = X + pert
+    def perturbed(seed):
+        """X with a seeded perturbation (knot 0 kept), so that the CG
+        loops iterate."""
+        pert = torch.as_tensor(0.02 * np.random.default_rng(seed).normal(
+            size=(n, NX)), dtype=torch.float32, device=dev)
+        pert[0] = 0.0
+        return X + pert
+
+    Xp = perturbed(5)
     # K6 on a well-conditioned system (the JAX BCR tests' tolerances), and
     # on the slice's K3 system at the perturbed start without the stair
     # preconditioner, which is judged by residual: its condition (~1e7)
@@ -449,44 +505,148 @@ def main() -> int:
            F32 * (2 * (2 * n * NX + (n - 1) * NU) + n * 6 + NX + TAB + 2
                   + 3) + 4 * (2 + 3 * SQP_ITERS))
 
+    # K10: two arms, K5's perturbed start and a second seeded one, cold
+    # duals, each held against the plain version and, for the shared CG
+    # exit, each arm solved alone by K5's plain version
+    b = ARMS
+    Xb = torch.stack([Xp, perturbed(6)])
+    Ub = U.expand(b, n - 1, NU).contiguous()
+    goals_b = goals.expand((b,) + goals.shape)
+    xs_b = xs.expand(b, NX).contiguous()
+    lam0_b = torch.zeros(b, n, NX, device=dev)
+    merit0_b = [k2.line_search_merits_reference(
+        model, Xb[a], U, torch.zeros_like(Xp), torch.zeros_like(U),
+        cfg.num_alphas, goals, xs, cfg.timestep, cfg.merit_mu, cc.qd_cost,
+        cc.r_cost, cfg.gravity)[cfg.num_alphas] for a in range(b)]
+
+    def k10_pair(rhos, lam_rtol, lam_atol):
+        """K10 and its plain version at per-arm rhos: X, U at rtol 1e-3,
+        atol 1e-5, sqp_iters, bails and the shared CG count equal; returns
+        the lone arms' CG totals too."""
+        args = (model, Xb, Ub, goals_b, xs_b, lam0_b,
+                torch.tensor(rhos, device=dev), torch.ones(b, device=dev),
+                cap, tol, SQP_ITERS)
+        out = k10.sqp_solve_mega_pcg_packed(*args, **k5_kw)
+        ref = k10.sqp_solve_mega_pcg_packed_reference(*args, **k5_kw)
+        alone = [k5.sqp_solve_mega_pcg_reference(
+            model, Xb[a], U, goals, xs, lam0, torch.tensor(rhos[a], device=dev),
+            1.0, merit0_b[a], cap, tol, SQP_ITERS, **k5_kw).pcg_iters
+            for a in range(b)]
+        sync()
+        alone = [int(i.clamp(min=0).sum()) for i in alone]
+        print(f"K10 at rhos {rhos}: sqp_iters {out.sqp_iters.tolist()} vs "
+              f"{ref.sqp_iters.tolist()}, bailed {out.bailed.tolist()} vs "
+              f"{ref.bailed.tolist()}, shared CG total "
+              f"{int(out.pcg_iters_total)} vs {int(ref.pcg_iters_total)} "
+              f"(each arm alone: {alone}), lam err "
+              f"{_max_err([(out.lam, ref.lam)]):.3e}")
+        for f in ("sqp_iters", "bailed", "pcg_iters_total"):
+            if not torch.equal(getattr(out, f), getattr(ref, f)):
+                raise AssertionError(f"K10 at rhos {rhos}: {f} differs from "
+                                     f"the plain version")
+        err = max(checked(f"K10 X, U at rhos {rhos}",
+                          [(out.X, ref.X), (out.U, ref.U)], 1e-3, 1e-5),
+                  checked(f"K10 lam at rhos {rhos}", [(out.lam, ref.lam)],
+                          lam_rtol, lam_atol))
+        return args, out, alone, err
+
+    # the cold start of K5's check, every CG at the cap: lam at atol 1e-3
+    k10_args, k10_out, _, err10 = k10_pair((cfg.rho_init,) * b, 0, 1e-3)
+    # rhos where the CGs exit before the cap: lam at rtol 1e-3, atol 1e-4
+    shared_decided = False
+    for rhos in ((0.1, 0.3), (0.3, 0.1)):
+        _, out, alone, err = k10_pair(rhos, 1e-3, 1e-4)
+        err10 = max(err10, err)
+        shared_decided |= min(alone) < int(out.pcg_iters_total)
+    if not shared_decided:
+        raise AssertionError("K10: no arm alone left the CG before the pack: "
+                             "the shared exit was never exercised")
+    # the shared exit's cost: K10 with one arm on K5's cold start runs K5's
+    # CG iterations, with a grid barrier after each
+    b1_args = (model, Xp[None], U[None], goals[None], xs[None], lam0[None],
+               torch.tensor([cfg.rho_init], device=dev),
+               torch.ones(1, device=dev), cap, tol, SQP_ITERS)
+    b1 = k10.sqp_solve_mega_pcg_packed(*b1_args, **k5_kw)
+    b1_ms = _event_ms(lambda: k10.sqp_solve_mega_pcg_packed(*b1_args,
+                                                            **k5_kw))
+    k5_ms = next(k["ms"] for k in kernels if k["name"].startswith("K5 "))
+    b1_its = int(b1.pcg_iters_total)
+    barrier_us = 1e3 * (b1_ms - k5_ms) / b1_its
+    print(f"K10 with one arm on K5's start: {b1_ms:.4f} ms per call, "
+          f"{b1_its} CG iterations, against K5's {k5_ms:.4f} ms, "
+          f"{sum(run_its)}: {barrier_us:.2f} us more per CG iteration")
+    # operations: per arm K5's at the shared CG count (every arm steps it),
+    # over SQP_ITERS solves of the CG, plus the incumbent merit
+    tot10 = int(k10_out.pcg_iters_total)
+    cg10 = _cg_ops(n, tot10, _spmv_ops(n)) + (SQP_ITERS - 1) * 2 * _spmv_ops(n)
+    record("K10", "sqp_solve_mega_pcg_packed",
+           "mpcgpu_tpu_torch/csrc/sqp_mega_packed.cu",
+           "mpcgpu_tpu/ops/pallas/sqp_megakernel.py:843", err10,
+           lambda: k10.sqp_solve_mega_pcg_packed(*k10_args, **k5_kw),
+           lambda: k10.sqp_solve_mega_pcg_packed_reference(*k10_args, **k5_kw),
+           b * (SQP_ITERS * (n * OPS_K3_KNOT + _dz_ops(n)
+                             + _merits_ops(n, cfg.num_alphas))
+                + cg10 + _merits_ops(n, 1)),
+           F32 * (2 * b * (2 * n * NX + (n - 1) * NU) + n * 6 + b * NX + TAB
+                  + 4 * b) + 4 * (2 * b + 1),
+           arms=b, grid=k10.check_mega_packed_fit(n, b, cfg.num_alphas),
+           one_arm_ms=b1_ms, us_per_cg_iter_over_k5=barrier_us)
+
     # ---- 4. the closed loops, through the kernels and the plain modules
     xu_d = torch.as_tensor(xu, device=dev)
     ee_d = torch.as_tensor(ee, device=dev)
 
-    def run_loop(label, run_cfg, linsys, want=None, detail=False):
+    def warm_lam(run_cfg):
         lam = torch.zeros_like(X)
         r0 = torch.tensor(cfg.rho_init, device=dev)
         for _ in range(WARM_SOLVES):      # warm-start lam (bench.py:161-176)
             res = sqp_solve(model, run_cfg, X, U, lam, goals, xs, r0, 1e-11)
             lam, r0 = res.lam, res.rho
-        simulate_mpc_scan(model, run_cfg, xu_d, ee_d, X, U, lam, rho, tol, 2,
-                          linsys)
+        return lam
+
+    def counted(label, run, want):
+        """Run once with every launch count set to 0 just before; check
+        and return the counts read just after."""
         sync()
         reset_launch_counts()
-        out = simulate_mpc_scan(model, run_cfg, xu_d, ee_d, X, U, lam, rho,
-                                tol, N_UPDATES, linsys, timing=True)
+        out = run()
         sync()
         counts = launch_counts()
         print(f"{label}: launches {counts}")
         if want is not None and counts != want:
             raise AssertionError(f"{label}: launch counts {counts}, expected "
                                  f"{want}")
+        return out, counts
+
+    def host_and_device(label, again, n_updates):
+        """The host clock per update, then the device breakdown (returned
+        as _by_kernel's groups)."""
+        sync()
+        t0 = time.perf_counter()
+        again()
+        t_enqueue = time.perf_counter() - t0
+        sync()
+        t_wall = time.perf_counter() - t0
+        print(f"{label} host clock: enqueue "
+              f"{1e3 * t_enqueue / n_updates:.3f} ms/update, to the end "
+              f"of the device work {1e3 * t_wall / n_updates:.3f} "
+              f"ms/update")
+        return _device_breakdown(again, n_updates)
+
+    def run_loop(label, run_cfg, linsys, want=None, detail=False):
+        lam = warm_lam(run_cfg)
+        simulate_mpc_scan(model, run_cfg, xu_d, ee_d, X, U, lam, rho, tol, 2,
+                          linsys)
+        out, counts = counted(label, lambda: simulate_mpc_scan(
+            model, run_cfg, xu_d, ee_d, X, U, lam, rho, tol, N_UPDATES,
+            linsys, timing=True), want)
 
         def again():
             return simulate_mpc_scan(model, run_cfg, xu_d, ee_d, X, U, lam,
                                      rho, tol, N_UPDATES, linsys)
 
         if detail:
-            t0 = time.perf_counter()
-            again()
-            t_enqueue = time.perf_counter() - t0
-            sync()
-            t_wall = time.perf_counter() - t0
-            print(f"{label} host clock: enqueue "
-                  f"{1e3 * t_enqueue / N_UPDATES:.3f} ms/update, to the end "
-                  f"of the device work {1e3 * t_wall / N_UPDATES:.3f} "
-                  f"ms/update")
-            _device_breakdown(again, N_UPDATES)
+            host_and_device(label, again, N_UPDATES)
         errs = out["tracking_errors"]
         if tuple(errs.shape) != (N_UPDATES,) or not torch.isfinite(errs).all():
             raise AssertionError(f"{label}: tracking errors not finite: {errs}")
@@ -526,7 +686,7 @@ def main() -> int:
 
     plain_cfg = dataclasses.replace(cfg, fused_stages=False)
     u, s = N_UPDATES, SQP_ITERS
-    none = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
+    none = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K10"), 0)
     staged, staged_counts = run_loop(
         "staged pcg, fused", cfg, "pcg", detail=True,
         want={**none, "K1": u, "K2": u + u * s, "K3": u * s, "K4": u * s})
@@ -560,11 +720,105 @@ def main() -> int:
             raise AssertionError(f"forced failover, {label}: failed_over "
                                  f"{sm['failed_over']}")
 
+    # ---- 5. the multi-arm loops: the arms start from seeded perturbations
+    # of the fixture start's joint positions, with the warm duals
+    lam_w = warm_lam(mega_cfg)
+    dq = torch.as_tensor(0.02 * np.random.default_rng(11).normal(
+        size=(max(SWEEP_ARMS), NX // 2)), dtype=torch.float32, device=dev)
+
+    def run_packed(label, run_cfg, arms, n_updates, want=None,
+                   detail=False):
+        Xs, Us, lams = arm_starts(X, U, lam_w, dq[:arms])
+
+        def again(n_up=n_updates, timing=False):
+            return simulate_mpc_scan_packed(model, run_cfg, xu_d, ee_d, Xs,
+                                            Us, lams, cfg.rho_init, tol, n_up,
+                                            timing=timing)
+
+        again(2)
+        out, counts = counted(label, lambda: again(timing=True), want)
+        errs = out["tracking_errors"]
+        if (tuple(errs.shape) != (arms, n_updates)
+                or not torch.isfinite(errs).all()
+                or not torch.isfinite(out["final_xs"]).all()):
+            raise AssertionError(f"{label}: tracking errors or final states "
+                                 f"not finite: {errs}")
+        shifted = out["shifted"].to(dev)
+        summary = {
+            "mean_err_m": errs.mean(1).tolist(),
+            "mean_err_at_shifts_m": errs[:, shifted].mean(1).tolist(),
+            "update_ms_median": statistics.median(out["update_ms"]),
+            "sqp_iters": out["sqp_iters"].tolist(),
+            "pcg_iters_total": out["pcg_iters_total"].tolist(),
+            "rho_bailed": out["rho_bailed"].sum(1).tolist(),
+        }
+        print(f"{label}: {json.dumps(summary)}")
+        if detail:
+            t, calls = host_and_device(label, again, n_updates).get(
+                "K10", (0.0, 0))
+            summary["k10_device_ms"] = t / 1e3 / calls if calls else None
+        return summary, counts, again
+
+    packed, packed_counts, _ = run_packed(
+        f"packed, {ARMS} arms, fused", cfg, ARMS, N_UPDATES,
+        want={**none, "K1": u, "K10": u}, detail=True)
+    packed_plain = run_packed(f"packed, {ARMS} arms, plain", plain_cfg, ARMS,
+                              N_UPDATES, want=none)[0]
+    for key in ("sqp_iters", "rho_bailed"):
+        if packed[key] != packed_plain[key]:
+            raise AssertionError(f"packed {key}: fused {packed[key]} vs "
+                                 f"plain {packed_plain[key]}")
+    for key in ("mean_err_m", "mean_err_at_shifts_m"):
+        for a, (x1, x2) in enumerate(zip(packed[key], packed_plain[key])):
+            if not (x1 < 0.1 and x2 < 0.1) or abs(x1 - x2) > 5e-3:
+                raise AssertionError(f"packed {key} arm {a}: fused {x1} vs "
+                                     f"plain {x2} (each under 0.1 m, within "
+                                     f"5e-3 m)")
+
+    Xs, Us, lams = arm_starts(X, U, lam_w, dq[:ARMS])
+    simulate_mpc_scan_batched(model, cfg, xu_d, ee_d, Xs, Us, lams,
+                              cfg.rho_init, tol, 2)
+    batched, _ = counted(
+        f"batched, {ARMS} arms (plain modules)",
+        lambda: simulate_mpc_scan_batched(
+            model, cfg, xu_d, ee_d, Xs, Us, lams, cfg.rho_init, tol,
+            BATCHED_UPDATES, timing=True), none)
+    errs = batched["tracking_errors"]
+    if (tuple(errs.shape) != (ARMS, BATCHED_UPDATES)
+            or not torch.isfinite(errs).all()):
+        raise AssertionError(f"batched: tracking errors {errs}")
+    print(f"batched, {ARMS} arms: update median "
+          f"{statistics.median(batched['update_ms']):.3f} ms, mean errors "
+          f"{errs.mean(1).tolist()}, sqp_iters "
+          f"{batched['sqp_iters'].tolist()}")
+
+    # arm-updates/s of the packed loop over B, and K10's device time
+    sweep = []
+    for arms in SWEEP_ARMS:
+        sm, counts, again = run_packed(
+            f"sweep, {arms} arms", cfg, arms, N_UPDATES,
+            want={**none, "K1": u, "K10": u})
+        # the profiler may drop a record of the cooperative launch (it
+        # showed 15 of 16 once); the time per call is over those it kept
+        t, calls = _by_kernel(_device_events(again)).get("K10", (0.0, 0))
+        if not calls:
+            raise AssertionError(f"sweep, {arms} arms: the profile shows no "
+                                 f"K10 kernel")
+        row = {"metric": f"iiwa_mpc_batched_throughput_n{n}_b{arms}",
+               "arms": arms,
+               "arm_updates_per_s": arms * 1e3 / sm["update_ms_median"],
+               "update_ms_median": sm["update_ms_median"],
+               "k10_device_ms": t / 1e3 / calls, "k10_profiled": calls,
+               "cg_iters_per_update": statistics.mean(sm["pcg_iters_total"]),
+               "grid": k10.check_mega_packed_fit(n, arms, cfg.num_alphas)}
+        print(f"sweep: {json.dumps(row)}")
+        sweep.append(row)
+
     # each kernel's launches: the first run of this slice's paths that
-    # launched it (the default auto loop, its failover branch, then the
-    # staged loop)
+    # launched it (the default auto loop, its failover branch, the staged
+    # loop, then the packed loop)
     paths = (("auto", auto_counts), ("failover", fo_counts),
-             ("staged", staged_counts))
+             ("staged", staged_counts), ("packed", packed_counts))
     for k in kernels:
         kid = k["name"].split()[0]
         path, count = next(((p, c[kid]) for p, c in paths if c[kid]),
@@ -573,6 +827,9 @@ def main() -> int:
             raise AssertionError(f"{kid} was launched in no closed loop")
         k["launches"], k["path"] = count, path
 
+    k10_entry = next(k for k in kernels if k["name"].startswith("K10 "))
+    k10_entry["device_ms"] = packed["k10_device_ms"]
+    k10_entry["sweep"] = sweep
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #define LD_DEV __device__ inline
+#define LD_HD __host__ __device__ inline
 #define LD_GLOBAL __global__
 #define LD_LAUNCH_BOUNDS(threads) __launch_bounds__(threads)
 #define LD_SHARED __shared__
@@ -44,6 +45,7 @@
 #include <math.h>
 #include <vector>
 #define LD_DEV inline
+#define LD_HD inline
 #define LD_GLOBAL static
 #define LD_LAUNCH_BOUNDS(threads)
 #define LD_SHARED static

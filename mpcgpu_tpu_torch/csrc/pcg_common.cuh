@@ -1,6 +1,7 @@
 // The one-block CG solve of S lam = gamma and the primal step, shared by
-// K4 (pcg_dz.cu), K5 (sqp_mega.cu, its dual-solve stage) and K6
-// (bcr_pcg_dz.cu).
+// K4 (pcg_dz.cu), K5 (sqp_mega.cu, its dual-solve stage), K6
+// (bcr_pcg_dz.cu) and K10 (sqp_mega_packed.cu, which drives cg_init and
+// cg_step itself: its arms' CGs share one exit).
 //
 // One thread block holds S's three (N, 14, 14) bands and the CG vectors in
 // shared memory; one thread per (knot, row) entry of an (N, 14) vector
@@ -54,9 +55,27 @@ LD_DEV float band_row(const float* L, const float* D, const float* U,
 }
 
 // Shared memory of one solve: S's three bands, `vecs` (N, 14) vectors and
-// 33 reduction slots.
-inline size_t cg_smem_floats(int N, int vecs) {
+// 33 reduction slots; cg_area lays them out (lam, r, p, w for vecs = 4).
+LD_HD size_t cg_smem_floats(int N, int vecs) {
   return (size_t)3 * N * S * S + (size_t)vecs * N * S + 33;
+}
+
+struct CgArea {
+  float *SL, *SD, *SU, *lam, *r, *p, *w, *red;
+};
+
+LD_DEV CgArea cg_area(float* smem, int N) {
+  const int nb = S * S * N, n = S * N;
+  CgArea a;
+  a.SL = smem;
+  a.SD = a.SL + nb;
+  a.SU = a.SD + nb;
+  a.lam = a.SU + nb;
+  a.r = a.lam + n;
+  a.p = a.r + n;
+  a.w = a.p + n;
+  a.red = a.w + n;
+  return a;
 }
 
 // The stair preconditioner z = Pinv r from its bands (global memory);
@@ -92,6 +111,52 @@ LD_DEV void load_system(int N, const float* SLg, const float* SDg,
   LD_SYNC();
 }
 
+// num / den, or 0 where num is 0 when `safe` (the packed CG's 0/0 -> 0:
+// an arm whose residual is exactly zero freezes instead of making NaN).
+LD_DEV float cg_div(float num, float den, bool safe) {
+  return (safe && !(fabsf(num) > 0.0f)) ? 0.0f : num / den;
+}
+
+// The CG's start from lam (warm, (N, 14)): r = gamma - S lam, p = M^-1 r;
+// returns eta = r . p.
+template <class Pre>
+LD_DEV float cg_init(int N, const float* SL, const float* SD, const float* SU,
+                     const float* gamma, const float* lam, float* r, float* p,
+                     float* red, const Pre& pre) {
+  const int tid = LD_TID, nt = LD_NTID, n = S * N;
+  for (int e = tid; e < n; e += nt) r[e] = gamma[e] - band_row(SL, SD, SU, lam, N, e);
+  LD_SYNC();
+  return block_sum(pre.apply(r, p), red);
+}
+
+// One CG iteration from eta = r . p; returns the new eta.  w is (N, 14)
+// scratch; `safe` selects cg_div's 0/0 -> 0 for alpha and beta.
+template <class Pre>
+LD_DEV float cg_step(int N, const float* SL, const float* SD, const float* SU,
+                     float* lam, float* r, float* p, float* w, float* red,
+                     const Pre& pre, float eta, bool safe) {
+  const int tid = LD_TID, nt = LD_NTID, n = S * N;
+  // w = S p, alpha = eta / p.w
+  float part = 0.0f;
+  for (int e = tid; e < n; e += nt) {
+    const float z = band_row(SL, SD, SU, p, N, e);
+    w[e] = z;
+    part += p[e] * z;
+  }
+  const float alpha = cg_div(eta, block_sum(part, red), safe);
+  for (int e = tid; e < n; e += nt) {
+    lam[e] += alpha * p[e];
+    r[e] -= alpha * w[e];
+  }
+  LD_SYNC();
+  // w = M^-1 r, eta' = r . w
+  const float eta_new = block_sum(pre.apply(r, w), red);
+  const float beta = cg_div(eta_new, eta, safe);
+  for (int e = tid; e < n; e += nt) p[e] = w[e] + beta * p[e];
+  LD_SYNC();
+  return eta_new;
+}
+
 // Warm-started preconditioned CG (MPCGPU alg. 2): exit when
 // |eta| = |r' M^-1 r| <= tol or at max_iter.  lam holds lam0 on entry and
 // the solution on exit; r, p, w are (N, 14) scratch vectors.  Returns the
@@ -101,34 +166,10 @@ LD_DEV int cg_solve(int N, const float* SL, const float* SD, const float* SU,
                     const float* gamma, float* lam, float* r, float* p,
                     float* w, float* red, const Pre& pre, int max_iter,
                     float tol, float* eta_out) {
-  const int tid = LD_TID, nt = LD_NTID, n = S * N;
-  // r = gamma - S lam
-  for (int e = tid; e < n; e += nt) r[e] = gamma[e] - band_row(SL, SD, SU, lam, N, e);
-  LD_SYNC();
-  // p = M^-1 r, eta = r . p
-  float eta = block_sum(pre.apply(r, p), red);
-
+  float eta = cg_init(N, SL, SD, SU, gamma, lam, r, p, red, pre);
   int it = 0;
   while (it < max_iter && fabsf(eta) > tol) {
-    // w = S p, alpha = eta / p.w
-    float part = 0.0f;
-    for (int e = tid; e < n; e += nt) {
-      const float z = band_row(SL, SD, SU, p, N, e);
-      w[e] = z;
-      part += p[e] * z;
-    }
-    const float alpha = eta / block_sum(part, red);
-    for (int e = tid; e < n; e += nt) {
-      lam[e] += alpha * p[e];
-      r[e] -= alpha * w[e];
-    }
-    LD_SYNC();
-    // w = M^-1 r, eta' = r . w
-    const float eta_new = block_sum(pre.apply(r, w), red);
-    const float beta = eta_new / eta;
-    for (int e = tid; e < n; e += nt) p[e] = w[e] + beta * p[e];
-    LD_SYNC();
-    eta = eta_new;
+    eta = cg_step(N, SL, SD, SU, lam, r, p, w, red, pre, eta, false);
     ++it;
   }
   *eta_out = eta;
@@ -138,7 +179,8 @@ LD_DEV int cg_solve(int N, const float* SL, const float* SD, const float* SU,
 // Primal step recovery (dz.cuh:5-121) from lam (shared memory):
 //   dx_k = -Qinv_k (q_k - lam_k + A_k' lam_{k+1})   (no A term at k = N-1)
 //   du_k = -Rinv_k (r_k + B_k' lam_{k+1});
-// also writes lam to lam_out.  rx, ru are (N, 14) shared scratch.
+// also writes lam to lam_out unless it is null.  rx, ru are (N, 14) shared
+// scratch.
 LD_DEV void dz_epilogue(int N, const float* lam, const float* A,
                         const float* B, const float* q, const float* r_in,
                         const float* Qinv, const float* Rinv, float* rx,
@@ -150,7 +192,7 @@ LD_DEV void dz_epilogue(int N, const float* lam, const float* A,
     if (k < N - 1)
       for (int m = 0; m < S; ++m) acc += A[S * S * k + S * m + i] * lam[S * (k + 1) + m];
     rx[e] = acc;
-    lam_out[e] = lam[e];
+    if (lam_out) lam_out[e] = lam[e];
   }
   for (int e = tid; e < (N - 1) * NU; e += nt) {
     const int k = e / NU, i = e % NU;
@@ -201,24 +243,16 @@ LD_DEV void pcg_dz_body(float* smem, int N, const float* SLg,
                         const float* Rinv, int max_iter, float tol,
                         float* lam_out, float* dX, float* dU, int* iters_out,
                         bool* hit_out) {
-  const int nb = S * S * N, n = S * N;
-  float* SL = smem;
-  float* SD = SL + nb;
-  float* SU = SD + nb;
-  float* lam = SU + nb;
-  float* r = lam + n;
-  float* p = r + n;
-  float* w = p + n;
-  float* red = w + n;
-  load_system(N, SLg, SDg, SUg, lam0, SL, SD, SU, lam);
+  const CgArea a = cg_area(smem, N);
+  load_system(N, SLg, SDg, SUg, lam0, a.SL, a.SD, a.SU, a.lam);
   float eta;
-  const int it = cg_solve(N, SL, SD, SU, gamma, lam, r, p, w, red,
-                          StairPre{PL, PD, PU, N}, max_iter, tol, &eta);
+  const int it = cg_solve(N, a.SL, a.SD, a.SU, gamma, a.lam, a.r, a.p, a.w,
+                          a.red, StairPre{PL, PD, PU, N}, max_iter, tol, &eta);
   if (LD_TID == 0) {
     iters_out[0] = it;
     hit_out[0] = fabsf(eta) > tol;
   }
-  dz_epilogue(N, lam, A, B, q, r_in, Qinv, Rinv, r, p, lam_out, dX, dU);
+  dz_epilogue(N, a.lam, A, B, q, r_in, Qinv, Rinv, a.r, a.p, lam_out, dX, dU);
   LD_SYNC();
 }
 

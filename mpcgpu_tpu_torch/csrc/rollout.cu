@@ -13,6 +13,11 @@
 // first copying the model tables into shared memory, and thread 0 walks the
 // chain in registers and local memory.  The launch itself is a sizeable
 // share of the time.
+//
+// The arm-batched launch (mpc_rollout_arms) runs B arms' rollouts at once,
+// one block per arm, each doing exactly what one single launch does with
+// the arm's x and U_prev and the shared goal: so B arms cost one launch,
+// not B serial ones (the JAX package unrolls B K1 calls).
 #include "lanedyn.cuh"
 
 namespace {
@@ -48,6 +53,11 @@ LD_GLOBAL void rollout_kernel(const float* __restrict__ tab_g,
   LD_SHARED float tab[ld::TAB_SIZE];
   ld::load_tables(tab, tab_g);
   if (LD_TID != 0) return;
+  // block b rolls out arm b
+  x0 += ld::NX * LD_BID;
+  U_prev += (size_t)ld::NU * n_ctrl * LD_BID;
+  x_out += ld::NX * LD_BID;
+  err_out += LD_BID;
 
   const float t0 = offset_us * 1e-6f;
   const float total = sim_time_us * 1e-6f;
@@ -77,6 +87,19 @@ LD_GLOBAL void rollout_kernel(const float* __restrict__ tab_g,
 }
 
 }  // namespace
+
+extern "C" int mpc_rollout_arms(const float* tab, int arms, const float* x0,
+                                const float* U_prev, int n_ctrl,
+                                const float* goal0, float offset_us,
+                                float sim_time_us, float timestep, float sub,
+                                int max_substeps, float grav, float* x_out,
+                                float* err_out, void* stream) {
+  if (arms < 1) return 1;  // cudaErrorInvalidValue
+  LD_LAUNCH(rollout_kernel, arms, 32, 0, stream, tab, x0, U_prev, n_ctrl,
+            goal0, offset_us, sim_time_us, timestep, sub, max_substeps, grav,
+            x_out, err_out);
+  return LD_LAST_ERROR();
+}
 
 extern "C" int mpc_rollout(const float* tab, const float* x0,
                            const float* U_prev, int n_ctrl,

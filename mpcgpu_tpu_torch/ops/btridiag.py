@@ -2,7 +2,8 @@
 
 Three (N, s, s) bands, knot-major: ``lower[k]`` is row k's block in
 column k-1 (``lower[0]`` = 0), ``diag[k]`` in column k, ``upper[k]`` in
-column k+1 (``upper[N-1]`` = 0).
+column k+1 (``upper[N-1]`` = 0).  Leading dimensions (an arm axis) batch:
+bands (..., N, s, s), vectors (..., N, s).
 """
 from __future__ import annotations
 
@@ -18,9 +19,9 @@ class BlockTri(NamedTuple):
 
 
 def spmv(T: BlockTri, x: torch.Tensor) -> torch.Tensor:
-    """y = T @ x for x shaped (N, s)."""
-    z = torch.zeros_like(x[:1])
-    x_prev = torch.cat([z, x[:-1]], dim=0)
-    x_next = torch.cat([x[1:], z], dim=0)
+    """y = T @ x for x shaped (..., N, s)."""
+    z = torch.zeros_like(x[..., :1, :])
+    x_prev = torch.cat([z, x[..., :-1, :]], dim=-2)
+    x_next = torch.cat([x[..., 1:, :], z], dim=-2)
     mv = lambda M, v: (M @ v.unsqueeze(-1)).squeeze(-1)
     return mv(T.diag, x) + mv(T.lower, x_prev) + mv(T.upper, x_next)

@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("rollout.cu", "merit.cu", "kkt_schur.cu", "pcg_dz.cu",
-           "bcr_pcg_dz.cu", "sqp_mega.cu")
+           "bcr_pcg_dz.cu", "sqp_mega.cu", "sqp_mega_packed.cu")
 HEADERS = ("lanedyn.cuh", "kkt_schur.cuh", "merit.cuh", "pcg_common.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -37,6 +37,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mpc_rollout": [_P, _P, _P, _I, _P, _F, _F, _F, _F, _I, _F, _P, _P, _P],
+    "mpc_rollout_arms": [_P, _I, _P, _P, _I, _P, _F, _F, _F, _F, _I, _F, _P,
+                         _P, _P],
     "mpc_merits": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F,
                    _F, _P, _P],
     "mpc_kkt_schur": [_P, _I, _P, _P, _P, _I, _P, _F, _F, _F, _F, _I]
@@ -52,9 +54,16 @@ _SIGNATURES = {
     "mpc_mega_max_knots": [],
     "mpc_mega_grid": [_I],
     "mpc_sqp_mega_scratch_floats": [_I, _I],
+    "mpc_sqp_mega_packed": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                            _I, _F, _I] + [_F] * 5 + [_I] + [_F] * 4
+                           + [_P] * 7 + [_I, _P],
+    "mpc_mega_packed_max_knots": [_I, _I],
+    "mpc_mega_packed_grid": [_I, _I, _I],
+    "mpc_sqp_mega_packed_scratch_floats": [_I, _I, _I],
 }
 _RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
-             "mpc_sqp_mega_scratch_floats": ctypes.c_longlong}
+             "mpc_sqp_mega_scratch_floats": ctypes.c_longlong,
+             "mpc_sqp_mega_packed_scratch_floats": ctypes.c_longlong}
 
 _libs: dict = {}
 

@@ -2,7 +2,9 @@
 
 Counterpart of mpcgpu_tpu/ops/pallas/rollout_kernel.py.  A CPU tensor
 runs the plain version (``sim._plant_rollout`` + ``sim._tracking_error``);
-a CUDA tensor launches the kernel or raises.
+a CUDA tensor launches the kernel or raises.  With a leading arm axis (x
+(B, nx), U_prev (B, N-1, nu)) one arm-batched launch rolls every arm out,
+one block per arm, counted under K1.
 """
 from __future__ import annotations
 
@@ -24,9 +26,14 @@ def _launch(lib, tab, cfg, x, U_prev, goal0, offset_us, sim_time_us,
             max_substeps: int, stream):
     dev = x.device
     nx = _lib.NJ * 2
-    _lib.expect(x, "x", (nx,), dev)
-    if U_prev.dim() != 2 or U_prev.shape[1] != _lib.NJ or U_prev.shape[0] < 1:
-        raise ValueError(f"U_prev must be (N-1, {_lib.NJ}), got "
+    arms = x.shape[:-1]
+    if x.dim() not in (1, 2) or x.shape[-1] != nx:
+        raise ValueError(f"x must be ({nx},) or (B, {nx}), got "
+                         f"{tuple(x.shape)}")
+    _lib.expect(x, "x", tuple(x.shape), dev)
+    if (U_prev.shape[:-2] != arms or U_prev.dim() != x.dim() + 1
+            or U_prev.shape[-1] != _lib.NJ or U_prev.shape[-2] < 1):
+        raise ValueError(f"U_prev must be {arms} + (N-1, {_lib.NJ}), got "
                          f"{tuple(U_prev.shape)}")
     _lib.expect(U_prev, "U_prev", tuple(U_prev.shape), dev)
     _lib.expect(goal0, "goal0", tuple(goal0.shape), dev)
@@ -34,13 +41,16 @@ def _launch(lib, tab, cfg, x, U_prev, goal0, offset_us, sim_time_us,
         raise ValueError("goal0 needs at least 3 entries")
     _lib.expect(tab, "tables", (_lib.TAB_SIZE,), dev)
     x_new = torch.empty_like(x)
-    err = torch.empty((), dtype=torch.float32, device=dev)
-    rc = lib.mpc_rollout(
-        tab.data_ptr(), x.data_ptr(), U_prev.data_ptr(), U_prev.shape[0],
-        goal0.data_ptr(), float(offset_us), float(sim_time_us),
-        float(cfg.timestep), float(cfg.sim_step_time), int(max_substeps),
-        float(cfg.gravity), x_new.data_ptr(), err.data_ptr(), stream)
-    _lib.check(rc, "mpc_rollout")
+    err = torch.empty(arms, dtype=torch.float32, device=dev)
+    args = (x.data_ptr(), U_prev.data_ptr(), U_prev.shape[-2],
+            goal0.data_ptr(), float(offset_us), float(sim_time_us),
+            float(cfg.timestep), float(cfg.sim_step_time), int(max_substeps),
+            float(cfg.gravity), x_new.data_ptr(), err.data_ptr(), stream)
+    if arms:
+        _lib.check(lib.mpc_rollout_arms(tab.data_ptr(), arms[0], *args),
+                   "mpc_rollout_arms")
+    else:
+        _lib.check(lib.mpc_rollout(tab.data_ptr(), *args), "mpc_rollout")
     return x_new, err
 
 
@@ -48,6 +58,8 @@ def plant_rollout(model, cfg, x, U_prev, goal0, offset_us, sim_time_us,
                   max_substeps: int):
     """Integrate the plant for sim_time_us from x with the previous plan
     U_prev (N-1, nu); return (x_new (nx,), L1 xyz tracking error vs goal0).
+    With an arm axis, x (B, nx) and U_prev (B, N-1, nu) give x_new (B, nx)
+    and errors (B,) against the shared goal0, in one launch.
 
     offset_us and sim_time_us are host numbers (the control schedule is
     known on the host)."""

@@ -1,10 +1,12 @@
-"""K5: the whole SQP solve in one cooperative launch (csrc/sqp_mega.cu).
+"""K5: the whole SQP solve in one cooperative launch (csrc/sqp_mega.cu),
+and K10: the same for B arms at once (csrc/sqp_mega_packed.cu).
 
 Counterpart of mpcgpu_tpu/ops/pallas/sqp_megakernel.py, the whole-solve
-part (sqp_solve_mega_pcg).  A CPU tensor runs the plain version, the
-port's staged iteration loop (sqp.iterate) over the plain K3, K4 and K2
-versions for the same fixed ``n_sqp_iter`` with the bail freeze; a CUDA
-tensor launches the kernel or raises.
+parts (sqp_solve_mega_pcg, sqp_solve_mega_pcg_packed).  A CPU tensor runs
+the plain version, the port's staged iteration loop (sqp.iterate) for the
+same fixed ``n_sqp_iter`` with the bail freeze -- over the plain K3, K4
+and K2 versions for K5, over the arm-batched plain modules with the CG's
+shared exit for K10; a CUDA tensor launches the kernel or raises.
 
 The kernel is one persistent cooperative launch with grid barriers
 between its stages; its CG stage runs in one block that holds S in shared
@@ -12,7 +14,12 @@ memory, and every block asks for that memory.  ``check_mega_fit`` raises
 past the largest N that fits, and before a grid that could not be
 co-resident (the counterpart of the reference's checkPcgOccupancy and of
 the TPU's check_pcg_vmem_fit): an oversubscribed cooperative launch is
-never made.
+never made.  ``check_mega_packed_fit`` does the same for K10, and raises
+too when the grid cannot give every arm a CG block of its own.
+
+K10's public layout is knot-major with a leading arm axis: X (B, N, nx),
+U (B, N-1, nu), lam0 (B, N, nx), goals (B, N, >=3) (or one (N, >=3)
+expanded over the arms), xs (B, nx), rho and drho (B,).
 """
 from __future__ import annotations
 
@@ -20,12 +27,17 @@ from typing import NamedTuple
 
 import torch
 
+from mpcgpu_tpu_torch.ops import merit as merit_ops
 from mpcgpu_tpu_torch.ops.cuda import _lib
 from mpcgpu_tpu_torch.ops.cuda.kkt_schur_kernel import (
     form_kkt_schur_reference)
 from mpcgpu_tpu_torch.ops.cuda.merit_kernel import (
     alphas_for, line_search_merits_reference)
 from mpcgpu_tpu_torch.ops.cuda.pcg_kernel import pcg_dz_reference
+from mpcgpu_tpu_torch.ops.dz import compute_dz
+from mpcgpu_tpu_torch.ops.kkt import form_kkt
+from mpcgpu_tpu_torch.ops.pcg import pcg
+from mpcgpu_tpu_torch.ops.schur import form_schur
 
 
 class MegaResult(NamedTuple):
@@ -178,3 +190,164 @@ def sqp_solve_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit0,
 
 
 sqp_solve_mega_pcg.launches = 0
+
+
+class PackedResult(NamedTuple):
+    X: torch.Tensor                # (B, N, nx)
+    U: torch.Tensor                # (B, N-1, nu)
+    lam: torch.Tensor              # (B, N, nx)
+    rho: torch.Tensor              # (B,)
+    merit: torch.Tensor            # (B,)
+    sqp_iters: torch.Tensor        # (B,) int32 live iterations per arm
+    bailed: torch.Tensor           # (B,) bool
+    pcg_iters_total: torch.Tensor  # int32, the shared CG count summed
+
+
+def sqp_solve_mega_pcg_packed_reference(model, X, U, goals, xs, lam0, rho,
+                                        drho, max_iter: int, exit_tol,
+                                        n_sqp_iter: int, dt, qd_cost, r_cost,
+                                        gravity, mu, num_alphas: int,
+                                        rho_factor, rho_min, rho_max,
+                                        rho_reset) -> PackedResult:
+    """The plain version of K10: sqp.iterate over the arm-batched plain
+    modules (KKT, Schur with the stair preconditioner, the CG with its
+    shared exit, dz, the candidate merits), the incumbent merit computed
+    first, on the tensors' device."""
+    from mpcgpu_tpu_torch.sqp import iterate
+
+    def linearize_and_solve(Xc, Uc, lamc, rhoc):
+        kkt = form_kkt(model, Xc, Uc, goals, xs, dt, qd_cost, r_cost, 0,
+                       gravity)
+        sd = form_schur(kkt, rhoc)
+        res = pcg(sd.S, sd.Pinv, sd.gamma, lamc, max_iter, exit_tol,
+                  shared_exit=True)
+        dX, dU = compute_dz(kkt, sd, res.lam)
+        return res.lam, res.iters, res.hit_max, dX, dU
+
+    def eval_merits(Xc, Uc, dX, dU):
+        return merit_ops.line_search_merits(
+            model, Xc, Uc, dX, dU, alphas_for(num_alphas, Xc), goals, xs, dt,
+            mu, qd_cost, r_cost, 0, gravity)
+
+    f32 = dict(dtype=X.dtype, device=X.device)
+    b = X.shape[0]
+    merit0 = merit_ops.merit(model, X, U, goals, xs, dt, mu, qd_cost, r_cost,
+                             0, gravity)
+    (Xo, Uo, lam, rho_o, _drho, merit, iters, done, pcg_iters, _hit,
+     _acc) = iterate(X, U, lam0, torch.as_tensor(rho, **f32).expand(b),
+                     torch.as_tensor(drho, **f32).expand(b), merit0,
+                     n_sqp_iter, linearize_and_solve, eval_merits,
+                     alphas_for(num_alphas, X), rho_factor, rho_min, rho_max,
+                     rho_reset)
+    # an iteration's CG count where some arm was live, else -1
+    pcg_tot = pcg_iters.amax(-1).clamp(min=0).sum().to(torch.int32)
+    return PackedResult(X=Xo, U=Uo, lam=lam, rho=rho_o, merit=merit,
+                        sqp_iters=iters, bailed=done, pcg_iters_total=pcg_tot)
+
+
+def check_mega_packed_fit(knot_points: int, arms: int, num_alphas: int = 8,
+                          lib=None) -> int:
+    """Raise unless a block's shared memory fits B = arms at this horizon
+    and the co-resident grid gives every arm a CG block; return the grid a
+    launch uses, min(B N, co-resident blocks) (1 in the host build)."""
+    lib = lib or _lib.library()
+    key = (id(lib), knot_points, arms, num_alphas, _current_device())
+    if key in _grids:
+        return _grids[key]
+    n_max = lib.mpc_mega_packed_max_knots(arms, num_alphas)
+    if knot_points > n_max:
+        raise ValueError(
+            f"the arm-packed whole-solve kernel holds an arm's S in one "
+            f"block's shared memory and serves N <= {n_max} on this device; "
+            f"got N = {knot_points}")
+    grid = lib.mpc_mega_packed_grid(knot_points, arms, num_alphas)
+    if grid < 1:
+        raise ValueError(
+            f"the arm-packed whole-solve kernel cannot make a cooperative "
+            f"launch of {arms} arms at N = {knot_points} on this device: "
+            f"fewer blocks can be resident than there are arms, or the "
+            f"device has no cooperative launch")
+    _grids[key] = grid
+    return grid
+
+
+def _launch_packed(lib, tab, X, U, goals, xs, lam0, rho, drho,
+                   max_iter: int, exit_tol, n_sqp_iter: int, dt, qd_cost,
+                   r_cost, gravity, mu, num_alphas: int, rho_factor, rho_min,
+                   rho_max, rho_reset, grid: int, stream) -> PackedResult:
+    dev = X.device
+    nx, nu = 2 * _lib.NJ, _lib.NJ
+    if X.dim() != 3 or X.shape[2] != nx or X.shape[1] < 2:
+        raise ValueError(f"X must be (B, N >= 2, {nx}), got "
+                         f"{tuple(X.shape)}")
+    b, n = X.shape[:2]
+    f32 = dict(dtype=torch.float32, device=dev)
+    rho = torch.as_tensor(rho, **f32).expand(b).contiguous()
+    drho = torch.as_tensor(drho, **f32).expand(b).contiguous()
+    _lib.expect(X, "X", (b, n, nx), dev)
+    _lib.expect(U, "U", (b, n - 1, nu), dev)
+    _lib.expect(lam0, "lam0", (b, n, nx), dev)
+    _lib.expect(xs, "xs", (b, nx), dev)
+    _lib.expect(rho, "rho", (b,), dev)
+    _lib.expect(drho, "drho", (b,), dev)
+    if goals.dim() != 3 or goals.shape[:2] != (b, n) or goals.shape[2] < 3:
+        raise ValueError(f"goals must be ({b}, {n}, >=3), got "
+                         f"{tuple(goals.shape)}")
+    garm = 0 if goals.stride(0) == 0 else n * goals.shape[2]
+    base = goals[0] if garm == 0 else goals
+    _lib.expect(base, "goals", tuple(base.shape), dev)
+    _lib.expect(tab, "tables", (_lib.TAB_SIZE,), dev)
+    if not 1 <= num_alphas <= 16:
+        raise ValueError(f"the kernel serves 1..16 step sizes, got "
+                         f"{num_alphas}")
+    Xo = torch.empty((b, n, nx), **f32)
+    Uo = torch.empty((b, n - 1, nu), **f32)
+    lam = torch.empty((b, n, nx), **f32)
+    rho_o = torch.empty(b, **f32)
+    merit = torch.empty(b, **f32)
+    ints = torch.empty(2 * b + 1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(
+        lib.mpc_sqp_mega_packed_scratch_floats(n, b, num_alphas), **f32)
+    rc = lib.mpc_sqp_mega_packed(
+        tab.data_ptr(), b, n, X.data_ptr(), U.data_ptr(), base.data_ptr(),
+        goals.shape[2], garm, xs.data_ptr(), lam0.data_ptr(), rho.data_ptr(),
+        drho.data_ptr(), int(max_iter), float(exit_tol), int(n_sqp_iter),
+        float(dt), float(qd_cost), float(r_cost), float(gravity), float(mu),
+        int(num_alphas), float(rho_factor), float(rho_min), float(rho_max),
+        float(rho_reset), Xo.data_ptr(), Uo.data_ptr(), lam.data_ptr(),
+        rho_o.data_ptr(), merit.data_ptr(), ints.data_ptr(),
+        scratch.data_ptr(), int(grid), stream)
+    _lib.check(rc, "mpc_sqp_mega_packed")
+    return PackedResult(X=Xo, U=Uo, lam=lam, rho=rho_o, merit=merit,
+                        sqp_iters=ints[:b], bailed=ints[b:2 * b] != 0,
+                        pcg_iters_total=ints[2 * b])
+
+
+def sqp_solve_mega_pcg_packed(model, X, U, goals, xs, lam0, rho, drho,
+                              max_iter: int, exit_tol, n_sqp_iter: int, dt,
+                              qd_cost, r_cost, gravity, mu, num_alphas: int,
+                              rho_factor, rho_min, rho_max,
+                              rho_reset) -> PackedResult:
+    """Run n_sqp_iter SQP iterations for each of B arms (module doc for the
+    layout): per-arm rho, drho, merit (computed first, in-kernel), accept
+    and bail freeze, one CG per arm with the shared exit; rho and drho are
+    (B,) tensors or numbers, max_iter and exit_tol host numbers."""
+    if X.device.type == "cpu":
+        return sqp_solve_mega_pcg_packed_reference(
+            model, X, U, goals, xs, lam0, rho, drho, max_iter, exit_tol,
+            n_sqp_iter, dt, qd_cost, r_cost, gravity, mu, num_alphas,
+            rho_factor, rho_min, rho_max, rho_reset)
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    lib = _lib.library()
+    grid = check_mega_packed_fit(X.shape[1], X.shape[0], num_alphas, lib)
+    out = _launch_packed(lib, _lib.model_tables(model), X, U, goals, xs,
+                         lam0, rho, drho, max_iter, exit_tol, n_sqp_iter, dt,
+                         qd_cost, r_cost, gravity, mu, num_alphas,
+                         rho_factor, rho_min, rho_max, rho_reset, grid,
+                         _lib.stream_of(X))
+    sqp_solve_mega_pcg_packed.launches += 1
+    return out
+
+
+sqp_solve_mega_pcg_packed.launches = 0

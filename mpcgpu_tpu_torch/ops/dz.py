@@ -7,6 +7,7 @@ descent step applied with positive alphas is
     du_k = -Rr_k^-1 (r_k + B_k' lam_{k+1})
 
 (the reference's negated dz with negative alphas, dz.cuh:5-121).
+Leading dimensions (an arm axis) batch.
 """
 from __future__ import annotations
 
@@ -21,10 +22,12 @@ def _mtv(M, v):
 
 
 def compute_dz(kkt: KKTData, schur: SchurData, lam: torch.Tensor):
-    """Returns (dX (N, nx), dU (N-1, nu))."""
-    At_lam = _mtv(kkt.A, lam[1:])
-    rhs_x = kkt.q - lam + torch.cat([At_lam, torch.zeros_like(lam[:1])], dim=0)
+    """Returns (dX (..., N, nx), dU (..., N-1, nu))."""
+    lam_next = lam[..., 1:, :]
+    At_lam = _mtv(kkt.A, lam_next)
+    rhs_x = kkt.q - lam + torch.cat([At_lam, torch.zeros_like(lam[..., :1, :])],
+                                    dim=-2)
     dX = -(schur.Qinv @ rhs_x.unsqueeze(-1)).squeeze(-1)
-    rhs_u = kkt.r + _mtv(kkt.B, lam[1:])
+    rhs_u = kkt.r + _mtv(kkt.B, lam_next)
     dU = -(schur.Rinv @ rhs_u.unsqueeze(-1)).squeeze(-1)
     return dX, dU

@@ -34,15 +34,18 @@ def form_kkt(model: RobotModel, X, U, goals, xs, dt, qd_cost, r_cost,
              integrator_type: int = 0, gravity: float = 0.0,
              hessian: str = "reference", angle_wrap: bool = False,
              tracking: str = "eepos", q_cost: float = 1.0) -> KKTData:
-    """Linearize dynamics and cost around (X (N, nx), U (N-1, nu))."""
+    """Linearize dynamics and cost around (X (..., N, nx), U (..., N-1, nu));
+    leading dimensions (an arm axis, with xs (..., nx)) batch."""
     A, B, err = integ.integrator_and_gradient(
-        model, X[:-1], U, X[1:], dt, integrator_type, gravity, angle_wrap)
-    Upad = torch.cat([U, torch.zeros_like(U[:1])], dim=0)
+        model, X[..., :-1, :], U, X[..., 1:, :], dt, integrator_type, gravity,
+        angle_wrap)
+    Upad = torch.cat([U, torch.zeros_like(U[..., :1, :])], dim=-2)
     if tracking == "joint":
         Q, q, R, r = cost_ops.joint_space_gradient_and_hessian(
             q_cost, qd_cost, r_cost, X, Upad, goals)
     else:
         Q, q, R, r = cost_ops.cost_gradient_and_hessian(
             model, qd_cost, r_cost, X, Upad, goals, hessian)
-    c = torch.cat([(X[0] - xs)[None], err], dim=0)
-    return KKTData(Q=Q, q=q, R=R[:-1], r=r[:-1], A=A, B=B, c=c)
+    c = torch.cat([(X[..., 0, :] - xs)[..., None, :], err], dim=-2)
+    return KKTData(Q=Q, q=q, R=R[..., :-1, :, :], r=r[..., :-1, :], A=A, B=B,
+                   c=c)

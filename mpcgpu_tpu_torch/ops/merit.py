@@ -3,7 +3,8 @@
 merit(X, U) = sum_k J_k + mu * ( sum_{k<N-1} ||x_{k+1} - f(x_k, u_k)||_1
                                  + ||x_0 - xs||_1 )
 
-The candidates of the line search are one batch dimension.
+The candidates of the line search are one batch dimension, ahead of any
+leading dimensions of X (an arm axis).
 """
 from __future__ import annotations
 
@@ -31,8 +32,9 @@ def line_search_merits(model: RobotModel, X, U, dX, dU, alphas, goals, xs,
                        dt, mu, qd_cost, r_cost, integrator_type: int = 0,
                        gravity: float = 0.0, angle_wrap: bool = False,
                        tracking: str = "eepos", q_cost: float = 1.0):
-    """Merit of (X + a dX, U + a dU) for every candidate step size a."""
-    a = alphas[:, None, None]
+    """Merit of (X + a dX, U + a dU) for every candidate step size a:
+    (len(alphas),) + X.shape[:-2]."""
+    a = alphas.view((-1,) + (1,) * X.dim())
     return merit(model, X + a * dX, U + a * dU, goals, xs, dt, mu, qd_cost,
                  r_cost, integrator_type, gravity, angle_wrap, tracking,
                  q_cost)

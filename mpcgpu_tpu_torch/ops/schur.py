@@ -8,6 +8,9 @@ mpcgpu_tpu/ops/schur.py, which documents the math).
               - B_{k-1} Rr_{k-1}^-1 r_{k-1} - c_k
     Pinv: diag theta_k^-1, lower -theta_k^-1 Phi_k theta_{k-1}^-1,
           upper -theta_k^-1 Phi_{k+1}' theta_{k+1}^-1
+
+Leading dimensions of the KKT blocks (an arm axis) batch; rho is a number
+or a tensor of those leading dimensions (one rho per arm).
 """
 from __future__ import annotations
 
@@ -33,39 +36,41 @@ def _mv(M, v):
 
 
 def form_schur(kkt: KKTData, rho, preconditioned: bool = True) -> SchurData:
-    n, nx = kkt.Q.shape[0], kkt.Q.shape[-1]
-    nu = kkt.R.shape[-1]
+    nx, nu = kkt.Q.shape[-1], kkt.R.shape[-1]
     dev, dt = kkt.Q.device, kkt.Q.dtype
     eye_x = torch.eye(nx, dtype=dt, device=dev)
     eye_u = torch.eye(nu, dtype=dt, device=dev)
+    rho = torch.as_tensor(rho, dtype=dt, device=dev)[..., None, None, None]
 
     Qinv = spd_inverse(kkt.Q + rho * eye_x)
     Rinv = spd_inverse(kkt.R + rho * eye_u)
 
-    AQi = kkt.A @ Qinv[:-1]
+    AQi = kkt.A @ Qinv[..., :-1, :, :]
     BRi = kkt.B @ Rinv
     theta_rest = (AQi @ kkt.A.transpose(-1, -2)
-                  + BRi @ kkt.B.transpose(-1, -2) + Qinv[1:])
-    theta = torch.cat([Qinv[:1], theta_rest], dim=0)
+                  + BRi @ kkt.B.transpose(-1, -2) + Qinv[..., 1:, :, :])
+    theta = torch.cat([Qinv[..., :1, :, :], theta_rest], dim=-3)
 
     phi = -AQi
-    zero_blk = torch.zeros((1, nx, nx), dtype=dt, device=dev)
-    S = BlockTri(lower=torch.cat([zero_blk, phi], dim=0), diag=theta,
-                 upper=torch.cat([phi.transpose(-1, -2), zero_blk], dim=0))
+    zero_blk = torch.zeros_like(theta[..., :1, :, :])
+    S = BlockTri(lower=torch.cat([zero_blk, phi], dim=-3), diag=theta,
+                 upper=torch.cat([phi.transpose(-1, -2), zero_blk], dim=-3))
 
     Qiq = _mv(Qinv, kkt.q)
-    gamma_rest = Qiq[1:] - _mv(AQi, kkt.q[:-1]) - _mv(BRi, kkt.r) - kkt.c[1:]
-    gamma = torch.cat([Qiq[:1], gamma_rest], dim=0)
+    gamma_rest = (Qiq[..., 1:, :] - _mv(AQi, kkt.q[..., :-1, :])
+                  - _mv(BRi, kkt.r) - kkt.c[..., 1:, :])
+    gamma = torch.cat([Qiq[..., :1, :], gamma_rest], dim=-2)
 
     if preconditioned:
         ti = spd_inverse(theta)
-        pl = -(ti[1:] @ phi @ ti[:-1])
-        pu = -(ti[:-1] @ phi.transpose(-1, -2) @ ti[1:])
-        Pinv = BlockTri(lower=torch.cat([zero_blk, pl], dim=0), diag=ti,
-                        upper=torch.cat([pu, zero_blk], dim=0))
+        ti1, ti0 = ti[..., 1:, :, :], ti[..., :-1, :, :]
+        pl = -(ti1 @ phi @ ti0)
+        pu = -(ti0 @ phi.transpose(-1, -2) @ ti1)
+        Pinv = BlockTri(lower=torch.cat([zero_blk, pl], dim=-3), diag=ti,
+                        upper=torch.cat([pu, zero_blk], dim=-3))
     else:
         # ENABLE_PRECONDITIONING=0 ablation: identity preconditioner
-        zeros = torch.zeros((n, nx, nx), dtype=dt, device=dev)
-        Pinv = BlockTri(lower=zeros, diag=eye_x.expand(n, nx, nx).clone(),
+        zeros = torch.zeros_like(theta)
+        Pinv = BlockTri(lower=zeros, diag=eye_x.expand(theta.shape).clone(),
                         upper=zeros.clone())
     return SchurData(S=S, Pinv=Pinv, gamma=gamma, Qinv=Qinv, Rinv=Rinv)

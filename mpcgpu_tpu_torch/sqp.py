@@ -15,6 +15,11 @@ happens, every later iteration is masked and leaves the state frozen, as
 the JAX package's whole-solve megakernel does.  So nothing in a solve
 reads a device value on the host.
 
+The plain path also takes B arms at once, written out as a leading arm
+axis (X (B, N, nx), rho (B,)) rather than through ``torch.func.vmap``:
+every stage batches over leading dimensions already, and ``iterate``
+keeps the accept test, rho, drho, merit and bail per arm.
+
 ``cfg.fused_stages`` selects the hand-written kernels.  With
 ``megakernel`` and ``megakernel_solve`` on the "pcg" backend, K2 computes
 the starting merit and ONE K5 launch runs every iteration of the solve;
@@ -65,6 +70,7 @@ class SQPResult(NamedTuple):
 
 
 def _solve_linsys_pcg(cfg: SolverConfig, schur, lam, pcg_exit_tol):
+    # per-arm freeze on an arm axis: jax.vmap of the single-arm loop
     res = pcg(schur.S, schur.Pinv, schur.gamma, lam,
               max_iter=cfg.pcg.max_iter, exit_tol=pcg_exit_tol)
     return res.lam, res.iters, res.hit_max
@@ -134,12 +140,20 @@ def sqp_solve(model: RobotModel, cfg: SolverConfig, X, U, lam, goals, xs,
 
     rho: Levenberg regularizer carried across solves (tensor or number).
     pcg_exit_tol: host number, the CG exit threshold on |r' Pinv r|.
+
+    With fused_stages off and linsys="pcg", B arms solve at once: X, U,
+    lam, xs and rho with a leading arm axis (goals shared (N, 6) or per
+    arm), stats per arm (module doc).
     """
     n_iter = cfg.sqp_max_iter
     dev, dt = X.device, X.dtype
     alphas = 0.5 ** torch.arange(cfg.num_alphas, dtype=dt, device=dev)
     cc = cfg.cost
     rho = torch.as_tensor(rho, dtype=dt, device=dev)
+    if X.dim() > 2 and (cfg.fused_stages or linsys != "pcg"):
+        raise ValueError("an arm axis runs the plain modules with linsys="
+                         "'pcg' (the arm-packed kernel path is "
+                         "ops.cuda.sqp_megakernel.sqp_solve_mega_pcg_packed)")
 
     if cfg.fused_stages:
         check_fused_config(cfg, linsys)
@@ -205,7 +219,7 @@ def sqp_solve(model: RobotModel, cfg: SolverConfig, X, U, lam, goals, xs,
             return lam_new, it, hit, dX, dU
 
     (X, U, lam, rho, _drho, merit, iters, done, pcg_iters, hits,
-     accepts) = iterate(X, U, lam, rho, torch.ones((), dtype=dt, device=dev),
+     accepts) = iterate(X, U, lam, rho, torch.ones_like(rho),
                         merit_of(X, U), n_iter, linearize_and_solve,
                         eval_merits, alphas, cfg.rho_factor, cfg.rho_min,
                         cfg.rho_max, cfg.rho_reset)
@@ -218,13 +232,16 @@ def iterate(X, U, lam, rho, drho, merit, n_iter: int, linearize_and_solve,
             eval_merits, alphas, rho_factor, rho_min, rho_max, rho_reset):
     """The staged SQP loop: n_iter iterations from incumbent merit
     `merit`, each linearize_and_solve(X, U, lam, rho) -> (lam', pcg iters,
-    hit, dX, dU), eval_merits(X, U, dX, dU) -> merits of the alphas, the
-    first minimum, the accept test and the rho schedule; after a bail
-    every iteration is masked.  Returns (X, U, lam, rho, drho, merit,
-    sqp_iters, bailed, pcg_iters, hit_max, accepted)."""
+    hit, dX, dU), eval_merits(X, U, dX, dU) -> merits of the alphas
+    (candidates first), the first minimum, the accept test and the rho
+    schedule; after a bail every iteration is masked.  rho, drho and
+    merit may carry an arm axis (B,), with X (B, N, nx): every decision
+    is then per arm, and a bailed arm is frozen while the others go on.
+    Returns (X, U, lam, rho, drho, merit, sqp_iters, bailed, pcg_iters,
+    hit_max, accepted), the last three stacked over iterations first."""
     dev = X.device
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros(rho.shape, dtype=torch.bool, device=dev)
+    iters = torch.zeros(rho.shape, dtype=torch.int32, device=dev)
     f = rho_factor
     pcg_iters, hits, accepts = [], [], []
     for _ in range(n_iter):
@@ -234,10 +251,10 @@ def iterate(X, U, lam, rho, drho, merit, n_iter: int, linearize_and_solve,
         merits = eval_merits(X, U, dX, dU)
         # gather, not merits[best]: a 0-d index tensor would be read on
         # the host, a sync per iteration
-        best = torch.argmin(merits).view(1)
+        best = torch.argmin(merits, dim=0, keepdim=True)
         best_merit = merits.gather(0, best)[0]
         accept = best_merit < merit
-        alpha = alphas.gather(0, best)[0]
+        alpha = alphas.gather(0, best.view(-1)).view(best.shape[1:])
 
         drho_rej = torch.clamp(drho * f, min=f)
         rho_rej = torch.clamp(rho * drho_rej, min=rho_min)
@@ -248,14 +265,16 @@ def iterate(X, U, lam, rho, drho, merit, n_iter: int, linearize_and_solve,
         bail = ~accept & (rho_n > rho_max)
         rho_n = torch.where(bail, torch.full_like(rho_n, rho_reset), rho_n)
 
-        X_n = torch.where(accept, X + alpha * dX, X)
-        U_n = torch.where(accept, U + alpha * dU, U)
+        acc2, alpha2 = accept[..., None, None], alpha[..., None, None]
+        X_n = torch.where(acc2, X + alpha2 * dX, X)
+        U_n = torch.where(acc2, U + alpha2 * dU, U)
         merit_n = torch.where(accept, best_merit, merit)
 
         # a bail freezes the state for the rest of the solve
-        X = torch.where(active, X_n, X)
-        U = torch.where(active, U_n, U)
-        lam = torch.where(active, lam_new, lam)
+        act2 = active[..., None, None]
+        X = torch.where(act2, X_n, X)
+        U = torch.where(act2, U_n, U)
+        lam = torch.where(act2, lam_new, lam)
         rho = torch.where(active, rho_n, rho)
         drho = torch.where(active, drho_n, drho)
         merit = torch.where(active, merit_n, merit)
@@ -269,6 +288,7 @@ def iterate(X, U, lam, rho, drho, merit, n_iter: int, linearize_and_solve,
     if n_iter:
         stack = lambda xs_: torch.stack(xs_)
     else:
-        stack = lambda xs_: torch.zeros(0, dtype=torch.int32, device=dev)
+        stack = lambda xs_: torch.zeros((0,) + rho.shape, dtype=torch.int32,
+                                        device=dev)
     return (X, U, lam, rho, drho, merit, iters, done, stack(pcg_iters),
             stack(hits).bool(), stack(accepts).bool())

@@ -25,6 +25,7 @@ from mpcgpu_tpu_torch.ops.cuda import merit_kernel as k2
 from mpcgpu_tpu_torch.ops.cuda import pcg_kernel as k4
 from mpcgpu_tpu_torch.ops.cuda import rollout_kernel as k1
 from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k5
+from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k10
 from tests.torch_systems import random_system
 from tests.test_torch_kkt_schur import DT, QD_COST, R_COST, RHO, problem
 
@@ -215,3 +216,126 @@ def test_k5_host_build_exits_the_cg_early_like_plain(host, traj_0_0, rho):
     its, want_its = got.pcg_iters, want.pcg_iters
     assert int((its - want_its).abs().max()) <= 2
     assert bool(((want_its >= 0) & (want_its < 40)).any())
+
+
+def _arms(traj_0_0, n, b, seed):
+    """b arms from seeded perturbations of fixture 0_0's first n knots."""
+    xu, ee = traj_0_0
+    rng = np.random.default_rng(seed)
+    X = T(np.stack([xu[:n, :14] + 0.02 * rng.normal(size=(n, 14))
+                    for _ in range(b)]).astype(np.float32))
+    U = T(np.stack([xu[:n - 1, 14:]] * b).astype(np.float32))
+    return X, U, T(ee[:n].copy()).expand(b, n, 6), X[:, 0].clone()
+
+
+@pytest.mark.parametrize("n,rhos,tol,rho_max,seed", [
+    # arms 0 and 1 from rho 1e-3 and 0.1, CGs at the cap and before it
+    (8, (1e-3, 0.1), 5e-5, 10.0, 5),
+    # three arms whose lone CGs stop at different counts (the shared exit)
+    (4, (0.02, 0.1, 0.3), 1e-4, 10.0, 7),
+    # arm 1 starts above rho_max = 0.05 and bails at its first rejected
+    # step (iteration 2) while arm 0 stays live through all 5
+    (4, (1e-3, 0.1), 1e-4, 0.05, 6),
+])
+def test_k10_host_build_matches_plain(host, traj_0_0, n, rhos, tol, rho_max,
+                                      seed):
+    """The arm-packed whole solve through the host build (one block owns
+    every arm's CG and walks every (arm, knot) pair; the grid barriers,
+    the shared exit's among them, are no-ops) against its plain version,
+    5 SQP iterations.  Tolerances of tests/test_megakernel.py:225-240: X,
+    U at rtol 1e-3, atol 1e-5; lam at rtol 1e-3, atol 1e-4; rho at rtol
+    1e-6; merit at rtol 1e-3 (the port's megakernel test); sqp_iters,
+    bails and the shared CG count equal."""
+    lib, model, tab = host
+    b = len(rhos)
+    X, U, goals, xs = _arms(traj_0_0, n, b, seed)
+    kw = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
+              num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=rho_max,
+              rho_reset=1e-3)
+    args = (X, U, goals, xs, torch.zeros(b, n, 14), torch.tensor(rhos),
+            torch.ones(b), 40, tol, 5)
+    want = k10.sqp_solve_mega_pcg_packed_reference(model, *args, **kw)
+    assert k10.check_mega_packed_fit(n, b, 8, lib) == 1
+    got = k10._launch_packed(lib, tab, *args, grid=1, stream=None, **kw)
+    _close(got.X, want.X, 1e-3, 1e-5)
+    _close(got.U, want.U, 1e-3, 1e-5)
+    _close(got.lam, want.lam, 1e-3, 1e-4)
+    _close(got.rho, want.rho, 1e-6, 0)
+    _close(got.merit, want.merit, 1e-3, 0)
+    for f in ("sqp_iters", "bailed", "pcg_iters_total"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    if rho_max == 0.05:
+        assert got.bailed.tolist() == [False, True]
+        assert got.sqp_iters.tolist() == [5, 2]
+
+
+def test_k10_host_build_takes_shared_goals(host, traj_0_0):
+    """Goals expanded over the arms (arm stride 0) and a copy per arm give
+    the same solve."""
+    lib, model, tab = host
+    X, U, goals, xs = _arms(traj_0_0, 4, 2, 3)
+    kw = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
+              num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=10.0,
+              rho_reset=1e-3)
+    rest = (xs, torch.zeros(2, 4, 14), torch.tensor([1e-3, 0.1]),
+            torch.ones(2), 40, 1e-4, 3)
+    a = k10._launch_packed(lib, tab, X, U, goals, *rest, grid=1, stream=None,
+                           **kw)
+    b = k10._launch_packed(lib, tab, X, U, goals.contiguous(), *rest, grid=1,
+                           stream=None, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b", [2, 3])
+def test_k1_arm_batched_host_build_equals_single_launches(host, traj_0_0, b):
+    """One arm-batched K1 launch (a block per arm) against B single K1
+    launches: bit-equal, the same per-arm arithmetic in the same order;
+    and within K1's tolerance of the plain version over the arm axis."""
+    lib, model, tab = host
+    cfg = SolverConfig.for_knots(16)
+    X, U, goals, xs = _arms(traj_0_0, 16, b, 4)
+    goal0 = goals[0, 0].contiguous()
+    got = k1._launch(lib, tab, cfg, xs, U, goal0, 2000.0, 2000.0, 11, None)
+    for a in range(b):
+        one = k1._launch(lib, tab, cfg, xs[a].contiguous(), U[a].contiguous(),
+                         goal0, 2000.0, 2000.0, 11, None)
+        assert torch.equal(got[0][a], one[0]) and torch.equal(got[1][a], one[1])
+    want = k1.plant_rollout_reference(model, cfg, xs, U, goal0, 2000.0,
+                                      2000.0, 11)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-4, 1e-5)
+
+
+def test_packed_loop_through_the_host_build(host, traj_0_0, monkeypatch):
+    """simulate_mpc_scan_packed with fused_stages, its K10 and arm-batched
+    K1 calls sent through the host build's launch paths (the card's
+    argument packing, shapes and contiguity checks), against the same loop
+    on the plain versions: sqp_iters, bails and the shared CG counts
+    equal, tracking errors and final states within 1e-4."""
+    import dataclasses
+
+    from mpcgpu_tpu_torch import sim
+
+    lib, model, tab = host
+    xu, ee = traj_0_0
+    n = 4
+    cfg = SolverConfig.for_knots(n, sqp_max_iter=3)
+    dq = T(np.random.default_rng(11).normal(size=(2, 7)).astype(np.float32))
+    X, U, lam = sim.arm_starts(T(xu[:n, :14]), T(xu[:n - 1, 14:].copy()),
+                               torch.zeros(n, 14), 0.02 * dq)
+    args = (model, None, T(xu), T(ee), X, U, lam, 1e-3, 1e-4, 3)
+    want = sim.simulate_mpc_scan_packed(*args[:1], cfg, *args[2:])
+    monkeypatch.setattr(
+        sim, "sqp_solve_mega_pcg_packed",
+        lambda model, *a, **kw: k10._launch_packed(lib, tab, *a, grid=1,
+                                                   stream=None, **kw))
+    monkeypatch.setattr(
+        sim, "plant_rollout",
+        lambda model, cfg, *a: k1._launch(lib, tab, cfg, *a, None))
+    fused = dataclasses.replace(cfg, fused_stages=True)
+    got = sim.simulate_mpc_scan_packed(*args[:1], fused, *args[2:])
+    for k in ("sqp_iters", "rho_bailed", "pcg_iters_total", "shifted"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("tracking_errors", "final_xs"):
+        _close(got[k], want[k], 0, 1e-4)

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K6 against their plain versions, on the card.
+"""The CUDA kernels K1-K6 and K10 against their plain versions, on the card.
 
 Marked ``cuda``: each test needs a CUDA device and skips without one.
 The file uses no fixture of tests/conftest.py, which imports JAX, so on a
@@ -7,7 +7,8 @@ GPU machine without JAX it runs with
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
 Inputs are the slice's: fixture 0_0 at N = 64 (K6 also on the JAX BCR
-tests' well-conditioned random system of tests/torch_systems.py).
+tests' well-conditioned random system of tests/torch_systems.py; K10 with
+two arms from seeded perturbations, as chip_smoke.py checks it).
 Tolerances are those of the JAX package's own kernel tests, each stated
 beside its check.
 """
@@ -26,6 +27,7 @@ from mpcgpu_tpu_torch.ops.cuda import merit_kernel as k2
 from mpcgpu_tpu_torch.ops.cuda import pcg_kernel as k4
 from mpcgpu_tpu_torch.ops.cuda import rollout_kernel as k1
 from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k5
+from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k10
 from mpcgpu_tpu_torch.utils.trajfiles import load_fixture_pair
 # by its bare name (pytest puts tests/ on sys.path): the card machine may
 # have another package named "tests"
@@ -114,10 +116,10 @@ def test_k6_kernel_matches_plain_on_a_random_system(card):
     assert abs(int(got[3]) - int(want[3])) <= 1
 
 
-def _perturbed_X(c):
+def _perturbed_X(c, seed=5):
     """The slice's X with a seeded perturbation (knot 0 kept), so that the
     CG loops iterate."""
-    pert = 0.02 * np.random.default_rng(5).normal(size=(64, 14))
+    pert = 0.02 * np.random.default_rng(seed).normal(size=(64, 14))
     pert[0] = 0.0
     return c["X"] + torch.as_tensor(pert, dtype=torch.float32,
                                     device=c["X"].device)
@@ -183,3 +185,53 @@ def test_k5_kernel_matches_plain_where_the_cg_exits_early(card, rho):
     got, want = _k5_pair(card, rho)
     _close(got.lam, want.lam, 1e-3, 1e-4)
     assert bool(((want.pcg_iters >= 0) & (want.pcg_iters < 40)).any())
+
+
+def test_k1_arm_batched_launch_equals_single_launches(card):
+    """One arm-batched K1 launch (a block per arm) against one single K1
+    launch per arm: bit-equal, the same per-arm arithmetic in the same
+    order."""
+    c = card
+    dev = c["X"].device
+    gen = np.random.default_rng(9)
+    x = c["xs"] + torch.as_tensor(0.01 * gen.normal(size=(2, 14)),
+                                  dtype=torch.float32, device=dev)
+    U = c["U"] + torch.as_tensor(0.01 * gen.normal(size=(2, 63, 7)),
+                                 dtype=torch.float32, device=dev)
+    rest = (c["goals"][0], 2000.0, 2000.0, 11)
+    cfg = SolverConfig.for_knots(64)
+    got = k1.plant_rollout(c["model"], cfg, x, U, *rest)
+    for a in range(2):
+        one = k1.plant_rollout(c["model"], cfg, x[a], U[a], *rest)
+        assert torch.equal(got[0][a], one[0]) and torch.equal(got[1][a], one[1])
+
+
+@pytest.mark.parametrize("rhos", [(1e-3, 1e-3), (0.1, 0.3), (0.3, 0.1)])
+def test_k10_kernel_matches_plain(card, rhos):
+    """Two arms (the perturbed starts of seeds 5 and 6), cold duals, 4 SQP
+    iterations, cap 40, tol 5e-5: X, U at rtol 1e-3, atol 1e-5
+    (tests/test_megakernel.py:225-234); per-arm sqp_iters and bails and
+    the shared CG count equal.  lam at rtol 1e-3, atol 1e-4 where the CGs
+    exit before the cap; at rho 1e-3, where every CG stops at the cap on
+    a condition ~1e7 system, at atol 1e-3, K5's precedent."""
+    c = card
+    dev = c["X"].device
+    X = torch.stack([_perturbed_X(c, 5), _perturbed_X(c, 6)])
+    args = (c["model"], X, c["U"].expand(2, 63, 7).contiguous(),
+            c["goals"].expand(2, 64, c["goals"].shape[1]),
+            c["xs"].expand(2, 14).contiguous(), torch.zeros_like(X),
+            torch.tensor(rhos, device=dev), torch.ones(2, device=dev), 40,
+            5e-5, 4)
+    kw = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
+              num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=10.0,
+              rho_reset=1e-3)
+    got = k10.sqp_solve_mega_pcg_packed(*args, **kw)
+    want = k10.sqp_solve_mega_pcg_packed_reference(*args, **kw)
+    _close(got.X, want.X, 1e-3, 1e-5)
+    _close(got.U, want.U, 1e-3, 1e-5)
+    if rhos == (1e-3, 1e-3):
+        _close(got.lam, want.lam, 0, 1e-3)
+    else:
+        _close(got.lam, want.lam, 1e-3, 1e-4)
+    for f in ("sqp_iters", "bailed", "pcg_iters_total"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
