@@ -10,14 +10,17 @@ CUDA toolkit:
 2. builds the hand-written kernels (csrc/*.cu, one nvcc per source, all at
    once, sm_90a) and prints the build time and ptxas' register / spill
    report;
-3. checks each kernel K1-K6 and K10 against its plain PyTorch version on
-   the card at the slice's N = 64 inputs from fixture 0_0 (K6 also on a
-   seeded well-conditioned system, K5 and K10 also at larger carried rhos
-   where their CGs exit before the cap, K10 with two arms from seeded
-   perturbations and its shared CG exit shown to decide), and the
-   arm-batched K1 launch against single K1 launches (bit-equal), with the
-   tolerances of the JAX package's own kernel tests, and times both (CUDA
-   events, median after warm-up);
+3. checks each kernel K1-K7, K7s, K9p, K9b and K10 against its plain
+   PyTorch version on the card at the slice's N = 64 inputs from fixture
+   0_0 (K6 and K7 also on a seeded well-conditioned system, K7s also at
+   N = 128 and 256, K5, K9p and K10 also at larger carried rhos where
+   their CGs exit before the cap, K10 with two arms from seeded
+   perturbations and its shared CG exit shown to decide, four K9p
+   launches against one K5 launch, the split BCR paths against K7 and
+   K6), and the arm-batched K1 launch against single K1 launches
+   (bit-equal), with the tolerances of the JAX package's own kernel tests
+   (the exact BCR solves by relative residual on the slice's systems), and
+   times both (CUDA events, median after warm-up);
 4. runs three closed loops -- fixture pair 0_0, N = 64,
    SolverConfig.for_knots(64, sqp_max_iter=4), PCG cap 40, exit tol
    5e-5, lam warm-started by 5 solves at tol 1e-11, simulate_mpc_scan for
@@ -41,7 +44,16 @@ CUDA toolkit:
    loop; simulate_mpc_scan_batched (plain modules, no kernel) for 8
    updates; and the packed loop's arm-updates/s over B = 1, 2, 4, 8, 16
    arms with K10's device time per call;
-6. prints one JSON line of the kernels, then the result line.
+6. runs the remaining sqp_solve configurations' loops, 8 updates each,
+   through the kernels and the plain modules: the staged bcr loop (K3,
+   K7, K2; K1) at N = 64 and at N = 128 (K7s, the split path), the
+   per-iteration megakernel loops (K2, then K9p or K9b per SQP
+   iteration; K1), the pcg_pallas backend (plain stages and K4b), and the
+   dense and qdldl oracles against each other;
+7. prints the linear-solve comparison (the reference's TIME_LINSYS) on
+   the slice's warm system: each backend's time per solve, CG iterations
+   and relative residual;
+8. prints one JSON line of the kernels, then the result line.
 
 Any failed build, launch or check ends the run with a non-zero exit code
 before the result line.  Without CUDA it exits non-zero at once.
@@ -65,6 +77,8 @@ REPS = 20
 ARMS = 2                        # the packed loop's pack (bench.py --batch 2)
 BATCHED_UPDATES = 8
 SWEEP_ARMS = (1, 2, 4, 8, 16)
+NEW_UPDATES = 8                 # the loops of this file's phase 6
+LONG_KNOTS = 128                # the staged bcr loop above K7's fit
 
 # The least time the card could take for a kernel's work: the
 # larger of the bytes a function must move (inputs read once, outputs
@@ -115,6 +129,11 @@ def _bcr_apply_ops(n):
     return (n - 1) * 5 * OPS_MV14 + OPS_MV14
 
 
+def _k3_no_stair_ops(n):
+    """K3's stages without theta^-1 and the four stair products."""
+    return n * (OPS_K3_KNOT - OPS_GJ14 - 4 * OPS_MM14)
+
+
 def _knot_schur_floats(n):
     """K3's outputs: SL SD SU PL PD PU Qinv A, Rinv, B, gamma, q, r."""
     return n * (8 * NX * NX + NU * NU + NX * NU + 2 * NX + NU)
@@ -159,8 +178,11 @@ def _assert_close(name, pairs, rtol, atol):
 
 
 _TAGS = {"K10": "sqp_mega_packed_kernel", "K5": "sqp_mega_kernel",
-         "K6": "bcr_pcg_dz_kernel", "K3": "k3_", "K4": "pcg_dz_kernel",
-         "K2": "merit_kernel", "K1": "rollout_kernel"}
+         "K9p": "sqp_iter_mega_pcg_kernel", "K9b": "sqp_iter_mega_bcr_kernel",
+         "K6": "bcr_pcg_dz_kernel", "K7": "bcr_dz_kernel",
+         "K7s": "bcr_solve_kernel", "K3": "k3_", "K4": "pcg_dz_kernel",
+         "K4b": "pcg_solve_kernel", "K2": "merit_kernel",
+         "K1": "rollout_kernel"}
 
 
 def _device_events(run):
@@ -225,21 +247,26 @@ def main() -> int:
     from mpcgpu_tpu_torch.config import (PCGConfig, SolverConfig,
                                          default_pcg_exit_tols)
     from mpcgpu_tpu_torch.models.robot import iiwa14
-    from mpcgpu_tpu_torch.ops.btridiag import BlockTri, spmv
+    from mpcgpu_tpu_torch.linsys.qdldl_host import (_btd_upper_csc,
+                                                    _cached_solver)
+    from mpcgpu_tpu_torch.ops.btridiag import BlockTri, spmv, to_dense
     from mpcgpu_tpu_torch.ops.cuda import _lib, launch_counts
     from mpcgpu_tpu_torch.ops.cuda import bcr_kernel as k6
+    from mpcgpu_tpu_torch.ops.cuda import bcr_kernel as k7
     from mpcgpu_tpu_torch.ops.cuda import kkt_schur_kernel as k3
     from mpcgpu_tpu_torch.ops.cuda import merit_kernel as k2
     from mpcgpu_tpu_torch.ops.cuda import pcg_kernel as k4
     from mpcgpu_tpu_torch.ops.cuda import reset_launch_counts
     from mpcgpu_tpu_torch.ops.cuda import rollout_kernel as k1
     from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k5
+    from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k9
     from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k10
+    from mpcgpu_tpu_torch.ops.schur import SchurData
     from mpcgpu_tpu_torch.sim import (arm_starts, max_substeps_for,
                                       simulate_mpc_scan,
                                       simulate_mpc_scan_batched,
                                       simulate_mpc_scan_packed)
-    from mpcgpu_tpu_torch.sqp import sqp_solve
+    from mpcgpu_tpu_torch.sqp import get_linsys_backend, iterate, sqp_solve
     from mpcgpu_tpu_torch.utils.trajfiles import horizon_slices, load_fixture_pair
     # the tests' seeded well-conditioned K6 system, loaded by path: the
     # machine may have another package named "tests"
@@ -286,8 +313,15 @@ def main() -> int:
     print(f"slice: N={N_KNOTS} sqp_max_iter={SQP_ITERS} pcg cap={cap} "
           f"tol={tol:g} r_cost={cc.r_cost:g} updates={N_UPDATES}")
     print(f"fit: K4 serves N <= {k4.check_pcg_smem_fit(n)}, K6 power-of-2 "
-          f"N <= {k6.check_bcr_fit(n)}, K5 N <= {lib.mpc_mega_max_knots()} "
-          f"(grid {k5.check_mega_fit(n)} blocks at N = {n})")
+          f"N <= {k6.check_bcr_fit(n)}, K5 N <= "
+          f"{lib.mpc_mega_max_knots(k5.SOLVE_PCG)} (grid "
+          f"{k5.check_mega_fit(n)} blocks at N = {n})")
+    print(f"fit: K7 power-of-2 N <= {k7.check_bcr_dz_fit(n)}, K7s power-of-2 "
+          f"N <= {k7.check_bcr_solve_fit(n)}, K9p N <= "
+          f"{lib.mpc_mega_max_knots(k9.ITER_PCG)} (grid "
+          f"{k9.check_mega_fit(n, kind=k9.ITER_PCG)}), K9b N <= "
+          f"{lib.mpc_mega_max_knots(k9.ITER_BCR)} (grid "
+          f"{k9.check_mega_fit(n, kind=k9.ITER_BCR)})")
 
     kernels = []
 
@@ -592,15 +626,225 @@ def main() -> int:
            arms=b, grid=k10.check_mega_packed_fit(n, b, cfg.num_alphas),
            one_arm_ms=b1_ms, us_per_cg_iter_over_k5=barrier_us)
 
+    # ---- the kernels of the remaining sqp_solve configurations
+    def residual_pair(label, ks_sys, got_lam, plain_lam):
+        """The exact solvers on the slice's systems (condition ~1e7) are
+        held by relative residual: the kernel's within 2x of the plain
+        solve's."""
+        res = (systems.relative_residual(ks_sys, got_lam),
+               systems.relative_residual(ks_sys, plain_lam))
+        print(f"{label}: relative residual kernel {res[0]:.3e} plain "
+              f"{res[1]:.3e}")
+        if not res[0] <= 2 * res[1]:
+            raise AssertionError(f"{label}: the kernel's relative residual "
+                                 f"{res[0]:.3e} is over twice the plain "
+                                 f"solve's {res[1]:.3e}")
+        return res
+
+    def tight_bcr(label, got, want):
+        """tests/test_bcr.py:62-74 on a well-conditioned system: lam scaled
+        by its largest entry at atol 2e-5, dz at rtol 1e-3, atol 2e-4."""
+        whole = isinstance(got, tuple)   # (lam, dX, dU, ...) or lam
+        lam_g, lam_w = (got[0], want[0]) if whole else (got, want)
+        scale = lam_w.abs().max()
+        checked(f"{label} lam/max|lam|", [(lam_g / scale, lam_w / scale)], 0,
+                2e-5)
+        err = _max_err([(lam_g, lam_w)])
+        if whole:
+            err = max(err, checked(f"{label} dz", list(zip(got[1:3], want[1:3])),
+                                   1e-3, 2e-4))
+        return err
+
+    # K4b: K4's CG without the dz, on K3's system (the "pcg_pallas" solve)
+    S_ref = BlockTri(ks_ref.SL, ks_ref.SD, ks_ref.SU)
+    P_ref = BlockTri(ks_ref.PL, ks_ref.PD, ks_ref.PU)
+    k4b_args = (S_ref, P_ref, ks_ref.gamma, lam0, cap, tol)
+    k4b_out = k4.pcg_solve(*k4b_args)
+    k4b_ref = k4.pcg_solve_reference(*k4b_args)
+    sync()
+    it, it_ref = int(k4b_out[1]), int(k4b_ref[1])
+    print(f"K4b CG iterations: kernel {it} (hit {bool(k4b_out[2])}), plain "
+          f"{it_ref} (hit {bool(k4b_ref[2])})")
+    if not (abs(it - it_ref) <= 2 or it == it_ref == cap):
+        raise AssertionError(f"K4b iteration counts disagree: {it} vs "
+                             f"{it_ref}")
+    record("K4b", "pcg_solve", "mpcgpu_tpu_torch/csrc/pcg_dz.cu",
+           "mpcgpu_tpu/ops/pallas/pcg_kernel.py:187",
+           checked("K4b", [(k4b_out[0], k4b_ref[0])], 5e-3, 5e-3),
+           lambda: k4.pcg_solve(*k4b_args),
+           lambda: k4.pcg_solve_reference(*k4b_args),
+           _cg_ops(n, it, _spmv_ops(n)),
+           F32 * (6 * n * NX * NX + 3 * n * NX) + 5)
+
+    # K7 and K7s: tight on the seeded random system, by residual on the
+    # slice's K3 system without the stair (ks_np, the perturbed start)
+    k7_out = k7.bcr_dz(ks_rand)
+    k7_ref = k7.bcr_dz_reference(ks_rand)
+    sync()
+    if int(k7_out[3]) != 0 or bool(k7_out[4]):
+        raise AssertionError("K7 reports CG iterations")
+    err7 = tight_bcr("K7 random system", k7_out, k7_ref)
+    res7 = residual_pair("K7 slice system", ks_np, k7.bcr_dz(ks_np)[0],
+                         k7.bcr_dz_reference(ks_np)[0])
+    record("K7", "bcr_dz", "mpcgpu_tpu_torch/csrc/bcr_dz.cu",
+           "mpcgpu_tpu/ops/pallas/bcr_kernel.py:318", err7,
+           lambda: k7.bcr_dz(ks_np), lambda: k7.bcr_dz_reference(ks_np),
+           _bcr_factor_ops(n) + 2 * _bcr_apply_ops(n) + _spmv_ops(n)
+           + _dz_ops(n),
+           F32 * (n * (5 * NX * NX + NX * NU + NU * NU + 2 * NX + NU)
+                  + 2 * n * NX + (n - 1) * NU),
+           residual=res7[0], residual_plain=res7[1])
+
+    def k7s_pair(ks_sys):
+        out = k7.bcr_solve(ks_sys.SL, ks_sys.SD, ks_sys.SU, ks_sys.gamma)
+        ref = k7.bcr_solve_reference(ks_sys.SL, ks_sys.SD, ks_sys.SU,
+                                     ks_sys.gamma)
+        sync()
+        return out, ref
+
+    err7s = tight_bcr("K7s random system", *k7s_pair(ks_rand))
+    errs7s = {}
+    for n_long in (LONG_KNOTS, 2 * LONG_KNOTS):
+        errs7s[f"max_abs_err_n{n_long}"] = tight_bcr(
+            f"K7s random system, N = {n_long}",
+            *k7s_pair(systems.random_knot_schur(n_long, device=dev)))
+    res7s = residual_pair("K7s slice system", ks_np, *k7s_pair(ks_np))
+    S_np = BlockTri(ks_np.SL, ks_np.SD, ks_np.SU)
+    dense_np = to_dense(S_np)
+    g_col = ks_np.gamma.reshape(-1, 1)
+    chol_ms = _event_ms(lambda: torch.cholesky_solve(
+        g_col, torch.linalg.cholesky(dense_np)))
+    print(f"K7s library yardstick: torch.linalg.cholesky + cholesky_solve on "
+          f"the dense S ({n * NX} x {n * NX}): {chol_ms:.4f} ms")
+    record("K7s", "bcr_solve", "mpcgpu_tpu_torch/csrc/bcr_dz.cu",
+           "mpcgpu_tpu/ops/pallas/bcr_kernel.py:361", err7s,
+           lambda: k7.bcr_solve(*S_np, ks_np.gamma),
+           lambda: k7.bcr_solve_reference(*S_np, ks_np.gamma),
+           _bcr_factor_ops(n) + _bcr_apply_ops(n),
+           F32 * (3 * n * NX * NX + 2 * n * NX),
+           library_ms=chol_ms, residual=res7s[0], residual_plain=res7s[1],
+           **errs7s)
+
+    # the split paths at N = 64, forced, against K7 and K6 (random system)
+    tight_bcr("split bcr_dz (K7s, residual, K7s) vs K7",
+              k7.bcr_dz(ks_rand, split=True), k7_out)
+    split6 = k6.bcr_pcg_dz(ks_rand, lam0, cap, tol, split=True)
+    sync()
+    tight_bcr("split bcr_pcg_dz (CG glue, K7s applies) vs K6", split6, k6_out)
+    print(f"split bcr_pcg_dz: {int(split6[3])} CG iterations, K6 "
+          f"{int(k6_out[3])}")
+    if abs(int(split6[3]) - int(k6_out[3])) > 1:
+        raise AssertionError("split bcr_pcg_dz: CG counts differ from K6's")
+
+    # K9p: one iteration from K5's perturbed start, cold duals
+    one = torch.tensor(1.0, device=dev)
+
+    def k9p_pair(rho0, lam_rtol, lam_atol):
+        args = (model, Xp, U, goals, xs, lam0, torch.tensor(rho0, device=dev),
+                one, merit0, cap, tol)
+        out = k9.sqp_iter_mega_pcg(*args, **k5_kw)
+        ref = k9.sqp_iter_mega_pcg_reference(*args, **k5_kw)
+        sync()
+        print(f"K9p at rho {rho0:g}: CG {int(out.pcg_iters)} vs "
+              f"{int(ref.pcg_iters)}, accept {bool(out.accept)} vs "
+              f"{bool(ref.accept)}, bail {bool(out.bail)} vs "
+              f"{bool(ref.bail)}, lam err {_max_err([(out.lam, ref.lam)]):.3e}")
+        for f in ("accept", "bail"):
+            if not torch.equal(getattr(out, f), getattr(ref, f)):
+                raise AssertionError(f"K9p at rho {rho0:g}: {f} differs")
+        if abs(int(out.pcg_iters) - int(ref.pcg_iters)) > 2:
+            raise AssertionError(f"K9p at rho {rho0:g}: CG counts differ by "
+                                 f"more than 2")
+        err = max(checked(f"K9p X, U at rho {rho0:g}",
+                          [(out.X, ref.X), (out.U, ref.U)], 1e-3, 1e-5),
+                  checked(f"K9p lam at rho {rho0:g}", [(out.lam, ref.lam)],
+                          lam_rtol, lam_atol))
+        return args, out, err
+
+    k9p_args, k9p_out, err9p = k9p_pair(cfg.rho_init, 0, 1e-3)
+    for rho_early in (0.1, 0.3):
+        err9p = max(err9p, k9p_pair(rho_early, 1e-3, 1e-4)[2])
+
+    # four K9p launches (sqp.iterate's masked loop) against one K5 launch
+    # from the same start: the JAX package finds its whole-solve and
+    # per-iteration kernels equal to about 1e-5 with identical decisions
+    def k9p_step(Xc, Uc, lamc, rhoc, drhoc, meritc):
+        return k9.sqp_iter_mega_pcg(model, Xc, Uc, goals, xs, lamc, rhoc,
+                                    drhoc, meritc, cap, tol, **k5_kw)
+
+    (Xi, Ui, lami, _, _, _, itsi, bailedi, pcgi, _, acci) = iterate(
+        Xp, U, lam0, torch.tensor(cfg.rho_init, device=dev), one, merit0,
+        SQP_ITERS, k9p_step)
+    sync()
+    print(f"K9p x {SQP_ITERS} vs K5: pcg iters {pcgi.tolist()} vs "
+          f"{k5_out.pcg_iters.tolist()}, accepted {acci.tolist()} vs "
+          f"{k5_out.accepted.tolist()}, X err {_max_err([(Xi, k5_out.X)]):.3e}")
+    if not (torch.equal(acci, k5_out.accepted)
+            and torch.equal(itsi, k5_out.sqp_iters)
+            and torch.equal(bailedi, k5_out.bailed)):
+        raise AssertionError("K9p x 4 and K5 take different decisions")
+    if int((pcgi - k5_out.pcg_iters).abs().max()) > 2:
+        raise AssertionError("K9p x 4 and K5: CG counts differ by more than 2")
+    checked("K9p x 4 vs K5 X, U", [(Xi, k5_out.X), (Ui, k5_out.U)], 1e-3, 1e-5)
+    checked("K9p x 4 vs K5 lam", [(lami, k5_out.lam)], 0, 1e-3)
+    it9 = int(k9p_out.pcg_iters)
+    iter_bytes = F32 * (2 * (2 * n * NX + (n - 1) * NU) + 6 * n + NX + TAB
+                        + 6) + 20
+    record("K9p", "sqp_iter_mega_pcg", "mpcgpu_tpu_torch/csrc/sqp_mega.cu",
+           "mpcgpu_tpu/ops/pallas/sqp_megakernel.py:960", err9p,
+           lambda: k9.sqp_iter_mega_pcg(*k9p_args, **k5_kw),
+           lambda: k9.sqp_iter_mega_pcg_reference(*k9p_args, **k5_kw),
+           n * OPS_K3_KNOT + _cg_ops(n, it9, _spmv_ops(n)) + _dz_ops(n)
+           + _merits_ops(n, cfg.num_alphas), iter_bytes,
+           grid=k9.check_mega_fit(n, kind=k9.ITER_PCG))
+
+    # K9b: one iteration with the refined BCR; its solve by residual, the
+    # stages after it against the plain iteration given the kernel's lam
+    k9b_args = (model, Xp, U, goals, xs, torch.tensor(cfg.rho_init,
+                                                      device=dev), one, merit0)
+    k9b_out = k9.sqp_iter_mega(*k9b_args, **k5_kw)
+    k9b_ref = k9.sqp_iter_mega_reference(*k9b_args, **k5_kw)
+    sync()
+    for f in ("accept", "bail"):
+        if not torch.equal(getattr(k9b_out, f), getattr(k9b_ref, f)):
+            raise AssertionError(f"K9b: {f} differs from the plain iteration")
+    if int(k9b_out.pcg_iters) != 0 or bool(k9b_out.hit_max):
+        raise AssertionError("K9b reports CG iterations")
+    given, ks_b = systems.bcr_iteration_given_lam(*k9b_args, k9b_out.lam,
+                                                  **k5_kw)
+    res9b = residual_pair("K9b lam", ks_b, k9b_out.lam, k9b_ref.lam)
+    err9b = checked("K9b X, U, merit against the plain iteration given its "
+                    "lam", [(k9b_out.X, given.X), (k9b_out.U, given.U),
+                            (k9b_out.merit, given.merit)], 1e-3, 2e-4)
+    err9b_plain = _max_err([(k9b_out.X, k9b_ref.X), (k9b_out.U, k9b_ref.U)])
+    print(f"K9b: accept {bool(k9b_out.accept)}, X, U against the "
+          f"independent plain iteration within {err9b_plain:.3e}")
+    k5_ms = next(k["ms"] for k in kernels if k["name"].startswith("K5 "))
+    record("K9b", "sqp_iter_mega", "mpcgpu_tpu_torch/csrc/sqp_mega.cu",
+           "mpcgpu_tpu/ops/pallas/sqp_megakernel.py:901", err9b,
+           lambda: k9.sqp_iter_mega(*k9b_args, **k5_kw),
+           lambda: k9.sqp_iter_mega_reference(*k9b_args, **k5_kw),
+           _k3_no_stair_ops(n) + _bcr_factor_ops(n) + 2 * _bcr_apply_ops(n)
+           + _spmv_ops(n) + _dz_ops(n) + _merits_ops(n, cfg.num_alphas),
+           iter_bytes - F32 * n * NX,
+           grid=k9.check_mega_fit(n, kind=k9.ITER_BCR),
+           max_abs_err_vs_plain=err9b_plain, residual=res9b[0],
+           residual_plain=res9b[1], k5_ms_per_iteration=k5_ms / SQP_ITERS)
+    k9b_ms = kernels[-1]["ms"]
+    print(f"K9b {k9b_ms:.4f} ms per launch against K5's {k5_ms:.4f} ms for "
+          f"{SQP_ITERS} iterations ({k5_ms / SQP_ITERS:.4f} ms each)")
+
     # ---- 4. the closed loops, through the kernels and the plain modules
     xu_d = torch.as_tensor(xu, device=dev)
     ee_d = torch.as_tensor(ee, device=dev)
 
-    def warm_lam(run_cfg):
-        lam = torch.zeros_like(X)
+    def warm_lam(run_cfg, start):
+        Xs, Us, goals_s, xs_s = start
+        lam = torch.zeros_like(Xs)
         r0 = torch.tensor(cfg.rho_init, device=dev)
         for _ in range(WARM_SOLVES):      # warm-start lam (bench.py:161-176)
-            res = sqp_solve(model, run_cfg, X, U, lam, goals, xs, r0, 1e-11)
+            res = sqp_solve(model, run_cfg, Xs, Us, lam, goals_s, xs_s, r0,
+                            1e-11)
             lam, r0 = res.lam, res.rho
         return lam
 
@@ -618,9 +862,9 @@ def main() -> int:
                                  f"{want}")
         return out, counts
 
-    def host_and_device(label, again, n_updates):
-        """The host clock per update, then the device breakdown (returned
-        as _by_kernel's groups)."""
+    def host_and_device(label, again, n_updates, profile=True):
+        """The host clock per update, then (profile) the device breakdown,
+        returned as _by_kernel's groups."""
         sync()
         t0 = time.perf_counter()
         again()
@@ -631,24 +875,31 @@ def main() -> int:
               f"{1e3 * t_enqueue / n_updates:.3f} ms/update, to the end "
               f"of the device work {1e3 * t_wall / n_updates:.3f} "
               f"ms/update")
-        return _device_breakdown(again, n_updates)
+        return _device_breakdown(again, n_updates) if profile else {}
 
-    def run_loop(label, run_cfg, linsys, want=None, detail=False):
-        lam = warm_lam(run_cfg)
-        simulate_mpc_scan(model, run_cfg, xu_d, ee_d, X, U, lam, rho, tol, 2,
+    start64 = (X, U, goals, xs)
+
+    def run_loop(label, run_cfg, linsys, want=None, detail=False,
+                 n_updates=N_UPDATES, start=start64, warm=True):
+        """One closed loop from start (X, U, goals, xs), lam warm-started
+        or zero: launch counts, the host clock and device breakdown when
+        detail (detail="host": the host clock only), and a summary."""
+        Xs, Us = start[:2]
+        lam = warm_lam(run_cfg, start) if warm else torch.zeros_like(Xs)
+        simulate_mpc_scan(model, run_cfg, xu_d, ee_d, Xs, Us, lam, rho, tol, 2,
                           linsys)
         out, counts = counted(label, lambda: simulate_mpc_scan(
-            model, run_cfg, xu_d, ee_d, X, U, lam, rho, tol, N_UPDATES,
+            model, run_cfg, xu_d, ee_d, Xs, Us, lam, rho, tol, n_updates,
             linsys, timing=True), want)
 
         def again():
-            return simulate_mpc_scan(model, run_cfg, xu_d, ee_d, X, U, lam,
-                                     rho, tol, N_UPDATES, linsys)
+            return simulate_mpc_scan(model, run_cfg, xu_d, ee_d, Xs, Us, lam,
+                                     rho, tol, n_updates, linsys)
 
-        if detail:
-            host_and_device(label, again, N_UPDATES)
+        groups = host_and_device(label, again, n_updates,
+                                 detail != "host") if detail else {}
         errs = out["tracking_errors"]
-        if tuple(errs.shape) != (N_UPDATES,) or not torch.isfinite(errs).all():
+        if tuple(errs.shape) != (n_updates,) or not torch.isfinite(errs).all():
             raise AssertionError(f"{label}: tracking errors not finite: {errs}")
         if not torch.isfinite(out["final_xs"]).all():
             raise AssertionError(f"{label}: final state not finite")
@@ -664,20 +915,25 @@ def main() -> int:
         }
         if "failed_over" in out:
             summary["failed_over"] = out["failed_over"].tolist()
+        if groups:
+            summary["device_ms_per_update"] = {
+                k: t / 1e3 / n_updates for k, (t, _) in groups.items()}
         print(f"{label}: {json.dumps(summary)}")
         return summary, counts
 
-    def compare(label, fused, plain):
+    def compare(label, fused, plain, bound=True):
         # sqp_iters and rho bails must match; the CG totals are printed,
         # not compared: on fixture 0_0's condition ~1e7 systems the float32
-        # trajectories part after some updates (PERF.md)
+        # trajectories part after some updates (PERF.md).  The exact-dual
+        # backends track worse by design (about 0.32 m on 0_0 over a long
+        # run in the JAX package), so they are held to their pair only.
         for key in ("sqp_iters", "rho_bailed"):
             if fused[key] != plain[key]:
                 raise AssertionError(f"{label} {key}: fused {fused[key]} vs "
                                      f"plain {plain[key]}")
         for key in ("mean_err_m", "mean_err_at_shifts_m"):
             a, b = fused[key], plain[key]
-            if not (a < 0.1 and b < 0.1):
+            if bound and not (a < 0.1 and b < 0.1):
                 raise AssertionError(f"{label} {key} not under 0.1 m: fused "
                                      f"{a}, plain {b}")
             if abs(a - b) > 5e-3:
@@ -686,7 +942,7 @@ def main() -> int:
 
     plain_cfg = dataclasses.replace(cfg, fused_stages=False)
     u, s = N_UPDATES, SQP_ITERS
-    none = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K10"), 0)
+    none = dict.fromkeys(launch_counts(), 0)
     staged, staged_counts = run_loop(
         "staged pcg, fused", cfg, "pcg", detail=True,
         want={**none, "K1": u, "K2": u + u * s, "K3": u * s, "K4": u * s})
@@ -722,7 +978,7 @@ def main() -> int:
 
     # ---- 5. the multi-arm loops: the arms start from seeded perturbations
     # of the fixture start's joint positions, with the warm duals
-    lam_w = warm_lam(mega_cfg)
+    lam_w = warm_lam(mega_cfg, start64)
     dq = torch.as_tensor(0.02 * np.random.default_rng(11).normal(
         size=(max(SWEEP_ARMS), NX // 2)), dtype=torch.float32, device=dev)
 
@@ -814,11 +1070,129 @@ def main() -> int:
         print(f"sweep: {json.dumps(row)}")
         sweep.append(row)
 
+    # ---- 6. the remaining sqp_solve configurations, 8 updates each
+    u8 = NEW_UPDATES
+    bcr_fused, bcr_counts = run_loop(
+        "staged bcr, fused", cfg, "bcr", detail=True, n_updates=u8,
+        want={**none, "K1": u8, "K2": u8 + u8 * s, "K3": u8 * s,
+              "K7": u8 * s})
+    bcr_plain = run_loop("bcr, plain", plain_cfg, "bcr", n_updates=u8)[0]
+    compare("staged bcr", bcr_fused, bcr_plain, bound=False)
+
+    # N = 128, above K7's fit: the split path (K7s, residual, K7s); the
+    # exact solve ignores lam, so no warm start
+    start_l = tuple(torch.as_tensor(a, device=dev)
+                    for a in horizon_slices(xu, ee, LONG_KNOTS))
+    cfg_l = SolverConfig.for_knots(
+        LONG_KNOTS, sqp_max_iter=SQP_ITERS, fused_stages=True,
+        pcg=PCGConfig(max_iter=PCGConfig.tpu_tuned_max_iter(LONG_KNOTS)))
+    long_fused, long_counts = run_loop(
+        f"staged bcr N={LONG_KNOTS}, fused", cfg_l, "bcr", detail=True,
+        n_updates=u8, start=start_l, warm=False,
+        want={**none, "K1": u8, "K2": u8 + u8 * s, "K3": u8 * s,
+              "K7s": 2 * u8 * s})
+    compare(f"staged bcr N={LONG_KNOTS}", long_fused, run_loop(
+        f"bcr N={LONG_KNOTS}, plain", dataclasses.replace(
+            cfg_l, fused_stages=False), "bcr", n_updates=u8, start=start_l,
+        warm=False)[0], bound=False)
+
+    # the per-iteration megakernels: K2, then K9p / K9b per SQP iteration
+    iter_cfg = dataclasses.replace(cfg, megakernel=True)
+    pcg_plain8 = run_loop("pcg, plain", plain_cfg, "pcg", n_updates=u8)[0]
+    k9p_loop, k9p_counts = run_loop(
+        "pcg per-iteration megakernel, fused", iter_cfg, "pcg", detail=True,
+        n_updates=u8, want={**none, "K1": u8, "K2": u8, "K9p": u8 * s})
+    compare("pcg per-iteration megakernel", k9p_loop, pcg_plain8)
+    k9b_loop, k9b_counts = run_loop(
+        "bcr per-iteration megakernel, fused", iter_cfg, "bcr", detail=True,
+        n_updates=u8, want={**none, "K1": u8, "K2": u8, "K9b": u8 * s})
+    compare("bcr per-iteration megakernel", k9b_loop, bcr_plain, bound=False)
+
+    # pcg_pallas: the plain stages on the card with K4b as the solve.  The
+    # plain-stage loops are host-bound (about 10,000 small glue kernels
+    # per update): the host clock only, as profiling them costs minutes
+    pp_loop, pp_counts = run_loop(
+        "pcg_pallas, plain stages + K4b", plain_cfg, "pcg_pallas",
+        detail="host", n_updates=u8, want={**none, "K4b": u8 * s})
+    compare("pcg_pallas", pp_loop, pcg_plain8)
+
+    # the oracles: the dense Cholesky and the host LDL', each against the
+    # other
+    dense_loop = run_loop("dense, plain stages", plain_cfg, "dense",
+                          detail="host", n_updates=u8, want=none)[0]
+    qdldl_loop = run_loop("qdldl, plain stages", plain_cfg, "qdldl",
+                          detail="host", n_updates=u8, want=none)[0]
+    compare("dense vs qdldl", dense_loop, qdldl_loop, bound=False)
+
+    # ---- 7. the linear-solve comparison (the reference's TIME_LINSYS,
+    # settings.cuh:109-118): every backend on the slice's warm system
+    lam_warm = warm_lam(cfg, start64)
+    ks_w = k3.form_kkt_schur(*k3_args)
+    S_w = BlockTri(ks_w.SL, ks_w.SD, ks_w.SU)
+    P_w = BlockTri(ks_w.PL, ks_w.PD, ks_w.PU)
+    sd_w = SchurData(S=S_w, Pinv=P_w, gamma=ks_w.gamma, Qinv=None, Rinv=None)
+    solvers = {
+        "pcg (K4)": lambda: k4.pcg_dz(ks_w, lam_warm, cap, tol),
+        "pcg_pallas (K4b)": lambda: k4.pcg_solve(S_w, P_w, ks_w.gamma,
+                                                 lam_warm, cap, tol),
+        "bcr (K7)": lambda: k7.bcr_dz(ks_w),
+        "bcr_pcg (K6)": lambda: k6.bcr_pcg_dz(ks_w, lam_warm, cap, tol),
+        "dense (torch.linalg)": lambda: get_linsys_backend("dense")(
+            None, sd_w, lam_warm, tol)}
+    compare_rows = {}
+    for name, solve in solvers.items():
+        out = solve()
+        it = out[3] if len(out) == 5 else out[1]
+        compare_rows[name] = {
+            "ms": _event_ms(solve), "cg_iters": int(it),
+            "rel_residual": systems.relative_residual(ks_w, out[0])}
+    g_norm = float(ks_w.gamma.norm())
+
+    def median_ms(fn):
+        times = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    nb = n * NX * NX
+    bands = lambda: torch.cat([ks_w.SD.reshape(-1), ks_w.SU.reshape(-1),
+                               ks_w.gamma.reshape(-1)]).cpu().numpy()
+    host = bands()
+    csc = _btd_upper_csc(None, host[:nb].reshape(n, NX, NX),
+                         host[nb:2 * nb].reshape(n, NX, NX))
+    g_host = host[2 * nb:].reshape(n, NX)
+    solver = _cached_solver(n, NX)
+    x_host = solver.solve_csc(*csc, g_host)
+    lam_q = torch.as_tensor(x_host, device=dev)
+    compare_rows["qdldl (host LDL')"] = {
+        "ms": median_ms(lambda: solver.solve_csc(*csc, g_host)),
+        "cg_iters": 0, "rel_residual": systems.relative_residual(ks_w, lam_q),
+        "d2h_ms": median_ms(bands),
+        "assembly_ms": median_ms(lambda: _btd_upper_csc(
+            None, host[:nb].reshape(n, NX, NX),
+            host[nb:2 * nb].reshape(n, NX, NX))),
+        "h2d_ms": median_ms(lambda: (torch.as_tensor(x_host, device=dev),
+                                     sync()))}
+    # relative residuals are against |gamma|, which is small at the
+    # slice's start (a point of the reference trajectory); the absolute
+    # residual is rel_residual * gamma_norm
+    print(json.dumps({"linsys_compare": {
+        "n": n, "system": "fixture 0_0 slice start, warm lam, rho 1e-3",
+        "cap": cap, "tol": tol, "gamma_norm": g_norm,
+        "solvers": compare_rows}}))
+
     # each kernel's launches: the first run of this slice's paths that
     # launched it (the default auto loop, its failover branch, the staged
-    # loop, then the packed loop)
+    # loop, the packed loop, then this file's phase 6 loops)
     paths = (("auto", auto_counts), ("failover", fo_counts),
-             ("staged", staged_counts), ("packed", packed_counts))
+             ("staged", staged_counts), ("packed", packed_counts),
+             ("staged bcr", bcr_counts),
+             (f"staged bcr N={LONG_KNOTS}", long_counts),
+             ("pcg per-iteration megakernel", k9p_counts),
+             ("bcr per-iteration megakernel", k9b_counts),
+             ("pcg_pallas", pp_counts))
     for k in kernels:
         kid = k["name"].split()[0]
         path, count = next(((p, c[kid]) for p, c in paths if c[kid]),

@@ -78,16 +78,17 @@ class SolverConfig:
 
     gravity: float = 0.0
 
-    # Run the SQP stages (K3 KKT+Schur, K4 PCG+dz or K6 BCR-PCG+dz, K2
-    # merits) and the plant rollout (K1) through the CUDA kernels of
-    # ops/cuda.  The kernels serve the eepos tracking cost, the Euler
-    # integrator and the reference Hessian, float32.
+    # Run the SQP stages (K3 KKT+Schur; K4 PCG+dz, K6 BCR-PCG+dz or K7
+    # refined BCR+dz; K2 merits) and the plant rollout (K1) through the
+    # CUDA kernels of ops/cuda.  The kernels serve the eepos tracking
+    # cost, the Euler integrator and the reference Hessian, float32.
     fused_stages: bool = False
-    # With fused_stages and linsys="pcg": the SQP iteration as one
-    # kernel.  megakernel_solve=True runs every SQP iteration of a solve
-    # in ONE launch (K5, ops/cuda/sqp_megakernel.py); megakernel alone
-    # (one launch per iteration, the JAX package's sqp_iter_mega_pcg) is
-    # not ported yet and raises.
+    # With fused_stages and linsys "pcg" or "bcr": the SQP iteration as
+    # one kernel (ops/cuda/sqp_megakernel.py).  For "pcg",
+    # megakernel_solve=True runs every SQP iteration of a solve in ONE
+    # launch (K5); without it each iteration is one launch of K9p.  "bcr"
+    # runs one K9b launch per iteration either way, as the JAX package
+    # has no whole-solve BCR kernel.
     megakernel: bool = False
     megakernel_solve: bool = False
 

@@ -1,5 +1,5 @@
 // The one-block CG solve of S lam = gamma and the primal step, shared by
-// K4 (pcg_dz.cu), K5 (sqp_mega.cu, its dual-solve stage), K6
+// K4 and K4b (pcg_dz.cu), K5 (sqp_mega.cu, its dual-solve stage), K6
 // (bcr_pcg_dz.cu) and K10 (sqp_mega_packed.cu, which drives cg_init and
 // cg_step itself: its arms' CGs share one exit).
 //
@@ -233,16 +233,15 @@ inline int max_knots_for(F floats_of, size_t static_bytes) {
   return n;
 }
 
-// K4's whole solve in one block: S into shared memory, stair-PCG from lam0,
-// iteration count and hit flag, then dz.  smem holds cg_smem_floats(N, 4).
-LD_DEV void pcg_dz_body(float* smem, int N, const float* SLg,
-                        const float* SDg, const float* SUg, const float* PL,
-                        const float* PD, const float* PU, const float* gamma,
-                        const float* lam0, const float* A, const float* B,
-                        const float* q, const float* r_in, const float* Qinv,
-                        const float* Rinv, int max_iter, float tol,
-                        float* lam_out, float* dX, float* dU, int* iters_out,
-                        bool* hit_out) {
+// K4b's solve in one block: S into shared memory, stair-PCG from lam0, the
+// iteration count and hit flag.  smem holds cg_smem_floats(N, 4); returns
+// its layout, with the solution in lam (the block synchronised).
+LD_DEV CgArea pcg_solve_body(float* smem, int N, const float* SLg,
+                             const float* SDg, const float* SUg,
+                             const float* PL, const float* PD,
+                             const float* PU, const float* gamma,
+                             const float* lam0, int max_iter, float tol,
+                             int* iters_out, bool* hit_out) {
   const CgArea a = cg_area(smem, N);
   load_system(N, SLg, SDg, SUg, lam0, a.SL, a.SD, a.SU, a.lam);
   float eta;
@@ -252,6 +251,21 @@ LD_DEV void pcg_dz_body(float* smem, int N, const float* SLg,
     iters_out[0] = it;
     hit_out[0] = fabsf(eta) > tol;
   }
+  return a;
+}
+
+// K4's whole solve in one block: K4b's solve, then dz.  smem holds
+// cg_smem_floats(N, 4).
+LD_DEV void pcg_dz_body(float* smem, int N, const float* SLg,
+                        const float* SDg, const float* SUg, const float* PL,
+                        const float* PD, const float* PU, const float* gamma,
+                        const float* lam0, const float* A, const float* B,
+                        const float* q, const float* r_in, const float* Qinv,
+                        const float* Rinv, int max_iter, float tol,
+                        float* lam_out, float* dX, float* dU, int* iters_out,
+                        bool* hit_out) {
+  const CgArea a = pcg_solve_body(smem, N, SLg, SDg, SUg, PL, PD, PU, gamma,
+                                  lam0, max_iter, tol, iters_out, hit_out);
   dz_epilogue(N, a.lam, A, B, q, r_in, Qinv, Rinv, a.r, a.p, lam_out, dX, dU);
   LD_SYNC();
 }

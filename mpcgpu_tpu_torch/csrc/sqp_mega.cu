@@ -1,10 +1,13 @@
-// K5: the whole SQP solve -- every iteration -- in one cooperative launch.
+// K5: the whole SQP solve -- every iteration -- in one cooperative launch;
+// K9p and K9b: ONE SQP iteration per cooperative launch, with the stair-PCG
+// and the refined block cyclic reduction (BCR) dual solve.
 //
-// Replaces the TPU kernel mpcgpu_tpu/ops/pallas/sqp_megakernel.py
-// (sqp_solve_mega_pcg / _solve_kernel_pcg -> _iteration_pcg,
-// _line_search, _ls_contrib, _rho_schedule).  It computes what that kernel
-// computes; the layout is knot-major, not the TPU's lanes.  Per SQP
-// iteration, with a grid barrier after each stage:
+// Replaces the TPU kernels mpcgpu_tpu/ops/pallas/sqp_megakernel.py
+// sqp_solve_mega_pcg (_solve_kernel_pcg -> _iteration_pcg, _line_search,
+// _ls_contrib, _rho_schedule), sqp_iter_mega_pcg (_mega_kernel_pcg) and
+// sqp_iter_mega (_mega_kernel).  They compute what those kernels compute;
+// the layout is knot-major, not the TPU's lanes.  Per SQP iteration, with
+// a grid barrier after each stage:
 //   1. per knot: the step accepted by the previous iteration, then K3's
 //      per-knot KKT stage (kkt_schur.cuh);
 //   2. per knot: theta, phi, SU, gamma and PD = theta^-1;
@@ -18,7 +21,12 @@
 //      the first minimum, the accept test and the rho / drho schedule
 //      (pcg/sqp.cuh:373-408), the bail, and the stats slots (pcg iters,
 //      hit, accepted; -1 / 0 / 0 where an iteration did not run).
-// The caller supplies merit0 (K2) and drho starts at 1.
+// The caller supplies merit0 (K2) and drho starts at 1 (K5); K9p and K9b
+// take drho and the incumbent merit from device memory, so the caller's
+// loop of single iterations reads nothing on the host.  K9b skips stage 3
+// and runs stage 4 as bcr_common.cuh's refined BCR solve and dz in block 0,
+// reading S from global memory (L2); it has no warm start and reports 0
+// CG iterations.  One templated body serves the three kernels.
 //
 // The model is the original's (include/pcg/sqp.cuh:275): one persistent
 // cooperative kernel, stages separated by cooperative_groups grid syncs.
@@ -33,13 +41,16 @@
 //
 // Bound on the H100: latency.  The dual solve is a chain of dependent CG
 // iterations in one block; the other stages are short per-knot chains.
-// The shared memory of block 0's CG (S's bands and 4 vectors) is asked of
-// every block, so it bounds N (mpc_mega_max_knots) and the grid
-// (mpc_mega_grid: blocks per SM from the occupancy API times the SM
-// count); the wrapper raises past either.
+// The shared memory of block 0's dual solve (S's bands and 4 vectors for
+// the CG; 4 vectors and the inverse scratch for the BCR) is asked of every
+// block, so it bounds N (mpc_mega_max_knots) and the grid (mpc_mega_grid:
+// blocks per SM from the occupancy API times the SM count); the wrapper
+// raises past either.  K9b's block 0 factors and applies the BCR with 128
+// threads (4 warps for the 14x14 inverses) while the other blocks wait at
+// the barrier: the simplest right design, not a fast one.
+#include "bcr_common.cuh"
 #include "kkt_schur.cuh"
 #include "merit.cuh"
-#include "pcg_common.cuh"
 
 namespace {
 
@@ -52,6 +63,7 @@ struct MegaParams {
   const float* tab;
   int N, gstride, max_iter, n_sqp, num_alphas;
   const float *X0, *U0, *goals, *xs, *lam0, *rho0, *merit0;
+  const float* drho0_p;  // K9p, K9b: drho in device memory (else drho0)
   float drho0, tol, dt, qd_cost, r_cost, grav, mu;
   float rho_factor, rho_min, rho_max, rho_reset;
   // outputs
@@ -60,15 +72,22 @@ struct MegaParams {
   // scratch
   float *SL, *SD, *SU, *PL, *PD, *PU, *Qinv, *A, *AQi, *T, *B, *Rinv;
   float *gamma, *q, *tvec, *Qiq, *fpred, *dX, *r, *dU, *contrib;
+  float* fac;  // K9b: the BCR factors
   int* cg_it;
   bool* cg_hit;
 };
 
-size_t mega_smem_floats(int N) { return pcgc::cg_smem_floats(N, 4); }
+// The three kernels of this file (the `kind` of the C entries below).
+enum Kind { SOLVE_PCG = 0, ITER_PCG = 1, ITER_BCR = 2 };
 
-size_t mega_scratch_floats(int N, int num_alphas) {
+size_t mega_smem_floats(int N, int kind) {
+  return kind == ITER_BCR ? bcr::dz_vec_floats(N) : pcgc::cg_smem_floats(N, 4);
+}
+
+size_t mega_scratch_floats(int N, int num_alphas, int kind) {
   return (size_t)N * (10 * SS + S * NU + NU * NU + 6 * S + 2 * NU
-                      + num_alphas);
+                      + num_alphas)
+         + (kind == ITER_BCR ? bcr::factor_floats(N) : 0);
 }
 
 // X[k] += step dX[k], U[k] += step dU[k]
@@ -80,7 +99,15 @@ LD_DEV void apply_step(const MegaParams& p, int k, float step) {
 
 enum { RHO, DRHO, MERIT, STEP, N_SCAL };
 
-LD_GLOBAL void sqp_mega_kernel(MegaParams p) {
+// Inlined into each kernel, so that p stays the kernel's own parameter.
+#ifdef __CUDACC__
+#define MEGA_INLINE __device__ __forceinline__
+#else
+#define MEGA_INLINE inline
+#endif
+
+template <bool BCR>
+MEGA_INLINE void mega_body(const MegaParams& p) {
   LD_SHARED float tab[ld::TAB_SIZE];
   LD_SHARED float merits[MAX_ALPHAS];
   LD_SHARED float st[N_SCAL];
@@ -91,7 +118,7 @@ LD_GLOBAL void sqp_mega_kernel(MegaParams p) {
   for (int k = bid; k < N; k += nb) {
     for (int e = t; e < S; e += nt) {
       p.X[S * k + e] = p.X0[S * k + e];
-      p.lam[S * k + e] = p.lam0[S * k + e];
+      if constexpr (!BCR) p.lam[S * k + e] = p.lam0[S * k + e];
     }
     if (k < N - 1)
       for (int e = t; e < NU; e += nt) p.U[NU * k + e] = p.U0[NU * k + e];
@@ -104,7 +131,7 @@ LD_GLOBAL void sqp_mega_kernel(MegaParams p) {
     }
   if (t == 0) {
     st[RHO] = p.rho0[0];
-    st[DRHO] = p.drho0;
+    st[DRHO] = p.drho0_p ? p.drho0_p[0] : p.drho0;
     st[MERIT] = p.merit0[0];
     st[STEP] = 0.0f;
     done = 0;
@@ -123,19 +150,33 @@ LD_GLOBAL void sqp_mega_kernel(MegaParams p) {
                   p.q, p.r, p.AQi, p.T, p.tvec, p.Qiq, p.fpred);
     }
     LD_GRID_SYNC();
-    // 2-3. cross-knot Schur bands, then the stair preconditioner
+    // 2-3. cross-knot Schur bands, then the stair preconditioner (PCG)
     for (int k = bid; k < N; k += nb)
       k3::schur_bands(k, N, p.X, p.Qinv, p.AQi, p.T, p.tvec, p.Qiq, p.fpred,
-                      1, p.SL, p.SD, p.SU, p.PD, p.gamma);
+                      BCR ? 0 : 1, p.SL, p.SD, p.SU, p.PD, p.gamma);
     LD_GRID_SYNC();
-    for (int k = bid; k < N; k += nb)
-      k3::stair(k, N, p.SL, p.SU, p.PD, 1, p.PL, p.PU);
-    LD_GRID_SYNC();
-    // 4. the warm-started CG and dz, in block 0
-    if (bid == 0)
-      pcgc::pcg_dz_body(smem, N, p.SL, p.SD, p.SU, p.PL, p.PD, p.PU, p.gamma,
-                        p.lam, p.A, p.B, p.q, p.r, p.Qinv, p.Rinv, p.max_iter,
-                        p.tol, p.lam, p.dX, p.dU, p.cg_it, p.cg_hit);
+    if constexpr (!BCR) {
+      for (int k = bid; k < N; k += nb)
+        k3::stair(k, N, p.SL, p.SU, p.PD, 1, p.PL, p.PU);
+      LD_GRID_SYNC();
+    }
+    // 4. the dual solve and dz, in block 0: the warm-started CG, or the
+    // refined BCR (0 CG iterations, no hit)
+    if (bid == 0) {
+      if constexpr (BCR) {
+        bcr::bcr_dz_body(N, p.SL, p.SD, p.SU, p.gamma, p.A, p.B, p.q, p.r,
+                         p.Qinv, p.Rinv, p.fac, smem, p.lam, p.dX, p.dU);
+        if (t == 0) {
+          p.cg_it[0] = 0;
+          p.cg_hit[0] = false;
+        }
+      } else {
+        pcgc::pcg_dz_body(smem, N, p.SL, p.SD, p.SU, p.PL, p.PD, p.PU,
+                          p.gamma, p.lam, p.A, p.B, p.q, p.r, p.Qinv, p.Rinv,
+                          p.max_iter, p.tol, p.lam, p.dX, p.dU, p.cg_it,
+                          p.cg_hit);
+      }
+    }
     LD_GRID_SYNC();
     // 5. merit contributions of every (candidate, knot) pair, spread over
     // the blocks
@@ -206,78 +247,48 @@ LD_GLOBAL void sqp_mega_kernel(MegaParams p) {
   }
 }
 
+LD_GLOBAL void sqp_mega_kernel(MegaParams p) { mega_body<false>(p); }
+LD_GLOBAL void sqp_iter_mega_pcg_kernel(MegaParams p) { mega_body<false>(p); }
+LD_GLOBAL void sqp_iter_mega_bcr_kernel(MegaParams p) { mega_body<true>(p); }
+
+using MegaKernel = void (*)(MegaParams);
+
+MegaKernel kernel_of(int kind) {
+  return kind == ITER_BCR   ? sqp_iter_mega_bcr_kernel
+         : kind == ITER_PCG ? sqp_iter_mega_pcg_kernel
+                            : sqp_mega_kernel;
+}
+
 #ifdef __CUDACC__
-// Static shared bytes of the kernel, or -1.
-long long mega_static_smem() {
+// Static shared bytes of a kernel, or -1.
+long long mega_static_smem(int kind) {
   cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, sqp_mega_kernel) != cudaSuccess) return -1;
+  if (cudaFuncGetAttributes(&attr, (const void*)kernel_of(kind)) != cudaSuccess)
+    return -1;
   return (long long)attr.sharedSizeBytes;
 }
 #endif
 
-}  // namespace
-
-// Largest horizon for which every block's shared memory (block 0's CG
-// system plus the stages' static arrays) fits on this device; 0 if the
-// attributes cannot be read.
-extern "C" int mpc_mega_max_knots(void) {
-#ifdef __CUDACC__
-  const long long stat = mega_static_smem();
-  if (stat < 0) return 0;
-  return pcgc::max_knots_for(mega_smem_floats, (size_t)stat);
-#else
-  return pcgc::max_knots_for(mega_smem_floats, 0);
-#endif
+int check_kind(int kind) {
+  return kind == SOLVE_PCG || kind == ITER_PCG || kind == ITER_BCR;
 }
 
-// The grid a solve of N knots launches: min(N, blocks that can be resident
-// at once), from the occupancy API at this kernel's block size and shared
-// memory (the counterpart of the reference's checkPcgOccupancy); 0 if not
-// one block fits or the device has no cooperative launch.
-extern "C" int mpc_mega_grid(int N) {
-#ifdef __CUDACC__
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) != cudaSuccess || !coop)
-    return 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  const size_t smem = mega_smem_floats(N) * sizeof(float);
-  if (cudaFuncSetAttribute(sqp_mega_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess)
-    return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sqp_mega_kernel,
-                                                    THREADS, smem) != cudaSuccess)
-    return 0;
-  const long long resident = (long long)per_sm * sms;
-  return (int)(resident < N ? resident : N);
-#else
-  (void)N;
-  return 1;  // the host build walks every knot in one block
-#endif
-}
-
-// Floats of global scratch one solve takes.
-extern "C" long long mpc_sqp_mega_scratch_floats(int N, int num_alphas) {
-  return (long long)mega_scratch_floats(N, num_alphas);
-}
-
-extern "C" int mpc_sqp_mega(
+// The parameters of one launch.  drho0_p (device memory) overrides drho0
+// when it is not null; lam0 is not read by K9b.
+MegaParams make_params(
     const float* tab, int N, const float* X0, const float* U0,
     const float* goals, int gstride, const float* xs, const float* lam0,
-    const float* rho0, const float* merit0, float drho0, int max_iter,
-    float tol, int n_sqp, float dt, float qd_cost, float r_cost, float grav,
-    float mu, int num_alphas, float rho_factor, float rho_min, float rho_max,
-    float rho_reset, float* X, float* U, float* lam, float* scal, int* ints,
-    int* stats, float* scratch, int* iscratch, int grid, void* stream) {
-  if (num_alphas < 1 || num_alphas > MAX_ALPHAS || N < 2 || grid < 1)
-    return 1;  // cudaErrorInvalidValue
+    const float* rho0, const float* merit0, const float* drho0_p,
+    float drho0, int max_iter, float tol, int n_sqp, float dt, float qd_cost,
+    float r_cost, float grav, float mu, int num_alphas, float rho_factor,
+    float rho_min, float rho_max, float rho_reset, float* X, float* U,
+    float* lam, float* scal, int* ints, int* stats, float* scratch,
+    int* iscratch, int kind) {
   MegaParams p;
   p.tab = tab; p.N = N; p.gstride = gstride; p.max_iter = max_iter;
   p.n_sqp = n_sqp; p.num_alphas = num_alphas;
   p.X0 = X0; p.U0 = U0; p.goals = goals; p.xs = xs; p.lam0 = lam0;
-  p.rho0 = rho0; p.merit0 = merit0;
+  p.rho0 = rho0; p.merit0 = merit0; p.drho0_p = drho0_p;
   p.drho0 = drho0; p.tol = tol; p.dt = dt; p.qd_cost = qd_cost;
   p.r_cost = r_cost; p.grav = grav; p.mu = mu; p.rho_factor = rho_factor;
   p.rho_min = rho_min; p.rho_max = rho_max; p.rho_reset = rho_reset;
@@ -294,23 +305,144 @@ extern "C" int mpc_sqp_mega(
   for (float** v : vecs) { *v = f; f += nv; }
   p.r = f; f += nu;
   p.dU = f; f += nu;
-  p.contrib = f;
+  p.contrib = f; f += (size_t)N * num_alphas;
+  p.fac = kind == ITER_BCR ? f : nullptr;
   p.cg_it = iscratch;
   p.cg_hit = reinterpret_cast<bool*>(iscratch + 1);
+  return p;
+}
 
-  const size_t smem = mega_smem_floats(N) * sizeof(float);
+}  // namespace
+
+// Largest horizon for which every block's shared memory (block 0's dual
+// solve plus the stages' static arrays) fits kernel `kind` (0 K5, 1 K9p,
+// 2 K9b) on this device; 0 if the attributes cannot be read.
+extern "C" int mpc_mega_max_knots(int kind) {
+  if (!check_kind(kind)) return 0;
+  auto floats = [kind](int n) { return mega_smem_floats(n, kind); };
+#ifdef __CUDACC__
+  const long long stat = mega_static_smem(kind);
+  if (stat < 0) return 0;
+  return pcgc::max_knots_for(floats, (size_t)stat);
+#else
+  return pcgc::max_knots_for(floats, 0);
+#endif
+}
+
+// The grid a launch of kernel `kind` over N knots uses: min(N, blocks that
+// can be resident at once), from the occupancy API at the kernel's block
+// size and shared memory (the counterpart of the reference's
+// checkPcgOccupancy); 0 if not one block fits or the device has no
+// cooperative launch.
+extern "C" int mpc_mega_grid(int N, int kind) {
+  if (!check_kind(kind)) return 0;
+#ifdef __CUDACC__
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) != cudaSuccess || !coop)
+    return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  const size_t smem = mega_smem_floats(N, kind) * sizeof(float);
+  const void* fn = (const void*)kernel_of(kind);
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS,
+                                                    smem) != cudaSuccess)
+    return 0;
+  const long long resident = (long long)per_sm * sms;
+  return (int)(resident < N ? resident : N);
+#else
+  (void)N;
+  return 1;  // the host build walks every knot in one block
+#endif
+}
+
+// Floats of global scratch one launch of kernel `kind` takes.
+extern "C" long long mpc_sqp_mega_scratch_floats(int N, int num_alphas,
+                                                 int kind) {
+  return (long long)mega_scratch_floats(N, num_alphas, kind);
+}
+
+namespace {
+
+int launch(const MegaParams& p, int kind, int grid, void* stream) {
+  if (p.num_alphas < 1 || p.num_alphas > MAX_ALPHAS || p.N < 2 || grid < 1)
+    return 1;  // cudaErrorInvalidValue
+  const size_t smem = mega_smem_floats(p.N, kind) * sizeof(float);
 #ifdef __CUDACC__
   // the wrapper takes `grid` from mpc_mega_grid, which also sets the
   // kernel's dynamic shared memory limit; never launch past co-residency
-  if (grid > mpc_mega_grid(N)) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&p};
+  if (grid > mpc_mega_grid(p.N, kind))
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  MegaParams arg = p;
+  void* args[] = {&arg};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      (void*)sqp_mega_kernel, dim3(grid), dim3(THREADS), args, smem,
+      (const void*)kernel_of(kind), dim3(grid), dim3(THREADS), args, smem,
       (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 #else
-  LD_LAUNCH(sqp_mega_kernel, 1, THREADS, smem, stream, p);
+  const MegaKernel kern = kernel_of(kind);
+  LD_LAUNCH(kern, 1, THREADS, smem, stream, p);
   return 0;
 #endif
+}
+
+}  // namespace
+
+// K5: n_sqp iterations from drho0 = drho0 (a host number).
+extern "C" int mpc_sqp_mega(
+    const float* tab, int N, const float* X0, const float* U0,
+    const float* goals, int gstride, const float* xs, const float* lam0,
+    const float* rho0, const float* merit0, float drho0, int max_iter,
+    float tol, int n_sqp, float dt, float qd_cost, float r_cost, float grav,
+    float mu, int num_alphas, float rho_factor, float rho_min, float rho_max,
+    float rho_reset, float* X, float* U, float* lam, float* scal, int* ints,
+    int* stats, float* scratch, int* iscratch, int grid, void* stream) {
+  const MegaParams p = make_params(
+      tab, N, X0, U0, goals, gstride, xs, lam0, rho0, merit0, nullptr, drho0,
+      max_iter, tol, n_sqp, dt, qd_cost, r_cost, grav, mu, num_alphas,
+      rho_factor, rho_min, rho_max, rho_reset, X, U, lam, scal, ints, stats,
+      scratch, iscratch, SOLVE_PCG);
+  return launch(p, SOLVE_PCG, grid, stream);
+}
+
+// K9p: one iteration, rho, drho and the incumbent merit in device memory.
+// Outputs as K5's with n_sqp = 1: scal (rho, drho, merit), ints
+// (iterations run, bail), stats (CG iterations, hit, accepted).
+extern "C" int mpc_sqp_iter_mega_pcg(
+    const float* tab, int N, const float* X0, const float* U0,
+    const float* goals, int gstride, const float* xs, const float* lam0,
+    const float* rho0, const float* drho0, const float* merit0, int max_iter,
+    float tol, float dt, float qd_cost, float r_cost, float grav, float mu,
+    int num_alphas, float rho_factor, float rho_min, float rho_max,
+    float rho_reset, float* X, float* U, float* lam, float* scal, int* ints,
+    int* stats, float* scratch, int* iscratch, int grid, void* stream) {
+  const MegaParams p = make_params(
+      tab, N, X0, U0, goals, gstride, xs, lam0, rho0, merit0, drho0, 1.0f,
+      max_iter, tol, 1, dt, qd_cost, r_cost, grav, mu, num_alphas,
+      rho_factor, rho_min, rho_max, rho_reset, X, U, lam, scal, ints, stats,
+      scratch, iscratch, ITER_PCG);
+  return launch(p, ITER_PCG, grid, stream);
+}
+
+// K9b: one iteration with the refined BCR dual solve (power-of-2 N); no
+// warm start, no CG.  Outputs as K9p's, stats' CG count 0.
+extern "C" int mpc_sqp_iter_mega(
+    const float* tab, int N, const float* X0, const float* U0,
+    const float* goals, int gstride, const float* xs, const float* rho0,
+    const float* drho0, const float* merit0, float dt, float qd_cost,
+    float r_cost, float grav, float mu, int num_alphas, float rho_factor,
+    float rho_min, float rho_max, float rho_reset, float* X, float* U,
+    float* lam, float* scal, int* ints, int* stats, float* scratch,
+    int* iscratch, int grid, void* stream) {
+  if (N & (N - 1)) return 1;  // cudaErrorInvalidValue
+  const MegaParams p = make_params(
+      tab, N, X0, U0, goals, gstride, xs, nullptr, rho0, merit0, drho0, 1.0f,
+      0, 0.0f, 1, dt, qd_cost, r_cost, grav, mu, num_alphas, rho_factor,
+      rho_min, rho_max, rho_reset, X, U, lam, scal, ints, stats, scratch,
+      iscratch, ITER_BCR);
+  return launch(p, ITER_BCR, grid, stream);
 }

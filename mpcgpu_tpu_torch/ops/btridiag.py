@@ -25,3 +25,14 @@ def spmv(T: BlockTri, x: torch.Tensor) -> torch.Tensor:
     x_next = torch.cat([x[..., 1:, :], z], dim=-2)
     mv = lambda M, v: (M @ v.unsqueeze(-1)).squeeze(-1)
     return mv(T.diag, x) + mv(T.lower, x_prev) + mv(T.upper, x_next)
+
+
+def to_dense(T: BlockTri) -> torch.Tensor:
+    """The (N s, N s) dense matrix of T (bands (N, s, s))."""
+    n, s = T.diag.shape[0], T.diag.shape[-1]
+    out = T.diag.new_zeros((n, s, n, s))
+    k = torch.arange(n, device=T.diag.device)
+    out[k, :, k, :] = T.diag
+    out[k[1:], :, k[:-1], :] = T.lower[1:]
+    out[k[:-1], :, k[1:], :] = T.upper[:-1]
+    return out.reshape(n * s, n * s)

@@ -81,12 +81,17 @@ def _solve_linsys_bcr(cfg, schur, lam, pcg_exit_tol):
             torch.zeros((), dtype=torch.bool, device=dev))
 
 
-def bcr_pcg(S: BlockTri, gamma, lam0, max_iter: int, exit_tol):
+def bcr_pcg(S: BlockTri, gamma, lam0, max_iter: int, exit_tol,
+            precond=None):
     """Warm-started CG on S lam = gamma with z = BCR(r) (unrefined) as the
-    preconditioner; returns (lam, iters int32, hit_max bool)."""
+    preconditioner; returns (lam, iters int32, hit_max bool).  precond(r)
+    -> z replaces the plain BCR solve (the split path of
+    ops/cuda/bcr_kernel.py passes the solve-only kernel K7s)."""
+    if precond is None:
+        precond = lambda rhs: bcr_solve(S, rhs, refine=0)
     tol = torch.as_tensor(exit_tol, dtype=gamma.dtype, device=gamma.device)
     r = gamma - spmv(S, lam0)
-    p = bcr_solve(S, r, refine=0)
+    p = precond(r)
     eta = (r * p).sum()
     lam = lam0
     iters = torch.zeros((), dtype=torch.int32, device=gamma.device)
@@ -96,7 +101,7 @@ def bcr_pcg(S: BlockTri, gamma, lam0, max_iter: int, exit_tol):
         alpha = eta / (p * up).sum()
         lam_n = lam + alpha * p
         r_n = r - alpha * up
-        z = bcr_solve(S, r_n, refine=0)
+        z = precond(r_n)
         eta_n = (r_n * z).sum()
         p_n = z + (eta_n / eta) * p
         lam = torch.where(active, lam_n, lam)

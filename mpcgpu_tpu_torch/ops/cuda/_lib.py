@@ -28,8 +28,9 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("rollout.cu", "merit.cu", "kkt_schur.cu", "pcg_dz.cu",
-           "bcr_pcg_dz.cu", "sqp_mega.cu", "sqp_mega_packed.cu")
-HEADERS = ("lanedyn.cuh", "kkt_schur.cuh", "merit.cuh", "pcg_common.cuh")
+           "bcr_pcg_dz.cu", "bcr_dz.cu", "sqp_mega.cu", "sqp_mega_packed.cu")
+HEADERS = ("lanedyn.cuh", "kkt_schur.cuh", "merit.cuh", "pcg_common.cuh",
+           "bcr_common.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
@@ -44,16 +45,26 @@ _SIGNATURES = {
     "mpc_kkt_schur": [_P, _I, _P, _P, _P, _I, _P, _F, _F, _F, _F, _I]
                      + [_P] * 19,
     "mpc_pcg_dz": [_I] + [_P] * 14 + [_I, _F] + [_P] * 6,
+    "mpc_pcg_solve": [_I] + [_P] * 8 + [_I, _F] + [_P] * 4,
     "mpc_pcg_max_knots": [],
     "mpc_bcr_pcg_dz": [_I] + [_P] * 11 + [_I, _F] + [_P] * 7,
     "mpc_bcr_max_knots": [],
     "mpc_bcr_scratch_floats": [_I],
+    "mpc_bcr_dz": [_I] + [_P] * 15,
+    "mpc_bcr_dz_max_knots": [],
+    "mpc_bcr_solve": [_I] + [_P] * 7,
+    "mpc_bcr_solve_max_knots": [],
     "mpc_sqp_mega": [_P, _I, _P, _P, _P, _I] + [_P] * 4
                     + [_F, _I, _F, _I] + [_F] * 5 + [_I] + [_F] * 4
                     + [_P] * 8 + [_I, _P],
-    "mpc_mega_max_knots": [],
-    "mpc_mega_grid": [_I],
-    "mpc_sqp_mega_scratch_floats": [_I, _I],
+    "mpc_sqp_iter_mega_pcg": [_P, _I, _P, _P, _P, _I] + [_P] * 5
+                             + [_I] + [_F] * 6 + [_I] + [_F] * 4
+                             + [_P] * 8 + [_I, _P],
+    "mpc_sqp_iter_mega": [_P, _I, _P, _P, _P, _I] + [_P] * 4 + [_F] * 5
+                         + [_I] + [_F] * 4 + [_P] * 8 + [_I, _P],
+    "mpc_mega_max_knots": [_I],
+    "mpc_mega_grid": [_I, _I],
+    "mpc_sqp_mega_scratch_floats": [_I, _I, _I],
     "mpc_sqp_mega_packed": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                             _I, _F, _I] + [_F] * 5 + [_I] + [_F] * 4
                            + [_P] * 7 + [_I, _P],

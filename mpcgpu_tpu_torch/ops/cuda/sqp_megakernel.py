@@ -1,12 +1,21 @@
-"""K5: the whole SQP solve in one cooperative launch (csrc/sqp_mega.cu),
-and K10: the same for B arms at once (csrc/sqp_mega_packed.cu).
+"""The SQP megakernels: K5, the whole SQP solve in one cooperative launch,
+and K9p / K9b, one SQP iteration per launch with the stair-PCG / the
+refined BCR dual solve (csrc/sqp_mega.cu); K10, K5 for B arms at once
+(csrc/sqp_mega_packed.cu).
 
-Counterpart of mpcgpu_tpu/ops/pallas/sqp_megakernel.py, the whole-solve
-parts (sqp_solve_mega_pcg, sqp_solve_mega_pcg_packed).  A CPU tensor runs
-the plain version, the port's staged iteration loop (sqp.iterate) for the
-same fixed ``n_sqp_iter`` with the bail freeze -- over the plain K3, K4
-and K2 versions for K5, over the arm-batched plain modules with the CG's
-shared exit for K10; a CUDA tensor launches the kernel or raises.
+Counterpart of mpcgpu_tpu/ops/pallas/sqp_megakernel.py
+(sqp_solve_mega_pcg, sqp_iter_mega_pcg, sqp_iter_mega,
+sqp_solve_mega_pcg_packed).  A CPU tensor runs the plain version: the
+port's staged iteration (sqp.sqp_step) over the plain K3 and K2 versions
+with K4's (K5, K9p) or K7's (K9b) -- one step for K9, the fixed
+``n_sqp_iter`` of sqp.iterate with the bail freeze for K5 -- and for K10
+the arm-batched plain modules with the CG's shared exit; a CUDA tensor
+launches the kernel or raises.
+
+K9p and K9b take drho and the incumbent merit as device scalars and
+return the iteration's accept and bail, so a caller's loop of single
+iterations (sqp.sqp_solve with ``megakernel`` and without
+``megakernel_solve``) reads nothing on the host.
 
 The kernel is one persistent cooperative launch with grid barriers
 between its stages; its CG stage runs in one block that holds S in shared
@@ -29,6 +38,7 @@ import torch
 
 from mpcgpu_tpu_torch.ops import merit as merit_ops
 from mpcgpu_tpu_torch.ops.cuda import _lib
+from mpcgpu_tpu_torch.ops.cuda.bcr_kernel import bcr_dz_reference
 from mpcgpu_tpu_torch.ops.cuda.kkt_schur_kernel import (
     form_kkt_schur_reference)
 from mpcgpu_tpu_torch.ops.cuda.merit_kernel import (
@@ -54,18 +64,34 @@ class MegaResult(NamedTuple):
     accepted: torch.Tensor    # (n_sqp_iter,) bool
 
 
-def sqp_solve_mega_pcg_reference(model, X, U, goals, xs, lam0, rho, drho,
-                                 merit0, max_iter: int, exit_tol,
-                                 n_sqp_iter: int, dt, qd_cost, r_cost,
-                                 gravity, mu, num_alphas: int, rho_factor,
-                                 rho_min, rho_max, rho_reset) -> MegaResult:
-    from mpcgpu_tpu_torch.sqp import iterate
+class IterResult(NamedTuple):
+    """One SQP iteration (K9p, K9b, sqp.sqp_step): the iterate after the
+    accepted step, the dual solution, the rho schedule's state, and the
+    iteration's decisions and CG counts (0 and False for the BCR solve)."""
+
+    X: torch.Tensor           # (N, nx)
+    U: torch.Tensor           # (N-1, nu)
+    lam: torch.Tensor         # (N, nx)
+    rho: torch.Tensor         # 0-d
+    drho: torch.Tensor
+    merit: torch.Tensor
+    accept: torch.Tensor      # bool
+    bail: torch.Tensor        # bool
+    pcg_iters: torch.Tensor   # int32
+    hit_max: torch.Tensor     # bool
+
+
+def _plain_step(model, goals, xs, solve, precond: bool, dt, qd_cost, r_cost,
+                gravity, mu, num_alphas: int, rho_factor, rho_min, rho_max,
+                rho_reset):
+    """sqp.sqp_step over the plain K3 and K2 versions, with
+    solve(ks, lam) -> (lam', dX, dU, iters, hit) as the dual solve."""
+    from mpcgpu_tpu_torch.sqp import staged_step
 
     def linearize_and_solve(Xc, Uc, lamc, rhoc):
         ks = form_kkt_schur_reference(model, Xc, Uc, goals, xs, rhoc, dt,
-                                      qd_cost, r_cost, gravity, True)
-        lam_new, dX, dU, it, hit = pcg_dz_reference(ks, lamc, max_iter,
-                                                    exit_tol)
+                                      qd_cost, r_cost, gravity, precond)
+        lam_new, dX, dU, it, hit = solve(ks, lamc)
         return lam_new, it, hit, dX, dU
 
     def eval_merits(Xc, Uc, dX, dU):
@@ -73,37 +99,66 @@ def sqp_solve_mega_pcg_reference(model, X, U, goals, xs, lam0, rho, drho,
             model, Xc, Uc, dX, dU, num_alphas, goals, xs, dt, mu, qd_cost,
             r_cost, gravity)[:num_alphas]
 
+    return staged_step(linearize_and_solve, eval_merits,
+                       alphas_for(num_alphas, goals), rho_factor, rho_min,
+                       rho_max, rho_reset)
+
+
+def _pcg_solve(max_iter, exit_tol):
+    return lambda ks, lam: pcg_dz_reference(ks, lam, max_iter, exit_tol)
+
+
+def _scalars(X, rho, drho, merit):
     f32 = dict(dtype=X.dtype, device=X.device)
-    st = iterate(X, U, lam0, torch.as_tensor(rho, **f32),
-                 torch.as_tensor(drho, **f32), torch.as_tensor(merit0, **f32),
-                 n_sqp_iter, linearize_and_solve, eval_merits,
-                 alphas_for(num_alphas, X), rho_factor, rho_min, rho_max,
-                 rho_reset)
+    return (torch.as_tensor(rho, **f32), torch.as_tensor(drho, **f32),
+            torch.as_tensor(merit, **f32))
+
+
+def sqp_solve_mega_pcg_reference(model, X, U, goals, xs, lam0, rho, drho,
+                                 merit0, max_iter: int, exit_tol,
+                                 n_sqp_iter: int, dt, qd_cost, r_cost,
+                                 gravity, mu, num_alphas: int, rho_factor,
+                                 rho_min, rho_max, rho_reset) -> MegaResult:
+    from mpcgpu_tpu_torch.sqp import iterate
+
+    step = _plain_step(model, goals, xs, _pcg_solve(max_iter, exit_tol), True,
+                       dt, qd_cost, r_cost, gravity, mu, num_alphas,
+                       rho_factor, rho_min, rho_max, rho_reset)
+    st = iterate(X, U, lam0, *_scalars(X, rho, drho, merit0), n_sqp_iter,
+                 step)
     return MegaResult(*st)
 
 
 _grids: dict = {}
 
 
-def check_mega_fit(knot_points: int, lib=None) -> int:
-    """Raise unless every block's shared memory fits at this horizon and
-    at least one block can be resident; return the grid a launch uses,
-    min(N, co-resident blocks)."""
+# the kernels of csrc/sqp_mega.cu (its Kind)
+SOLVE_PCG, ITER_PCG, ITER_BCR = 0, 1, 2
+_KIND_NAMES = {SOLVE_PCG: "the whole-solve kernel",
+               ITER_PCG: "the per-iteration PCG kernel",
+               ITER_BCR: "the per-iteration BCR kernel"}
+
+
+def check_mega_fit(knot_points: int, lib=None, kind: int = SOLVE_PCG) -> int:
+    """Raise unless every block's shared memory fits kernel `kind` (K5,
+    K9p, K9b) at this horizon and at least one block can be resident;
+    return the grid a launch uses, min(N, co-resident blocks)."""
     lib = lib or _lib.library()
-    key = (id(lib), knot_points, _current_device())
+    key = (id(lib), knot_points, kind, _current_device())
     if key in _grids:
         return _grids[key]
-    n_max = lib.mpc_mega_max_knots()
+    name = _KIND_NAMES[kind]
+    n_max = lib.mpc_mega_max_knots(kind)
     if knot_points > n_max:
         raise ValueError(
-            f"the whole-solve kernel holds S in one block's shared memory "
-            f"and serves N <= {n_max} on this device; got N = {knot_points}")
-    grid = lib.mpc_mega_grid(knot_points)
+            f"{name} holds its dual solve in one block's shared memory and "
+            f"serves N <= {n_max} on this device; got N = {knot_points}")
+    grid = lib.mpc_mega_grid(knot_points, kind)
     if grid < 1:
         raise ValueError(
-            f"the whole-solve kernel cannot make a cooperative launch of "
-            f"N = {knot_points} on this device: no block of it can be "
-            f"resident, or the device has no cooperative launch")
+            f"{name} cannot make a cooperative launch of N = {knot_points} "
+            f"on this device: no block of it can be resident, or the device "
+            f"has no cooperative launch")
     _grids[key] = grid
     return grid
 
@@ -112,10 +167,9 @@ def _current_device():
     return torch.cuda.current_device() if torch.cuda.is_available() else -1
 
 
-def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
-            max_iter: int, exit_tol, n_sqp_iter: int, dt, qd_cost, r_cost,
-            gravity, mu, num_alphas: int, rho_factor, rho_min, rho_max,
-            rho_reset, grid: int, stream) -> MegaResult:
+def _expect_iterate(tab, X, U, goals, xs, rho, merit, num_alphas: int) -> int:
+    """Raise unless the single-arm inputs are what the kernels take;
+    return N."""
     dev = X.device
     nx, nu = 2 * _lib.NJ, _lib.NJ
     if X.dim() != 2 or X.shape[1] != nx or X.shape[0] < 2:
@@ -123,17 +177,27 @@ def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
     n = X.shape[0]
     _lib.expect(X, "X", (n, nx), dev)
     _lib.expect(U, "U", (n - 1, nu), dev)
-    _lib.expect(lam0, "lam0", (n, nx), dev)
     if goals.dim() != 2 or goals.shape[0] != n or goals.shape[1] < 3:
         raise ValueError(f"goals must be ({n}, >=3), got {tuple(goals.shape)}")
     _lib.expect(goals, "goals", tuple(goals.shape), dev)
     _lib.expect(xs, "xs", (nx,), dev)
     _lib.expect(rho, "rho", (), dev)
-    _lib.expect(merit0, "merit0", (), dev)
+    _lib.expect(merit, "merit", (), dev)
     _lib.expect(tab, "tables", (_lib.TAB_SIZE,), dev)
     if not 1 <= num_alphas <= 16:
         raise ValueError(f"the kernel serves 1..16 step sizes, got "
                          f"{num_alphas}")
+    return n
+
+
+def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
+            max_iter: int, exit_tol, n_sqp_iter: int, dt, qd_cost, r_cost,
+            gravity, mu, num_alphas: int, rho_factor, rho_min, rho_max,
+            rho_reset, grid: int, stream) -> MegaResult:
+    dev = X.device
+    nx, nu = 2 * _lib.NJ, _lib.NJ
+    n = _expect_iterate(tab, X, U, goals, xs, rho, merit0, num_alphas)
+    _lib.expect(lam0, "lam0", (n, nx), dev)
     f32 = dict(dtype=torch.float32, device=dev)
     Xo = torch.empty((n, nx), **f32)
     Uo = torch.empty((n - 1, nu), **f32)
@@ -141,8 +205,8 @@ def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
     scal = torch.empty(3, **f32)
     ints = torch.empty(2, dtype=torch.int32, device=dev)
     stats = torch.empty((3, n_sqp_iter), dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.mpc_sqp_mega_scratch_floats(n, num_alphas),
-                          **f32)
+    scratch = torch.empty(
+        lib.mpc_sqp_mega_scratch_floats(n, num_alphas, SOLVE_PCG), **f32)
     iscratch = torch.empty(2, dtype=torch.int32, device=dev)
     rc = lib.mpc_sqp_mega(
         tab.data_ptr(), n, X.data_ptr(), U.data_ptr(), goals.data_ptr(),
@@ -192,6 +256,131 @@ def sqp_solve_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit0,
 sqp_solve_mega_pcg.launches = 0
 
 
+def sqp_iter_mega_pcg_reference(model, X, U, goals, xs, lam0, rho, drho,
+                                merit, max_iter: int, exit_tol, dt, qd_cost,
+                                r_cost, gravity, mu, num_alphas: int,
+                                rho_factor, rho_min, rho_max,
+                                rho_reset) -> IterResult:
+    step = _plain_step(model, goals, xs, _pcg_solve(max_iter, exit_tol), True,
+                       dt, qd_cost, r_cost, gravity, mu, num_alphas,
+                       rho_factor, rho_min, rho_max, rho_reset)
+    return step(X, U, lam0, *_scalars(X, rho, drho, merit))
+
+
+def sqp_iter_mega_reference(model, X, U, goals, xs, rho, drho, merit, dt,
+                            qd_cost, r_cost, gravity, mu, num_alphas: int,
+                            rho_factor, rho_min, rho_max,
+                            rho_reset) -> IterResult:
+    step = _plain_step(model, goals, xs, lambda ks, lam: bcr_dz_reference(ks),
+                       False, dt, qd_cost, r_cost, gravity, mu, num_alphas,
+                       rho_factor, rho_min, rho_max, rho_reset)
+    return step(X, U, torch.zeros_like(X), *_scalars(X, rho, drho, merit))
+
+
+def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
+                 max_iter: int, exit_tol, dt, qd_cost, r_cost, gravity, mu,
+                 num_alphas: int, rho_factor, rho_min, rho_max, rho_reset,
+                 grid: int, stream) -> IterResult:
+    """One launch of K9p (kind ITER_PCG, lam0 the warm start) or K9b
+    (ITER_BCR, lam0 None)."""
+    dev = X.device
+    nx, nu = 2 * _lib.NJ, _lib.NJ
+    n = _expect_iterate(tab, X, U, goals, xs, rho, merit, num_alphas)
+    _lib.expect(drho, "drho", (), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    Xo = torch.empty((n, nx), **f32)
+    Uo = torch.empty((n - 1, nu), **f32)
+    lam = torch.empty((n, nx), **f32)
+    scal = torch.empty(3, **f32)
+    ints = torch.empty(2, dtype=torch.int32, device=dev)
+    stats = torch.empty(3, dtype=torch.int32, device=dev)
+    scratch = torch.empty(
+        lib.mpc_sqp_mega_scratch_floats(n, num_alphas, kind), **f32)
+    iscratch = torch.empty(2, dtype=torch.int32, device=dev)
+    head = (tab.data_ptr(), n, X.data_ptr(), U.data_ptr(), goals.data_ptr(),
+            goals.shape[1], xs.data_ptr())
+    schedule = (float(dt), float(qd_cost), float(r_cost), float(gravity),
+                float(mu), int(num_alphas), float(rho_factor),
+                float(rho_min), float(rho_max), float(rho_reset))
+    tail = (Xo.data_ptr(), Uo.data_ptr(), lam.data_ptr(), scal.data_ptr(),
+            ints.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
+            iscratch.data_ptr(), int(grid), stream)
+    if kind == ITER_PCG:
+        _lib.expect(lam0, "lam0", (n, nx), dev)
+        rc = lib.mpc_sqp_iter_mega_pcg(
+            *head, lam0.data_ptr(), rho.data_ptr(), drho.data_ptr(),
+            merit.data_ptr(), int(max_iter), float(exit_tol), *schedule,
+            *tail)
+        _lib.check(rc, "mpc_sqp_iter_mega_pcg")
+    else:
+        if n & (n - 1):
+            raise ValueError(f"the per-iteration BCR kernel needs a "
+                             f"power-of-2 horizon, got N = {n}")
+        rc = lib.mpc_sqp_iter_mega(*head, rho.data_ptr(), drho.data_ptr(),
+                                   merit.data_ptr(), *schedule, *tail)
+        _lib.check(rc, "mpc_sqp_iter_mega")
+    return IterResult(X=Xo, U=Uo, lam=lam, rho=scal[0], drho=scal[1],
+                      merit=scal[2], accept=stats[2] != 0, bail=ints[1] != 0,
+                      pcg_iters=stats[0], hit_max=stats[1] != 0)
+
+
+def _iter_on_card(kind: int, model, X, U, goals, xs, lam0, rho, drho, merit,
+                  *rest):
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    lib = _lib.library()
+    grid = check_mega_fit(X.shape[0], lib, kind)
+    rho, drho, merit = _scalars(X, rho, drho, merit)
+    return _launch_iter(lib, kind, _lib.model_tables(model), X, U, goals, xs,
+                        lam0, rho, drho, merit, *rest, grid,
+                        _lib.stream_of(X))
+
+
+def sqp_iter_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit,
+                      max_iter: int, exit_tol, dt, qd_cost, r_cost, gravity,
+                      mu, num_alphas: int, rho_factor, rho_min, rho_max,
+                      rho_reset) -> IterResult:
+    """K9p: one SQP iteration (K3's stages with the stair, the
+    warm-started stair-PCG from lam0 and dz, the 8-alpha line search, the
+    accept test and rho schedule) from X (N, nx), U (N-1, nu), goals (N,
+    >=3), xs (nx,); rho, drho and merit (the incumbent's) are 0-d tensors
+    (or numbers), max_iter and exit_tol host numbers."""
+    if X.device.type == "cpu":
+        return sqp_iter_mega_pcg_reference(
+            model, X, U, goals, xs, lam0, rho, drho, merit, max_iter,
+            exit_tol, dt, qd_cost, r_cost, gravity, mu, num_alphas,
+            rho_factor, rho_min, rho_max, rho_reset)
+    out = _iter_on_card(ITER_PCG, model, X, U, goals, xs, lam0, rho, drho,
+                        merit, max_iter, exit_tol, dt, qd_cost, r_cost,
+                        gravity, mu, num_alphas, rho_factor, rho_min,
+                        rho_max, rho_reset)
+    sqp_iter_mega_pcg.launches += 1
+    return out
+
+
+sqp_iter_mega_pcg.launches = 0
+
+
+def sqp_iter_mega(model, X, U, goals, xs, rho, drho, merit, dt, qd_cost,
+                  r_cost, gravity, mu, num_alphas: int, rho_factor, rho_min,
+                  rho_max, rho_reset) -> IterResult:
+    """K9b: one SQP iteration with the refined BCR dual solve (no stair, no
+    warm start; pcg_iters 0, hit_max False); N a power of 2.  Arguments as
+    sqp_iter_mega_pcg's, less lam0, max_iter and exit_tol."""
+    if X.device.type == "cpu":
+        return sqp_iter_mega_reference(
+            model, X, U, goals, xs, rho, drho, merit, dt, qd_cost, r_cost,
+            gravity, mu, num_alphas, rho_factor, rho_min, rho_max, rho_reset)
+    out = _iter_on_card(ITER_BCR, model, X, U, goals, xs, None, rho, drho,
+                        merit, 0, 0.0, dt, qd_cost, r_cost, gravity, mu,
+                        num_alphas, rho_factor, rho_min, rho_max, rho_reset)
+    sqp_iter_mega.launches += 1
+    return out
+
+
+sqp_iter_mega.launches = 0
+
+
 class PackedResult(NamedTuple):
     X: torch.Tensor                # (B, N, nx)
     U: torch.Tensor                # (B, N-1, nu)
@@ -213,7 +402,7 @@ def sqp_solve_mega_pcg_packed_reference(model, X, U, goals, xs, lam0, rho,
     modules (KKT, Schur with the stair preconditioner, the CG with its
     shared exit, dz, the candidate merits), the incumbent merit computed
     first, on the tensors' device."""
-    from mpcgpu_tpu_torch.sqp import iterate
+    from mpcgpu_tpu_torch.sqp import iterate, staged_step
 
     def linearize_and_solve(Xc, Uc, lamc, rhoc):
         kkt = form_kkt(model, Xc, Uc, goals, xs, dt, qd_cost, r_cost, 0,
@@ -236,9 +425,10 @@ def sqp_solve_mega_pcg_packed_reference(model, X, U, goals, xs, lam0, rho,
     (Xo, Uo, lam, rho_o, _drho, merit, iters, done, pcg_iters, _hit,
      _acc) = iterate(X, U, lam0, torch.as_tensor(rho, **f32).expand(b),
                      torch.as_tensor(drho, **f32).expand(b), merit0,
-                     n_sqp_iter, linearize_and_solve, eval_merits,
-                     alphas_for(num_alphas, X), rho_factor, rho_min, rho_max,
-                     rho_reset)
+                     n_sqp_iter,
+                     staged_step(linearize_and_solve, eval_merits,
+                                 alphas_for(num_alphas, X), rho_factor,
+                                 rho_min, rho_max, rho_reset))
     # an iteration's CG count where some arm was live, else -1
     pcg_tot = pcg_iters.amax(-1).clamp(min=0).sum().to(torch.int32)
     return PackedResult(X=Xo, U=Uo, lam=lam, rho=rho_o, merit=merit,

@@ -115,6 +115,66 @@ def test_simulate_mpc_scan_matches_jax(iiwa, traj_0_0, fused):
                                np.asarray(ref["final_xs"]), atol=5e-3)
 
 
+@pytest.fixture(scope="module")
+def jax_bcr_loop(iiwa, traj_0_0):
+    """The JAX closed loop with the exact "bcr" backend: N = 8, 4 updates,
+    sqp_max_iter 2, the pcg loop's start (seed 4)."""
+    xu, ee = traj_0_0
+    X, U, _, _ = _start(traj_0_0, seed=4)
+    return (X, U), jax_simulate_mpc_scan(
+        iiwa, JaxSolverConfig.for_knots(N, sqp_max_iter=2), jnp.asarray(xu),
+        jnp.asarray(ee), jnp.asarray(X), jnp.asarray(U),
+        jnp.asarray(np.zeros((N, 14), np.float32)),
+        jnp.asarray(1e-3, jnp.float32), 5e-5, 4, linsys="bcr")
+
+
+@pytest.mark.parametrize("linsys,fused", [("bcr", False), ("bcr", True),
+                                          ("qdldl", False)])
+def test_simulate_mpc_scan_exact_backends_match_jax(traj_0_0, jax_bcr_loop,
+                                                    linsys, fused):
+    """The exact-dual backends in the closed loop against the JAX loop
+    with "bcr": tracking errors at atol 1e-3 and final states at atol
+    5e-3, as the pcg loop above; bcr also through its kernels' plain
+    versions (fused, K7 per iteration), qdldl (the host LDL') against the
+    same exact-dual loop, one JAX compile for the three."""
+    xu, ee = traj_0_0
+    (X, U), ref = jax_bcr_loop
+    cfg = SolverConfig.for_knots(N, sqp_max_iter=2, fused_stages=fused)
+    got = simulate_mpc_scan(iiwa14(device="cpu"), cfg, T(xu), T(ee), T(X),
+                            T(U), torch.zeros(N, 14), 1e-3, 5e-5, 4, linsys)
+    np.testing.assert_allclose(got["tracking_errors"].numpy(),
+                               np.asarray(ref["tracking_errors"]), atol=1e-3)
+    np.testing.assert_allclose(got["final_xs"].numpy(),
+                               np.asarray(ref["final_xs"]), atol=5e-3)
+    assert (got["pcg_iters_total"].numpy() == 0).all()
+
+
+def test_simulate_mpc_scan_runs_every_backend(traj_0_0):
+    """Every new linsys runs in the closed loop (finite errors), dense within
+    1e-4 m of qdldl (two exact solves), pcg_pallas equal to pcg (the same
+    CG, K4b's plain version); an arm axis still refuses a backend other
+    than pcg."""
+    xu, ee = traj_0_0
+    X, U, _, _ = _start(traj_0_0, seed=4)
+    cfg = SolverConfig.for_knots(N, sqp_max_iter=2)
+    cfg = dataclasses.replace(cfg, pcg=dataclasses.replace(cfg.pcg,
+                                                           max_iter=40))
+    model = iiwa14(device="cpu")
+    args = (T(xu), T(ee), T(X), T(U), torch.zeros(N, 14), 1e-3, 5e-5, 3)
+    errs = {ls: simulate_mpc_scan(model, cfg, *args, ls)["tracking_errors"]
+            for ls in ("pcg", "pcg_pallas", "dense", "qdldl")}
+    for e in errs.values():
+        assert e.shape == (3,) and torch.isfinite(e).all()
+    torch.testing.assert_close(errs["pcg_pallas"], errs["pcg"], rtol=0,
+                               atol=0)
+    torch.testing.assert_close(errs["dense"], errs["qdldl"], rtol=0,
+                               atol=1e-4)
+    arms = (T(xu), T(ee), T(X).expand(2, N, 14), T(U).expand(2, N - 1, 7),
+            torch.zeros(2, N, 14), 1e-3, 5e-5, 1)
+    with pytest.raises(ValueError, match="arm axis"):
+        simulate_mpc_scan(model, cfg, *arms, "bcr")
+
+
 @pytest.mark.parametrize("traj_offset", [1, 5, 240])
 def test_shift_horizon_matches_jax(traj_0_0, traj_offset):
     xu, ee = traj_0_0

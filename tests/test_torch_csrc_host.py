@@ -20,13 +20,16 @@ from mpcgpu_tpu_torch.models.robot import iiwa14
 from mpcgpu_tpu_torch.ops.btridiag import BlockTri, spmv
 from mpcgpu_tpu_torch.ops.cuda import _lib
 from mpcgpu_tpu_torch.ops.cuda import bcr_kernel as k6
+from mpcgpu_tpu_torch.ops.cuda import bcr_kernel as k7
 from mpcgpu_tpu_torch.ops.cuda import kkt_schur_kernel as k3
 from mpcgpu_tpu_torch.ops.cuda import merit_kernel as k2
 from mpcgpu_tpu_torch.ops.cuda import pcg_kernel as k4
 from mpcgpu_tpu_torch.ops.cuda import rollout_kernel as k1
 from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k5
+from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k9
 from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k10
-from tests.torch_systems import random_system
+from tests.torch_systems import (bcr_iteration_given_lam, random_knot_schur,
+                                 random_system, relative_residual)
 from tests.test_torch_kkt_schur import DT, QD_COST, R_COST, RHO, problem
 
 torch.set_num_threads(1)
@@ -339,3 +342,205 @@ def test_packed_loop_through_the_host_build(host, traj_0_0, monkeypatch):
         assert torch.equal(got[k], want[k]), k
     for k in ("tracking_errors", "final_xs"):
         _close(got[k], want[k], 0, 1e-4)
+
+
+@pytest.mark.parametrize("cap,tol", [(300, 1e-9), (40, 5e-5), (3, 1e-12)])
+def test_k4b_host_build_matches_plain(host, traj_0_0, cap, tol):
+    """K4's tolerances: lam at rtol 5e-3, atol 5e-3; CG counts within 2 or
+    both at the cap; the same hit flag."""
+    lib, model, _ = host
+    X, U, goals, xs = (T(a) for a in problem(traj_0_0))
+    ks = k3.form_kkt_schur_reference(model, X, U, goals, xs, RHO, DT, QD_COST,
+                                     R_COST)
+    S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
+    lam0 = torch.zeros(X.shape[0], 14)
+    want = k4.pcg_solve_reference(S, P, ks.gamma, lam0, cap, tol)
+    got = k4._launch_solve(lib, S, P, ks.gamma, lam0, cap, tol, None)
+    _close(got[0], want[0], 5e-3, 5e-3)
+    assert abs(int(got[1]) - int(want[1])) <= 2 or int(got[1]) == int(want[1]) == cap
+    assert bool(got[2]) == bool(want[2])
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_k7_and_k7s_host_build_match_plain(host, n):
+    """On the JAX BCR tests' random system: lam scaled by its largest
+    entry at atol 2e-5, dX and dU at rtol 1e-3, atol 2e-4
+    (tests/test_bcr.py:62-74); K7 reports 0 iterations and no hit."""
+    lib = host[0]
+    ks = random_knot_schur(n)
+    want = k7.bcr_dz_reference(ks)
+    got = k7._launch_dz(lib, ks, None)
+    scale = want[0].abs().max()
+    _close(got[0] / scale, want[0] / scale, 0, 2e-5)
+    for g, w in zip(got[1:3], want[1:3]):
+        _close(g, w, 1e-3, 2e-4)
+    assert int(got[3]) == 0 and not bool(got[4])
+    want_s = k7.bcr_solve_reference(ks.SL, ks.SD, ks.SU, ks.gamma)
+    got_s = k7._launch_solve(lib, ks.SL, ks.SD, ks.SU, ks.gamma, None)
+    _close(got_s / want_s.abs().max(), want_s / want_s.abs().max(), 0, 2e-5)
+
+
+def test_k7_host_build_residual_on_the_fixture_system(host, traj_0_0):
+    """Fixture 0_0's rho = 1e-3 system without the stair (condition ~1e7):
+    K7's relative residual within 1e-5 (the plain refined solve's is
+    about 1e-6 there)."""
+    lib, model, _ = host
+    X, U, goals, xs = (T(a) for a in problem(traj_0_0, n=16))
+    ks = k3.form_kkt_schur_reference(model, X, U, goals, xs, RHO, DT,
+                                     QD_COST, R_COST, precond=False)
+    assert relative_residual(ks, k7._launch_dz(lib, ks, None)[0]) < 1e-5
+    assert relative_residual(ks, k7.bcr_dz_reference(ks)[0]) < 1e-5
+
+
+def test_split_paths_through_the_host_build_match_the_one_block_kernels(host):
+    """N = 16, forced split: K7s twice with the residual between against
+    K7, and the CG glue with K7s applies against K6, both through the
+    host build: lam scaled at atol 2e-5, dz at rtol 1e-3, atol 2e-4, CG
+    counts within 1."""
+    lib = host[0]
+    ks = random_knot_schur(16, seed=7)
+    solve = lambda rhs: k7._launch_solve(lib, ks.SL, ks.SD, ks.SU, rhs, None)
+    lam0 = T(np.random.default_rng(3).normal(size=(16, 14)).astype(np.float32))
+    pairs = ((k7.bcr_dz_split(ks, solve), k7._launch_dz(lib, ks, None)),
+             (k7.bcr_pcg_dz_split(ks, lam0, 40, 5e-5, solve),
+              k6._launch(lib, ks, lam0, 40, 5e-5, None)))
+    for got, want in pairs:
+        scale = want[0].abs().max()
+        _close(got[0] / scale, want[0] / scale, 0, 2e-5)
+        for g, w in zip(got[1:3], want[1:3]):
+            _close(g, w, 1e-3, 2e-4)
+        assert abs(int(got[3]) - int(want[3])) <= 1
+        assert bool(got[4]) == bool(want[4])
+
+
+def _k9_start(traj_0_0, n, rho):
+    xu, ee = traj_0_0
+    pert = 0.02 * np.random.default_rng(5).normal(size=(n, 14))
+    pert[0] = 0.0
+    X = T((xu[:n, :14] + pert).astype(np.float32))
+    return X, T(xu[:n - 1, 14:].copy()), T(ee[:n].copy()), T(xu[0, :14])
+
+
+@pytest.mark.parametrize("rho,rho_max", [(1e-3, 10.0), (0.1, 10.0),
+                                         (0.3, 0.3)])
+def test_k9p_host_build_matches_plain(host, traj_0_0, rho, rho_max):
+    """One K9p launch against one staged plain iteration, N = 8, cold
+    duals, drho 1.3 and the incumbent merit from device memory: X, U at
+    rtol 1e-3, atol 1e-5 and lam at rtol 1e-3, atol 1e-4
+    (tests/test_megakernel.py:115-125); rho, drho at rtol 1e-6; accept,
+    bail and hit equal; CG counts within 2.  rho_max = rho bails on a
+    rejected step."""
+    lib, model, tab = host
+    n = 8
+    X, U, goals, xs = _k9_start(traj_0_0, n, rho)
+    kw = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
+              num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=rho_max,
+              rho_reset=1e-3)
+    merit = k2.line_search_merits_reference(
+        model, X, U, torch.zeros_like(X), torch.zeros_like(U), 8, goals, xs,
+        DT, 10.0, QD_COST, R_COST)[8]
+    args = (X, U, goals, xs, torch.zeros(n, 14), torch.tensor(rho),
+            torch.tensor(1.3), merit * (0.5 if rho_max == rho else 1.0))
+    want = k9.sqp_iter_mega_pcg_reference(model, *args, 40, 5e-5, **kw)
+    assert k9.check_mega_fit(n, lib, k9.ITER_PCG) == 1
+    got = k9._launch_iter(lib, k9.ITER_PCG, tab, *args, 40, 5e-5, **kw,
+                          grid=1, stream=None)
+    _close(got.X, want.X, 1e-3, 1e-5)
+    _close(got.U, want.U, 1e-3, 1e-5)
+    _close(got.lam, want.lam, 1e-3, 1e-4)
+    for f in ("rho", "drho", "merit"):
+        _close(getattr(got, f), getattr(want, f), 1e-6 if f != "merit"
+               else 1e-3, 0)
+    for f in ("accept", "bail", "hit_max"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert abs(int(got.pcg_iters) - int(want.pcg_iters)) <= 2
+    if rho_max == rho:
+        assert not bool(got.accept) and bool(got.bail)
+        assert torch.equal(got.X, X) and float(got.rho) == pytest.approx(1e-3)
+
+
+@pytest.mark.parametrize("rho", [1e-3, 0.1])
+def test_k9b_host_build_matches_plain(host, traj_0_0, rho):
+    """One K9b launch, N = 8: against the independent plain iteration,
+    accept and bail equal, X and U at rtol 1e-3, atol 1e-5, CG count 0;
+    lam by relative residual on S(X), within 1e-5; and against the plain
+    iteration given the kernel's own lam (tests/torch_systems.py), X, U
+    and merit at rtol 1e-3, atol 1e-5."""
+    lib, model, tab = host
+    n = 8
+    X, U, goals, xs = _k9_start(traj_0_0, n, rho)
+    kw = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
+              num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=10.0,
+              rho_reset=1e-3)
+    merit = k2.line_search_merits_reference(
+        model, X, U, torch.zeros_like(X), torch.zeros_like(U), 8, goals, xs,
+        DT, 10.0, QD_COST, R_COST)[8]
+    args = (X, U, goals, xs, torch.tensor(rho), torch.tensor(1.0), merit)
+    want = k9.sqp_iter_mega_reference(model, *args, **kw)
+    assert k9.check_mega_fit(n, lib, k9.ITER_BCR) == 1
+    got = k9._launch_iter(lib, k9.ITER_BCR, tab, *args[:4], None, *args[4:],
+                          0, 0.0, **kw, grid=1, stream=None)
+    for f in ("accept", "bail", "hit_max", "pcg_iters"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    _close(got.X, want.X, 1e-3, 1e-5)
+    _close(got.U, want.U, 1e-3, 1e-5)
+    given, ks = bcr_iteration_given_lam(model, *args, got.lam, **kw)
+    assert relative_residual(ks, got.lam) < 1e-5
+    for f in ("X", "U", "merit", "rho", "drho"):
+        _close(getattr(got, f), getattr(given, f), 1e-3, 1e-5)
+
+
+def test_k9b_rejects_non_power_of_two(host, traj_0_0):
+    lib, model, tab = host
+    X, U, goals, xs = _k9_start(traj_0_0, 6, 1e-3)
+    one = torch.tensor(1.0)
+    with pytest.raises(ValueError, match="power-of-2"):
+        k9._launch_iter(lib, k9.ITER_BCR, tab, X, U, goals, xs, None, one,
+                        one, one, 0, 0.0, DT, QD_COST, R_COST, 0.0, 10.0, 8,
+                        1.2, 1e-3, 10.0, 1e-3, grid=1, stream=None)
+
+
+@pytest.mark.parametrize("linsys", ["pcg", "bcr"])
+def test_per_iteration_loop_through_the_host_build(host, traj_0_0, linsys,
+                                                   monkeypatch):
+    """sqp_solve with megakernel and without megakernel_solve, its K9p /
+    K9b launches sent through the host build (the card's argument
+    packing, the device scalars of drho and the merit, the bail mask),
+    against the same solve on the plain versions at N = 8, 4 SQP
+    iterations, a bailing rho_max: sqp_iters, accepted, bailed and the CG
+    counts (within 2 each) as the plain solve's, X and U at rtol 1e-3,
+    atol 1e-5 for pcg; for bcr, whose exact solves part by float32
+    rounding on this system, X and U within 1e-3."""
+    import dataclasses
+
+    from mpcgpu_tpu_torch import sqp
+
+    lib, model, tab = host
+    n = 8
+    X, U, goals, xs = _k9_start(traj_0_0, n, 1e-3)
+    cfg = SolverConfig.for_knots(n, sqp_max_iter=4, fused_stages=True,
+                                 megakernel=True, rho_max=2e-3)
+    cfg = dataclasses.replace(cfg, pcg=dataclasses.replace(cfg.pcg,
+                                                           max_iter=40))
+    args = (model, cfg, X, U, torch.zeros(n, 14), goals, xs, 1e-3, 5e-5,
+            linsys)
+    want = sqp.sqp_solve(*args)
+    kinds = {"pcg": k9.ITER_PCG, "bcr": k9.ITER_BCR}
+
+    def launch(model, X, U, goals, xs, *a, **kw):
+        if linsys == "bcr":
+            a = (None,) + a[:3] + (0, 0.0) + a[3:]
+        return k9._launch_iter(lib, kinds[linsys], tab, X, U, goals, xs, *a,
+                               grid=1, stream=None, **kw)
+
+    monkeypatch.setattr(sqp, {"pcg": "sqp_iter_mega_pcg",
+                              "bcr": "sqp_iter_mega"}[linsys], launch)
+    got = sqp.sqp_solve(*args)
+    for f in ("sqp_iters", "accepted", "rho_bailed", "pcg_hit_max"):
+        assert torch.equal(getattr(got.stats, f), getattr(want.stats, f)), f
+    its, want_its = got.stats.pcg_iters, want.stats.pcg_iters
+    assert torch.equal(its < 0, want_its < 0)
+    assert int((its - want_its).abs().max()) <= 2
+    tol = (1e-3, 1e-5) if linsys == "pcg" else (0, 1e-3)
+    _close(got.X, want.X, *tol)
+    _close(got.U, want.U, *tol)

@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K6 and K10 against their plain versions, on the card.
+"""The CUDA kernels K1-K7, K7s, K9p, K9b and K10 against their plain
+versions, on the card.
 
 Marked ``cuda``: each test needs a CUDA device and skips without one.
 The file uses no fixture of tests/conftest.py, which imports JAX, so on a
@@ -6,9 +7,12 @@ GPU machine without JAX it runs with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
-Inputs are the slice's: fixture 0_0 at N = 64 (K6 also on the JAX BCR
-tests' well-conditioned random system of tests/torch_systems.py; K10 with
-two arms from seeded perturbations, as chip_smoke.py checks it).
+Inputs are the slice's: fixture 0_0 at N = 64 (K6 and K7 also on the JAX
+BCR tests' well-conditioned random system of tests/torch_systems.py; K10
+with two arms from seeded perturbations, as chip_smoke.py checks it).
+The exact BCR solves (K7, K7s, K9b) are judged by relative residual on
+the fixture's systems (condition ~1e7), where two float32 solves part by
+~1e-3 of |lam|: the kernel's within 2x of the plain version's.
 Tolerances are those of the JAX package's own kernel tests, each stated
 beside its check.
 """
@@ -22,16 +26,19 @@ from mpcgpu_tpu_torch.config import SolverConfig
 from mpcgpu_tpu_torch.models.robot import iiwa14
 from mpcgpu_tpu_torch.ops.btridiag import BlockTri, spmv
 from mpcgpu_tpu_torch.ops.cuda import bcr_kernel as k6
+from mpcgpu_tpu_torch.ops.cuda import bcr_kernel as k7
 from mpcgpu_tpu_torch.ops.cuda import kkt_schur_kernel as k3
 from mpcgpu_tpu_torch.ops.cuda import merit_kernel as k2
 from mpcgpu_tpu_torch.ops.cuda import pcg_kernel as k4
 from mpcgpu_tpu_torch.ops.cuda import rollout_kernel as k1
 from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k5
+from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k9
 from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k10
 from mpcgpu_tpu_torch.utils.trajfiles import load_fixture_pair
 # by its bare name (pytest puts tests/ on sys.path): the card machine may
 # have another package named "tests"
-from torch_systems import random_knot_schur
+from torch_systems import (bcr_iteration_given_lam, random_knot_schur,
+                           relative_residual)
 
 pytestmark = pytest.mark.cuda
 
@@ -235,3 +242,89 @@ def test_k10_kernel_matches_plain(card, rhos):
         _close(got.lam, want.lam, 1e-3, 1e-4)
     for f in ("sqp_iters", "bailed", "pcg_iters_total"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_k4b_kernel_matches_plain(card):
+    """K4's tolerances: lam at rtol 5e-3, atol 5e-3, CG counts within 2
+    or both at the cap."""
+    ks = k3.form_kkt_schur_reference(*_k3_args(card))
+    S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
+    lam0 = torch.zeros_like(card["X"])
+    got = k4.pcg_solve(S, P, ks.gamma, lam0, 40, 5e-5)
+    want = k4.pcg_solve_reference(S, P, ks.gamma, lam0, 40, 5e-5)
+    _close(got[0], want[0], 5e-3, 5e-3)
+    it, it_ref = int(got[1]), int(want[1])
+    assert abs(it - it_ref) <= 2 or it == it_ref == 40
+
+
+def test_k7_and_k7s_kernels_match_plain(card):
+    """On the random system, tests/test_bcr.py:62-74's tolerances (lam
+    scaled at atol 2e-5, dz at rtol 1e-3, atol 2e-4); on the slice's
+    system without the stair, by residual; K7s also at N = 128 and 256."""
+    dev = card["X"].device
+    ks = random_knot_schur(64, device=dev)
+    got, want = k7.bcr_dz(ks), k7.bcr_dz_reference(ks)
+    scale = want[0].abs().max()
+    _close(got[0] / scale, want[0] / scale, 0, 2e-5)
+    for g, w in zip(got[1:3], want[1:3]):
+        _close(g, w, 1e-3, 2e-4)
+    for n in (64, 128, 256):
+        ks = random_knot_schur(n, device=dev)
+        got_s = k7.bcr_solve(ks.SL, ks.SD, ks.SU, ks.gamma)
+        want_s = k7.bcr_solve_reference(ks.SL, ks.SD, ks.SU, ks.gamma)
+        scale = want_s.abs().max()
+        _close(got_s / scale, want_s / scale, 0, 2e-5)
+    c = card
+    ks = k3.form_kkt_schur_reference(c["model"], _perturbed_X(c),
+                                     *_k3_args(c)[2:], precond=False)
+    res = relative_residual(ks, k7.bcr_dz(ks)[0])
+    assert res <= 2 * relative_residual(ks, k7.bcr_dz_reference(ks)[0])
+
+
+def _k9_args(c, rho):
+    X = _perturbed_X(c)
+    zero = torch.zeros_like
+    merit = k2.line_search_merits_reference(
+        c["model"], X, c["U"], zero(X), zero(c["U"]), 8, c["goals"], c["xs"],
+        DT, 10.0, QD_COST, R_COST)[8]
+    kw = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
+              num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=10.0,
+              rho_reset=1e-3)
+    return (c["model"], X, c["U"], c["goals"], c["xs"]), (
+        torch.tensor(rho, device=X.device), torch.tensor(1.0, device=X.device),
+        merit), kw
+
+
+@pytest.mark.parametrize("rho", [1e-3, 0.1, 0.3])
+def test_k9p_kernel_matches_plain(card, rho):
+    """One iteration from the perturbed start, cold duals: X, U at rtol
+    1e-3, atol 1e-5; accept, bail equal; CG counts within 2; lam at
+    atol 1e-3 at rho 1e-3 (K5's precedent, the CG at the cap), else rtol
+    1e-3, atol 1e-4."""
+    head, scal, kw = _k9_args(card, rho)
+    lam0 = torch.zeros_like(head[1])
+    got = k9.sqp_iter_mega_pcg(*head, lam0, *scal, 40, 5e-5, **kw)
+    want = k9.sqp_iter_mega_pcg_reference(*head, lam0, *scal, 40, 5e-5, **kw)
+    _close(got.X, want.X, 1e-3, 1e-5)
+    _close(got.U, want.U, 1e-3, 1e-5)
+    _close(got.lam, want.lam, *((0, 1e-3) if rho == 1e-3 else (1e-3, 1e-4)))
+    for f in ("accept", "bail"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert abs(int(got.pcg_iters) - int(want.pcg_iters)) <= 2
+
+
+def test_k9b_kernel_matches_plain(card):
+    """One iteration from the perturbed start at rho 1e-3: accept and bail
+    as the plain iteration's; lam by residual (within 2x of the plain
+    solve's); X, U and merit at rtol 1e-3, atol 2e-4 (K7's dz tolerance)
+    against the plain iteration given the kernel's own lam."""
+    head, scal, kw = _k9_args(card, 1e-3)
+    got = k9.sqp_iter_mega(*head, *scal, **kw)
+    want = k9.sqp_iter_mega_reference(*head, *scal, **kw)
+    for f in ("accept", "bail"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    given, ks = bcr_iteration_given_lam(*head, *scal, got.lam, **kw)
+    assert relative_residual(ks, got.lam) <= 2 * relative_residual(
+        ks, want.lam)
+    for f in ("X", "U", "merit"):
+        _close(getattr(got, f), getattr(given, f), 1e-3, 2e-4)
