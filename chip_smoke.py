@@ -53,7 +53,24 @@ CUDA toolkit:
 7. prints the linear-solve comparison (the reference's TIME_LINSYS) on
    the slice's warm system: each backend's time per solve, CG iterations
    and relative residual;
-8. prints one JSON line of the kernels, then the result line.
+8. runs the long horizons (N = 128-1024, fixture 0_0's rows repeated past
+   its 666 by np.resize, for_knots(N), PCG cap
+   PCGConfig.tpu_tuned_max_iter(N), exit tol default_pcg_exit_tols(N)[0]):
+   prints the one-block fits and the grid-CG kernels' grids at N = 64-1024;
+   checks K3 at N = 256, 512 and 1024 (it serves the TPU's tiled K8), the
+   grid-CG kernels K4g and K4bg at N = 64-1024 (and on the seeded random
+   system, where the CG exits early), K6l (K6 with S in global memory) at
+   N = 128-512, K5g at N = 64-512 at rho 1e-3 and at rhos where CGs exit
+   before the cap, K9pg at N = 256 (four launches bit-equal to one K5g
+   launch), each against its plain version and timed (at N = 64 beside the
+   one-block K4, K4b and K5 on the same inputs); and
+   runs 8-update loops through the kernels and the plain modules, warm
+   duals, checked and timed as in 4: auto at N = 128, 256 and 512 (K2,
+   K5g, K1), and at N = 256 staged pcg (K3, K4g, K2), the forced failover
+   (K5g for 4 updates, then K3, K6l, K2),
+   the per-iteration megakernel (K2, K9pg) and pcg_pallas (the plain
+   stages and K4bg);
+9. prints one JSON line of the kernels, then the result line.
 
 Any failed build, launch or check ends the run with a non-zero exit code
 before the result line.  Without CUDA it exits non-zero at once.
@@ -79,6 +96,15 @@ BATCHED_UPDATES = 8
 SWEEP_ARMS = (1, 2, 4, 8, 16)
 NEW_UPDATES = 8                 # the loops of this file's phase 6
 LONG_KNOTS = 128                # the staged bcr loop above K7's fit
+# phase 8, the long horizons: K3 (K8's counterpart), the grid-CG kernels
+# and the loops
+LONG_K3_KNOTS = (256, 512, 1024)
+LONG_CG_KNOTS = (64, 128, 256, 512, 1024)
+LONG_MEGA_KNOTS = (64, 128, 256, 512)
+LONG_BCR_KNOTS = (128, 256, 512)  # K6l: past K6's fit, within its own
+LONG_AUTO_KNOTS = (128, 256, 512)
+LONG_LOOP_KNOT = 256            # the staged, failover and per-iteration loops
+LONG_UPDATES = 8                # the first horizon shift is at update 7
 
 # The least time the card could take for a kernel's work: the
 # larger of the bytes a function must move (inputs read once, outputs
@@ -177,9 +203,12 @@ def _assert_close(name, pairs, rtol, atol):
                                    msg=lambda m: f"{name} output {i}: {m}")
 
 
-_TAGS = {"K10": "sqp_mega_packed_kernel", "K5": "sqp_mega_kernel",
+_TAGS = {"K5g": "sqp_mega_grid_kernel", "K9pg": "sqp_iter_mega_pcg_grid_kernel",
+         "K4g": "pcg_dz_grid_kernel", "K4bg": "pcg_solve_grid_kernel",
+         "K10": "sqp_mega_packed_kernel", "K5": "sqp_mega_kernel",
          "K9p": "sqp_iter_mega_pcg_kernel", "K9b": "sqp_iter_mega_bcr_kernel",
-         "K6": "bcr_pcg_dz_kernel", "K7": "bcr_dz_kernel",
+         "K6l": "bcr_pcg_dz_l2_kernel", "K6": "bcr_pcg_dz_kernel",
+         "K7": "bcr_dz_kernel",
          "K7s": "bcr_solve_kernel", "K3": "k3_", "K4": "pcg_dz_kernel",
          "K4b": "pcg_solve_kernel", "K2": "merit_kernel",
          "K1": "rollout_kernel"}
@@ -187,17 +216,26 @@ _TAGS = {"K10": "sqp_mega_packed_kernel", "K5": "sqp_mega_kernel",
 
 def _device_events(run):
     """(start us, end us, name) of every device kernel of one call of run
-    (torch.profiler, CUPTI), sorted by start."""
+    (torch.profiler, CUPTI), sorted by start.  run is called twice: once in
+    the profiler's warm-up step, whose events it discards (a session has
+    lost its first kernels' records without it), then in its active
+    step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    # the step's own range ("ProfilerStep#1") is no kernel
     return sorted((e.time_range.start, e.time_range.end, e.name)
                   for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("ProfilerStep"))
 
 
 def _by_kernel(evs) -> dict:
@@ -210,13 +248,65 @@ def _by_kernel(evs) -> dict:
     return groups
 
 
-def _device_breakdown(run, n_updates: int) -> dict:
+def _device_us(run, kid: str, calls: int = 5, per_call: int = 1,
+               tries: int = 3):
+    """The profiler's device time (us) of kernel kid per call of run (which
+    launches it per_call times), averaged over the launches the profile of
+    `calls` calls recorded: on the card a profile has kept only 2 of 5
+    identical launches, or none, so one that kept none is taken again, up
+    to tries times.  None if none recorded any."""
+    for _ in range(tries):
+        t, count = _by_kernel(_device_events(
+            lambda: [run() for _ in range(calls)])).get(kid, (0.0, 0))
+        if count:
+            return t / count * per_call
+    return None
+
+
+def _us(t) -> str:
+    return "not profiled" if t is None else f"{t:.1f} us"
+
+
+# device kernels per counted launch (K3 is three launches)
+_DEVICE_KERNELS = {"K3": 3}
+
+
+def _missing_records(groups: dict, counts: dict) -> dict:
+    """{kernel id: (records kept, launches made)} for each kernel of which
+    a profile of one call kept fewer records than counts' launches make."""
+    missing = {}
+    for kid, launches in counts.items():
+        made = launches * _DEVICE_KERNELS.get(kid, 1)
+        kept = groups.get(kid, (0.0, 0))[1]
+        if kept != made:
+            missing[kid] = (kept, made)
+    return missing
+
+
+def _device_breakdown(run, n_updates: int, counts: dict,
+                      tries: int = 3) -> tuple:
     """Print where the device time of one call of run goes: busy span and
-    idle share, and device time by kernel; return _by_kernel's groups."""
-    evs = _device_events(run)
+    idle share, and device time by kernel; return (_by_kernel's groups,
+    complete).  counts are the launches one call makes: a profile that
+    kept fewer of a kernel's records (the card's profiler has dropped
+    some) is taken again, up to tries times, and a breakdown still short
+    is printed as incomplete -- its busy time undercounts and its idle
+    share overcounts."""
+    for attempt in range(1, tries + 1):
+        evs = _device_events(run)
+        groups = _by_kernel(evs)
+        missing = _missing_records(groups, counts)
+        if not missing:
+            break
+        print(f"profile attempt {attempt}: records kept / launches made "
+              f"{missing}")
+    complete = not missing
+    if not complete:
+        print(f"profile INCOMPLETE after {tries} attempts: the busy time "
+              f"and idle share below miss {missing}")
     if not evs:
         print("profile: the profiler recorded no device events")
-        return {}
+        return {}, complete
     busy, (cs, ce) = 0.0, evs[0][:2]
     for s, e, _ in evs[1:]:
         if s > ce:
@@ -232,7 +322,7 @@ def _device_breakdown(run, n_updates: int) -> dict:
     for key, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {key:10s} {t / 1e3:8.3f} ms  {100 * t / busy:5.1f}%  "
               f"{n:5d} device kernels  {t / n:8.2f} us each")
-    return groups
+    return groups, complete
 
 
 def main() -> int:
@@ -312,7 +402,7 @@ def main() -> int:
     rho = torch.tensor(cfg.rho_init, device=dev)
     print(f"slice: N={N_KNOTS} sqp_max_iter={SQP_ITERS} pcg cap={cap} "
           f"tol={tol:g} r_cost={cc.r_cost:g} updates={N_UPDATES}")
-    print(f"fit: K4 serves N <= {k4.check_pcg_smem_fit(n)}, K6 power-of-2 "
+    print(f"fit: K4 serves N <= {lib.mpc_pcg_max_knots()}, K6 power-of-2 "
           f"N <= {k6.check_bcr_fit(n)}, K5 N <= "
           f"{lib.mpc_mega_max_knots(k5.SOLVE_PCG)} (grid "
           f"{k5.check_mega_fit(n)} blocks at N = {n})")
@@ -862,9 +952,10 @@ def main() -> int:
                                  f"{want}")
         return out, counts
 
-    def host_and_device(label, again, n_updates, profile=True):
-        """The host clock per update, then (profile) the device breakdown,
-        returned as _by_kernel's groups."""
+    def host_and_device(label, again, n_updates, counts, profile=True):
+        """The host clock per update, then (profile) the device breakdown
+        of a call that makes counts' launches: (_by_kernel's groups,
+        complete)."""
         sync()
         t0 = time.perf_counter()
         again()
@@ -875,29 +966,31 @@ def main() -> int:
               f"{1e3 * t_enqueue / n_updates:.3f} ms/update, to the end "
               f"of the device work {1e3 * t_wall / n_updates:.3f} "
               f"ms/update")
-        return _device_breakdown(again, n_updates) if profile else {}
+        return (_device_breakdown(again, n_updates, counts) if profile
+                else ({}, True))
 
     start64 = (X, U, goals, xs)
 
     def run_loop(label, run_cfg, linsys, want=None, detail=False,
-                 n_updates=N_UPDATES, start=start64, warm=True):
+                 n_updates=N_UPDATES, start=start64, warm=True, exit_tol=tol):
         """One closed loop from start (X, U, goals, xs), lam warm-started
         or zero: launch counts, the host clock and device breakdown when
         detail (detail="host": the host clock only), and a summary."""
         Xs, Us = start[:2]
         lam = warm_lam(run_cfg, start) if warm else torch.zeros_like(Xs)
-        simulate_mpc_scan(model, run_cfg, xu_d, ee_d, Xs, Us, lam, rho, tol, 2,
-                          linsys)
+        simulate_mpc_scan(model, run_cfg, xu_d, ee_d, Xs, Us, lam, rho,
+                          exit_tol, 2, linsys)
         out, counts = counted(label, lambda: simulate_mpc_scan(
-            model, run_cfg, xu_d, ee_d, Xs, Us, lam, rho, tol, n_updates,
+            model, run_cfg, xu_d, ee_d, Xs, Us, lam, rho, exit_tol, n_updates,
             linsys, timing=True), want)
 
         def again():
             return simulate_mpc_scan(model, run_cfg, xu_d, ee_d, Xs, Us, lam,
-                                     rho, tol, n_updates, linsys)
+                                     rho, exit_tol, n_updates, linsys)
 
-        groups = host_and_device(label, again, n_updates,
-                                 detail != "host") if detail else {}
+        groups, complete = host_and_device(
+            label, again, n_updates, counts,
+            detail != "host") if detail else ({}, True)
         errs = out["tracking_errors"]
         if tuple(errs.shape) != (n_updates,) or not torch.isfinite(errs).all():
             raise AssertionError(f"{label}: tracking errors not finite: {errs}")
@@ -918,6 +1011,7 @@ def main() -> int:
         if groups:
             summary["device_ms_per_update"] = {
                 k: t / 1e3 / n_updates for k, (t, _) in groups.items()}
+            summary["profile_complete"] = complete
         print(f"{label}: {json.dumps(summary)}")
         return summary, counts
 
@@ -1010,8 +1104,10 @@ def main() -> int:
         }
         print(f"{label}: {json.dumps(summary)}")
         if detail:
-            t, calls = host_and_device(label, again, n_updates).get(
-                "K10", (0.0, 0))
+            groups, complete = host_and_device(label, again, n_updates,
+                                               counts)
+            t, calls = groups.get("K10", (0.0, 0))
+            summary["profile_complete"] = complete
             summary["k10_device_ms"] = t / 1e3 / calls if calls else None
         return summary, counts, again
 
@@ -1086,7 +1182,7 @@ def main() -> int:
     cfg_l = SolverConfig.for_knots(
         LONG_KNOTS, sqp_max_iter=SQP_ITERS, fused_stages=True,
         pcg=PCGConfig(max_iter=PCGConfig.tpu_tuned_max_iter(LONG_KNOTS)))
-    long_fused, long_counts = run_loop(
+    long_fused, long_counts_bcr = run_loop(
         f"staged bcr N={LONG_KNOTS}, fused", cfg_l, "bcr", detail=True,
         n_updates=u8, start=start_l, warm=False,
         want={**none, "K1": u8, "K2": u8 + u8 * s, "K3": u8 * s,
@@ -1183,20 +1279,472 @@ def main() -> int:
         "cap": cap, "tol": tol, "gamma_norm": g_norm,
         "solvers": compare_rows}}))
 
+    # ---- 8. long horizons: K3 as the TPU's tiled K8, the grid-CG kernels
+    # K4g, K4bg, K5g, K9pg, and the loops at N = 128-512
+    def long_start(n_l, seed=None):
+        """Fixture 0_0's first n_l knots (its rows repeated past the last,
+        np.resize), every knot but 0 moved by a seeded 0.02-scale normal
+        draw when seed is given."""
+        rows = np.resize(np.arange(xu.shape[0]), n_l)
+        Xl = xu[rows, :NX].copy()
+        if seed is not None:
+            pert = 0.02 * np.random.default_rng(seed).normal(size=(n_l, NX))
+            pert[0] = 0.0
+            Xl = (Xl + pert).astype(np.float32)
+        on_card = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                            device=dev)
+        return (on_card(Xl), on_card(xu[rows[:-1], NX:]), on_card(ee[rows]),
+                on_card(xu[0, :NX]))
+
+    def long_cfg(n_l, **kw):
+        """for_knots(n_l) with the PCG cap of the JAX package's sweeps."""
+        return SolverConfig.for_knots(
+            n_l, sqp_max_iter=SQP_ITERS, fused_stages=True,
+            pcg=PCGConfig(max_iter=PCGConfig.tpu_tuned_max_iter(n_l)), **kw)
+
+    def long_system(n_l):
+        """(K3's plain system at the perturbed start, cap, exit tol) at
+        n_l; at N = 64, K4's check inputs."""
+        if n_l == n:
+            return ks_ref, cap, tol
+        Xl, Ul, gl, xsl = long_start(n_l, seed=0)
+        cl = long_cfg(n_l)
+        return (k3.form_kkt_schur_reference(
+            model, Xl, Ul, gl, xsl, rho, cl.timestep, cl.cost.qd_cost,
+            cl.cost.r_cost, cl.gravity), cl.pcg.max_iter,
+            default_pcg_exit_tols(n_l)[0])
+
+    print(f"ceilings: one block: K4 and K4b N <= {lib.mpc_pcg_max_knots()}, "
+          f"K5 N <= {lib.mpc_mega_max_knots(k5.SOLVE_PCG)}, K9p N <= "
+          f"{lib.mpc_mega_max_knots(k9.ITER_PCG)}, K6 power-of-2 N <= "
+          f"{lib.mpc_bcr_max_knots()}, K6l (S in global memory) power-of-2 "
+          f"N <= {lib.mpc_bcr_l2_max_knots()}; the grid kinds K5g, K9pg "
+          f"N <= {lib.mpc_mega_max_knots(k5.SOLVE_PCG_GRID)}")
+    grids = {}
+    for n_l in sorted({64, 128, 256, 512, 1024, *LONG_CG_KNOTS,
+                       *LONG_MEGA_KNOTS}):
+        grids[n_l] = {"K4g": lib.mpc_pcg_grid(n_l, 1),
+                      "K4bg": lib.mpc_pcg_grid(n_l, 0),
+                      "K5g": lib.mpc_mega_grid(n_l, k5.SOLVE_PCG_GRID),
+                      "K9pg": lib.mpc_mega_grid(n_l, k9.ITER_PCG_GRID)}
+        forms = ("K4" if k4.one_block_fits(n_l) else "K4g",
+                 "K5" if k5.pcg_kind(n_l) == k5.SOLVE_PCG else "K5g")
+        print(f"N = {n_l}: grids {grids[n_l]}; pcg_dz takes {forms[0]}, "
+              f"sqp_solve_mega_pcg {forms[1]}")
+
+    # K8: K3 at the tiled kernel's horizons, S's bands per band (entries to
+    # 4.5e4, float32 noise 2.5e-2), the other blocks at rtol = atol = 3e-3
+    k8_extra, k8_case = {}, None
+    for n_l in LONG_K3_KNOTS:
+        Xl, Ul, gl, xsl = long_start(n_l, seed=0)
+        cl = long_cfg(n_l)
+        a = (model, Xl, Ul, gl, xsl, rho, cl.timestep, cl.cost.qd_cost,
+             cl.cost.r_cost, cl.gravity)
+        got, want = k3.form_kkt_schur(*a), k3.form_kkt_schur_reference(*a)
+        sync()
+        band_rel = 0.0
+        for f in ("SL", "SD", "SU"):
+            g, w = getattr(got, f), getattr(want, f)
+            rel = float((g - w).abs().max() / w.abs().max())
+            if not (torch.isfinite(g).all() and rel <= 1e-5):
+                raise AssertionError(f"K8 (K3) N = {n_l} {f}: max error "
+                                     f"{rel:.3e} of the band's largest entry")
+            band_rel = max(band_rel, rel)
+        rest = [(getattr(got, f), getattr(want, f)) for f in
+                k3.KnotSchur._fields if f not in ("SL", "SD", "SU")]
+        err = checked(f"K8 (K3) N = {n_l}", rest, 3e-3, 3e-3)
+        dev_us = _device_us(lambda: k3.form_kkt_schur(*a), "K3", per_call=3)
+        k8_extra[f"device_us_n{n_l}"] = dev_us
+        print(f"K8 (K3) N = {n_l}: S bands within {band_rel:.2e} of their "
+              f"largest entry, the rest within {err:.2e}; {_us(dev_us)} of "
+              f"device time")
+        k8_extra[f"band_rel_err_n{n_l}"] = band_rel
+        if n_l == LONG_LOOP_KNOT:
+            k8_case = (a, max(err, _max_err(list(zip(got, want)))))
+        else:
+            k8_extra[f"ms_n{n_l}"] = _event_ms(lambda: k3.form_kkt_schur(*a))
+    a, err = k8_case
+    n_l = LONG_LOOP_KNOT
+    record("K8", "form_kkt_schur_tiled as K3", "mpcgpu_tpu_torch/csrc/kkt_schur.cu",
+           "mpcgpu_tpu/ops/pallas/kkt_schur_kernel.py:508", err,
+           lambda: k3.form_kkt_schur(*a),
+           lambda: k3.form_kkt_schur_reference(*a), n_l * OPS_K3_KNOT,
+           F32 * (n_l * NX + (n_l - 1) * NU + n_l * 6 + 1 + TAB
+                  + _knot_schur_floats(n_l)), n=n_l, **k8_extra)
+
+    # K4g and K4bg against the plain CG at every horizon (at N = 64 on K4's
+    # inputs, beside K4 and K4b), with K4's tolerances; and on the seeded
+    # well-conditioned system, where the CG exits before the cap (the exit
+    # every block must take alike)
+    def grid_cg_pair(label, n_l, ks_l, cap_l, tol_l):
+        lam0_l = torch.zeros(n_l, NX, device=dev)
+        S_l = BlockTri(ks_l.SL, ks_l.SD, ks_l.SU)
+        P_l = BlockTri(ks_l.PL, ks_l.PD, ks_l.PU)
+        runs = {"K4g": (lambda: k4.pcg_dz_grid(ks_l, lam0_l, cap_l, tol_l),
+                        lambda: k4.pcg_dz_reference(ks_l, lam0_l, cap_l,
+                                                    tol_l), 3),
+                "K4bg": (lambda: k4.pcg_solve_grid(S_l, P_l, ks_l.gamma,
+                                                   lam0_l, cap_l, tol_l),
+                         lambda: k4.pcg_solve_reference(
+                             S_l, P_l, ks_l.gamma, lam0_l, cap_l, tol_l), 1)}
+        row = {}
+        for kid, (run, plain, nv) in runs.items():
+            out, ref = run(), plain()
+            sync()
+            it, it_ref = int(out[nv]), int(ref[nv])
+            if not (abs(it - it_ref) <= 2 or it == it_ref == cap_l):
+                raise AssertionError(f"{kid} {label}: CG iterations {it} vs "
+                                     f"{it_ref}")
+            err = checked(f"{kid} {label}", list(zip(out[:nv], ref[:nv])),
+                          5e-3, 5e-3)
+            row[kid] = {"err": err, "iters": it, "iters_plain": it_ref,
+                        "run": run, "plain": plain}
+        print(f"K4g / K4bg {label}: CG {row['K4g']['iters']} / "
+              f"{row['K4bg']['iters']} (plain {row['K4g']['iters_plain']}), "
+              f"errors {row['K4g']['err']:.2e} / {row['K4bg']['err']:.2e}")
+        return row
+
+    grid_cg = {n_l: grid_cg_pair(f"N = {n_l}", n_l, *long_system(n_l))
+               for n_l in LONG_CG_KNOTS}
+    early = grid_cg_pair(f"N = {LONG_LOOP_KNOT}, random system",
+                         LONG_LOOP_KNOT,
+                         systems.random_knot_schur(LONG_LOOP_KNOT, device=dev),
+                         300, 1e-9)
+    if not early["K4g"]["iters"] < 300:
+        raise AssertionError("K4g on the random system: no exit before the cap")
+    one_block = {kid: next(k["ms"] for k in kernels
+                           if k["name"].startswith(kid + " "))
+                 for kid in ("K4", "K4b")}
+    lam0_n = torch.zeros_like(X)
+    one_block_us = {
+        "K4": _device_us(lambda: k4.pcg_dz(ks_ref, lam0_n, cap, tol), "K4"),
+        "K4b": _device_us(lambda: k4.pcg_solve(
+            BlockTri(ks_ref.SL, ks_ref.SD, ks_ref.SU),
+            BlockTri(ks_ref.PL, ks_ref.PD, ks_ref.PU), ks_ref.gamma, lam0_n,
+            cap, tol), "K4b")}
+    for kid, one_kid in (("K4g", "K4"), ("K4bg", "K4b")):
+        ms_by_n = {n_l: _event_ms(grid_cg[n_l][kid]["run"])
+                   for n_l in LONG_CG_KNOTS}
+        us_by_n = {n_l: _device_us(grid_cg[n_l][kid]["run"], kid)
+                   for n_l in LONG_CG_KNOTS}
+        print(f"{kid} ms per call by N: {ms_by_n}; device us per call "
+              f"{us_by_n}; at N = {n}, {one_kid} on the same inputs "
+              f"{one_block[one_kid]:.4f} ms per call, "
+              f"{_us(one_block_us[one_kid])} of device time")
+        case = grid_cg[LONG_LOOP_KNOT][kid]
+        n_l, its = LONG_LOOP_KNOT, case["iters"]
+        cg_ops = _cg_ops(n_l, its, _spmv_ops(n_l))
+        record(kid, "pcg_dz_grid" if kid == "K4g" else "pcg_solve_grid",
+               "mpcgpu_tpu_torch/csrc/pcg_dz.cu",
+               "mpcgpu_tpu/ops/pallas/pcg_kernel.py:318" if kid == "K4g"
+               else "mpcgpu_tpu/ops/pallas/pcg_kernel.py:187",
+               max(max(grid_cg[m][kid]["err"] for m in LONG_CG_KNOTS),
+                   early[kid]["err"]), case["run"], case["plain"],
+               cg_ops + _dz_ops(n_l) if kid == "K4g" else cg_ops,
+               F32 * (_knot_schur_floats(n_l) + 3 * n_l * NX
+                      + (n_l - 1) * NU) + 5 if kid == "K4g"
+               else F32 * (6 * n_l * NX * NX + 3 * n_l * NX) + 5,
+               n=n_l, grid=grids[n_l][kid],
+               ms_by_n={str(m): t for m, t in ms_by_n.items()},
+               device_us_by_n={str(m): t for m, t in us_by_n.items()},
+               one_block_ms_n64=one_block[one_kid],
+               one_block_device_us_n64=one_block_us[one_kid],
+               iters_by_n={str(m): grid_cg[m][kid]["iters"]
+                           for m in LONG_CG_KNOTS},
+               iters_random_system=early[kid]["iters"])
+
+    # K6l, the forced failover's BCR-PCG past K6's fit: on the seeded
+    # random system at K6's tolerances, and on fixture 0_0's system without
+    # the stair at the horizon's cap and exit tol by residual, as K6 on the
+    # slice's (each solve within 1e-3 of |gamma|); CG counts within 1
+    k6l_rows = {}
+    for n_l in LONG_BCR_KNOTS:
+        lam0_l = torch.zeros(n_l, NX, device=dev)
+        ks_r = systems.random_knot_schur(n_l, device=dev)
+        out = k6.bcr_pcg_dz_l2(ks_r, lam0_l, cap, tol)
+        ref = k6.bcr_pcg_dz_reference(ks_r, lam0_l, cap, tol)
+        sync()
+        err = tight_bcr(f"K6l N = {n_l}, random system", out, ref)
+        its_r = int(out[3]), int(ref[3])
+        Xl, Ul, gl, xsl = long_start(n_l, seed=0)
+        cl = long_cfg(n_l)
+        ks_f = k3.form_kkt_schur_reference(
+            model, Xl, Ul, gl, xsl, rho, cl.timestep, cl.cost.qd_cost,
+            cl.cost.r_cost, cl.gravity, precond=False)
+        cap_f, tol_f = cl.pcg.max_iter, default_pcg_exit_tols(n_l)[0]
+        run = (lambda k=ks_f, l0=lam0_l, c=cap_f, t=tol_f:
+               k6.bcr_pcg_dz_l2(k, l0, c, t))
+        plain = (lambda k=ks_f, l0=lam0_l, c=cap_f, t=tol_f:
+                 k6.bcr_pcg_dz_reference(k, l0, c, t))
+        out_f, ref_f = run(), plain()
+        sync()
+        S_f = BlockTri(ks_f.SL, ks_f.SD, ks_f.SU)
+        res = [float((spmv(S_f, o[0]) - ks_f.gamma).abs().max()
+                     / ks_f.gamma.abs().max()) for o in (out_f, ref_f)]
+        its_f = int(out_f[3]), int(ref_f[3])
+        print(f"K6l N = {n_l}: CG {its_r[0]} vs {its_r[1]} (random system), "
+              f"{its_f[0]} vs {its_f[1]} (fixture system, relative residual "
+              f"kernel {res[0]:.3e} plain {res[1]:.3e})")
+        if (max(res) >= 1e-3 or abs(its_r[0] - its_r[1]) > 1
+                or abs(its_f[0] - its_f[1]) > 1):
+            raise AssertionError(f"K6l N = {n_l}: residuals {res}, CG counts "
+                                 f"{its_r}, {its_f}")
+        k6l_rows[n_l] = {"err": err, "iters": its_f[0], "run": run,
+                         "plain": plain, "ms": _event_ms(run),
+                         "us": _device_us(run, "K6l"),
+                         "err_fixture": _max_err(list(zip(out_f[:3],
+                                                          ref_f[:3])))}
+    print(f"K6l ms per call by N: "
+          f"{ {m: r['ms'] for m, r in k6l_rows.items()} }; device us per call "
+          f"{ {m: r['us'] for m, r in k6l_rows.items()} }")
+    row, n_l = k6l_rows[LONG_LOOP_KNOT], LONG_LOOP_KNOT
+    record("K6l", "bcr_pcg_dz_l2", "mpcgpu_tpu_torch/csrc/bcr_pcg_dz.cu",
+           "mpcgpu_tpu/ops/pallas/bcr_kernel.py:267",
+           max(r["err"] for r in k6l_rows.values()), row["run"], row["plain"],
+           _bcr_factor_ops(n_l) + _cg_ops(n_l, row["iters"],
+                                          _bcr_apply_ops(n_l))
+           + _dz_ops(n_l),
+           F32 * (n_l * (5 * NX * NX + NX * NU + NU * NU + 3 * NX + NU)
+                  + 2 * n_l * NX + (n_l - 1) * NU) + 5,
+           n=n_l, ms_by_n={str(m): r["ms"] for m, r in k6l_rows.items()},
+           device_us_by_n={str(m): r["us"] for m, r in k6l_rows.items()},
+           iters_by_n={str(m): r["iters"] for m, r in k6l_rows.items()},
+           max_abs_err_fixture={str(m): r["err_fixture"]
+                                for m, r in k6l_rows.items()})
+
+    # K5g against its plain version from the perturbed start at every
+    # horizon (at N = 64 on K5's inputs, beside K5): at rho 1e-3 every CG
+    # stops at the cap (lam at atol 1e-3, as K5's), at the larger rhos the
+    # schedule reaches some CG exits before it (lam at rtol 1e-3, atol
+    # 1e-4); X, U at rtol 1e-3, atol 1e-5, decisions identical, CG counts
+    # within 2 per SQP iteration
+    def long_kw(n_l):
+        return dict(k5_kw, r_cost=long_cfg(n_l).cost.r_cost)
+
+    def long_mega_args(n_l, rho0):
+        if n_l == n:
+            return (*k5_args[:6], torch.tensor(rho0, device=dev),
+                    *k5_args[7:]), k5_kw
+        Xl, Ul, gl, xsl = long_start(n_l, seed=5)
+        cl = long_cfg(n_l)
+        kw_l = long_kw(n_l)
+        m0 = k2.line_search_merits_reference(
+            model, Xl, Ul, torch.zeros_like(Xl), torch.zeros_like(Ul),
+            cl.num_alphas, gl, xsl, cl.timestep, cl.merit_mu,
+            cl.cost.qd_cost, cl.cost.r_cost, cl.gravity)[cl.num_alphas]
+        return ((model, Xl, Ul, gl, xsl, torch.zeros_like(Xl),
+                 torch.tensor(rho0, device=dev), 1.0, m0, cl.pcg.max_iter,
+                 default_pcg_exit_tols(n_l)[0], SQP_ITERS), kw_l)
+
+    def k5g_pair(n_l, rho0, lam_rtol, lam_atol, exit_tol=None):
+        args, kw_l = long_mega_args(n_l, rho0)
+        if exit_tol is not None:
+            args = (*args[:10], exit_tol, *args[11:])
+        out = k5.sqp_solve_mega_pcg_grid(*args, **kw_l)
+        ref = k5.sqp_solve_mega_pcg_reference(*args, **kw_l)
+        sync()
+        label = f"K5g N = {n_l} at rho {rho0:g}, tol {args[10]:g}"
+        print(f"{label}: pcg iters {out.pcg_iters.tolist()} vs "
+              f"{ref.pcg_iters.tolist()}, accepted {out.accepted.tolist()}, "
+              f"sqp_iters {int(out.sqp_iters)} vs {int(ref.sqp_iters)}, "
+              f"lam err {_max_err([(out.lam, ref.lam)]):.3e}")
+        for f in ("accepted", "sqp_iters", "bailed"):
+            if not torch.equal(getattr(out, f), getattr(ref, f)):
+                raise AssertionError(f"{label}: {f} differs from the plain "
+                                     f"version")
+        if int((out.pcg_iters - ref.pcg_iters).abs().max()) > 2:
+            raise AssertionError(f"{label}: CG counts differ by more than 2")
+        err = max(checked(f"{label} X, U", [(out.X, ref.X), (out.U, ref.U)],
+                          1e-3, 1e-5),
+                  checked(f"{label} lam", [(out.lam, ref.lam)], lam_rtol,
+                          lam_atol))
+        return args, kw_l, out, ref, err
+
+    k5g_rows, err5g = {}, 0.0
+    for n_l in LONG_MEGA_KNOTS:
+        args, kw_l, out, _, err = k5g_pair(n_l, cfg.rho_init, 0, 1e-3)
+        err5g, exited = max(err5g, err), False
+        # CGs that exit before the cap: at the larger rhos the schedule
+        # reaches, at this N's exit tol, or where those stay at the cap, at
+        # the loosest tol of the reference's sweep (default_pcg_exit_tols)
+        loose = max(default_pcg_exit_tols(n_l))
+        for rho_early, tol_e in ((0.3, None), (1.0, None), (0.3, loose),
+                                 (1.0, loose)):
+            if exited and tol_e is not None:
+                break
+            _, _, _, ref, e = k5g_pair(n_l, rho_early, 1e-3, 1e-4, tol_e)
+            err5g = max(err5g, e)
+            its_e = ref.pcg_iters
+            exited |= bool(((its_e >= 0) & (its_e < args[9])).any())
+        if not exited:
+            raise AssertionError(f"K5g N = {n_l}: no CG exited before the "
+                                 f"cap at rho 0.3 or 1, tol {args[10]:g} or "
+                                 f"{loose:g}")
+        run = (lambda a=args, k=kw_l: k5.sqp_solve_mega_pcg_grid(*a, **k))
+        k5g_rows[n_l] = {"args": args, "kw": kw_l, "run": run,
+                         "ms": _event_ms(run), "us": _device_us(run, "K5g"),
+                         "cg_iters": [int(i) for i in out.pcg_iters.tolist()
+                                      if i >= 0]}
+    k5_ms = next(k["ms"] for k in kernels if k["name"].startswith("K5 "))
+    k5_us = _device_us(lambda: k5.sqp_solve_mega_pcg(*k5_args, **k5_kw), "K5")
+    print(f"K5g ms per call by N: "
+          f"{ {m: r['ms'] for m, r in k5g_rows.items()} }; device us per call "
+          f"{ {m: r['us'] for m, r in k5g_rows.items()} }; at N = {n}, K5 on "
+          f"the same inputs {k5_ms:.4f} ms per call, {_us(k5_us)} of "
+          f"device time")
+    row = k5g_rows[LONG_LOOP_KNOT]
+    n_l, args, kw_l = LONG_LOOP_KNOT, row["args"], row["kw"]
+    na = cfg.num_alphas
+    record("K5g", "sqp_solve_mega_pcg_grid", "mpcgpu_tpu_torch/csrc/sqp_mega.cu",
+           "mpcgpu_tpu/ops/pallas/sqp_megakernel.py:1027", err5g, row["run"],
+           lambda: k5.sqp_solve_mega_pcg_reference(*args, **kw_l),
+           sum(n_l * OPS_K3_KNOT + _cg_ops(n_l, i, _spmv_ops(n_l))
+               + _dz_ops(n_l) + _merits_ops(n_l, na) for i in row["cg_iters"]),
+           F32 * (2 * (2 * n_l * NX + (n_l - 1) * NU) + n_l * 6 + NX + TAB
+                  + 5) + 4 * (2 + 3 * SQP_ITERS),
+           n=n_l, grid=grids[n_l]["K5g"],
+           ms_by_n={str(m): r["ms"] for m, r in k5g_rows.items()},
+           cg_iters_by_n={str(m): r["cg_iters"] for m, r in k5g_rows.items()},
+           device_us_by_n={str(m): r["us"] for m, r in k5g_rows.items()},
+           one_block_ms_n64=k5_ms, one_block_device_us_n64=k5_us)
+
+    # K9pg at N = 256: one iteration against the plain iteration; four
+    # launches against one K5g launch, bit for bit (the same body, sums
+    # that do not depend on the grid)
+    args5, kw_l = k5g_rows[LONG_LOOP_KNOT]["args"], k5g_rows[LONG_LOOP_KNOT]["kw"]
+    (_, Xl, Ul, gl, xsl, lam0_l, _, _, m0, cap_l, tol_l, _) = args5
+    err9pg = 0.0
+    for rho0, lam_rtol, lam_atol in ((cfg.rho_init, 0, 1e-3),
+                                     (0.3, 1e-3, 1e-4)):
+        a9 = (model, Xl, Ul, gl, xsl, lam0_l, torch.tensor(rho0, device=dev),
+              one, m0, cap_l, tol_l)
+        out = k9.sqp_iter_mega_pcg_grid(*a9, **kw_l)
+        ref = k9.sqp_iter_mega_pcg_reference(*a9, **kw_l)
+        sync()
+        label = f"K9pg N = {LONG_LOOP_KNOT} at rho {rho0:g}"
+        print(f"{label}: CG {int(out.pcg_iters)} vs {int(ref.pcg_iters)}, "
+              f"accept {bool(out.accept)} vs {bool(ref.accept)}")
+        for f in ("accept", "bail"):
+            if not torch.equal(getattr(out, f), getattr(ref, f)):
+                raise AssertionError(f"{label}: {f} differs")
+        if abs(int(out.pcg_iters) - int(ref.pcg_iters)) > 2:
+            raise AssertionError(f"{label}: CG counts differ by more than 2")
+        err9pg = max(err9pg, checked(f"{label} X, U", [(out.X, ref.X),
+                                                       (out.U, ref.U)],
+                                     1e-3, 1e-5),
+                     checked(f"{label} lam", [(out.lam, ref.lam)], lam_rtol,
+                             lam_atol))
+        if rho0 == cfg.rho_init:
+            a9_main, it9g = a9, int(out.pcg_iters)
+
+    def k9pg_step(Xc, Uc, lamc, rhoc, drhoc, meritc):
+        return k9.sqp_iter_mega_pcg_grid(model, Xc, Uc, gl, xsl, lamc, rhoc,
+                                         drhoc, meritc, cap_l, tol_l, **kw_l)
+
+    k5g_once = k5.sqp_solve_mega_pcg_grid(*args5, **kw_l)
+    four = iterate(Xl, Ul, lam0_l, torch.tensor(cfg.rho_init, device=dev),
+                   one, m0, SQP_ITERS, k9pg_step)
+    sync()
+    pairs = {"X": (four[0], k5g_once.X), "U": (four[1], k5g_once.U),
+             "lam": (four[2], k5g_once.lam), "rho": (four[3], k5g_once.rho),
+             "merit": (four[5], k5g_once.merit),
+             "sqp_iters": (four[6], k5g_once.sqp_iters),
+             "pcg_iters": (four[8], k5g_once.pcg_iters),
+             "accepted": (four[10], k5g_once.accepted)}
+    unequal = [f for f, (x, y) in pairs.items() if not torch.equal(x, y)]
+    if unequal:
+        raise AssertionError(f"{SQP_ITERS} K9pg launches and one K5g launch "
+                             f"differ in {unequal}")
+    print(f"{SQP_ITERS} K9pg launches bit-equal to one K5g launch at N = "
+          f"{LONG_LOOP_KNOT}")
+    n_l = LONG_LOOP_KNOT
+    record("K9pg", "sqp_iter_mega_pcg_grid", "mpcgpu_tpu_torch/csrc/sqp_mega.cu",
+           "mpcgpu_tpu/ops/pallas/sqp_megakernel.py:960", err9pg,
+           lambda: k9.sqp_iter_mega_pcg_grid(*a9_main, **kw_l),
+           lambda: k9.sqp_iter_mega_pcg_reference(*a9_main, **kw_l),
+           n_l * OPS_K3_KNOT + _cg_ops(n_l, it9g, _spmv_ops(n_l))
+           + _dz_ops(n_l) + _merits_ops(n_l, na),
+           F32 * (2 * (2 * n_l * NX + (n_l - 1) * NU) + 6 * n_l + NX + TAB
+                  + 6) + 20,
+           n=n_l, grid=grids[n_l]["K9pg"], bit_equal_to_k5g=True,
+           device_us=_device_us(
+               lambda: k9.sqp_iter_mega_pcg_grid(*a9_main, **kw_l), "K9pg"))
+
+    # the loops at long horizons, each through the kernels and the plain
+    # modules, from the horizon's start with warm duals
+    long_counts, long_sm = {}, {}
+
+    def long_pair(label, n_l, cfg_l, linsys, want, n_updates, detail=True):
+        tol_l = default_pcg_exit_tols(n_l)[0]
+        start_l = long_start(n_l)
+        fused, counts = run_loop(f"{label}, fused", cfg_l, linsys, want=want,
+                                 detail=detail, n_updates=n_updates,
+                                 start=start_l, exit_tol=tol_l)
+        # (megakernel and megakernel_solve act only with fused_stages)
+        plain_cfg_l = dataclasses.replace(cfg_l, fused_stages=False,
+                                          megakernel=False,
+                                          megakernel_solve=False)
+        plain_linsys = "pcg" if linsys == "pcg_pallas" else linsys
+        key = (n_l, plain_cfg_l, plain_linsys, n_updates)
+        if key not in long_sm:
+            long_sm[key] = run_loop(f"{label}, plain", plain_cfg_l,
+                                    plain_linsys, n_updates=n_updates,
+                                    start=start_l, exit_tol=tol_l)[0]
+        compare(label, fused, long_sm[key])
+        if linsys == "auto" and fused["failed_over"] != long_sm[key]["failed_over"]:
+            raise AssertionError(f"{label}: failed_over {fused['failed_over']} "
+                                 f"vs plain {long_sm[key]['failed_over']}")
+        long_counts[label] = counts
+        return fused
+
+    for n_l in LONG_AUTO_KNOTS:
+        u_l = LONG_UPDATES
+        sm = long_pair(f"auto N={n_l}", n_l,
+                       long_cfg(n_l, megakernel=True, megakernel_solve=True),
+                       "auto", {**none, "K1": u_l, "K2": u_l, "K5g": u_l},
+                       u_l)
+        if any(sm["failed_over"]):
+            raise AssertionError(f"auto N={n_l}: the latch tripped on 0_0")
+    n_l, u_l = LONG_LOOP_KNOT, LONG_UPDATES
+    long_pair(f"staged pcg N={n_l}", n_l, long_cfg(n_l), "pcg",
+              {**none, "K1": u_l, "K2": u_l + u_l * s, "K3": u_l * s,
+               "K4g": u_l * s}, u_l)
+    half_l = u_l // 2
+    sm = long_pair(
+        f"forced failover N={n_l}", n_l,
+        long_cfg(n_l, megakernel=True, megakernel_solve=True,
+                 **dict(trip, failover_check_every=half_l)), "auto",
+        {**none, "K1": u_l, "K2": half_l + half_l * (1 + s), "K5g": half_l,
+         "K3": half_l * s, "K6l": half_l * s}, u_l)
+    if sm["failed_over"] != [False] * half_l + [True] * half_l:
+        raise AssertionError(f"forced failover N={n_l}: failed_over "
+                             f"{sm['failed_over']}")
+    long_pair(f"pcg per-iteration megakernel N={n_l}", n_l,
+              long_cfg(n_l, megakernel=True), "pcg",
+              {**none, "K1": u_l, "K2": u_l, "K9pg": u_l * s}, u_l)
+    # the plain stages on the card with K4bg as the solve: host-bound, the
+    # host clock only (profiling their glue costs minutes)
+    long_pair(f"pcg_pallas N={n_l}", n_l,
+              dataclasses.replace(long_cfg(n_l), fused_stages=False),
+              "pcg_pallas", {**none, "K4bg": u_l * s}, u_l, detail="host")
+
     # each kernel's launches: the first run of this slice's paths that
     # launched it (the default auto loop, its failover branch, the staged
     # loop, the packed loop, then this file's phase 6 loops)
     paths = (("auto", auto_counts), ("failover", fo_counts),
              ("staged", staged_counts), ("packed", packed_counts),
              ("staged bcr", bcr_counts),
-             (f"staged bcr N={LONG_KNOTS}", long_counts),
+             (f"staged bcr N={LONG_KNOTS}", long_counts_bcr),
              ("pcg per-iteration megakernel", k9p_counts),
              ("bcr per-iteration megakernel", k9b_counts),
-             ("pcg_pallas", pp_counts))
+             ("pcg_pallas", pp_counts), *long_counts.items())
     for k in kernels:
         kid = k["name"].split()[0]
-        path, count = next(((p, c[kid]) for p, c in paths if c[kid]),
-                           ("none", 0))
+        # K8's horizons (N % 128 == 0) run K3: its launches on those paths
+        found = (((p, c["K3"]) for p, c in long_counts.items() if c["K3"])
+                 if kid == "K8" else
+                 ((p, c[kid]) for p, c in paths if c[kid]))
+        path, count = next(found, ("none", 0))
         if not count:
             raise AssertionError(f"{kid} was launched in no closed loop")
         k["launches"], k["path"] = count, path

@@ -1,7 +1,11 @@
 // K3: KKT linearization, Schur condensation and stair preconditioner.
 //
-// Replaces the TPU kernel mpcgpu_tpu/ops/pallas/kkt_schur_kernel.py
-// (form_kkt_schur_pallas / _kernel -> _perknot).  Knot-major outputs:
+// Replaces the TPU kernels mpcgpu_tpu/ops/pallas/kkt_schur_kernel.py
+// (form_kkt_schur_pallas / _kernel -> _perknot) and, for N % 128 == 0,
+// form_kkt_schur_tiled (K8: _tile_kernel, _spd_inv_tile_kernel,
+// _stair_tile_kernel, the same stages over 128-knot tiles, a Mosaic layout
+// workaround): one block per knot has no tile and no N limit.  Knot-major
+// outputs:
 // S = (SL, SD, SU) and Pinv = (PL, PD, PU) as (N, 14, 14) bands, gamma
 // (N, 14), and the blocks primal recovery needs: Qinv (N, 14, 14),
 // Rinv (N, 7, 7), A (N, 14, 14), B (N, 14, 7), q (N, 14), r (N, 7), with

@@ -11,8 +11,10 @@
 // with the eepos tracking cost J_k and explicit-Euler ABA dynamics f.
 //
 // Bound on the H100: latency of one ABA + FK chain per thread (one thread
-// per knot, N threads per block, 9 blocks on 9 SMs); the data are a few
-// KB.  The candidate iterate is formed in the kernel, x_{k+1} reaches
+// per knot up to MAX_THREADS threads per block, strided past it; 9 blocks
+// on 9 SMs); the data are a few KB.  The chain takes about 160 registers a
+// thread, so a block of more than 384 threads could not launch
+// (cudaError 701): MAX_THREADS = 256 serves N <= 1024 in strides.  The candidate iterate is formed in the kernel, x_{k+1} reaches
 // thread k through shared memory, and each block sums its knots in a
 // fixed order, so the merits are the same from run to run.  The per-knot
 // contribution lives in merit.cuh, shared with K5.
@@ -20,7 +22,9 @@
 
 namespace {
 
-LD_GLOBAL void merit_kernel(const float* __restrict__ tab_g,
+constexpr int MAX_THREADS = 256;
+
+LD_GLOBAL void LD_LAUNCH_BOUNDS(MAX_THREADS) merit_kernel(const float* __restrict__ tab_g,
                             const float* __restrict__ X,
                             const float* __restrict__ U,
                             const float* __restrict__ dX,
@@ -70,8 +74,15 @@ extern "C" int mpc_merits(const float* tab, const float* X, const float* U,
                           int N, int num_alphas, float dt, float mu,
                           float qd_cost, float r_cost, float grav,
                           float* out, void* stream) {
-  const int threads = ((N + 31) / 32) * 32 > 1024 ? 1024 : ((N + 31) / 32) * 32;
+  const int warps = (N + 31) / 32;
+  const int threads = warps * 32 > MAX_THREADS ? MAX_THREADS : warps * 32;
   const size_t smem = sizeof(float) * (size_t)N * (ld::NX + 1);
+#ifdef __CUDACC__
+  // past 48 KB (N > 819) only after opting in
+  cudaError_t err = cudaFuncSetAttribute(
+      merit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+#endif
   LD_LAUNCH(merit_kernel, num_alphas + 1, threads, smem, stream, tab, X, U,
             dX, dU, goals, gstride, xs, N, num_alphas, dt, mu, qd_cost,
             r_cost, grav, out);

@@ -1,7 +1,9 @@
 // The one-block CG solve of S lam = gamma and the primal step, shared by
 // K4 and K4b (pcg_dz.cu), K5 (sqp_mega.cu, its dual-solve stage), K6
 // (bcr_pcg_dz.cu) and K10 (sqp_mega_packed.cu, which drives cg_init and
-// cg_step itself: its arms' CGs share one exit).
+// cg_step itself: its arms' CGs share one exit); and the grid-wide form of
+// the stair-PCG and the primal step (grid_cg_solve, grid_dz) for K4g, K4bg
+// (pcg_dz.cu), K5g and K9pg (sqp_mega.cu), past the one-block fit.
 //
 // One thread block holds S's three (N, 14, 14) bands and the CG vectors in
 // shared memory; one thread per (knot, row) entry of an (N, 14) vector
@@ -268,6 +270,196 @@ LD_DEV void pcg_dz_body(float* smem, int N, const float* SLg,
                                   lam0, max_iter, tol, iters_out, hit_out);
   dz_epilogue(N, a.lam, A, B, q, r_in, Qinv, Rinv, a.r, a.p, lam_out, dX, dU);
   LD_SYNC();
+}
+
+// ---------------------------------------------------------------------------
+// The grid-wide stair-PCG (the original GBD-PCG's form, pcg/sqp.cuh:137-166):
+// one cooperative launch, every block in the solve, S, the stair bands,
+// gamma and the CG vectors in global memory (2.4 MB of bands at N = 512,
+// L2-resident), nothing N-sized in shared memory.  Block b owns knots
+// b, b + gridDim, ...; thread i < 14 of a block computes row i of the
+// owned knot's entries.  The owner of knot k is the block that wrote rows k
+// of the bands and gamma in the stages before (K5g), so bands are read by
+// their writer; vectors at k - 1 and k + 1 come from other blocks and are
+// read past L1 (load_cg), as are the dot slots.
+//
+// Each dot product: the owner of knot k sums its 14 products in a fixed
+// order into slot k; after a grid barrier every block sums the N slots in
+// the same fixed order (thread t takes k = t, t + blockDim, ..., then
+// block_sum), so every block holds the same bits and takes the same exit
+// decision -- a block leaving the loop early would hang the next barrier.
+// No atomics: their order would change from run to run.  The sums do not
+// depend on the grid size.  One slot array serves each kind of dot: every
+// read of a slot is followed by a grid barrier before its next write.
+//
+// Grid barriers ("|"), in the simplest right order, four per iteration:
+//   r = gamma - S lam0 | z = P r, p = z, eta slots | eta; then per step
+//   w = S p, p.w slots | alpha; lam += alpha p, r -= alpha w |
+//   z = P r, eta slots | eta', beta; p = z + beta p |
+// (S p and P r read p and r at k +- 1; each slot sum follows its writes).
+// The first barrier is also the one between the last read of lam0 and the
+// first write of lam, which lets lam0 and lam alias (K5g's warm start in
+// place); every exit follows a barrier after the last write of lam, which
+// grid_dz's read of lam_{k+1} needs.
+
+// The CG's global vectors (N, 14) each and its 2N dot slots (eta, p.w).
+struct GridCg {
+  float *r, *p, *w, *z, *slots;
+};
+
+LD_HD size_t grid_cg_floats(int N) { return (size_t)4 * N * S + (size_t)2 * N; }
+
+LD_DEV GridCg grid_cg_area(float* g, int N) {
+  const size_t n = (size_t)S * N;
+  return GridCg{g, g + n, g + 2 * n, g + 3 * n, g + 4 * n};
+}
+
+// A float another block wrote in this launch, read past L1 (ld.global.cg).
+LD_DEV float load_cg(const float* p) {
+#ifdef __CUDACC__
+  return __ldcg(p);
+#else
+  return *p;
+#endif
+}
+
+// Row i of band-row k of (L, D, U) times x, x read past L1.
+LD_DEV float band_row_cg(const float* L, const float* D, const float* U,
+                         const float* x, int N, int k, int i) {
+  const int o = S * S * k + S * i;
+  float acc = 0.0f;
+  for (int j = 0; j < S; ++j) acc += D[o + j] * load_cg(x + S * k + j);
+  if (k > 0)
+    for (int j = 0; j < S; ++j) acc += L[o + j] * load_cg(x + S * (k - 1) + j);
+  if (k < N - 1)
+    for (int j = 0; j < S; ++j) acc += U[o + j] * load_cg(x + S * (k + 1) + j);
+  return acc;
+}
+
+// The sum of the N slots, the same in every block.
+LD_DEV float slot_sum(const float* slots, int N, float* red) {
+  float v = 0.0f;
+  for (int k = LD_TID; k < N; k += LD_NTID) v += load_cg(slots + k);
+  return block_sum(v, red);
+}
+
+// y = M x over the owned knots (M's bands L, D, U), and slot k = the dot of
+// dot_x's and y's entries at knot k; copy, when not null, receives y too.
+// Every thread of the block takes part (block_sum).
+LD_DEV void grid_band_apply(int N, const float* L, const float* D,
+                            const float* U, const float* x, float* y,
+                            float* copy, const float* dot_x, float* slots,
+                            float* red) {
+  for (int k = LD_BID; k < N; k += LD_NBID) {
+    float part = 0.0f;
+    for (int i = LD_TID; i < S; i += LD_NTID) {
+      const float v = band_row_cg(L, D, U, x, N, k, i);
+      y[S * k + i] = v;
+      if (copy) copy[S * k + i] = v;
+      part += load_cg(dot_x + S * k + i) * v;
+    }
+    const float dot = block_sum(part, red);
+    if (LD_TID == 0) slots[k] = dot;
+  }
+}
+
+// The warm-started stair-PCG of S lam = gamma over the whole grid (every
+// block calls it, with the same arguments): exit when |eta| <= tol or at
+// max_iter.  lam0 and lam may alias; returns the iteration count and the
+// final eta.
+LD_DEV int grid_cg_solve(int N, const float* SL, const float* SD,
+                         const float* SU, const float* PL, const float* PD,
+                         const float* PU, const float* gamma,
+                         const float* lam0, float* lam, GridCg g,
+                         int max_iter, float tol, float* eta_out) {
+  LD_SHARED float red[33];
+  const int t = LD_TID, nt = LD_NTID, bid = LD_BID, nb = LD_NBID;
+  float* const eta_slots = g.slots;
+  float* const pw_slots = g.slots + N;
+
+  // r = gamma - S lam0, and lam = lam0 unless they alias
+  for (int k = bid; k < N; k += nb)
+    for (int i = t; i < S; i += nt) {
+      const int e = S * k + i;
+      g.r[e] = gamma[e] - band_row_cg(SL, SD, SU, lam0, N, k, i);
+      if (lam != lam0) lam[e] = lam0[e];
+    }
+  LD_GRID_SYNC();
+  // z = P r, p = z, eta = r . z
+  grid_band_apply(N, PL, PD, PU, g.r, g.z, g.p, g.r, eta_slots, red);
+  LD_GRID_SYNC();
+  float eta = slot_sum(eta_slots, N, red);
+  int it = 0;
+  while (it < max_iter && fabsf(eta) > tol) {
+    // w = S p, alpha = eta / p . w
+    grid_band_apply(N, SL, SD, SU, g.p, g.w, nullptr, g.p, pw_slots, red);
+    LD_GRID_SYNC();
+    const float alpha = eta / slot_sum(pw_slots, N, red);
+    for (int k = bid; k < N; k += nb)
+      for (int i = t; i < S; i += nt) {
+        const int e = S * k + i;
+        lam[e] += alpha * g.p[e];
+        g.r[e] -= alpha * g.w[e];
+      }
+    LD_GRID_SYNC();
+    // z = P r, eta' = r . z
+    grid_band_apply(N, PL, PD, PU, g.r, g.z, nullptr, g.r, eta_slots, red);
+    LD_GRID_SYNC();
+    const float eta_new = slot_sum(eta_slots, N, red);
+    const float beta = eta_new / eta;
+    for (int k = bid; k < N; k += nb)
+      for (int i = t; i < S; i += nt) {
+        const int e = S * k + i;
+        g.p[e] = g.z[e] + beta * g.p[e];
+      }
+    LD_GRID_SYNC();
+    eta = eta_new;
+    ++it;
+  }
+  *eta_out = eta;
+  return it;
+}
+
+// The primal step (dz_epilogue's arithmetic in the same order) over the
+// owned knots, lam in global memory after a grid barrier; also writes lam
+// to lam_out unless it is null.
+LD_DEV void grid_dz(int N, const float* lam, const float* A, const float* B,
+                    const float* q, const float* r_in, const float* Qinv,
+                    const float* Rinv, float* lam_out, float* dX, float* dU) {
+  LD_SHARED float rx[S], ru[NU];
+  const int t = LD_TID, nt = LD_NTID;
+  for (int k = LD_BID; k < N; k += LD_NBID) {
+    const bool has_u = k < N - 1;
+    for (int i = t; i < S; i += nt) {
+      const float lk = load_cg(lam + S * k + i);
+      float acc = q[S * k + i] - lk;
+      if (has_u)
+        for (int m = 0; m < S; ++m)
+          acc += A[S * S * k + S * m + i] * load_cg(lam + S * (k + 1) + m);
+      rx[i] = acc;
+      if (lam_out) lam_out[S * k + i] = lk;
+    }
+    if (has_u)
+      for (int i = t; i < NU; i += nt) {
+        float acc = r_in[NU * k + i];
+        for (int m = 0; m < S; ++m)
+          acc += B[S * NU * k + NU * m + i] * load_cg(lam + S * (k + 1) + m);
+        ru[i] = acc;
+      }
+    LD_SYNC();
+    for (int i = t; i < S; i += nt) {
+      float acc = 0.0f;
+      for (int j = 0; j < S; ++j) acc += Qinv[S * S * k + S * i + j] * rx[j];
+      dX[S * k + i] = -acc;
+    }
+    if (has_u)
+      for (int i = t; i < NU; i += nt) {
+        float acc = 0.0f;
+        for (int j = 0; j < NU; ++j) acc += Rinv[NU * NU * k + NU * i + j] * ru[j];
+        dU[NU * k + i] = -acc;
+      }
+    LD_SYNC();
+  }
 }
 
 }  // namespace pcgc

@@ -1,5 +1,6 @@
 // K4: warm-started stair-preconditioned CG on S lam = gamma, then dz; and
-// K4b: the same CG without the dz.
+// K4b: the same CG without the dz; K4g and K4bg: their grid-wide forms,
+// past the one-block fit.
 //
 // Replaces the TPU kernels mpcgpu_tpu/ops/pallas/pcg_kernel.py
 // (pcg_dz_pallas_lanes / _pcg_dz_kernel -> _pcg_loop) and
@@ -17,7 +18,16 @@
 // shared memory for the whole solve while the preconditioner bands are
 // read from global memory, where they stay L2-resident.  One thread per
 // (knot, row) entry.  The shared memory of one block bounds N
-// (mpc_pcg_max_knots; the wrapper raises beyond it).
+// (mpc_pcg_max_knots, 90 on the H100).
+//
+// Past that fit, K4g and K4bg run the same CG over the whole grid
+// (pcg_common.cuh grid_cg_solve): one cooperative launch of 128-thread
+// blocks, grid = min(N, co-resident blocks) (mpc_pcg_grid), each block
+// walking knots b, b + grid, ...; S, P, gamma and the CG vectors stay in
+// global memory (L2), the dots go through per-knot slots that every block
+// sums alike, and four grid barriers separate the stages of a CG step.
+// Then dz per owned knot (K4g).  The barriers (a few us each) set the
+// pace of a step whatever N is, so N <= 90 keeps the one-block form.
 #include "pcg_common.cuh"
 
 namespace {
@@ -47,6 +57,65 @@ LD_GLOBAL void pcg_solve_kernel(
       smem, N, SLg, SDg, SUg, PL, PD, PU, gamma, lam0, max_iter, tol,
       iters_out, hit_out);
   for (int e = LD_TID; e < S * N; e += LD_NTID) lam_out[e] = a.lam[e];
+}
+
+// K4g (dz) and K4bg (no dz): the grid-wide CG; scratch holds
+// pcgc::grid_cg_floats(N).
+template <bool DZ>
+LD_DEV void pcg_grid_body(
+    int N, const float* SL, const float* SD, const float* SU, const float* PL,
+    const float* PD, const float* PU, const float* gamma, const float* lam0,
+    const float* A, const float* B, const float* q, const float* r_in,
+    const float* Qinv, const float* Rinv, int max_iter, float tol,
+    float* lam_out, float* dX, float* dU, int* iters_out, bool* hit_out,
+    float* scratch) {
+  const pcgc::GridCg g = pcgc::grid_cg_area(scratch, N);
+  float eta;
+  const int it = pcgc::grid_cg_solve(N, SL, SD, SU, PL, PD, PU, gamma, lam0,
+                                     lam_out, g, max_iter, tol, &eta);
+  if (LD_BID == 0 && LD_TID == 0) {
+    iters_out[0] = it;
+    hit_out[0] = fabsf(eta) > tol;
+  }
+  if constexpr (DZ)
+    pcgc::grid_dz(N, lam_out, A, B, q, r_in, Qinv, Rinv, nullptr, dX, dU);
+}
+
+LD_GLOBAL void pcg_dz_grid_kernel(
+    int N, const float* SL, const float* SD, const float* SU,
+    const float* PL, const float* PD, const float* PU, const float* gamma,
+    const float* lam0, const float* A, const float* B, const float* q,
+    const float* r_in, const float* Qinv, const float* Rinv, int max_iter,
+    float tol, float* lam_out, float* dX, float* dU, int* iters_out,
+    bool* hit_out, float* scratch) {
+  pcg_grid_body<true>(N, SL, SD, SU, PL, PD, PU, gamma, lam0, A, B, q, r_in,
+                      Qinv, Rinv, max_iter, tol, lam_out, dX, dU, iters_out,
+                      hit_out, scratch);
+}
+
+LD_GLOBAL void pcg_solve_grid_kernel(
+    int N, const float* SL, const float* SD, const float* SU,
+    const float* PL, const float* PD, const float* PU, const float* gamma,
+    const float* lam0, const float* A, const float* B, const float* q,
+    const float* r_in, const float* Qinv, const float* Rinv, int max_iter,
+    float tol, float* lam_out, float* dX, float* dU, int* iters_out,
+    bool* hit_out, float* scratch) {
+  pcg_grid_body<false>(N, SL, SD, SU, PL, PD, PU, gamma, lam0, A, B, q,
+                       r_in, Qinv, Rinv, max_iter, tol, lam_out, dX, dU,
+                       iters_out, hit_out, scratch);
+}
+
+using GridKernel = void (*)(int, const float*, const float*, const float*,
+                            const float*, const float*, const float*,
+                            const float*, const float*, const float*,
+                            const float*, const float*, const float*,
+                            const float*, const float*, int, float, float*,
+                            float*, float*, int*, bool*, float*);
+
+constexpr int GRID_THREADS = 128;
+
+GridKernel grid_kernel(int dz) {
+  return dz ? pcg_dz_grid_kernel : pcg_solve_grid_kernel;
 }
 
 size_t pcg_smem_floats(int N) { return pcgc::cg_smem_floats(N, 4); }
@@ -102,4 +171,69 @@ extern "C" int mpc_pcg_solve(int N, const float* SL, const float* SD,
   LD_LAUNCH(pcg_solve_kernel, 1, pcg_threads(N), smem, stream, N, SL, SD, SU,
             PL, PD, PU, gamma, lam0, max_iter, tol, lam_out, iters, hit);
   return LD_LAST_ERROR();
+}
+
+// The grid of a K4g (dz != 0) or K4bg launch over N knots: min(N, blocks
+// that can be resident at once) from the occupancy API; 0 if not one block
+// fits or the device has no cooperative launch.  The host build walks
+// every knot in one block.
+extern "C" int mpc_pcg_grid(int N, int dz) {
+#ifdef __CUDACC__
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) != cudaSuccess || !coop)
+    return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, (const void*)grid_kernel(dz), GRID_THREADS, 0) != cudaSuccess)
+    return 0;
+  const long long resident = (long long)per_sm * sms;
+  return (int)(resident < N ? resident : N);
+#else
+  (void)N;
+  (void)dz;
+  return 1;
+#endif
+}
+
+// Floats of global scratch a K4g or K4bg launch takes.
+extern "C" long long mpc_pcg_grid_scratch_floats(int N) {
+  return (long long)pcgc::grid_cg_floats(N);
+}
+
+// K4g (dz != 0): the grid-wide CG from lam0, then dz; K4bg (dz == 0): the
+// CG alone (A, B, q, r, Qinv, Rinv, dX and dU are then not read and may be
+// null).  grid from mpc_pcg_grid; scratch of mpc_pcg_grid_scratch_floats.
+extern "C" int mpc_pcg_grid_solve(int dz, int N, const float* SL,
+                                  const float* SD, const float* SU,
+                                  const float* PL, const float* PD,
+                                  const float* PU, const float* gamma,
+                                  const float* lam0, const float* A,
+                                  const float* B, const float* q,
+                                  const float* r, const float* Qinv,
+                                  const float* Rinv, int max_iter, float tol,
+                                  float* lam_out, float* dX, float* dU,
+                                  int* iters, bool* hit, float* scratch,
+                                  int grid, void* stream) {
+  if (N < 2 || grid < 1) return 1;  // cudaErrorInvalidValue
+#ifdef __CUDACC__
+  // a grid larger than the resident one makes the launch fail with
+  // cudaErrorCooperativeLaunchTooLarge (the wrapper checks it first)
+  void* args[] = {&N, &SL, &SD, &SU, &PL, &PD, &PU, &gamma, &lam0, &A, &B,
+                  &q, &r, &Qinv, &Rinv, &max_iter, &tol, &lam_out, &dX, &dU,
+                  &iters, &hit, &scratch};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)grid_kernel(dz), dim3(grid), dim3(GRID_THREADS), args, 0,
+      (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+#else
+  const GridKernel kern = grid_kernel(dz);
+  LD_LAUNCH(kern, 1, GRID_THREADS, 0, stream, N, SL, SD, SU, PL, PD, PU,
+            gamma, lam0, A, B, q, r, Qinv, Rinv, max_iter, tol, lam_out, dX,
+            dU, iters, hit, scratch);
+  (void)grid;
+  return 0;
+#endif
 }

@@ -1,6 +1,7 @@
 // K5: the whole SQP solve -- every iteration -- in one cooperative launch;
 // K9p and K9b: ONE SQP iteration per cooperative launch, with the stair-PCG
-// and the refined block cyclic reduction (BCR) dual solve.
+// and the refined block cyclic reduction (BCR) dual solve; K5g and K9pg:
+// K5 and K9p with the grid-wide CG, past the one-block fit.
 //
 // Replaces the TPU kernels mpcgpu_tpu/ops/pallas/sqp_megakernel.py
 // sqp_solve_mega_pcg (_solve_kernel_pcg -> _iteration_pcg, _line_search,
@@ -48,6 +49,16 @@
 // raises past either.  K9b's block 0 factors and applies the BCR with 128
 // threads (4 warps for the 14x14 inverses) while the other blocks wait at
 // the barrier: the simplest right design, not a fast one.
+//
+// K5g and K9pg (the GRID template flag) run stage 4 in EVERY block: the
+// grid-wide stair-PCG of pcg_common.cuh (S, P and the CG vectors in global
+// memory, per-knot dot slots summed alike by every block, four grid
+// barriers per CG step), then dz per owned knot.  Their blocks ask for no
+// N-sized shared memory, so neither N nor the grid is bounded by it: the
+// grid is min(N, co-resident blocks) at the stages' static shared memory,
+// and blocks walk several knots where N exceeds it.  Their sums, as every
+// other stage's, do not depend on the grid, so four K9pg launches equal
+// one K5g launch bit for bit.
 #include "bcr_common.cuh"
 #include "kkt_schur.cuh"
 #include "merit.cuh"
@@ -73,21 +84,34 @@ struct MegaParams {
   float *SL, *SD, *SU, *PL, *PD, *PU, *Qinv, *A, *AQi, *T, *B, *Rinv;
   float *gamma, *q, *tvec, *Qiq, *fpred, *dX, *r, *dU, *contrib;
   float* fac;  // K9b: the BCR factors
+  float* cg;   // K5g, K9pg: the grid CG's vectors and slots
   int* cg_it;
   bool* cg_hit;
 };
 
-// The three kernels of this file (the `kind` of the C entries below).
-enum Kind { SOLVE_PCG = 0, ITER_PCG = 1, ITER_BCR = 2 };
+// The five kernels of this file (the `kind` of the C entries below).
+enum Kind {
+  SOLVE_PCG = 0, ITER_PCG = 1, ITER_BCR = 2, SOLVE_PCG_GRID = 3,
+  ITER_PCG_GRID = 4
+};
+
+bool grid_cg(int kind) { return kind == SOLVE_PCG_GRID || kind == ITER_PCG_GRID; }
+
+// The grid kinds hold nothing N-sized in shared memory; this bound keeps
+// the 32-bit offsets of their global scratch (about 2,200 floats a knot)
+// far from overflow.
+constexpr int GRID_MAX_KNOTS = 1 << 16;
 
 size_t mega_smem_floats(int N, int kind) {
+  if (grid_cg(kind)) return 0;
   return kind == ITER_BCR ? bcr::dz_vec_floats(N) : pcgc::cg_smem_floats(N, 4);
 }
 
 size_t mega_scratch_floats(int N, int num_alphas, int kind) {
   return (size_t)N * (10 * SS + S * NU + NU * NU + 6 * S + 2 * NU
                       + num_alphas)
-         + (kind == ITER_BCR ? bcr::factor_floats(N) : 0);
+         + (kind == ITER_BCR ? bcr::factor_floats(N) : 0)
+         + (grid_cg(kind) ? pcgc::grid_cg_floats(N) : 0);
 }
 
 // X[k] += step dX[k], U[k] += step dU[k]
@@ -106,7 +130,7 @@ enum { RHO, DRHO, MERIT, STEP, N_SCAL };
 #define MEGA_INLINE inline
 #endif
 
-template <bool BCR>
+template <bool BCR, bool GRID>
 MEGA_INLINE void mega_body(const MegaParams& p) {
   LD_SHARED float tab[ld::TAB_SIZE];
   LD_SHARED float merits[MAX_ALPHAS];
@@ -160,9 +184,21 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
         k3::stair(k, N, p.SL, p.SU, p.PD, 1, p.PL, p.PU);
       LD_GRID_SYNC();
     }
-    // 4. the dual solve and dz, in block 0: the warm-started CG, or the
-    // refined BCR (0 CG iterations, no hit)
-    if (bid == 0) {
+    // 4. the dual solve and dz: the warm-started CG over the whole grid
+    // (K5g, K9pg); or in block 0, the warm-started CG or the refined BCR
+    // (0 CG iterations, no hit)
+    if constexpr (GRID) {
+      float eta;
+      const int its = pcgc::grid_cg_solve(
+          N, p.SL, p.SD, p.SU, p.PL, p.PD, p.PU, p.gamma, p.lam, p.lam,
+          pcgc::grid_cg_area(p.cg, N), p.max_iter, p.tol, &eta);
+      pcgc::grid_dz(N, p.lam, p.A, p.B, p.q, p.r, p.Qinv, p.Rinv, nullptr,
+                    p.dX, p.dU);
+      if (bid == 0 && t == 0) {
+        p.cg_it[0] = its;
+        p.cg_hit[0] = fabsf(eta) > p.tol;
+      }
+    } else if (bid == 0) {
       if constexpr (BCR) {
         bcr::bcr_dz_body(N, p.SL, p.SD, p.SU, p.gamma, p.A, p.B, p.q, p.r,
                          p.Qinv, p.Rinv, p.fac, smem, p.lam, p.dX, p.dU);
@@ -247,16 +283,28 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
   }
 }
 
-LD_GLOBAL void sqp_mega_kernel(MegaParams p) { mega_body<false>(p); }
-LD_GLOBAL void sqp_iter_mega_pcg_kernel(MegaParams p) { mega_body<false>(p); }
-LD_GLOBAL void sqp_iter_mega_bcr_kernel(MegaParams p) { mega_body<true>(p); }
+LD_GLOBAL void sqp_mega_kernel(MegaParams p) { mega_body<false, false>(p); }
+LD_GLOBAL void sqp_iter_mega_pcg_kernel(MegaParams p) {
+  mega_body<false, false>(p);
+}
+LD_GLOBAL void sqp_iter_mega_bcr_kernel(MegaParams p) {
+  mega_body<true, false>(p);
+}
+LD_GLOBAL void sqp_mega_grid_kernel(MegaParams p) { mega_body<false, true>(p); }
+LD_GLOBAL void sqp_iter_mega_pcg_grid_kernel(MegaParams p) {
+  mega_body<false, true>(p);
+}
 
 using MegaKernel = void (*)(MegaParams);
 
 MegaKernel kernel_of(int kind) {
-  return kind == ITER_BCR   ? sqp_iter_mega_bcr_kernel
-         : kind == ITER_PCG ? sqp_iter_mega_pcg_kernel
-                            : sqp_mega_kernel;
+  switch (kind) {
+    case ITER_BCR: return sqp_iter_mega_bcr_kernel;
+    case ITER_PCG: return sqp_iter_mega_pcg_kernel;
+    case SOLVE_PCG_GRID: return sqp_mega_grid_kernel;
+    case ITER_PCG_GRID: return sqp_iter_mega_pcg_grid_kernel;
+    default: return sqp_mega_kernel;
+  }
 }
 
 #ifdef __CUDACC__
@@ -269,9 +317,7 @@ long long mega_static_smem(int kind) {
 }
 #endif
 
-int check_kind(int kind) {
-  return kind == SOLVE_PCG || kind == ITER_PCG || kind == ITER_BCR;
-}
+int check_kind(int kind) { return kind >= SOLVE_PCG && kind <= ITER_PCG_GRID; }
 
 // The parameters of one launch.  drho0_p (device memory) overrides drho0
 // when it is not null; lam0 is not read by K9b.
@@ -307,6 +353,8 @@ MegaParams make_params(
   p.dU = f; f += nu;
   p.contrib = f; f += (size_t)N * num_alphas;
   p.fac = kind == ITER_BCR ? f : nullptr;
+  if (kind == ITER_BCR) f += bcr::factor_floats(N);
+  p.cg = grid_cg(kind) ? f : nullptr;
   p.cg_it = iscratch;
   p.cg_hit = reinterpret_cast<bool*>(iscratch + 1);
   return p;
@@ -316,9 +364,11 @@ MegaParams make_params(
 
 // Largest horizon for which every block's shared memory (block 0's dual
 // solve plus the stages' static arrays) fits kernel `kind` (0 K5, 1 K9p,
-// 2 K9b) on this device; 0 if the attributes cannot be read.
+// 2 K9b) on this device; 0 if the attributes cannot be read.  The grid
+// kinds (3 K5g, 4 K9pg) answer GRID_MAX_KNOTS.
 extern "C" int mpc_mega_max_knots(int kind) {
   if (!check_kind(kind)) return 0;
+  if (grid_cg(kind)) return GRID_MAX_KNOTS;
   auto floats = [kind](int n) { return mega_smem_floats(n, kind); };
 #ifdef __CUDACC__
   const long long stat = mega_static_smem(kind);
@@ -392,7 +442,8 @@ int launch(const MegaParams& p, int kind, int grid, void* stream) {
 
 }  // namespace
 
-// K5: n_sqp iterations from drho0 = drho0 (a host number).
+// K5 (kind 0) or K5g (kind 3): n_sqp iterations from drho0 = drho0 (a host
+// number).
 extern "C" int mpc_sqp_mega(
     const float* tab, int N, const float* X0, const float* U0,
     const float* goals, int gstride, const float* xs, const float* lam0,
@@ -400,18 +451,21 @@ extern "C" int mpc_sqp_mega(
     float tol, int n_sqp, float dt, float qd_cost, float r_cost, float grav,
     float mu, int num_alphas, float rho_factor, float rho_min, float rho_max,
     float rho_reset, float* X, float* U, float* lam, float* scal, int* ints,
-    int* stats, float* scratch, int* iscratch, int grid, void* stream) {
+    int* stats, float* scratch, int* iscratch, int kind, int grid,
+    void* stream) {
+  if (kind != SOLVE_PCG && kind != SOLVE_PCG_GRID) return 1;
   const MegaParams p = make_params(
       tab, N, X0, U0, goals, gstride, xs, lam0, rho0, merit0, nullptr, drho0,
       max_iter, tol, n_sqp, dt, qd_cost, r_cost, grav, mu, num_alphas,
       rho_factor, rho_min, rho_max, rho_reset, X, U, lam, scal, ints, stats,
-      scratch, iscratch, SOLVE_PCG);
-  return launch(p, SOLVE_PCG, grid, stream);
+      scratch, iscratch, kind);
+  return launch(p, kind, grid, stream);
 }
 
-// K9p: one iteration, rho, drho and the incumbent merit in device memory.
-// Outputs as K5's with n_sqp = 1: scal (rho, drho, merit), ints
-// (iterations run, bail), stats (CG iterations, hit, accepted).
+// K9p (kind 1) or K9pg (kind 4): one iteration, rho, drho and the
+// incumbent merit in device memory.  Outputs as K5's with n_sqp = 1: scal
+// (rho, drho, merit), ints (iterations run, bail), stats (CG iterations,
+// hit, accepted).
 extern "C" int mpc_sqp_iter_mega_pcg(
     const float* tab, int N, const float* X0, const float* U0,
     const float* goals, int gstride, const float* xs, const float* lam0,
@@ -419,13 +473,15 @@ extern "C" int mpc_sqp_iter_mega_pcg(
     float tol, float dt, float qd_cost, float r_cost, float grav, float mu,
     int num_alphas, float rho_factor, float rho_min, float rho_max,
     float rho_reset, float* X, float* U, float* lam, float* scal, int* ints,
-    int* stats, float* scratch, int* iscratch, int grid, void* stream) {
+    int* stats, float* scratch, int* iscratch, int kind, int grid,
+    void* stream) {
+  if (kind != ITER_PCG && kind != ITER_PCG_GRID) return 1;
   const MegaParams p = make_params(
       tab, N, X0, U0, goals, gstride, xs, lam0, rho0, merit0, drho0, 1.0f,
       max_iter, tol, 1, dt, qd_cost, r_cost, grav, mu, num_alphas,
       rho_factor, rho_min, rho_max, rho_reset, X, U, lam, scal, ints, stats,
-      scratch, iscratch, ITER_PCG);
-  return launch(p, ITER_PCG, grid, stream);
+      scratch, iscratch, kind);
+  return launch(p, kind, grid, stream);
 }
 
 // K9b: one iteration with the refined BCR dual solve (power-of-2 N); no

@@ -84,20 +84,12 @@ size_t packed_scratch_floats(int N, int B, int num_alphas) {
                           + num_alphas) + 2 * B;
 }
 
-LD_DEV float load_other_block(const float* p) {
-#ifdef __CUDACC__
-  return __ldcg(p);
-#else
-  return *p;
-#endif
-}
-
 // The shared CG exit test over the B published etas, read in arm order:
 // go on while some |eta| > tol and none is NaN (jnp.max(|eta|) > tol).
 LD_DEV bool cg_goes_on(const float* eta, int B, float tol) {
   bool go = false;
   for (int a = 0; a < B; ++a) {
-    const float v = fabsf(load_other_block(eta + a));
+    const float v = fabsf(pcgc::load_cg(eta + a));
     if (v != v) return false;
     go = go || v > tol;
   }

@@ -47,8 +47,14 @@ _SIGNATURES = {
     "mpc_pcg_dz": [_I] + [_P] * 14 + [_I, _F] + [_P] * 6,
     "mpc_pcg_solve": [_I] + [_P] * 8 + [_I, _F] + [_P] * 4,
     "mpc_pcg_max_knots": [],
+    "mpc_pcg_grid": [_I, _I],
+    "mpc_pcg_grid_scratch_floats": [_I],
+    "mpc_pcg_grid_solve": [_I, _I] + [_P] * 14 + [_I, _F] + [_P] * 6
+                          + [_I, _P],
     "mpc_bcr_pcg_dz": [_I] + [_P] * 11 + [_I, _F] + [_P] * 7,
+    "mpc_bcr_pcg_dz_l2": [_I] + [_P] * 11 + [_I, _F] + [_P] * 7,
     "mpc_bcr_max_knots": [],
+    "mpc_bcr_l2_max_knots": [],
     "mpc_bcr_scratch_floats": [_I],
     "mpc_bcr_dz": [_I] + [_P] * 15,
     "mpc_bcr_dz_max_knots": [],
@@ -56,10 +62,10 @@ _SIGNATURES = {
     "mpc_bcr_solve_max_knots": [],
     "mpc_sqp_mega": [_P, _I, _P, _P, _P, _I] + [_P] * 4
                     + [_F, _I, _F, _I] + [_F] * 5 + [_I] + [_F] * 4
-                    + [_P] * 8 + [_I, _P],
+                    + [_P] * 8 + [_I, _I, _P],
     "mpc_sqp_iter_mega_pcg": [_P, _I, _P, _P, _P, _I] + [_P] * 5
                              + [_I] + [_F] * 6 + [_I] + [_F] * 4
-                             + [_P] * 8 + [_I, _P],
+                             + [_P] * 8 + [_I, _I, _P],
     "mpc_sqp_iter_mega": [_P, _I, _P, _P, _P, _I] + [_P] * 4 + [_F] * 5
                          + [_I] + [_F] * 4 + [_P] * 8 + [_I, _P],
     "mpc_mega_max_knots": [_I],
@@ -73,6 +79,7 @@ _SIGNATURES = {
     "mpc_sqp_mega_packed_scratch_floats": [_I, _I, _I],
 }
 _RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
+             "mpc_pcg_grid_scratch_floats": ctypes.c_longlong,
              "mpc_sqp_mega_scratch_floats": ctypes.c_longlong,
              "mpc_sqp_mega_packed_scratch_floats": ctypes.c_longlong}
 

@@ -1,7 +1,8 @@
 """Block cyclic reduction kernels (csrc/bcr_pcg_dz.cu, csrc/bcr_dz.cu):
 
 * K6 ``bcr_pcg_dz``: warm-started CG preconditioned by an exact BCR
-  solve, then the primal step (bcr_pcg_dz_pallas_lanes);
+  solve, then the primal step (bcr_pcg_dz_pallas_lanes); K6l
+  ``bcr_pcg_dz_l2``: the same kernel with S read from global memory;
 * K7 ``bcr_dz``: the exact BCR solve with one refinement pass, then the
   primal step -- the fused "bcr" backend (bcr_dz_pallas_lanes);
 * K7s ``bcr_solve``: one unrefined BCR solve (bcr_solve_pallas_lanes).
@@ -15,14 +16,17 @@ the dz blocks only.  Each factors the cyclic reduction once per launch
 
 K6 and K7 keep S in one block's shared memory, so they serve power-of-2
 N up to the largest that fits (``check_bcr_fit``, ``check_bcr_dz_fit``);
-K7s reads S from global memory and serves far longer horizons
-(``check_bcr_solve_fit``).  Above K6's or K7's fit, or when ``split=True``
+K6l and K7s read S from global memory and serve longer horizons
+(``check_bcr_l2_fit``, ``check_bcr_solve_fit``).  ``bcr_pcg_dz`` launches
+K6 where it fits and K6l past it, as the TPU runs the whole solve in one
+kernel up to N = 256.  Above K7's fit, above K6l's, or when ``split=True``
 forces it, they take the split path of the JAX package
 (bcr_kernel.py:234-264,308-317): K7 becomes K7s, the residual as tensor
 glue, K7s again, then the primal step; K6 becomes the CG as tensor glue
 (``ops.btsolve.bcr_pcg``: a fixed max_iter steps, those after the exit
 masked) with K7s as each preconditioner apply.  On the TPU that split
-works around VMEM; here it is what serves the exact solvers past N = 64.
+works around VMEM; here it serves the refined solve past N = 64 and the
+BCR-PCG past K6l's fit (N = 512 on the H100).
 """
 from __future__ import annotations
 
@@ -69,6 +73,14 @@ def check_bcr_fit(knot_points: int, lib=None) -> int:
     return _check_fit(knot_points, (lib or _lib.library()).mpc_bcr_max_knots(),
                       "the one-block BCR-PCG kernel holds S in shared memory "
                       "and")
+
+
+def check_bcr_l2_fit(knot_points: int, lib=None) -> int:
+    """The same for K6l (the CG vectors and the inverse scratch; S stays in
+    global memory)."""
+    return _check_fit(knot_points,
+                      (lib or _lib.library()).mpc_bcr_l2_max_knots(),
+                      "the one-block BCR-PCG kernel with S in global memory")
 
 
 def check_bcr_dz_fit(knot_points: int, lib=None) -> int:
@@ -214,11 +226,13 @@ def bcr_pcg_dz_split(ks: KnotSchur, lam0, max_iter: int, exit_tol, solve):
     return lam, dX, dU, iters, hit
 
 
-def _launch(lib, ks: KnotSchur, lam0, max_iter: int, exit_tol, stream):
+def _launch(lib, ks: KnotSchur, lam0, max_iter: int, exit_tol, stream,
+            l2: bool = False):
+    """One K6 launch, or K6l's (l2)."""
     dev = ks.gamma.device
     nx, nu = 2 * _lib.NJ, _lib.NJ
     n = expect_system(ks, lam0, _FIELDS, dev)
-    check_bcr_fit(n, lib)
+    (check_bcr_l2_fit if l2 else check_bcr_fit)(n, lib)
     f32 = dict(dtype=torch.float32, device=dev)
     scratch = torch.empty(lib.mpc_bcr_scratch_floats(n), **f32)
     lam = torch.empty((n, nx), **f32)
@@ -226,32 +240,64 @@ def _launch(lib, ks: KnotSchur, lam0, max_iter: int, exit_tol, stream):
     dU = torch.empty((n - 1, nu), **f32)
     iters = torch.empty((), dtype=torch.int32, device=dev)
     hit = torch.empty((), dtype=torch.bool, device=dev)
-    rc = lib.mpc_bcr_pcg_dz(
+    entry = "mpc_bcr_pcg_dz_l2" if l2 else "mpc_bcr_pcg_dz"
+    rc = getattr(lib, entry)(
         n, *(getattr(ks, f).data_ptr() for f in ("SL", "SD", "SU", "gamma")),
         lam0.data_ptr(), *(getattr(ks, f).data_ptr() for f in _DZ_FIELDS),
         int(max_iter), float(exit_tol), scratch.data_ptr(), lam.data_ptr(),
         dX.data_ptr(), dU.data_ptr(), iters.data_ptr(), hit.data_ptr(),
         stream)
-    _lib.check(rc, "mpc_bcr_pcg_dz")
+    _lib.check(rc, entry)
     return lam, dX, dU, iters, hit
+
+
+def _bcr_pcg_dz_l2_on(lib, ks, lam0, max_iter, exit_tol, stream):
+    out = _launch(lib, ks, lam0, max_iter, exit_tol, stream, l2=True)
+    bcr_pcg_dz_l2.launches += 1
+    return out
+
+
+def _bcr_pcg_dz_on(lib, ks, lam0, max_iter, exit_tol, split, stream):
+    """K6 where it fits, K6l past it, the split path past K6l's fit (or as
+    split forces), through library lib."""
+    n = ks.gamma.shape[0]
+    _check_pow2(n)
+    if split is None and n > lib.mpc_bcr_max_knots():
+        if n <= lib.mpc_bcr_l2_max_knots():
+            return _bcr_pcg_dz_l2_on(lib, ks, lam0, max_iter, exit_tol,
+                                     stream)
+        split = True
+    if split:
+        return bcr_pcg_dz_split(ks, lam0, max_iter, exit_tol, _solver_of(ks))
+    out = _launch(lib, ks, lam0, max_iter, exit_tol, stream)
+    bcr_pcg_dz.launches += 1
+    return out
 
 
 def bcr_pcg_dz(ks: KnotSchur, lam0, max_iter: int, exit_tol, split=None):
     """Solve S lam = gamma warm-started at lam0 (N, nx) with the BCR
     preconditioner; return (lam (N, nx), dX (N, nx), dU (N-1, nu),
-    iters int32, hit_max bool).  max_iter and exit_tol are host numbers;
-    split as bcr_dz's, against K6's fit."""
+    iters int32, hit_max bool).  max_iter and exit_tol are host numbers.
+    split: None launches K6 where it fits, K6l past it and takes the split
+    path above K6l's fit; True forces the split path, False K6."""
     if lam0.device.type == "cpu":
         return bcr_pcg_dz_reference(ks, lam0, max_iter, exit_tol)
     _cuda_device(lam0)
-    n = ks.gamma.shape[0]
-    _check_pow2(n)
-    if _split(n, split, lambda: _lib.library().mpc_bcr_max_knots()):
-        return bcr_pcg_dz_split(ks, lam0, max_iter, exit_tol, _solver_of(ks))
-    out = _launch(_lib.library(), ks, lam0, max_iter, exit_tol,
-                  _lib.stream_of(lam0))
-    bcr_pcg_dz.launches += 1
-    return out
+    return _bcr_pcg_dz_on(_lib.library(), ks, lam0, max_iter, exit_tol,
+                          split, _lib.stream_of(lam0))
 
 
 bcr_pcg_dz.launches = 0
+
+
+def bcr_pcg_dz_l2(ks: KnotSchur, lam0, max_iter: int, exit_tol):
+    """K6l: bcr_pcg_dz's solve and dz in one block with S read from global
+    memory, at any power-of-2 N up to its fit."""
+    if lam0.device.type == "cpu":
+        return bcr_pcg_dz_reference(ks, lam0, max_iter, exit_tol)
+    _cuda_device(lam0)
+    return _bcr_pcg_dz_l2_on(_lib.library(), ks, lam0, max_iter, exit_tol,
+                             _lib.stream_of(lam0))
+
+
+bcr_pcg_dz_l2.launches = 0

@@ -7,6 +7,14 @@ tensor runs the plain version (``ops.kkt.form_kkt`` +
 ``ops.schur.form_schur``); a CUDA tensor launches the kernel or raises.
 The kernel serves the eepos tracking cost with the reference Hessian,
 explicit Euler and no angle wrap.
+
+It replaces both TPU forms of that module: ``form_kkt_schur_pallas``
+(N <= 128) and ``form_kkt_schur_tiled`` (K8: the same ``LaneSchur`` over
+128-knot tiles for N % 128 == 0, three pallas_calls for the per-knot
+stage, theta^-1 and the stair bands).  The tile exists only to get round
+a Mosaic layout limit; the CUDA kernel's three launches of one block per
+knot have no tile and no N limit, so one kernel serves every horizon
+(checked up to N = 1024).
 """
 from __future__ import annotations
 

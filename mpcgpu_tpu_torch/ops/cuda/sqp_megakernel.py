@@ -1,6 +1,7 @@
 """The SQP megakernels: K5, the whole SQP solve in one cooperative launch,
 and K9p / K9b, one SQP iteration per launch with the stair-PCG / the
-refined BCR dual solve (csrc/sqp_mega.cu); K10, K5 for B arms at once
+refined BCR dual solve, with K5g and K9pg, K5 and K9p over the grid-wide
+CG (csrc/sqp_mega.cu); K10, K5 for B arms at once
 (csrc/sqp_mega_packed.cu).
 
 Counterpart of mpcgpu_tpu/ops/pallas/sqp_megakernel.py
@@ -18,13 +19,19 @@ iterations (sqp.sqp_solve with ``megakernel`` and without
 ``megakernel_solve``) reads nothing on the host.
 
 The kernel is one persistent cooperative launch with grid barriers
-between its stages; its CG stage runs in one block that holds S in shared
-memory, and every block asks for that memory.  ``check_mega_fit`` raises
-past the largest N that fits, and before a grid that could not be
-co-resident (the counterpart of the reference's checkPcgOccupancy and of
-the TPU's check_pcg_vmem_fit): an oversubscribed cooperative launch is
-never made.  ``check_mega_packed_fit`` does the same for K10, and raises
-too when the grid cannot give every arm a CG block of its own.
+between its stages; K5's and K9p's CG stage runs in one block that holds S
+in shared memory, and every block asks for that memory (N <= 84 on the
+H100).  K5g and K9pg run the CG over the whole grid with S in global
+memory and ask for no N-sized shared memory.  ``sqp_solve_mega_pcg`` and
+``sqp_iter_mega_pcg`` launch the one-block kind where it fits and the grid
+kind past it (``pcg_kind``: a function of N and the device alone);
+``sqp_solve_mega_pcg_grid`` and ``sqp_iter_mega_pcg_grid`` launch the grid
+kind at any N.  ``check_mega_fit`` raises past the largest N a kind
+serves, and before a grid that could not be co-resident (the counterpart
+of the reference's checkPcgOccupancy and of the TPU's
+check_pcg_vmem_fit): an oversubscribed cooperative launch is never made.
+``check_mega_packed_fit`` does the same for K10, and raises too when the
+grid cannot give every arm a CG block of its own.
 
 K10's public layout is knot-major with a leading arm axis: X (B, N, nx),
 U (B, N-1, nu), lam0 (B, N, nx), goals (B, N, >=3) (or one (N, >=3)
@@ -133,10 +140,23 @@ _grids: dict = {}
 
 
 # the kernels of csrc/sqp_mega.cu (its Kind)
-SOLVE_PCG, ITER_PCG, ITER_BCR = 0, 1, 2
+SOLVE_PCG, ITER_PCG, ITER_BCR, SOLVE_PCG_GRID, ITER_PCG_GRID = 0, 1, 2, 3, 4
 _KIND_NAMES = {SOLVE_PCG: "the whole-solve kernel",
                ITER_PCG: "the per-iteration PCG kernel",
-               ITER_BCR: "the per-iteration BCR kernel"}
+               ITER_BCR: "the per-iteration BCR kernel",
+               SOLVE_PCG_GRID: "the grid-CG whole-solve kernel",
+               ITER_PCG_GRID: "the grid-CG per-iteration kernel"}
+_GRID_KIND = {SOLVE_PCG: SOLVE_PCG_GRID, ITER_PCG: ITER_PCG_GRID}
+
+
+def pcg_kind(knot_points: int, lib=None, kind: int = SOLVE_PCG) -> int:
+    """The kind that serves the PCG megakernel `kind` (SOLVE_PCG or
+    ITER_PCG) at this horizon: itself where every block's shared memory
+    holds its one-block CG, else its grid-CG form."""
+    lib = lib or _lib.library()
+    if knot_points <= lib.mpc_mega_max_knots(kind):
+        return kind
+    return _GRID_KIND[kind]
 
 
 def check_mega_fit(knot_points: int, lib=None, kind: int = SOLVE_PCG) -> int:
@@ -150,9 +170,12 @@ def check_mega_fit(knot_points: int, lib=None, kind: int = SOLVE_PCG) -> int:
     name = _KIND_NAMES[kind]
     n_max = lib.mpc_mega_max_knots(kind)
     if knot_points > n_max:
+        where = ("keeps its scratch in global memory" if kind in
+                 (SOLVE_PCG_GRID, ITER_PCG_GRID) else
+                 "holds its dual solve in one block's shared memory")
         raise ValueError(
-            f"{name} holds its dual solve in one block's shared memory and "
-            f"serves N <= {n_max} on this device; got N = {knot_points}")
+            f"{name} {where} and serves N <= {n_max} on this device; got "
+            f"N = {knot_points}")
     grid = lib.mpc_mega_grid(knot_points, kind)
     if grid < 1:
         raise ValueError(
@@ -193,7 +216,9 @@ def _expect_iterate(tab, X, U, goals, xs, rho, merit, num_alphas: int) -> int:
 def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
             max_iter: int, exit_tol, n_sqp_iter: int, dt, qd_cost, r_cost,
             gravity, mu, num_alphas: int, rho_factor, rho_min, rho_max,
-            rho_reset, grid: int, stream) -> MegaResult:
+            rho_reset, grid: int, stream,
+            kind: int = SOLVE_PCG) -> MegaResult:
+    """One K5 (kind SOLVE_PCG) or K5g (SOLVE_PCG_GRID) launch."""
     dev = X.device
     nx, nu = 2 * _lib.NJ, _lib.NJ
     n = _expect_iterate(tab, X, U, goals, xs, rho, merit0, num_alphas)
@@ -206,7 +231,7 @@ def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
     ints = torch.empty(2, dtype=torch.int32, device=dev)
     stats = torch.empty((3, n_sqp_iter), dtype=torch.int32, device=dev)
     scratch = torch.empty(
-        lib.mpc_sqp_mega_scratch_floats(n, num_alphas, SOLVE_PCG), **f32)
+        lib.mpc_sqp_mega_scratch_floats(n, num_alphas, kind), **f32)
     iscratch = torch.empty(2, dtype=torch.int32, device=dev)
     rc = lib.mpc_sqp_mega(
         tab.data_ptr(), n, X.data_ptr(), U.data_ptr(), goals.data_ptr(),
@@ -216,13 +241,32 @@ def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
         float(gravity), float(mu), int(num_alphas), float(rho_factor),
         float(rho_min), float(rho_max), float(rho_reset), Xo.data_ptr(),
         Uo.data_ptr(), lam.data_ptr(), scal.data_ptr(), ints.data_ptr(),
-        stats.data_ptr(), scratch.data_ptr(), iscratch.data_ptr(),
+        stats.data_ptr(), scratch.data_ptr(), iscratch.data_ptr(), int(kind),
         int(grid), stream)
     _lib.check(rc, "mpc_sqp_mega")
     return MegaResult(
         X=Xo, U=Uo, lam=lam, rho=scal[0], drho=scal[1], merit=scal[2],
         sqp_iters=ints[0], bailed=ints[1] != 0, pcg_iters=stats[0],
         hit_max=stats[1] != 0, accepted=stats[2] != 0)
+
+
+def _solve_on(lib, kind: int, model, X, U, goals, xs, lam0, rho, drho,
+              merit0, *rest):
+    """One K5 or K5g launch (kind) through library lib; counts it."""
+    grid = check_mega_fit(X.shape[0], lib, kind)
+    rho = torch.as_tensor(rho, dtype=torch.float32, device=X.device)
+    out = _launch(lib, _lib.model_tables(model), X, U, goals, xs, lam0, rho,
+                  drho, merit0, *rest, grid, _lib.stream_of(X), kind)
+    wrapper = (sqp_solve_mega_pcg if kind == SOLVE_PCG
+               else sqp_solve_mega_pcg_grid)
+    wrapper.launches += 1
+    return out
+
+
+def _card_library(X):
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    return _lib.library()
 
 
 def sqp_solve_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit0,
@@ -234,26 +278,39 @@ def sqp_solve_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit0,
     search, rho schedule, bail freeze) from X (N, nx), U (N-1, nu), warm
     duals lam0 (N, nx), goals (N, >=3), xs (nx,); rho and merit0 are 0-d
     tensors (merit0 the merit of (X, U), from K2), drho, max_iter and
-    exit_tol host numbers."""
-    if X.device.type == "cpu":
-        return sqp_solve_mega_pcg_reference(
-            model, X, U, goals, xs, lam0, rho, drho, merit0, max_iter,
+    exit_tol host numbers.  K5 where its one-block CG fits, else K5g."""
+    args = (model, X, U, goals, xs, lam0, rho, drho, merit0, max_iter,
             exit_tol, n_sqp_iter, dt, qd_cost, r_cost, gravity, mu,
             num_alphas, rho_factor, rho_min, rho_max, rho_reset)
-    if X.device.type != "cuda":
-        raise ValueError(f"unsupported device {X.device}")
-    lib = _lib.library()
-    grid = check_mega_fit(X.shape[0], lib)
-    rho = torch.as_tensor(rho, dtype=torch.float32, device=X.device)
-    out = _launch(lib, _lib.model_tables(model), X, U, goals, xs, lam0, rho,
-                  drho, merit0, max_iter, exit_tol, n_sqp_iter, dt, qd_cost,
-                  r_cost, gravity, mu, num_alphas, rho_factor, rho_min,
-                  rho_max, rho_reset, grid, _lib.stream_of(X))
-    sqp_solve_mega_pcg.launches += 1
-    return out
+    if X.device.type == "cpu":
+        return sqp_solve_mega_pcg_reference(*args)
+    return _solve_pcg_on(_card_library(X), *args)
+
+
+def _solve_pcg_on(lib, model, X, *rest):
+    """K5 where its one-block CG fits, else K5g, through library lib."""
+    return _solve_on(lib, pcg_kind(X.shape[0], lib, SOLVE_PCG), model, X,
+                     *rest)
 
 
 sqp_solve_mega_pcg.launches = 0
+
+
+def sqp_solve_mega_pcg_grid(model, X, U, goals, xs, lam0, rho, drho, merit0,
+                            max_iter: int, exit_tol, n_sqp_iter: int, dt,
+                            qd_cost, r_cost, gravity, mu, num_alphas: int,
+                            rho_factor, rho_min, rho_max,
+                            rho_reset) -> MegaResult:
+    """K5g: sqp_solve_mega_pcg's solve with the grid-wide CG, at any N."""
+    args = (model, X, U, goals, xs, lam0, rho, drho, merit0, max_iter,
+            exit_tol, n_sqp_iter, dt, qd_cost, r_cost, gravity, mu,
+            num_alphas, rho_factor, rho_min, rho_max, rho_reset)
+    if X.device.type == "cpu":
+        return sqp_solve_mega_pcg_reference(*args)
+    return _solve_on(_card_library(X), SOLVE_PCG_GRID, *args)
+
+
+sqp_solve_mega_pcg_grid.launches = 0
 
 
 def sqp_iter_mega_pcg_reference(model, X, U, goals, xs, lam0, rho, drho,
@@ -281,8 +338,8 @@ def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
                  max_iter: int, exit_tol, dt, qd_cost, r_cost, gravity, mu,
                  num_alphas: int, rho_factor, rho_min, rho_max, rho_reset,
                  grid: int, stream) -> IterResult:
-    """One launch of K9p (kind ITER_PCG, lam0 the warm start) or K9b
-    (ITER_BCR, lam0 None)."""
+    """One launch of K9p or K9pg (kind ITER_PCG or ITER_PCG_GRID, lam0 the
+    warm start) or K9b (ITER_BCR, lam0 None)."""
     dev = X.device
     nx, nu = 2 * _lib.NJ, _lib.NJ
     n = _expect_iterate(tab, X, U, goals, xs, rho, merit, num_alphas)
@@ -305,12 +362,12 @@ def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
     tail = (Xo.data_ptr(), Uo.data_ptr(), lam.data_ptr(), scal.data_ptr(),
             ints.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
             iscratch.data_ptr(), int(grid), stream)
-    if kind == ITER_PCG:
+    if kind in (ITER_PCG, ITER_PCG_GRID):
         _lib.expect(lam0, "lam0", (n, nx), dev)
         rc = lib.mpc_sqp_iter_mega_pcg(
             *head, lam0.data_ptr(), rho.data_ptr(), drho.data_ptr(),
             merit.data_ptr(), int(max_iter), float(exit_tol), *schedule,
-            *tail)
+            *tail[:-2], int(kind), *tail[-2:])
         _lib.check(rc, "mpc_sqp_iter_mega_pcg")
     else:
         if n & (n - 1):
@@ -324,41 +381,60 @@ def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
                       pcg_iters=stats[0], hit_max=stats[1] != 0)
 
 
-def _iter_on_card(kind: int, model, X, U, goals, xs, lam0, rho, drho, merit,
-                  *rest):
-    if X.device.type != "cuda":
-        raise ValueError(f"unsupported device {X.device}")
-    lib = _lib.library()
+def _iter_on(lib, kind: int, model, X, U, goals, xs, lam0, rho, drho, merit,
+             *rest):
+    """One K9p, K9pg or K9b launch (kind) through library lib; counts it."""
     grid = check_mega_fit(X.shape[0], lib, kind)
     rho, drho, merit = _scalars(X, rho, drho, merit)
-    return _launch_iter(lib, kind, _lib.model_tables(model), X, U, goals, xs,
-                        lam0, rho, drho, merit, *rest, grid,
-                        _lib.stream_of(X))
+    out = _launch_iter(lib, kind, _lib.model_tables(model), X, U, goals, xs,
+                       lam0, rho, drho, merit, *rest, grid, _lib.stream_of(X))
+    {ITER_PCG: sqp_iter_mega_pcg, ITER_PCG_GRID: sqp_iter_mega_pcg_grid,
+     ITER_BCR: sqp_iter_mega}[kind].launches += 1
+    return out
 
 
 def sqp_iter_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit,
                       max_iter: int, exit_tol, dt, qd_cost, r_cost, gravity,
                       mu, num_alphas: int, rho_factor, rho_min, rho_max,
                       rho_reset) -> IterResult:
-    """K9p: one SQP iteration (K3's stages with the stair, the
-    warm-started stair-PCG from lam0 and dz, the 8-alpha line search, the
-    accept test and rho schedule) from X (N, nx), U (N-1, nu), goals (N,
-    >=3), xs (nx,); rho, drho and merit (the incumbent's) are 0-d tensors
-    (or numbers), max_iter and exit_tol host numbers."""
-    if X.device.type == "cpu":
-        return sqp_iter_mega_pcg_reference(
-            model, X, U, goals, xs, lam0, rho, drho, merit, max_iter,
+    """K9p (K9pg past its one-block fit): one SQP iteration (K3's stages
+    with the stair, the warm-started stair-PCG from lam0 and dz, the
+    8-alpha line search, the accept test and rho schedule) from X (N, nx),
+    U (N-1, nu), goals (N, >=3), xs (nx,); rho, drho and merit (the
+    incumbent's) are 0-d tensors (or numbers), max_iter and exit_tol host
+    numbers."""
+    args = (model, X, U, goals, xs, lam0, rho, drho, merit, max_iter,
             exit_tol, dt, qd_cost, r_cost, gravity, mu, num_alphas,
             rho_factor, rho_min, rho_max, rho_reset)
-    out = _iter_on_card(ITER_PCG, model, X, U, goals, xs, lam0, rho, drho,
-                        merit, max_iter, exit_tol, dt, qd_cost, r_cost,
-                        gravity, mu, num_alphas, rho_factor, rho_min,
-                        rho_max, rho_reset)
-    sqp_iter_mega_pcg.launches += 1
-    return out
+    if X.device.type == "cpu":
+        return sqp_iter_mega_pcg_reference(*args)
+    return _iter_pcg_on(_card_library(X), *args)
+
+
+def _iter_pcg_on(lib, model, X, *rest):
+    """K9p where its one-block CG fits, else K9pg, through library lib."""
+    return _iter_on(lib, pcg_kind(X.shape[0], lib, ITER_PCG), model, X,
+                    *rest)
 
 
 sqp_iter_mega_pcg.launches = 0
+
+
+def sqp_iter_mega_pcg_grid(model, X, U, goals, xs, lam0, rho, drho, merit,
+                           max_iter: int, exit_tol, dt, qd_cost, r_cost,
+                           gravity, mu, num_alphas: int, rho_factor, rho_min,
+                           rho_max, rho_reset) -> IterResult:
+    """K9pg: sqp_iter_mega_pcg's iteration with the grid-wide CG, at any
+    N."""
+    args = (model, X, U, goals, xs, lam0, rho, drho, merit, max_iter,
+            exit_tol, dt, qd_cost, r_cost, gravity, mu, num_alphas,
+            rho_factor, rho_min, rho_max, rho_reset)
+    if X.device.type == "cpu":
+        return sqp_iter_mega_pcg_reference(*args)
+    return _iter_on(_card_library(X), ITER_PCG_GRID, *args)
+
+
+sqp_iter_mega_pcg_grid.launches = 0
 
 
 def sqp_iter_mega(model, X, U, goals, xs, rho, drho, merit, dt, qd_cost,
@@ -371,11 +447,9 @@ def sqp_iter_mega(model, X, U, goals, xs, rho, drho, merit, dt, qd_cost,
         return sqp_iter_mega_reference(
             model, X, U, goals, xs, rho, drho, merit, dt, qd_cost, r_cost,
             gravity, mu, num_alphas, rho_factor, rho_min, rho_max, rho_reset)
-    out = _iter_on_card(ITER_BCR, model, X, U, goals, xs, None, rho, drho,
-                        merit, 0, 0.0, dt, qd_cost, r_cost, gravity, mu,
-                        num_alphas, rho_factor, rho_min, rho_max, rho_reset)
-    sqp_iter_mega.launches += 1
-    return out
+    return _iter_on(_card_library(X), ITER_BCR, model, X, U, goals, xs, None,
+                    rho, drho, merit, 0, 0.0, dt, qd_cost, r_cost, gravity,
+                    mu, num_alphas, rho_factor, rho_min, rho_max, rho_reset)
 
 
 sqp_iter_mega.launches = 0

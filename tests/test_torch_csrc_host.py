@@ -145,6 +145,76 @@ def test_k6_host_build_residual_on_the_fixture_system(host, traj_0_0):
     assert abs(int(got[3]) - int(want[3])) <= 1
 
 
+@pytest.mark.parametrize("n", [16, 256])
+def test_k6l_host_build_matches_plain(host, n):
+    """K6l (S read from global memory) on the random system at K6's
+    tolerances (tests/test_bcr.py:62-74), and at N = 16 against K6 on the
+    same inputs: the same body, bit for bit."""
+    lib = host[0]
+    ks = random_knot_schur(n, seed=7)
+    lam0 = T(np.random.default_rng(3).normal(size=(n, 14)).astype(np.float32))
+    want = k6.bcr_pcg_dz_reference(ks, lam0, 40, 5e-5)
+    got = k6._launch(lib, ks, lam0, 40, 5e-5, None, l2=True)
+    scale = want[0].abs().max()
+    _close(got[0] / scale, want[0] / scale, 0, 2e-5)
+    for g, w in zip(got[1:3], want[1:3]):
+        _close(g, w, 1e-3, 2e-4)
+    assert abs(int(got[3]) - int(want[3])) <= 1
+    assert bool(got[4]) == bool(want[4])
+    if n <= lib.mpc_bcr_max_knots():
+        for g, w in zip(got, k6._launch(lib, ks, lam0, 40, 5e-5, None)):
+            assert torch.equal(g, w)
+
+
+def test_k6l_host_build_residual_on_the_long_fixture_system(host, traj_0_0):
+    """N = 256, fixture 0_0's system without the stair at rho 1e-3 and the
+    long horizons' r_cost, cap 24, tol 1e-5 (the forced failover's solve
+    at that horizon): judged by residual as K6 on the fixture system, each
+    solve within 1e-3 of |gamma|; CG iterations within 1."""
+    lib, model, _ = host
+    X, U, goals, xs = (T(a) for a in problem(traj_0_0, n=256))
+    ks = k3.form_kkt_schur_reference(model, X, U, goals, xs, RHO, DT,
+                                     QD_COST, LONG_R_COST, precond=False)
+    lam0 = torch.zeros(256, 14)
+    want = k6.bcr_pcg_dz_reference(ks, lam0, 24, 1e-5)
+    got = k6._launch(lib, ks, lam0, 24, 1e-5, None, l2=True)
+    S = BlockTri(ks.SL, ks.SD, ks.SU)
+    for lam in (got[0], want[0]):
+        res = (spmv(S, lam) - ks.gamma).abs().max() / ks.gamma.abs().max()
+        assert float(res) < 1e-3
+    assert abs(int(got[3]) - int(want[3])) <= 1
+
+
+def test_bcr_pcg_dz_takes_k6_then_k6l_then_the_split_path(host):
+    """bcr_pcg_dz's dispatch through the host build (fits: K6 N <= 64, K6l
+    N <= 512, the card's arithmetic at 227 KB): K6 at N = 64, K6l at
+    N = 128, and past K6l's fit (a library reporting it as 64) the split
+    path, which launches neither."""
+    from mpcgpu_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    lib = host[0]
+    assert (lib.mpc_bcr_max_knots(), lib.mpc_bcr_l2_max_knots()) == (64, 512)
+
+    class SmallL2:
+        def mpc_bcr_max_knots(self):
+            return 64
+
+        def mpc_bcr_l2_max_knots(self):
+            return 64
+
+    for n, use, want in ((64, lib, "K6"), (128, lib, "K6l"),
+                         (128, SmallL2(), None)):
+        ks = random_knot_schur(n, seed=7)
+        lam0 = torch.zeros(n, 14)
+        reset_launch_counts()
+        got = k6._bcr_pcg_dz_on(use, ks, lam0, 40, 5e-5, None, None)
+        counts = {k: c for k, c in launch_counts().items() if c}
+        assert counts == ({want: 1} if want else {}), n
+        ref = k6.bcr_pcg_dz_reference(ks, lam0, 40, 5e-5)
+        scale = ref[0].abs().max()
+        _close(got[0] / scale, ref[0] / scale, 0, 2e-5)
+
+
 @pytest.mark.parametrize("n,tol,rho_max", [(4, 1e-6, 10.0), (8, 5e-5, 10.0),
                                            (8, 5e-5, 1e-3)])
 def test_k5_host_build_matches_plain(host, traj_0_0, n, tol, rho_max):
@@ -544,3 +614,169 @@ def test_per_iteration_loop_through_the_host_build(host, traj_0_0, linsys,
     tol = (1e-3, 1e-5) if linsys == "pcg" else (0, 1e-3)
     _close(got.X, want.X, *tol)
     _close(got.U, want.U, *tol)
+
+
+# ---- the grid-wide CG forms (K4g, K4bg, K5g, K9pg) at long horizons: the
+# host build runs one block over every knot (a cooperative grid of one),
+# so the per-knot dot slots and their sums are checked, not the barriers
+LONG_R_COST = 1e-4   # CostConfig.for_knots(N) at N != 64
+
+
+def _long_system(model, traj_0_0, n, system):
+    if system == "random":
+        return random_knot_schur(n)
+    X, U, goals, xs = (T(a) for a in problem(traj_0_0, n=n))
+    return k3.form_kkt_schur_reference(model, X, U, goals, xs, RHO, DT,
+                                       QD_COST, LONG_R_COST)
+
+
+@pytest.mark.parametrize("n,system,cap,tol", [
+    # fixture 0_0's system at the long horizons' cap and exit tol: every CG
+    # at the cap
+    (128, "fixture", 24, 1e-5), (256, "fixture", 24, 1e-5),
+    # the seeded well-conditioned system: the CGs exit before the cap
+    (128, "random", 300, 1e-9), (256, "random", 300, 1e-9)])
+def test_k4g_and_k4bg_host_build_match_plain(host, traj_0_0, n, system, cap,
+                                             tol):
+    """K4's tolerances: lam, dX, dU at rtol 5e-3, atol 5e-3; CG counts
+    within 2 or both at the cap; the same hit flag."""
+    lib, model, _ = host
+    ks = _long_system(model, traj_0_0, n, system)
+    lam0 = torch.zeros(n, 14)
+    want = k4.pcg_dz_reference(ks, lam0, cap, tol)
+    assert k4.check_pcg_grid_fit(n, lib) == 1
+    got = k4._launch_grid(lib, ks, lam0, cap, tol, True, 1, None)
+    S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
+    want_b = k4.pcg_solve_reference(S, P, ks.gamma, lam0, cap, tol)
+    got_b = k4._launch_grid(lib, ks, lam0, cap, tol, False, 1, None)
+    pairs = ((got[:3], want[:3], got[3:], want[3:]),
+             (got_b[:1], want_b[:1], got_b[1:], want_b[1:]))
+    for vals, want_vals, (it, hit), (it_ref, hit_ref) in pairs:
+        for g, w in zip(vals, want_vals):
+            _close(g, w, 5e-3, 5e-3)
+        assert abs(int(it) - int(it_ref)) <= 2 or int(it) == int(it_ref) == cap
+        assert bool(hit) == bool(hit_ref)
+    if system == "random":
+        assert int(want[3]) < cap
+
+
+def _long_kw(rho_max=10.0):
+    return dict(dt=DT, qd_cost=QD_COST, r_cost=LONG_R_COST, gravity=0.0,
+                mu=10.0, num_alphas=8, rho_factor=1.2, rho_min=1e-3,
+                rho_max=rho_max, rho_reset=1e-3)
+
+
+def _merit0(model, X, U, goals, xs):
+    return k2.line_search_merits_reference(
+        model, X, U, torch.zeros_like(X), torch.zeros_like(U), 8, goals, xs,
+        DT, 10.0, QD_COST, LONG_R_COST)[8]
+
+
+@pytest.mark.parametrize("rho", [1e-3, 0.3])
+def test_k5g_host_build_matches_plain(host, traj_0_0, rho):
+    """K5g at N = 128 (the slice's start, knot 0 kept, the rest perturbed),
+    cap 24, tol 1e-5, 4 SQP iterations, against its plain version at the
+    tolerances of tests/test_torch_megakernel.py:77-82: X, U at rtol 1e-3,
+    atol 1e-5; lam at rtol 1e-3, atol 1e-4; decisions identical; CG
+    counts within 2.  At rho 0.3 a CG exits before the cap."""
+    lib, model, tab = host
+    n = 128
+    X, U, goals, xs = _k9_start(traj_0_0, n, None)
+    kw = _long_kw()
+    args = (X, U, goals, xs, torch.zeros(n, 14), torch.tensor(rho), 1.0,
+            _merit0(model, X, U, goals, xs), 24, 1e-5, 4)
+    want = k5.sqp_solve_mega_pcg_reference(model, *args, **kw)
+    assert k5.check_mega_fit(n, lib, k5.SOLVE_PCG_GRID) == 1
+    got = k5._launch(lib, tab, *args, grid=1, stream=None,
+                     kind=k5.SOLVE_PCG_GRID, **kw)
+    _close(got.X, want.X, 1e-3, 1e-5)
+    _close(got.U, want.U, 1e-3, 1e-5)
+    _close(got.lam, want.lam, 1e-3, 1e-4)
+    for f in ("sqp_iters", "bailed", "hit_max", "accepted"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int((got.pcg_iters - want.pcg_iters).abs().max()) <= 2
+    if rho == 0.3:
+        assert bool(((want.pcg_iters >= 0) & (want.pcg_iters < 24)).any())
+
+
+def test_four_k9pg_launches_equal_one_k5g_launch(host, traj_0_0):
+    """sqp.iterate over four K9pg launches against one K5g launch, N = 128,
+    through the host build: the same body, bit for bit."""
+    from mpcgpu_tpu_torch.sqp import iterate
+
+    lib, model, tab = host
+    n = 128
+    X, U, goals, xs = _k9_start(traj_0_0, n, None)
+    kw = _long_kw()
+    merit0, lam0, rho = (_merit0(model, X, U, goals, xs), torch.zeros(n, 14),
+                         torch.tensor(1e-3))
+    k5g = k5._launch(lib, tab, X, U, goals, xs, lam0, rho, 1.0, merit0, 24,
+                     1e-5, 4, grid=1, stream=None, kind=k5.SOLVE_PCG_GRID,
+                     **kw)
+
+    def step(Xc, Uc, lamc, rhoc, drhoc, meritc):
+        return k9._launch_iter(lib, k9.ITER_PCG_GRID, tab, Xc, Uc, goals, xs,
+                               lamc, rhoc, drhoc, meritc, 24, 1e-5, **kw,
+                               grid=1, stream=None)
+
+    (Xi, Ui, lami, rhoi, _, meriti, itsi, bailedi, pcgi, hiti,
+     acci) = iterate(X, U, lam0, rho, torch.tensor(1.0), merit0, 4, step)
+    for got, want in ((Xi, k5g.X), (Ui, k5g.U), (lami, k5g.lam),
+                      (rhoi, k5g.rho), (meriti, k5g.merit),
+                      (itsi, k5g.sqp_iters), (bailedi, k5g.bailed),
+                      (pcgi, k5g.pcg_iters), (hiti, k5g.hit_max),
+                      (acci, k5g.accepted)):
+        assert torch.equal(got, want)
+
+
+def test_wrappers_take_the_one_block_form_at_64_and_the_grid_form_at_128(
+        host, traj_0_0):
+    """The CUDA wrappers' dispatch (pcg_dz, pcg_solve, sqp_solve_mega_pcg,
+    sqp_iter_mega_pcg), driven through the host build, whose fits are the
+    card's arithmetic at 227 KB of shared memory (N <= 90): the one-block
+    kernel at N = 64 and its grid form at N = 128, each launch counted
+    once under its own kernel."""
+    from mpcgpu_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    lib, model, _ = host
+    for n, one_block in ((64, True), (128, False)):
+        assert k4.one_block_fits(n, lib) is one_block
+        ks = _long_system(model, traj_0_0, n, "fixture")
+        S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
+        X, U, goals, xs = _k9_start(traj_0_0, n, None)
+        lam0, rho = torch.zeros(n, 14), torch.tensor(1e-3)
+        merit0 = _merit0(model, X, U, goals, xs)
+        reset_launch_counts()
+        k4._pcg_dz_on(lib, ks, lam0, 3, 1e-5, None)
+        k4._pcg_solve_on(lib, S, P, ks.gamma, lam0, 3, 1e-5, None)
+        k5._solve_pcg_on(lib, model, X, U, goals, xs, lam0, rho, 1.0, merit0,
+                         3, 1e-5, 1, *_long_kw().values())
+        k9._iter_pcg_on(lib, model, X, U, goals, xs, lam0, rho, 1.0, merit0,
+                        3, 1e-5, *_long_kw().values())
+        counts = launch_counts()
+        one = dict(K4=1, K4b=1, K5=1, K9p=1)
+        grid = dict(K4g=1, K4bg=1, K5g=1, K9pg=1)
+        want = dict.fromkeys(counts, 0)
+        want.update(one if one_block else grid)
+        assert counts == want, n
+
+
+def test_a_grid_that_cannot_be_co_resident_raises():
+    """No launch is made, and nothing falls back, where the occupancy API
+    finds no co-resident grid."""
+
+    class NoGrid:
+        def mpc_pcg_grid(self, n, dz):
+            return 0
+
+        def mpc_mega_max_knots(self, kind):
+            return 1 << 16
+
+        def mpc_mega_grid(self, n, kind):
+            return 0
+
+    lib = NoGrid()
+    with pytest.raises(ValueError, match="cooperative launch"):
+        k4.check_pcg_grid_fit(256, lib)
+    with pytest.raises(ValueError, match="cooperative launch"):
+        k5.check_mega_fit(256, lib, k5.SOLVE_PCG_GRID)

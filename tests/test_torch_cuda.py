@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K7, K7s, K9p, K9b and K10 against their plain
-versions, on the card.
+"""The CUDA kernels K1-K7, K7s, K9p, K9b and K10, K3 at the long horizons
+of the TPU's tiled K8, the grid-CG forms K4g, K4bg, K5g and K9pg and K6l
+(K6 with S in global memory) against their plain versions, on the card.
 
 Marked ``cuda``: each test needs a CUDA device and skips without one.
 The file uses no fixture of tests/conftest.py, which imports JAX, so on a
@@ -328,3 +329,159 @@ def test_k9b_kernel_matches_plain(card):
         ks, want.lam)
     for f in ("X", "U", "merit"):
         _close(getattr(got, f), getattr(given, f), 1e-3, 2e-4)
+
+
+# ---- long horizons: K3 at the TPU's tiled K8 horizons, and the grid-CG
+# forms K4g, K4bg, K5g, K9pg (fixture 0_0's first N knots, r_cost 1e-4,
+# cap 24, exit tol 1e-5: for_knots(N), tpu_tuned_max_iter(N) and
+# default_pcg_exit_tols(N)[0] at N = 128 and 256)
+LONG_R_COST, LONG_CAP, LONG_TOL = 1e-4, 24, 1e-5
+
+
+def _long(card, n, seed):
+    """The first n knots of fixture 0_0 on the card, every knot but 0
+    moved by a seeded 0.02-scale normal draw."""
+    dev = card["X"].device
+    xu, ee = load_fixture_pair(Path(__file__).resolve().parent / "fixtures")
+    pert = 0.02 * np.random.default_rng(seed).normal(size=(n, 14))
+    pert[0] = 0.0
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32),
+                                  device=dev)
+    return (t(xu[:n, :14] + pert), t(xu[:n - 1, 14:]), t(ee[:n]),
+            t(xu[0, :14]))
+
+
+def _long_kw():
+    return dict(dt=DT, qd_cost=QD_COST, r_cost=LONG_R_COST, gravity=0.0,
+                mu=10.0, num_alphas=8, rho_factor=1.2, rho_min=1e-3,
+                rho_max=10.0, rho_reset=1e-3)
+
+
+def _long_k3_args(card, n):
+    return (card["model"], *_long(card, n, 0), card["rho"], DT, QD_COST,
+            LONG_R_COST)
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_k8_horizons_run_k3_against_plain(card, n):
+    """K3 at N % 128 == 0 (the TPU's tiled K8): S's bands within 1e-5 of
+    each band's largest entry (entries to 4.5e4, float32 noise 2.5e-2),
+    the other blocks at rtol 3e-3, atol 3e-3 (tests/test_kkt_schur_pallas.py:33)."""
+    got = k3.form_kkt_schur(*_long_k3_args(card, n))
+    want = k3.form_kkt_schur_reference(*_long_k3_args(card, n))
+    for f in k3.KnotSchur._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        if f in ("SL", "SD", "SU"):
+            assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+        else:
+            _close(g, w, 3e-3, 3e-3)
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_k4g_and_k4bg_kernels_match_plain(card, n):
+    """K4's tolerances: lam, dX, dU at rtol 5e-3, atol 5e-3; CG counts
+    within 2 or both at the cap."""
+    ks = k3.form_kkt_schur_reference(*_long_k3_args(card, n))
+    lam0 = torch.zeros(n, 14, device=card["X"].device)
+    got = k4.pcg_dz_grid(ks, lam0, LONG_CAP, LONG_TOL)
+    want = k4.pcg_dz_reference(ks, lam0, LONG_CAP, LONG_TOL)
+    S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
+    got_b = k4.pcg_solve_grid(S, P, ks.gamma, lam0, LONG_CAP, LONG_TOL)
+    want_b = k4.pcg_solve_reference(S, P, ks.gamma, lam0, LONG_CAP, LONG_TOL)
+    for g, w in zip((*got[:3], got_b[0]), (*want[:3], want_b[0])):
+        _close(g, w, 5e-3, 5e-3)
+    for it, it_ref in ((got[3], want[3]), (got_b[1], want_b[1])):
+        it, it_ref = int(it), int(it_ref)
+        assert abs(it - it_ref) <= 2 or it == it_ref == LONG_CAP
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_k6l_kernel_matches_plain(card, n):
+    """K6l, the failover's BCR-PCG past K6's fit: on the random system at
+    K6's tolerances (tests/test_bcr.py:62-74), CG iterations within 1; on
+    fixture 0_0's system without the stair (cap 24, tol 1e-5) as K6 on the
+    slice's: each solve's residual within 1e-3 of |gamma|, CG iterations
+    within 1; bcr_pcg_dz launches it."""
+    dev = card["X"].device
+    ks = random_knot_schur(n, device=dev)
+    lam0 = torch.zeros(n, 14, device=dev)
+    got = k6.bcr_pcg_dz_l2(ks, lam0, 40, 5e-5)
+    want = k6.bcr_pcg_dz_reference(ks, lam0, 40, 5e-5)
+    scale = want[0].abs().max()
+    _close(got[0] / scale, want[0] / scale, 0, 2e-5)
+    for g, w in zip(got[1:3], want[1:3]):
+        _close(g, w, 1e-3, 2e-4)
+    assert abs(int(got[3]) - int(want[3])) <= 1
+    ks = k3.form_kkt_schur_reference(*_long_k3_args(card, n), precond=False)
+    before = k6.bcr_pcg_dz_l2.launches
+    got = k6.bcr_pcg_dz(ks, lam0, LONG_CAP, LONG_TOL)
+    assert k6.bcr_pcg_dz_l2.launches == before + 1
+    want = k6.bcr_pcg_dz_reference(ks, lam0, LONG_CAP, LONG_TOL)
+    S = BlockTri(ks.SL, ks.SD, ks.SU)
+    for lam in (got[0], want[0]):
+        res = (spmv(S, lam) - ks.gamma).abs().max() / ks.gamma.abs().max()
+        assert float(res) < 1e-3
+    assert abs(int(got[3]) - int(want[3])) <= 1
+
+
+def _k5g_args(card, n, rho):
+    X, U, goals, xs = _long(card, n, 5)
+    zero = torch.zeros_like
+    merit0 = k2.line_search_merits_reference(
+        card["model"], X, U, zero(X), zero(U), 8, goals, xs, DT, 10.0,
+        QD_COST, LONG_R_COST)[8]
+    return (card["model"], X, U, goals, xs, zero(X),
+            torch.tensor(rho, device=X.device), 1.0, merit0, LONG_CAP,
+            LONG_TOL, 4)
+
+
+@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("rho", [1e-3, 0.3])
+def test_k5g_kernel_matches_plain(card, n, rho):
+    """K5's checks: X, U at rtol 1e-3, atol 1e-5; accepted, sqp_iters and
+    rho_bailed identical; CG counts within 2 per SQP iteration; lam at
+    atol 1e-3 at rho 1e-3 (every CG at the cap), else rtol 1e-3, atol
+    1e-4."""
+    args, kw = _k5g_args(card, n, rho), _long_kw()
+    got = k5.sqp_solve_mega_pcg_grid(*args, **kw)
+    want = k5.sqp_solve_mega_pcg_reference(*args, **kw)
+    _close(got.X, want.X, 1e-3, 1e-5)
+    _close(got.U, want.U, 1e-3, 1e-5)
+    _close(got.lam, want.lam, *((0, 1e-3) if rho == 1e-3 else (1e-3, 1e-4)))
+    for f in ("sqp_iters", "bailed", "accepted"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int((got.pcg_iters - want.pcg_iters).abs().max()) <= 2
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_four_k9pg_launches_equal_one_k5g_launch(card, n):
+    """One K9pg launch against the plain iteration (K9p's checks), and
+    sqp.iterate over four K9pg launches against one K5g launch, bit for
+    bit."""
+    from mpcgpu_tpu_torch.sqp import iterate
+
+    args, kw = _k5g_args(card, n, 1e-3), _long_kw()
+    model, X, U, goals, xs, lam0, rho, _, merit0 = args[:9]
+    one = torch.tensor(1.0, device=X.device)
+    got = k9.sqp_iter_mega_pcg_grid(model, X, U, goals, xs, lam0, rho, one,
+                                    merit0, LONG_CAP, LONG_TOL, **kw)
+    want = k9.sqp_iter_mega_pcg_reference(model, X, U, goals, xs, lam0, rho,
+                                          one, merit0, LONG_CAP, LONG_TOL,
+                                          **kw)
+    _close(got.X, want.X, 1e-3, 1e-5)
+    _close(got.U, want.U, 1e-3, 1e-5)
+    _close(got.lam, want.lam, 0, 1e-3)
+    for f in ("accept", "bail"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+    def step(Xc, Uc, lamc, rhoc, drhoc, meritc):
+        return k9.sqp_iter_mega_pcg_grid(model, Xc, Uc, goals, xs, lamc, rhoc,
+                                         drhoc, meritc, LONG_CAP, LONG_TOL,
+                                         **kw)
+
+    once = k5.sqp_solve_mega_pcg_grid(*args, **kw)
+    four = iterate(X, U, lam0, rho, one, merit0, 4, step)
+    for g, w in zip(four[:3], (once.X, once.U, once.lam)):
+        assert torch.equal(g, w)
+    assert torch.equal(four[8], once.pcg_iters)
+    assert torch.equal(four[10], once.accepted)
