@@ -70,7 +70,22 @@ CUDA toolkit:
    (K5g for 4 updates, then K3, K6l, K2),
    the per-iteration megakernel (K2, K9pg) and pcg_pallas (the plain
    stages and K4bg);
-9. prints one JSON line of the kernels, then the result line.
+9. runs the sharded paths, the JAX package's dryrun_multichip legs on one
+   card (8 in-process shards, mpcgpu_tpu_torch/parallel): K11 (the
+   per-shard banded SpMV with halo rows) against its plain version on
+   every shard of fixture 0_0's N = 512 Schur system and on random bands,
+   timed beside a torch.sparse BSR product; the sharded CG with K11
+   (pcg_sharded_cuda) and with the plain SpMV (pcg_sharded) against K4bg
+   and the plain CG at N = 512, to convergence on the seeded random
+   system and at the cap on 0_0's, timed and profiled; sharded_sqp_solve
+   at N = 512 (sqp_max_iter 4, cap 16) whole, explicit and fused against
+   the single-device sqp_solve; the knot-sharded closed loop at N = 512
+   (sqp_max_iter 2, cap 8, K11's CG) against the single-device loop; 8
+   arms over 8 groups against simulate_mpc_scan_batched; 2 groups of 2
+   packed arms (K10, K1) against the unsharded packed loops; and the
+   torch.distributed form, 2 gloo ranks with CUDA tensors
+   (tests/torch_ranks.py), bit-equal to the in-process mesh of 2 shards;
+10. prints one JSON line of the kernels, then the result line.
 
 Any failed build, launch or check ends the run with a non-zero exit code
 before the result line.  Without CUDA it exits non-zero at once.
@@ -83,6 +98,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -105,6 +121,14 @@ LONG_BCR_KNOTS = (128, 256, 512)  # K6l: past K6's fit, within its own
 LONG_AUTO_KNOTS = (128, 256, 512)
 LONG_LOOP_KNOT = 256            # the staged, failover and per-iteration loops
 LONG_UPDATES = 8                # the first horizon shift is at update 7
+# phase 9, the sharded paths (__graft_entry__.dryrun_multichip's legs)
+SHARD_KNOTS, SHARDS = 512, 8    # 64 knots a shard
+SHARD_SQP_ITERS = 4             # the at-scale solve (cap tpu_tuned(512) = 16)
+SHARD_LOOP_ITERS, SHARD_LOOP_CAP = 2, 8
+SHARD_UPDATES = 3
+ARMS_KNOTS, ARMS_GROUPS, ARMS_UPDATES = 8, 8, 2
+PACKED_GROUPS, PACKED_ARMS, PACKED_UPDATES = 2, 2, 2
+GLOO_RANKS = 2
 
 # The least time the card could take for a kernel's work: the
 # larger of the bytes a function must move (inputs read once, outputs
@@ -211,7 +235,7 @@ _TAGS = {"K5g": "sqp_mega_grid_kernel", "K9pg": "sqp_iter_mega_pcg_grid_kernel",
          "K7": "bcr_dz_kernel",
          "K7s": "bcr_solve_kernel", "K3": "k3_", "K4": "pcg_dz_kernel",
          "K4b": "pcg_solve_kernel", "K2": "merit_kernel",
-         "K1": "rollout_kernel"}
+         "K1": "rollout_kernel", "K11": "spmv_halo_kernel"}
 
 
 def _device_events(run):
@@ -1728,6 +1752,350 @@ def main() -> int:
               dataclasses.replace(long_cfg(n_l), fused_stages=False),
               "pcg_pallas", {**none, "K4bg": u_l * s}, u_l, detail="host")
 
+    # ---- 9. the sharded paths (dryrun_multichip's legs) on 8 in-process
+    # shards of one card: K11, the sharded CGs, the N = 512 solve and
+    # closed loop, the arms loops, and the gloo form
+    from mpcgpu_tpu_torch.ops.cuda import spmv_halo_kernel as k11
+    from mpcgpu_tpu_torch.ops.pcg import pcg
+    from mpcgpu_tpu_torch.parallel.pcg_sharded import pcg_sharded
+    from mpcgpu_tpu_torch.parallel.pcg_sharded_cuda import pcg_sharded_cuda
+    from mpcgpu_tpu_torch.parallel.sharded import (
+        arms_mesh, horizon_mesh, register_sharded_pcg, sharded_sqp_solve,
+        simulate_mpc_scan_arms_sharded, simulate_mpc_scan_packed_arms_sharded,
+        simulate_mpc_scan_sharded)
+    t_phase = time.perf_counter()
+    n_s, nl = SHARD_KNOTS, SHARD_KNOTS // SHARDS
+    mesh = horizon_mesh(SHARDS, device=dev)
+    f32 = torch.float32
+
+    def rand(seed, *shape):
+        return torch.as_tensor(np.random.default_rng(seed).normal(size=shape),
+                               dtype=f32, device=dev)
+
+    def k11_pair(label, bands, x, xl, xr):
+        """K11 and its plain version: within 1e-5 of max|y| (float32 sums
+        of 42 products in another order)."""
+        got = k11.spmv_halo(*bands, x, xl, xr)
+        want = k11.spmv_halo_reference(*bands, x, xl, xr)
+        sync()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not (torch.isfinite(got).all() and err <= 1e-5 * scale):
+            raise AssertionError(f"K11 {label}: max error {err:.3e} against "
+                                 f"max|y| {scale:.3e}")
+        return err
+
+    # K11 on every shard of 0_0's N = 512 Schur system (phase 8's perturbed
+    # start) times a seeded x, the halos the neighbours' edge rows (zero at
+    # the ends); and on random bands with nonzero halos
+    ks_s, cap_s, tol_s = long_system(n_s)
+    S_s = BlockTri(ks_s.SL, ks_s.SD, ks_s.SU)
+    P_s = BlockTri(ks_s.PL, ks_s.PD, ks_s.PU)
+    x_s = rand(12, n_s, NX)
+    shard_bands = list(zip(*(mesh.shard(t) for t in S_s)))
+    x_sh = mesh.shard(x_s)
+    left, right = mesh.halos(x_sh)
+    err11 = max(k11_pair(f"shard {i} of 0_0's S", b, x, lf, rt)
+                for i, (b, x, lf, rt) in enumerate(zip(shard_bands, x_sh,
+                                                       left, right)))
+    rb = (rand(13, nl, NX, NX), rand(14, nl, NX, NX), rand(15, nl, NX, NX))
+    xb, hl, hr = rand(16, nl, NX), rand(17, NX), rand(18, NX)
+    err11 = max(err11, k11_pair("random bands", rb, xb, hl, hr))
+    mid = SHARDS // 2            # an interior shard: both halos nonzero
+    k11_args = (*shard_bands[mid], x_sh[mid], left[mid], right[mid])
+
+    # the library yardstick: one torch.sparse BSR (block 14) product with
+    # the halo-padded x; torch.bmm of the stacked bands against the
+    # unfolded x where the card's build refuses BSR
+    pad = torch.cat([left[mid], x_sh[mid].reshape(-1), right[mid]])
+    try:
+        idx = torch.arange(nl, device=dev)
+        bsr = torch.sparse_bsr_tensor(
+            torch.arange(0, 3 * nl + 1, 3, device=dev),
+            (idx[:, None] + torch.arange(3, device=dev)).reshape(-1),
+            torch.stack(shard_bands[mid], 1).reshape(3 * nl, NX, NX),
+            size=(nl * NX, (nl + 2) * NX))
+        col = pad[:, None]
+        lib_run = lambda: bsr @ col
+        lib_y = lib_run().reshape(nl, NX)
+        lib_name = "torch.sparse BSR (block 14) @ the halo-padded x"
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"K11 library yardstick: BSR refused ({e}); timing torch.bmm")
+        stacked = torch.cat(shard_bands[mid], dim=2)           # (nl, 14, 42)
+        win = pad.view(nl + 2, NX).unfold(0, 3, 1).transpose(1, 2)
+        win = win.reshape(nl, 3 * NX, 1).contiguous()
+        lib_run = lambda: torch.bmm(stacked, win)
+        lib_y = lib_run().reshape(nl, NX)
+        lib_name = "torch.bmm of the (nl, 14, 42) stacked bands"
+    sync()
+    want = k11.spmv_halo_reference(*k11_args)
+    if float((lib_y - want).abs().max()) > 1e-5 * float(want.abs().max()):
+        raise AssertionError(f"K11 library yardstick ({lib_name}) computes "
+                             f"another product")
+    lib_ms = _event_ms(lib_run)
+    k11_us = _device_us(lambda: k11.spmv_halo(*k11_args), "K11")
+    print(f"K11 at nl = {nl}: max error {err11:.3e}; {_us(k11_us)} of device "
+          f"time per launch; library ({lib_name}) {lib_ms:.4f} ms")
+    record("K11", "spmv_halo", "mpcgpu_tpu_torch/csrc/spmv_halo.cu",
+           "mpcgpu_tpu/parallel/pcg_sharded_pallas.py:74", err11,
+           lambda: k11.spmv_halo(*k11_args),
+           lambda: k11.spmv_halo_reference(*k11_args),
+           2 * 3 * nl * NX * NX, F32 * (3 * nl * NX * NX + 2 * nl * NX
+                                        + 2 * NX),
+           library_ms=lib_ms, library=lib_name, nl=nl, device_us=k11_us)
+
+    # the sharded CGs against K4bg and the plain CG at N = 512: to
+    # convergence on the JAX parallel test's random system (seed 7, the
+    # stair; tests/test_parallel.py:100-107's residual rule, iterations
+    # within 3), and at the cap on 0_0's system (K4g's rtol = atol = 5e-3)
+    def cg_runs(S, P, gamma, cap_c, tol_c):
+        lam0_c = torch.zeros_like(gamma)
+        a = (S, P, gamma, lam0_c, cap_c, tol_c)
+        return {"pcg_sharded_cuda": lambda: pcg_sharded_cuda(mesh, *a),
+                "pcg_sharded": lambda: pcg_sharded(mesh, *a),
+                "K4bg": lambda: k4.pcg_solve_grid(*a),
+                "plain": lambda: tuple(pcg(*a))}
+
+    sys7 = {f: torch.as_tensor(v, device=dev) for f, v in
+            systems.random_system(n_s, seed=7, precond=True).items()}
+    S7 = BlockTri(sys7["SL"], sys7["SD"], sys7["SU"])
+    P7 = BlockTri(sys7["PL"], sys7["PD"], sys7["PU"])
+    outs7 = {k: run() for k, run in cg_runs(S7, P7, sys7["gamma"], 400,
+                                           1e-10).items()}
+    sync()
+    gnorm = float(sys7["gamma"].norm())
+    res7 = {k: float((sys7["gamma"] - spmv(S7, o[0])).norm())
+            for k, o in outs7.items()}
+    its7 = {k: int(o[1]) for k, o in outs7.items()}
+    print(f"sharded CG, random system N = {n_s}: iterations {its7}, "
+          f"relative residuals { {k: r / gnorm for k, r in res7.items()} }")
+    for k in ("pcg_sharded_cuda", "pcg_sharded", "K4bg"):
+        if (bool(outs7[k][2]) or abs(its7[k] - its7["plain"]) > 3
+                or not res7[k] / gnorm < 1e-4
+                or not res7[k] < 3 * res7["plain"] + 1e-6 * gnorm):
+            raise AssertionError(f"{k} on the random system: iterations "
+                                 f"{its7[k]} vs {its7['plain']}, residual "
+                                 f"{res7[k]:.3e} vs {res7['plain']:.3e}")
+    runs_s = cg_runs(S_s, P_s, ks_s.gamma, cap_s, tol_s)
+    outs_s = {k: run() for k, run in runs_s.items()}
+    sync()
+    its_s = {k: int(o[1]) for k, o in outs_s.items()}
+    for k in ("pcg_sharded_cuda", "pcg_sharded", "K4bg"):
+        if abs(its_s[k] - its_s["plain"]) > 3:
+            raise AssertionError(f"{k} on 0_0's system: {its_s[k]} CG "
+                                 f"iterations vs {its_s['plain']}")
+        checked(f"{k} on 0_0's N = {n_s} system",
+                [(outs_s[k][0], outs_s["plain"][0])], 5e-3, 5e-3)
+    cg_ms = {k: _event_ms(run, reps=5, warmup=1) for k, run in runs_s.items()}
+    k4bg_us = _device_us(runs_s["K4bg"], "K4bg")
+    k11_cg = SHARDS * (2 + 2 * cap_s)
+    sync()
+    reset_launch_counts()
+    runs_s["pcg_sharded_cuda"]()
+    sync()
+    if k11.spmv_halo.launches != k11_cg:
+        raise AssertionError(f"pcg_sharded_cuda launched K11 "
+                             f"{k11.spmv_halo.launches} times, expected "
+                             f"{k11_cg}")
+    groups, complete = _device_breakdown(runs_s["pcg_sharded_cuda"], 1,
+                                         {"K11": k11_cg})
+    print(f"sharded CG, 0_0's system N = {n_s}, cap {cap_s}: iterations "
+          f"{its_s}; ms per solve {cg_ms}; K4bg {_us(k4bg_us)} of device "
+          f"time; {k11_cg} K11 launches per solve")
+
+    # sharded_sqp_solve at N = 512, the at-scale leg, against the
+    # single-device plain sqp_solve (X, U at rtol 2e-3, atol 2e-4,
+    # __graft_entry__.py:160,167; decisions equal): from the slice's start
+    # (the JAX leg's, where every step may be rejected) and from phase 8's
+    # perturbed start (knot 0 kept), where steps are accepted
+    cfg5 = SolverConfig.for_knots(n_s, sqp_max_iter=SHARD_SQP_ITERS,
+                                  pcg=PCGConfig(max_iter=cap_s))
+    slice5 = tuple(torch.as_tensor(a, device=dev)
+                   for a in horizon_slices(xu, ee, n_s))
+    solve_ms = {}
+    for start_name, (X5, U5, g5, xs5) in (("slice", slice5),
+                                          ("perturbed",
+                                           long_start(n_s, seed=5))):
+        solve_args = (X5, U5, torch.zeros_like(X5), g5, xs5, cfg.rho_init,
+                      1e-4)
+        ref5 = sqp_solve(model, cfg5, *solve_args)
+        sync()
+        if start_name == "perturbed" and not bool(ref5.stats.accepted.any()):
+            raise AssertionError("the at-scale solve from the perturbed "
+                                 "start accepted no step")
+        for mode, kw, want in (
+                ("whole", {}, none),
+                ("explicit", dict(explicit_pcg=True), none),
+                ("fused", dict(fused_pcg=True),
+                 {**none, "K11": SHARD_SQP_ITERS * k11_cg})):
+            label = f"sharded_sqp_solve N={n_s} {mode}, {start_name} start"
+            t0 = time.perf_counter()
+            res5, _ = counted(label, lambda kw=kw: sharded_sqp_solve(
+                model, cfg5, mesh, *solve_args, **kw), want)
+            solve_ms[f"{mode}_{start_name}"] = 1e3 * (time.perf_counter()
+                                                      - t0)
+            err5s = checked(f"{label} X, U", [(res5.X, ref5.X),
+                                              (res5.U, ref5.U)], 2e-3, 2e-4)
+            for f in ("accepted", "sqp_iters", "rho_bailed"):
+                if not torch.equal(getattr(res5.stats, f),
+                                   getattr(ref5.stats, f)):
+                    raise AssertionError(f"{label}: {f} differs from the "
+                                         f"single-device solve")
+            print(f"{label}: X, U within {err5s:.3e} and lam within "
+                  f"{_max_err([(res5.lam, ref5.lam)]):.3e} of the "
+                  f"single-device solve, accepted "
+                  f"{res5.stats.accepted.tolist()}, CG iterations "
+                  f"{res5.stats.pcg_iters.tolist()} vs "
+                  f"{ref5.stats.pcg_iters.tolist()}, "
+                  f"{solve_ms[f'{mode}_{start_name}']:.1f} ms")
+
+    # the knot-sharded closed loop at N = 512 through K11's CG, from the
+    # perturbed plan (knot 0 kept: the measured state), against the
+    # single-device loop (tests/test_parallel.py:311-316's tolerances)
+    cfg_loop = SolverConfig.for_knots(
+        n_s, sqp_max_iter=SHARD_LOOP_ITERS,
+        pcg=PCGConfig(max_iter=SHARD_LOOP_CAP))
+    fused_name = register_sharded_pcg(mesh, fused=True)
+    u_s = SHARD_UPDATES
+    per_update = SHARD_LOOP_ITERS * SHARDS * (2 + 2 * SHARD_LOOP_CAP)
+    X5, U5 = long_start(n_s, seed=5)[:2]     # the perturbed plan
+    loop_args = (xu_d, ee_d, X5, U5, torch.zeros_like(X5), cfg.rho_init,
+                 1e-5, u_s)
+    t0 = time.perf_counter()
+    out_sh, shard_loop_counts = counted(
+        f"knot-sharded loop N={n_s}, K11",
+        lambda: simulate_mpc_scan_sharded(model, cfg_loop, mesh, *loop_args,
+                                          fused_name),
+        {**none, "K11": u_s * per_update})
+    loop_ms = 1e3 * (time.perf_counter() - t0) / u_s
+    t0 = time.perf_counter()
+    out_ref = simulate_mpc_scan(model, cfg_loop, *loop_args)
+    sync()
+    loop_ref_ms = 1e3 * (time.perf_counter() - t0) / u_s
+    checked(f"knot-sharded loop N={n_s} final_xs",
+            [(out_sh["final_xs"], out_ref["final_xs"])], 2e-4, 2e-5)
+    checked(f"knot-sharded loop N={n_s} tracking errors",
+            [(out_sh["tracking_errors"], out_ref["tracking_errors"])], 2e-3,
+            2e-4)
+    if not torch.equal(out_sh["sqp_iters"], out_ref["sqp_iters"]):
+        raise AssertionError("knot-sharded loop: sqp_iters differ")
+    print(f"knot-sharded loop N={n_s} ({u_s} updates): host clock "
+          f"{loop_ms:.1f} ms per update (single-device plain loop "
+          f"{loop_ref_ms:.1f}); tracking errors "
+          f"{out_sh['tracking_errors'].tolist()}, CG iterations "
+          f"{out_sh['pcg_iters_total'].tolist()} (single-device "
+          f"{out_ref['pcg_iters_total'].tolist()}); {per_update} K11 "
+          f"launches per update")
+
+    # 8 arms over 8 groups (plain modules, as the JAX leg) against the
+    # batched loop (the JAX dryrun's rtol 1e-5, atol 1e-6)
+    n_a = ARMS_KNOTS
+    cfg_a = SolverConfig.for_knots(n_a, sqp_max_iter=2,
+                                   pcg=PCGConfig(max_iter=10))
+    Xa, Ua = (torch.as_tensor(a, device=dev)
+              for a in horizon_slices(xu, ee, n_a)[:2])
+    arms_in = arm_starts(Xa, Ua, torch.zeros_like(Xa),
+                         0.02 * rand(19, ARMS_GROUPS, NX // 2))
+    out_a, _ = counted(
+        f"arms over {ARMS_GROUPS} groups",
+        lambda: simulate_mpc_scan_arms_sharded(
+            model, cfg_a, arms_mesh(ARMS_GROUPS, device=dev), xu_d, ee_d,
+            *arms_in, cfg.rho_init, 1e-5, ARMS_UPDATES), none)
+    ref_a = simulate_mpc_scan_batched(model, cfg_a, xu_d, ee_d, *arms_in,
+                                      cfg.rho_init, 1e-5, ARMS_UPDATES)
+    sync()
+    err_a = checked("arms sharded vs batched", [
+        (out_a[k], ref_a[k]) for k in ("tracking_errors", "final_xs")],
+        1e-5, 1e-6)
+    if not torch.equal(out_a["sqp_iters"], ref_a["sqp_iters"]):
+        raise AssertionError("arms sharded: sqp_iters differ from batched")
+
+    # 2 groups of 2 packed arms (K10 and the arm-batched K1) against the
+    # unsharded packed loop per group (tests/test_parallel.py:274-282)
+    g_p, b_p, u_p = PACKED_GROUPS, PACKED_ARMS, PACKED_UPDATES
+    packed_in = arm_starts(X, U, lam_w, dq[:g_p * b_p])
+    out_p, _ = counted(
+        f"packed arms over {g_p} groups",
+        lambda: simulate_mpc_scan_packed_arms_sharded(
+            model, cfg, arms_mesh(g_p, device=dev), xu_d, ee_d, *packed_in,
+            cfg.rho_init, tol, u_p),
+        {**none, "K10": g_p * u_p, "K1": g_p * u_p})
+    bit_equal = True
+    for g in range(g_p):
+        sl = slice(g * b_p, (g + 1) * b_p)
+        ref_p = simulate_mpc_scan_packed(
+            model, cfg, xu_d, ee_d, *(t[sl].contiguous() for t in packed_in),
+            cfg.rho_init, tol, u_p)
+        sync()
+        pairs = [(out_p[k][sl], ref_p[k]) for k in ("tracking_errors",
+                                                   "final_xs")]
+        checked(f"packed arms group {g}", pairs, 1e-5, 1e-6)
+        if not torch.equal(out_p["sqp_iters"][sl], ref_p["sqp_iters"]):
+            raise AssertionError(f"packed arms group {g}: sqp_iters differ")
+        bit_equal &= all(torch.equal(a, b) for a, b in pairs)
+    print(f"arms: {ARMS_GROUPS} arms over {ARMS_GROUPS} groups within "
+          f"{err_a:.3e} of the batched loop; {g_p} x {b_p} packed arms "
+          f"{'bit-equal to' if bit_equal else 'within tolerance of'} the "
+          f"unsharded packed loops")
+
+    # the torch.distributed form: GLOO_RANKS gloo ranks with CUDA tensors
+    # on this card, one shard each, against the in-process mesh of as many
+    # shards, bit for bit (NCCL needs a GPU per rank: not checked here):
+    # the CGs on the seeded random system with the stair, the solve on the
+    # slice's start
+    spec = importlib.util.spec_from_file_location(
+        "_torch_ranks", repo / "tests" / "torch_ranks.py")
+    ranks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ranks)
+    cpu = lambda t: t.detach().cpu()
+    sys_g = {f: torch.as_tensor(v) for f, v in
+             systems.random_system(n, seed=11, precond=True).items()}
+    gloo_cap = 400             # the random system's CG converges first
+    case = {"device": "cuda",
+            "pcg": {"S": tuple(sys_g[f] for f in ("SL", "SD", "SU")),
+                    "P": tuple(sys_g[f] for f in ("PL", "PD", "PU")),
+                    "gamma": sys_g["gamma"], "lam0": cpu(lam0),
+                    "max_iter": gloo_cap, "tol": 1e-10},
+            "sqp": {"X": cpu(X), "U": cpu(U), "lam": cpu(lam0),
+                    "goals": cpu(goals), "xs": cpu(xs),
+                    "rho": cfg.rho_init, "tol": tol, "sqp_max_iter": 2,
+                    "cap": cap}}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        rank_outs = ranks.run_ranks(case, GLOO_RANKS, workdir, timeout=300)
+    gloo_s = time.perf_counter() - t0
+    for r, out in enumerate(rank_outs):
+        for key in ("pcg_sharded", "pcg_sharded_cuda", "sqp_fused"):
+            a, b = out[key]["ranks"], out[key]["in_process"]
+            pairs = (list(zip(a, b)) if isinstance(a, tuple)
+                     else [(a[f], b[f]) for f in a])
+            if not all(torch.equal(x, y) for x, y in pairs):
+                raise AssertionError(f"gloo rank {r}, {key}: not bit-equal "
+                                     f"to the in-process mesh")
+        if out["k11_launches"] != 2 + 2 * gloo_cap:   # one shard a rank
+            raise AssertionError(f"gloo rank {r}: {out['k11_launches']} K11 "
+                                 f"launches, expected {2 + 2 * gloo_cap}")
+        if not 0 < int(out["pcg_sharded_cuda"]["ranks"][1]) < gloo_cap:
+            raise AssertionError(f"gloo rank {r}: the CG did not iterate to "
+                                 f"convergence")
+    print(f"gloo, {GLOO_RANKS} ranks with CUDA tensors on one card: "
+          f"pcg_sharded, pcg_sharded_cuda and sharded_sqp_solve(fused_pcg) "
+          f"bit-equal to the in-process mesh of {GLOO_RANKS} shards on every "
+          f"rank, CG iterations "
+          f"{int(rank_outs[0]['pcg_sharded_cuda']['ranks'][1])}, "
+          f"{rank_outs[0]['k11_launches']} K11 launches per rank; "
+          f"{gloo_s:.1f} s with the ranks' start")
+    k11_entry = next(k for k in kernels if k["name"].startswith("K11 "))
+    k11_entry.update(
+        launches_per_cg_step=2 * SHARDS, launches_per_update=per_update,
+        sharded_cg_ms=cg_ms, sharded_cg_iters=its_s,
+        k4bg_device_us=k4bg_us,
+        sharded_cg_device_ms={k: t / 1e3 for k, (t, _) in groups.items()},
+        sharded_cg_profile_complete=complete,
+        sharded_solve_ms=solve_ms, sharded_loop_ms_per_update=loop_ms,
+        plain_loop_ms_per_update=loop_ref_ms, gloo_ranks_bit_equal=True)
+    print(f"phase 9 (sharded paths): {time.perf_counter() - t_phase:.1f} s")
+
     # each kernel's launches: the first run of this slice's paths that
     # launched it (the default auto loop, its failover branch, the staged
     # loop, the packed loop, then this file's phase 6 loops)
@@ -1737,7 +2105,8 @@ def main() -> int:
              (f"staged bcr N={LONG_KNOTS}", long_counts_bcr),
              ("pcg per-iteration megakernel", k9p_counts),
              ("bcr per-iteration megakernel", k9b_counts),
-             ("pcg_pallas", pp_counts), *long_counts.items())
+             ("pcg_pallas", pp_counts), *long_counts.items(),
+             (f"knot-sharded loop N={SHARD_KNOTS}", shard_loop_counts))
     for k in kernels:
         kid = k["name"].split()[0]
         # K8's horizons (N % 128 == 0) run K3: its launches on those paths

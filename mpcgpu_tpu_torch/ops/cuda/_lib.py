@@ -28,7 +28,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("rollout.cu", "merit.cu", "kkt_schur.cu", "pcg_dz.cu",
-           "bcr_pcg_dz.cu", "bcr_dz.cu", "sqp_mega.cu", "sqp_mega_packed.cu")
+           "bcr_pcg_dz.cu", "bcr_dz.cu", "sqp_mega.cu", "sqp_mega_packed.cu",
+           "spmv_halo.cu")
 HEADERS = ("lanedyn.cuh", "kkt_schur.cuh", "merit.cuh", "pcg_common.cuh",
            "bcr_common.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -77,6 +78,7 @@ _SIGNATURES = {
     "mpc_mega_packed_max_knots": [_I, _I],
     "mpc_mega_packed_grid": [_I, _I, _I],
     "mpc_sqp_mega_packed_scratch_floats": [_I, _I, _I],
+    "mpc_spmv_halo": [_I] + [_P] * 8,
 }
 _RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
              "mpc_pcg_grid_scratch_floats": ctypes.c_longlong,

@@ -262,11 +262,13 @@ def test_port_imports_no_jax():
 
 
 def test_chip_smoke_and_card_helpers_import_no_jax():
-    """chip_smoke.py and tests/torch_systems.py run on the card machine,
-    which has no JAX: neither imports JAX or the JAX package (their
-    "replaces" strings name TPU kernels' files, and are not reads)."""
+    """chip_smoke.py, tests/torch_systems.py and tests/torch_ranks.py (the
+    rank worker) run on the card machine, which has no JAX: none imports
+    JAX or the JAX package (their "replaces" strings name TPU kernels'
+    files, and are not reads)."""
     root = Path(__file__).resolve().parents[1]
-    for path in (root / "chip_smoke.py", root / "tests" / "torch_systems.py"):
+    for path in (root / "chip_smoke.py", root / "tests" / "torch_systems.py",
+                 root / "tests" / "torch_ranks.py"):
         tree = ast.parse(path.read_text(), filename=str(path))
         refs = [r for r in _jax_package_refs(tree) if r.startswith("an import")]
         assert not refs, f"{path.name} has {refs}"

@@ -780,3 +780,53 @@ def test_a_grid_that_cannot_be_co_resident_raises():
         k4.check_pcg_grid_fit(256, lib)
     with pytest.raises(ValueError, match="cooperative launch"):
         k5.check_mega_fit(256, lib, k5.SOLVE_PCG_GRID)
+
+
+@pytest.mark.parametrize("nl", [1, 2, 64])
+@pytest.mark.parametrize("halos", ["zero", "nonzero"])
+def test_k11_host_build_matches_plain(host, nl, halos):
+    """K11 through the host build against spmv_halo_reference on seeded
+    random bands: within 1e-5 of max|y| (float32 sums of 42 products in
+    another order)."""
+    from mpcgpu_tpu_torch.ops.cuda import spmv_halo_kernel as k11
+
+    lib = host[0]
+    rng = np.random.default_rng(nl)
+    f32 = lambda *shape: T(rng.normal(size=shape).astype(np.float32))
+    L, D, U = f32(nl, 14, 14), f32(nl, 14, 14), f32(nl, 14, 14)
+    x = f32(nl, 14)
+    xl, xr = ((f32(14), f32(14)) if halos == "nonzero"
+              else (torch.zeros(14), torch.zeros(14)))
+    got = k11._launch(lib, L, D, U, x, xl, xr, None)
+    want = k11.spmv_halo_reference(L, D, U, x, xl, xr)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_k11_cg_through_the_host_build_matches_plain(host, monkeypatch):
+    """pcg_sharded_cuda with every K11 launch through the host build, on
+    an in-process mesh of 4 shards (N = 16, the seeded random system with
+    the stair), against pcg_sharded: iterations equal, lam within 1e-5 of
+    max|lam|; each CG step launches K11 twice per shard."""
+    from mpcgpu_tpu_torch.ops.cuda import spmv_halo_kernel as k11
+    from mpcgpu_tpu_torch.parallel import pcg_sharded_cuda as mod
+    from mpcgpu_tpu_torch.parallel.pcg_sharded import pcg_sharded
+    from mpcgpu_tpu_torch.parallel.sharded import horizon_mesh
+
+    lib = host[0]
+    launches = []
+
+    def through_host(L, D, U, x, xl, xr):
+        launches.append(x.shape[0])
+        return k11._launch(lib, L, D, U, x, xl, xr, None)
+
+    monkeypatch.setattr(mod, "spmv_halo", through_host)
+    ks = random_system(16, seed=11, precond=True)
+    S = BlockTri(*(T(ks[f]) for f in ("SL", "SD", "SU")))
+    P = BlockTri(*(T(ks[f]) for f in ("PL", "PD", "PU")))
+    mesh = horizon_mesh(4, device="cpu")
+    args = (S, P, T(ks["gamma"]), torch.zeros(16, 14), 12, 1e-10)
+    lam, iters, hit = mod.pcg_sharded_cuda(mesh, *args)
+    lam_p, iters_p, hit_p = pcg_sharded(mesh, *args)
+    assert int(iters) == int(iters_p) and bool(hit) == bool(hit_p)
+    assert float((lam - lam_p).abs().max()) <= 1e-5 * float(lam_p.abs().max())
+    assert launches == [4] * (4 * (2 + 2 * 12))

@@ -485,3 +485,52 @@ def test_four_k9pg_launches_equal_one_k5g_launch(card, n):
         assert torch.equal(g, w)
     assert torch.equal(four[8], once.pcg_iters)
     assert torch.equal(four[10], once.accepted)
+
+
+@pytest.mark.parametrize("nl", [1, 64])
+@pytest.mark.parametrize("halos", ["zero", "nonzero"])
+def test_k11_kernel_matches_plain(card, nl, halos):
+    """K11 against spmv_halo_reference on seeded random bands: within 1e-5
+    of max|y| (float32 sums of 42 products in another order)."""
+    from mpcgpu_tpu_torch.ops.cuda import spmv_halo_kernel as k11
+
+    dev = card["X"].device
+    rng = np.random.default_rng(nl)
+    f32 = lambda *shape: torch.as_tensor(
+        rng.normal(size=shape).astype(np.float32), device=dev)
+    L, D, U, x = f32(nl, 14, 14), f32(nl, 14, 14), f32(nl, 14, 14), f32(nl, 14)
+    xl, xr = ((f32(14), f32(14)) if halos == "nonzero"
+              else (torch.zeros(14, device=dev), torch.zeros(14, device=dev)))
+    before = k11.spmv_halo.launches
+    got = k11.spmv_halo(L, D, U, x, xl, xr)
+    want = k11.spmv_halo_reference(L, D, U, x, xl, xr)
+    assert k11.spmv_halo.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_k11_sharded_cg_matches_plain(card):
+    """pcg_sharded_cuda (K11 per shard) on an in-process mesh of 8 shards
+    against pcg_sharded (the plain per-shard SpMV) on the card, N = 64,
+    the seeded random system with the stair: iterations within 3, lam at
+    K4's rtol = atol = 5e-3; two K11 launches per shard per CG step."""
+    from mpcgpu_tpu_torch.ops.cuda import spmv_halo_kernel as k11
+    from mpcgpu_tpu_torch.parallel.pcg_sharded import pcg_sharded
+    from mpcgpu_tpu_torch.parallel.pcg_sharded_cuda import pcg_sharded_cuda
+    from mpcgpu_tpu_torch.parallel.sharded import horizon_mesh
+    from torch_systems import random_system
+
+    dev = card["X"].device
+    ks = {f: torch.as_tensor(v, device=dev)
+          for f, v in random_system(64, seed=11, precond=True).items()}
+    S = BlockTri(ks["SL"], ks["SD"], ks["SU"])
+    P = BlockTri(ks["PL"], ks["PD"], ks["PU"])
+    mesh = horizon_mesh(8, device=dev)
+    cap = 300
+    args = (S, P, ks["gamma"], torch.zeros(64, 14, device=dev), cap, 1e-9)
+    before = k11.spmv_halo.launches
+    lam, iters, hit = pcg_sharded_cuda(mesh, *args)
+    torch.cuda.synchronize()
+    assert k11.spmv_halo.launches - before == 8 * (2 + 2 * cap)
+    lam_p, iters_p, hit_p = pcg_sharded(mesh, *args)
+    assert abs(int(iters) - int(iters_p)) <= 3 and not bool(hit)
+    _close(lam, lam_p, 5e-3, 5e-3)
