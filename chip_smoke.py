@@ -16,11 +16,14 @@ CUDA toolkit:
    N = 128 and 256, K5, K9p and K10 also at larger carried rhos where
    their CGs exit before the cap, K10 with two arms from seeded
    perturbations and its shared CG exit shown to decide, four K9p
-   launches against one K5 launch, the split BCR paths against K7 and
+   launches against one K5 launch (bit-equal), K6's cluster factor against
+   K7s's one-block factor (bit-equal), the split BCR paths against K7 and
    K6), and the arm-batched K1 launch against single K1 launches
    (bit-equal), with the tolerances of the JAX package's own kernel tests
    (the exact BCR solves by relative residual on the slice's systems), and
-   times both (CUDA events, median after warm-up);
+   times both (CUDA events, median after warm-up); the first launches of
+   the cluster forms (K5, K9p, K6) run under a watchdog that ends the
+   process if they hang;
 4. runs three closed loops -- fixture pair 0_0, N = 64,
    SolverConfig.for_knots(64, sqp_max_iter=4), PCG cap 40, exit tol
    5e-5, lam warm-started by 5 solves at tol 1e-11, simulate_mpc_scan for
@@ -56,20 +59,20 @@ CUDA toolkit:
 8. runs the long horizons (N = 128-1024, fixture 0_0's rows repeated past
    its 666 by np.resize, for_knots(N), PCG cap
    PCGConfig.tpu_tuned_max_iter(N), exit tol default_pcg_exit_tols(N)[0]):
-   prints the one-block fits and the grid-CG kernels' grids at N = 64-1024;
-   checks K3 at N = 256, 512 and 1024 (it serves the TPU's tiled K8), the
-   grid-CG kernels K4g and K4bg at N = 64-1024 (and on the seeded random
-   system, where the CG exits early), K6l (K6 with S in global memory) at
-   N = 128-512, K5g at N = 64-512 at rho 1e-3 and at rhos where CGs exit
-   before the cap, K9pg at N = 256 (four launches bit-equal to one K5g
-   launch), each against its plain version and timed (at N = 64 beside the
-   one-block K4, K4b and K5 on the same inputs); and
-   runs 8-update loops through the kernels and the plain modules, warm
-   duals, checked and timed as in 4: auto at N = 128, 256 and 512 (K2,
-   K5g, K1), and at N = 256 staged pcg (K3, K4g, K2), the forced failover
-   (K5g for 4 updates, then K3, K6l, K2),
-   the per-iteration megakernel (K2, K9pg) and pcg_pallas (the plain
-   stages and K4bg);
+   prints the fits and the kernels' grids at N = 64-1024; checks K3 at
+   N = 256, 512 and 1024 (it serves the TPU's tiled K8), the grid-CG
+   kernels K4g and K4bg at N = 64-1024 (and on the seeded random system,
+   where the CG exits early), the cluster K6 at N = 128-512 (the former
+   K6l's horizons), the grid form K5g at N = 64-512 beside the cluster K5
+   on the same inputs, at rho 1e-3 and at rhos where CGs exit before the
+   cap, K9pg at N = 256 (four launches bit-equal to one K5g launch), each
+   against its plain version and timed; and runs 8-update loops through
+   the kernels and the plain modules, warm duals, checked and timed as in
+   4: auto at N = 128, 256 and 512 (K2, K5, K1) and at N = 1024, past the
+   cluster form's fit (K2, K5g, K1), and at N = 256 staged pcg (K3, K4g,
+   K2), the forced failover (K5 for 4 updates, then K3, K6, K2), the
+   per-iteration megakernel (K2, K9p; at N = 1024 K9pg) and pcg_pallas
+   (the plain stages and K4bg);
 9. runs the sharded paths, the JAX package's dryrun_multichip legs on one
    card (8 in-process shards, mpcgpu_tpu_torch/parallel): K11 (the
    per-shard banded SpMV with halo rows) against its plain version on
@@ -85,14 +88,33 @@ CUDA toolkit:
    packed arms (K10, K1) against the unsharded packed loops; and the
    torch.distributed form, 2 gloo ranks with CUDA tensors
    (tests/torch_ranks.py), bit-equal to the in-process mesh of 2 shards;
-10. prints one JSON line of the kernels, then the result line.
+10. the cluster forms (K5 and K9p's stair-PCG, K6's BCR-PCG across one
+   thread-block cluster): prints each form's cluster size as the plan
+   chooses it and as the kernel reads it (%cluster_nctarank), ptxas'
+   registers and shared memory, the grid and where the stair bands go;
+   checks K5 at N = 2, 4, 64, 128, 256 and 512 and K6 at every power of 2
+   up to 512, at every cluster size the card admits, against the plain
+   versions (CG counts, accepts and bails identical), and K6's factor
+   against K7s's bit for bit; and times a CG step (the profiler's device
+   time of a solve less that of the same solve with the CG capped at 0,
+   over its CG steps) and the stages at N = 64-512 for the cluster K5
+   (stair bands on chip and in L2) beside the grid form K5g, and for K6
+   (the solve less the solve with the CG capped at 0) at N = 64-512;
+11. prints one JSON line of the kernels, then the result line.
+
+A watchdog (faulthandler) ends the process with a traceback and a
+non-zero exit code if the run passes SCRIPT_DEADLINE seconds, and sooner
+if a cluster form's first launches hang.
 
 Any failed build, launch or check ends the run with a non-zero exit code
 before the result line.  Without CUDA it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
+import faulthandler
 import importlib.util
 import json
 import statistics
@@ -117,9 +139,10 @@ LONG_KNOTS = 128                # the staged bcr loop above K7's fit
 LONG_K3_KNOTS = (256, 512, 1024)
 LONG_CG_KNOTS = (64, 128, 256, 512, 1024)
 LONG_MEGA_KNOTS = (64, 128, 256, 512)
-LONG_BCR_KNOTS = (128, 256, 512)  # K6l: past K6's fit, within its own
+LONG_BCR_KNOTS = (128, 256, 512)  # K6 past N = 64, the former K6l's horizons
 LONG_AUTO_KNOTS = (128, 256, 512)
 LONG_LOOP_KNOT = 256            # the staged, failover and per-iteration loops
+GRID_LOOP_KNOT = 1024           # past the cluster form's fit: K5g, K9pg
 LONG_UPDATES = 8                # the first horizon shift is at update 7
 # phase 9, the sharded paths (__graft_entry__.dryrun_multichip's legs)
 SHARD_KNOTS, SHARDS = 512, 8    # 64 knots a shard
@@ -129,6 +152,12 @@ SHARD_UPDATES = 3
 ARMS_KNOTS, ARMS_GROUPS, ARMS_UPDATES = 8, 8, 2
 PACKED_GROUPS, PACKED_ARMS, PACKED_UPDATES = 2, 2, 2
 GLOO_RANKS = 2
+# phase 10, the cluster forms
+CLUSTER_KNOTS = (2, 4, 64, 128, 256, 512)
+CLUSTER_BCR_KNOTS = (2, 4, 8, 16, 32, 64, 128, 256, 512)
+CLUSTER_STEP_KNOTS = (64, 128, 256, 512)
+SCRIPT_DEADLINE = 1150          # s; the run's limit is 1200
+FIRST_LAUNCH_DEADLINE = 240     # s for the first launches of a cluster form
 
 # The least time the card could take for a kernel's work: the
 # larger of the bytes a function must move (inputs read once, outputs
@@ -231,11 +260,28 @@ _TAGS = {"K5g": "sqp_mega_grid_kernel", "K9pg": "sqp_iter_mega_pcg_grid_kernel",
          "K4g": "pcg_dz_grid_kernel", "K4bg": "pcg_solve_grid_kernel",
          "K10": "sqp_mega_packed_kernel", "K5": "sqp_mega_kernel",
          "K9p": "sqp_iter_mega_pcg_kernel", "K9b": "sqp_iter_mega_bcr_kernel",
-         "K6l": "bcr_pcg_dz_l2_kernel", "K6": "bcr_pcg_dz_kernel",
+         "K6": "bcr_pcg_dz_kernel",
          "K7": "bcr_dz_kernel",
          "K7s": "bcr_solve_kernel", "K3": "k3_", "K4": "pcg_dz_kernel",
          "K4b": "pcg_solve_kernel", "K2": "merit_kernel",
          "K1": "rollout_kernel", "K11": "spmv_halo_kernel"}
+
+
+_END = time.monotonic() + SCRIPT_DEADLINE
+
+
+@contextlib.contextmanager
+def _watchdog(seconds: float):
+    """End the process (traceback, exit code 1) if the block runs past
+    `seconds`, or the script past SCRIPT_DEADLINE: a kernel that hangs the
+    card never returns to Python, and the process's end frees the card."""
+    faulthandler.dump_traceback_later(
+        max(1.0, min(seconds, _END - time.monotonic())), exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.dump_traceback_later(
+            max(1.0, _END - time.monotonic()), exit=True)
 
 
 def _device_events(run):
@@ -356,6 +402,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this run needs a CUDA card")
+    faulthandler.dump_traceback_later(max(1.0, _END - time.monotonic()),
+                                      exit=True)
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
     from mpcgpu_tpu_torch.config import (PCGConfig, SolverConfig,
@@ -426,10 +474,10 @@ def main() -> int:
     rho = torch.tensor(cfg.rho_init, device=dev)
     print(f"slice: N={N_KNOTS} sqp_max_iter={SQP_ITERS} pcg cap={cap} "
           f"tol={tol:g} r_cost={cc.r_cost:g} updates={N_UPDATES}")
-    print(f"fit: K4 serves N <= {lib.mpc_pcg_max_knots()}, K6 power-of-2 "
-          f"N <= {k6.check_bcr_fit(n)}, K5 N <= "
-          f"{lib.mpc_mega_max_knots(k5.SOLVE_PCG)} (grid "
-          f"{k5.check_mega_fit(n)} blocks at N = {n})")
+    print(f"fit: K4 serves N <= {lib.mpc_pcg_max_knots()}, K6 (one "
+          f"cluster) power-of-2 N <= {k6.check_bcr_fit(n)}, K5 (its CG "
+          f"across a cluster) N <= {lib.mpc_mega_max_knots(k5.SOLVE_PCG)} "
+          f"(grid {k5.check_mega_fit(n)} blocks at N = {n})")
     print(f"fit: K7 power-of-2 N <= {k7.check_bcr_dz_fit(n)}, K7s power-of-2 "
           f"N <= {k7.check_bcr_solve_fit(n)}, K9p N <= "
           f"{lib.mpc_mega_max_knots(k9.ITER_PCG)} (grid "
@@ -552,7 +600,9 @@ def main() -> int:
     # preconditioner, which is judged by residual: its condition (~1e7)
     # puts any two float32 solves ~1e-3 of |lam| apart.
     ks_rand = systems.random_knot_schur(n, device=dev)
-    k6_out = k6.bcr_pcg_dz(ks_rand, lam0, cap, tol)
+    with _watchdog(FIRST_LAUNCH_DEADLINE):
+        k6_out = k6.bcr_pcg_dz(ks_rand, lam0, cap, tol)
+        sync()
     k6_ref = k6.bcr_pcg_dz_reference(ks_rand, lam0, cap, tol)
     sync()
     scale = k6_ref[0].abs().max()
@@ -607,7 +657,9 @@ def main() -> int:
         args = (model, Xp, U, goals, xs, lam0,
                 torch.tensor(rho0, device=dev), 1.0, merit0, cap, tol,
                 SQP_ITERS)
-        out = k5.sqp_solve_mega_pcg(*args, **k5_kw)
+        with _watchdog(FIRST_LAUNCH_DEADLINE):
+            out = k5.sqp_solve_mega_pcg(*args, **k5_kw)
+            sync()
         ref = k5.sqp_solve_mega_pcg_reference(*args, **k5_kw)
         sync()
         print(f"K5 at rho {rho0:g}: pcg iters {out.pcg_iters.tolist()} vs "
@@ -709,8 +761,10 @@ def main() -> int:
     if not shared_decided:
         raise AssertionError("K10: no arm alone left the CG before the pack: "
                              "the shared exit was never exercised")
-    # the shared exit's cost: K10 with one arm on K5's cold start runs K5's
-    # CG iterations, with a grid barrier after each
+    # K10 with one arm on K5's cold start runs K5's CG iterations in one
+    # block, with a grid barrier after each (the shared exit); K5 runs them
+    # across a cluster: the difference per CG iteration is the cluster's
+    # gain plus the shared exit's cost
     b1_args = (model, Xp[None], U[None], goals[None], xs[None], lam0[None],
                torch.tensor([cfg.rho_init], device=dev),
                torch.ones(1, device=dev), cap, tol, SQP_ITERS)
@@ -721,8 +775,8 @@ def main() -> int:
     b1_its = int(b1.pcg_iters_total)
     barrier_us = 1e3 * (b1_ms - k5_ms) / b1_its
     print(f"K10 with one arm on K5's start: {b1_ms:.4f} ms per call, "
-          f"{b1_its} CG iterations, against K5's {k5_ms:.4f} ms, "
-          f"{sum(run_its)}: {barrier_us:.2f} us more per CG iteration")
+          f"{b1_its} CG iterations, against the cluster K5's {k5_ms:.4f} "
+          f"ms, {sum(run_its)}: {barrier_us:.2f} us more per CG iteration")
     # operations: per arm K5's at the shared CG count (every arm steps it),
     # over SQP_ITERS solves of the CG, plus the incumbent merit
     tot10 = int(k10_out.pcg_iters_total)
@@ -738,7 +792,7 @@ def main() -> int:
            F32 * (2 * b * (2 * n * NX + (n - 1) * NU) + n * 6 + b * NX + TAB
                   + 4 * b) + 4 * (2 * b + 1),
            arms=b, grid=k10.check_mega_packed_fit(n, b, cfg.num_alphas),
-           one_arm_ms=b1_ms, us_per_cg_iter_over_k5=barrier_us)
+           one_arm_ms=b1_ms, us_per_cg_iter_over_cluster_k5=barrier_us)
 
     # ---- the kernels of the remaining sqp_solve configurations
     def residual_pair(label, ks_sys, got_lam, plain_lam):
@@ -856,7 +910,9 @@ def main() -> int:
     def k9p_pair(rho0, lam_rtol, lam_atol):
         args = (model, Xp, U, goals, xs, lam0, torch.tensor(rho0, device=dev),
                 one, merit0, cap, tol)
-        out = k9.sqp_iter_mega_pcg(*args, **k5_kw)
+        with _watchdog(FIRST_LAUNCH_DEADLINE):
+            out = k9.sqp_iter_mega_pcg(*args, **k5_kw)
+            sync()
         ref = k9.sqp_iter_mega_pcg_reference(*args, **k5_kw)
         sync()
         print(f"K9p at rho {rho0:g}: CG {int(out.pcg_iters)} vs "
@@ -901,6 +957,14 @@ def main() -> int:
         raise AssertionError("K9p x 4 and K5: CG counts differ by more than 2")
     checked("K9p x 4 vs K5 X, U", [(Xi, k5_out.X), (Ui, k5_out.U)], 1e-3, 1e-5)
     checked("K9p x 4 vs K5 lam", [(lami, k5_out.lam)], 0, 1e-3)
+    # the same body with the same cluster size, sums that do not depend on
+    # the grid: bit for bit
+    if not all(torch.equal(a, b) for a, b in ((Xi, k5_out.X), (Ui, k5_out.U),
+                                              (lami, k5_out.lam),
+                                              (pcgi, k5_out.pcg_iters))):
+        raise AssertionError(f"{SQP_ITERS} K9p launches and one K5 launch "
+                             f"are not bit-equal")
+    print(f"{SQP_ITERS} K9p launches bit-equal to one K5 launch at N = {n}")
     it9 = int(k9p_out.pcg_iters)
     iter_bytes = F32 * (2 * (2 * n * NX + (n - 1) * NU) + 6 * n + NX + TAB
                         + 6) + 20
@@ -996,20 +1060,23 @@ def main() -> int:
     start64 = (X, U, goals, xs)
 
     def run_loop(label, run_cfg, linsys, want=None, detail=False,
-                 n_updates=N_UPDATES, start=start64, warm=True, exit_tol=tol):
-        """One closed loop from start (X, U, goals, xs), lam warm-started
-        or zero: launch counts, the host clock and device breakdown when
-        detail (detail="host": the host clock only), and a summary."""
+                 n_updates=N_UPDATES, start=start64, warm=True, exit_tol=tol,
+                 traj=(xu_d, ee_d)):
+        """One closed loop from start (X, U, goals, xs) along traj (the
+        fixture's rows), lam warm-started or zero: launch counts, the host
+        clock and device breakdown when detail (detail="host": the host
+        clock only), and a summary."""
         Xs, Us = start[:2]
+        xu_t, ee_t = traj
         lam = warm_lam(run_cfg, start) if warm else torch.zeros_like(Xs)
-        simulate_mpc_scan(model, run_cfg, xu_d, ee_d, Xs, Us, lam, rho,
+        simulate_mpc_scan(model, run_cfg, xu_t, ee_t, Xs, Us, lam, rho,
                           exit_tol, 2, linsys)
         out, counts = counted(label, lambda: simulate_mpc_scan(
-            model, run_cfg, xu_d, ee_d, Xs, Us, lam, rho, exit_tol, n_updates,
+            model, run_cfg, xu_t, ee_t, Xs, Us, lam, rho, exit_tol, n_updates,
             linsys, timing=True), want)
 
         def again():
-            return simulate_mpc_scan(model, run_cfg, xu_d, ee_d, Xs, Us, lam,
+            return simulate_mpc_scan(model, run_cfg, xu_t, ee_t, Xs, Us, lam,
                                      rho, exit_tol, n_updates, linsys)
 
         groups, complete = host_and_device(
@@ -1304,7 +1371,8 @@ def main() -> int:
         "solvers": compare_rows}}))
 
     # ---- 8. long horizons: K3 as the TPU's tiled K8, the grid-CG kernels
-    # K4g, K4bg, K5g, K9pg, and the loops at N = 128-512
+    # K4g, K4bg, K5g, K9pg, the cluster K5 and K6 at N = 128-512, and the
+    # loops at N = 128-1024
     def long_start(n_l, seed=None):
         """Fixture 0_0's first n_l knots (its rows repeated past the last,
         np.resize), every knot but 0 moved by a seeded 0.02-scale normal
@@ -1338,17 +1406,17 @@ def main() -> int:
             cl.cost.r_cost, cl.gravity), cl.pcg.max_iter,
             default_pcg_exit_tols(n_l)[0])
 
-    print(f"ceilings: one block: K4 and K4b N <= {lib.mpc_pcg_max_knots()}, "
-          f"K5 N <= {lib.mpc_mega_max_knots(k5.SOLVE_PCG)}, K9p N <= "
-          f"{lib.mpc_mega_max_knots(k9.ITER_PCG)}, K6 power-of-2 N <= "
-          f"{lib.mpc_bcr_max_knots()}, K6l (S in global memory) power-of-2 "
-          f"N <= {lib.mpc_bcr_l2_max_knots()}; the grid kinds K5g, K9pg "
+    print(f"ceilings: one block: K4 and K4b N <= {lib.mpc_pcg_max_knots()}; "
+          f"one cluster: K5 N <= {lib.mpc_mega_max_knots(k5.SOLVE_PCG)}, "
+          f"K9p N <= {lib.mpc_mega_max_knots(k9.ITER_PCG)}, K6 power-of-2 "
+          f"N <= {lib.mpc_bcr_max_knots()}; the grid kinds K5g, K9pg "
           f"N <= {lib.mpc_mega_max_knots(k5.SOLVE_PCG_GRID)}")
     grids = {}
     for n_l in sorted({64, 128, 256, 512, 1024, *LONG_CG_KNOTS,
                        *LONG_MEGA_KNOTS}):
         grids[n_l] = {"K4g": lib.mpc_pcg_grid(n_l, 1),
                       "K4bg": lib.mpc_pcg_grid(n_l, 0),
+                      "K5": lib.mpc_mega_grid(n_l, k5.SOLVE_PCG),
                       "K5g": lib.mpc_mega_grid(n_l, k5.SOLVE_PCG_GRID),
                       "K9pg": lib.mpc_mega_grid(n_l, k9.ITER_PCG_GRID)}
         forms = ("K4" if k4.one_block_fits(n_l) else "K4g",
@@ -1477,18 +1545,19 @@ def main() -> int:
                            for m in LONG_CG_KNOTS},
                iters_random_system=early[kid]["iters"])
 
-    # K6l, the forced failover's BCR-PCG past K6's fit: on the seeded
-    # random system at K6's tolerances, and on fixture 0_0's system without
-    # the stair at the horizon's cap and exit tol by residual, as K6 on the
+    # K6 past N = 64, the forced failover's BCR-PCG at the horizons the
+    # former K6l (K6 with S read from L2) served: on the seeded random
+    # system at K6's tolerances, and on fixture 0_0's system without the
+    # stair at the horizon's cap and exit tol by residual, as K6 on the
     # slice's (each solve within 1e-3 of |gamma|); CG counts within 1
     k6l_rows = {}
     for n_l in LONG_BCR_KNOTS:
         lam0_l = torch.zeros(n_l, NX, device=dev)
         ks_r = systems.random_knot_schur(n_l, device=dev)
-        out = k6.bcr_pcg_dz_l2(ks_r, lam0_l, cap, tol)
+        out = k6.bcr_pcg_dz(ks_r, lam0_l, cap, tol)
         ref = k6.bcr_pcg_dz_reference(ks_r, lam0_l, cap, tol)
         sync()
-        err = tight_bcr(f"K6l N = {n_l}, random system", out, ref)
+        err = tight_bcr(f"K6 N = {n_l}, random system", out, ref)
         its_r = int(out[3]), int(ref[3])
         Xl, Ul, gl, xsl = long_start(n_l, seed=0)
         cl = long_cfg(n_l)
@@ -1497,7 +1566,7 @@ def main() -> int:
             cl.cost.r_cost, cl.gravity, precond=False)
         cap_f, tol_f = cl.pcg.max_iter, default_pcg_exit_tols(n_l)[0]
         run = (lambda k=ks_f, l0=lam0_l, c=cap_f, t=tol_f:
-               k6.bcr_pcg_dz_l2(k, l0, c, t))
+               k6.bcr_pcg_dz(k, l0, c, t))
         plain = (lambda k=ks_f, l0=lam0_l, c=cap_f, t=tol_f:
                  k6.bcr_pcg_dz_reference(k, l0, c, t))
         out_f, ref_f = run(), plain()
@@ -1506,23 +1575,25 @@ def main() -> int:
         res = [float((spmv(S_f, o[0]) - ks_f.gamma).abs().max()
                      / ks_f.gamma.abs().max()) for o in (out_f, ref_f)]
         its_f = int(out_f[3]), int(ref_f[3])
-        print(f"K6l N = {n_l}: CG {its_r[0]} vs {its_r[1]} (random system), "
+        print(f"K6 N = {n_l}: CG {its_r[0]} vs {its_r[1]} (random system), "
               f"{its_f[0]} vs {its_f[1]} (fixture system, relative residual "
               f"kernel {res[0]:.3e} plain {res[1]:.3e})")
         if (max(res) >= 1e-3 or abs(its_r[0] - its_r[1]) > 1
                 or abs(its_f[0] - its_f[1]) > 1):
-            raise AssertionError(f"K6l N = {n_l}: residuals {res}, CG counts "
+            raise AssertionError(f"K6 N = {n_l}: residuals {res}, CG counts "
                                  f"{its_r}, {its_f}")
         k6l_rows[n_l] = {"err": err, "iters": its_f[0], "run": run,
                          "plain": plain, "ms": _event_ms(run),
-                         "us": _device_us(run, "K6l"),
+                         "us": _device_us(run, "K6"), "ks": ks_f,
+                         "cap": cap_f, "tol": tol_f,
                          "err_fixture": _max_err(list(zip(out_f[:3],
                                                           ref_f[:3])))}
-    print(f"K6l ms per call by N: "
+    print(f"K6 (cluster, past N = 64) ms per call by N: "
           f"{ {m: r['ms'] for m, r in k6l_rows.items()} }; device us per call "
           f"{ {m: r['us'] for m, r in k6l_rows.items()} }")
     row, n_l = k6l_rows[LONG_LOOP_KNOT], LONG_LOOP_KNOT
-    record("K6l", "bcr_pcg_dz_l2", "mpcgpu_tpu_torch/csrc/bcr_pcg_dz.cu",
+    record("K6l", "bcr_pcg_dz (the cluster K6 at the former K6l's horizons)",
+           "mpcgpu_tpu_torch/csrc/bcr_pcg_dz.cu",
            "mpcgpu_tpu/ops/pallas/bcr_kernel.py:267",
            max(r["err"] for r in k6l_rows.values()), row["run"], row["plain"],
            _bcr_factor_ops(n_l) + _cg_ops(n_l, row["iters"],
@@ -1605,17 +1676,20 @@ def main() -> int:
                                  f"cap at rho 0.3 or 1, tol {args[10]:g} or "
                                  f"{loose:g}")
         run = (lambda a=args, k=kw_l: k5.sqp_solve_mega_pcg_grid(*a, **k))
+        # the cluster form on the same inputs, the direct comparison
+        run_c = (lambda a=args, k=kw_l: k5.sqp_solve_mega_pcg(*a, **k))
         k5g_rows[n_l] = {"args": args, "kw": kw_l, "run": run,
                          "ms": _event_ms(run), "us": _device_us(run, "K5g"),
+                         "cluster_ms": _event_ms(run_c),
+                         "cluster_us": _device_us(run_c, "K5"),
                          "cg_iters": [int(i) for i in out.pcg_iters.tolist()
                                       if i >= 0]}
-    k5_ms = next(k["ms"] for k in kernels if k["name"].startswith("K5 "))
-    k5_us = _device_us(lambda: k5.sqp_solve_mega_pcg(*k5_args, **k5_kw), "K5")
-    print(f"K5g ms per call by N: "
+    print(f"K5g (grid form) ms per call by N: "
           f"{ {m: r['ms'] for m, r in k5g_rows.items()} }; device us per call "
-          f"{ {m: r['us'] for m, r in k5g_rows.items()} }; at N = {n}, K5 on "
-          f"the same inputs {k5_ms:.4f} ms per call, {_us(k5_us)} of "
-          f"device time")
+          f"{ {m: r['us'] for m, r in k5g_rows.items()} }; K5 (cluster form) "
+          f"on the same inputs: ms "
+          f"{ {m: r['cluster_ms'] for m, r in k5g_rows.items()} }, device us "
+          f"{ {m: r['cluster_us'] for m, r in k5g_rows.items()} }")
     row = k5g_rows[LONG_LOOP_KNOT]
     n_l, args, kw_l = LONG_LOOP_KNOT, row["args"], row["kw"]
     na = cfg.num_alphas
@@ -1630,7 +1704,10 @@ def main() -> int:
            ms_by_n={str(m): r["ms"] for m, r in k5g_rows.items()},
            cg_iters_by_n={str(m): r["cg_iters"] for m, r in k5g_rows.items()},
            device_us_by_n={str(m): r["us"] for m, r in k5g_rows.items()},
-           one_block_ms_n64=k5_ms, one_block_device_us_n64=k5_us)
+           cluster_ms_by_n={str(m): r["cluster_ms"]
+                            for m, r in k5g_rows.items()},
+           cluster_device_us_by_n={str(m): r["cluster_us"]
+                                   for m, r in k5g_rows.items()})
 
     # K9pg at N = 256: one iteration against the plain iteration; four
     # launches against one K5g launch, bit for bit (the same body, sums
@@ -1701,9 +1778,15 @@ def main() -> int:
     def long_pair(label, n_l, cfg_l, linsys, want, n_updates, detail=True):
         tol_l = default_pcg_exit_tols(n_l)[0]
         start_l = long_start(n_l)
+        # past the fixture's 666 rows, its rows repeated (np.resize), as
+        # long_start's
+        rows = np.resize(np.arange(xu.shape[0]), n_l + xu.shape[0])
+        traj_l = ((xu_d, ee_d) if n_l <= xu.shape[0] else
+                  (xu_d[torch.as_tensor(rows, device=dev)],
+                   ee_d[torch.as_tensor(rows, device=dev)]))
         fused, counts = run_loop(f"{label}, fused", cfg_l, linsys, want=want,
                                  detail=detail, n_updates=n_updates,
-                                 start=start_l, exit_tol=tol_l)
+                                 start=start_l, exit_tol=tol_l, traj=traj_l)
         # (megakernel and megakernel_solve act only with fused_stages)
         plain_cfg_l = dataclasses.replace(cfg_l, fused_stages=False,
                                           megakernel=False,
@@ -1713,7 +1796,8 @@ def main() -> int:
         if key not in long_sm:
             long_sm[key] = run_loop(f"{label}, plain", plain_cfg_l,
                                     plain_linsys, n_updates=n_updates,
-                                    start=start_l, exit_tol=tol_l)[0]
+                                    start=start_l, exit_tol=tol_l,
+                                    traj=traj_l)[0]
         compare(label, fused, long_sm[key])
         if linsys == "auto" and fused["failed_over"] != long_sm[key]["failed_over"]:
             raise AssertionError(f"{label}: failed_over {fused['failed_over']} "
@@ -1721,11 +1805,12 @@ def main() -> int:
         long_counts[label] = counts
         return fused
 
-    for n_l in LONG_AUTO_KNOTS:
+    for n_l in (*LONG_AUTO_KNOTS, GRID_LOOP_KNOT):
         u_l = LONG_UPDATES
+        solve = "K5g" if k5.pcg_kind(n_l) == k5.SOLVE_PCG_GRID else "K5"
         sm = long_pair(f"auto N={n_l}", n_l,
                        long_cfg(n_l, megakernel=True, megakernel_solve=True),
-                       "auto", {**none, "K1": u_l, "K2": u_l, "K5g": u_l},
+                       "auto", {**none, "K1": u_l, "K2": u_l, solve: u_l},
                        u_l)
         if any(sm["failed_over"]):
             raise AssertionError(f"auto N={n_l}: the latch tripped on 0_0")
@@ -1738,14 +1823,15 @@ def main() -> int:
         f"forced failover N={n_l}", n_l,
         long_cfg(n_l, megakernel=True, megakernel_solve=True,
                  **dict(trip, failover_check_every=half_l)), "auto",
-        {**none, "K1": u_l, "K2": half_l + half_l * (1 + s), "K5g": half_l,
-         "K3": half_l * s, "K6l": half_l * s}, u_l)
+        {**none, "K1": u_l, "K2": half_l + half_l * (1 + s), "K5": half_l,
+         "K3": half_l * s, "K6": half_l * s}, u_l)
     if sm["failed_over"] != [False] * half_l + [True] * half_l:
         raise AssertionError(f"forced failover N={n_l}: failed_over "
                              f"{sm['failed_over']}")
-    long_pair(f"pcg per-iteration megakernel N={n_l}", n_l,
-              long_cfg(n_l, megakernel=True), "pcg",
-              {**none, "K1": u_l, "K2": u_l, "K9pg": u_l * s}, u_l)
+    for n_i, kid in ((n_l, "K9p"), (GRID_LOOP_KNOT, "K9pg")):
+        long_pair(f"pcg per-iteration megakernel N={n_i}", n_i,
+                  long_cfg(n_i, megakernel=True), "pcg",
+                  {**none, "K1": u_l, "K2": u_l, kid: u_l * s}, u_l)
     # the plain stages on the card with K4bg as the solve: host-bound, the
     # host clock only (profiling their glue costs minutes)
     long_pair(f"pcg_pallas N={n_l}", n_l,
@@ -2096,6 +2182,193 @@ def main() -> int:
         plain_loop_ms_per_update=loop_ref_ms, gloo_ranks_bit_equal=True)
     print(f"phase 9 (sharded paths): {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 10. the cluster forms: K5's dual solve (K9p shares its body) and
+    # K6 across one thread-block cluster
+    t_phase = time.perf_counter()
+    build_log = lib_path.with_suffix(".log").read_text().splitlines()
+
+    def ptxas(fragment):
+        """ptxas' resource line of the kernel whose mangled name holds
+        fragment."""
+        for i, line in enumerate(build_log):
+            if "Compiling entry" in line and fragment in line:
+                return next((x.split(":", 1)[1].strip()
+                             for x in build_log[i + 1:i + 4]
+                             if "registers" in x), "?")
+        return "not found"
+
+    def mega_plan(n_c, kind=k5.SOLVE_PCG, cluster=0, stair=-1):
+        """(C, stair bands on chip, grid) of a cluster launch, or None."""
+        plan = (ctypes.c_int * 3)()
+        ok = lib.mpc_mega_cluster_plan(n_c, kind, cluster, stair, plan)
+        return tuple(plan) if ok else None
+
+    def cluster_smem_kb(n_c, c, stair, extra=0):
+        """pcg_common.cuh's cluster_cg_floats, in KB."""
+        nk = -(-n_c // c)
+        return F32 * ((6 if stair else 3) * nk * NX * NX
+                      + 8 * (nk + 2) * NX + 34 + extra) / 1024
+
+    for kid, fragment in (("K5", "15sqp_mega_kernelE"),
+                          ("K9p", "24sqp_iter_mega_pcg_kernelE"),
+                          ("K6", "17bcr_pcg_dz_kernelE")):
+        print(f"{kid} (cluster form) ptxas: {ptxas(fragment)}")
+    for n_c in CLUSTER_KNOTS:
+        c, on, grid = mega_plan(n_c)
+        print(f"K5 N = {n_c}: C = {c}, grid {grid}, stair bands "
+              f"{'on chip' if on else 'in L2'}, "
+              f"{cluster_smem_kb(n_c, c, on):.1f} KB of dynamic shared "
+              f"memory a block; K6 C = {lib.mpc_bcr_cluster(n_c, 0)}")
+
+    # K5 against the plain version at every horizon and admitted cluster
+    # size: decisions and CG counts identical; X, U at rtol 1e-3, atol
+    # 1e-5 (atol 1e-4 at rho 1e-3: lam's float32 deviation on the condition
+    # ~1e7 system passes through Qinv, entries to 1/rho, and the grid form
+    # K5g is 5.6e-5 from the plain version at N = 2, bit for bit where the
+    # cluster form is); lam at atol 1e-3 at rho 1e-3, else rtol 1e-3, atol
+    # 1e-4
+    tab = _lib.model_tables(model)
+    err5c, k5_read = 0.0, {}
+    for n_c in CLUSTER_KNOTS:
+        for rho0 in (cfg.rho_init, 0.3):
+            args, kw_c = long_mega_args(n_c, rho0)
+            ref = k5.sqp_solve_mega_pcg_reference(*args, **kw_c)
+            for c in (16, 8):
+                plan = mega_plan(n_c, cluster=c)
+                if plan is None:
+                    continue
+                with _watchdog(FIRST_LAUNCH_DEADLINE):
+                    out = k5._launch(lib, tab, *args[1:], grid=plan[2],
+                                     stream=_lib.stream_of(args[1]),
+                                     cluster=c, **kw_c)
+                    sync()
+                label = f"K5 cluster C = {c}, N = {n_c}, rho {rho0:g}"
+                read = int(k5.sqp_solve_mega_pcg.cluster_size)
+                k5_read[f"{n_c}/{c}"] = read
+                if read != c:
+                    raise AssertionError(f"{label}: the kernel read "
+                                         f"%cluster_nctarank = {read}")
+                for f in ("pcg_iters", "accepted", "sqp_iters", "bailed"):
+                    if not torch.equal(getattr(out, f), getattr(ref, f)):
+                        raise AssertionError(
+                            f"{label}: {f} {getattr(out, f).tolist()} vs "
+                            f"plain {getattr(ref, f).tolist()}")
+                x_atol = 1e-4 if rho0 == cfg.rho_init else 1e-5
+                lam_tol = (0, 1e-3) if rho0 == cfg.rho_init else (1e-3, 1e-4)
+                err = max(checked(f"{label} X, U", [(out.X, ref.X),
+                                                    (out.U, ref.U)],
+                                  1e-3, x_atol),
+                          checked(f"{label} lam", [(out.lam, ref.lam)],
+                                  *lam_tol))
+                err5c = max(err5c, err)
+                print(f"{label}: kernel read C = {read}; CG "
+                      f"{out.pcg_iters.tolist()} as plain, accepted "
+                      f"{out.accepted.tolist()}; max error {err:.3e}")
+
+    # K6 against the plain version (the seeded random system, K6's
+    # tolerances) at every power of 2 up to 512 and admitted cluster size,
+    # CG counts and hit identical; its factor against K7s's, bit for bit
+    err6c, k6_read = 0.0, {}
+    for n_c in CLUSTER_BCR_KNOTS:
+        ks_r = systems.random_knot_schur(n_c, device=dev)
+        lam0_c = torch.zeros(n_c, NX, device=dev)
+        ref = k6.bcr_pcg_dz_reference(ks_r, lam0_c, 40, 5e-5)
+        size = lib.mpc_bcr_scratch_floats(n_c)
+        one_block = torch.zeros(size, device=dev)
+        k7._launch_solve(lib, ks_r.SL, ks_r.SD, ks_r.SU, ks_r.gamma,
+                         _lib.stream_of(lam0_c), scratch=one_block)
+        for c in (16, 8):
+            if lib.mpc_bcr_cluster(n_c, c) != c:
+                continue
+            fac = torch.zeros(size, device=dev)
+            with _watchdog(FIRST_LAUNCH_DEADLINE):
+                out = k6._launch(lib, ks_r, lam0_c, 40, 5e-5,
+                                 _lib.stream_of(lam0_c), scratch=fac,
+                                 cluster=c)
+                sync()
+            label = f"K6 cluster C = {c}, N = {n_c}"
+            read = int(k6.bcr_pcg_dz.cluster_size)
+            k6_read[f"{n_c}/{c}"] = read
+            if read != c:
+                raise AssertionError(f"{label}: the kernel read "
+                                     f"%cluster_nctarank = {read}")
+            if int(out[3]) != int(ref[3]) or bool(out[4]) != bool(ref[4]):
+                raise AssertionError(f"{label}: CG {int(out[3])} (hit "
+                                     f"{bool(out[4])}) vs plain {int(ref[3])}"
+                                     f" ({bool(ref[4])})")
+            if not torch.equal(fac, one_block):
+                raise AssertionError(f"{label}: the factors differ from "
+                                     f"K7s's one-block factor")
+            err6c = max(err6c, tight_bcr(label, out, ref))
+            print(f"{label}: kernel read C = {read}; CG {int(out[3])} as "
+                  f"plain; factors bit-equal to K7s's")
+
+    # a CG step's device time: a solve less the same solve with the CG
+    # capped at 0 (the stages, or the factor, the first residual and
+    # apply and dz), over its CG steps (every K5 CG at the cap at rho 1e-3)
+    def step_us(run, run0, tag, steps):
+        full, base = _device_us(run, tag), _device_us(run0, tag)
+        if full is None or base is None or not steps:
+            return full, base, None
+        return full, base, (full - base) / steps
+
+    steps5 = {}
+    for n_c in CLUSTER_STEP_KNOTS:
+        args, kw_c = long_mega_args(n_c, cfg.rho_init)
+        args0 = (*args[:9], 0, *args[10:])
+        forms = {"K5g": (k5.SOLVE_PCG_GRID, -1, "K5g")}
+        for stair, name in ((-1, "K5"), (1, "K5 stair on chip"),
+                            (0, "K5 stair in L2")):
+            if mega_plan(n_c, stair=stair) is not None:
+                forms[name] = (k5.SOLVE_PCG, stair, "K5")
+        row = {}
+        for name, (kind, stair, tag) in forms.items():
+            grid = k5.check_mega_fit(n_c, lib, kind, stair)
+
+            def go(a, kd=kind, st=stair, g=grid):
+                return k5._launch(lib, tab, *a[1:], grid=g,
+                                  stream=_lib.stream_of(a[1]), kind=kd,
+                                  stair=st, **kw_c)
+
+            its = int(go(args).pcg_iters.clamp(min=0).sum())
+            full, base, step = step_us(lambda: go(args), lambda: go(args0),
+                                       tag, its)
+            row[name] = {"grid": grid, "device_us": full, "stages_us": base,
+                         "cg_steps": its, "cg_step_us": step}
+            print(f"N = {n_c} {name}: grid {grid}, {_us(full)} a solve, "
+                  f"{_us(base)} with the CG capped at 0, {its} CG steps: "
+                  f"{'not profiled' if step is None else f'{step:.2f} us'} "
+                  f"a CG step")
+        steps5[str(n_c)] = row
+
+    steps6 = {}
+    for n_c in (n, *LONG_BCR_KNOTS):
+        if n_c == n:
+            ks_c, cap_c, tol_c = ks_np, cap, tol
+        else:
+            r6 = k6l_rows[n_c]
+            ks_c, cap_c, tol_c = r6["ks"], r6["cap"], r6["tol"]
+        lam0_c = torch.zeros(n_c, NX, device=dev)
+        its = int(k6.bcr_pcg_dz(ks_c, lam0_c, cap_c, tol_c)[3])
+        full, base, step = step_us(
+            lambda: k6.bcr_pcg_dz(ks_c, lam0_c, cap_c, tol_c),
+            lambda: k6.bcr_pcg_dz(ks_c, lam0_c, 0, tol_c), "K6", its)
+        steps6[str(n_c)] = {"device_us": full, "no_cg_us": base,
+                            "cg_steps": its, "cg_step_us": step}
+        print(f"K6 N = {n_c}: {_us(full)} a solve, {_us(base)} with the CG "
+              f"capped at 0 (factor, first apply, dz), {its} CG steps: "
+              f"{'not profiled' if step is None else f'{step:.2f} us'} a "
+              f"CG step")
+    for k in kernels:
+        kid = k["name"].split()[0]
+        if kid == "K5":
+            k.update(cluster_check_max_abs_err=err5c,
+                     cluster_size_read=k5_read, cg_step_by_n=steps5)
+        elif kid == "K6":
+            k.update(cluster_check_max_abs_err=err6c,
+                     cluster_size_read=k6_read, cg_step_by_n=steps6)
+    print(f"phase 10 (cluster forms): {time.perf_counter() - t_phase:.1f} s")
+
     # each kernel's launches: the first run of this slice's paths that
     # launched it (the default auto loop, its failover branch, the staged
     # loop, the packed loop, then this file's phase 6 loops)
@@ -2109,10 +2382,15 @@ def main() -> int:
              (f"knot-sharded loop N={SHARD_KNOTS}", shard_loop_counts))
     for k in kernels:
         kid = k["name"].split()[0]
-        # K8's horizons (N % 128 == 0) run K3: its launches on those paths
-        found = (((p, c["K3"]) for p, c in long_counts.items() if c["K3"])
-                 if kid == "K8" else
-                 ((p, c[kid]) for p, c in paths if c[kid]))
+        # K8's horizons (N % 128 == 0) run K3, the former K6l's the cluster
+        # K6: their launches on those paths
+        if kid == "K8":
+            found = ((p, c["K3"]) for p, c in long_counts.items() if c["K3"])
+        elif kid == "K6l":
+            found = ((p, c["K6"]) for p, c in long_counts.items()
+                     if c["K6"] and "failover" in p)
+        else:
+            found = ((p, c[kid]) for p, c in paths if c[kid])
         path, count = next(found, ("none", 0))
         if not count:
             raise AssertionError(f"{kid} was launched in no closed loop")
@@ -2121,6 +2399,7 @@ def main() -> int:
     k10_entry = next(k for k in kernels if k["name"].startswith("K10 "))
     k10_entry["device_ms"] = packed["k10_device_ms"]
     k10_entry["sweep"] = sweep
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

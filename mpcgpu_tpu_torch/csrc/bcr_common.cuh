@@ -1,8 +1,9 @@
 // The block cyclic reduction (BCR) of S lam = gamma, factored once and
-// applied many times; shared by K6 (bcr_pcg_dz.cu, its CG's
-// preconditioner), K7 and K7s (bcr_dz.cu: the refined solve + dz, and one
-// unrefined solve) and K9b (sqp_mega.cu, the dual-solve stage of its
-// per-iteration kernel).
+// applied many times; shared by K7 and K7s (bcr_dz.cu: the refined solve +
+// dz, and one unrefined solve) and K9b (sqp_mega.cu, the dual-solve stage
+// of its per-iteration kernel) in one block, and by K6 (bcr_pcg_dz.cu, its
+// CG's preconditioner) across one thread-block cluster (cluster_factor,
+// ClusterBcr, below).
 //
 // Design: factor once, apply many times.  The TPU kernels
 // (mpcgpu_tpu/ops/pallas/bcr_kernel.py _bcr_lanes) redo the whole
@@ -30,6 +31,8 @@ constexpr int S = ld::NX, SS = S * S;
 // 512 threads at most: K6's registers (96 a thread without a bound) times
 // 896 threads would pass the SM's 65,536
 constexpr int MAX_THREADS = 512, MAX_WARPS = MAX_THREADS / 32;
+// Shared floats of the cluster factor's per-warp scratch (two 14x14 blocks)
+constexpr int SCRATCH_FLOATS = 2 * MAX_WARPS * SS;
 
 LD_HD int levels_of(int N) {
   int l = 0;
@@ -235,5 +238,213 @@ LD_DEV void bcr_dz_body(int N, const float* SL, const float* SD,
   pcgc::dz_epilogue(N, lam, A, B, q, r_in, Qinv, Rinv, r, w, lam_out, dX, dU);
   LD_SYNC();
 }
+
+// ---------------------------------------------------------------------------
+// The cluster form (K6): the same factor and apply spread over the C blocks
+// of a thread-block cluster (pcg_common.cuh's ClusterCg: block r owns knots
+// [r nk, r nk + own) and their S bands).  The factors stay in global memory
+// (L2), laid out as above; another SM of the cluster may have written what
+// a warp reads, and the cluster barrier between (release / acquire at
+// cluster scope) makes those writes visible to ordinary loads.  At each
+// level the eliminated knots' inverses, then each
+// (kept i, eliminated i + h) pair's products and kept-knot update, are
+// taken one warp per knot or pair by all C x (warps per block) warps, with
+// a cluster barrier after each: 2 log2(N) + 2 barriers.  A pair's products
+// and its kept knot's update read nothing another pair writes, so one warp
+// does both with a warp barrier between.  Each entry is bcr_factor's
+// expression on the same operands, so the factors equal the one-block
+// factor's bit for bit.  The apply (ClusterBcr) keeps g and z in the
+// owners' shared memory and reads the rows at i +- h through DSMEM:
+// log2(N) forward levels, the root, log2(N) back levels, a cluster barrier
+// after each but the last.
+
+// Warp gw of nw: Dinv[j] = D[j]^-1 for j = first + step t, t = gw,
+// gw + nw, ...; A is the warp's 14x14 shared scratch.
+LD_DEV void spread_inverses(const BcrFactor& f, int first, int step, int gw,
+                            int nw, float* A) {
+  for (int j = first + gw * step; j < f.N; j += nw * step) {
+    for (int e = ld::lane(); e < SS; e += ld::lanes()) A[e] = f.D[SS * j + e];
+    ld::warp_sync();
+    ld::warp_spd_inverse<S>(A);
+    for (int e = ld::lane(); e < SS; e += ld::lanes()) f.Dinv[SS * j + e] = A[e];
+    ld::warp_sync();
+  }
+}
+
+// A lane's entries of a 14x14 block (ee = lane, lane + lanes, ...).
+#ifdef __CUDACC__
+constexpr int LANE_ENTRIES = (SS + 31) / 32;
+#else
+constexpr int LANE_ENTRIES = SS;
+#endif
+
+// Copy the 14x14 blocks x and y (global memory; null: keep what is there)
+// into the warp's shared scratch sx and sy, coalesced, between warp
+// barriers.
+LD_DEV void stage(float* sx, const float* x, float* sy, const float* y) {
+  ld::warp_sync();
+  for (int e = ld::lane(); e < SS; e += ld::lanes()) {
+    if (x) sx[e] = x[e];
+    if (y) sy[e] = y[e];
+  }
+  ld::warp_sync();
+}
+
+// Warp gw of nw at level l: for pairs t = gw, gw + nw, ... (kept
+// i = 2 h t, eliminated j = i + h) the products LDm_i, UDp_i, DL_j, DU_j,
+// then the kept knot's D_i, L_i, U_i: bcr_factor's expressions, each
+// product's operands staged in the warp's shared scratch sx, sy first
+// (one coalesced copy from L2 in place of a load per multiply-add).
+LD_DEV void spread_level(const BcrFactor& f, int l, int gw, int nw, float* sx,
+                         float* sy) {
+  const int h = 1 << l, n = f.N, nk = n / (2 * h), ln = ld::lane(),
+            lns = ld::lanes();
+  for (int t = gw; t < nk; t += nw) {
+    const int i = 2 * h * t, j = i + h;
+    float* LDm = f.LDm + (size_t)l * n * SS + SS * i;
+    float* UDp = f.UDp + (size_t)l * n * SS + SS * i;
+    if (i >= h) stage(sx, f.L + SS * i, sy, f.Dinv + SS * (i - h));
+    for (int ee = ln; ee < SS; ee += lns) LDm[ee] = i >= h ? mm(sx, sy, ee) : 0.0f;
+    stage(sx, f.U + SS * i, sy, f.Dinv + SS * j);
+    for (int ee = ln; ee < SS; ee += lns) UDp[ee] = mm(sx, sy, ee);
+    stage(sx, f.Dinv + SS * j, sy, f.L + SS * j);
+    for (int ee = ln; ee < SS; ee += lns) f.DL[SS * j + ee] = mm(sx, sy, ee);
+    const bool has_u = j + h <= n - 1;
+    if (has_u) stage(nullptr, nullptr, sy, f.U + SS * j);
+    for (int ee = ln; ee < SS; ee += lns)
+      f.DU[SS * j + ee] = has_u ? mm(sx, sy, ee) : 0.0f;
+    // the kept knot: D_i - UDp_i L_{i+h} - LDm_i U_{i-h},
+    // L_i = -LDm_i L_{i-h}, U_i = -UDp_i U_{i+h}
+    float d[LANE_ENTRIES], lo[LANE_ENTRIES], up[LANE_ENTRIES];
+    stage(sx, UDp, sy, f.L + SS * j);
+    for (int q = 0, ee = ln; ee < SS; ++q, ee += lns)
+      d[q] = f.D[SS * i + ee] - mm(sx, sy, ee);
+    stage(nullptr, nullptr, sy, f.U + SS * j);
+    for (int q = 0, ee = ln; ee < SS; ++q, ee += lns) up[q] = -mm(sx, sy, ee);
+    if (i >= h) {
+      stage(sx, LDm, sy, f.U + SS * (i - h));
+      for (int q = 0, ee = ln; ee < SS; ++q, ee += lns) d[q] -= mm(sx, sy, ee);
+      stage(nullptr, nullptr, sy, f.L + SS * (i - h));
+      for (int q = 0, ee = ln; ee < SS; ++q, ee += lns) lo[q] = -mm(sx, sy, ee);
+    } else {
+      for (int q = 0; q < LANE_ENTRIES; ++q) lo[q] = 0.0f;
+    }
+    for (int q = 0, ee = ln; ee < SS; ++q, ee += lns) {
+      f.D[SS * i + ee] = d[q];
+      f.L[SS * i + ee] = lo[q];
+      f.U[SS * i + ee] = up[q];
+    }
+    ld::warp_sync();
+  }
+}
+
+// The factor over the cluster from the own knots' S bands (a.SL, SD, SU);
+// scratch: two 14x14 blocks of shared memory per warp (SCRATCH_FLOATS).
+// Ends in a cluster barrier.
+LD_DEV void cluster_factor(const BcrFactor& f, const pcgc::ClusterCg& a,
+                           float* scratch) {
+  const size_t o = (size_t)SS * a.k0;
+  for (int e = LD_TID; e < SS * a.own; e += LD_NTID) {
+    f.D[o + e] = a.SD[e];
+    f.L[o + e] = a.SL[e];
+    f.U[o + e] = a.SU[e];
+  }
+  LD_CLUSTER_SYNC();
+#ifdef __CUDACC__
+  const int warp = (int)threadIdx.x >> 5, warps = ((int)blockDim.x + 31) >> 5;
+#else
+  const int warp = 0, warps = 1;
+#endif
+  const int gw = a.rank * warps + warp, nw = a.C * warps;
+  float* sx = scratch + 2 * SS * warp;
+  float* sy = sx + SS;
+  for (int l = 0; l < f.levels; ++l) {
+    const int h = 1 << l;
+    spread_inverses(f, h, 2 * h, gw, nw, sx);   // knots eliminated at l
+    LD_CLUSTER_SYNC();
+    spread_level(f, l, gw, nw, sx, sy);
+    LD_CLUSTER_SYNC();
+  }
+  spread_inverses(f, 0, f.N, gw, nw, sx);      // the root
+  LD_CLUSTER_SYNC();
+}
+
+// The own knots i = first, first + 2h, ... < k0 + own with i % 2h == off:
+// the first of them and their count.
+LD_DEV int own_knots(const pcgc::ClusterCg& a, int h, int off, int* first) {
+  const int end = a.k0 + a.own, step = 2 * h;
+  const int m = a.k0 > off ? (a.k0 - off + step - 1) / step : 0;
+  *first = m * step + off;
+  return *first < end ? (end - *first + step - 1) / step : 0;
+}
+
+// z = BCR(r) over the cluster from the stored factors (own rows of the
+// (nk + 2, 14) vectors r and z; g is a.g), in the phases below with a
+// cluster barrier after each but the last; returns this thread's part of
+// r . z.  Every block calls it alike; ends in a block barrier.
+struct ClusterBcr {
+  BcrFactor f;
+
+  // level l of the forward pass over the own kept knots (i % 2h == 0):
+  // g_i -= UDp_i g_{i+h} + LDm_i g_{i-h}
+  LD_DEV void forward(const pcgc::ClusterCg& a, int l) const {
+    const int h = 1 << l, n = f.N;
+    const float* LDm = f.LDm + (size_t)l * n * SS;
+    const float* UDp = f.UDp + (size_t)l * n * SS;
+    int first;
+    const int cnt = own_knots(a, h, 0, &first);
+    for (int e = LD_TID; e < cnt * S; e += LD_NTID) {
+      const int i = first + (e / S) * 2 * h, row = e % S;
+      float* gi = a.g + S * (i - a.k0 + 1);
+      float acc = gi[row] - mv_row(UDp + SS * i, pcgc::knot_row(a, a.g, i + h), row);
+      if (i >= h) acc -= mv_row(LDm + SS * i, pcgc::knot_row(a, a.g, i - h), row);
+      gi[row] = acc;
+    }
+  }
+
+  // the root: z_0 = Dinv_0 g_0 (in the block that owns knot 0)
+  LD_DEV void root(const pcgc::ClusterCg& a, float* z) const {
+    if (a.k0 == 0 && a.own > 0)
+      for (int e = LD_TID; e < S; e += LD_NTID) z[S + e] = mv_row(f.Dinv, a.g + S, e);
+  }
+
+  // level l of the back substitution over the own knots eliminated at l
+  // (j % 2h == h): z_j = Dinv_j g_j - DL_j z_{j-h} - DU_j z_{j+h}
+  LD_DEV void back(const pcgc::ClusterCg& a, int l, float* z) const {
+    const int h = 1 << l, n = f.N;
+    int first;
+    const int cnt = own_knots(a, h, h, &first);
+    for (int e = LD_TID; e < cnt * S; e += LD_NTID) {
+      const int j = first + (e / S) * 2 * h, row = e % S;
+      float acc = mv_row(f.Dinv + SS * j, a.g + S * (j - a.k0 + 1), row)
+                  - mv_row(f.DL + SS * j, pcgc::knot_row(a, z, j - h), row);
+      if (j + h <= n - 1)
+        acc -= mv_row(f.DU + SS * j, pcgc::knot_row(a, z, j + h), row);
+      z[S * (j - a.k0 + 1) + row] = acc;
+    }
+  }
+
+  LD_DEV float apply(const pcgc::ClusterCg& a, const float* r, float* z) const {
+    for (int e = LD_TID; e < S * a.own; e += LD_NTID) a.g[S + e] = r[S + e];
+    LD_CLUSTER_SYNC();
+    for (int l = 0; l < f.levels; ++l) {
+      forward(a, l);
+      LD_CLUSTER_SYNC();
+    }
+    root(a, z);
+    LD_CLUSTER_SYNC();
+    for (int l = f.levels - 1; l >= 0; --l) {
+      back(a, l, z);
+      if (l > 0) {
+        LD_CLUSTER_SYNC();
+      } else {
+        LD_SYNC();
+      }
+    }
+    float part = 0.0f;
+    for (int e = LD_TID; e < S * a.own; e += LD_NTID) part += r[S + e] * z[S + e];
+    return part;
+  }
+};
 
 }  // namespace bcr

@@ -1,84 +1,43 @@
 // K6: warm-started CG on S lam = gamma preconditioned by an exact block
-// cyclic reduction (BCR) solve, then dz; and K6l: the same kernel with S
-// read from global memory, for horizons whose S does not fit shared memory.
+// cyclic reduction (BCR) solve, then dz, across one thread-block cluster.
 //
 // Replaces the TPU kernel mpcgpu_tpu/ops/pallas/bcr_kernel.py
 // (bcr_pcg_dz_pallas_lanes / _bcr_pcg_dz_kernel -> _pcg_loop_bcrM,
-// _bcr_lanes).  The loop is K4's (pcg_common.cuh) with z = BCR(r), no
-// refinement, in place of the stair apply: exit when |eta| = |r' z| <= tol
-// or at max_iter, hit = |eta| > tol at exit.  The dz epilogue is K4's.
+// _bcr_lanes).  The loop is MPCGPU algorithm 2 as cg_solve runs it with
+// z = BCR(r), no refinement, in place of the stair apply: exit when
+// |eta| = |r' z| <= tol or at max_iter, hit = |eta| > tol at exit.  The dz
+// is K4's epilogue's arithmetic.
 //
-// Design: the cyclic reduction is factored once per solve and each
-// preconditioner apply is one forward and one back pass over the stored
-// factors (bcr_common.cuh, shared with K7, K7s and K9b).  One body serves
-// both kernels: K6 copies S's bands into shared memory first, K6l reads
-// them where they lie (L2-resident: 2.4 MB at N = 512) and keeps only the
-// five CG vectors and the inverse scratch in shared memory.  The TPU runs
-// this solve as one kernel up to N = 256 (bcr_kernel.py:232-233); K6l is
-// what serves that horizon here.
+// Design: the whole kernel is one cluster of C blocks on neighbouring SMs
+// (C = 16 where the card schedules it, else 8; no cooperative launch).
+// Block r owns the knots [r nk, r nk + own), nk = ceil(N / C), and keeps
+// their S bands and CG vectors in its shared memory (pcg_common.cuh's
+// cluster CG: the halo rows of a band row through DSMEM, the dots summed in
+// rank order, two cluster barriers per CG step besides the apply's).  The
+// cyclic reduction is factored once per solve over the cluster, one warp
+// per knot or (kept, eliminated) pair at each level, by all C x 16 warps;
+// the factors stay in global memory (L2, bcr_common.cuh's layout) and equal
+// the one-block factor of K7, K7s and K9b bit for bit.  Each apply is one
+// forward and one back pass with g and z in the owners' shared memory:
+// 2 log2(N) + 1 cluster barriers.  The owner of each knot computes its dz.
+// This one kernel serves every power-of-2 N whose S fits the cluster's
+// shared memory (mpc_bcr_max_knots: 1024 on the H100 at C = 16); the TPU
+// runs this solve as one kernel up to N = 256 (bcr_kernel.py:232-233).
 //
-// Bound on the H100: latency, as K4 -- one block; shared memory bounds N
-// (mpc_bcr_max_knots, mpc_bcr_l2_max_knots; power-of-2 N only, the
-// wrapper raises otherwise).
+// Bound on the H100: latency -- log2(N) levels of dependent 14x14
+// inverses and products, then per CG step a chain of 2 log2(N) + 3 cluster
+// barriers; the work is far from either roof (bound_ms in chip_smoke.py).
 #include "bcr_common.cuh"
 
 namespace {
 
 using bcr::MAX_THREADS;
-using bcr::MAX_WARPS;
 constexpr int S = ld::NX, SS = S * S;
 
-// K6's shared floats: S's bands, 5 CG vectors, the reduction slots and one
-// 14x14 inverse scratch per warp
-size_t bcr_smem_floats(int N) {
-  return pcgc::cg_smem_floats(N, 5) + (size_t)MAX_WARPS * SS;
-}
-
-// K6l's: the same without S's bands
-size_t bcr_l2_smem_floats(int N) {
-  return (size_t)5 * N * S + 33 + (size_t)MAX_WARPS * SS;
-}
-
-// S_SHARED: K6 (S copied into shared memory) or K6l (S read from global
-// memory); smem holds bcr_smem_floats(N) or bcr_l2_smem_floats(N).
-template <bool S_SHARED>
-LD_DEV void bcr_pcg_dz_body(
-    float* smem, int N, int levels, const float* SLg, const float* SDg,
-    const float* SUg, const float* gamma, const float* lam0, const float* A,
-    const float* B, const float* q, const float* r_in, const float* Qinv,
-    const float* Rinv, int max_iter, float tol, float* fac, float* lam_out,
-    float* dX, float* dU, int* iters_out, bool* hit_out) {
-  const int nb = S_SHARED ? SS * N : 0, n = S * N;
-  float* SL = smem;
-  float* SD = SL + nb;
-  float* SU = SD + nb;
-  float* lam = SU + nb;
-  float* r = lam + n;
-  float* p = r + n;
-  float* w = p + n;
-  float* g = w + n;
-  float* red = g + n;
-  float* inv = red + 33;
-  if (S_SHARED) {
-    pcgc::load_system(N, SLg, SDg, SUg, lam0, SL, SD, SU, lam);
-  } else {
-    for (int e = LD_TID; e < n; e += LD_NTID) lam[e] = lam0[e];
-    LD_SYNC();
-  }
-  const float* sl = S_SHARED ? SL : SLg;
-  const float* sd = S_SHARED ? SD : SDg;
-  const float* su = S_SHARED ? SU : SUg;
-  const bcr::BcrFactor f(fac, N, levels);
-  bcr::bcr_factor(f, sl, sd, su, inv);
-  float eta;
-  const int it = pcgc::cg_solve(N, sl, sd, su, gamma, lam, r, p, w, red,
-                                bcr::BcrPre{f, g}, max_iter, tol, &eta);
-  if (LD_TID == 0) {
-    iters_out[0] = it;
-    hit_out[0] = fabsf(eta) > tol;
-  }
-  pcgc::dz_epilogue(N, lam, A, B, q, r_in, Qinv, Rinv, r, p, lam_out, dX,
-                    dU);
+// One block's shared floats at cluster size C: its knots' S bands, the
+// cluster CG's vectors and slots, two 14x14 blocks of scratch per warp.
+size_t bcr_smem_floats(int N, int C) {
+  return pcgc::cluster_cg_floats(N, C, false, bcr::SCRATCH_FLOATS);
 }
 
 #define BCR_PCG_DZ_PARAMS                                                   \
@@ -86,34 +45,98 @@ LD_DEV void bcr_pcg_dz_body(
       const float *gamma, const float *lam0, const float *A, const float *B, \
       const float *q, const float *r_in, const float *Qinv,                \
       const float *Rinv, int max_iter, float tol, float *fac,              \
-      float *lam_out, float *dX, float *dU, int *iters_out, bool *hit_out
-#define BCR_PCG_DZ_ARGS                                                     \
-  N, levels, SLg, SDg, SUg, gamma, lam0, A, B, q, r_in, Qinv, Rinv,        \
-      max_iter, tol, fac, lam_out, dX, dU, iters_out, hit_out
+      float *lam_out, float *dX, float *dU, int *ints, bool *hit_out
 
+// ints: the CG iteration count, then the cluster size the kernel read.
 LD_GLOBAL void LD_LAUNCH_BOUNDS(MAX_THREADS)
     bcr_pcg_dz_kernel(BCR_PCG_DZ_PARAMS) {
   LD_DYN_SMEM(smem);
-  bcr_pcg_dz_body<true>(smem, BCR_PCG_DZ_ARGS);
-}
-
-LD_GLOBAL void LD_LAUNCH_BOUNDS(MAX_THREADS)
-    bcr_pcg_dz_l2_kernel(BCR_PCG_DZ_PARAMS) {
-  LD_DYN_SMEM(smem);
-  bcr_pcg_dz_body<false>(smem, BCR_PCG_DZ_ARGS);
+  const pcgc::ClusterCg a = pcgc::cluster_area(smem, N, false);
+  pcgc::cluster_load_bands(a, SLg, SDg, SUg, a.SL, a.SD, a.SU);
+  const bcr::BcrFactor f(fac, N, levels);
+  bcr::cluster_factor(f, a, a.extra);
+  float eta;
+  const int it = pcgc::cluster_cg_solve(a, gamma, lam0, bcr::ClusterBcr{f},
+                                        max_iter, tol, &eta);
+  if (a.rank == 0 && LD_TID == 0) {
+    ints[0] = it;
+    ints[1] = a.C;
+    hit_out[0] = fabsf(eta) > tol;
+  }
+  pcgc::cluster_dz(a, A, B, q, r_in, Qinv, Rinv, lam_out, dX, dU);
 }
 
 }  // namespace
 
-// Largest power-of-2 horizon whose S bands, CG vectors and inverse scratch
-// fit one block's shared memory on this device (K6); 0 if it cannot be read.
-extern "C" int mpc_bcr_max_knots(void) {
-  return bcr::pow2_max_knots(bcr_smem_floats);
+#ifdef __CUDACC__
+namespace {
+
+// cudaOccupancyMaxActiveClusters' answer for C blocks of K6 over N knots:
+// at least one cluster fits.
+bool cluster_fits(int N, int C, int optin) {
+  const void* fn = (const void*)bcr_pcg_dz_kernel;
+  const size_t smem = bcr_smem_floats(N, C) * sizeof(float);
+  if (smem > (size_t)optin ||
+      cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1) != cudaSuccess ||
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return false;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(MAX_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  const bool ok = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) ==
+                      cudaSuccess && clusters >= 1;
+  cudaGetLastError();  // a refused query leaves no error behind
+  return ok;
 }
 
-// The same for K6l (CG vectors and inverse scratch; S in global memory).
-extern "C" int mpc_bcr_l2_max_knots(void) {
-  return bcr::pow2_max_knots(bcr_l2_smem_floats);
+}  // namespace
+#endif
+
+// The cluster size a launch over N knots (a power of 2) uses: `cluster`
+// where it is 8 or 16 and fits; for cluster 0, 16 where the card can
+// schedule a cluster of 16 blocks of K6 (a non-portable size), else 8; 0 if
+// none fits.  Asked once per device, N and request.  The host build
+// answers 1 where the card's arithmetic at 227 KB fits C = 16 (it runs the
+// cluster as one block).
+extern "C" int mpc_bcr_cluster(int N, int cluster) {
+  if (N < 1 || (N & (N - 1)) || N > (1 << 16)) return 0;
+  if (cluster != 0 && cluster != 8 && cluster != 16) return 0;
+#ifdef __CUDACC__
+  static int known[16][17][3];  // device, log2 N, request: C + 1; 0 unasked
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 16) return 0;
+  int& c = known[dev][bcr::levels_of(N)][cluster / 8];
+  if (c == 0) {
+    if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess)
+      return 0;
+    c = 1 + (cluster != 0 ? (cluster_fits(N, cluster, optin) ? cluster : 0)
+             : cluster_fits(N, 16, optin) ? 16
+             : cluster_fits(N, 8, optin) ? 8 : 0);
+  }
+  return c - 1;
+#else
+  return bcr_smem_floats(N, 16) * sizeof(float) <= 232448 ? 1 : 0;
+#endif
+}
+
+// Largest power-of-2 horizon the cluster kernel serves on this device (0
+// if none).
+extern "C" int mpc_bcr_max_knots(void) {
+  int n = 0;
+  for (int m = 1; mpc_bcr_cluster(m, 0) > 0; m *= 2) n = m;  // cached
+  return n;
 }
 
 // Floats of global scratch the factors of an N-knot solve take.
@@ -121,58 +144,139 @@ extern "C" long long mpc_bcr_scratch_floats(int N) {
   return (long long)bcr::factor_floats(N);
 }
 
-namespace {
-
-using BcrPcgKernel = void (*)(BCR_PCG_DZ_PARAMS);
-
-int launch_bcr_pcg_dz(BcrPcgKernel kern, size_t smem_floats, int N,
-                      const float* SL, const float* SD, const float* SU,
-                      const float* gamma, const float* lam0, const float* A,
-                      const float* B, const float* q, const float* r,
-                      const float* Qinv, const float* Rinv, int max_iter,
-                      float tol, float* scratch, float* lam_out, float* dX,
-                      float* dU, int* iters, bool* hit, void* stream) {
-  if (N < 1 || (N & (N - 1))) return 1;  // cudaErrorInvalidValue
-  const size_t smem = smem_floats * sizeof(float);
-#ifdef __CUDACC__
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-#endif
-  LD_LAUNCH(kern, 1, bcr::threads_for(N), smem, stream, N, bcr::levels_of(N),
-            SL, SD, SU, gamma, lam0, A, B, q, r, Qinv, Rinv, max_iter, tol,
-            scratch, lam_out, dX, dU, iters, hit);
-  return LD_LAST_ERROR();
-}
-
-}  // namespace
-
-// K6 (S in shared memory); scratch holds mpc_bcr_scratch_floats(N) floats.
+// K6; scratch holds mpc_bcr_scratch_floats(N) floats, ints 2 (the CG
+// iteration count, the cluster size the kernel read); cluster as
+// mpc_bcr_cluster's.  A launch that the runtime refuses, or a horizon no
+// such cluster can hold, returns its error.
 extern "C" int mpc_bcr_pcg_dz(int N, const float* SL, const float* SD,
                               const float* SU, const float* gamma,
                               const float* lam0, const float* A,
                               const float* B, const float* q, const float* r,
                               const float* Qinv, const float* Rinv,
                               int max_iter, float tol, float* scratch,
-                              float* lam_out, float* dX, float* dU,
-                              int* iters, bool* hit, void* stream) {
-  return launch_bcr_pcg_dz(bcr_pcg_dz_kernel, bcr_smem_floats(N), N, SL, SD,
-                           SU, gamma, lam0, A, B, q, r, Qinv, Rinv, max_iter,
-                           tol, scratch, lam_out, dX, dU, iters, hit, stream);
+                              float* lam_out, float* dX, float* dU, int* ints,
+                              bool* hit, int cluster, void* stream) {
+  if (N < 1 || (N & (N - 1))) return 1;  // cudaErrorInvalidValue
+  const int C = mpc_bcr_cluster(N, cluster);
+  if (C < 1) return 1;
+  const int levels = bcr::levels_of(N);
+#ifdef __CUDACC__
+  const size_t smem = bcr_smem_floats(N, C) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)bcr_pcg_dz_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(MAX_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, bcr_pcg_dz_kernel, N, levels, SL, SD, SU,
+                           gamma, lam0, A, B, q, r, Qinv, Rinv, max_iter, tol,
+                           scratch, lam_out, dX, dU, ints, hit);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+#else
+  const size_t smem = bcr_smem_floats(N, 1) * sizeof(float);
+  LD_LAUNCH(bcr_pcg_dz_kernel, 1, MAX_THREADS, smem, stream, N, levels, SL,
+            SD, SU, gamma, lam0, A, B, q, r, Qinv, Rinv, max_iter, tol,
+            scratch, lam_out, dX, dU, ints, hit);
+  return 0;
+#endif
 }
 
-// K6l (S read from global memory); arguments as K6's.
-extern "C" int mpc_bcr_pcg_dz_l2(int N, const float* SL, const float* SD,
-                                 const float* SU, const float* gamma,
-                                 const float* lam0, const float* A,
-                                 const float* B, const float* q,
-                                 const float* r, const float* Qinv,
-                                 const float* Rinv, int max_iter, float tol,
-                                 float* scratch, float* lam_out, float* dX,
-                                 float* dU, int* iters, bool* hit,
-                                 void* stream) {
-  return launch_bcr_pcg_dz(bcr_pcg_dz_l2_kernel, bcr_l2_smem_floats(N), N,
-                           SL, SD, SU, gamma, lam0, A, B, q, r, Qinv, Rinv,
-                           max_iter, tol, scratch, lam_out, dX, dU, iters,
-                           hit, stream);
+#ifndef __CUDACC__
+// Host build only: the cluster factor's schedule over C blocks of one warp
+// each, run rank after rank between the barriers (each phase reads only what
+// the phases before it wrote), from S's bands into fac; a test holds it
+// against bcr_factor's, bit for bit, at C > 1.
+extern "C" int mpc_bcr_cluster_factor_host(int N, int C, const float* SL,
+                                           const float* SD, const float* SU,
+                                           float* fac) {
+  if (N < 1 || (N & (N - 1)) || C < 1) return 1;
+  const bcr::BcrFactor f(fac, N, bcr::levels_of(N));
+  for (int e = 0; e < N * SS; ++e) {
+    f.D[e] = SD[e];
+    f.L[e] = SL[e];
+    f.U[e] = SU[e];
+  }
+  float x[SS], y[SS];
+  for (int l = 0; l < f.levels; ++l) {
+    for (int gw = 0; gw < C; ++gw) bcr::spread_inverses(f, 1 << l, 2 << l, gw, C, x);
+    for (int gw = 0; gw < C; ++gw) bcr::spread_level(f, l, gw, C, x, y);
+  }
+  for (int gw = 0; gw < C; ++gw) bcr::spread_inverses(f, 0, N, gw, C, x);
+  return 0;
 }
+
+// Host build only: K6's preconditioner apply z = BCR(r) over C emulated
+// blocks, each with its own shared memory, the phases between its cluster
+// barriers run rank after rank, from the factors in fac; a test holds it
+// against K7s's one-block apply, bit for bit.
+extern "C" int mpc_bcr_cluster_apply_host(int N, int C, const float* fac,
+                                          const float* r, float* z) {
+  if (N < 1 || (N & (N - 1)) || C < 1) return 1;
+  std::vector<std::vector<float>> smem(
+      C, std::vector<float>(pcgc::cluster_cg_floats(N, C, false, 0)));
+  ld_emu_cbase.clear();
+  for (auto& m : smem) ld_emu_cbase.push_back(m.data());
+  auto area = [&](int q) {
+    ld_emu_crank = q;
+    return pcgc::cluster_area(smem[q].data(), N, false);
+  };
+  const bcr::ClusterBcr pre{
+      bcr::BcrFactor(const_cast<float*>(fac), N, bcr::levels_of(N))};
+  for (int q = 0; q < C; ++q) {
+    const pcgc::ClusterCg a = area(q);
+    for (int e = 0; e < S * a.own; ++e) a.g[S + e] = r[S * a.k0 + e];
+  }
+  for (int l = 0; l < pre.f.levels; ++l)
+    for (int q = 0; q < C; ++q) pre.forward(area(q), l);
+  for (int q = 0; q < C; ++q) pre.root(area(q), area(q).z);
+  for (int l = pre.f.levels - 1; l >= 0; --l)
+    for (int q = 0; q < C; ++q) pre.back(area(q), l, area(q).z);
+  for (int q = 0; q < C; ++q) {
+    const pcgc::ClusterCg a = area(q);
+    for (int e = 0; e < S * a.own; ++e) z[S * a.k0 + e] = a.z[S + e];
+  }
+  ld_emu_cbase.clear();
+  ld_emu_crank = 0;
+  return 0;
+}
+
+// Host build only: the cluster CG's dot product over C emulated blocks,
+// each holding values[S k0 .. S (k0 + own)) of an (N, 14) vector: every
+// block's partial (block_partial), then every block's rank-ordered sum
+// (cluster_sum) into sums[q]; a test holds them equal to one another and
+// to the sum of the partials in rank order.
+extern "C" int mpc_cluster_dot_host(int N, int C, const float* values,
+                                    float* partials, float* sums) {
+  if (N < 1 || C < 1) return 1;
+  std::vector<std::vector<float>> smem(
+      C, std::vector<float>(pcgc::cluster_cg_floats(N, C, false, 0)));
+  ld_emu_cbase.clear();
+  for (auto& m : smem) ld_emu_cbase.push_back(m.data());
+  auto area = [&](int q) {
+    ld_emu_crank = q;
+    return pcgc::cluster_area(smem[q].data(), N, false);
+  };
+  for (int q = 0; q < C; ++q) {
+    const pcgc::ClusterCg a = area(q);
+    float part = 0.0f;
+    for (int e = 0; e < S * a.own; ++e) part += values[S * a.k0 + e];
+    pcgc::block_partial(part, a.red, a.slots);
+    partials[q] = a.slots[0];
+  }
+  for (int q = 0; q < C; ++q) sums[q] = pcgc::cluster_sum(area(q), area(q).slots);
+  ld_emu_cbase.clear();
+  ld_emu_crank = 0;
+  return 0;
+}
+#endif

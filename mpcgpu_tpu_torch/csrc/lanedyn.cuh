@@ -20,7 +20,11 @@
 // lets the arithmetic be checked against the plain PyTorch versions on a
 // machine without a GPU.  A cooperative kernel (K5) launches one block
 // there, which walks every knot of each stage in turn, so its grid
-// barrier (LD_GRID_SYNC) is a no-op.
+// barrier (LD_GRID_SYNC) is a no-op.  A thread-block cluster (K5, K9p,
+// K6) is one block there too: its rank is 0, its size 1, the map into
+// another block's shared memory (ld_cluster_map) returns the block's own,
+// and the cluster barriers do nothing; a test may emulate C blocks whose
+// phases between barriers it runs rank after rank (ld_emu_cbase).
 #pragma once
 
 #ifdef __CUDACC__
@@ -41,6 +45,31 @@
   kern<<<(grid), (block), (smem), (cudaStream_t)(stream)>>>(__VA_ARGS__)
 #define LD_LAST_ERROR() ((int)cudaGetLastError())
 #define LD_GRID_SYNC() cooperative_groups::this_grid().sync()
+// The cluster barrier, whole or split in its arrive and wait halves (every
+// thread of every block of the cluster arrives; release / acquire order the
+// shared and global memory accesses around it).
+#define LD_CLUSTER_SYNC() cooperative_groups::this_cluster().sync()
+#define LD_CLUSTER_ARRIVE() \
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory")
+#define LD_CLUSTER_WAIT() \
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory")
+// This block's rank in its cluster and the cluster's size, as the hardware
+// reports them (%cluster_ctarank, %cluster_nctarank).
+__device__ inline int ld_cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+__device__ inline int ld_cluster_size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return (int)n;
+}
+// The same shared-memory location in block `rank` of the cluster (DSMEM).
+__device__ inline float* ld_cluster_map(const float* p, int rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(
+      const_cast<float*>(p), (unsigned)rank);
+}
 #else
 #include <math.h>
 #include <vector>
@@ -68,6 +97,22 @@ inline std::vector<float> ld_emu_smem;
   } while (0)
 #define LD_LAST_ERROR() 0
 #define LD_GRID_SYNC() ((void)0)
+#define LD_CLUSTER_SYNC() ((void)0)
+#define LD_CLUSTER_ARRIVE() ((void)0)
+#define LD_CLUSTER_WAIT() ((void)0)
+// A cluster of one block, unless a host test emulates C blocks: it sets
+// ld_emu_cbase to each block's shared memory and runs their phases rank
+// after rank with ld_emu_crank set.
+inline int ld_emu_crank = 0;
+inline std::vector<float*> ld_emu_cbase;
+inline int ld_cluster_rank() { return ld_emu_crank; }
+inline int ld_cluster_size() {
+  return ld_emu_cbase.empty() ? 1 : (int)ld_emu_cbase.size();
+}
+inline float* ld_cluster_map(const float* p, int rank) {
+  if (ld_emu_cbase.empty()) return const_cast<float*>(p);
+  return ld_emu_cbase[rank] + (p - ld_emu_cbase[ld_emu_crank]);
+}
 #endif
 
 namespace ld {

@@ -1,9 +1,11 @@
 // The one-block CG solve of S lam = gamma and the primal step, shared by
-// K4 and K4b (pcg_dz.cu), K5 (sqp_mega.cu, its dual-solve stage), K6
-// (bcr_pcg_dz.cu) and K10 (sqp_mega_packed.cu, which drives cg_init and
-// cg_step itself: its arms' CGs share one exit); and the grid-wide form of
+// K4 and K4b (pcg_dz.cu) and K10 (sqp_mega_packed.cu, which drives cg_init
+// and cg_step itself: its arms' CGs share one exit); the grid-wide form of
 // the stair-PCG and the primal step (grid_cg_solve, grid_dz) for K4g, K4bg
-// (pcg_dz.cu), K5g and K9pg (sqp_mega.cu), past the one-block fit.
+// (pcg_dz.cu), K5g and K9pg (sqp_mega.cu), past the cluster form's fit;
+// and the cluster form (cluster_cg_solve, cluster_dz) for K5 and K9p
+// (sqp_mega.cu, the stair) and K6 (bcr_pcg_dz.cu, the block cyclic
+// reduction).
 //
 // One thread block holds S's three (N, 14, 14) bands and the CG vectors in
 // shared memory; one thread per (knot, row) entry of an (N, 14) vector
@@ -11,8 +13,8 @@
 // fewer threads than entries.  The dot products reduce in a fixed order
 // (warp shuffles, then warp 0) and every thread reads the one shared
 // result, so all threads take the same exit decision.  The preconditioner
-// is a template argument: the stair bands (K4, K5) or the block cyclic
-// reduction solve (K6).
+// is a template argument: the stair bands (K4) or, in the cluster form,
+// the stair bands or the block cyclic reduction solve (K6).
 #pragma once
 #include "lanedyn.cuh"
 
@@ -460,6 +462,346 @@ LD_DEV void grid_dz(int N, const float* lam, const float* A, const float* B,
       }
     LD_SYNC();
   }
+}
+
+// ---------------------------------------------------------------------------
+// The cluster CG (K5, K9p: the stair; K6: the block cyclic reduction): one
+// thread-block cluster of C blocks on neighbouring SMs (C = 16 where the
+// card schedules it, else 8).  Block r owns the knots [r nk, r nk + own),
+// nk = ceil(N / C), and keeps their S bands (and the stair's, when they
+// are on chip) and their rows of the CG vectors in its shared memory.  A
+// vector is (nk + 2, 14) rows: row 0 holds the knot before the block's
+// first, rows 1..own its own knots, row own + 1 the knot after its last
+// (the halo rows a band row reads).  Every block has the same layout, so a
+// row of another block's vector is the same offset in that block's shared
+// memory, read through DSMEM (ld_cluster_map).
+//
+// Each dot product: every block sums its rows in a fixed order into one
+// partial (block_partial, a slot in its shared memory); after a cluster
+// barrier every block sums the C slots in rank order (cluster_sum), so every
+// block holds the same bits and takes the same exit decision.  No atomics.
+//
+// MPCGPU algorithm 2 as cg_solve runs it (warm start, exit at |eta| <= tol
+// or the cap), with r and p double-buffered, so that a step takes two
+// cluster barriers, not four:
+//   w = S p, p.w partial | alpha; lam += alpha p; r' = r - alpha w, and r''s
+//   halo rows from the neighbours' r and w; z = M^-1 r', r'.z partial |
+//   eta', beta; p' = z + beta p, and p''s halo rows from the neighbours' z
+//   and p.
+// A neighbour's row of r' or p' is computed by the reader with the owner's
+// expression on the owner's inputs (one fmaf), so both hold the same bits;
+// the inputs stay unwritten until the reader is past the next barrier: r and
+// p (the other buffers) are next written one barrier later, w and z after
+// the barrier that follows their reads.  The two dot slots alternate the
+// same way.  The M^-1 apply is the preconditioner's (ClusterStair here,
+// bcr::ClusterBcr), which may hold cluster barriers of its own: every block
+// calls it the same number of times.
+
+// Knots per block of an N-knot solve over C blocks.
+LD_HD int cluster_knots(int N, int C) { return (N + C - 1) / C; }
+
+// Shared floats of one block: S's bands of nk knots (and the stair's when
+// `stair`), eight (nk + 2, 14) vectors, 32 reduction and 2 dot slots, then
+// `extra` floats (ClusterCg::extra).
+LD_HD size_t cluster_cg_floats(int N, int C, bool stair, size_t extra) {
+  const size_t nk = cluster_knots(N, C);
+  return (stair ? 6 : 3) * nk * S * S + 8 * (nk + 2) * S + 34 + extra;
+}
+
+struct ClusterCg {
+  int N, C, rank, nk, k0, own;
+  float *SL, *SD, *SU;            // own knots' S bands (nk, 14, 14)
+  float *PL, *PD, *PU;            // the stair's, where on chip
+  float *lam, *w, *z, *g, *r[2], *p[2];   // (nk + 2, 14) each
+  float *red, *slots, *extra;
+};
+
+// This block's part of an N-knot cluster solve laid out in smem
+// (cluster_cg_floats(N, C, stair, ...) floats).
+LD_DEV ClusterCg cluster_area(float* smem, int N, bool stair) {
+  ClusterCg a;
+  a.N = N;
+  a.C = ld_cluster_size();
+  a.rank = ld_cluster_rank();
+  a.nk = cluster_knots(N, a.C);
+  a.k0 = a.rank * a.nk;
+  a.own = a.k0 >= N ? 0 : (N - a.k0 < a.nk ? N - a.k0 : a.nk);
+  const size_t nb = (size_t)S * S * a.nk, nv = (size_t)S * (a.nk + 2);
+  float* f = smem;
+  a.SL = f; f += nb;
+  a.SD = f; f += nb;
+  a.SU = f; f += nb;
+  float** vecs[] = {&a.lam, &a.w, &a.z, &a.g, &a.r[0], &a.r[1], &a.p[0],
+                    &a.p[1]};
+  for (float** v : vecs) { *v = f; f += nv; }
+  a.red = f; f += 32;
+  a.slots = f; f += 2;
+  a.PL = a.PD = a.PU = nullptr;
+  if (stair) {
+    a.PL = f; f += nb;
+    a.PD = f; f += nb;
+    a.PU = f; f += nb;
+  }
+  a.extra = f;
+  return a;
+}
+
+// Copy the own knots' rows of three (N, 14, 14) bands from global memory
+// (read past L1: the stages before may have written them from other SMs)
+// into L, D, U; ends in a block barrier.
+LD_DEV void cluster_load_bands(const ClusterCg& a, const float* Lg,
+                               const float* Dg, const float* Ug, float* L,
+                               float* D, float* U) {
+  const size_t o = (size_t)S * S * a.k0;
+  for (int e = LD_TID; e < S * S * a.own; e += LD_NTID) {
+    L[e] = load_cg(Lg + o + e);
+    D[e] = load_cg(Dg + o + e);
+    U[e] = load_cg(Ug + o + e);
+  }
+  LD_SYNC();
+}
+
+// Row i of knot k's band row: D x0 + L xm (k > 0) + U xp (k < N - 1), with
+// band_row's order; Lr, Dr, Ur are the row's 14 entries of each block.
+LD_DEV float band_row3(const float* Lr, const float* Dr, const float* Ur,
+                       const float* xm, const float* x0, const float* xp,
+                       int N, int k) {
+  float acc = 0.0f;
+  for (int j = 0; j < S; ++j) acc += Dr[j] * x0[j];
+  if (k > 0)
+    for (int j = 0; j < S; ++j) acc += Lr[j] * xm[j];
+  if (k < N - 1)
+    for (int j = 0; j < S; ++j) acc += Ur[j] * xp[j];
+  return acc;
+}
+
+// Row i of own knot kl's band row of (L, D, U) (the own knots' bands)
+// times the (nk + 2, 14) vector x.
+LD_DEV float band_row_own(const ClusterCg& a, const float* L,
+                          const float* D, const float* U, const float* x,
+                          int kl, int i) {
+  const int o = S * S * kl + S * i;
+  return band_row3(L + o, D + o, U + o, x + S * kl, x + S * (kl + 1),
+                   x + S * (kl + 2), a.N, a.k0 + kl);
+}
+
+// Knot k's row of the (nk + 2, 14) vector v, in whichever block owns k.
+LD_DEV const float* knot_row(const ClusterCg& a, const float* v, int k) {
+  const int q = k / a.nk, j = k - q * a.nk;
+  return (q == a.rank ? v : ld_cluster_map(v, q)) + S * (j + 1);
+}
+
+// The block's sum of v over its threads in a fixed order (warp shuffles,
+// then warp 0), written to *slot; every thread calls it.
+LD_DEV void block_partial(float v, float* red, float* slot) {
+#ifdef __CUDACC__
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float w = lane < nwarps ? red[lane] : 0.0f;
+    for (int off = 16; off > 0; off >>= 1) w += __shfl_down_sync(0xffffffffu, w, off);
+    if (lane == 0) *slot = w;
+  }
+#else
+  (void)red;
+  *slot = v;
+#endif
+}
+
+// The C blocks' values of `slot` summed in rank order: the same bits in
+// every thread of every block.  Call after the cluster barrier that follows
+// the slots' writes.
+LD_DEV float cluster_sum(const ClusterCg& a, const float* slot) {
+#ifdef __CUDACC__
+  const int lane = threadIdx.x & 31;
+  const float mine = lane < a.C ? *ld_cluster_map(slot, lane) : 0.0f;
+  float s = 0.0f;
+  for (int q = 0; q < a.C; ++q) s += __shfl_sync(0xffffffffu, mine, q);
+  return s;
+#else
+  float s = 0.0f;
+  for (int q = 0; q < a.C; ++q) s += *ld_cluster_map(slot, q);
+  return s;
+#endif
+}
+
+// Rows 0 and own + 1 of x copied from the neighbours' edge rows (where those
+// knots exist).
+LD_DEV void fetch_halos(const ClusterCg& a, float* x) {
+  if (a.own == 0) return;
+  for (int e = LD_TID; e < 2 * S; e += LD_NTID) {
+    const bool hi = e >= S;
+    const int k = hi ? a.k0 + a.own : a.k0 - 1, i = e % S;
+    if (k >= 0 && k < a.N) x[S * (hi ? a.own + 1 : 0) + i] = knot_row(a, x, k)[i];
+  }
+}
+
+// Rows 0 and own + 1 of y = s x + b (fmaf, as the owners compute their
+// rows), from the neighbours' rows of x and b.
+LD_DEV void halo_fma(const ClusterCg& a, float* y, float s, const float* x,
+                     const float* b) {
+  if (a.own == 0) return;
+  for (int e = LD_TID; e < 2 * S; e += LD_NTID) {
+    const bool hi = e >= S;
+    const int k = hi ? a.k0 + a.own : a.k0 - 1, i = e % S;
+    if (k >= 0 && k < a.N)
+      y[S * (hi ? a.own + 1 : 0) + i] =
+          fmaf(s, knot_row(a, x, k)[i], knot_row(a, b, k)[i]);
+  }
+}
+
+// The stair preconditioner z = Pinv r over the own knots, from the own
+// knots' stair bands (shared memory, or global memory at knot k0); returns
+// this thread's part of r . z.  Ends in a block barrier.
+struct ClusterStair {
+  const float* PL;
+  const float* PD;
+  const float* PU;
+  LD_DEV float apply(const ClusterCg& a, const float* r, float* z) const {
+    float part = 0.0f;
+    for (int e = LD_TID; e < S * a.own; e += LD_NTID) {
+      const int kl = e / S, i = e % S;
+      const float v = band_row_own(a, PL, PD, PU, r, kl, i);
+      z[S + e] = v;
+      part += r[S + e] * v;
+    }
+    LD_SYNC();
+    return part;
+  }
+};
+
+// The warm-started preconditioned CG (MPCGPU alg. 2, cg_solve's exit) over
+// the cluster, every block calling it alike: S's own bands in a.SL, SD, SU,
+// gamma and lam0 in global memory (lam0 read past L1, whole: the first
+// residual reads the neighbours' rows).  The solution's own rows end in
+// a.lam; returns the iteration count and the final eta.
+template <class Pre>
+LD_DEV int cluster_cg_solve(const ClusterCg& a, const float* gamma,
+                            const float* lam0, const Pre& pre, int max_iter,
+                            float tol, float* eta_out) {
+  const int t = LD_TID, nt = LD_NTID, n = S * a.own;
+  float* const lam = a.lam;
+  float* const w = a.w;
+  float* const z = a.z;
+  // r = gamma - S lam0
+  for (int e = t; e < n; e += nt) {
+    const int kl = e / S, i = e % S, k = a.k0 + kl, o = S * S * kl + S * i;
+    float xm[S], x0[S], xp[S];
+    for (int j = 0; j < S; ++j) {
+      x0[j] = load_cg(lam0 + S * k + j);
+      xm[j] = k > 0 ? load_cg(lam0 + S * (k - 1) + j) : 0.0f;
+      xp[j] = k < a.N - 1 ? load_cg(lam0 + S * (k + 1) + j) : 0.0f;
+    }
+    a.r[0][S + e] = load_cg(gamma + S * k + i)
+                    - band_row3(a.SL + o, a.SD + o, a.SU + o, xm, x0, xp, a.N, k);
+    lam[S + e] = x0[i];
+  }
+  LD_CLUSTER_SYNC();
+  fetch_halos(a, a.r[0]);
+  LD_SYNC();
+  // z = M^-1 r, p = z, eta = r . z
+  float part = pre.apply(a, a.r[0], z);
+  for (int e = t; e < n; e += nt) a.p[0][S + e] = z[S + e];
+  block_partial(part, a.red, a.slots + 1);
+  LD_CLUSTER_SYNC();
+  float eta = cluster_sum(a, a.slots + 1);
+  fetch_halos(a, a.p[0]);
+  LD_SYNC();
+  int it = 0, c = 0;
+  while (it < max_iter && fabsf(eta) > tol) {
+    const float* P = a.p[c];
+    const float* R = a.r[c];
+    float* Pn = a.p[c ^ 1];
+    float* Rn = a.r[c ^ 1];
+    // w = S p, alpha = eta / p . w
+    part = 0.0f;
+    for (int e = t; e < n; e += nt) {
+      const float v = band_row_own(a, a.SL, a.SD, a.SU, P, e / S, e % S);
+      w[S + e] = v;
+      part += P[S + e] * v;
+    }
+    block_partial(part, a.red, a.slots);
+    LD_CLUSTER_SYNC();
+    const float alpha = eta / cluster_sum(a, a.slots);
+    // lam += alpha p, r' = r - alpha w (own rows and halos)
+    for (int e = t; e < n; e += nt) {
+      lam[S + e] = fmaf(alpha, P[S + e], lam[S + e]);
+      Rn[S + e] = fmaf(-alpha, w[S + e], R[S + e]);
+    }
+    halo_fma(a, Rn, -alpha, w, R);
+    LD_SYNC();
+    // z = M^-1 r', eta' = r' . z
+    part = pre.apply(a, Rn, z);
+    block_partial(part, a.red, a.slots + 1);
+    LD_CLUSTER_SYNC();
+    const float eta_new = cluster_sum(a, a.slots + 1);
+    const float beta = eta_new / eta;
+    // p' = z + beta p (own rows and halos)
+    for (int e = t; e < n; e += nt) Pn[S + e] = fmaf(beta, P[S + e], z[S + e]);
+    halo_fma(a, Pn, beta, P, z);
+    LD_SYNC();
+    eta = eta_new;
+    ++it;
+    c ^= 1;
+  }
+  *eta_out = eta;
+  return it;
+}
+
+// The primal step (dz_epilogue's arithmetic in the same order) over the own
+// knots from a.lam, lam_{k+1} of the last one read from the next block;
+// writes lam to lam_out.  The halo read is the last access to another
+// block's shared memory: the block arrives at the cluster barrier right
+// after it and waits at the end, so no block leaves (or reuses its shared
+// memory) while another may still read it, and the dz overlaps the wait.
+LD_DEV void cluster_dz(const ClusterCg& a, const float* A, const float* B,
+                       const float* q, const float* r_in, const float* Qinv,
+                       const float* Rinv, float* lam_out, float* dX,
+                       float* dU) {
+  const int t = LD_TID, nt = LD_NTID, N = a.N, k0 = a.k0;
+  const float* lam = a.lam;
+  if (a.own > 0 && k0 + a.own < N)
+    for (int e = t; e < S; e += nt)
+      a.lam[S * (a.own + 1) + e] = knot_row(a, a.lam, k0 + a.own)[e];
+  LD_CLUSTER_ARRIVE();
+  LD_SYNC();
+  float* const rx = a.w + S;
+  float* const ru = a.g + S;
+  for (int e = t; e < S * a.own; e += nt) {
+    const int kl = e / S, i = e % S, k = k0 + kl;
+    float acc = q[S * k + i] - lam[S + e];
+    if (k < N - 1)
+      for (int m = 0; m < S; ++m)
+        acc += A[S * S * k + S * m + i] * lam[S * (kl + 2) + m];
+    rx[e] = acc;
+    lam_out[S * k + i] = lam[S + e];
+  }
+  for (int e = t; e < NU * a.own; e += nt) {
+    const int kl = e / NU, i = e % NU, k = k0 + kl;
+    if (k >= N - 1) continue;
+    float acc = r_in[NU * k + i];
+    for (int m = 0; m < S; ++m)
+      acc += B[S * NU * k + NU * m + i] * lam[S * (kl + 2) + m];
+    ru[e] = acc;
+  }
+  LD_SYNC();
+  for (int e = t; e < S * a.own; e += nt) {
+    const int kl = e / S, i = e % S, k = k0 + kl;
+    float acc = 0.0f;
+    for (int j = 0; j < S; ++j) acc += Qinv[S * S * k + S * i + j] * rx[S * kl + j];
+    dX[S * k + i] = -acc;
+  }
+  for (int e = t; e < NU * a.own; e += nt) {
+    const int kl = e / NU, i = e % NU, k = k0 + kl;
+    if (k >= N - 1) continue;
+    float acc = 0.0f;
+    for (int j = 0; j < NU; ++j) acc += Rinv[NU * NU * k + NU * i + j] * ru[NU * kl + j];
+    dU[NU * k + i] = -acc;
+  }
+  LD_CLUSTER_WAIT();
 }
 
 }  // namespace pcgc

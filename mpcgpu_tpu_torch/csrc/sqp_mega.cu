@@ -1,7 +1,7 @@
 // K5: the whole SQP solve -- every iteration -- in one cooperative launch;
 // K9p and K9b: ONE SQP iteration per cooperative launch, with the stair-PCG
 // and the refined block cyclic reduction (BCR) dual solve; K5g and K9pg:
-// K5 and K9p with the grid-wide CG, past the one-block fit.
+// K5 and K9p with the grid-wide CG, past the cluster form's fit.
 //
 // Replaces the TPU kernels mpcgpu_tpu/ops/pallas/sqp_megakernel.py
 // sqp_solve_mega_pcg (_solve_kernel_pcg -> _iteration_pcg, _line_search,
@@ -13,8 +13,8 @@
 //      per-knot KKT stage (kkt_schur.cuh);
 //   2. per knot: theta, phi, SU, gamma and PD = theta^-1;
 //   3. per knot: the stair bands PL, PU;
-//   4. block 0 alone: K4's warm-started CG to |eta| <= tol or the cap, and
-//      dz (pcg_common.cuh), while the other blocks wait at the barrier;
+//   4. the dual solve and dz (below), while the other blocks wait at the
+//      barrier;
 //   5. every (candidate, knot) pair: K2's merit contribution (merit.cuh)
 //      for alpha = 1/2^a, a < num_alphas -- the incumbent merit is carried,
 //      so there is no alpha = 0 candidate;
@@ -27,41 +27,56 @@
 // loop of single iterations reads nothing on the host.  K9b skips stage 3
 // and runs stage 4 as bcr_common.cuh's refined BCR solve and dz in block 0,
 // reading S from global memory (L2); it has no warm start and reports 0
-// CG iterations.  One templated body serves the three kernels.
+// CG iterations.  One templated body serves the five kernels.
 //
 // The model is the original's (include/pcg/sqp.cuh:275): one persistent
 // cooperative kernel, stages separated by cooperative_groups grid syncs.
-// One 128-thread block per knot, grid = min(N, co-resident blocks), each
-// block walking knots k = blockIdx.x, k + gridDim.x, ...; the host build
-// launches one block that walks them all.  Every block derives each
-// decision -- the CG exit (block 0 only), the argmin, accept, bail and the
+// 128-thread blocks, each walking knots k = blockIdx.x, k + gridDim.x, ...;
+// the host build launches one block that walks them all.  Every block
+// derives each decision -- the CG exit, the argmin, accept, bail and the
 // loop's end -- from the same data summed in the same order, so all blocks
 // reach the same grid barriers; a block that left the loop early would
 // hang the card.  A bail ends the loop in every block at once, which
 // leaves state and stats as the TPU kernel's masked iterations do.
 //
-// Bound on the H100: latency.  The dual solve is a chain of dependent CG
-// iterations in one block; the other stages are short per-knot chains.
-// The shared memory of block 0's dual solve (S's bands and 4 vectors for
-// the CG; 4 vectors and the inverse scratch for the BCR) is asked of every
-// block, so it bounds N (mpc_mega_max_knots) and the grid (mpc_mega_grid:
-// blocks per SM from the occupancy API times the SM count); the wrapper
-// raises past either.  K9b's block 0 factors and applies the BCR with 128
-// threads (4 warps for the 14x14 inverses) while the other blocks wait at
-// the barrier: the simplest right design, not a fast one.
+// Stage 4 of K5 and K9p is the cluster CG (pcg_common.cuh): the launch is
+// a cluster launch (cudaLaunchKernelEx with a cluster dimension of C = 16
+// where the card schedules it, else 8) that is also cooperative -- the
+// runtime takes both attributes together on the H100 (a probe of
+// cooperative_groups' grid sync inside a cluster launch, CUDA 12.9), so
+// the other stages keep the grid barrier, and the grid is held to
+// cudaOccupancyMaxActiveClusters x C.  The first cluster runs the
+// stair-PCG: each of its blocks loads S's bands of the knots it owns from
+// L2 at the start of stage 4, and the stair's when they go on chip
+// (mega_plan: unless that shrinks the grid the stages run on), solves with
+// the halo rows through DSMEM and the dots summed in rank order (two
+// cluster barriers per CG step), then computes its knots' dz.  Every
+// block asks for that shared memory, so it bounds N (mpc_mega_max_knots,
+// about 670 on the H100) and the grid.
 //
-// K5g and K9pg (the GRID template flag) run stage 4 in EVERY block: the
-// grid-wide stair-PCG of pcg_common.cuh (S, P and the CG vectors in global
-// memory, per-knot dot slots summed alike by every block, four grid
-// barriers per CG step), then dz per owned knot.  Their blocks ask for no
-// N-sized shared memory, so neither N nor the grid is bounded by it: the
-// grid is min(N, co-resident blocks) at the stages' static shared memory,
-// and blocks walk several knots where N exceeds it.  Their sums, as every
-// other stage's, do not depend on the grid, so four K9pg launches equal
-// one K5g launch bit for bit.
+// K5g and K9pg (the grid dual) run stage 4 in EVERY block: the grid-wide
+// stair-PCG of pcg_common.cuh (S, P and the CG vectors in global memory,
+// per-knot dot slots summed alike by every block, four grid barriers per
+// CG step), then dz per owned knot; they serve N past the cluster form's
+// fit.  Their blocks ask for no N-sized shared memory: the grid is
+// min(N, co-resident blocks) at the stages' static shared memory.
+//
+// No sum of any stage depends on the grid (a cluster's CG depends on C
+// alone), so four K9p launches equal one K5 launch bit for bit, as four
+// K9pg launches equal one K5g launch.  K9b's block 0 factors and applies
+// the BCR with 128 threads (4 warps for the 14x14 inverses) while the
+// other blocks wait at the barrier: the simplest right design, not a fast
+// one.
+//
+// Bound on the H100: latency.  The dual solve is a chain of dependent CG
+// iterations; the other stages are short per-knot chains.
 #include "bcr_common.cuh"
 #include "kkt_schur.cuh"
 #include "merit.cuh"
+
+#ifdef __CUDACC__
+#include <map>
+#endif
 
 namespace {
 
@@ -85,7 +100,8 @@ struct MegaParams {
   float *gamma, *q, *tvec, *Qiq, *fpred, *dX, *r, *dU, *contrib;
   float* fac;  // K9b: the BCR factors
   float* cg;   // K5g, K9pg: the grid CG's vectors and slots
-  int* cg_it;
+  int stair_on_chip;  // K5, K9p: the stair bands in the cluster's shared memory
+  int* cg_it;   // the CG iterations, then (K5, K9p) the cluster size read
   bool* cg_hit;
 };
 
@@ -96,15 +112,19 @@ enum Kind {
 };
 
 bool grid_cg(int kind) { return kind == SOLVE_PCG_GRID || kind == ITER_PCG_GRID; }
+bool cluster_cg(int kind) { return kind == SOLVE_PCG || kind == ITER_PCG; }
 
 // The grid kinds hold nothing N-sized in shared memory; this bound keeps
 // the 32-bit offsets of their global scratch (about 2,200 floats a knot)
 // far from overflow.
 constexpr int GRID_MAX_KNOTS = 1 << 16;
 
-size_t mega_smem_floats(int N, int kind) {
+// Dynamic shared floats of every block: the cluster CG's at cluster size C
+// (K5, K9p), K9b's BCR vectors, none for the grid kinds.
+size_t mega_smem_floats(int N, int kind, int C, bool stair_on_chip) {
   if (grid_cg(kind)) return 0;
-  return kind == ITER_BCR ? bcr::dz_vec_floats(N) : pcgc::cg_smem_floats(N, 4);
+  if (cluster_cg(kind)) return pcgc::cluster_cg_floats(N, C, stair_on_chip, 0);
+  return bcr::dz_vec_floats(N);
 }
 
 size_t mega_scratch_floats(int N, int num_alphas, int kind) {
@@ -130,8 +150,13 @@ enum { RHO, DRHO, MERIT, STEP, N_SCAL };
 #define MEGA_INLINE inline
 #endif
 
-template <bool BCR, bool GRID>
+// The dual solve of stage 4: K9b's BCR in block 0, the cluster stair-PCG
+// (K5, K9p) or the grid stair-PCG (K5g, K9pg).
+enum Dual { DUAL_BCR, DUAL_CLUSTER, DUAL_GRID };
+
+template <int DUAL>
 MEGA_INLINE void mega_body(const MegaParams& p) {
+  constexpr bool BCR = DUAL == DUAL_BCR;
   LD_SHARED float tab[ld::TAB_SIZE];
   LD_SHARED float merits[MAX_ALPHAS];
   LD_SHARED float st[N_SCAL];
@@ -184,10 +209,31 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
         k3::stair(k, N, p.SL, p.SU, p.PD, 1, p.PL, p.PU);
       LD_GRID_SYNC();
     }
-    // 4. the dual solve and dz: the warm-started CG over the whole grid
-    // (K5g, K9pg); or in block 0, the warm-started CG or the refined BCR
-    // (0 CG iterations, no hit)
-    if constexpr (GRID) {
+    // 4. the dual solve and dz: the warm-started stair-PCG across the
+    // first cluster (K5, K9p) or the whole grid (K5g, K9pg); or the refined
+    // BCR in block 0 (0 CG iterations, no hit)
+    if constexpr (DUAL == DUAL_CLUSTER) {
+      if (bid < ld_cluster_size()) {
+        const pcgc::ClusterCg a = pcgc::cluster_area(smem, N, p.stair_on_chip);
+        pcgc::cluster_load_bands(a, p.SL, p.SD, p.SU, a.SL, a.SD, a.SU);
+        const size_t o = (size_t)SS * a.k0;
+        pcgc::ClusterStair pre{p.PL + o, p.PD + o, p.PU + o};
+        if (p.stair_on_chip) {
+          pcgc::cluster_load_bands(a, p.PL, p.PD, p.PU, a.PL, a.PD, a.PU);
+          pre = pcgc::ClusterStair{a.PL, a.PD, a.PU};
+        }
+        float eta;
+        const int its = pcgc::cluster_cg_solve(a, p.gamma, p.lam, pre,
+                                               p.max_iter, p.tol, &eta);
+        pcgc::cluster_dz(a, p.A, p.B, p.q, p.r, p.Qinv, p.Rinv, p.lam, p.dX,
+                         p.dU);
+        if (a.rank == 0 && t == 0) {
+          p.cg_it[0] = its;
+          p.cg_it[2] = a.C;
+          p.cg_hit[0] = fabsf(eta) > p.tol;
+        }
+      }
+    } else if constexpr (DUAL == DUAL_GRID) {
       float eta;
       const int its = pcgc::grid_cg_solve(
           N, p.SL, p.SD, p.SU, p.PL, p.PD, p.PU, p.gamma, p.lam, p.lam,
@@ -199,18 +245,11 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
         p.cg_hit[0] = fabsf(eta) > p.tol;
       }
     } else if (bid == 0) {
-      if constexpr (BCR) {
-        bcr::bcr_dz_body(N, p.SL, p.SD, p.SU, p.gamma, p.A, p.B, p.q, p.r,
-                         p.Qinv, p.Rinv, p.fac, smem, p.lam, p.dX, p.dU);
-        if (t == 0) {
-          p.cg_it[0] = 0;
-          p.cg_hit[0] = false;
-        }
-      } else {
-        pcgc::pcg_dz_body(smem, N, p.SL, p.SD, p.SU, p.PL, p.PD, p.PU,
-                          p.gamma, p.lam, p.A, p.B, p.q, p.r, p.Qinv, p.Rinv,
-                          p.max_iter, p.tol, p.lam, p.dX, p.dU, p.cg_it,
-                          p.cg_hit);
+      bcr::bcr_dz_body(N, p.SL, p.SD, p.SU, p.gamma, p.A, p.B, p.q, p.r,
+                       p.Qinv, p.Rinv, p.fac, smem, p.lam, p.dX, p.dU);
+      if (t == 0) {
+        p.cg_it[0] = 0;
+        p.cg_hit[0] = false;
       }
     }
     LD_GRID_SYNC();
@@ -283,16 +322,18 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
   }
 }
 
-LD_GLOBAL void sqp_mega_kernel(MegaParams p) { mega_body<false, false>(p); }
+LD_GLOBAL void sqp_mega_kernel(MegaParams p) { mega_body<DUAL_CLUSTER>(p); }
 LD_GLOBAL void sqp_iter_mega_pcg_kernel(MegaParams p) {
-  mega_body<false, false>(p);
+  mega_body<DUAL_CLUSTER>(p);
 }
 LD_GLOBAL void sqp_iter_mega_bcr_kernel(MegaParams p) {
-  mega_body<true, false>(p);
+  mega_body<DUAL_BCR>(p);
 }
-LD_GLOBAL void sqp_mega_grid_kernel(MegaParams p) { mega_body<false, true>(p); }
+LD_GLOBAL void sqp_mega_grid_kernel(MegaParams p) {
+  mega_body<DUAL_GRID>(p);
+}
 LD_GLOBAL void sqp_iter_mega_pcg_grid_kernel(MegaParams p) {
-  mega_body<false, true>(p);
+  mega_body<DUAL_GRID>(p);
 }
 
 using MegaKernel = void (*)(MegaParams);
@@ -315,7 +356,89 @@ long long mega_static_smem(int kind) {
     return -1;
   return (long long)attr.sharedSizeBytes;
 }
+
+// Co-resident clusters of C blocks of kernel `kind` with `smem` dynamic
+// shared bytes each (0 if none, or if the query is refused).
+int active_clusters(int kind, int C, size_t smem) {
+  const void* fn = (const void*)kernel_of(kind);
+  int n = 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1) != cudaSuccess ||
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess)
+    n = 0;
+  cudaGetLastError();  // a refused query leaves no error behind
+  return n;
+}
 #endif
+
+// The launch of a cluster kind (K5, K9p) over N knots: the cluster size C
+// (C_req where it is 8 or 16; else 16 where a cluster of 16 blocks holding
+// S's and the stair's bands on chip is co-resident, else 8; 0 past the
+// fit), where the stair bands go (stair_req 1 on chip, 0 in L2, -1 on chip
+// unless that gives a smaller grid than L2 does) and the grid,
+// C x min(co-resident clusters, ceil(N / C)).  The host build runs the cluster as one block: C = 1 where
+// the card's arithmetic at 227 KB fits C = 16, the grid 1.
+struct MegaPlan {
+  int C = 0, stair = 0, grid = 0;
+};
+
+MegaPlan mega_plan(int N, int kind, int C_req, int stair_req) {
+  MegaPlan pl;
+  if (!cluster_cg(kind) || N < 2 || N > GRID_MAX_KNOTS ||
+      (C_req != 0 && C_req != 8 && C_req != 16))
+    return pl;
+#ifdef __CUDACC__
+  static std::map<long long, MegaPlan> known;
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return pl;
+  const long long key =
+      ((((long long)dev * 8 + kind) * 32 + C_req) * 4 + (stair_req + 1))
+          * (GRID_MAX_KNOTS + 1) + N;
+  const auto hit = known.find(key);
+  if (hit != known.end()) return hit->second;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return pl;
+  const long long stat = mega_static_smem(kind);
+  for (int C : {16, 8}) {
+    if (C_req > 0 && C != C_req) continue;
+    const size_t on = mega_smem_floats(N, kind, C, true) * sizeof(float);
+    const size_t off = mega_smem_floats(N, kind, C, false) * sizeof(float);
+    if (stat < 0 || (long long)on + stat > optin) continue;
+    const int n_on = active_clusters(kind, C, on);
+    if (n_on < 1) continue;
+    const int want = (N + C - 1) / C;
+    const int g_on = C * (n_on < want ? n_on : want);
+    const int n_off = active_clusters(kind, C, off);
+    const int g_off = C * (n_off < want ? n_off : want);
+    pl.C = C;
+    pl.stair = stair_req >= 0 ? stair_req : g_on >= g_off;
+    pl.grid = pl.stair ? g_on : g_off;
+    break;
+  }
+  known[key] = pl;
+#else
+  if (mega_smem_floats(N, kind, 16, true) * sizeof(float) <= 232448) {
+    pl.C = 1;
+    pl.stair = stair_req != 0;
+    pl.grid = 1;
+  }
+#endif
+  return pl;
+}
 
 int check_kind(int kind) { return kind >= SOLVE_PCG && kind <= ITER_PCG_GRID; }
 
@@ -355,6 +478,7 @@ MegaParams make_params(
   p.fac = kind == ITER_BCR ? f : nullptr;
   if (kind == ITER_BCR) f += bcr::factor_floats(N);
   p.cg = grid_cg(kind) ? f : nullptr;
+  p.stair_on_chip = 0;
   p.cg_it = iscratch;
   p.cg_hit = reinterpret_cast<bool*>(iscratch + 1);
   return p;
@@ -362,14 +486,25 @@ MegaParams make_params(
 
 }  // namespace
 
-// Largest horizon for which every block's shared memory (block 0's dual
-// solve plus the stages' static arrays) fits kernel `kind` (0 K5, 1 K9p,
-// 2 K9b) on this device; 0 if the attributes cannot be read.  The grid
-// kinds (3 K5g, 4 K9pg) answer GRID_MAX_KNOTS.
+// Largest horizon kernel `kind` serves on this device: for K5 and K9p
+// (kinds 0, 1) the largest N whose cluster form fits (mega_plan: a cluster
+// of 16 or 8 blocks, each holding its knots' S and stair bands, the CG
+// vectors and the stages' static arrays); for K9b (2) the largest N whose
+// block-0 BCR vectors fit every block; 0 if the attributes cannot be read.
+// The grid kinds (3 K5g, 4 K9pg) answer GRID_MAX_KNOTS.
 extern "C" int mpc_mega_max_knots(int kind) {
   if (!check_kind(kind)) return 0;
   if (grid_cg(kind)) return GRID_MAX_KNOTS;
-  auto floats = [kind](int n) { return mega_smem_floats(n, kind); };
+  if (cluster_cg(kind)) {
+    // the fit is monotone in N: bisect for the last N with a cluster
+    int lo = 1, hi = GRID_MAX_KNOTS + 1;
+    while (hi - lo > 1) {
+      const int mid = lo + (hi - lo) / 2;
+      (mega_plan(mid, kind, 0, 1).C > 0 ? lo : hi) = mid;
+    }
+    return lo < 2 ? 0 : lo;
+  }
+  auto floats = [kind](int n) { return mega_smem_floats(n, kind, 1, false); };
 #ifdef __CUDACC__
   const long long stat = mega_static_smem(kind);
   if (stat < 0) return 0;
@@ -379,13 +514,29 @@ extern "C" int mpc_mega_max_knots(int kind) {
 #endif
 }
 
-// The grid a launch of kernel `kind` over N knots uses: min(N, blocks that
-// can be resident at once), from the occupancy API at the kernel's block
-// size and shared memory (the counterpart of the reference's
-// checkPcgOccupancy); 0 if not one block fits or the device has no
-// cooperative launch.
+// The cluster launch of K5 or K9p (kind 0, 1) over N knots at the cluster
+// size `cluster` asks (8, 16; 0 the plan's choice) with the stair bands as
+// `stair` asks (1 on chip, 0 in L2, -1 the plan's choice): writes the
+// cluster size, where the stair bands go (1 on chip) and the grid to
+// out[0..2]; returns 0 where no such cluster fits, else 1.
+extern "C" int mpc_mega_cluster_plan(int N, int kind, int cluster, int stair,
+                                     int* out) {
+  const MegaPlan pl = mega_plan(N, kind, cluster, stair);
+  out[0] = pl.C;
+  out[1] = pl.stair;
+  out[2] = pl.grid;
+  return pl.C > 0;
+}
+
+// The grid a launch of kernel `kind` over N knots uses.  K5, K9p: the
+// cluster plan's (stair bands placed by the plan).  K5g, K9pg, K9b:
+// min(N, blocks that can be resident at once), from the occupancy API at
+// the kernel's block size and shared memory (the counterpart of the
+// reference's checkPcgOccupancy).  0 if not one block (cluster) fits or
+// the device has no cooperative launch.
 extern "C" int mpc_mega_grid(int N, int kind) {
   if (!check_kind(kind)) return 0;
+  if (cluster_cg(kind)) return mega_plan(N, kind, 0, -1).grid;
 #ifdef __CUDACC__
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
@@ -393,7 +544,7 @@ extern "C" int mpc_mega_grid(int N, int kind) {
     return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 0;
-  const size_t smem = mega_smem_floats(N, kind) * sizeof(float);
+  const size_t smem = mega_smem_floats(N, kind, 1, false) * sizeof(float);
   const void* fn = (const void*)kernel_of(kind);
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess)
@@ -417,25 +568,62 @@ extern "C" long long mpc_sqp_mega_scratch_floats(int N, int num_alphas,
 
 namespace {
 
-int launch(const MegaParams& p, int kind, int grid, void* stream) {
+// One launch of kernel `kind` on `grid` blocks; cluster and stair (K5,
+// K9p) as mpc_mega_cluster_plan's.  Returns the launch's error: a grid past
+// co-residency, a horizon past the cluster form's fit or a launch the
+// runtime refuses is never made.
+int launch(const MegaParams& p, int kind, int grid, int cluster, int stair,
+           void* stream) {
   if (p.num_alphas < 1 || p.num_alphas > MAX_ALPHAS || p.N < 2 || grid < 1)
     return 1;  // cudaErrorInvalidValue
-  const size_t smem = mega_smem_floats(p.N, kind) * sizeof(float);
-#ifdef __CUDACC__
-  // the wrapper takes `grid` from mpc_mega_grid, which also sets the
-  // kernel's dynamic shared memory limit; never launch past co-residency
-  if (grid > mpc_mega_grid(p.N, kind))
-    return (int)cudaErrorCooperativeLaunchTooLarge;
   MegaParams arg = p;
-  void* args[] = {&arg};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)kernel_of(kind), dim3(grid), dim3(THREADS), args, smem,
-      (cudaStream_t)stream);
+  int C = 1;
+  if (cluster_cg(kind)) {
+    const MegaPlan pl = mega_plan(p.N, kind, cluster, stair);
+    if (pl.C < 1) return 1;  // past the fit
+    if (grid > pl.grid || grid % pl.C) return 720;  // cudaErrorCooperativeLaunchTooLarge
+    C = pl.C;
+    arg.stair_on_chip = pl.stair;
+  }
+  const size_t smem =
+      mega_smem_floats(p.N, kind, C, arg.stair_on_chip != 0) * sizeof(float);
+#ifdef __CUDACC__
+  const void* fn = (const void*)kernel_of(kind);
+  cudaError_t err;
+  if (cluster_cg(kind)) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute at[2];
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = C;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    at[1].id = cudaLaunchAttributeCooperative;
+    at[1].val.cooperative = 1;
+    cfg.attrs = at;
+    cfg.numAttrs = 2;
+    err = cudaLaunchKernelEx(&cfg, kernel_of(kind), arg);
+  } else {
+    // mpc_mega_grid also sets the kernel's dynamic shared memory limit;
+    // never launch past co-residency
+    if (grid > mpc_mega_grid(p.N, kind))
+      return (int)cudaErrorCooperativeLaunchTooLarge;
+    void* args[] = {&arg};
+    err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(THREADS), args,
+                                      smem, (cudaStream_t)stream);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 #else
+  (void)C;
   const MegaKernel kern = kernel_of(kind);
-  LD_LAUNCH(kern, 1, THREADS, smem, stream, p);
+  LD_LAUNCH(kern, 1, THREADS, smem, stream, arg);
   return 0;
 #endif
 }
@@ -443,7 +631,8 @@ int launch(const MegaParams& p, int kind, int grid, void* stream) {
 }  // namespace
 
 // K5 (kind 0) or K5g (kind 3): n_sqp iterations from drho0 = drho0 (a host
-// number).
+// number).  iscratch holds 3 ints (K5 leaves the cluster size it read in
+// the third); cluster and stair as mpc_mega_cluster_plan's (K5 only).
 extern "C" int mpc_sqp_mega(
     const float* tab, int N, const float* X0, const float* U0,
     const float* goals, int gstride, const float* xs, const float* lam0,
@@ -452,14 +641,14 @@ extern "C" int mpc_sqp_mega(
     float mu, int num_alphas, float rho_factor, float rho_min, float rho_max,
     float rho_reset, float* X, float* U, float* lam, float* scal, int* ints,
     int* stats, float* scratch, int* iscratch, int kind, int grid,
-    void* stream) {
+    int cluster, int stair, void* stream) {
   if (kind != SOLVE_PCG && kind != SOLVE_PCG_GRID) return 1;
   const MegaParams p = make_params(
       tab, N, X0, U0, goals, gstride, xs, lam0, rho0, merit0, nullptr, drho0,
       max_iter, tol, n_sqp, dt, qd_cost, r_cost, grav, mu, num_alphas,
       rho_factor, rho_min, rho_max, rho_reset, X, U, lam, scal, ints, stats,
       scratch, iscratch, kind);
-  return launch(p, kind, grid, stream);
+  return launch(p, kind, grid, cluster, stair, stream);
 }
 
 // K9p (kind 1) or K9pg (kind 4): one iteration, rho, drho and the
@@ -474,14 +663,14 @@ extern "C" int mpc_sqp_iter_mega_pcg(
     int num_alphas, float rho_factor, float rho_min, float rho_max,
     float rho_reset, float* X, float* U, float* lam, float* scal, int* ints,
     int* stats, float* scratch, int* iscratch, int kind, int grid,
-    void* stream) {
+    int cluster, int stair, void* stream) {
   if (kind != ITER_PCG && kind != ITER_PCG_GRID) return 1;
   const MegaParams p = make_params(
       tab, N, X0, U0, goals, gstride, xs, lam0, rho0, merit0, drho0, 1.0f,
       max_iter, tol, 1, dt, qd_cost, r_cost, grav, mu, num_alphas,
       rho_factor, rho_min, rho_max, rho_reset, X, U, lam, scal, ints, stats,
       scratch, iscratch, kind);
-  return launch(p, kind, grid, stream);
+  return launch(p, kind, grid, cluster, stair, stream);
 }
 
 // K9b: one iteration with the refined BCR dual solve (power-of-2 N); no
@@ -500,5 +689,5 @@ extern "C" int mpc_sqp_iter_mega(
       0, 0.0f, 1, dt, qd_cost, r_cost, grav, mu, num_alphas, rho_factor,
       rho_min, rho_max, rho_reset, X, U, lam, scal, ints, stats, scratch,
       iscratch, ITER_BCR);
-  return launch(p, ITER_BCR, grid, stream);
+  return launch(p, ITER_BCR, grid, 0, -1, stream);
 }

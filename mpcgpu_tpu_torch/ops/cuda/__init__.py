@@ -9,11 +9,11 @@ from __future__ import annotations
 
 def kernel_wrappers() -> dict:
     """{kernel id: wrapper} for K1-K7, K7s, K9p, K9b, K10, the grid-CG
-    forms K4g, K4bg, K5g and K9pg, K6l (K6 with S in global memory) and
-    K11 (the horizon-sharded CG's per-shard SpMV).  K3 also serves the
-    horizons of the TPU's tiled K8 (kkt_schur_kernel.py)."""
+    forms K4g, K4bg, K5g and K9pg, and K11 (the horizon-sharded CG's
+    per-shard SpMV).  K3 also serves the horizons of the TPU's tiled K8
+    (kkt_schur_kernel.py); the cluster K6 serves every horizon up to its
+    fit, those of the former K6l (K6 with S read from L2) among them."""
     from mpcgpu_tpu_torch.ops.cuda.bcr_kernel import (bcr_dz, bcr_pcg_dz,
-                                                      bcr_pcg_dz_l2,
                                                       bcr_solve)
     from mpcgpu_tpu_torch.ops.cuda.kkt_schur_kernel import form_kkt_schur
     from mpcgpu_tpu_torch.ops.cuda.merit_kernel import line_search_merits
@@ -33,8 +33,7 @@ def kernel_wrappers() -> dict:
             "K7s": bcr_solve, "K9p": sqp_iter_mega_pcg, "K9b": sqp_iter_mega,
             "K10": sqp_solve_mega_pcg_packed, "K4g": pcg_dz_grid,
             "K4bg": pcg_solve_grid, "K5g": sqp_solve_mega_pcg_grid,
-            "K9pg": sqp_iter_mega_pcg_grid, "K6l": bcr_pcg_dz_l2,
-            "K11": spmv_halo}
+            "K9pg": sqp_iter_mega_pcg_grid, "K11": spmv_halo}
 
 
 def reset_launch_counts() -> None:

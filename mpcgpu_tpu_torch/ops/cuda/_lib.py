@@ -52,10 +52,12 @@ _SIGNATURES = {
     "mpc_pcg_grid_scratch_floats": [_I],
     "mpc_pcg_grid_solve": [_I, _I] + [_P] * 14 + [_I, _F] + [_P] * 6
                           + [_I, _P],
-    "mpc_bcr_pcg_dz": [_I] + [_P] * 11 + [_I, _F] + [_P] * 7,
-    "mpc_bcr_pcg_dz_l2": [_I] + [_P] * 11 + [_I, _F] + [_P] * 7,
+    "mpc_bcr_pcg_dz": [_I] + [_P] * 11 + [_I, _F] + [_P] * 6 + [_I, _P],
+    "mpc_bcr_cluster": [_I, _I],
     "mpc_bcr_max_knots": [],
-    "mpc_bcr_l2_max_knots": [],
+    "mpc_bcr_cluster_factor_host": [_I, _I] + [_P] * 4,
+    "mpc_bcr_cluster_apply_host": [_I, _I] + [_P] * 3,
+    "mpc_cluster_dot_host": [_I, _I] + [_P] * 3,
     "mpc_bcr_scratch_floats": [_I],
     "mpc_bcr_dz": [_I] + [_P] * 15,
     "mpc_bcr_dz_max_knots": [],
@@ -63,14 +65,15 @@ _SIGNATURES = {
     "mpc_bcr_solve_max_knots": [],
     "mpc_sqp_mega": [_P, _I, _P, _P, _P, _I] + [_P] * 4
                     + [_F, _I, _F, _I] + [_F] * 5 + [_I] + [_F] * 4
-                    + [_P] * 8 + [_I, _I, _P],
+                    + [_P] * 8 + [_I] * 4 + [_P],
     "mpc_sqp_iter_mega_pcg": [_P, _I, _P, _P, _P, _I] + [_P] * 5
                              + [_I] + [_F] * 6 + [_I] + [_F] * 4
-                             + [_P] * 8 + [_I, _I, _P],
+                             + [_P] * 8 + [_I] * 4 + [_P],
     "mpc_sqp_iter_mega": [_P, _I, _P, _P, _P, _I] + [_P] * 4 + [_F] * 5
                          + [_I] + [_F] * 4 + [_P] * 8 + [_I, _P],
     "mpc_mega_max_knots": [_I],
     "mpc_mega_grid": [_I, _I],
+    "mpc_mega_cluster_plan": [_I] * 4 + [_P],
     "mpc_sqp_mega_scratch_floats": [_I, _I, _I],
     "mpc_sqp_mega_packed": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                             _I, _F, _I] + [_F] * 5 + [_I] + [_F] * 4
@@ -84,6 +87,10 @@ _RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
              "mpc_pcg_grid_scratch_floats": ctypes.c_longlong,
              "mpc_sqp_mega_scratch_floats": ctypes.c_longlong,
              "mpc_sqp_mega_packed_scratch_floats": ctypes.c_longlong}
+
+# entries of the host build alone (test hooks that run no device code)
+_HOST_ONLY = {"mpc_bcr_cluster_factor_host", "mpc_bcr_cluster_apply_host",
+              "mpc_cluster_dot_host"}
 
 _libs: dict = {}
 
@@ -127,6 +134,8 @@ def _compile(cmd, out: Path) -> str:
 def _bind(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
+        if name in _HOST_ONLY and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _RESTYPES.get(name, ctypes.c_int)

@@ -1,8 +1,8 @@
 """Block cyclic reduction kernels (csrc/bcr_pcg_dz.cu, csrc/bcr_dz.cu):
 
 * K6 ``bcr_pcg_dz``: warm-started CG preconditioned by an exact BCR
-  solve, then the primal step (bcr_pcg_dz_pallas_lanes); K6l
-  ``bcr_pcg_dz_l2``: the same kernel with S read from global memory;
+  solve, then the primal step (bcr_pcg_dz_pallas_lanes), across one
+  thread-block cluster;
 * K7 ``bcr_dz``: the exact BCR solve with one refinement pass, then the
   primal step -- the fused "bcr" backend (bcr_dz_pallas_lanes);
 * K7s ``bcr_solve``: one unrefined BCR solve (bcr_solve_pallas_lanes).
@@ -14,19 +14,19 @@ preconditioner (K3 with ``precond=False``); the kernels read S, gamma and
 the dz blocks only.  Each factors the cyclic reduction once per launch
 (csrc/bcr_common.cuh).
 
-K6 and K7 keep S in one block's shared memory, so they serve power-of-2
-N up to the largest that fits (``check_bcr_fit``, ``check_bcr_dz_fit``);
-K6l and K7s read S from global memory and serve longer horizons
-(``check_bcr_l2_fit``, ``check_bcr_solve_fit``).  ``bcr_pcg_dz`` launches
-K6 where it fits and K6l past it, as the TPU runs the whole solve in one
-kernel up to N = 256.  Above K7's fit, above K6l's, or when ``split=True``
-forces it, they take the split path of the JAX package
-(bcr_kernel.py:234-264,308-317): K7 becomes K7s, the residual as tensor
-glue, K7s again, then the primal step; K6 becomes the CG as tensor glue
-(``ops.btsolve.bcr_pcg``: a fixed max_iter steps, those after the exit
-masked) with K7s as each preconditioner apply.  On the TPU that split
+K6 is one cluster of 16 (else 8) blocks whose shared memory holds S's
+bands, so it serves power-of-2 N up to the largest that fits
+(``check_bcr_fit``: 1024 on the H100); K7 keeps S in one block's shared
+memory (``check_bcr_dz_fit``); K7s reads S from global memory and serves
+longer horizons (``check_bcr_solve_fit``).  Above K7's fit, above K6's,
+or when ``split=True`` forces it, they take the split path of the JAX
+package (bcr_kernel.py:234-264,308-317): K7 becomes K7s, the residual as
+tensor glue, K7s again, then the primal step; K6 becomes the CG as tensor
+glue (``ops.btsolve.bcr_pcg``: a fixed max_iter steps, those after the
+exit masked) with K7s as each preconditioner apply.  On the TPU that split
 works around VMEM; here it serves the refined solve past N = 64 and the
-BCR-PCG past K6l's fit (N = 512 on the H100).
+BCR-PCG past K6's fit.  ``bcr_pcg_dz.cluster_size`` holds, after each K6
+launch, the cluster size the kernel read (a device int32).
 """
 from __future__ import annotations
 
@@ -68,19 +68,11 @@ def _check_fit(n: int, n_max: int, what: str) -> int:
 
 def check_bcr_fit(knot_points: int, lib=None) -> int:
     """Raise unless N is a power of 2 whose S bands, CG vectors and
-    inverse scratch fit one block's shared memory on the current device
-    (K6); return the largest N that fits."""
+    inverse scratch fit the shared memory of one cluster of 16 (else 8)
+    blocks on the current device (K6); return the largest N that fits."""
     return _check_fit(knot_points, (lib or _lib.library()).mpc_bcr_max_knots(),
-                      "the one-block BCR-PCG kernel holds S in shared memory "
-                      "and")
-
-
-def check_bcr_l2_fit(knot_points: int, lib=None) -> int:
-    """The same for K6l (the CG vectors and the inverse scratch; S stays in
-    global memory)."""
-    return _check_fit(knot_points,
-                      (lib or _lib.library()).mpc_bcr_l2_max_knots(),
-                      "the one-block BCR-PCG kernel with S in global memory")
+                      "the cluster BCR-PCG kernel holds S in one cluster's "
+                      "shared memory and")
 
 
 def check_bcr_dz_fit(knot_points: int, lib=None) -> int:
@@ -116,7 +108,8 @@ def bcr_solve_reference(SL, SD, SU, gamma):
     return _plain_bcr(BlockTri(SL, SD, SU), gamma, refine=0)
 
 
-def _launch_solve(lib, SL, SD, SU, gamma, stream):
+def _launch_solve(lib, SL, SD, SU, gamma, stream, scratch=None):
+    """One K7s launch; its factors go to scratch when given (as K6's)."""
     dev = gamma.device
     nx = 2 * _lib.NJ
     if gamma.dim() != 2 or gamma.shape[1] != nx:
@@ -127,7 +120,9 @@ def _launch_solve(lib, SL, SD, SU, gamma, stream):
     _lib.expect(gamma, "gamma", (n, nx), dev)
     check_bcr_solve_fit(n, lib)
     f32 = dict(dtype=torch.float32, device=dev)
-    scratch = torch.empty(lib.mpc_bcr_scratch_floats(n), **f32)
+    if scratch is None:
+        scratch = torch.empty(lib.mpc_bcr_scratch_floats(n), **f32)
+    _lib.expect(scratch, "scratch", (lib.mpc_bcr_scratch_floats(n),), dev)
     lam = torch.empty((n, nx), **f32)
     rc = lib.mpc_bcr_solve(n, SL.data_ptr(), SD.data_ptr(), SU.data_ptr(),
                            gamma.data_ptr(), scratch.data_ptr(),
@@ -227,47 +222,40 @@ def bcr_pcg_dz_split(ks: KnotSchur, lam0, max_iter: int, exit_tol, solve):
 
 
 def _launch(lib, ks: KnotSchur, lam0, max_iter: int, exit_tol, stream,
-            l2: bool = False):
-    """One K6 launch, or K6l's (l2)."""
+            scratch=None, cluster: int = 0):
+    """One K6 launch; its factors go to scratch (mpc_bcr_scratch_floats(N)
+    floats) when given, else to a scratch of its own; cluster asks for a
+    cluster size (8 or 16; 0 the kernel's choice, mpc_bcr_cluster)."""
     dev = ks.gamma.device
     nx, nu = 2 * _lib.NJ, _lib.NJ
     n = expect_system(ks, lam0, _FIELDS, dev)
-    (check_bcr_l2_fit if l2 else check_bcr_fit)(n, lib)
+    check_bcr_fit(n, lib)
     f32 = dict(dtype=torch.float32, device=dev)
-    scratch = torch.empty(lib.mpc_bcr_scratch_floats(n), **f32)
+    if scratch is None:
+        scratch = torch.empty(lib.mpc_bcr_scratch_floats(n), **f32)
+    _lib.expect(scratch, "scratch", (lib.mpc_bcr_scratch_floats(n),), dev)
     lam = torch.empty((n, nx), **f32)
     dX = torch.empty((n, nx), **f32)
     dU = torch.empty((n - 1, nu), **f32)
-    iters = torch.empty((), dtype=torch.int32, device=dev)
+    ints = torch.empty(2, dtype=torch.int32, device=dev)
     hit = torch.empty((), dtype=torch.bool, device=dev)
-    entry = "mpc_bcr_pcg_dz_l2" if l2 else "mpc_bcr_pcg_dz"
-    rc = getattr(lib, entry)(
+    rc = lib.mpc_bcr_pcg_dz(
         n, *(getattr(ks, f).data_ptr() for f in ("SL", "SD", "SU", "gamma")),
         lam0.data_ptr(), *(getattr(ks, f).data_ptr() for f in _DZ_FIELDS),
         int(max_iter), float(exit_tol), scratch.data_ptr(), lam.data_ptr(),
-        dX.data_ptr(), dU.data_ptr(), iters.data_ptr(), hit.data_ptr(),
-        stream)
-    _lib.check(rc, entry)
-    return lam, dX, dU, iters, hit
-
-
-def _bcr_pcg_dz_l2_on(lib, ks, lam0, max_iter, exit_tol, stream):
-    out = _launch(lib, ks, lam0, max_iter, exit_tol, stream, l2=True)
-    bcr_pcg_dz_l2.launches += 1
-    return out
+        dX.data_ptr(), dU.data_ptr(), ints.data_ptr(), hit.data_ptr(),
+        int(cluster), stream)
+    _lib.check(rc, "mpc_bcr_pcg_dz")
+    bcr_pcg_dz.cluster_size = ints[1]
+    return lam, dX, dU, ints[0], hit
 
 
 def _bcr_pcg_dz_on(lib, ks, lam0, max_iter, exit_tol, split, stream):
-    """K6 where it fits, K6l past it, the split path past K6l's fit (or as
-    split forces), through library lib."""
+    """K6 where it fits, the split path past its fit (or as split forces),
+    through library lib."""
     n = ks.gamma.shape[0]
     _check_pow2(n)
-    if split is None and n > lib.mpc_bcr_max_knots():
-        if n <= lib.mpc_bcr_l2_max_knots():
-            return _bcr_pcg_dz_l2_on(lib, ks, lam0, max_iter, exit_tol,
-                                     stream)
-        split = True
-    if split:
+    if _split(n, split, lib.mpc_bcr_max_knots):
         return bcr_pcg_dz_split(ks, lam0, max_iter, exit_tol, _solver_of(ks))
     out = _launch(lib, ks, lam0, max_iter, exit_tol, stream)
     bcr_pcg_dz.launches += 1
@@ -278,8 +266,8 @@ def bcr_pcg_dz(ks: KnotSchur, lam0, max_iter: int, exit_tol, split=None):
     """Solve S lam = gamma warm-started at lam0 (N, nx) with the BCR
     preconditioner; return (lam (N, nx), dX (N, nx), dU (N-1, nu),
     iters int32, hit_max bool).  max_iter and exit_tol are host numbers.
-    split: None launches K6 where it fits, K6l past it and takes the split
-    path above K6l's fit; True forces the split path, False K6."""
+    split: None launches K6 where it fits and takes the split path above
+    its fit; True forces the split path, False K6."""
     if lam0.device.type == "cpu":
         return bcr_pcg_dz_reference(ks, lam0, max_iter, exit_tol)
     _cuda_device(lam0)
@@ -288,16 +276,4 @@ def bcr_pcg_dz(ks: KnotSchur, lam0, max_iter: int, exit_tol, split=None):
 
 
 bcr_pcg_dz.launches = 0
-
-
-def bcr_pcg_dz_l2(ks: KnotSchur, lam0, max_iter: int, exit_tol):
-    """K6l: bcr_pcg_dz's solve and dz in one block with S read from global
-    memory, at any power-of-2 N up to its fit."""
-    if lam0.device.type == "cpu":
-        return bcr_pcg_dz_reference(ks, lam0, max_iter, exit_tol)
-    _cuda_device(lam0)
-    return _bcr_pcg_dz_l2_on(_lib.library(), ks, lam0, max_iter, exit_tol,
-                             _lib.stream_of(lam0))
-
-
-bcr_pcg_dz_l2.launches = 0
+bcr_pcg_dz.cluster_size = None

@@ -19,11 +19,13 @@ iterations (sqp.sqp_solve with ``megakernel`` and without
 ``megakernel_solve``) reads nothing on the host.
 
 The kernel is one persistent cooperative launch with grid barriers
-between its stages; K5's and K9p's CG stage runs in one block that holds S
-in shared memory, and every block asks for that memory (N <= 84 on the
-H100).  K5g and K9pg run the CG over the whole grid with S in global
-memory and ask for no N-sized shared memory.  ``sqp_solve_mega_pcg`` and
-``sqp_iter_mega_pcg`` launch the one-block kind where it fits and the grid
+between its stages.  K5's and K9p's CG stage runs across the first
+thread-block cluster of the launch (16 blocks where the card schedules
+them, else 8), each block holding its knots' S bands in shared memory, and
+every block asks for that memory (N <= about 670 on the H100).  K5g and
+K9pg run the CG over the whole grid with S in global memory and ask for
+no N-sized shared memory.  ``sqp_solve_mega_pcg`` and
+``sqp_iter_mega_pcg`` launch the cluster kind where it fits and the grid
 kind past it (``pcg_kind``: a function of N and the device alone);
 ``sqp_solve_mega_pcg_grid`` and ``sqp_iter_mega_pcg_grid`` launch the grid
 kind at any N.  ``check_mega_fit`` raises past the largest N a kind
@@ -31,7 +33,10 @@ serves, and before a grid that could not be co-resident (the counterpart
 of the reference's checkPcgOccupancy and of the TPU's
 check_pcg_vmem_fit): an oversubscribed cooperative launch is never made.
 ``check_mega_packed_fit`` does the same for K10, and raises too when the
-grid cannot give every arm a CG block of its own.
+grid cannot give every arm a CG block of its own.  After each K5 or K9p
+launch, ``sqp_solve_mega_pcg.cluster_size`` or
+``sqp_iter_mega_pcg.cluster_size`` holds the cluster size the kernel read
+(a device int32).
 
 K10's public layout is knot-major with a leading arm axis: X (B, N, nx),
 U (B, N-1, nu), lam0 (B, N, nx), goals (B, N, >=3) (or one (N, >=3)
@@ -39,6 +44,7 @@ expanded over the arms), xs (B, nx), rho and drho (B,).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -141,8 +147,8 @@ _grids: dict = {}
 
 # the kernels of csrc/sqp_mega.cu (its Kind)
 SOLVE_PCG, ITER_PCG, ITER_BCR, SOLVE_PCG_GRID, ITER_PCG_GRID = 0, 1, 2, 3, 4
-_KIND_NAMES = {SOLVE_PCG: "the whole-solve kernel",
-               ITER_PCG: "the per-iteration PCG kernel",
+_KIND_NAMES = {SOLVE_PCG: "the cluster whole-solve kernel",
+               ITER_PCG: "the cluster per-iteration PCG kernel",
                ITER_BCR: "the per-iteration BCR kernel",
                SOLVE_PCG_GRID: "the grid-CG whole-solve kernel",
                ITER_PCG_GRID: "the grid-CG per-iteration kernel"}
@@ -151,32 +157,44 @@ _GRID_KIND = {SOLVE_PCG: SOLVE_PCG_GRID, ITER_PCG: ITER_PCG_GRID}
 
 def pcg_kind(knot_points: int, lib=None, kind: int = SOLVE_PCG) -> int:
     """The kind that serves the PCG megakernel `kind` (SOLVE_PCG or
-    ITER_PCG) at this horizon: itself where every block's shared memory
-    holds its one-block CG, else its grid-CG form."""
+    ITER_PCG) at this horizon: itself where a cluster's shared memory
+    holds its CG, else its grid-CG form."""
     lib = lib or _lib.library()
     if knot_points <= lib.mpc_mega_max_knots(kind):
         return kind
     return _GRID_KIND[kind]
 
 
-def check_mega_fit(knot_points: int, lib=None, kind: int = SOLVE_PCG) -> int:
-    """Raise unless every block's shared memory fits kernel `kind` (K5,
-    K9p, K9b) at this horizon and at least one block can be resident;
-    return the grid a launch uses, min(N, co-resident blocks)."""
+def check_mega_fit(knot_points: int, lib=None, kind: int = SOLVE_PCG,
+                   stair: int = -1, cluster: int = 0) -> int:
+    """Raise unless kernel `kind` (K5, K9p, K9b, K5g, K9pg) serves this
+    horizon on this device and at least one block (K5, K9p: one cluster)
+    can be resident; return the grid a launch uses: min(N, co-resident
+    blocks), for K5 and K9p C x min(co-resident clusters, ceil(N / C)).
+    cluster and stair (K5, K9p) ask for a cluster size (8 or 16; 0 the
+    plan's choice) and place the stair bands (1 on chip, 0 in L2, -1 the
+    plan's choice) as mpc_mega_cluster_plan's arguments."""
     lib = lib or _lib.library()
-    key = (id(lib), knot_points, kind, _current_device())
+    key = (id(lib), knot_points, kind, stair, cluster, _current_device())
     if key in _grids:
         return _grids[key]
     name = _KIND_NAMES[kind]
     n_max = lib.mpc_mega_max_knots(kind)
     if knot_points > n_max:
-        where = ("keeps its scratch in global memory" if kind in
-                 (SOLVE_PCG_GRID, ITER_PCG_GRID) else
-                 "holds its dual solve in one block's shared memory")
+        where = ("keeps its scratch in global memory"
+                 if kind in (SOLVE_PCG_GRID, ITER_PCG_GRID) else
+                 "holds its dual solve in one block's shared memory"
+                 if kind == ITER_BCR else
+                 "holds its dual solve in one cluster's shared memory")
         raise ValueError(
             f"{name} {where} and serves N <= {n_max} on this device; got "
             f"N = {knot_points}")
-    grid = lib.mpc_mega_grid(knot_points, kind)
+    if kind in (SOLVE_PCG, ITER_PCG):
+        plan = (ctypes.c_int * 3)()
+        lib.mpc_mega_cluster_plan(knot_points, kind, cluster, stair, plan)
+        grid = plan[2]
+    else:
+        grid = lib.mpc_mega_grid(knot_points, kind)
     if grid < 1:
         raise ValueError(
             f"{name} cannot make a cooperative launch of N = {knot_points} "
@@ -217,8 +235,10 @@ def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
             max_iter: int, exit_tol, n_sqp_iter: int, dt, qd_cost, r_cost,
             gravity, mu, num_alphas: int, rho_factor, rho_min, rho_max,
             rho_reset, grid: int, stream,
-            kind: int = SOLVE_PCG) -> MegaResult:
-    """One K5 (kind SOLVE_PCG) or K5g (SOLVE_PCG_GRID) launch."""
+            kind: int = SOLVE_PCG, stair: int = -1,
+            cluster: int = 0) -> MegaResult:
+    """One K5 (kind SOLVE_PCG) or K5g (SOLVE_PCG_GRID) launch; stair and
+    cluster as check_mega_fit's (K5)."""
     dev = X.device
     nx, nu = 2 * _lib.NJ, _lib.NJ
     n = _expect_iterate(tab, X, U, goals, xs, rho, merit0, num_alphas)
@@ -232,7 +252,7 @@ def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
     stats = torch.empty((3, n_sqp_iter), dtype=torch.int32, device=dev)
     scratch = torch.empty(
         lib.mpc_sqp_mega_scratch_floats(n, num_alphas, kind), **f32)
-    iscratch = torch.empty(2, dtype=torch.int32, device=dev)
+    iscratch = torch.empty(3, dtype=torch.int32, device=dev)
     rc = lib.mpc_sqp_mega(
         tab.data_ptr(), n, X.data_ptr(), U.data_ptr(), goals.data_ptr(),
         goals.shape[1], xs.data_ptr(), lam0.data_ptr(), rho.data_ptr(),
@@ -242,8 +262,10 @@ def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
         float(rho_min), float(rho_max), float(rho_reset), Xo.data_ptr(),
         Uo.data_ptr(), lam.data_ptr(), scal.data_ptr(), ints.data_ptr(),
         stats.data_ptr(), scratch.data_ptr(), iscratch.data_ptr(), int(kind),
-        int(grid), stream)
+        int(grid), int(cluster), int(stair), stream)
     _lib.check(rc, "mpc_sqp_mega")
+    if kind == SOLVE_PCG:
+        sqp_solve_mega_pcg.cluster_size = iscratch[2]
     return MegaResult(
         X=Xo, U=Uo, lam=lam, rho=scal[0], drho=scal[1], merit=scal[2],
         sqp_iters=ints[0], bailed=ints[1] != 0, pcg_iters=stats[0],
@@ -278,7 +300,7 @@ def sqp_solve_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit0,
     search, rho schedule, bail freeze) from X (N, nx), U (N-1, nu), warm
     duals lam0 (N, nx), goals (N, >=3), xs (nx,); rho and merit0 are 0-d
     tensors (merit0 the merit of (X, U), from K2), drho, max_iter and
-    exit_tol host numbers.  K5 where its one-block CG fits, else K5g."""
+    exit_tol host numbers.  K5 where its cluster CG fits, else K5g."""
     args = (model, X, U, goals, xs, lam0, rho, drho, merit0, max_iter,
             exit_tol, n_sqp_iter, dt, qd_cost, r_cost, gravity, mu,
             num_alphas, rho_factor, rho_min, rho_max, rho_reset)
@@ -288,12 +310,13 @@ def sqp_solve_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit0,
 
 
 def _solve_pcg_on(lib, model, X, *rest):
-    """K5 where its one-block CG fits, else K5g, through library lib."""
+    """K5 where its cluster CG fits, else K5g, through library lib."""
     return _solve_on(lib, pcg_kind(X.shape[0], lib, SOLVE_PCG), model, X,
                      *rest)
 
 
 sqp_solve_mega_pcg.launches = 0
+sqp_solve_mega_pcg.cluster_size = None
 
 
 def sqp_solve_mega_pcg_grid(model, X, U, goals, xs, lam0, rho, drho, merit0,
@@ -337,9 +360,11 @@ def sqp_iter_mega_reference(model, X, U, goals, xs, rho, drho, merit, dt,
 def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
                  max_iter: int, exit_tol, dt, qd_cost, r_cost, gravity, mu,
                  num_alphas: int, rho_factor, rho_min, rho_max, rho_reset,
-                 grid: int, stream) -> IterResult:
+                 grid: int, stream, stair: int = -1,
+                 cluster: int = 0) -> IterResult:
     """One launch of K9p or K9pg (kind ITER_PCG or ITER_PCG_GRID, lam0 the
-    warm start) or K9b (ITER_BCR, lam0 None)."""
+    warm start; stair and cluster as check_mega_fit's) or K9b (ITER_BCR,
+    lam0 None)."""
     dev = X.device
     nx, nu = 2 * _lib.NJ, _lib.NJ
     n = _expect_iterate(tab, X, U, goals, xs, rho, merit, num_alphas)
@@ -353,7 +378,7 @@ def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
     stats = torch.empty(3, dtype=torch.int32, device=dev)
     scratch = torch.empty(
         lib.mpc_sqp_mega_scratch_floats(n, num_alphas, kind), **f32)
-    iscratch = torch.empty(2, dtype=torch.int32, device=dev)
+    iscratch = torch.empty(3, dtype=torch.int32, device=dev)
     head = (tab.data_ptr(), n, X.data_ptr(), U.data_ptr(), goals.data_ptr(),
             goals.shape[1], xs.data_ptr())
     schedule = (float(dt), float(qd_cost), float(r_cost), float(gravity),
@@ -367,8 +392,11 @@ def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
         rc = lib.mpc_sqp_iter_mega_pcg(
             *head, lam0.data_ptr(), rho.data_ptr(), drho.data_ptr(),
             merit.data_ptr(), int(max_iter), float(exit_tol), *schedule,
-            *tail[:-2], int(kind), *tail[-2:])
+            *tail[:-2], int(kind), tail[-2], int(cluster), int(stair),
+            tail[-1])
         _lib.check(rc, "mpc_sqp_iter_mega_pcg")
+        if kind == ITER_PCG:
+            sqp_iter_mega_pcg.cluster_size = iscratch[2]
     else:
         if n & (n - 1):
             raise ValueError(f"the per-iteration BCR kernel needs a "
@@ -397,7 +425,7 @@ def sqp_iter_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit,
                       max_iter: int, exit_tol, dt, qd_cost, r_cost, gravity,
                       mu, num_alphas: int, rho_factor, rho_min, rho_max,
                       rho_reset) -> IterResult:
-    """K9p (K9pg past its one-block fit): one SQP iteration (K3's stages
+    """K9p (K9pg past its cluster fit): one SQP iteration (K3's stages
     with the stair, the warm-started stair-PCG from lam0 and dz, the
     8-alpha line search, the accept test and rho schedule) from X (N, nx),
     U (N-1, nu), goals (N, >=3), xs (nx,); rho, drho and merit (the
@@ -412,12 +440,13 @@ def sqp_iter_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit,
 
 
 def _iter_pcg_on(lib, model, X, *rest):
-    """K9p where its one-block CG fits, else K9pg, through library lib."""
+    """K9p where its cluster CG fits, else K9pg, through library lib."""
     return _iter_on(lib, pcg_kind(X.shape[0], lib, ITER_PCG), model, X,
                     *rest)
 
 
 sqp_iter_mega_pcg.launches = 0
+sqp_iter_mega_pcg.cluster_size = None
 
 
 def sqp_iter_mega_pcg_grid(model, X, U, goals, xs, lam0, rho, drho, merit,

@@ -147,37 +147,38 @@ def test_k6_host_build_residual_on_the_fixture_system(host, traj_0_0):
 
 @pytest.mark.parametrize("n", [16, 256])
 def test_k6l_host_build_matches_plain(host, n):
-    """K6l (S read from global memory) on the random system at K6's
-    tolerances (tests/test_bcr.py:62-74), and at N = 16 against K6 on the
-    same inputs: the same body, bit for bit."""
+    """The cluster K6 at N = 16 and at 256, a horizon the former K6l (K6
+    with S read from global memory) served, on the random system at K6's
+    tolerances (tests/test_bcr.py:62-74), CG iterations within 1; and a
+    second launch gives the same bits."""
     lib = host[0]
     ks = random_knot_schur(n, seed=7)
     lam0 = T(np.random.default_rng(3).normal(size=(n, 14)).astype(np.float32))
     want = k6.bcr_pcg_dz_reference(ks, lam0, 40, 5e-5)
-    got = k6._launch(lib, ks, lam0, 40, 5e-5, None, l2=True)
+    got = k6._launch(lib, ks, lam0, 40, 5e-5, None)
     scale = want[0].abs().max()
     _close(got[0] / scale, want[0] / scale, 0, 2e-5)
     for g, w in zip(got[1:3], want[1:3]):
         _close(g, w, 1e-3, 2e-4)
     assert abs(int(got[3]) - int(want[3])) <= 1
     assert bool(got[4]) == bool(want[4])
-    if n <= lib.mpc_bcr_max_knots():
-        for g, w in zip(got, k6._launch(lib, ks, lam0, 40, 5e-5, None)):
-            assert torch.equal(g, w)
+    for g, w in zip(got, k6._launch(lib, ks, lam0, 40, 5e-5, None)):
+        assert torch.equal(g, w)
 
 
 def test_k6l_host_build_residual_on_the_long_fixture_system(host, traj_0_0):
     """N = 256, fixture 0_0's system without the stair at rho 1e-3 and the
     long horizons' r_cost, cap 24, tol 1e-5 (the forced failover's solve
-    at that horizon): judged by residual as K6 on the fixture system, each
-    solve within 1e-3 of |gamma|; CG iterations within 1."""
+    at that horizon, once the former K6l's, now the cluster K6's): judged
+    by residual as K6 on the fixture system, each solve within 1e-3 of
+    |gamma|; CG iterations within 1."""
     lib, model, _ = host
     X, U, goals, xs = (T(a) for a in problem(traj_0_0, n=256))
     ks = k3.form_kkt_schur_reference(model, X, U, goals, xs, RHO, DT,
                                      QD_COST, LONG_R_COST, precond=False)
     lam0 = torch.zeros(256, 14)
     want = k6.bcr_pcg_dz_reference(ks, lam0, 24, 1e-5)
-    got = k6._launch(lib, ks, lam0, 24, 1e-5, None, l2=True)
+    got = k6._launch(lib, ks, lam0, 24, 1e-5, None)
     S = BlockTri(ks.SL, ks.SD, ks.SU)
     for lam in (got[0], want[0]):
         res = (spmv(S, lam) - ks.gamma).abs().max() / ks.gamma.abs().max()
@@ -186,24 +187,23 @@ def test_k6l_host_build_residual_on_the_long_fixture_system(host, traj_0_0):
 
 
 def test_bcr_pcg_dz_takes_k6_then_k6l_then_the_split_path(host):
-    """bcr_pcg_dz's dispatch through the host build (fits: K6 N <= 64, K6l
-    N <= 512, the card's arithmetic at 227 KB): K6 at N = 64, K6l at
-    N = 128, and past K6l's fit (a library reporting it as 64) the split
-    path, which launches neither."""
+    """bcr_pcg_dz's dispatch through the host build, whose fit is the
+    card's arithmetic at 227 KB for a cluster of 16 (power-of-2 N <= 1024):
+    the cluster K6 at N = 64 and at N = 128 (the former K6l's horizons),
+    and past K6's fit (a library reporting it as 64) the split path, which
+    launches no kernel."""
     from mpcgpu_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     lib = host[0]
-    assert (lib.mpc_bcr_max_knots(), lib.mpc_bcr_l2_max_knots()) == (64, 512)
+    assert lib.mpc_bcr_max_knots() == 1024
+    assert [lib.mpc_bcr_cluster(n, 0) for n in (2, 512, 1024, 2048)] == [1, 1, 1, 0]
 
-    class SmallL2:
+    class SmallFit:
         def mpc_bcr_max_knots(self):
             return 64
 
-        def mpc_bcr_l2_max_knots(self):
-            return 64
-
-    for n, use, want in ((64, lib, "K6"), (128, lib, "K6l"),
-                         (128, SmallL2(), None)):
+    for n, use, want in ((64, lib, "K6"), (128, lib, "K6"),
+                         (128, SmallFit(), None)):
         ks = random_knot_schur(n, seed=7)
         lam0 = torch.zeros(n, 14)
         reset_launch_counts()
@@ -213,6 +213,77 @@ def test_bcr_pcg_dz_takes_k6_then_k6l_then_the_split_path(host):
         ref = k6.bcr_pcg_dz_reference(ks, lam0, 40, 5e-5)
         scale = ref[0].abs().max()
         _close(got[0] / scale, ref[0] / scale, 0, 2e-5)
+
+
+@pytest.mark.parametrize("n", [8, 64])
+@pytest.mark.parametrize("clusters", [1, 2, 16])
+def test_k6_cluster_factor_equals_the_one_block_factor(host, n, clusters):
+    """The cluster factor against bcr_factor (K7s's), bit for bit over the
+    whole factor scratch (both zeroed first): at C = 1 as the K6 launch
+    runs it, and at C = 2 and 16 through the host build's emulation of the
+    cluster's schedule (each level's ranks one after another between the
+    barriers), which spreads the warps' knots over the ranks as the card
+    does."""
+    lib = host[0]
+    ks = random_knot_schur(n, seed=7)
+    size = lib.mpc_bcr_scratch_floats(n)
+    one_block, cluster = torch.zeros(size), torch.zeros(size)
+    k7._launch_solve(lib, ks.SL, ks.SD, ks.SU, ks.gamma, None,
+                     scratch=one_block)
+    if clusters == 1:
+        k6._launch(lib, ks, torch.zeros(n, 14), 3, 1e-9, None,
+                   scratch=cluster)
+    else:
+        assert lib.mpc_bcr_cluster_factor_host(
+            n, clusters, ks.SL.data_ptr(), ks.SD.data_ptr(),
+            ks.SU.data_ptr(), cluster.data_ptr()) == 0
+    assert torch.equal(cluster, one_block)
+    assert bool(one_block.abs().sum() > 0)
+
+
+@pytest.mark.parametrize("n", [8, 64])
+@pytest.mark.parametrize("clusters", [2, 3, 16])
+def test_k6_cluster_apply_equals_the_one_block_apply(host, n, clusters):
+    """K6's preconditioner apply z = BCR(r) over C emulated blocks (each
+    block's knots and shared memory its own, the rows of other blocks read
+    through the emulated DSMEM map, the phases between cluster barriers
+    run rank after rank; C = 3 leaves the last block fewer knots, C = 16
+    at N = 8 some none) against K7s's one-block apply of the same factors,
+    bit for bit."""
+    lib = host[0]
+    ks = random_knot_schur(n, seed=7)
+    fac = torch.zeros(lib.mpc_bcr_scratch_floats(n))
+    want = k7._launch_solve(lib, ks.SL, ks.SD, ks.SU, ks.gamma, None,
+                            scratch=fac)
+    got = torch.full_like(want, float("nan"))
+    assert lib.mpc_bcr_cluster_apply_host(n, clusters, fac.data_ptr(),
+                                          ks.gamma.data_ptr(),
+                                          got.data_ptr()) == 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,clusters", [(8, 3), (64, 16), (2, 16)])
+def test_cluster_dot_sums_the_partials_in_rank_order(host, n, clusters):
+    """The cluster CG's dot product over C emulated blocks (C = 3 leaves
+    the last block fewer knots, C = 16 at N = 2 most blocks none): every
+    block's rank-ordered sum of the C partials has the same bits, equal
+    to the partials summed in rank order, each partial its own knots'
+    sum."""
+    lib = host[0]
+    values = T(np.random.default_rng(n).normal(size=(n, 14)).astype(np.float32))
+    partials, sums = torch.empty(clusters), torch.empty(clusters)
+    assert lib.mpc_cluster_dot_host(n, clusters, values.data_ptr(),
+                                    partials.data_ptr(), sums.data_ptr()) == 0
+    nk = -(-n // clusters)
+    want = np.float32(0.0)
+    for q in range(clusters):
+        own = values.reshape(-1)[14 * q * nk:14 * min(n, (q + 1) * nk)].numpy()
+        part = np.float32(0.0)
+        for v in own:
+            part = np.float32(part + v)
+        assert partials[q].item() == part
+        want = np.float32(want + part)
+    assert torch.equal(sums, torch.full((clusters,), float(want)))
 
 
 @pytest.mark.parametrize("n,tol,rho_max", [(4, 1e-6, 10.0), (8, 5e-5, 10.0),
@@ -729,36 +800,121 @@ def test_four_k9pg_launches_equal_one_k5g_launch(host, traj_0_0):
         assert torch.equal(got, want)
 
 
-def test_wrappers_take_the_one_block_form_at_64_and_the_grid_form_at_128(
-        host, traj_0_0):
+class _SmallMegaFit:
+    """The host build with the cluster kinds' fit cut to 64 knots, so that
+    N = 128 lies past it."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def mpc_mega_max_knots(self, kind):
+        n = self._lib.mpc_mega_max_knots(kind)
+        return min(n, 64) if kind in (k5.SOLVE_PCG, k5.ITER_PCG) else n
+
+
+@pytest.mark.parametrize("n,fit", [(2, None), (64, None), (128, None),
+                                   (512, None), (128, 64)])
+def test_wrappers_route_k5_and_k9p_to_the_cluster_form_up_to_its_fit(
+        host, traj_0_0, n, fit):
     """The CUDA wrappers' dispatch (pcg_dz, pcg_solve, sqp_solve_mega_pcg,
     sqp_iter_mega_pcg), driven through the host build, whose fits are the
-    card's arithmetic at 227 KB of shared memory (N <= 90): the one-block
-    kernel at N = 64 and its grid form at N = 128, each launch counted
-    once under its own kernel."""
+    card's arithmetic at 227 KB of shared memory (K4, K4b one block
+    N <= 90; K5, K9p a cluster of 16 holding S's and the stair's bands,
+    N <= 704): K5 and K9p take the cluster form at N = 2, 64, 128 and 512,
+    the grid form past the fit (a library whose fit is cut to 64), and K4
+    and K4b their one-block form up to 90; each launch counted once under
+    its own kernel."""
     from mpcgpu_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     lib, model, _ = host
-    for n, one_block in ((64, True), (128, False)):
-        assert k4.one_block_fits(n, lib) is one_block
-        ks = _long_system(model, traj_0_0, n, "fixture")
-        S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
-        X, U, goals, xs = _k9_start(traj_0_0, n, None)
-        lam0, rho = torch.zeros(n, 14), torch.tensor(1e-3)
-        merit0 = _merit0(model, X, U, goals, xs)
-        reset_launch_counts()
-        k4._pcg_dz_on(lib, ks, lam0, 3, 1e-5, None)
-        k4._pcg_solve_on(lib, S, P, ks.gamma, lam0, 3, 1e-5, None)
-        k5._solve_pcg_on(lib, model, X, U, goals, xs, lam0, rho, 1.0, merit0,
-                         3, 1e-5, 1, *_long_kw().values())
-        k9._iter_pcg_on(lib, model, X, U, goals, xs, lam0, rho, 1.0, merit0,
-                        3, 1e-5, *_long_kw().values())
-        counts = launch_counts()
-        one = dict(K4=1, K4b=1, K5=1, K9p=1)
-        grid = dict(K4g=1, K4bg=1, K5g=1, K9pg=1)
-        want = dict.fromkeys(counts, 0)
-        want.update(one if one_block else grid)
-        assert counts == want, n
+    assert lib.mpc_mega_max_knots(k5.SOLVE_PCG) >= 512
+    assert lib.mpc_mega_max_knots(k5.SOLVE_PCG) < 1024
+    use = lib if fit is None else _SmallMegaFit(lib)
+    cluster = n <= use.mpc_mega_max_knots(k5.SOLVE_PCG)
+    assert k5.pcg_kind(n, use) == (k5.SOLVE_PCG if cluster
+                                   else k5.SOLVE_PCG_GRID)
+    ks = _long_system(model, traj_0_0, n, "fixture")
+    S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
+    X, U, goals, xs = _k9_start(traj_0_0, n, None)
+    lam0, rho = torch.zeros(n, 14), torch.tensor(1e-3)
+    merit0 = _merit0(model, X, U, goals, xs)
+    reset_launch_counts()
+    k4._pcg_dz_on(use, ks, lam0, 3, 1e-5, None)
+    k4._pcg_solve_on(use, S, P, ks.gamma, lam0, 3, 1e-5, None)
+    k5._solve_pcg_on(use, model, X, U, goals, xs, lam0, rho, 1.0, merit0,
+                     3, 1e-5, 1, *_long_kw().values())
+    k9._iter_pcg_on(use, model, X, U, goals, xs, lam0, rho, 1.0, merit0,
+                    3, 1e-5, *_long_kw().values())
+    counts = launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(dict(K4=1, K4b=1) if k4.one_block_fits(n, use)
+                else dict(K4g=1, K4bg=1))
+    want.update(dict(K5=1, K9p=1) if cluster else dict(K5g=1, K9pg=1))
+    assert counts == want, n
+    if cluster:
+        assert int(k5.sqp_solve_mega_pcg.cluster_size) == 1
+        assert int(k9.sqp_iter_mega_pcg.cluster_size) == 1
+
+
+@pytest.mark.parametrize("rho", [1e-3, 0.3])
+def test_k5_cluster_form_at_long_horizons_matches_plain(host, traj_0_0, rho):
+    """K5's cluster form at N = 128 (the horizons K5g served before),
+    K5g's check (test_k5g_host_build_matches_plain) at its tolerances:
+    X, U at rtol 1e-3, atol 1e-5; lam at rtol 1e-3, atol 1e-4; decisions
+    identical; CG counts within 2; at rho 0.3 a CG exits before the cap.
+    The stair bands in L2 and on chip give the same bits."""
+    lib, model, tab = host
+    n = 128
+    X, U, goals, xs = _k9_start(traj_0_0, n, None)
+    kw = _long_kw()
+    args = (X, U, goals, xs, torch.zeros(n, 14), torch.tensor(rho), 1.0,
+            _merit0(model, X, U, goals, xs), 24, 1e-5, 4)
+    want = k5.sqp_solve_mega_pcg_reference(model, *args, **kw)
+    assert k5.pcg_kind(n, lib) == k5.SOLVE_PCG
+    got = k5._launch(lib, tab, *args, grid=k5.check_mega_fit(n, lib),
+                     stream=None, **kw)
+    _close(got.X, want.X, 1e-3, 1e-5)
+    _close(got.U, want.U, 1e-3, 1e-5)
+    _close(got.lam, want.lam, 1e-3, 1e-4)
+    for f in ("sqp_iters", "bailed", "hit_max", "accepted"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int((got.pcg_iters - want.pcg_iters).abs().max()) <= 2
+    if rho == 0.3:
+        assert bool(((want.pcg_iters >= 0) & (want.pcg_iters < 24)).any())
+    in_l2 = k5._launch(lib, tab, *args, grid=k5.check_mega_fit(
+        n, lib, stair=0), stream=None, stair=0, **kw)
+    for a, b in zip(got, in_l2):
+        assert torch.equal(a, b)
+
+
+def test_four_k9p_launches_equal_one_k5_launch(host, traj_0_0):
+    """sqp.iterate over four K9p launches against one K5 launch, both the
+    cluster form, N = 128, through the host build: the same body, bit for
+    bit."""
+    from mpcgpu_tpu_torch.sqp import iterate
+
+    lib, model, tab = host
+    n = 128
+    X, U, goals, xs = _k9_start(traj_0_0, n, None)
+    kw = _long_kw()
+    merit0, lam0, rho = (_merit0(model, X, U, goals, xs), torch.zeros(n, 14),
+                         torch.tensor(1e-3))
+    once = k5._launch(lib, tab, X, U, goals, xs, lam0, rho, 1.0, merit0, 24,
+                      1e-5, 4, grid=1, stream=None, **kw)
+
+    def step(Xc, Uc, lamc, rhoc, drhoc, meritc):
+        return k9._launch_iter(lib, k9.ITER_PCG, tab, Xc, Uc, goals, xs,
+                               lamc, rhoc, drhoc, meritc, 24, 1e-5, **kw,
+                               grid=1, stream=None)
+
+    four = iterate(X, U, lam0, rho, torch.tensor(1.0), merit0, 4, step)
+    for got, want in zip(four, (once.X, once.U, once.lam, once.rho, once.drho,
+                                once.merit, once.sqp_iters, once.bailed,
+                                once.pcg_iters, once.hit_max, once.accepted)):
+        assert torch.equal(got, want)
 
 
 def test_a_grid_that_cannot_be_co_resident_raises():

@@ -1,6 +1,7 @@
 """The CUDA kernels K1-K7, K7s, K9p, K9b and K10, K3 at the long horizons
-of the TPU's tiled K8, the grid-CG forms K4g, K4bg, K5g and K9pg and K6l
-(K6 with S in global memory) against their plain versions, on the card.
+of the TPU's tiled K8, the grid-CG forms K4g, K4bg, K5g and K9pg, and the
+cluster forms of K5, K9p and K6 at every cluster size the card admits,
+against their plain versions, on the card.
 
 Marked ``cuda``: each test needs a CUDA device and skips without one.
 The file uses no fixture of tests/conftest.py, which imports JAX, so on a
@@ -397,15 +398,16 @@ def test_k4g_and_k4bg_kernels_match_plain(card, n):
 
 @pytest.mark.parametrize("n", [128, 256])
 def test_k6l_kernel_matches_plain(card, n):
-    """K6l, the failover's BCR-PCG past K6's fit: on the random system at
-    K6's tolerances (tests/test_bcr.py:62-74), CG iterations within 1; on
-    fixture 0_0's system without the stair (cap 24, tol 1e-5) as K6 on the
-    slice's: each solve's residual within 1e-3 of |gamma|, CG iterations
-    within 1; bcr_pcg_dz launches it."""
+    """The cluster K6 at the horizons the former K6l (K6 with S in global
+    memory) served, the failover's BCR-PCG past N = 64: on the random
+    system at K6's tolerances (tests/test_bcr.py:62-74), CG iterations
+    within 1; on fixture 0_0's system without the stair (cap 24, tol 1e-5)
+    as K6 on the slice's: each solve's residual within 1e-3 of |gamma|, CG
+    iterations within 1; bcr_pcg_dz launches it."""
     dev = card["X"].device
     ks = random_knot_schur(n, device=dev)
     lam0 = torch.zeros(n, 14, device=dev)
-    got = k6.bcr_pcg_dz_l2(ks, lam0, 40, 5e-5)
+    got = k6.bcr_pcg_dz(ks, lam0, 40, 5e-5)
     want = k6.bcr_pcg_dz_reference(ks, lam0, 40, 5e-5)
     scale = want[0].abs().max()
     _close(got[0] / scale, want[0] / scale, 0, 2e-5)
@@ -413,9 +415,9 @@ def test_k6l_kernel_matches_plain(card, n):
         _close(g, w, 1e-3, 2e-4)
     assert abs(int(got[3]) - int(want[3])) <= 1
     ks = k3.form_kkt_schur_reference(*_long_k3_args(card, n), precond=False)
-    before = k6.bcr_pcg_dz_l2.launches
+    before = k6.bcr_pcg_dz.launches
     got = k6.bcr_pcg_dz(ks, lam0, LONG_CAP, LONG_TOL)
-    assert k6.bcr_pcg_dz_l2.launches == before + 1
+    assert k6.bcr_pcg_dz.launches == before + 1
     want = k6.bcr_pcg_dz_reference(ks, lam0, LONG_CAP, LONG_TOL)
     S = BlockTri(ks.SL, ks.SD, ks.SU)
     for lam in (got[0], want[0]):
@@ -534,3 +536,150 @@ def test_k11_sharded_cg_matches_plain(card):
     lam_p, iters_p, hit_p = pcg_sharded(mesh, *args)
     assert abs(int(iters) - int(iters_p)) <= 3 and not bool(hit)
     _close(lam, lam_p, 5e-3, 5e-3)
+
+
+# ---- the cluster forms (K5, K9p, K6): every horizon of the main path, at
+# every cluster size the card admits (16 needs the non-portable size)
+CLUSTER_KNOTS = (2, 4, 64, 128, 256, 512)
+
+
+def _mega_admitted(lib, n, kind):
+    """{C: grid} of the cluster sizes the card admits for kind at n."""
+    from ctypes import c_int
+
+    out = {}
+    for c in (8, 16):
+        plan = (c_int * 3)()
+        if lib.mpc_mega_cluster_plan(n, kind, c, -1, plan):
+            out[c] = plan[2]
+    return out
+
+
+def _k5_case(card, n, rho):
+    """The slice's K5 inputs at N = 64 (cap 40, tol 5e-5); elsewhere the
+    long horizons' (fixture 0_0's first n knots perturbed, r_cost 1e-4,
+    cap 24, tol 1e-5); cold duals, 4 SQP iterations."""
+    if n == 64:
+        X = _perturbed_X(card)
+        U, goals, xs = card["U"], card["goals"], card["xs"]
+        r_cost, cap, tol = R_COST, 40, 5e-5
+    else:
+        X, U, goals, xs = _long(card, n, 5)
+        r_cost, cap, tol = LONG_R_COST, LONG_CAP, LONG_TOL
+    zero = torch.zeros_like
+    merit0 = k2.line_search_merits_reference(
+        card["model"], X, U, zero(X), zero(U), 8, goals, xs, DT, 10.0,
+        QD_COST, r_cost)[8]
+    kw = dict(_long_kw(), r_cost=r_cost)
+    return (card["model"], X, U, goals, xs, zero(X),
+            torch.tensor(rho, device=X.device), 1.0, merit0, cap, tol,
+            4), kw
+
+
+@pytest.mark.parametrize("n", CLUSTER_KNOTS)
+@pytest.mark.parametrize("rho", [1e-3, 0.3])
+def test_k5_cluster_form_matches_plain(card, n, rho):
+    """K5's cluster form at each admitted cluster size against the plain
+    version: X, U at rtol 1e-3, atol 1e-5 (tests/test_megakernel.py:
+    115-125), at rho 1e-3 atol 1e-4: there lam's float32 deviation on the
+    condition ~1e7 system (atol 1e-3, K5's precedent) passes through Qinv
+    (entries to 1/rho) into X, and K5g, the grid form, is 5.6e-5 from the
+    plain version at N = 2 on an H100, bit for bit where the cluster form
+    is; lam else at rtol 1e-3, atol 1e-4; CG counts, accepts, sqp_iters
+    and bails identical; the kernel reads the cluster size it was launched
+    with."""
+    from mpcgpu_tpu_torch.ops.cuda import _lib
+
+    lib = _lib.library()
+    args, kw = _k5_case(card, n, rho)
+    want = k5.sqp_solve_mega_pcg_reference(*args, **kw)
+    admitted = _mega_admitted(lib, n, k5.SOLVE_PCG)
+    assert admitted
+    x_atol = 1e-4 if rho == 1e-3 else 1e-5
+    for c, grid in admitted.items():
+        got = k5._launch(lib, _lib.model_tables(args[0]), *args[1:],
+                         grid=grid, stream=_lib.stream_of(args[1]),
+                         cluster=c, **kw)
+        assert int(k5.sqp_solve_mega_pcg.cluster_size) == c
+        _close(got.X, want.X, 1e-3, x_atol)
+        _close(got.U, want.U, 1e-3, x_atol)
+        _close(got.lam, want.lam, *((0, 1e-3) if rho == 1e-3
+                                    else (1e-3, 1e-4)))
+        for f in ("pcg_iters", "accepted", "sqp_iters", "bailed"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (c, f)
+
+
+@pytest.mark.parametrize("n", [64, 256])
+def test_four_k9p_launches_equal_one_k5_launch(card, n):
+    """sqp.iterate over four K9p launches against one K5 launch, both the
+    cluster form: the same body, bit for bit."""
+    from mpcgpu_tpu_torch.sqp import iterate
+
+    args, kw = _k5_case(card, n, 1e-3)
+    model, X, U, goals, xs, lam0, rho, _, merit0, cap, tol, _ = args
+    one = torch.tensor(1.0, device=X.device)
+
+    def step(Xc, Uc, lamc, rhoc, drhoc, meritc):
+        return k9.sqp_iter_mega_pcg(model, Xc, Uc, goals, xs, lamc, rhoc,
+                                    drhoc, meritc, cap, tol, **kw)
+
+    before = (k5.sqp_solve_mega_pcg.launches, k9.sqp_iter_mega_pcg.launches)
+    once = k5.sqp_solve_mega_pcg(*args, **kw)
+    four = iterate(X, U, lam0, rho, one, merit0, 4, step)
+    assert (k5.sqp_solve_mega_pcg.launches - before[0],
+            k9.sqp_iter_mega_pcg.launches - before[1]) == (1, 4)
+    for g, w in zip(four, (once.X, once.U, once.lam, once.rho, once.drho,
+                           once.merit, once.sqp_iters, once.bailed,
+                           once.pcg_iters, once.hit_max, once.accepted)):
+        assert torch.equal(g, w)
+
+
+def _k6_admitted(lib, n):
+    return [c for c in (8, 16) if lib.mpc_bcr_cluster(n, c) == c]
+
+
+@pytest.mark.parametrize("n", CLUSTER_KNOTS)
+def test_k6_cluster_form_matches_plain(card, n):
+    """K6's cluster form at each admitted cluster size on the random system
+    against the plain version, K6's tolerances (tests/test_bcr.py:62-74:
+    lam scaled by its largest entry at atol 2e-5, dX, dU at rtol 1e-3,
+    atol 2e-4); CG counts and the hit flag identical."""
+    from mpcgpu_tpu_torch.ops.cuda import _lib
+
+    lib = _lib.library()
+    dev = card["X"].device
+    ks = random_knot_schur(n, device=dev)
+    lam0 = torch.zeros(n, 14, device=dev)
+    want = k6.bcr_pcg_dz_reference(ks, lam0, 40, 5e-5)
+    admitted = _k6_admitted(lib, n)
+    assert admitted
+    for c in admitted:
+        got = k6._launch(lib, ks, lam0, 40, 5e-5, _lib.stream_of(lam0),
+                         cluster=c)
+        assert int(k6.bcr_pcg_dz.cluster_size) == c
+        scale = want[0].abs().max()
+        _close(got[0] / scale, want[0] / scale, 0, 2e-5)
+        for g, w in zip(got[1:3], want[1:3]):
+            _close(g, w, 1e-3, 2e-4)
+        assert int(got[3]) == int(want[3]) and bool(got[4]) == bool(want[4])
+
+
+@pytest.mark.parametrize("n", [2, 64, 256, 512])
+def test_k6_cluster_factor_equals_the_one_block_factor(card, n):
+    """The cluster factor of K6, at each admitted cluster size, against
+    the one-block factor of K7s on the same bands: the whole factor
+    scratch (both zeroed first) bit for bit."""
+    from mpcgpu_tpu_torch.ops.cuda import _lib
+
+    lib = _lib.library()
+    dev = card["X"].device
+    ks = random_knot_schur(n, device=dev)
+    size = lib.mpc_bcr_scratch_floats(n)
+    one_block = torch.zeros(size, device=dev)
+    k7._launch_solve(lib, ks.SL, ks.SD, ks.SU, ks.gamma,
+                     _lib.stream_of(ks.gamma), scratch=one_block)
+    for c in _k6_admitted(lib, n):
+        cluster = torch.zeros(size, device=dev)
+        k6._launch(lib, ks, torch.zeros(n, 14, device=dev), 3, 1e-9,
+                   _lib.stream_of(ks.gamma), scratch=cluster, cluster=c)
+        assert torch.equal(cluster, one_block), c
