@@ -9,7 +9,9 @@ CUDA toolkit:
 1. prints the card's name and power limit (nvidia-smi) and the versions;
 2. builds the hand-written kernels (csrc/*.cu, one nvcc per source, all at
    once, sm_90a) and prints the build time and ptxas' register / spill
-   report;
+   report, with the registers, stack and spills of K1, K3's three kernels
+   and the megakernels that run K3's stage bodies (K5, K5g, K9p, K10)
+   picked out;
 3. checks each kernel K1-K7, K7s, K9p, K9b and K10 against its plain
    PyTorch version on the card at the slice's N = 64 inputs from fixture
    0_0 (K6 and K7 also on a seeded well-conditioned system, K7s also at
@@ -21,7 +23,9 @@ CUDA toolkit:
    K6), and the arm-batched K1 launch against single K1 launches
    (bit-equal), with the tolerances of the JAX package's own kernel tests
    (the exact BCR solves by relative residual on the slice's systems), and
-   times both (CUDA events, median after warm-up); the first launches of
+   times both (CUDA events, median after warm-up), K1's and K3's device
+   times (torch.profiler) beside the one-thread recursions'; the first
+   launches of
    the cluster forms (K5, K9p, K6) run under a watchdog that ends the
    process if they hang;
 4. runs three closed loops -- fixture pair 0_0, N = 64,
@@ -60,7 +64,7 @@ CUDA toolkit:
    its 666 by np.resize, for_knots(N), PCG cap
    PCGConfig.tpu_tuned_max_iter(N), exit tol default_pcg_exit_tols(N)[0]):
    prints the fits and the kernels' grids at N = 64-1024; checks K3 at
-   N = 256, 512 and 1024 (it serves the TPU's tiled K8), the grid-CG
+   N = 2 and at N = 256, 512 and 1024 (it serves the TPU's tiled K8), the grid-CG
    kernels K4g and K4bg at N = 64-1024 (and on the seeded random system,
    where the CG exits early), the cluster K6 at N = 128-512 (the former
    K6l's horizons), the grid form K5g at N = 64-512 beside the cluster K5
@@ -98,7 +102,9 @@ CUDA toolkit:
    against K7s's bit for bit; and times a CG step (the profiler's device
    time of a solve less that of the same solve with the CG capped at 0,
    over its CG steps) and the stages at N = 64-512 for the cluster K5
-   (stair bands on chip and in L2) beside the grid form K5g, and for K6
+   (stair bands on chip and in L2; the one-thread recursions' beside
+   them) beside the grid
+   form K5g, and for K6
    (the solve less the solve with the CG capped at 0) at N = 64-512;
 11. prints one JSON line of the kernels, then the result line.
 
@@ -157,6 +163,24 @@ CLUSTER_KNOTS = (2, 4, 64, 128, 256, 512)
 CLUSTER_BCR_KNOTS = (2, 4, 8, 16, 32, 64, 128, 256, 512)
 CLUSTER_STEP_KNOTS = (64, 128, 256, 512)
 SCRIPT_DEADLINE = 1150          # s; the run's limit is 1200
+# The kernels' numbers with the one-thread recursions, before lanedyn.cuh's
+# warp-cooperative forms (an NVIDIA H100 80GB HBM3 at 700 W, PERF.md
+# section 6), printed beside this run's: K1's and K3's device times per
+# call (the auto and the staged loops), and K5's stages (a solve with the
+# CG capped at 0, phase 10) per N
+ONE_THREAD_US = {"K1": 170.7, "K3": 48.7}
+ONE_THREAD_K5_STAGES_US = {64: 347.9, 128: 365.9, 256: 573.4, 512: 795.5}
+# the kernels whose ptxas resource lines phase 2 prints: K1, K3's three,
+# and the megakernels that run K3's stage bodies (with the one-thread
+# recursions: rollout_kernel 165 registers and 704 bytes of stack,
+# k3_perknot 128 and 176, sqp_mega_kernel 202 and 896)
+PTXAS_KERNELS = (("K1", "14rollout_kernel"), ("K3 stage 1", "10k3_perknot"),
+                 ("K3 stage 2", "8k3_theta"), ("K3 stage 3", "8k3_stair"),
+                 ("K5", "15sqp_mega_kernelE"), ("K5g", "20sqp_mega_grid_kernel"),
+                 ("K9p", "24sqp_iter_mega_pcg_kernelE"),
+                 ("K10", "22sqp_mega_packed_kernel"))
+MEGA_MAX_REGS = 202             # K5's and K9p's count with the one-thread
+                                # recursions, which sets their grid
 FIRST_LAUNCH_DEADLINE = 240     # s for the first launches of a cluster form
 
 # The least time the card could take for a kernel's work: the
@@ -455,9 +479,22 @@ def main() -> int:
     lib_path = _lib.build(force=True)
     lib = _lib.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
+    build_log = lib_path.with_suffix(".log").read_text()
+    for line in build_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    found = _lib.ptxas_resources(build_log,
+                                 [frag for _, frag in PTXAS_KERNELS])
+    ptxas_k = {}
+    for kid, fragment in PTXAS_KERNELS:
+        regs, stack = found[fragment]
+        ptxas_k[kid] = f"{regs} | {stack}"
+        print(f"ptxas {kid}: {ptxas_k[kid]}")
+        if "0 bytes spill stores, 0 bytes spill loads" not in stack:
+            raise AssertionError(f"{kid} spills: {stack}")
+        if kid in ("K5", "K9p") and int(regs.split()[1]) > MEGA_MAX_REGS:
+            raise AssertionError(f"{kid} above {MEGA_MAX_REGS} registers "
+                                 f"(its co-resident grid shrinks): {regs}")
 
     # ---- 3. each kernel against its plain version, slice inputs
     model = iiwa14(device=dev)
@@ -509,6 +546,10 @@ def main() -> int:
     ks = k3.form_kkt_schur(*k3_args)
     ks_ref = k3.form_kkt_schur_reference(*k3_args)
     sync()
+    k3_dev = _device_us(lambda: k3.form_kkt_schur(*k3_args), "K3",
+                        per_call=3)
+    print(f"K3 device time per call (three launches): {_us(k3_dev)} "
+          f"(one-thread recursions: {ONE_THREAD_US['K3']} us)")
     record("K3", "form_kkt_schur", "mpcgpu_tpu_torch/csrc/kkt_schur.cu",
            "mpcgpu_tpu/ops/pallas/kkt_schur_kernel.py:379",
            checked("K3", list(zip(ks, ks_ref)), 3e-3, 3e-3),
@@ -516,7 +557,10 @@ def main() -> int:
            lambda: k3.form_kkt_schur_reference(*k3_args),
            n * OPS_K3_KNOT,
            F32 * (n * NX + (n - 1) * NU + n * 6 + 1 + TAB
-                  + _knot_schur_floats(n)))
+                  + _knot_schur_floats(n)),
+           device_us=k3_dev,
+           ptxas={k: ptxas_k[k] for k in ("K3 stage 1", "K3 stage 2",
+                                          "K3 stage 3")})
 
     lam0 = torch.zeros_like(X)
     k4_out = k4.pcg_dz(ks_ref, lam0, cap, tol)
@@ -576,6 +620,9 @@ def main() -> int:
     k1_arms_ms = _event_ms(lambda: k1.plant_rollout(*k1_arm_args))
     print(f"K1 arm-batched ({ARMS} arms, one launch): bit-equal to {ARMS} "
           f"single launches; {k1_arms_ms:.4f} ms per call")
+    k1_dev = _device_us(lambda: k1.plant_rollout(*k1_args), "K1")
+    print(f"K1 device time per call: {_us(k1_dev)} (one-thread "
+          f"recursions: {ONE_THREAD_US['K1']} us)")
     steps = int(period * 1e-6 / cfg.sim_step_time + 1e-9) + 1  # + remainder
     record("K1", "plant_rollout", "mpcgpu_tpu_torch/csrc/rollout.cu",
            "mpcgpu_tpu/ops/pallas/rollout_kernel.py:92",
@@ -584,7 +631,9 @@ def main() -> int:
            lambda: k1.plant_rollout_reference(*k1_args),
            steps * (OPS_ABA + 60) + OPS_FK,
            F32 * (NX + (n - 1) * NU + 6 + TAB + NX + 1),
-           arm_batched_ms=k1_arms_ms, arm_batched_arms=ARMS)
+           arm_batched_ms=k1_arms_ms, arm_batched_arms=ARMS,
+           device_us=k1_dev,
+           ptxas=ptxas_k["K1"])
 
     def perturbed(seed):
         """X with a seeded perturbation (knot 0 kept), so that the CG
@@ -1427,7 +1476,8 @@ def main() -> int:
     # K8: K3 at the tiled kernel's horizons, S's bands per band (entries to
     # 4.5e4, float32 noise 2.5e-2), the other blocks at rtol = atol = 3e-3
     k8_extra, k8_case = {}, None
-    for n_l in LONG_K3_KNOTS:
+    for n_l in (2, *LONG_K3_KNOTS):
+        label = f"K8 (K3) N = {n_l}" if n_l % 128 == 0 else f"K3 N = {n_l}"
         Xl, Ul, gl, xsl = long_start(n_l, seed=0)
         cl = long_cfg(n_l)
         a = (model, Xl, Ul, gl, xsl, rho, cl.timestep, cl.cost.qd_cost,
@@ -1439,15 +1489,15 @@ def main() -> int:
             g, w = getattr(got, f), getattr(want, f)
             rel = float((g - w).abs().max() / w.abs().max())
             if not (torch.isfinite(g).all() and rel <= 1e-5):
-                raise AssertionError(f"K8 (K3) N = {n_l} {f}: max error "
-                                     f"{rel:.3e} of the band's largest entry")
+                raise AssertionError(f"{label} {f}: max error {rel:.3e} "
+                                     f"of the band's largest entry")
             band_rel = max(band_rel, rel)
         rest = [(getattr(got, f), getattr(want, f)) for f in
                 k3.KnotSchur._fields if f not in ("SL", "SD", "SU")]
-        err = checked(f"K8 (K3) N = {n_l}", rest, 3e-3, 3e-3)
+        err = checked(label, rest, 3e-3, 3e-3)
         dev_us = _device_us(lambda: k3.form_kkt_schur(*a), "K3", per_call=3)
         k8_extra[f"device_us_n{n_l}"] = dev_us
-        print(f"K8 (K3) N = {n_l}: S bands within {band_rel:.2e} of their "
+        print(f"{label}: S bands within {band_rel:.2e} of their "
               f"largest entry, the rest within {err:.2e}; {_us(dev_us)} of "
               f"device time")
         k8_extra[f"band_rel_err_n{n_l}"] = band_rel
@@ -2185,17 +2235,6 @@ def main() -> int:
     # ---- 10. the cluster forms: K5's dual solve (K9p shares its body) and
     # K6 across one thread-block cluster
     t_phase = time.perf_counter()
-    build_log = lib_path.with_suffix(".log").read_text().splitlines()
-
-    def ptxas(fragment):
-        """ptxas' resource line of the kernel whose mangled name holds
-        fragment."""
-        for i, line in enumerate(build_log):
-            if "Compiling entry" in line and fragment in line:
-                return next((x.split(":", 1)[1].strip()
-                             for x in build_log[i + 1:i + 4]
-                             if "registers" in x), "?")
-        return "not found"
 
     def mega_plan(n_c, kind=k5.SOLVE_PCG, cluster=0, stair=-1):
         """(C, stair bands on chip, grid) of a cluster launch, or None."""
@@ -2209,10 +2248,12 @@ def main() -> int:
         return F32 * ((6 if stair else 3) * nk * NX * NX
                       + 8 * (nk + 2) * NX + 34 + extra) / 1024
 
-    for kid, fragment in (("K5", "15sqp_mega_kernelE"),
-                          ("K9p", "24sqp_iter_mega_pcg_kernelE"),
-                          ("K6", "17bcr_pcg_dz_kernelE")):
-        print(f"{kid} (cluster form) ptxas: {ptxas(fragment)}")
+    cluster_kernels = (("K5", "15sqp_mega_kernelE"),
+                       ("K9p", "24sqp_iter_mega_pcg_kernelE"),
+                       ("K6", "17bcr_pcg_dz_kernelE"))
+    found = _lib.ptxas_resources(build_log, [f for _, f in cluster_kernels])
+    for kid, fragment in cluster_kernels:
+        print(f"{kid} (cluster form) ptxas: {found[fragment][0]}")
     for n_c in CLUSTER_KNOTS:
         c, on, grid = mega_plan(n_c)
         print(f"K5 N = {n_c}: C = {c}, grid {grid}, stair bands "
@@ -2335,8 +2376,12 @@ def main() -> int:
                                        tag, its)
             row[name] = {"grid": grid, "device_us": full, "stages_us": base,
                          "cg_steps": its, "cg_step_us": step}
+            before = (f" (one-thread recursions: "
+                   f"{ONE_THREAD_K5_STAGES_US[n_c]} us)"
+                   if name == "K5" and n_c in ONE_THREAD_K5_STAGES_US
+                   else "")
             print(f"N = {n_c} {name}: grid {grid}, {_us(full)} a solve, "
-                  f"{_us(base)} with the CG capped at 0, {its} CG steps: "
+                  f"{_us(base)} with the CG capped at 0{before}, {its} CG steps: "
                   f"{'not profiled' if step is None else f'{step:.2f} us'} "
                   f"a CG step")
         steps5[str(n_c)] = row

@@ -7,7 +7,10 @@
 // so a block may run the same stage for several knots in turn.  No pointer
 // is __restrict__: inside K5 the inputs of a stage were written by other
 // blocks earlier in the same launch, which the read-only data path may not
-// see.
+// see.  Stages 1 and 2 are calls, not inlined code: inlined into the
+// megakernels (K5, K9p, K5g, K9pg, K10), their warp-cooperative bodies
+// raised those kernels' registers to 211-255 a thread, and a count past
+// K5's 202 would shrink its co-resident grid.
 #pragma once
 #include "lanedyn.cuh"
 
@@ -21,16 +24,30 @@ constexpr int NX = ld::NX, NU = ld::NU, NQ = ld::NQ;
 // rho-regularized Q^-1 and R^-1, and the per-knot Schur products
 // A Q^-1, T = A Q^-1 A' + B R^-1 B', Q^-1 q and A Q^-1 q + B R^-1 r into
 // scratch.  tab: the model tables in shared memory.
-LD_DEV void perknot(const float* tab, int k, int N, const float* X,
-                    const float* U, const float* goals, int gstride,
-                    const float* rho_p, float dt, float qd_cost, float r_cost,
-                    float grav, float* A_o, float* B_o, float* Qinv_o,
-                    float* Rinv_o, float* q_o, float* r_o, float* AQi_s,
-                    float* T_s, float* tvec_s, float* Qiq_s, float* fpred_s) {
-  LD_SHARED float x[NX], u[NU], s[NQ], c[NQ], zero[NQ], bias[NQ], qdd[NQ];
+//
+// The block's warps: the three recursions (CRBA, RNEA bias, FK + Jacobian)
+// at once, one warp each, lane-parallel inside each joint (lanedyn.cuh);
+// then warp 0 inverts M in registers, forms qdd and runs the primal RNEA
+// chain while warp 1 forms the cost gradient, Q and its register inverse;
+// then the 14 tangent directions on 8 lanes each; then the products, one
+// output entry a thread.  One shared scratch area serves each phase in turn.
+constexpr int WORK_FLOATS = 14 * ld::DIR_FLOATS;  // the largest phase's
+constexpr int PRIM_FLOATS = (int)(sizeof(ld::RneaPrimal) / sizeof(float));
+static_assert(ld::CRBA_FLOATS + ld::RNEA_FLOATS + ld::FK_FLOATS + PRIM_FLOATS <=
+                  WORK_FLOATS,
+              "the recursions' scratch");
+static_assert(4 * NX * NX + 2 * NX * NU <= WORK_FLOATS, "A, AQi, B, BRi");
+
+LD_NOINLINE void perknot(const float* tab, int k, int N, const float* X,
+                         const float* U, const float* goals, int gstride,
+                         const float* rho_p, float dt, float qd_cost, float r_cost,
+                         float grav, float* A_o, float* B_o, float* Qinv_o,
+                         float* Rinv_o, float* q_o, float* r_o, float* AQi_s,
+                         float* T_s, float* tvec_s, float* Qiq_s, float* fpred_s) {
+  LD_SHARED float x[NX], u[NU], s[NQ], c[NQ], bias[NQ], qdd[NQ];
   LD_SHARED float M[NQ * NQ], ee[3], J[3 * NQ], qg[NX], rg[NU];
-  LD_SHARED float dtau[NQ * NX], A[NX * NX], B[NX * NU], Q[NX * NX];
-  LD_SHARED float AQi[NX * NX], BRi[NX * NU];
+  LD_SHARED float dtau[NQ * NX], Q[NX * NX], Xj[ld::NJ * 36];
+  LD_SHARED float work[WORK_FLOATS];
   LD_SHARED ld::RneaPrimal prim;
   const int t = LD_TID, nt = LD_NTID;
   const bool has_u = k < N - 1;
@@ -39,54 +56,77 @@ LD_DEV void perknot(const float* tab, int k, int N, const float* X,
   const float* g = goals + gstride * k;
 
   for (int e = t; e < NX; e += nt) x[e] = X[NX * k + e];
-  for (int e = t; e < NU; e += nt) {
-    u[e] = has_u ? U[NU * k + e] : 0.0f;
-    zero[e] = 0.0f;
-  }
+  for (int e = t; e < NU; e += nt) u[e] = has_u ? U[NU * k + e] : 0.0f;
   LD_SYNC();
   for (int j = t; j < NQ; j += nt) { s[j] = sinf(x[j]); c[j] = cosf(x[j]); }
   LD_SYNC();
-
-  // ---- three independent recursions, one thread of its own warp each
-  if (ld::role(0)) ld::crba(tab, s, c, M);
-  if (ld::role(1)) ld::rnea(tab, s, c, x + NQ, zero, grav, bias);
-  if (ld::role(2)) ld::fk_ee_jac(tab, s, c, ee, J);
+  ld::joint_transforms(tab, s, c, Xj, t, nt);
   LD_SYNC();
+  LD_STAMP(0);
 
-  // ---- Minv (in place) on warp 0; cost gradient (plant :297-378) on warp 1
-  if (ld::in_warp(0)) ld::warp_spd_inverse<NQ>(M);
+  // ---- the three recursions, a warp each (the bias's chain is scratch)
+  const ld::Lanes w = ld::warp_lanes();
+  constexpr int W_RNEA = ld::CRBA_FLOATS, W_FK = W_RNEA + ld::RNEA_FLOATS,
+                W_PRIM = W_FK + ld::FK_FLOATS;
+  // phase 2: warp 0's primal chain at 0, the inverses' pivot-row buffers
+  constexpr int W_INV0 = ld::RNEA_FLOATS, W_INV1 = W_INV0 + 2 * NQ;
+  if (ld::in_warp(0)) ld::crba<32>(w, tab, Xj, M, work);
+  if (ld::in_warp(1))
+    ld::rnea<32>(w, tab, Xj, x + NQ, nullptr, grav,
+                 *reinterpret_cast<ld::RneaPrimal*>(work + W_PRIM), bias,
+                 work + W_RNEA);
+  if (ld::in_warp(2)) ld::fk_ee_jac<32>(w, tab, s, c, ee, J, work + W_FK);
+  LD_SYNC();
+  LD_STAMP(1);
+
+  // ---- warp 0: Minv (in place), qdd = Minv (u - bias), the primal RNEA
+  // chain for the tangents; warp 1: the cost gradient (plant :297-378),
+  // Qr = [[gq gq', 0], [0, qd_cost I]] + rho I and Qinv (in place)
+  if (ld::in_warp(0)) {
+    ld::reg_spd_inverse<NQ>(M, work + W_INV0);
+    for (int i = w.l; i < NQ; i += w.n) {
+      float acc = 0.0f;
+      for (int m = 0; m < NQ; ++m) acc += M[NQ * i + m] * (u[m] - bias[m]);
+      qdd[i] = acc;
+    }
+    w.sync();
+    ld::rnea<32>(w, tab, Xj, x + NQ, qdd, grav, prim, nullptr, work);
+  }
   if (ld::in_warp(1)) {
     const float e3[3] = {ee[0] - g[0], ee[1] - g[1], ee[2] - g[2]};
-    for (int j = ld::lane(); j < NX; j += ld::lanes())
+    for (int j = w.l; j < NX; j += w.n)
       qg[j] = j < NQ ? J[j] * e3[0] + J[NQ + j] * e3[1] + J[2 * NQ + j] * e3[2]
                      : qd_cost * x[j];
-    for (int j = ld::lane(); j < NU; j += ld::lanes()) rg[j] = r_cost * u[j];
+    for (int j = w.l; j < NU; j += w.n) rg[j] = r_cost * u[j];
+    w.sync();
+    for (int e = w.l; e < NX * NX; e += w.n) {
+      const int i = e / NX, j = e % NX;
+      const float h =
+          (i < NQ && j < NQ) ? qg[i] * qg[j] : (i == j ? qd_cost : 0.0f);
+      Q[e] = h + (i == j ? rho : 0.0f);
+    }
+    w.sync();
+    ld::reg_spd_inverse<NX>(Q, work + W_INV1);
   }
   LD_SYNC();
+  LD_STAMP(2);
 
-  // ---- qdd = Minv (u - bias); Qr = [[gq gq', 0], [0, qd_cost I]] + rho I
-  for (int i = t; i < NQ; i += nt) {
-    float acc = 0.0f;
-    for (int m = 0; m < NQ; ++m) acc += M[NQ * i + m] * (u[m] - bias[m]);
-    qdd[i] = acc;
+  // ---- the 14 tangent directions, 8 lanes each, the groups of a warp in
+  // lockstep (on the card groups 14 and 15 only keep step): dtau[i][d]
+  {
+    const ld::Lanes g8 = ld::group(8, true);
+    const int groups = nt >= 8 ? nt / 8 : 1, dirs = nt >= 8 ? groups : NX;
+    for (int d = t / 8; d < dirs; d += groups) {
+      const int o = d < NX ? d : 0;
+      ld::rnea_dtau_direction<8>(g8, tab, Xj, s, c, x + NQ, prim, d, dtau + o,
+                                 NX, work + ld::DIR_FLOATS * o);
+    }
   }
-  for (int e = t; e < NX * NX; e += nt) {
-    const int i = e / NX, j = e % NX;
-    const float h = (i < NQ && j < NQ) ? qg[i] * qg[j] : (i == j ? qd_cost : 0.0f);
-    Q[e] = h + (i == j ? rho : 0.0f);
-  }
   LD_SYNC();
+  LD_STAMP(3);
 
-  // ---- RNEA primal chain for the tangents; Qinv (in place) on warp 1
-  if (ld::role(0)) ld::rnea_primal(tab, s, c, x + NQ, qdd, grav, prim);
-  if (ld::in_warp(1)) ld::warp_spd_inverse<NX>(Q);
-  LD_SYNC();
-
-  // ---- the 14 tangent directions, one thread each: dtau[i][d]
-  for (int d = t; d < NX; d += nt)
-    ld::rnea_dtau_direction(tab, s, c, x + NQ, prim, d, dtau + d, NX);
-  LD_SYNC();
-
+  float *A = work, *AQi = work + NX * NX, *B = work + 2 * NX * NX,
+        *BRi = work + 2 * NX * NX + NX * NU;
   // ---- explicit-Euler integrator gradient (integrator.cuh:61-100):
   // A = [[I, dt I], [dt dqdd/dq, I + dt dqdd/dqd]], B = [[0], [dt Minv]],
   // dqdd = -Minv dtau
@@ -111,6 +151,7 @@ LD_DEV void perknot(const float* tab, int k, int N, const float* X,
     fpred_s[NX * k + NQ + i] = x[NQ + i] + dt * qdd[i];
   }
   LD_SYNC();
+  LD_STAMP(4);
 
   // ---- per-knot Schur products (linsys_setup.cuh:141-562)
   for (int e = t; e < NX * NX; e += nt) {
@@ -149,16 +190,17 @@ LD_DEV void perknot(const float* tab, int k, int N, const float* X,
     Rinv_o[NU * NU * k + e] = (has_u && e % (NU + 1) == 0) ? rinv : 0.0f;
   for (int i = t; i < NU; i += nt) r_o[NU * k + i] = has_u ? rg[i] : 0.0f;
   LD_SYNC();  // the shared arrays are reused by the block's next knot
+  LD_STAMP(5);
 }
 
 // Stage 2, per knot with its left neighbour: theta, phi (SL), SU, gamma with
 // the defect c_k = x_k - f(x_{k-1}, u_{k-1}) (c_0 left out), and PD.
-LD_DEV void schur_bands(int k, int N, const float* X, const float* Qinv,
-                        const float* AQi_s, const float* T_s,
-                        const float* tvec_s, const float* Qiq_s,
-                        const float* fpred_s, int precond, float* SL,
-                        float* SD, float* SU, float* PD, float* gamma) {
-  LD_SHARED float theta[NX * NX];
+LD_NOINLINE void schur_bands(int k, int N, const float* X, const float* Qinv,
+                             const float* AQi_s, const float* T_s,
+                             const float* tvec_s, const float* Qiq_s,
+                             const float* fpred_s, int precond, float* SL,
+                             float* SD, float* SU, float* PD, float* gamma) {
+  LD_SHARED float theta[NX * NX], inv_buf[2 * NX];
   const int t = LD_TID, nt = LD_NTID;
   const int o = NX * NX * k;
   for (int e = t; e < NX * NX; e += nt) {
@@ -174,7 +216,7 @@ LD_DEV void schur_bands(int k, int N, const float* X, const float* Qinv,
     gamma[NX * k + i] = Qiq_s[NX * k + i] - tv - ck;
   }
   LD_SYNC();
-  if (precond && ld::in_warp(0)) ld::warp_spd_inverse<NX>(theta);
+  if (precond && ld::in_warp(0)) ld::reg_spd_inverse<NX>(theta, inv_buf);
   LD_SYNC();
   for (int e = t; e < NX * NX; e += nt)
     PD[o + e] = precond ? theta[e] : (e % (NX + 1) == 0 ? 1.0f : 0.0f);

@@ -322,8 +322,13 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
   }
 }
 
-LD_GLOBAL void sqp_mega_kernel(MegaParams p) { mega_body<DUAL_CLUSTER>(p); }
-LD_GLOBAL void sqp_iter_mega_pcg_kernel(MegaParams p) {
+// K5 and K9p held to 202 registers a thread, their count with K3's
+// one-thread stage bodies inlined (the stages are calls now,
+// kkt_schur.cuh; their call sites alone would take it to 207)
+LD_GLOBAL void LD_MAXNREG(202) sqp_mega_kernel(MegaParams p) {
+  mega_body<DUAL_CLUSTER>(p);
+}
+LD_GLOBAL void LD_MAXNREG(202) sqp_iter_mega_pcg_kernel(MegaParams p) {
   mega_body<DUAL_CLUSTER>(p);
 }
 LD_GLOBAL void sqp_iter_mega_bcr_kernel(MegaParams p) {

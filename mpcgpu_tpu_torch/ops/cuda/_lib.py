@@ -9,7 +9,9 @@ and every entry returns ``cudaGetLastError()``.
 
 The same sources also build with the host C++ compiler
 (``host_library``): a kernel "launch" then runs every block in turn on
-the calling thread, on CPU memory.  That build exists to check the
+the calling thread, on CPU memory, or -- once a test has switched the
+emulation on (``mpc_emu_threads_host``) -- on as many host threads as the
+launch names, with real barriers.  That build exists to check the
 kernels' arithmetic against the plain PyTorch versions on a machine
 without a GPU.
 """
@@ -82,6 +84,13 @@ _SIGNATURES = {
     "mpc_mega_packed_grid": [_I, _I, _I],
     "mpc_sqp_mega_packed_scratch_floats": [_I, _I, _I],
     "mpc_spmv_halo": [_I] + [_P] * 8,
+    "mpc_emu_threads_host": [_I],
+    "mpc_ld_aba_host": [_P, _P, _P, _P, _F, _P],
+    "mpc_ld_crba_host": [_P, _P, _P],
+    "mpc_ld_rnea_host": [_P, _P, _P, _P, _F, _P, _P],
+    "mpc_ld_fk_host": [_P, _P, _P, _P],
+    "mpc_ld_dtau_host": [_P, _P, _P, _P, _F, _P],
+    "mpc_ld_spd_inverse_host": [_I, _I, _P],
 }
 _RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
              "mpc_pcg_grid_scratch_floats": ctypes.c_longlong,
@@ -90,7 +99,9 @@ _RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
 
 # entries of the host build alone (test hooks that run no device code)
 _HOST_ONLY = {"mpc_bcr_cluster_factor_host", "mpc_bcr_cluster_apply_host",
-              "mpc_cluster_dot_host"}
+              "mpc_cluster_dot_host", "mpc_emu_threads_host",
+              "mpc_ld_aba_host", "mpc_ld_crba_host", "mpc_ld_rnea_host",
+              "mpc_ld_fk_host", "mpc_ld_dtau_host", "mpc_ld_spd_inverse_host"}
 
 _libs: dict = {}
 
@@ -167,6 +178,32 @@ def build(force: bool = False) -> Path:
     return out
 
 
+def ptxas_resources(log: str, fragments) -> dict:
+    """{fragment: (registers line, stack and spill line)} from a build log
+    (ptxas -v), for the first kernel whose mangled name holds each
+    fragment; raises if a fragment names no kernel of the log."""
+    lines = log.splitlines()
+    found = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line:
+            continue
+        for frag in fragments:
+            if frag in line and frag not in found:
+                follow = lines[i + 1:i + 4]
+                regs = next((x.split(":", 1)[1].strip() for x in follow
+                             if "registers" in x), None)
+                stack = next((x.strip() for x in follow
+                              if "stack frame" in x), None)
+                if regs is None or stack is None:
+                    raise RuntimeError(f"ptxas log: no resource lines for "
+                                       f"{line.strip()}")
+                found[frag] = (regs, stack)
+    missing = [f for f in fragments if f not in found]
+    if missing:
+        raise RuntimeError(f"ptxas log: no kernel matching {missing}")
+    return found
+
+
 def library() -> ctypes.CDLL:
     """The bound CUDA library (built at first use)."""
     if "cuda" not in _libs:
@@ -183,7 +220,8 @@ def host_library() -> ctypes.CDLL:
         out = BUILD / "libmpcgpu_kernels_host.so"
         if _stale(out):
             _compile([cxx, "-x", "c++", "-std=c++17", "-O2", "-shared",
-                      "-fPIC", "-Wno-unknown-pragmas", *SOURCES], out)
+                      "-fPIC", "-pthread", "-Wno-unknown-pragmas", *SOURCES],
+                     out)
         _libs["host"] = _bind(out)
     return _libs["host"]
 

@@ -7,8 +7,11 @@ on the card) through that build and hold the result against the kernel's
 plain PyTorch version, at N = 8 from fixture 0_0, with the tolerances of
 the JAX package's own kernel tests.  They check the kernels' math and
 argument layout, not the CUDA-only parts (warp shuffles, launch limits);
-chip_smoke.py checks those on the card.
+chip_smoke.py checks those on the card.  The warp-cooperative routines of
+lanedyn.cuh, K1 and K3 also run with the block's threads emulated, 32
+lanes a warp, which one thread taking every lane cannot check.
 """
+import contextlib
 import shutil
 
 import numpy as np
@@ -61,6 +64,211 @@ def test_k3_host_build_matches_plain(host, traj_0_0, precond):
                      R_COST, 0.0, precond, None)
     for f in k3.KnotSchur._fields:
         _close(getattr(got, f), getattr(want, f), 3e-3, 3e-3)
+
+
+# ---- the device library's warp-cooperative routines (lanedyn.cuh), each
+# launched alone through the host build: at one lane (one thread takes
+# every lane) and with the block's threads emulated, 32 lanes a warp --
+# which must give the same bits, since every output entry belongs to one
+# lane and keeps one term order -- against the plain PyTorch dynamics at
+# the JAX lane-dynamics tests' tolerances (tests/test_lanedyn.py), on
+# seeded states drawn as there.
+LANES = [1, 32]
+GRAV = -9.81
+
+
+@contextlib.contextmanager
+def _lanes(lib, lanes):
+    """Run the block inside with its threads emulated when lanes == 32;
+    fail if an emulated barrier timed out (a lane that never arrived)."""
+    lib.mpc_emu_threads_host(0)
+    lib.mpc_emu_threads_host(int(lanes > 1))
+    try:
+        yield
+    finally:
+        assert lib.mpc_emu_threads_host(0) == 0, "an emulated barrier hung"
+
+
+def _states(seed, count=4):
+    """(q, qd, u, qdd) draws: q in [-2, 2], qd in [-1, 1], u in [-10, 10],
+    qdd in [-2, 2]."""
+    rng = np.random.default_rng(seed)
+    f = lambda lo, hi: T(rng.uniform(lo, hi, 7).astype(np.float32))
+    return [(f(-2, 2), f(-1, 1), f(-10, 10), f(-2, 2)) for _ in range(count)]
+
+
+def _both_lanes(lib, lanes, run):
+    """run() at `lanes`; at 32 lanes also held bit-equal to one lane."""
+    with _lanes(lib, lanes):
+        got = run()
+    if lanes > 1:
+        with _lanes(lib, 1):
+            one = run()
+        for g, o in zip(got, one):
+            assert torch.equal(g, o), "32 lanes differ from one lane"
+    return got
+
+
+def _ptr(t):
+    return t.data_ptr()
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_warp_aba_matches_plain(host, lanes):
+    from mpcgpu_tpu_torch.models.dynamics import forward_dynamics
+
+    lib, model, tab = host
+    for q, qd, u, _ in _states(0):
+        def run():
+            qdd = torch.zeros(7)
+            lib.mpc_ld_aba_host(_ptr(tab), _ptr(q), _ptr(qd), _ptr(u), GRAV,
+                                _ptr(qdd))
+            return (qdd,)
+        (qdd,) = _both_lanes(lib, lanes, run)
+        _close(qdd, forward_dynamics(model, q, qd, u, GRAV), 2e-3, 2e-3)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_warp_crba_matches_plain(host, lanes):
+    from mpcgpu_tpu_torch.models.dynamics import mass_matrix
+
+    lib, model, tab = host
+    for q, *_ in _states(1):
+        def run():
+            M = torch.zeros(7, 7)
+            lib.mpc_ld_crba_host(_ptr(tab), _ptr(q), _ptr(M))
+            return (M,)
+        (M,) = _both_lanes(lib, lanes, run)
+        _close(M, mass_matrix(model, q), 1e-4, 1e-5)
+
+
+def _rnea_primal_plain(model, q, qd, qdd):
+    """The chain rnea keeps for the tangents, in RneaPrimal's field order
+    (v_in, a_in, v, Iv, facc: (7, 6) each), from the plain transforms."""
+    from mpcgpu_tpu_torch.models.dynamics import crf, crm, joint_transforms
+
+    X = joint_transforms(model, q)
+    ez = torch.zeros(6)
+    ez[2] = 1.0
+    v, a = torch.zeros(6), torch.tensor([0, 0, 0, 0, 0, GRAV])
+    v_in, a_in, vs, Iv, fs = [], [], [], [], []
+    for j in range(7):
+        v_in.append(v)
+        a_in.append(a)
+        vn = X[j] @ v + ez * qd[j]
+        a = X[j] @ a + ez * qdd[j] + crm(vn, ez * qd[j])
+        v = vn
+        vs.append(v)
+        Iv.append(model.I[j] @ v)
+        fs.append(model.I[j] @ a + crf(v, Iv[-1]))
+    facc = [None] * 7
+    f = fs[6]
+    for j in range(6, -1, -1):
+        facc[j] = f
+        if j > 0:
+            f = fs[j - 1] + X[j].T @ f
+    return torch.stack([torch.stack(x) for x in (v_in, a_in, vs, Iv, facc)])
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_warp_rnea_and_its_primal_chain_match_plain(host, lanes):
+    """tau at qdd = 0 (the bias, as K3's RNEA) and at a drawn qdd, and the
+    primal chain the tangents read."""
+    from mpcgpu_tpu_torch.models.dynamics import rnea
+
+    lib, model, tab = host
+    for q, qd, _, qdd in _states(2):
+        for acc in (torch.zeros(7), qdd):
+            def run():
+                tau, prim = torch.zeros(7), torch.zeros(5, 7, 6)
+                lib.mpc_ld_rnea_host(_ptr(tab), _ptr(q), _ptr(qd), _ptr(acc),
+                                     GRAV, _ptr(tau), _ptr(prim))
+                return tau, prim
+            tau, prim = _both_lanes(lib, lanes, run)
+            _close(tau, rnea(model, q, qd, acc, GRAV), 1e-4, 1e-4)
+            _close(prim, _rnea_primal_plain(model, q, qd, acc), 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_warp_fk_and_jacobian_match_plain(host, lanes):
+    from mpcgpu_tpu_torch.models.dynamics import ee_pos_and_jac
+
+    lib, model, tab = host
+    for q, *_ in _states(3):
+        def run():
+            ee, J = torch.zeros(3), torch.zeros(3, 7)
+            lib.mpc_ld_fk_host(_ptr(tab), _ptr(q), _ptr(ee), _ptr(J))
+            return ee, J
+        ee, J = _both_lanes(lib, lanes, run)
+        pose, J_ref = ee_pos_and_jac(model, q)
+        _close(ee, pose[:3], 1e-4, 1e-5)
+        _close(J, J_ref, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_rnea_tangent_directions_match_plain(host, lanes):
+    """The 14 tangent directions on 8 lanes each, as K3's stage 1 runs
+    them (16 groups of a 128-thread block when emulated), against the
+    forward-mode Jacobian of the plain RNEA at fixed qdd, at
+    tests/test_lanedyn.py:56's tolerances."""
+    from mpcgpu_tpu_torch.models.dynamics import rnea
+
+    lib, model, tab = host
+    for q, qd, _, qdd in _states(4):
+        def run():
+            dtau = torch.zeros(7, 14)
+            lib.mpc_ld_dtau_host(_ptr(tab), _ptr(q), _ptr(qd), _ptr(qdd),
+                                 GRAV, _ptr(dtau))
+            return (dtau,)
+        (dtau,) = _both_lanes(lib, lanes, run)
+        want = torch.func.jacfwd(lambda x: rnea(model, x[:7], x[7:], qdd,
+                                                GRAV))(torch.cat([q, qd]))
+        _close(dtau, want, 2e-3, 2e-3)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("n", [7, 14])
+def test_register_spd_inverse_equals_the_shared_memory_form(host, n, lanes):
+    """The register inverse (a row a lane, the pivot row through shared memory)
+    against warp_spd_inverse, K6's and K7's shared-memory Gauss-Jordan,
+    bit for bit, and against the float64 inverse to 1e-5 of its largest
+    entry, on seeded SPD matrices B B' + n I."""
+    lib = host[0]
+    rng = np.random.default_rng(n)
+    for _ in range(3):
+        B = rng.normal(size=(n, n))
+        A = T((B @ B.T + n * np.eye(n)).astype(np.float32))
+
+        def run():
+            reg, smem = A.clone(), A.clone()
+            lib.mpc_ld_spd_inverse_host(n, 1, _ptr(reg))
+            lib.mpc_ld_spd_inverse_host(n, 0, _ptr(smem))
+            return reg, smem
+        reg, smem = _both_lanes(lib, lanes, run)
+        assert torch.equal(reg, smem)
+        want = torch.linalg.inv(A.double())
+        _close(reg.double() / want.abs().max(), want / want.abs().max(), 0,
+               1e-5)
+
+
+def test_k3_and_k1_with_their_threads_emulated_equal_one_thread(host,
+                                                                traj_0_0):
+    """K3's three launches (128 threads a block: the recursions on three
+    warps, the tangents on 8-lane groups) and K1 (a warp an arm) with
+    every thread emulated give the one-thread host build's bits."""
+    lib, model, tab = host
+    X, U, goals, _ = (T(a) for a in problem(traj_0_0))
+    cfg = SolverConfig.for_knots(16)
+    xu, ee = traj_0_0
+    xs, U_prev, goal0 = T(xu[0, :14]), T(xu[:15, 14:].copy()), T(ee[0])
+
+    def run():
+        ks = k3._launch(lib, tab, X, U, goals, torch.tensor(RHO), DT,
+                        QD_COST, R_COST, 0.0, True, None)
+        r = k1._launch(lib, tab, cfg, xs, U_prev, goal0, 1500.0, 700.0, 11,
+                       None)
+        return (*ks, *r)
+    _both_lanes(lib, 32, run)
 
 
 @pytest.mark.parametrize("cap,tol", [(300, 1e-9), (40, 5e-5), (3, 1e-12)])

@@ -101,13 +101,38 @@ def test_k2_kernel_matches_plain(card):
            2e-4, 2e-4)
 
 
-@pytest.mark.parametrize("offset_us", [0.0, 2000.0])
-def test_k1_kernel_matches_plain(card, offset_us):
+@pytest.mark.parametrize("offset_us,sim_time_us",
+                         [(0.0, 2000.0), (2000.0, 2000.0), (1500.0, 700.0)])
+def test_k1_kernel_matches_plain(card, offset_us, sim_time_us):
     c = card
     args = (c["model"], SolverConfig.for_knots(64), c["xs"], c["U"],
-            c["goals"][0], offset_us, 2000.0, 11)
+            c["goals"][0], offset_us, sim_time_us, 11)
     for g, w in zip(k1.plant_rollout(*args), k1.plant_rollout_reference(*args)):
         _close(g, w, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("n", [2, 64, 256, 1024])
+def test_k3_kernel_matches_plain_at_every_horizon(card, n):
+    """K3 (its warp-cooperative stage bodies) at N = 2 to 1024: fixture
+    0_0's rows repeated to n knots, every knot but 0 moved by a seeded
+    0.02-scale draw; S's bands within 1e-5 of each band's largest entry,
+    the other blocks at rtol 3e-3, atol 3e-3, as test_k8_horizons_run_k3."""
+    dev = card["X"].device
+    xu, ee = load_fixture_pair(Path(__file__).resolve().parent / "fixtures")
+    rows = np.resize(np.arange(xu.shape[0]), n)
+    pert = 0.02 * np.random.default_rng(0).normal(size=(n, 14))
+    pert[0] = 0.0
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32),
+                                  device=dev)
+    args = (card["model"], t(xu[rows, :14] + pert), t(xu[rows[:-1], 14:]),
+            t(ee[rows]), t(xu[0, :14]), card["rho"], DT, QD_COST, R_COST)
+    got, want = k3.form_kkt_schur(*args), k3.form_kkt_schur_reference(*args)
+    for f in k3.KnotSchur._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        if f in ("SL", "SD", "SU"):
+            assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+        else:
+            _close(g, w, 3e-3, 3e-3)
 
 
 def test_k6_kernel_matches_plain_on_a_random_system(card):
