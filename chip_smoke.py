@@ -9,25 +9,26 @@ CUDA toolkit:
 1. prints the card's name and power limit (nvidia-smi) and the versions;
 2. builds the hand-written kernels (csrc/*.cu, one nvcc per source, all at
    once, sm_90a) and prints the build time and ptxas' register / spill
-   report, with the registers, stack and spills of K1, K3's three kernels
-   and the megakernels that run K3's stage bodies (K5, K5g, K9p, K10)
-   picked out;
+   report, with the registers, stack and spills of K1, K2 (at each group
+   size), K3's three kernels and the megakernels that run K3's stage bodies
+   and K2's merit contribution (K5, K5g, K9p, K9pg, K9b, K10) picked out;
+   a spill, or K5 or K9p past MEGA_MAX_REGS registers, fails the run;
 3. checks each kernel K1-K7, K7s, K9p, K9b and K10 against its plain
    PyTorch version on the card at the slice's N = 64 inputs from fixture
    0_0 (K6 and K7 also on a seeded well-conditioned system, K7s also at
-   N = 128 and 256, K5, K9p and K10 also at larger carried rhos where
-   their CGs exit before the cap, K10 with two arms from seeded
-   perturbations and its shared CG exit shown to decide, four K9p
+   N = 128 and 256, K2 also at N = 2, 256 and 1024 on seeded steps and
+   twice on the same inputs (bit-equal), K5, K9p and K10 also at larger
+   carried rhos where their CGs exit before the cap, K10 with two arms
+   from seeded perturbations and its shared CG exit shown to decide, four K9p
    launches against one K5 launch (bit-equal), K6's cluster factor against
    K7s's one-block factor (bit-equal), the split BCR paths against K7 and
    K6), and the arm-batched K1 launch against single K1 launches
    (bit-equal), with the tolerances of the JAX package's own kernel tests
    (the exact BCR solves by relative residual on the slice's systems), and
-   times both (CUDA events, median after warm-up), K1's and K3's device
-   times (torch.profiler) beside the one-thread recursions'; the first
-   launches of
-   the cluster forms (K5, K9p, K6) run under a watchdog that ends the
-   process if they hang;
+   times both (CUDA events, median after warm-up), K1's, K2's and K3's
+   device times (torch.profiler) beside the one-thread recursions'; the
+   first launches of the cluster forms (K5, K9p, K6) run under a watchdog
+   that ends the process if they hang;
 4. runs three closed loops -- fixture pair 0_0, N = 64,
    SolverConfig.for_knots(64, sqp_max_iter=4), PCG cap 40, exit tol
    5e-5, lam warm-started by 5 solves at tol 1e-11, simulate_mpc_scan for
@@ -167,17 +168,30 @@ SCRIPT_DEADLINE = 1150          # s; the run's limit is 1200
 # warp-cooperative forms (an NVIDIA H100 80GB HBM3 at 700 W, PERF.md
 # section 6), printed beside this run's: K1's and K3's device times per
 # call (the auto and the staged loops), and K5's stages (a solve with the
-# CG capped at 0, phase 10) per N
-ONE_THREAD_US = {"K1": 170.7, "K3": 48.7}
+# CG capped at 0, phase 10) per N; then K2's device time (the check's
+# inputs) and K5's stages with K2's one-thread merit contribution, the
+# last one-thread recursion (the same card and limit)
+ONE_THREAD_US = {"K1": 170.7, "K3": 48.7, "K2": 19.6}
 ONE_THREAD_K5_STAGES_US = {64: 347.9, 128: 365.9, 256: 573.4, 512: 795.5}
-# the kernels whose ptxas resource lines phase 2 prints: K1, K3's three,
-# and the megakernels that run K3's stage bodies (with the one-thread
-# recursions: rollout_kernel 165 registers and 704 bytes of stack,
-# k3_perknot 128 and 176, sqp_mega_kernel 202 and 896)
-PTXAS_KERNELS = (("K1", "14rollout_kernel"), ("K3 stage 1", "10k3_perknot"),
+ONE_THREAD_MERIT_K5_STAGES_US = {64: 284.9, 128: 307.8, 256: 478.0,
+                                 512: 651.0}
+# K2 against its plain version at these horizons (N = 64: the check's
+# inputs; the others a seeded step)
+K2_KNOTS = (2, 64, 256, 1024)
+# the kernels whose ptxas resource lines phase 2 prints: K1, K2 at each
+# group size, K3's three, and the megakernels that run K3's stage bodies
+# and K2's merit contribution (with the one-thread recursions:
+# rollout_kernel 165 registers and 704 bytes of stack, k3_perknot 128 and
+# 176, sqp_mega_kernel 202 and 896)
+PTXAS_KERNELS = (("K1", "14rollout_kernel"), ("K2 G = 8", "12merit_kernelILi8E"),
+                 ("K2 G = 16", "12merit_kernelILi16E"),
+                 ("K2 G = 32", "12merit_kernelILi32E"),
+                 ("K3 stage 1", "10k3_perknot"),
                  ("K3 stage 2", "8k3_theta"), ("K3 stage 3", "8k3_stair"),
                  ("K5", "15sqp_mega_kernelE"), ("K5g", "20sqp_mega_grid_kernel"),
                  ("K9p", "24sqp_iter_mega_pcg_kernelE"),
+                 ("K9pg", "29sqp_iter_mega_pcg_grid_kernel"),
+                 ("K9b", "24sqp_iter_mega_bcr_kernel"),
                  ("K10", "22sqp_mega_packed_kernel"))
 MEGA_MAX_REGS = 202             # K5's and K9p's count with the one-thread
                                 # recursions, which sets their grid
@@ -191,6 +205,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 F32 = 4
 TAB = 1680          # model-table floats (lanedyn.cuh TAB_SIZE)
+# the megakernels' dynamic shared floats at the least: the merit stage's
+# 16 groups of 8 lanes (merit.cuh AREA_FLOATS each)
+MERIT_AREAS_FLOATS = 16 * 724
 NX, NU = 14, 7
 # Operations of the device library's routines per call, counted by hand
 # from csrc/lanedyn.cuh (a multiply-add counts 2; sin, cos and a division
@@ -583,17 +600,46 @@ def main() -> int:
     dX, dU = k4_ref[1], k4_ref[2]
     k2_args = (model, X, U, dX, dU, cfg.num_alphas, goals, xs, cfg.timestep,
                cfg.merit_mu, cc.qd_cost, cc.r_cost, cfg.gravity)
-    m = k2.line_search_merits(*k2_args)
-    m_ref = k2.line_search_merits_reference(*k2_args)
-    sync()
+    # K2 against the plain merits at every horizon of K2_KNOTS (2e-4), and
+    # two launches on the same inputs: the same bits
+    err2 = {}
+    for n_m in K2_KNOTS:
+        if n_m == n:
+            a_m = k2_args
+        else:
+            rows = np.resize(np.arange(xu.shape[0]), n_m)
+            gen = np.random.default_rng(n_m)
+            on_card = lambda a: torch.as_tensor(
+                np.ascontiguousarray(a, dtype=np.float32), device=dev)
+            a_m = (model, on_card(xu[rows, :NX]), on_card(xu[rows[:-1], NX:]),
+                   on_card(0.05 * gen.normal(size=(n_m, NX))),
+                   on_card(0.05 * gen.normal(size=(n_m - 1, NU))),
+                   cfg.num_alphas, on_card(ee[rows]), on_card(xu[0, :NX]),
+                   *k2_args[8:])
+        m = k2.line_search_merits(*a_m)
+        m_again = k2.line_search_merits(*a_m)
+        m_ref = k2.line_search_merits_reference(*a_m)
+        sync()
+        if not torch.equal(m, m_again):
+            raise AssertionError(f"K2 N = {n_m}: two launches on the same "
+                                 f"inputs differ")
+        err2[n_m] = checked(f"K2 N = {n_m}", [(m, m_ref)], 2e-4, 2e-4)
+        print(f"K2 N = {n_m}: max_abs_err {err2[n_m]:.3e} against plain, "
+              f"two launches bit-equal")
+    k2_dev = _device_us(lambda: k2.line_search_merits(*k2_args), "K2")
+    print(f"K2 device time per call: {_us(k2_dev)} (one-thread merit "
+          f"contribution: {ONE_THREAD_US['K2']} us)")
     record("K2", "line_search_merits", "mpcgpu_tpu_torch/csrc/merit.cu",
            "mpcgpu_tpu/ops/pallas/merit_kernel.py:145",
-           checked("K2", [(m, m_ref)], 2e-4, 2e-4),
+           max(err2.values()),
            lambda: k2.line_search_merits(*k2_args),
            lambda: k2.line_search_merits_reference(*k2_args),
            _merits_ops(n, cfg.num_alphas + 1),
            F32 * (2 * (n * NX + (n - 1) * NU) + n * 6 + NX + TAB
-                  + cfg.num_alphas + 1))
+                  + cfg.num_alphas + 1),
+           max_abs_err_by_n=err2, deterministic=True, device_us=k2_dev,
+           ptxas={k: ptxas_k[k] for k in ("K2 G = 8", "K2 G = 16",
+                                          "K2 G = 32")})
 
     period = cfg.simulation_period_us
     k1_args = (model, cfg, xs, U, goals[0], period, period,
@@ -1459,7 +1505,16 @@ def main() -> int:
           f"one cluster: K5 N <= {lib.mpc_mega_max_knots(k5.SOLVE_PCG)}, "
           f"K9p N <= {lib.mpc_mega_max_knots(k9.ITER_PCG)}, K6 power-of-2 "
           f"N <= {lib.mpc_bcr_max_knots()}; the grid kinds K5g, K9pg "
-          f"N <= {lib.mpc_mega_max_knots(k5.SOLVE_PCG_GRID)}")
+          f"N <= {lib.mpc_mega_max_knots(k5.SOLVE_PCG_GRID)}; K9b N <= "
+          f"{lib.mpc_mega_max_knots(k9.ITER_BCR)}")
+    # K10: its horizon for a pack of ARMS, and the largest pack at N = 64
+    # (every arm needs a co-resident CG block of its own)
+    k10_arms = max((b for b in range(1, 1025)
+                    if lib.mpc_mega_packed_grid(n, b, cfg.num_alphas) >= b),
+                   default=0)
+    print(f"ceilings: K10 N <= "
+          f"{lib.mpc_mega_packed_max_knots(ARMS, cfg.num_alphas)} at B = "
+          f"{ARMS}, B <= {k10_arms} at N = {n}")
     grids = {}
     for n_l in sorted({64, 128, 256, 512, 1024, *LONG_CG_KNOTS,
                        *LONG_MEGA_KNOTS}):
@@ -2242,11 +2297,13 @@ def main() -> int:
         ok = lib.mpc_mega_cluster_plan(n_c, kind, cluster, stair, plan)
         return tuple(plan) if ok else None
 
-    def cluster_smem_kb(n_c, c, stair, extra=0):
-        """pcg_common.cuh's cluster_cg_floats, in KB."""
+    def cluster_smem_kb(n_c, c, stair):
+        """A block's dynamic shared memory in KB: pcg_common.cuh's
+        cluster_cg_floats, or the merit stage's groups where those take
+        more."""
         nk = -(-n_c // c)
-        return F32 * ((6 if stair else 3) * nk * NX * NX
-                      + 8 * (nk + 2) * NX + 34 + extra) / 1024
+        return F32 * max((6 if stair else 3) * nk * NX * NX
+                         + 8 * (nk + 2) * NX + 34, MERIT_AREAS_FLOATS) / 1024
 
     cluster_kernels = (("K5", "15sqp_mega_kernelE"),
                        ("K9p", "24sqp_iter_mega_pcg_kernelE"),
@@ -2377,9 +2434,11 @@ def main() -> int:
             row[name] = {"grid": grid, "device_us": full, "stages_us": base,
                          "cg_steps": its, "cg_step_us": step}
             before = (f" (one-thread recursions: "
-                   f"{ONE_THREAD_K5_STAGES_US[n_c]} us)"
-                   if name == "K5" and n_c in ONE_THREAD_K5_STAGES_US
-                   else "")
+                      f"{ONE_THREAD_K5_STAGES_US[n_c]} us; one-thread merit "
+                      f"contribution: {ONE_THREAD_MERIT_K5_STAGES_US[n_c]} "
+                      f"us)"
+                      if name == "K5" and n_c in ONE_THREAD_K5_STAGES_US
+                      else "")
             print(f"N = {n_c} {name}: grid {grid}, {_us(full)} a solve, "
                   f"{_us(base)} with the CG capped at 0{before}, {its} CG steps: "
                   f"{'not profiled' if step is None else f'{step:.2f} us'} "

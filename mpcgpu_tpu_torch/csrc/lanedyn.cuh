@@ -2,21 +2,23 @@
 //
 // Counterpart of mpcgpu_tpu/ops/pallas/lanedyn.py, the device library that
 // the TPU kernels share.  There one knot is one lane of a vector register;
-// here a knot is one thread block (K3, K5) or one warp (K1), and the
-// recursions are warp-cooperative: the joint order stays sequential, and
-// inside each joint the spatial algebra -- the 6x6 transform and its
-// 6-vector products, the congruence X' A X (36 outputs), the rank-1
-// articulated-inertia update, crf and crm -- is spread over the lanes of a
-// group (Lanes), one output entry a lane, every sum in the term order of
-// the one-thread forms, with the intermediates in shared memory and a
-// group barrier between dependent steps.  The routines: ABA forward
+// here a knot is one thread block (K3, K5), one warp (K1) or one group of
+// 8-32 lanes (K2's merit contribution, merit.cuh), and every recursion is
+// warp-cooperative: the joint order stays sequential, and inside each joint
+// the spatial algebra -- the 6x6 transform and its 6-vector products, the
+// congruence X' A X (36 outputs), the rank-1 articulated-inertia update, crf
+// and crm -- is spread over the lanes of a group (Lanes), one output entry a
+// lane, each entry's sum in a fixed term order (the first term a product,
+// each later one a multiply-add), with the intermediates in shared memory
+// and a group barrier between dependent steps.  The routines: ABA forward
 // dynamics (aba), RNEA with what the tangents need (rnea), the hand-written
 // RNEA tangents of rnea_lane_dtau_units (rnea_dtau_direction), CRBA (crba),
-// end-effector FK with its position Jacobian (fk_ee_jac), and SPD inverses:
-// reg_spd_inverse keeps a row a lane in registers and passes the pivot row
-// through a small shared buffer; warp_spd_inverse, the shared-memory Gauss-Jordan that
-// K6's and K7's factors share (they must stay bit-equal), stays for them.
-// One-thread aba_qdd and fk_ee stay for K2's merit (merit.cuh).
+// end-effector FK with its position Jacobian (fk_ee_jac; the position alone
+// when J is null), and SPD inverses: reg_spd_inverse keeps a row a lane in
+// registers and passes the pivot row through a small shared buffer;
+// warp_spd_inverse, the shared-memory Gauss-Jordan that K6's and K7's
+// factors share (they must stay bit-equal), stays for them.  There is one
+// form of each recursion.
 //
 // The robot is the 7-joint serial chain of models/robot.py: joint j's
 // transforms are Xc + sin(q_j) Xs + cos(q_j) Xk (6x6, child <- parent) and
@@ -51,7 +53,9 @@
 #define LD_HD __host__ __device__ inline
 #define LD_GLOBAL __global__
 #define LD_LAUNCH_BOUNDS(threads) __launch_bounds__(threads)
+#ifndef LD_MAXNREG  // a build may lift the caps to read the kernels' own counts
 #define LD_MAXNREG(n) __maxnreg__(n)
+#endif
 #define LD_SHARED __shared__
 #define LD_SYNC() __syncthreads()
 #define LD_TID ((int)threadIdx.x)
@@ -199,9 +203,9 @@ inline float* ld_cluster_map(const float* p, int rank) {
 }
 #endif
 
-// Phase stamps: a timing tool (tools/k3_k1_phase_bench.cu) defines LD_STAMP
-// to record clock64() at the numbered phase boundaries of K1 and K3; in the
-// kernels' own builds a stamp is nothing.
+// Phase stamps: a timing tool (tools/phase_bench.cu) defines LD_STAMP to
+// record clock64() at the numbered phase boundaries of K1, K2, K3 and K5's
+// merit stages; in the kernels' own builds a stamp is nothing.
 #ifndef LD_STAMP
 #define LD_STAMP(i) ((void)0)
 #endif
@@ -268,14 +272,14 @@ LD_DEV Lanes warp_lanes() { return group(32); }
 
 // One step of a warp-cooperative routine over entries e < count (count <=
 // C): entry e is lane e % N's in a group of N lanes.  Every lane computes
-// all its entries (up to 4) first -- the last entry in place of those past
+// all its entries (up to 6) first -- the last entry in place of those past
 // count -- and only then stores them, so that the latencies of a lane's
 // entries overlap; value must not read what store writes.  The host build
 // runs the same body: at N under the lane emulation, at 1 on one thread.
 template <int N, int C, class V, class S>
 LD_FORCE void each_n(const Lanes& g, int count, V&& value, S&& store) {
   constexpr int SN = (C + N - 1) / N;
-  if constexpr (SN > 4) {  // a long output: entry after entry
+  if constexpr (SN > 6) {  // a long output: entry after entry
     for (int e = g.l; e < count; e += N) store(e, value(e));
   } else {
     float v[SN];
@@ -364,189 +368,20 @@ LD_DEV void load_tables(float* dst, const float* __restrict__ src) {
 }
 
 // ---------------------------------------------------------------------------
-// 6-vector spatial algebra
-// ---------------------------------------------------------------------------
-
-LD_DEV void joint_X(const float* tab, int j, float s, float c, float* X) {
-  const float* xc = tab + TAB_XC + 36 * j;
-  const float* xs = tab + TAB_XS + 36 * j;
-  const float* xk = tab + TAB_XK + 36 * j;
-#pragma unroll
-  for (int e = 0; e < 36; ++e) X[e] = xc[e] + s * xs[e] + c * xk[e];
-}
-
-LD_DEV void mv6(const float* M, const float* v, float* out) {
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    float acc = M[6 * i] * v[0];
-#pragma unroll
-    for (int k = 1; k < 6; ++k) acc += M[6 * i + k] * v[k];
-    out[i] = acc;
-  }
-}
-
-LD_DEV void mtv6(const float* M, const float* v, float* out) {
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    float acc = M[i] * v[0];
-#pragma unroll
-    for (int k = 1; k < 6; ++k) acc += M[6 * k + i] * v[k];
-    out[i] = acc;
-  }
-}
-
-LD_DEV void cross3(const float* a, const float* b, float* o) {
-  o[0] = a[1] * b[2] - a[2] * b[1];
-  o[1] = a[2] * b[0] - a[0] * b[2];
-  o[2] = a[0] * b[1] - a[1] * b[0];
-}
-
-// force cross product (v x*) f
-LD_DEV void crf(const float* v, const float* f, float* out) {
-  float t0[3], t1[3], t2[3];
-  cross3(v, f, t0);
-  cross3(v + 3, f + 3, t1);
-  cross3(v, f + 3, t2);
-  out[0] = t0[0] + t1[0]; out[1] = t0[1] + t1[1]; out[2] = t0[2] + t1[2];
-  out[3] = t2[0]; out[4] = t2[1]; out[5] = t2[2];
-}
-
-// crm(v) (S w) for S = e_z
-LD_DEV void crm_z(const float* v, float w, float* out) {
-  out[0] = v[1] * w; out[1] = -v[0] * w; out[2] = 0.0f;
-  out[3] = v[4] * w; out[4] = -v[3] * w; out[5] = 0.0f;
-}
-
-LD_DEV void add6(float* a, const float* b) {
-#pragma unroll
-  for (int i = 0; i < 6; ++i) a[i] += b[i];
-}
-
-// X' A X for 6x6 X, A
-LD_DEV void congruence_T(const float* X, const float* A, float* out) {
-  float AX[36];
-#pragma unroll
-  for (int i = 0; i < 6; ++i)
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      float acc = A[6 * i] * X[j];
-#pragma unroll
-      for (int k = 1; k < 6; ++k) acc += A[6 * i + k] * X[6 * k + j];
-      AX[6 * i + j] = acc;
-    }
-#pragma unroll
-  for (int i = 0; i < 6; ++i)
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      float acc = X[i] * AX[j];
-#pragma unroll
-      for (int k = 1; k < 6; ++k) acc += X[6 * k + i] * AX[6 * k + j];
-      out[6 * i + j] = acc;
-    }
-}
-
-// ---------------------------------------------------------------------------
-// one-thread dynamics (K2's merit, merit.cuh); s, c are sin(q), cos(q)
-// ---------------------------------------------------------------------------
-
-// Articulated-body algorithm (models/dynamics.forward_dynamics).
-LD_DEV void aba_qdd(const float* tab, const float* s, const float* c,
-                    const float* qd, const float* u, float grav, float* qdd) {
-  const float* I = tab + TAB_I;
-  float X[36];
-  float cvel[NJ][6], pA[NJ][6], Uc[NJ][6], dc[NJ], uc[NJ];
-  float v[6] = {0, 0, 0, 0, 0, 0};
-  for (int j = 0; j < NJ; ++j) {
-    float vn[6], Iv[6];
-    joint_X(tab, j, s[j], c[j], X);
-    mv6(X, v, vn);
-    vn[EZ] += qd[j];
-    crm_z(vn, qd[j], cvel[j]);
-    mv6(I + 36 * j, vn, Iv);
-    crf(vn, Iv, pA[j]);
-    for (int i = 0; i < 6; ++i) v[i] = vn[i];
-  }
-  float IA[36];
-  for (int e = 0; e < 36; ++e) IA[e] = I[36 * (NJ - 1) + e];
-  for (int j = NJ - 1; j >= 0; --j) {
-    for (int i = 0; i < 6; ++i) Uc[j][i] = IA[6 * i + EZ];
-    dc[j] = Uc[j][EZ];
-    uc[j] = u[j] - pA[j][EZ];
-    if (j > 0) {
-      float Ia[36], pa[6], t[6], C[36];
-      for (int r = 0; r < 6; ++r)
-        for (int q = 0; q < 6; ++q)
-          Ia[6 * r + q] = IA[6 * r + q] - Uc[j][r] * Uc[j][q] / dc[j];
-      mv6(Ia, cvel[j], t);
-      float ud = uc[j] / dc[j];
-      for (int i = 0; i < 6; ++i) pa[i] = pA[j][i] + t[i] + Uc[j][i] * ud;
-      joint_X(tab, j, s[j], c[j], X);
-      congruence_T(X, Ia, C);
-      for (int e = 0; e < 36; ++e) IA[e] = I[36 * (j - 1) + e] + C[e];
-      mtv6(X, pa, t);
-      add6(pA[j - 1], t);
-    }
-  }
-  float a[6] = {0, 0, 0, 0, 0, grav};
-  for (int j = 0; j < NJ; ++j) {
-    float an[6];
-    joint_X(tab, j, s[j], c[j], X);
-    mv6(X, a, an);
-    add6(an, cvel[j]);
-    float dot = Uc[j][0] * an[0];
-    for (int i = 1; i < 6; ++i) dot += Uc[j][i] * an[i];
-    qdd[j] = (uc[j] - dot) / dc[j];
-    for (int i = 0; i < 6; ++i) a[i] = an[i];
-    a[EZ] += qdd[j];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// end-effector kinematics
-// ---------------------------------------------------------------------------
-
-LD_DEV void hom(const float* tab, int base, int j, float s, float c,
-                float* H) {
-  const float* hc = tab + base + 16 * j;
-  const float* hs = tab + base + NJ * 16 + 16 * j;
-  const float* hk = tab + base + 2 * NJ * 16 + 16 * j;
-  for (int e = 0; e < 16; ++e) H[e] = hc[e] + s * hs[e] + c * hk[e];
-}
-
-LD_DEV void matmul4(const float* A, const float* B, float* out) {
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) {
-      float acc = A[4 * i] * B[j];
-      for (int k = 1; k < 4; ++k) acc += A[4 * i + k] * B[4 * k + j];
-      out[4 * i + j] = acc;
-    }
-}
-
-// end-effector xyz
-LD_DEV void fk_ee(const float* tab, const float* s, const float* c,
-                  float* ee) {
-  float T[16], H[16], Tn[16];
-  hom(tab, TAB_HC, 0, s[0], c[0], T);
-  for (int j = 1; j < NJ; ++j) {
-    hom(tab, TAB_HC, j, s[j], c[j], H);
-    matmul4(T, H, Tn);
-    for (int e = 0; e < 16; ++e) T[e] = Tn[e];
-  }
-  ee[0] = T[3]; ee[1] = T[7]; ee[2] = T[11];
-}
-
-// ---------------------------------------------------------------------------
 // warp-cooperative dynamics.  Every lane of a group (Lanes, of N lanes on
 // the card) calls a routine; the tables, transforms, inputs, outputs and
 // the scratch w are in shared memory.  Each output entry belongs to one
-// lane and keeps the sum, term order and multiply-add pairing of the
-// one-thread forms above (the same bits, up to the sign of a zero); each
-// step is one instruction stream for the whole group -- which entry a lane
-// holds changes the data it reads, not the code it runs -- and a routine
-// ends in the group's barrier.
+// lane, which forms its whole sum in a fixed term order, whatever the
+// group's size; the compiler pairs the products into multiply-adds, and in
+// a lane that holds more entries of a step it may pair a few otherwise
+// (ABA on 8 or 16 lanes parts from 32 lanes in the last place, merit.cuh),
+// so the kernels that must agree bit for bit run one group size; each step
+// is one instruction stream for the whole group -- which entry a lane holds
+// changes the data it reads, not the code it runs -- and a routine ends in
+// the group's barrier.
 // ---------------------------------------------------------------------------
 
-// entry i of M v and of M' v for a 6x6 M (mv6's and mtv6's term order)
+// entry i of M v and of M' v for a 6x6 M, the terms in k order
 LD_FORCE float mv6_at(const float* M, const float* v, int i) {
   float acc = M[6 * i] * v[0];
 #pragma unroll
@@ -567,8 +402,9 @@ LD_FORCE float cross3_at(const float* a, const float* b, int i) {
   return a[i1] * b[i2] - a[i2] * b[i1];
 }
 
-// entry i of crf(v) f: both rows' sums are formed, each product used once
-// (so the compiler pairs them into multiply-adds as in crf), and selected
+// entry i of the force cross product (v x*) f: both rows' sums are formed,
+// each product used once (so that the compiler pairs each row's products
+// into multiply-adds the same way whichever row a lane holds), and selected
 LD_FORCE float crf_at(const float* v, const float* f, int i) {
   const int ii = i < 3 ? i : i - 3;
   const float top = cross3_at(v, f, ii) + cross3_at(v + 3, f + 3, ii);
@@ -576,13 +412,14 @@ LD_FORCE float crf_at(const float* v, const float* f, int i) {
   return i < 3 ? top : bottom;
 }
 
-// crm_z(v, w)[i] = sign(i) v[partner(i)] w: (v1, -v0, 0, v4, -v3, 0) w
+// crm(v) (S w) for S = e_z: entry i is sign(i) v[partner(i)] w, i.e.
+// (v1, -v0, 0, v4, -v3, 0) w
 LD_FORCE float crz_sign(int i) {
   return i == 2 || i == 5 ? 0.0f : (i == 0 || i == 3 ? 1.0f : -1.0f);
 }
 LD_FORCE int crz_partner(int i) { return i == 2 || i == 5 ? i : (i < 3 ? 1 - i : 7 - i); }
 
-// a + crm_z(v, w)[i], paired as add6(a, crm_z(v, w)) is: one multiply-add
+// a + (crm(v) (S w))[i] as one multiply-add
 LD_FORCE float plus_crz(float a, float v_partner, float w, int i) {
   return a + (crz_sign(i) * v_partner) * w;
 }

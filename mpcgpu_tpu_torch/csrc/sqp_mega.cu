@@ -15,7 +15,8 @@
 //   3. per knot: the stair bands PL, PU;
 //   4. the dual solve and dz (below), while the other blocks wait at the
 //      barrier;
-//   5. every (candidate, knot) pair: K2's merit contribution (merit.cuh)
+//   5. every (candidate, knot) pair: K2's merit contribution (merit.cuh) on
+//      a group of 8-32 lanes, the pairs spread over every block's groups,
 //      for alpha = 1/2^a, a < num_alphas -- the incumbent merit is carried,
 //      so there is no alpha = 0 candidate;
 //   6. in every block alike: each candidate's merit summed in knot order,
@@ -58,8 +59,9 @@
 // stair-PCG of pcg_common.cuh (S, P and the CG vectors in global memory,
 // per-knot dot slots summed alike by every block, four grid barriers per
 // CG step), then dz per owned knot; they serve N past the cluster form's
-// fit.  Their blocks ask for no N-sized shared memory: the grid is
-// min(N, co-resident blocks) at the stages' static shared memory.
+// fit.  Their blocks ask for no N-sized shared memory, only the merit
+// stage's groups' (as every kind does; merit.cuh): the grid is
+// min(N, co-resident blocks).
 //
 // No sum of any stage depends on the grid (a cluster's CG depends on C
 // alone), so four K9p launches equal one K5 launch bit for bit, as four
@@ -120,11 +122,14 @@ bool cluster_cg(int kind) { return kind == SOLVE_PCG || kind == ITER_PCG; }
 constexpr int GRID_MAX_KNOTS = 1 << 16;
 
 // Dynamic shared floats of every block: the cluster CG's at cluster size C
-// (K5, K9p), K9b's BCR vectors, none for the grid kinds.
+// (K5, K9p) or K9b's BCR vectors, and no fewer than the merit stage's
+// groups of 8 lanes take (the grid kinds hold only those).
 size_t mega_smem_floats(int N, int kind, int C, bool stair_on_chip) {
-  if (grid_cg(kind)) return 0;
-  if (cluster_cg(kind)) return pcgc::cluster_cg_floats(N, C, stair_on_chip, 0);
-  return bcr::dz_vec_floats(N);
+  const size_t merit = k2::areas_floats(THREADS, 8);
+  size_t dual = 0;
+  if (cluster_cg(kind)) dual = pcgc::cluster_cg_floats(N, C, stair_on_chip, 0);
+  else if (!grid_cg(kind)) dual = bcr::dz_vec_floats(N);
+  return dual > merit ? dual : merit;
 }
 
 size_t mega_scratch_floats(int N, int num_alphas, int kind) {
@@ -253,24 +258,16 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
       }
     }
     LD_GRID_SYNC();
-    // 5. merit contributions of every (candidate, knot) pair, spread over
-    // the blocks
-    for (int pp = t * nb + bid; pp < p.num_alphas * N; pp += nb * nt) {
-      const int a = pp / N, k = pp % N;
-      const float alpha = 1.0f / (float)(1 << a);
-      const bool has_u = k < N - 1;
-      float x[S], xn[S], u[NU];
-      for (int i = 0; i < S; ++i) {
-        x[i] = p.X[S * k + i] + alpha * p.dX[S * k + i];
-        xn[i] = has_u ? p.X[S * (k + 1) + i] + alpha * p.dX[S * (k + 1) + i] : 0.0f;
-      }
-      for (int i = 0; i < NU; ++i)
-        u[i] = has_u ? p.U[NU * k + i] + alpha * p.dU[NU * k + i] : 0.0f;
-      p.contrib[pp] = k2::merit_contrib(
-          tab, x, xn, u, has_u, k == 0, p.goals + p.gstride * k, p.xs, p.dt,
-          p.mu, p.qd_cost, p.r_cost, p.grav);
-    }
+    LD_STAMP(40 + 3 * it);
+    // 5. merit contributions of every (candidate, knot) pair, on groups
+    // of lanes spread over the blocks (merit.cuh), in the dynamic shared
+    // area, which the dual solve no longer needs
+    k2::contribs_at(k2::group_for(p.num_alphas * N, nb, nt), tab, smem,
+                    k2::Job{p.X, p.dX, p.U, p.dU, p.goals, p.xs, p.contrib, N,
+                            1, p.num_alphas, p.num_alphas, p.gstride, 0, 0,
+                            p.dt, p.mu, p.qd_cost, p.r_cost, p.grav});
     LD_GRID_SYNC();
+    LD_STAMP(41 + 3 * it);
     // 6. the decision, the same in every block
     for (int a = t; a < p.num_alphas; a += nt) {
       float m = 0.0f;
@@ -278,6 +275,7 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
       merits[a] = m;
     }
     LD_SYNC();
+    LD_STAMP(42 + 3 * it);
     if (t == 0) {
       int best_a = 0;
       float best = merits[0];

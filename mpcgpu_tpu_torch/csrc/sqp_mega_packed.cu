@@ -25,7 +25,9 @@
 //      max_iter.  A converged arm keeps stepping; cg_div's 0/0 -> 0
 //      freezes one whose residual is exactly zero.  The count is one
 //      number for all arms.  Then dz per arm;
-//   5. every (arm, candidate, knot) triple: K2's merit contribution;
+//   5. every (arm, candidate, knot) triple: K2's merit contribution on a
+//      group of lanes (merit.cuh), the triples spread over every block's
+//      groups, in the CG areas' shared memory;
 //   6. in every block alike: per arm, each candidate's merit summed in knot
 //      order, the first minimum, the accept test, the rho / drho schedule
 //      and the bail.  A bailed arm is frozen -- its X, U, lam, rho, drho
@@ -73,10 +75,14 @@ struct PackedParams {
 
 // Per-arm scalars and the CG areas in dynamic shared memory: rho, drho,
 // merit, step (floats), done, itc (ints), the B x num_alphas merits, each
-// owned arm's eta, then one CG area per owned arm.
+// owned arm's eta, then one CG area per owned arm -- or, in the merit
+// stages, the groups' areas (merit.cuh), at least as many floats as
+// groups of 8 lanes take.
 size_t packed_smem_floats(int N, int B, int num_alphas, int arms_per_block) {
+  const size_t cg = (size_t)arms_per_block * pcgc::cg_smem_floats(N, 4);
+  const size_t merit = k2::areas_floats(THREADS, 8);
   return (size_t)6 * B + (size_t)B * num_alphas + arms_per_block
-         + (size_t)arms_per_block * pcgc::cg_smem_floats(N, 4);
+         + (cg > merit ? cg : merit);
 }
 
 size_t packed_scratch_floats(int N, int B, int num_alphas) {
@@ -107,32 +113,6 @@ LD_DEV void apply_step(const PackedParams& p, int a, int k, float step) {
     const float* dU = p.dU + (size_t)NU * N * a;
     for (int e = LD_TID; e < NU; e += LD_NTID) U[NU * k + e] += step * dU[NU * k + e];
   }
-}
-
-// Merit contribution of knot k of arm a at X + alpha dX, U + alpha dU, or
-// at X, U itself when !with_step.
-LD_DEV float merit_at(const PackedParams& p, const float* tab, int a, int k,
-                      float alpha, bool with_step) {
-  const int N = p.N;
-  const bool has_u = k < N - 1;
-  const float* X = p.X + (size_t)S * N * a;
-  const float* dX = p.dX + (size_t)S * N * a;
-  const float* U = p.U + (size_t)NU * (N - 1) * a;
-  const float* dU = p.dU + (size_t)NU * N * a;
-  float x[S], xn[S], u[NU];
-  for (int i = 0; i < S; ++i) {
-    x[i] = with_step ? X[S * k + i] + alpha * dX[S * k + i] : X[S * k + i];
-    xn[i] = !has_u ? 0.0f
-            : with_step ? X[S * (k + 1) + i] + alpha * dX[S * (k + 1) + i]
-                        : X[S * (k + 1) + i];
-  }
-  for (int i = 0; i < NU; ++i)
-    u[i] = !has_u ? 0.0f
-           : with_step ? U[NU * k + i] + alpha * dU[NU * k + i] : U[NU * k + i];
-  return k2::merit_contrib(tab, x, xn, u, has_u, k == 0,
-                           p.goals + (size_t)p.garm * a + p.gstride * k,
-                           p.xs + S * a, p.dt, p.mu, p.qd_cost, p.r_cost,
-                           p.grav);
 }
 
 LD_GLOBAL void sqp_mega_packed_kernel(PackedParams p) {
@@ -176,11 +156,12 @@ LD_GLOBAL void sqp_mega_packed_kernel(PackedParams p) {
   ld::load_tables(tab, p.tab);  // ends in a barrier
   LD_GRID_SYNC();
 
-  // 0. the incumbent merit of every arm
-  for (int pp = t * nb + bid; pp < B * N; pp += nb * nt) {
-    const int a = pp / N, k = pp % N;
-    p.contrib[(size_t)NA * N * a + k] = merit_at(p, tab, a, k, 0.0f, false);
-  }
+  // 0. the incumbent merit of every arm: one unstepped candidate, on
+  // groups of lanes spread over the blocks (merit.cuh), in the CG areas
+  k2::contribs_at(k2::group_for(B * N, nb, nt), tab, cg_mem,
+                  k2::Job{p.X, nullptr, p.U, nullptr, p.goals, p.xs,
+                          p.contrib, N, B, 1, 0, p.gstride, p.garm, NA * N,
+                          p.dt, p.mu, p.qd_cost, p.r_cost, p.grav});
   LD_GRID_SYNC();
   for (int a = t; a < B; a += nt) {
     float m = 0.0f;
@@ -270,11 +251,12 @@ LD_GLOBAL void sqp_mega_packed_kernel(PackedParams p) {
     }
     LD_GRID_SYNC();
 
-    // 5. merit contributions of every (arm, candidate, knot) triple
-    for (int pp = t * nb + bid; pp < B * NA * N; pp += nb * nt) {
-      const int a = pp / (NA * N), c = (pp / N) % NA, k = pp % N;
-      p.contrib[pp] = merit_at(p, tab, a, k, 1.0f / (float)(1 << c), true);
-    }
+    // 5. merit contributions of every (arm, candidate, knot) triple, as in
+    // stage 0 (the CG areas are free again)
+    k2::contribs_at(k2::group_for(B * NA * N, nb, nt), tab, cg_mem,
+                    k2::Job{p.X, p.dX, p.U, p.dU, p.goals, p.xs, p.contrib,
+                            N, B, NA, NA, p.gstride, p.garm, NA * N, p.dt,
+                            p.mu, p.qd_cost, p.r_cost, p.grav});
     LD_GRID_SYNC();
     // 6. per arm, the decision, the same in every block
     for (int e = t; e < B * NA; e += nt) {

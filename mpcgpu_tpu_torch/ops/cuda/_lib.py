@@ -44,7 +44,7 @@ _SIGNATURES = {
     "mpc_rollout_arms": [_P, _I, _P, _P, _I, _P, _F, _F, _F, _F, _I, _F, _P,
                          _P, _P],
     "mpc_merits": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F,
-                   _F, _P, _P],
+                   _F, _P, _P, _I, _P, _P],
     "mpc_kkt_schur": [_P, _I, _P, _P, _P, _I, _P, _F, _F, _F, _F, _I]
                      + [_P] * 19,
     "mpc_pcg_dz": [_I] + [_P] * 14 + [_I, _F] + [_P] * 6,
@@ -91,6 +91,8 @@ _SIGNATURES = {
     "mpc_ld_fk_host": [_P, _P, _P, _P],
     "mpc_ld_dtau_host": [_P, _P, _P, _P, _F, _P],
     "mpc_ld_spd_inverse_host": [_I, _I, _P],
+    "mpc_k2_contrib_host": [_P] * 6 + [_I, _P, _I, _I] + [_F] * 6
+                           + [_I, _P],
 }
 _RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
              "mpc_pcg_grid_scratch_floats": ctypes.c_longlong,
@@ -101,7 +103,8 @@ _RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
 _HOST_ONLY = {"mpc_bcr_cluster_factor_host", "mpc_bcr_cluster_apply_host",
               "mpc_cluster_dot_host", "mpc_emu_threads_host",
               "mpc_ld_aba_host", "mpc_ld_crba_host", "mpc_ld_rnea_host",
-              "mpc_ld_fk_host", "mpc_ld_dtau_host", "mpc_ld_spd_inverse_host"}
+              "mpc_ld_fk_host", "mpc_ld_dtau_host", "mpc_ld_spd_inverse_host",
+              "mpc_k2_contrib_host"}
 
 _libs: dict = {}
 

@@ -29,8 +29,23 @@ def line_search_merits_reference(model, X, U, dX, dU, num_alphas: int, goals,
     return torch.cat([cand, base[None]])
 
 
+# One launch count per (device, stream): the kernel's last block counts the
+# blocks done on it and sets it back to zero, so launches on one stream
+# (which run one after another) share it.
+_done_counts: dict = {}
+
+
+def _done_count(dev, stream) -> torch.Tensor:
+    key = (str(dev), stream)
+    if key not in _done_counts:
+        _done_counts[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _done_counts[key]
+
+
 def _launch(lib, tab, X, U, dX, dU, num_alphas: int, goals, xs, dt, mu,
-            qd_cost, r_cost, gravity, stream):
+            qd_cost, r_cost, gravity, stream, group: int = 0):
+    """One launch; group: the lanes of a pair's group (8, 16, 32; 0 the
+    kernel's choice)."""
     dev = X.device
     if X.dim() != 2 or X.shape[1] != 2 * _lib.NJ or X.shape[0] < 2:
         raise ValueError(f"X must be (N >= 2, {2 * _lib.NJ}), got "
@@ -47,11 +62,16 @@ def _launch(lib, tab, X, U, dX, dU, num_alphas: int, goals, xs, dt, mu,
     _lib.expect(goals, "goals", tuple(goals.shape), dev)
     _lib.expect(xs, "xs", (2 * _lib.NJ,), dev)
     _lib.expect(tab, "tables", (_lib.TAB_SIZE,), dev)
+    if group not in (0, 8, 16, 32):
+        raise ValueError(f"group must be 0, 8, 16 or 32, got {group}")
     out = torch.empty(num_alphas + 1, dtype=torch.float32, device=dev)
+    contrib = torch.empty((num_alphas + 1) * n, dtype=torch.float32,
+                          device=dev)
     rc = lib.mpc_merits(
         tab.data_ptr(), X.data_ptr(), U.data_ptr(), dX.data_ptr(), dU.data_ptr(),
         goals.data_ptr(), goals.shape[1], xs.data_ptr(), n, int(num_alphas),
         float(dt), float(mu), float(qd_cost), float(r_cost), float(gravity),
+        contrib.data_ptr(), _done_count(dev, stream).data_ptr(), int(group),
         out.data_ptr(), stream)
     _lib.check(rc, "mpc_merits")
     return out

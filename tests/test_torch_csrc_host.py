@@ -300,6 +300,82 @@ def test_k2_host_build_matches_plain(host, traj_0_0):
     _close(got, want, 2e-4, 2e-4)
 
 
+def _k2_inputs(traj_0_0):
+    X, U, goals, xs = (T(a) for a in problem(traj_0_0))
+    rng = np.random.default_rng(5)
+    dX = T((0.05 * rng.normal(size=tuple(X.shape))).astype(np.float32))
+    dU = T((0.05 * rng.normal(size=tuple(U.shape))).astype(np.float32))
+    return X, U, dX, dU, goals, xs + 0.01
+
+
+def test_k2_host_build_with_its_threads_emulated(host, traj_0_0):
+    """K2 with its blocks' 128 threads emulated, at its own choice (32
+    lanes at N = 8) and at 8 lanes (16: the pair test below):
+    the plain merits at K2's tolerances, and the same bits as one thread
+    walking the block (the host build forms no multiply-adds, so no group
+    size pairs them otherwise)."""
+    lib, model, tab = host
+    X, U, dX, dU, goals, xs = _k2_inputs(traj_0_0)
+    want = k2.line_search_merits_reference(model, X, U, dX, dU, 8, goals, xs,
+                                           DT, 10.0, QD_COST, R_COST)
+    args = (lib, tab, X, U, dX, dU, 8, goals, xs, DT, 10.0, QD_COST, R_COST,
+            0.0, None)
+    with _lanes(lib, 1):
+        one = k2._launch(*args)
+    for group in (0, 8):
+        with _lanes(lib, 32):
+            got = k2._launch(*args, group=group)
+        _close(got, want, 2e-4, 2e-4)
+        assert torch.equal(got, one), f"groups of {group} lanes"
+
+
+def _plain_contribution(model, X, U, goals, xs, k, mu):
+    """The plain ops' merit contribution of knot k: J_k + mu (the knot's L1
+    defect + ||x_0 - xs||_1 at k = 0)."""
+    from mpcgpu_tpu_torch.ops import cost as cost_ops
+    from mpcgpu_tpu_torch.ops import integrator as integ
+
+    J = cost_ops.knot_costs(model, QD_COST, R_COST, X, U, goals)[k]
+    defect = (integ.defect_l1(model, X[:-1], U, X[1:], DT)[k]
+              if k < X.shape[0] - 1 else 0.0)
+    c0 = (X[0] - xs).abs().sum() if k == 0 else 0.0
+    return J + mu * (defect + c0)
+
+
+@pytest.mark.parametrize("group", [8, 16, 32])
+@pytest.mark.parametrize("lanes", LANES)
+def test_group_merit_contribution_matches_plain(host, traj_0_0, group, lanes):
+    """merit_contrib on groups of 8, 16 and 32 lanes, one pair each: the
+    first knot, a middle one, the last (no control, no defect) and an
+    unstepped candidate, against the plain contribution; every group of the
+    warp gives the same bits, at 32 emulated lanes as at one lane."""
+    lib, model, tab = host
+    X, U, dX, dU, goals, xs = _k2_inputs(traj_0_0)
+    n, mu = X.shape[0], 10.0
+    for k, alpha in ((0, 1.0), (3, 0.25), (n - 1, 0.5), (2, None)):
+        step = alpha is not None
+        Xc, Uc = (X + alpha * dX, U + alpha * dU) if step else (X, U)
+        want = _plain_contribution(model, Xc, Uc, goals, xs, k, mu)
+
+        def run():
+            out = torch.zeros(4)
+            lib.mpc_k2_contrib_host(
+                _ptr(tab), _ptr(X), _ptr(U), _ptr(dX) if step else None,
+                _ptr(dU) if step else None, _ptr(goals), goals.shape[1],
+                _ptr(xs), n, k, alpha if step else 0.0, DT, mu, QD_COST,
+                R_COST, 0.0, group, _ptr(out))
+            return out
+
+        with _lanes(lib, lanes):
+            got = run()
+        if lanes > 1:
+            groups = 32 // group
+            assert torch.equal(got[:groups], got[:1].expand(groups))
+            with _lanes(lib, 1):
+                assert torch.equal(run()[:1], got[:1]), "32 lanes vs one"
+        _close(got[:1], want.reshape(1), 2e-4, 2e-4)
+
+
 @pytest.mark.parametrize("offset_us,sim_time_us",
                          [(0.0, 2000.0), (2000.0, 2000.0), (1500.0, 700.0)])
 def test_k1_host_build_matches_plain(host, traj_0_0, offset_us, sim_time_us):

@@ -101,6 +101,46 @@ def test_k2_kernel_matches_plain(card):
            2e-4, 2e-4)
 
 
+def _k2_args_at(card, n):
+    """K2's inputs at n knots: fixture 0_0's rows repeated to n, a seeded
+    0.05-scale step, gravity on."""
+    dev = card["X"].device
+    xu, ee = load_fixture_pair(Path(__file__).resolve().parent / "fixtures")
+    rows = np.resize(np.arange(xu.shape[0]), n)
+    gen = np.random.default_rng(n)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32),
+                                  device=dev)
+    return (card["model"], t(xu[rows, :14]), t(xu[rows[:-1], 14:]),
+            t(0.05 * gen.normal(size=(n, 14))),
+            t(0.05 * gen.normal(size=(n - 1, 7))), 8, t(ee[rows]),
+            t(xu[0, :14]), DT, 10.0, QD_COST, R_COST, -9.81)
+
+
+@pytest.mark.parametrize("n", [2, 64, 256, 1024])
+def test_k2_kernel_matches_plain_at_every_horizon(card, n):
+    """K2 (groups of 32, 16 or 8 lanes by its pair count) at N = 2 to its
+    limit of 1024, at K2's tolerances."""
+    args = _k2_args_at(card, n)
+    _close(k2.line_search_merits(*args), k2.line_search_merits_reference(*args),
+           2e-4, 2e-4)
+
+
+@pytest.mark.parametrize("n", [64, 1024])
+def test_k2_kernel_gives_the_same_bits_on_two_launches(card, n):
+    """Each candidate's sum runs in knot order in the last block done, so
+    two launches agree bit for bit (N = 64: groups of 32 lanes; 1024: of
+    8), and every group size stays at K2's tolerances."""
+    args = _k2_args_at(card, n)
+    first = k2.line_search_merits(*args)
+    assert torch.equal(k2.line_search_merits(*args), first)
+    model, X, U, dX, dU, na, goals, xs, dt, mu, qd, r, grav = args
+    for group in (8, 16, 32):
+        got = k2._launch(k2._lib.library(), k2._lib.model_tables(model), X, U,
+                         dX, dU, na, goals, xs, dt, mu, qd, r, grav,
+                         k2._lib.stream_of(X), group=group)
+        _close(got, k2.line_search_merits_reference(*args), 2e-4, 2e-4)
+
+
 @pytest.mark.parametrize("offset_us,sim_time_us",
                          [(0.0, 2000.0), (2000.0, 2000.0), (1500.0, 700.0)])
 def test_k1_kernel_matches_plain(card, offset_us, sim_time_us):

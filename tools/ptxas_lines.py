@@ -1,8 +1,11 @@
 """Build the CUDA library anew and print ptxas' registers, stack and spills
-for the kernels K1, K3 and the megakernels that run K3's stage bodies.
+for the kernels K1, K2, K3 and the megakernels that run K3's stage bodies
+and K2's merit contributions; then K5's and K9p's counts with their
+__maxnreg__ cap lifted (sqp_mega.cu compiled alone, LD_MAXNREG empty).
 
     python3 tools/ptxas_lines.py
 """
+import subprocess
 import sys
 from pathlib import Path
 
@@ -10,9 +13,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from mpcgpu_tpu_torch.ops.cuda import _lib  # noqa: E402
 
-KERNELS = ("rollout_kernel", "k3_perknot", "k3_theta", "k3_stair",
-           "15sqp_mega_kernelE", "sqp_mega_grid_kernel",
-           "sqp_iter_mega_pcg_kernel", "sqp_mega_packed_kernel")
+KERNELS = ("rollout_kernel", "12merit_kernel", "k3_perknot", "k3_theta",
+           "k3_stair", "15sqp_mega_kernelE", "24sqp_iter_mega_pcg_kernelE",
+           "24sqp_iter_mega_bcr_kernel", "20sqp_mega_grid_kernel",
+           "29sqp_iter_mega_pcg_grid_kernel", "sqp_mega_packed_kernel")
+UNCAPPED = ("15sqp_mega_kernelE", "24sqp_iter_mega_pcg_kernelE")
 
 
 def main() -> int:
@@ -21,6 +26,14 @@ def main() -> int:
                                  KERNELS)
     for frag, (regs, stack) in found.items():
         print(f"{frag}: {regs} | {stack}")
+    out = _lib.BUILD / "sqp_mega_uncapped.o"
+    log = subprocess.run(
+        [_lib.nvcc_path(), *_lib.NVCC_FLAGS, "-DLD_MAXNREG(n)=", "-c",
+         str(_lib.CSRC / "sqp_mega.cu"), "-o", str(out)],
+        capture_output=True, text=True, check=True)
+    uncapped = _lib.ptxas_resources(log.stdout + log.stderr, UNCAPPED)
+    for frag, (regs, stack) in uncapped.items():
+        print(f"{frag} without its cap: {regs} | {stack}")
     return 0
 
 
