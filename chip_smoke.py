@@ -27,8 +27,10 @@ CUDA toolkit:
    (the exact BCR solves by relative residual on the slice's systems), and
    times both (CUDA events, median after warm-up), K1's, K2's and K3's
    device times (torch.profiler) beside the one-thread recursions'; the
-   first launches of the cluster forms (K5, K9p, K6) run under a watchdog
-   that ends the process if they hang;
+   first launches of the cluster forms (K5, K9p, K6, and K10 at every
+   cluster size the card admits for two arms at N = 64, and in its
+   one-block form) run under a watchdog that ends the process if they
+   hang;
 4. runs three closed loops -- fixture pair 0_0, N = 64,
    SolverConfig.for_knots(64, sqp_max_iter=4), PCG cap 40, exit tol
    5e-5, lam warm-started by 5 solves at tol 1e-11, simulate_mpc_scan for
@@ -107,7 +109,26 @@ CUDA toolkit:
    them) beside the grid
    form K5g, and for K6
    (the solve less the solve with the CG capped at 0) at N = 64-512;
-11. prints one JSON line of the kernels, then the result line.
+11. K10's forms (each arm's CG across a thread-block cluster of its own,
+   the exit shared through tagged words; the one-block form past that
+   fit): prints ptxas' lines of both kernels and the plan (form, C, stair
+   placement, grid) for each (N, B) checked; checks the cluster form
+   against the plain version at B = 2 for N = 2 and 5 at rhos 0.1, 0.3,
+   for N = 64, 128 and 256 at rhos 0.3, 0.1 (at N = 128 and 256 at exit
+   tol 1e-4: the CGs exit before the cap, the shared CG count decides)
+   and at rho 1e-3 (every CG at the cap), as for the largest N its fit
+   admits, at N = 7 beside the one-block form and C = 2, each holding
+   lam to the float64 plain version, and at B = 1 and 16 at N = 64, the
+   one-block form at
+   the first pack past the cluster fit at N = 16 (every arm from one
+   start: they come out bit-equal), and two launches on the
+   same inputs (bit-equal); times K10 (device time a call, and a CG step
+   as in 10, beside K5's at the same N: the shared exit's part) at B = 2,
+   N = 64, 128, 256 and the one-block form at N = 64; and runs the packed
+   two-arm loop at N = 128 (cap 24, tol 1e-5, warm duals, 8 updates)
+   through the kernels and the plain modules, checked (sqp_iters, bails
+   and shared CG counts equal, tracking within 5e-3 m) and timed;
+12. prints one JSON line of the kernels, then the result line.
 
 A watchdog (faulthandler) ends the process with a traceback and a
 non-zero exit code if the run passes SCRIPT_DEADLINE seconds, and sooner
@@ -163,6 +184,20 @@ GLOO_RANKS = 2
 CLUSTER_KNOTS = (2, 4, 64, 128, 256, 512)
 CLUSTER_BCR_KNOTS = (2, 4, 8, 16, 32, 64, 128, 256, 512)
 CLUSTER_STEP_KNOTS = (64, 128, 256, 512)
+# phase 11, K10's forms: the cluster form at two arms (and the largest N
+# its fit admits), the packs at N = 64, the horizons timed; at N = 7 the
+# cluster form beside the one-block form and C = 2, each holding lam to
+# the float64 plain version
+K10_KNOTS = (2, 5, 64, 128, 256)
+K10_F64_KNOT = 7
+# the exit tolerance of the count check at rhos 0.3, 0.1 where the
+# horizon's own (1e-5) runs every CG to the cap: at 1e-4 the CGs of SQP
+# iterations 1 and 4 (N = 128) and 4 (N = 256) exit before it, every
+# exit's eta 4-14% off the tolerance (tools/packed_exit_probe.py)
+K10_EARLY_TOL = {128: 1e-4, 256: 1e-4}
+K10_ARMS = (1, 16)
+K10_STEP_KNOTS = (64, 128, 256)
+K10_LOOP_KNOT = 128
 SCRIPT_DEADLINE = 1150          # s; the run's limit is 1200
 # The kernels' numbers with the one-thread recursions, before lanedyn.cuh's
 # warp-cooperative forms (an NVIDIA H100 80GB HBM3 at 700 W, PERF.md
@@ -192,7 +227,8 @@ PTXAS_KERNELS = (("K1", "14rollout_kernel"), ("K2 G = 8", "12merit_kernelILi8E")
                  ("K9p", "24sqp_iter_mega_pcg_kernelE"),
                  ("K9pg", "29sqp_iter_mega_pcg_grid_kernel"),
                  ("K9b", "24sqp_iter_mega_bcr_kernel"),
-                 ("K10", "22sqp_mega_packed_kernel"))
+                 ("K10", "22sqp_mega_packed_kernel"),
+                 ("K10 cluster form", "30sqp_mega_packed_cluster_kernel"))
 MEGA_MAX_REGS = 202             # K5's and K9p's count with the one-thread
                                 # recursions, which sets their grid
 FIRST_LAUNCH_DEADLINE = 240     # s for the first launches of a cluster form
@@ -299,7 +335,8 @@ def _assert_close(name, pairs, rtol, atol):
 
 _TAGS = {"K5g": "sqp_mega_grid_kernel", "K9pg": "sqp_iter_mega_pcg_grid_kernel",
          "K4g": "pcg_dz_grid_kernel", "K4bg": "pcg_solve_grid_kernel",
-         "K10": "sqp_mega_packed_kernel", "K5": "sqp_mega_kernel",
+         "K10": "sqp_mega_packed_cluster_kernel",
+         "K10 one-block": "sqp_mega_packed_kernel", "K5": "sqp_mega_kernel",
          "K9p": "sqp_iter_mega_pcg_kernel", "K9b": "sqp_iter_mega_bcr_kernel",
          "K6": "bcr_pcg_dz_kernel",
          "K7": "bcr_dz_kernel",
@@ -453,7 +490,8 @@ def main() -> int:
     from mpcgpu_tpu_torch.linsys.qdldl_host import (_btd_upper_csc,
                                                     _cached_solver)
     from mpcgpu_tpu_torch.ops.btridiag import BlockTri, spmv, to_dense
-    from mpcgpu_tpu_torch.ops.cuda import _lib, launch_counts
+    from mpcgpu_tpu_torch.ops.cuda import (_lib, form_launch_counts,
+                                           launch_counts)
     from mpcgpu_tpu_torch.ops.cuda import bcr_kernel as k6
     from mpcgpu_tpu_torch.ops.cuda import bcr_kernel as k7
     from mpcgpu_tpu_torch.ops.cuda import kkt_schur_kernel as k3
@@ -845,6 +883,41 @@ def main() -> int:
                           lam_rtol, lam_atol))
         return args, out, alone, err
 
+    # K10's first launches: the cluster form at every cluster size the card
+    # admits for these arms, and the one-block form, under the watchdog,
+    # each against the plain version: decisions equal, X and U at rtol
+    # 1e-3, atol 1e-4 and lam at atol 1e-3 (phase 10's tolerances for K5's
+    # cluster forms at rho 1e-3, where every CG stops at the cap)
+    tab = _lib.model_tables(model)
+    first_args = (Xb, Ub, goals_b, xs_b, lam0_b,
+                  torch.full((b,), cfg.rho_init, device=dev),
+                  torch.ones(b, device=dev), cap, tol, SQP_ITERS)
+    first_ref = k10.sqp_solve_mega_pcg_packed_reference(model, *first_args,
+                                                        **k5_kw)
+    for c in (16, 8, 4, 2, -1):
+        try:
+            plan = k10.packed_plan(n, b, cfg.num_alphas, lib, c)
+        except ValueError:
+            print(f"K10 first launch: no plan for cluster {c}")
+            continue
+        with _watchdog(FIRST_LAUNCH_DEADLINE):
+            out = k10._launch_packed(lib, tab, *first_args, grid=plan.grid,
+                                     stream=_lib.stream_of(Xb),
+                                     cluster=plan.cluster, stair=plan.stair,
+                                     **k5_kw)
+            sync()
+        label = f"K10 first launch, plan {tuple(plan)}"
+        if int(k10.sqp_solve_mega_pcg_packed.cluster_size) != plan.cluster:
+            raise AssertionError(f"{label}: the kernel read cluster size "
+                                 f"{int(k10.sqp_solve_mega_pcg_packed.cluster_size)}")
+        for f in ("sqp_iters", "bailed", "pcg_iters_total"):
+            if not torch.equal(getattr(out, f), getattr(first_ref, f)):
+                raise AssertionError(f"{label}: {f} differs from the plain "
+                                     f"version")
+        err_xu = checked(f"{label} X, U", [(out.X, first_ref.X),
+                                           (out.U, first_ref.U)], 1e-3, 1e-4)
+        err_lam = checked(f"{label} lam", [(out.lam, first_ref.lam)], 0, 1e-3)
+        print(f"{label}: max error {err_xu:.3e} (X, U), {err_lam:.3e} (lam)")
     # the cold start of K5's check, every CG at the cap: lam at atol 1e-3
     k10_args, k10_out, _, err10 = k10_pair((cfg.rho_init,) * b, 0, 1e-3)
     # rhos where the CGs exit before the cap: lam at rtol 1e-3, atol 1e-4
@@ -886,7 +959,7 @@ def main() -> int:
                 + cg10 + _merits_ops(n, 1)),
            F32 * (2 * b * (2 * n * NX + (n - 1) * NU) + n * 6 + b * NX + TAB
                   + 4 * b) + 4 * (2 * b + 1),
-           arms=b, grid=k10.check_mega_packed_fit(n, b, cfg.num_alphas),
+           arms=b, grid=k10.packed_plan(n, b, cfg.num_alphas, lib).grid,
            one_arm_ms=b1_ms, us_per_cg_iter_over_cluster_k5=barrier_us)
 
     # ---- the kernels of the remaining sqp_solve configurations
@@ -1121,15 +1194,20 @@ def main() -> int:
             lam, r0 = res.lam, res.rho
         return lam
 
+    form_counts = {}
+
     def counted(label, run, want):
         """Run once with every launch count set to 0 just before; check
-        and return the counts read just after."""
+        and return the counts read just after (each form's of K10 kept in
+        form_counts[label])."""
         sync()
         reset_launch_counts()
         out = run()
         sync()
         counts = launch_counts()
-        print(f"{label}: launches {counts}")
+        form_counts[label] = form_launch_counts()["K10"]
+        print(f"{label}: launches {counts}, K10's forms "
+              f"{form_counts[label]}")
         if want is not None and counts != want:
             raise AssertionError(f"{label}: launch counts {counts}, expected "
                                  f"{want}")
@@ -1297,9 +1375,14 @@ def main() -> int:
             summary["k10_device_ms"] = t / 1e3 / calls if calls else None
         return summary, counts, again
 
+    main_packed = f"packed, {ARMS} arms, fused"
     packed, packed_counts, _ = run_packed(
-        f"packed, {ARMS} arms, fused", cfg, ARMS, N_UPDATES,
+        main_packed, cfg, ARMS, N_UPDATES,
         want={**none, "K1": u, "K10": u}, detail=True)
+    if form_counts[main_packed] != {"cluster": u, "one_block": 0}:
+        raise AssertionError(f"{main_packed}: K10's forms launched "
+                             f"{form_counts[main_packed]}, expected the "
+                             f"cluster form {u} times")
     packed_plain = run_packed(f"packed, {ARMS} arms, plain", plain_cfg, ARMS,
                               N_UPDATES, want=none)[0]
     for key in ("sqp_iters", "rho_bailed"):
@@ -1348,7 +1431,7 @@ def main() -> int:
                "update_ms_median": sm["update_ms_median"],
                "k10_device_ms": t / 1e3 / calls, "k10_profiled": calls,
                "cg_iters_per_update": statistics.mean(sm["pcg_iters_total"]),
-               "grid": k10.check_mega_packed_fit(n, arms, cfg.num_alphas)}
+               "grid": k10.packed_plan(n, arms, cfg.num_alphas, lib).grid}
         print(f"sweep: {json.dumps(row)}")
         sweep.append(row)
 
@@ -1508,9 +1591,14 @@ def main() -> int:
           f"N <= {lib.mpc_mega_max_knots(k5.SOLVE_PCG_GRID)}; K9b N <= "
           f"{lib.mpc_mega_max_knots(k9.ITER_BCR)}")
     # K10: its horizon for a pack of ARMS, and the largest pack at N = 64
-    # (every arm needs a co-resident CG block of its own)
-    k10_arms = max((b for b in range(1, 1025)
-                    if lib.mpc_mega_packed_grid(n, b, cfg.num_alphas) >= b),
+    # (every arm needs a co-resident cluster, or block, of its own)
+    def plan_or_none(n_p, b_p):
+        try:
+            return k10.packed_plan(n_p, b_p, cfg.num_alphas, lib)
+        except ValueError:
+            return None
+
+    k10_arms = max((b for b in range(1, 1025) if plan_or_none(n, b)),
                    default=0)
     print(f"ceilings: K10 N <= "
           f"{lib.mpc_mega_packed_max_knots(ARMS, cfg.num_alphas)} at B = "
@@ -2473,6 +2561,263 @@ def main() -> int:
                      cluster_size_read=k6_read, cg_step_by_n=steps6)
     print(f"phase 10 (cluster forms): {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 11. K10's forms: each arm's CG across a thread-block cluster of
+    # its own (the cluster form), and the one-block form past that fit
+    t_phase = time.perf_counter()
+    found = _lib.ptxas_resources(build_log, ["22sqp_mega_packed_kernel",
+                                             "30sqp_mega_packed_cluster_kernel"])
+    for frag, (regs, stack) in found.items():
+        print(f"K10 ptxas {frag[2:]}: {regs} | {stack}")
+
+    def packed_args(n_p, b_p, rhos, same=False, tol_p=None):
+        """b_p arms at horizon n_p as phase 8 starts them (long_start,
+        seeds 5 + a, or seed 5 for every arm when same), cold duals, the
+        horizon's cap and exit tolerance (or tol_p)."""
+        starts = [long_start(n_p, seed=5 if same else 5 + a)
+                  for a in range(b_p)]
+        X0, U0, g0, xs0 = starts[0]
+        cl = long_cfg(n_p)
+        return ((model, torch.stack([st[0] for st in starts]),
+                 U0.expand(b_p, n_p - 1, NU).contiguous(),
+                 g0.expand((b_p,) + g0.shape), xs0.expand(b_p, NX).contiguous(),
+                 torch.zeros(b_p, n_p, NX, device=dev),
+                 torch.tensor(rhos, device=dev), torch.ones(b_p, device=dev),
+                 cl.pcg.max_iter, tol_p or default_pcg_exit_tols(n_p)[0],
+                 SQP_ITERS), long_kw(n_p))
+
+    def packed_launch(args, kw_p, plan, cap_p=None):
+        a = (*args[1:8], args[8] if cap_p is None else cap_p, *args[9:])
+        return k10._launch_packed(lib, tab, *a, grid=plan.grid,
+                                  stream=_lib.stream_of(args[1]),
+                                  cluster=plan.cluster, stair=plan.stair,
+                                  **kw_p)
+
+    def plan_text(plan):
+        form = (f"cluster form, C = {plan.cluster}, stair bands "
+                f"{'on chip' if plan.stair else 'in L2'}"
+                if plan.cluster else "one-block form")
+        return f"{form}, grid {plan.grid}"
+
+    def k10_form_check(n_p, b_p, rhos, cluster=0, same=False, f64=False,
+                       tol_p=None):
+        """K10 in the planned form (cluster 0) or a forced one (2-16 that
+        cluster size, -1 the one-block form) against the plain version:
+        sqp_iters, bails and the shared CG count equal; X, U at rtol 1e-3,
+        atol 1e-5 (1e-4 at rho 1e-3, phase 10's K5 precedent at long
+        horizons); lam at atol 1e-3 where every rho is 1e-3 (every CG at
+        the cap, on a system of condition ~1e7), else at the JAX megakernel
+        test's rtol 1e-3, atol 1e-4 -- with f64, against the float64 plain
+        version."""
+        args, kw_p = packed_args(n_p, b_p, rhos, same, tol_p)
+        plan = k10.packed_plan(n_p, b_p, cfg.num_alphas, lib, cluster)
+        with _watchdog(FIRST_LAUNCH_DEADLINE):
+            out = packed_launch(args, kw_p, plan)
+            sync()
+        label = f"K10 N = {n_p}, B = {b_p}, rhos {rhos[:2]}"
+        read = int(k10.sqp_solve_mega_pcg_packed.cluster_size)
+        if read != plan.cluster:
+            raise AssertionError(f"{label}: the kernel read cluster size "
+                                 f"{read}, planned {plan.cluster}")
+        ref = k10.sqp_solve_mega_pcg_packed_reference(*args, **kw_p)
+        for f in ("sqp_iters", "bailed", "pcg_iters_total"):
+            if not torch.equal(getattr(out, f), getattr(ref, f)):
+                raise AssertionError(
+                    f"{label}: {f} {getattr(out, f).tolist()} vs plain "
+                    f"{getattr(ref, f).tolist()}")
+        cold = max(rhos) <= cfg.rho_init
+        err = checked(f"{label} X, U", [(out.X, ref.X), (out.U, ref.U)],
+                      1e-3, 1e-4 if cold else 1e-5)
+        lam_err = _max_err([(out.lam, ref.lam)])
+        note = ""
+        if f64:
+            ref64 = k10.sqp_solve_mega_pcg_packed_reference(
+                iiwa14(device=dev, dtype=torch.float64),
+                *(a.double() if torch.is_tensor(a) else a for a in args[1:]),
+                **kw_p)
+            lam64 = ref64.lam.to(torch.float32)
+            err64 = checked(f"{label} lam against the float64 plain version",
+                            [(out.lam, lam64)], 1e-3, 1e-4)
+            own = _max_err([(ref.lam, lam64)])
+            ratio = ((out.lam - ref.lam).abs() / (1e-4 + 1e-3 * ref.lam.abs())
+                     ).max().item()
+            note = (f"; lam {err64:.3e} from the float64 plain version (the "
+                    f"float32 plain version: {own:.3e}), the JAX tolerance "
+                    f"ratio against the float32 plain version {ratio:.3f}")
+        else:
+            checked(f"{label} lam", [(out.lam, ref.lam)],
+                    *((0, 1e-3) if cold else (1e-3, 1e-4)))
+        if same and not all(torch.equal(t, t[:1].expand_as(t))
+                            for t in (out.X, out.U, out.lam)):
+            raise AssertionError(f"{label}: arms with the same inputs "
+                                 f"differ")
+        print(f"{label}: {plan_text(plan)}, read C = {read}; shared CG "
+              f"{int(out.pcg_iters_total)} as plain (cap "
+              f"{args[8] * SQP_ITERS}), sqp_iters {out.sqp_iters.tolist()}; "
+              f"max error {max(err, lam_err):.3e}{note}")
+        return plan, out, max(err, lam_err)
+
+    # The shared CG count is compared at rhos where the CGs exit before the
+    # cap (0.1, 0.3 below N = 64; 0.3, 0.1 from N = 64, at N = 128 and 256
+    # with K10_EARLY_TOL), and from N = 64 also at rho 1e-3, every CG at
+    # the cap.  At N = 64, rhos 0.1, 0.3, SQP iteration 4's exit falls
+    # within 0.07% of the tolerance, where the forms' etas scatter by about
+    # 0.1%: some sizes C take 3 more steps (tools/packed_exit_probe.py).
+    # At N = 7 two float32 solves part in lam by more than the JAX
+    # tolerance (the one-block form and C = 16 from the plain version, on
+    # the NVIDIA H100 80GB HBM3 at 700 W), so each form holds lam to the
+    # float64 plain version there, at that tolerance.
+    n_top = lib.mpc_mega_packed_max_knots(ARMS, cfg.num_alphas)
+    err10c, forms10 = 0.0, {}
+    for n_p in (*K10_KNOTS, n_top):
+        early = (0.1, 0.3) if n_p < n else (0.3, 0.1)
+        for rhos in (early,) + (((cfg.rho_init,) * ARMS,) if n_p >= n
+                                else ()):
+            if n_p == n_top and rhos == early:
+                continue
+            plan, out, err = k10_form_check(
+                n_p, ARMS, rhos,
+                tol_p=K10_EARLY_TOL.get(n_p) if rhos == early else None)
+            if rhos == early and (int(out.pcg_iters_total)
+                                  >= long_cfg(n_p).pcg.max_iter * SQP_ITERS):
+                raise AssertionError(f"K10 N = {n_p} at rhos {rhos}: every "
+                                     f"CG stopped at the cap")
+            if not plan.cluster:
+                raise AssertionError(f"K10 N = {n_p}, B = {ARMS}: the plan "
+                                     f"is not the cluster form")
+            err10c = max(err10c, err)
+            forms10[f"N={n_p},B={ARMS}"] = plan_text(plan)
+    for cluster in (0, 2, -1):
+        plan, _, err = k10_form_check(K10_F64_KNOT, ARMS, (0.1, 0.3),
+                                      cluster, f64=True)
+        if cluster == 0:
+            err10c = max(err10c, err)
+            forms10[f"N={K10_F64_KNOT},B={ARMS}"] = plan_text(plan)
+    for b_p in K10_ARMS:
+        plan, _, err = k10_form_check(n, b_p, (cfg.rho_init,) * b_p)
+        err10c = max(err10c, err)
+        forms10[f"N={n},B={b_p}"] = plan_text(plan)
+    for b_p in SWEEP_ARMS:
+        forms10.setdefault(f"N={n},B={b_p}", plan_text(
+            k10.packed_plan(n, b_p, cfg.num_alphas, lib)))
+    # the one-block form past the cluster fit: the first pack at N = 16
+    # that no co-resident clusters of 2 hold, every arm from the same
+    # start, so that all exit their CGs together and come out bit-equal.
+    # From 133 different starts some arms converge before the pack's
+    # exit and step on, as the JAX kernel's do, and float32 drift there
+    # differs between any two implementations (X parted from the plain
+    # version by 6.0e-3, an NVIDIA H100 80GB HBM3 at 700 W).
+    b_one = next((b_p for b_p in range(2, 1025)
+                  if getattr(plan_or_none(16, b_p), "cluster", -1) == 0),
+                 None)
+    if b_one is None:
+        raise AssertionError("K10: no pack at N = 16 takes the one-block "
+                             "form")
+    plan, _, err = k10_form_check(16, b_one, (cfg.rho_init,) * b_one,
+                                  same=True)
+    err10c = max(err10c, err)
+    forms10[f"N=16,B={b_one}"] = plan_text(plan)
+    for key, text in forms10.items():
+        print(f"K10 plan {key}: {text}")
+    print(f"K10 ceilings: N <= {n_top} at B = {ARMS}; the one-block form "
+          f"from B = {b_one} at N = 16")
+    # two launches on the same inputs: equal bits
+    args, kw_p = packed_args(n, ARMS, (0.1, 0.3))
+    plan = k10.packed_plan(n, ARMS, cfg.num_alphas, lib)
+    one, two = packed_launch(args, kw_p, plan), packed_launch(args, kw_p, plan)
+    sync()
+    if not all(torch.equal(x, y) for x, y in zip(one, two)):
+        raise AssertionError("K10: two launches on the same inputs differ")
+    print(f"K10 N = {n}, B = {ARMS}: two launches bit-equal")
+
+    # device time a call and a CG step (the solve less the solve with the
+    # CG capped at 0, over the shared CG steps) at the cold start, beside
+    # K5's step at the same N (phase 10): the difference is the shared
+    # exit's part; and the one-block form at N = 64
+    steps10 = {}
+    for n_p, cluster in [(n_p, 0) for n_p in K10_STEP_KNOTS] + [(n, -1)]:
+        args, kw_p = packed_args(n_p, ARMS, (cfg.rho_init,) * ARMS)
+        plan = k10.packed_plan(n_p, ARMS, cfg.num_alphas, lib, cluster)
+        its = int(packed_launch(args, kw_p, plan).pcg_iters_total)
+        full, base, step = step_us(
+            lambda: packed_launch(args, kw_p, plan),
+            lambda: packed_launch(args, kw_p, plan, 0),
+            "K10" if plan.cluster else "K10 one-block", its)
+        k5_step = steps5.get(str(n_p), {}).get("K5", {}).get("cg_step_us")
+        row = {"plan": plan_text(plan), "device_us": full, "stages_us": base,
+               "cg_steps": its, "cg_step_us": step, "k5_cg_step_us": k5_step}
+        share = (f"; K5's step {k5_step:.2f} us: the shared exit and the "
+                 f"rest {100 * (step - k5_step) / step:.0f}% of K10's"
+                 if step and k5_step else "")
+        print(f"K10 N = {n_p}, B = {ARMS}, {plan_text(plan)}: {_us(full)} a "
+              f"solve, {_us(base)} with the CG capped at 0, {its} shared CG "
+              f"steps: {'not profiled' if step is None else f'{step:.2f} us'}"
+              f" a CG step{share}")
+        steps10[f"{n_p}/{'cluster' if plan.cluster else 'block'}"] = row
+
+    # the one-block form's call at the K10 check's inputs (phase 3)
+    k10_entry = next(k for k in kernels if k["name"].startswith("K10 "))
+    plan_one = k10.packed_plan(n, ARMS, cfg.num_alphas, lib, -1)
+    one_ms = _event_ms(lambda: k10._launch_packed(
+        lib, tab, *k10_args[1:], grid=plan_one.grid,
+        stream=_lib.stream_of(Xb), cluster=0, **k5_kw))
+
+    # the packed two-arm loop at N = 128: warm duals, seeded arm starts
+    n_l = K10_LOOP_KNOT
+    cfg_pl = long_cfg(n_l)
+    tol_pl = default_pcg_exit_tols(n_l)[0]
+    start_pl = long_start(n_l)
+    lam_pl = warm_lam(dataclasses.replace(cfg_pl, megakernel=True,
+                                          megakernel_solve=True), start_pl)
+    Xs_pl, Us_pl, lams_pl = arm_starts(start_pl[0], start_pl[1], lam_pl,
+                                       dq[:ARMS])
+
+    def packed_loop(run_cfg, n_up=LONG_UPDATES, timing=False):
+        return simulate_mpc_scan_packed(model, run_cfg, xu_d, ee_d, Xs_pl,
+                                        Us_pl, lams_pl, cfg.rho_init, tol_pl,
+                                        n_up, timing=timing)
+
+    packed_loop(cfg_pl, 2)
+    pl_fused, _ = counted(
+        f"packed N = {n_l}, {ARMS} arms, fused",
+        lambda: packed_loop(cfg_pl, timing=True),
+        {**none, "K1": LONG_UPDATES, "K10": LONG_UPDATES})
+    pl_plain = packed_loop(dataclasses.replace(cfg_pl, fused_stages=False))
+    for key in ("sqp_iters", "rho_bailed", "pcg_iters_total"):
+        if not torch.equal(pl_fused[key].cpu(), pl_plain[key].cpu()):
+            raise AssertionError(f"packed N = {n_l} {key}: fused "
+                                 f"{pl_fused[key].tolist()} vs plain "
+                                 f"{pl_plain[key].tolist()}")
+    err_f = pl_fused["tracking_errors"].mean(1).tolist()
+    err_p = pl_plain["tracking_errors"].mean(1).tolist()
+    for a, (x1, x2) in enumerate(zip(err_f, err_p)):
+        if not (x1 < 0.1 and x2 < 0.1) or abs(x1 - x2) > 5e-3:
+            raise AssertionError(f"packed N = {n_l} arm {a}: mean error fused "
+                                 f"{x1} vs plain {x2} (each under 0.1 m, "
+                                 f"within 5e-3 m)")
+    t_pl, calls_pl = _by_kernel(_device_events(
+        lambda: packed_loop(cfg_pl))).get("K10", (0.0, 0))
+    med_pl = statistics.median(pl_fused["update_ms"])
+    packed_long = {"knots": n_l, "arms": ARMS, "updates": LONG_UPDATES,
+                   "update_ms_median": med_pl,
+                   "arm_updates_per_s": ARMS * 1e3 / med_pl,
+                   "k10_device_ms": t_pl / 1e3 / calls_pl if calls_pl else None,
+                   "mean_err_m": err_f, "plain_mean_err_m": err_p,
+                   "sqp_iters": pl_fused["sqp_iters"].tolist(),
+                   "pcg_iters_total": pl_fused["pcg_iters_total"].tolist()}
+    print(f"packed N = {n_l}, {ARMS} arms: {json.dumps(packed_long)}")
+    k10_entry.update(
+        cluster_forms_max_abs_err=err10c, plans=forms10, cg_steps=steps10,
+        packed_loop_n128=packed_long,
+        form_launches_on_the_main_path=form_counts[main_packed],
+        one_block_form={"ms": one_ms, "plain_ms": k10_entry["plain_ms"],
+                        "bound_ms": k10_entry["bound_ms"],
+                        "bound_by": k10_entry["bound_by"],
+                        "plan": plan_text(plan_one),
+                        "launches_on_the_main_path":
+                            form_counts[main_packed]["one_block"],
+                        "checked_past_the_cluster_fit": f"N = 16, B = {b_one}"})
+    print(f"phase 11 (K10's forms): {time.perf_counter() - t_phase:.1f} s")
+
     # each kernel's launches: the first run of this slice's paths that
     # launched it (the default auto loop, its failover branch, the staged
     # loop, the packed loop, then this file's phase 6 loops)
@@ -2500,7 +2845,6 @@ def main() -> int:
             raise AssertionError(f"{kid} was launched in no closed loop")
         k["launches"], k["path"] = count, path
 
-    k10_entry = next(k for k in kernels if k["name"].startswith("K10 "))
     k10_entry["device_ms"] = packed["k10_device_ms"]
     k10_entry["sweep"] = sweep
     faulthandler.cancel_dump_traceback_later()

@@ -74,30 +74,10 @@ namespace {
 // cudaOccupancyMaxActiveClusters' answer for C blocks of K6 over N knots:
 // at least one cluster fits.
 bool cluster_fits(int N, int C, int optin) {
-  const void* fn = (const void*)bcr_pcg_dz_kernel;
   const size_t smem = bcr_smem_floats(N, C) * sizeof(float);
-  if (smem > (size_t)optin ||
-      cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                           1) != cudaSuccess ||
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess)
-    return false;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C);
-  cfg.blockDim = dim3(MAX_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = C;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  const bool ok = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) ==
-                      cudaSuccess && clusters >= 1;
-  cudaGetLastError();  // a refused query leaves no error behind
-  return ok;
+  return smem <= (size_t)optin &&
+         pcgc::active_clusters((const void*)bcr_pcg_dz_kernel, C, MAX_THREADS,
+                               smem) >= 1;
 }
 
 }  // namespace

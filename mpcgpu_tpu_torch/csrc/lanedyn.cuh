@@ -36,7 +36,8 @@
 // rank is 0, its size 1, the map into another block's shared memory
 // (ld_cluster_map) returns the block's own, and the cluster barriers do
 // nothing; a test may emulate C blocks whose phases between barriers it
-// runs rank after rank (ld_emu_cbase).  A test may also emulate a block's
+// runs rank after rank (ld_emu_cbase), or a whole cooperative cluster
+// launch, block after block between the barriers (ld_emu_blocks).  A test may also emulate a block's
 // threads (ld_emu_threaded): each launch then runs every block on as many
 // host threads as the launch names, 32 lanes a warp, with the static
 // shared arrays shared and the block, warp and group barriers real (a
@@ -97,6 +98,7 @@ __device__ inline float* ld_cluster_map(const float* p, int rank) {
 #include <atomic>
 #include <chrono>
 #include <condition_variable>
+#include <cstring>
 #include <map>
 #include <mutex>
 #include <thread>
@@ -175,7 +177,11 @@ inline void ld_emu_run(int threads, F&& body) {
   ld_emu_ntid = 1;
 }
 
-#define LD_DYN_SMEM(name) float* name = ld_emu_smem.data()
+// the running block's dynamic shared memory under the block emulation
+// (ld_emu_blocks), else the launch's one area
+inline float* ld_emu_dyn = nullptr;
+#define LD_DYN_SMEM(name) \
+  float* name = ld_emu_dyn ? ld_emu_dyn : ld_emu_smem.data()
 #define LD_LAUNCH(kern, grid, block, smem, stream, ...)                    \
   do {                                                                     \
     ld_emu_smem.assign((size_t)(smem) / sizeof(float) + 1, 0.0f);          \
@@ -184,13 +190,16 @@ inline void ld_emu_run(int threads, F&& body) {
       ld_emu_run((block), [&] { kern(__VA_ARGS__); });                     \
   } while (0)
 #define LD_LAST_ERROR() 0
-#define LD_GRID_SYNC() ((void)0)
-#define LD_CLUSTER_SYNC() ((void)0)
-#define LD_CLUSTER_ARRIVE() ((void)0)
-#define LD_CLUSTER_WAIT() ((void)0)
+// The grid and cluster barriers do nothing where a launch runs its blocks
+// in turn (one block walks the whole grid's work); under the block
+// emulation they are real (below).
+#define LD_GRID_SYNC() ld_emu_grid_sync()
+#define LD_CLUSTER_SYNC() (ld_emu_cluster_arrive(), ld_emu_cluster_wait())
+#define LD_CLUSTER_ARRIVE() ld_emu_cluster_arrive()
+#define LD_CLUSTER_WAIT() ld_emu_cluster_wait()
 // A cluster of one block, unless a host test emulates C blocks: it sets
 // ld_emu_cbase to each block's shared memory and runs their phases rank
-// after rank with ld_emu_crank set.
+// after rank with ld_emu_crank set (or ld_emu_blocks does).
 inline int ld_emu_crank = 0;
 inline std::vector<float*> ld_emu_cbase;
 inline int ld_cluster_rank() { return ld_emu_crank; }
@@ -200,6 +209,159 @@ inline int ld_cluster_size() {
 inline float* ld_cluster_map(const float* p, int rank) {
   if (ld_emu_cbase.empty()) return const_cast<float*>(p);
   return ld_emu_cbase[rank] + (p - ld_emu_cbase[ld_emu_crank]);
+}
+
+// The block emulation (host tests of a cooperative cluster launch):
+// ld_emu_blocks runs a launch of n blocks in clusters of C, each block on a
+// host thread of its own with its own dynamic shared memory, one block at
+// a time: the running block hands the baton on at every grid or cluster
+// barrier it must wait at and in every spin wait (ld_emu_until), so the
+// phases between barriers run block after block, B clusters in turn.  A
+// wait that no block can end (a barrier some block never reaches, a flag
+// never written) shows as two rounds of the baton in which no block
+// arrived anywhere: ld_emu_failed is set and every wait then returns.
+// Static shared arrays are one per launch here, which is right where a
+// block keeps nothing in them across a barrier but what every block
+// writes alike (the model tables).
+struct LdEmuBlocks {
+  std::mutex m;
+  std::condition_variable cv;
+  int n = 0, C = 1, turn = 0;
+  long long progress = 0;  // arrivals, waits ended, blocks ended
+  std::vector<std::vector<float>> smem;
+  std::vector<char> ended;
+  int grid_arrived = 0;
+  long long grid_gen = 0;
+  std::vector<int> cl_arrived;
+  std::vector<long long> cl_gen, arrival;  // arrival: per block
+};
+inline LdEmuBlocks* ld_emu_blk = nullptr;
+inline thread_local int ld_emu_me = -1;
+
+// The block `me` takes the baton: the emulation's globals become its own.
+inline void ld_emu_enter(LdEmuBlocks& s, int me) {
+  ld_emu_bid = me;
+  ld_emu_nbid = s.n;
+  ld_emu_crank = me % s.C;
+  ld_emu_cbase.clear();
+  for (int q = 0; q < s.C; ++q)
+    ld_emu_cbase.push_back(s.smem[me - me % s.C + q].data());
+  ld_emu_dyn = s.smem[me].data();
+}
+
+// Hand the baton to the next block that has not ended; wait to get it back.
+inline void ld_emu_pass(LdEmuBlocks& s, std::unique_lock<std::mutex>& lk) {
+  const int me = ld_emu_me;
+  int next = me;
+  do next = (next + 1) % s.n; while (s.ended[next] && next != me);
+  s.turn = next;
+  s.cv.notify_all();
+  s.cv.wait(lk, [&] { return s.turn == me; });
+  ld_emu_enter(s, me);
+}
+
+// Wait, the baton held, until pred() (read under the lock) holds.
+template <class P>
+inline void ld_emu_wait_locked(LdEmuBlocks& s, std::unique_lock<std::mutex>& lk,
+                               P&& pred) {
+  long long seen = s.progress;
+  int idle = 0;
+  while (!ld_emu_failed && !pred()) {
+    ld_emu_pass(s, lk);
+    if (s.progress != seen) {
+      seen = s.progress;
+      idle = 0;
+    } else if (++idle > 2) {
+      ld_emu_failed = true;
+    }
+  }
+  ++s.progress;
+}
+
+// A spin wait of the card's code: under the block emulation, hand the
+// baton on until pred() holds; else pred() must hold already.
+template <class P>
+inline void ld_emu_until(P&& pred) {
+  if (!ld_emu_blk) {
+    if (!pred()) ld_emu_failed = true;
+    return;
+  }
+  std::unique_lock<std::mutex> lk(ld_emu_blk->m);
+  ld_emu_wait_locked(*ld_emu_blk, lk, pred);
+}
+
+inline void ld_emu_grid_sync() {
+  if (!ld_emu_blk) return;
+  LdEmuBlocks& s = *ld_emu_blk;
+  std::unique_lock<std::mutex> lk(s.m);
+  const long long gen = s.grid_gen;
+  if (++s.grid_arrived == s.n) {
+    s.grid_arrived = 0;
+    ++s.grid_gen;
+  }
+  ++s.progress;
+  ld_emu_wait_locked(s, lk, [&] { return s.grid_gen != gen; });
+}
+
+inline void ld_emu_cluster_arrive() {
+  if (!ld_emu_blk) return;
+  LdEmuBlocks& s = *ld_emu_blk;
+  std::lock_guard<std::mutex> lk(s.m);
+  const int me = ld_emu_me, c = me / s.C;
+  s.arrival[me] = s.cl_gen[c];
+  if (++s.cl_arrived[c] == s.C) {
+    s.cl_arrived[c] = 0;
+    ++s.cl_gen[c];
+  }
+  ++s.progress;
+}
+
+inline void ld_emu_cluster_wait() {
+  if (!ld_emu_blk) return;
+  LdEmuBlocks& s = *ld_emu_blk;
+  std::unique_lock<std::mutex> lk(s.m);
+  const int me = ld_emu_me, c = me / s.C;
+  ld_emu_wait_locked(s, lk, [&] { return s.cl_gen[c] != s.arrival[me]; });
+}
+
+// Run body() as n blocks in clusters of C (n a multiple of C), each with
+// smem_floats of dynamic shared memory, one thread a block.
+template <class F>
+inline void ld_emu_blocks(int n, int C, size_t smem_floats, F&& body) {
+  LdEmuBlocks s;
+  s.n = n;
+  s.C = C;
+  s.smem.assign(n, std::vector<float>(smem_floats + 1, 0.0f));
+  s.ended.assign(n, 0);
+  s.cl_arrived.assign(n / C, 0);
+  s.cl_gen.assign(n / C, 0);
+  s.arrival.assign(n, 0);
+  ld_emu_blk = &s;
+  std::vector<std::thread> pool;
+  for (int b = 0; b < n; ++b)
+    pool.emplace_back([&s, &body, b] {
+      ld_emu_me = b;
+      {
+        std::unique_lock<std::mutex> lk(s.m);
+        s.cv.wait(lk, [&] { return s.turn == b; });
+        ld_emu_enter(s, b);
+      }
+      body();
+      std::unique_lock<std::mutex> lk(s.m);
+      s.ended[b] = 1;
+      ++s.progress;
+      int next = b;
+      do next = (next + 1) % s.n; while (s.ended[next] && next != b);
+      s.turn = next;
+      s.cv.notify_all();
+    });
+  for (auto& th : pool) th.join();
+  ld_emu_blk = nullptr;
+  ld_emu_dyn = nullptr;
+  ld_emu_cbase.clear();
+  ld_emu_crank = 0;
+  ld_emu_bid = 0;
+  ld_emu_nbid = 1;
 }
 #endif
 

@@ -1,11 +1,12 @@
 // The one-block CG solve of S lam = gamma and the primal step, shared by
-// K4 and K4b (pcg_dz.cu) and K10 (sqp_mega_packed.cu, which drives cg_init
-// and cg_step itself: its arms' CGs share one exit); the grid-wide form of
-// the stair-PCG and the primal step (grid_cg_solve, grid_dz) for K4g, K4bg
-// (pcg_dz.cu), K5g and K9pg (sqp_mega.cu), past the cluster form's fit;
-// and the cluster form (cluster_cg_solve, cluster_dz) for K5 and K9p
-// (sqp_mega.cu, the stair) and K6 (bcr_pcg_dz.cu, the block cyclic
-// reduction).
+// K4 and K4b (pcg_dz.cu) and K10's one-block form (sqp_mega_packed.cu,
+// which drives cg_init and cg_step itself: its arms' CGs share one exit);
+// the grid-wide form of the stair-PCG and the primal step (grid_cg_solve,
+// grid_dz) for K4g, K4bg (pcg_dz.cu), K5g and K9pg (sqp_mega.cu), past the
+// cluster form's fit; and the cluster form (cluster_cg_solve, cluster_dz)
+// for K5 and K9p (sqp_mega.cu, the stair), K6 (bcr_pcg_dz.cu, the block
+// cyclic reduction) and K10's cluster form (one cluster an arm, the exit
+// shared by the arms' clusters: SharedExit).
 //
 // One thread block holds S's three (N, 14, 14) bands and the CG vectors in
 // shared memory; one thread per (knot, row) entry of an (N, 14) vector
@@ -500,6 +501,34 @@ LD_DEV void grid_dz(int N, const float* lam, const float* A, const float* B,
 // Knots per block of an N-knot solve over C blocks.
 LD_HD int cluster_knots(int N, int C) { return (N + C - 1) / C; }
 
+#ifdef __CUDACC__
+// Co-resident clusters of C blocks of kernel fn, `threads` threads and
+// `smem` dynamic shared bytes each (0 if none, or if the query is refused;
+// C = 16 is allowed as a non-portable size).
+inline int active_clusters(const void* fn, int C, int threads, size_t smem) {
+  int n = 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1) != cudaSuccess ||
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess)
+    n = 0;
+  cudaGetLastError();  // a refused query leaves no error behind
+  return n;
+}
+#endif
+
 // Shared floats of one block: S's bands of nk knots (and the stair's when
 // `stair`), eight (nk + 2, 14) vectors, 32 reduction and 2 dot slots, then
 // `extra` floats (ClusterCg::extra).
@@ -673,15 +702,111 @@ struct ClusterStair {
   }
 };
 
-// The warm-started preconditioned CG (MPCGPU alg. 2, cg_solve's exit) over
-// the cluster, every block calling it alike: S's own bands in a.SL, SD, SU,
-// gamma and lam0 in global memory (lam0 read past L1, whole: the first
-// residual reads the neighbours' rows).  The solution's own rows end in
-// a.lam; returns the iteration count and the final eta.
-template <class Pre>
+// The CG's exit.  LocalExit is cg_solve's (K5, K9p, K6): go on while
+// it < max_iter and |eta| > tol, from this CG's own eta.
+struct LocalExit {
+  static constexpr bool SHARED = false;
+  int max_iter;
+  float tol;
+  LD_DEV bool may_step(int it, float eta) const {
+    return it < max_iter && fabsf(eta) > tol;
+  }
+  LD_DEV void publish(const ClusterCg&, float) {}
+  LD_DEV float div(float num, float den) const { return num / den; }
+};
+
+// SharedExit is the JAX packed kernel's (_pcg_loop_packed): B arms, each
+// CG on a cluster of its own, step together while it < max_iter and some
+// arm's |eta| > tol (none NaN: jnp.max(|eta|) > tol), one count for all,
+// with cg_div's 0/0 -> 0 for alpha and beta (an arm whose residual is
+// exactly zero freezes instead of making NaN).  After each eta's cluster
+// sum, rank 0 of the arm's cluster publishes it beside its tag (the count
+// of etas the arm has published in the launch) in one 64-bit word of
+// global memory, double-buffered by the tag's parity.  The test of a step
+// is taken after the step's w = S p (which changes neither lam nor r):
+// warp 0 of every block reads the B words between the first cluster
+// barrier's arrive and wait, until each carries the tag (a spin on L2:
+// every cluster is co-resident, the launch is cooperative), so every
+// block of every arm decides on the same bits, and the wait overlaps the
+// barrier.  A word is overwritten two tags later, only after its arm has
+// read every arm's next word, which each arm publishes only after all
+// its blocks have read this one: no read can miss its tag.
+#ifdef __CUDACC__
+LD_DEV void store_tagged(unsigned long long* p, unsigned tag, float v) {
+  const unsigned long long w =
+      ((unsigned long long)tag << 32) | __float_as_uint(v);
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(w)
+               : "memory");
+}
+LD_DEV float wait_tagged(const unsigned long long* p, unsigned tag) {
+  unsigned long long w;
+  do {
+    asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(w) : "l"(p)
+                 : "memory");
+  } while ((unsigned)(w >> 32) != tag);
+  return __uint_as_float((unsigned)w);
+}
+#else
+inline void store_tagged(unsigned long long* p, unsigned tag, float v) {
+  unsigned bits;
+  memcpy(&bits, &v, sizeof bits);
+  *p = ((unsigned long long)tag << 32) | bits;
+}
+inline float wait_tagged(const unsigned long long* p, unsigned tag) {
+  ld_emu_until([&] { return (unsigned)(*p >> 32) == tag; });
+  const unsigned bits = (unsigned)*p;
+  float v;
+  memcpy(&v, &bits, sizeof v);
+  return v;
+}
+#endif
+
+struct SharedExit {
+  static constexpr bool SHARED = true;
+  unsigned long long* words;  // 2 x B, zeroed before the launch's first CG
+  int B, arm, max_iter;
+  float tol;
+  int* flag;          // shared memory: the test warp 0 took
+  unsigned tag = 0;   // etas this arm has published in the launch
+  LD_DEV bool may_step(int it, float) const { return it < max_iter; }
+  LD_DEV void publish(const ClusterCg& a, float eta) {
+    ++tag;
+    if (a.rank == 0 && LD_TID == 0)
+      store_tagged(words + (size_t)B * (tag & 1) + arm, tag, eta);
+  }
+  // warp 0 (one thread in the host build): every arm's eta of this tag
+  LD_DEV void poll() {
+#ifdef __CUDACC__
+    const int lane = LD_TID, lanes = 32;
+#else
+    const int lane = LD_TID, lanes = 1;
+#endif
+    if (lane >= lanes) return;
+    bool go = false, nan = false;
+    for (int b = lane; b < B; b += lanes) {
+      const float v = fabsf(wait_tagged(words + (size_t)B * (tag & 1) + b, tag));
+      nan = nan || v != v;
+      go = go || v > tol;
+    }
+#ifdef __CUDACC__
+    go = __any_sync(0xffffffffu, go);
+    nan = __any_sync(0xffffffffu, nan);
+#endif
+    if (lane == 0) *flag = go && !nan;
+  }
+  LD_DEV float div(float num, float den) const { return cg_div(num, den, true); }
+};
+
+// The warm-started preconditioned CG (MPCGPU alg. 2) over the cluster,
+// every block calling it alike, with the exit `ex` (LocalExit: cg_solve's;
+// SharedExit: the packed arms'): S's own bands in a.SL, SD, SU, gamma and
+// lam0 in global memory (lam0 read past L1, whole: the first residual
+// reads the neighbours' rows).  The solution's own rows end in a.lam;
+// returns the iteration count and the final eta.
+template <class Pre, class Exit>
 LD_DEV int cluster_cg_solve(const ClusterCg& a, const float* gamma,
-                            const float* lam0, const Pre& pre, int max_iter,
-                            float tol, float* eta_out) {
+                            const float* lam0, const Pre& pre, Exit& ex,
+                            float* eta_out) {
   const int t = LD_TID, nt = LD_NTID, n = S * a.own;
   float* const lam = a.lam;
   float* const w = a.w;
@@ -708,10 +833,11 @@ LD_DEV int cluster_cg_solve(const ClusterCg& a, const float* gamma,
   block_partial(part, a.red, a.slots + 1);
   LD_CLUSTER_SYNC();
   float eta = cluster_sum(a, a.slots + 1);
+  ex.publish(a, eta);
   fetch_halos(a, a.p[0]);
   LD_SYNC();
   int it = 0, c = 0;
-  while (it < max_iter && fabsf(eta) > tol) {
+  while (ex.may_step(it, eta)) {
     const float* P = a.p[c];
     const float* R = a.r[c];
     float* Pn = a.p[c ^ 1];
@@ -724,8 +850,16 @@ LD_DEV int cluster_cg_solve(const ClusterCg& a, const float* gamma,
       part += P[S + e] * v;
     }
     block_partial(part, a.red, a.slots);
-    LD_CLUSTER_SYNC();
-    const float alpha = eta / cluster_sum(a, a.slots);
+    if constexpr (Exit::SHARED) {
+      LD_CLUSTER_ARRIVE();
+      ex.poll();
+      LD_CLUSTER_WAIT();
+      LD_SYNC();
+      if (!*ex.flag) break;
+    } else {
+      LD_CLUSTER_SYNC();
+    }
+    const float alpha = ex.div(eta, cluster_sum(a, a.slots));
     // lam += alpha p, r' = r - alpha w (own rows and halos)
     for (int e = t; e < n; e += nt) {
       lam[S + e] = fmaf(alpha, P[S + e], lam[S + e]);
@@ -738,7 +872,8 @@ LD_DEV int cluster_cg_solve(const ClusterCg& a, const float* gamma,
     block_partial(part, a.red, a.slots + 1);
     LD_CLUSTER_SYNC();
     const float eta_new = cluster_sum(a, a.slots + 1);
-    const float beta = eta_new / eta;
+    ex.publish(a, eta_new);
+    const float beta = ex.div(eta_new, eta);
     // p' = z + beta p (own rows and halos)
     for (int e = t; e < n; e += nt) Pn[S + e] = fmaf(beta, P[S + e], z[S + e]);
     halo_fma(a, Pn, beta, P, z);
@@ -751,12 +886,21 @@ LD_DEV int cluster_cg_solve(const ClusterCg& a, const float* gamma,
   return it;
 }
 
+template <class Pre>
+LD_DEV int cluster_cg_solve(const ClusterCg& a, const float* gamma,
+                            const float* lam0, const Pre& pre, int max_iter,
+                            float tol, float* eta_out) {
+  LocalExit ex{max_iter, tol};
+  return cluster_cg_solve(a, gamma, lam0, pre, ex, eta_out);
+}
+
 // The primal step (dz_epilogue's arithmetic in the same order) over the own
 // knots from a.lam, lam_{k+1} of the last one read from the next block;
-// writes lam to lam_out.  The halo read is the last access to another
-// block's shared memory: the block arrives at the cluster barrier right
-// after it and waits at the end, so no block leaves (or reuses its shared
-// memory) while another may still read it, and the dz overlaps the wait.
+// writes lam to lam_out unless it is null.  The halo read is the last
+// access to another block's shared memory: the block arrives at the cluster
+// barrier right after it and waits at the end, so no block leaves (or
+// reuses its shared memory) while another may still read it, and the dz
+// overlaps the wait.
 LD_DEV void cluster_dz(const ClusterCg& a, const float* A, const float* B,
                        const float* q, const float* r_in, const float* Qinv,
                        const float* Rinv, float* lam_out, float* dX,
@@ -777,7 +921,7 @@ LD_DEV void cluster_dz(const ClusterCg& a, const float* A, const float* B,
       for (int m = 0; m < S; ++m)
         acc += A[S * S * k + S * m + i] * lam[S * (kl + 2) + m];
     rx[e] = acc;
-    lam_out[S * k + i] = lam[S + e];
+    if (lam_out) lam_out[S * k + i] = lam[S + e];
   }
   for (int e = t; e < NU * a.own; e += nt) {
     const int kl = e / NU, i = e % NU, k = k0 + kl;

@@ -363,27 +363,7 @@ long long mega_static_smem(int kind) {
 // Co-resident clusters of C blocks of kernel `kind` with `smem` dynamic
 // shared bytes each (0 if none, or if the query is refused).
 int active_clusters(int kind, int C, size_t smem) {
-  const void* fn = (const void*)kernel_of(kind);
-  int n = 0;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = C;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  if (cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                           1) != cudaSuccess ||
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess)
-    n = 0;
-  cudaGetLastError();  // a refused query leaves no error behind
-  return n;
+  return pcgc::active_clusters((const void*)kernel_of(kind), C, THREADS, smem);
 }
 #endif
 

@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels (sources in ``mpcgpu_tpu_torch/csrc``).
 
 Each kernel module holds the wrapper, its plain PyTorch version
-(``*_reference``) and a launch counter (``wrapper.launches``).  Nothing
-here builds or imports CUDA code at import time.
+(``*_reference``) and a launch counter (``wrapper.launches``); a wrapper
+that launches one of two kernels (K10's cluster and one-block forms) also
+counts each in ``wrapper.form_launches``.  Nothing here builds or imports
+CUDA code at import time.
 """
 from __future__ import annotations
 
@@ -39,6 +41,14 @@ def kernel_wrappers() -> dict:
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        for form in getattr(fn, "form_launches", {}):
+            fn.form_launches[form] = 0
+
+
+def form_launch_counts() -> dict:
+    """{kernel id: {form: launches}} of the wrappers that count forms."""
+    return {k: dict(fn.form_launches) for k, fn in kernel_wrappers().items()
+            if hasattr(fn, "form_launches")}
 
 
 def launch_counts() -> dict:

@@ -11,7 +11,9 @@ The same sources also build with the host C++ compiler
 (``host_library``): a kernel "launch" then runs every block in turn on
 the calling thread, on CPU memory, or -- once a test has switched the
 emulation on (``mpc_emu_threads_host``) -- on as many host threads as the
-launch names, with real barriers.  That build exists to check the
+launch names, with real barriers; K10's cluster form runs its blocks one
+after another between the grid and cluster barriers, each on a host
+thread of its own (lanedyn.cuh's block emulation).  That build exists to check the
 kernels' arithmetic against the plain PyTorch versions on a machine
 without a GPU.
 """
@@ -79,9 +81,9 @@ _SIGNATURES = {
     "mpc_sqp_mega_scratch_floats": [_I, _I, _I],
     "mpc_sqp_mega_packed": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                             _I, _F, _I] + [_F] * 5 + [_I] + [_F] * 4
-                           + [_P] * 7 + [_I, _P],
+                           + [_P] * 7 + [_I, _I, _I, _P],
+    "mpc_mega_packed_plan": [_I] * 5 + [_P],
     "mpc_mega_packed_max_knots": [_I, _I],
-    "mpc_mega_packed_grid": [_I, _I, _I],
     "mpc_sqp_mega_packed_scratch_floats": [_I, _I, _I],
     "mpc_spmv_halo": [_I] + [_P] * 8,
     "mpc_emu_threads_host": [_I],

@@ -32,11 +32,17 @@ kind at any N.  ``check_mega_fit`` raises past the largest N a kind
 serves, and before a grid that could not be co-resident (the counterpart
 of the reference's checkPcgOccupancy and of the TPU's
 check_pcg_vmem_fit): an oversubscribed cooperative launch is never made.
-``check_mega_packed_fit`` does the same for K10, and raises too when the
-grid cannot give every arm a CG block of its own.  After each K5 or K9p
-launch, ``sqp_solve_mega_pcg.cluster_size`` or
+``packed_plan`` does the same for K10 and chooses its form from the
+occupancy API before the launch: the cluster form runs each arm's CG on a
+thread-block cluster of its own (16, 8, 4 or 2 blocks: the largest at
+which the B clusters are co-resident), the one-block form (an arm's whole
+S in one block's shared memory) serves packs past that; the wrapper
+launches the planned form or raises, and counts each form's launches in
+``sqp_solve_mega_pcg_packed.form_launches`` beside ``launches``.  After
+each K5 or K9p launch, ``sqp_solve_mega_pcg.cluster_size`` or
 ``sqp_iter_mega_pcg.cluster_size`` holds the cluster size the kernel read
-(a device int32).
+(a device int32), and after each K10 launch
+``sqp_solve_mega_pcg_packed.cluster_size`` (0 for the one-block form).
 
 K10's public layout is knot-major with a leading arm axis: X (B, N, nx),
 U (B, N-1, nu), lam0 (B, N, nx), goals (B, N, >=3) (or one (N, >=3)
@@ -500,16 +506,24 @@ def sqp_solve_mega_pcg_packed_reference(model, X, U, goals, xs, lam0, rho,
                                         n_sqp_iter: int, dt, qd_cost, r_cost,
                                         gravity, mu, num_alphas: int,
                                         rho_factor, rho_min, rho_max,
-                                        rho_reset) -> PackedResult:
+                                        rho_reset, integrator_type: int = 0,
+                                        hessian: str = "reference",
+                                        angle_wrap: bool = False,
+                                        tracking: str = "eepos",
+                                        q_cost: float = 1.0) -> PackedResult:
     """The plain version of K10: sqp.iterate over the arm-batched plain
     modules (KKT, Schur with the stair preconditioner, the CG with its
     shared exit, dz, the candidate merits), the incumbent merit computed
-    first, on the tensors' device."""
+    first, on the tensors' device.  integrator_type, hessian, angle_wrap,
+    tracking and q_cost reach the plain modules as the JAX packed kernel's
+    do; with tracking="joint" goals are the (B, N, nx) joint rows."""
     from mpcgpu_tpu_torch.sqp import iterate, staged_step
 
+    knobs = dict(angle_wrap=angle_wrap, tracking=tracking, q_cost=q_cost)
+
     def linearize_and_solve(Xc, Uc, lamc, rhoc):
-        kkt = form_kkt(model, Xc, Uc, goals, xs, dt, qd_cost, r_cost, 0,
-                       gravity)
+        kkt = form_kkt(model, Xc, Uc, goals, xs, dt, qd_cost, r_cost,
+                       integrator_type, gravity, hessian, **knobs)
         sd = form_schur(kkt, rhoc)
         res = pcg(sd.S, sd.Pinv, sd.gamma, lamc, max_iter, exit_tol,
                   shared_exit=True)
@@ -519,12 +533,12 @@ def sqp_solve_mega_pcg_packed_reference(model, X, U, goals, xs, lam0, rho,
     def eval_merits(Xc, Uc, dX, dU):
         return merit_ops.line_search_merits(
             model, Xc, Uc, dX, dU, alphas_for(num_alphas, Xc), goals, xs, dt,
-            mu, qd_cost, r_cost, 0, gravity)
+            mu, qd_cost, r_cost, integrator_type, gravity, **knobs)
 
     f32 = dict(dtype=X.dtype, device=X.device)
     b = X.shape[0]
     merit0 = merit_ops.merit(model, X, U, goals, xs, dt, mu, qd_cost, r_cost,
-                             0, gravity)
+                             integrator_type, gravity, **knobs)
     (Xo, Uo, lam, rho_o, _drho, merit, iters, done, pcg_iters, _hit,
      _acc) = iterate(X, U, lam0, torch.as_tensor(rho, **f32).expand(b),
                      torch.as_tensor(drho, **f32).expand(b), merit0,
@@ -538,36 +552,48 @@ def sqp_solve_mega_pcg_packed_reference(model, X, U, goals, xs, lam0, rho,
                         sqp_iters=iters, bailed=done, pcg_iters_total=pcg_tot)
 
 
-def check_mega_packed_fit(knot_points: int, arms: int, num_alphas: int = 8,
-                          lib=None) -> int:
-    """Raise unless a block's shared memory fits B = arms at this horizon
-    and the co-resident grid gives every arm a CG block; return the grid a
-    launch uses, min(B N, co-resident blocks) (1 in the host build)."""
+class PackedPlan(NamedTuple):
+    cluster: int   # blocks a cluster of the cluster form; 0 the one-block form
+    stair: int     # the cluster form: 1 the stair bands on chip, 0 in L2
+    grid: int      # blocks of the launch
+
+
+def packed_plan(knot_points: int, arms: int, num_alphas: int = 8, lib=None,
+                cluster: int = 0, stair: int = -1) -> PackedPlan:
+    """K10's launch for B = arms at this horizon, from the occupancy API:
+    cluster 0 the plan's choice (the cluster form at the largest C of 16,
+    8, 4, 2 whose B clusters are co-resident, else the one-block form), 2,
+    4, 8 or 16 that cluster size, -1 the one-block form; stair as
+    mpc_mega_packed_plan's.  Raises where that form does not fit (the
+    host build plans the one-block form on one block, and a cluster size
+    for its block emulation).  The library keeps the plans it made."""
     lib = lib or _lib.library()
-    key = (id(lib), knot_points, arms, num_alphas, _current_device())
-    if key in _grids:
-        return _grids[key]
-    n_max = lib.mpc_mega_packed_max_knots(arms, num_alphas)
-    if knot_points > n_max:
-        raise ValueError(
-            f"the arm-packed whole-solve kernel holds an arm's S in one "
-            f"block's shared memory and serves N <= {n_max} on this device; "
-            f"got N = {knot_points}")
-    grid = lib.mpc_mega_packed_grid(knot_points, arms, num_alphas)
-    if grid < 1:
+    out = (ctypes.c_int * 3)()
+    if not lib.mpc_mega_packed_plan(knot_points, arms, num_alphas, cluster,
+                                    stair, out):
+        form = {0: "any form", -1: "the one-block form"}.get(
+            cluster, f"clusters of {cluster}")
         raise ValueError(
             f"the arm-packed whole-solve kernel cannot make a cooperative "
-            f"launch of {arms} arms at N = {knot_points} on this device: "
-            f"fewer blocks can be resident than there are arms, or the "
-            f"device has no cooperative launch")
-    _grids[key] = grid
-    return grid
+            f"launch of {arms} arms at N = {knot_points} in {form} on this "
+            f"device: it serves N <= "
+            f"{lib.mpc_mega_packed_max_knots(arms, num_alphas)} for "
+            f"{arms} arms (too few clusters or blocks can be resident, an "
+            f"arm's share of S does not fit a block, or the device has no "
+            f"cooperative launch)")
+    return PackedPlan(*out)
 
 
 def _launch_packed(lib, tab, X, U, goals, xs, lam0, rho, drho,
                    max_iter: int, exit_tol, n_sqp_iter: int, dt, qd_cost,
                    r_cost, gravity, mu, num_alphas: int, rho_factor, rho_min,
-                   rho_max, rho_reset, grid: int, stream) -> PackedResult:
+                   rho_max, rho_reset, grid: int, stream, cluster: int = 0,
+                   stair: int = -1, scratch=None) -> PackedResult:
+    """One K10 launch on `grid` blocks: cluster 0 the one-block form, 2-16
+    the cluster form (stair as mpc_mega_packed_plan's).  scratch, when
+    given, is the launch's float32 scratch (mpc_sqp_mega_packed_scratch_
+    floats); its first 4 B floats hold the cluster form's published etas
+    (2 x B words: the tag in the high 32 bits, eta's bits in the low)."""
     dev = X.device
     nx, nu = 2 * _lib.NJ, _lib.NJ
     if X.dim() != 3 or X.shape[2] != nx or X.shape[1] < 2:
@@ -598,9 +624,11 @@ def _launch_packed(lib, tab, X, U, goals, xs, lam0, rho, drho,
     lam = torch.empty((b, n, nx), **f32)
     rho_o = torch.empty(b, **f32)
     merit = torch.empty(b, **f32)
-    ints = torch.empty(2 * b + 1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(
-        lib.mpc_sqp_mega_packed_scratch_floats(n, b, num_alphas), **f32)
+    ints = torch.empty(2 * b + 2, dtype=torch.int32, device=dev)
+    floats = lib.mpc_sqp_mega_packed_scratch_floats(n, b, num_alphas)
+    if scratch is None:
+        scratch = torch.empty(floats, **f32)
+    _lib.expect(scratch, "scratch", (floats,), dev)
     rc = lib.mpc_sqp_mega_packed(
         tab.data_ptr(), b, n, X.data_ptr(), U.data_ptr(), base.data_ptr(),
         goals.shape[2], garm, xs.data_ptr(), lam0.data_ptr(), rho.data_ptr(),
@@ -609,8 +637,9 @@ def _launch_packed(lib, tab, X, U, goals, xs, lam0, rho, drho,
         int(num_alphas), float(rho_factor), float(rho_min), float(rho_max),
         float(rho_reset), Xo.data_ptr(), Uo.data_ptr(), lam.data_ptr(),
         rho_o.data_ptr(), merit.data_ptr(), ints.data_ptr(),
-        scratch.data_ptr(), int(grid), stream)
+        scratch.data_ptr(), int(grid), int(cluster), int(stair), stream)
     _lib.check(rc, "mpc_sqp_mega_packed")
+    sqp_solve_mega_pcg_packed.cluster_size = ints[2 * b + 1]
     return PackedResult(X=Xo, U=Uo, lam=lam, rho=rho_o, merit=merit,
                         sqp_iters=ints[:b], bailed=ints[b:2 * b] != 0,
                         pcg_iters_total=ints[2 * b])
@@ -633,14 +662,18 @@ def sqp_solve_mega_pcg_packed(model, X, U, goals, xs, lam0, rho, drho,
     if X.device.type != "cuda":
         raise ValueError(f"unsupported device {X.device}")
     lib = _lib.library()
-    grid = check_mega_packed_fit(X.shape[1], X.shape[0], num_alphas, lib)
+    plan = packed_plan(X.shape[1], X.shape[0], num_alphas, lib)
     out = _launch_packed(lib, _lib.model_tables(model), X, U, goals, xs,
                          lam0, rho, drho, max_iter, exit_tol, n_sqp_iter, dt,
                          qd_cost, r_cost, gravity, mu, num_alphas,
-                         rho_factor, rho_min, rho_max, rho_reset, grid,
-                         _lib.stream_of(X))
+                         rho_factor, rho_min, rho_max, rho_reset, plan.grid,
+                         _lib.stream_of(X), plan.cluster, plan.stair)
     sqp_solve_mega_pcg_packed.launches += 1
+    sqp_solve_mega_pcg_packed.form_launches[
+        "cluster" if plan.cluster else "one_block"] += 1
     return out
 
 
 sqp_solve_mega_pcg_packed.launches = 0
+sqp_solve_mega_pcg_packed.form_launches = {"cluster": 0, "one_block": 0}
+sqp_solve_mega_pcg_packed.cluster_size = None

@@ -34,6 +34,7 @@ package's portable throughput mode, the plain modules over the arm axis.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -289,19 +290,30 @@ def simulate_mpc_scan_batched(model: RobotModel, cfg: SolverConfig, xu_traj,
 
     It runs the plain PyTorch modules on the tensors' device, fused_stages
     off, as the JAX function turns pallas_stages off: that is the JAX
-    mode's semantics (per-arm rho, per-arm CG exits), not a fallback, and
-    no kernel runs here.  linsys="pcg" only.  Returns the single-arm
-    loop's dict with a leading arm axis: (B, n_updates) statistics,
-    tracking_path (B, n_updates, nx), final_xs (B, nx), shifted (B,
-    n_updates); timing=True adds "update_ms" as simulate_mpc_scan does.
+    mode's semantics (per-arm rho, per-arm CG exits, and with
+    linsys="auto" a latch per arm), not a fallback, and no kernel runs
+    here.  linsys="pcg" runs the arms together over an arm axis; every
+    other linsys runs the single-arm loop once per arm.  Returns the
+    single-arm loop's dict with a leading arm axis: (B, n_updates)
+    statistics (and "failed_over" for "auto"), tracking_path (B,
+    n_updates, nx), final_xs (B, nx), shifted (B, n_updates); timing=True
+    adds "update_ms" as simulate_mpc_scan does (per update, the sum over
+    the arms' loops where they run one after another).
     """
-    if linsys != "pcg":
-        raise ValueError(f"simulate_mpc_scan_batched serves linsys='pcg', "
-                         f"got {linsys!r}")
     if cfg.fused_stages:
         cfg = dataclasses.replace(cfg, fused_stages=False)
     b = X.shape[0]
     rho = torch.as_tensor(rho, dtype=X.dtype, device=X.device).expand(b)
+    if linsys != "pcg":
+        outs = [simulate_mpc_scan(model, cfg, xu_traj, ee_traj, X[a], U[a],
+                                  lam[a], rho[a], pcg_exit_tol, n_updates,
+                                  linsys, timing) for a in range(b)]
+        out = {k: torch.stack([o[k] for o in outs]) for k in outs[0]
+               if k != "update_ms"}
+        if timing:
+            out["update_ms"] = [sum(ms) for ms in
+                                zip(*(o["update_ms"] for o in outs))]
+        return out
     out = simulate_mpc_scan(model, cfg, xu_traj, ee_traj, X, U, lam, rho,
                             pcg_exit_tol, n_updates, linsys, timing)
     for k in ("tracking_errors", "sqp_iters", "pcg_iters_total",
@@ -322,16 +334,21 @@ def simulate_mpc_scan_packed(model: RobotModel, cfg: SolverConfig, xu_traj,
 
     With cfg.fused_stages the solve and the rollout go through the kernel
     wrappers (a CUDA tensor launches K10 and K1 or raises; a CPU tensor
-    runs their plain versions); without, the plain versions run on the
-    tensors' device.  Each solve runs cfg.sqp_max_iter iterations with
-    drho reset to 1, per-arm rho carried across updates, and the CG's
-    shared exit of the JAX packed kernel.  Returns tracking_errors,
+    runs their plain versions), and the configuration must be one the
+    kernels serve (check_fused_config); without, the plain versions run on
+    the tensors' device, with the configuration's integrator, Hessian,
+    angle wrap and tracking (joint tracking: the goals are ee_traj's rows,
+    the joint reference), as the JAX packed loop runs them.  Each solve
+    runs cfg.sqp_max_iter iterations with drho reset to 1, per-arm rho
+    carried across updates, and the CG's shared exit of the JAX packed
+    kernel.  Returns tracking_errors,
     sqp_iters and rho_bailed (B, n_updates), pcg_iters_total (n_updates,)
     (the shared CG count summed over each solve's live iterations),
     tracking_path (B, n_updates, nx), final_xs (B, nx), shifted
     (n_updates,), and with timing=True "update_ms".
     """
-    check_fused_config(cfg, "pcg")
+    if cfg.fused_stages:
+        check_fused_config(cfg, "pcg")
     b, n = X.shape[0], cfg.knot_points
     do_shift, offsets = make_shift_schedule(cfg, n_updates)
     goals = ee_traj[:n].contiguous()
@@ -341,9 +358,15 @@ def simulate_mpc_scan_packed(model: RobotModel, cfg: SolverConfig, xu_traj,
     U_prev = U
     period = cfg.simulation_period_us
     max_substeps = max_substeps_for(cfg)
-    solve = (sqp_solve_mega_pcg_packed if cfg.fused_stages
-             else sqp_solve_mega_pcg_packed_reference)
     cc = cfg.cost
+    if cfg.fused_stages:
+        solve = sqp_solve_mega_pcg_packed
+    else:
+        solve = functools.partial(
+            sqp_solve_mega_pcg_packed_reference,
+            integrator_type=cfg.integrator_type, hessian=cc.hessian,
+            angle_wrap=cfg.angle_wrap, tracking=cc.tracking,
+            q_cost=cc.q_cost)
     if timing:
         events = _update_events(X, n_updates)
 

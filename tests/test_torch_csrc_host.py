@@ -31,8 +31,9 @@ from mpcgpu_tpu_torch.ops.cuda import rollout_kernel as k1
 from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k5
 from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k9
 from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k10
-from tests.torch_systems import (bcr_iteration_given_lam, random_knot_schur,
-                                 random_system, relative_residual)
+from tests.torch_systems import (bcr_iteration_given_lam, packed_arms,
+                                 random_knot_schur, random_system,
+                                 relative_residual, with_resting_arm)
 from tests.test_torch_kkt_schur import DT, QD_COST, R_COST, RHO, problem
 
 torch.set_num_threads(1)
@@ -683,7 +684,7 @@ def test_k10_host_build_matches_plain(host, traj_0_0, n, rhos, tol, rho_max,
     args = (X, U, goals, xs, torch.zeros(b, n, 14), torch.tensor(rhos),
             torch.ones(b), 40, tol, 5)
     want = k10.sqp_solve_mega_pcg_packed_reference(model, *args, **kw)
-    assert k10.check_mega_packed_fit(n, b, 8, lib) == 1
+    assert k10.packed_plan(n, b, 8, lib).grid == 1
     got = k10._launch_packed(lib, tab, *args, grid=1, stream=None, **kw)
     _close(got.X, want.X, 1e-3, 1e-5)
     _close(got.U, want.U, 1e-3, 1e-5)
@@ -713,6 +714,125 @@ def test_k10_host_build_takes_shared_goals(host, traj_0_0):
                            stream=None, **kw)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# ---- K10's cluster form under the block emulation (lanedyn.cuh's
+# ld_emu_blocks): B clusters of C blocks and the clusters past the arms,
+# each block on a host thread of its own, one after another between the
+# grid and cluster barriers, the shared exit's tagged words read across
+# the clusters; a barrier some block never reaches fails the test.
+K10_KW = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
+              num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=10.0,
+              rho_reset=1e-3)
+
+
+def _k10_form(lib, tab, args, kw, cluster, stair=-1, grid=None):
+    """One K10 launch through the host build: cluster 0 the one-block form
+    (one block owns every arm), else the cluster form on the plan's grid
+    (or `grid`) under the block emulation, which must not hang."""
+    b, n = args[0].shape[:2]
+    if cluster == 0:
+        return k10._launch_packed(lib, tab, *args, grid=1, stream=None, **kw)
+    plan = k10.packed_plan(n, b, 8, lib, cluster=cluster, stair=stair)
+    assert plan.cluster == cluster and plan.grid % cluster == 0
+    lib.mpc_emu_threads_host(0)
+    try:
+        got = k10._launch_packed(lib, tab, *args, grid=grid or plan.grid,
+                                 stream=None, cluster=cluster,
+                                 stair=plan.stair, **kw)
+    finally:
+        assert lib.mpc_emu_threads_host(0) == 0, "an emulated barrier hung"
+    assert int(k10.sqp_solve_mega_pcg_packed.cluster_size) == cluster
+    return got
+
+
+def _k10_close(got, want):
+    """test_k10_host_build_matches_plain's tolerances."""
+    _close(got.X, want.X, 1e-3, 1e-5)
+    _close(got.U, want.U, 1e-3, 1e-5)
+    _close(got.lam, want.lam, 1e-3, 1e-4)
+    _close(got.rho, want.rho, 1e-6, 0)
+    _close(got.merit, want.merit, 1e-3, 0)
+    for f in ("sqp_iters", "bailed", "pcg_iters_total"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.fixture(scope="module")
+def k10_plain():
+    """The plain solves of the cluster-form cases, one per (N, B)."""
+    return {}
+
+
+@pytest.mark.parametrize("n,b,cluster,stair", [
+    (8, 2, 2, 1), (8, 2, 4, 0), (8, 3, 2, 0), (8, 3, 4, 1),
+    (16, 2, 2, 0), (16, 2, 4, 1), (16, 3, 2, 1), (16, 3, 4, 0)])
+def test_k10_cluster_form_host_build_matches_plain(host, traj_0_0, k10_plain,
+                                                   n, b, cluster, stair):
+    """The cluster form at C = 2 and 4 (the stair bands in each block's
+    shared memory, 1, or read from global memory, 0), B arms as
+    chip_smoke.py's K10 check makes them, at its rhos where the CGs exit
+    before the cap (0.1, 0.3, then 1.0), 4 SQP iterations, cap 40, tol
+    5e-5, against the plain version at the one-block form's tolerances
+    (the JAX megakernel test's).  At rho 1e-3 the CGs run on a system of
+    condition ~1e7, where at N = 16 the one-block form too parts from the
+    plain version by more than these tolerances: chip_smoke.py holds lam
+    at atol 1e-3 there."""
+    lib, model, tab = host
+    X, U, goals, xs = packed_arms(*traj_0_0, n, b, 5)
+    args = (X, U, goals, xs, torch.zeros(b, n, 14),
+            torch.tensor((0.1, 0.3, 1.0)[:b]), torch.ones(b), 40, 5e-5, 4)
+    if (n, b) not in k10_plain:
+        k10_plain[n, b] = k10.sqp_solve_mega_pcg_packed_reference(
+            model, *args, **K10_KW)
+    got = _k10_form(lib, tab, args, K10_KW, cluster, stair)
+    _k10_close(got, k10_plain[n, b])
+
+
+def test_k10_cluster_form_host_build_freezes_a_bailed_arm(host, traj_0_0):
+    """test_k10_host_build_matches_plain's bail case on the cluster form at
+    C = 2, on the least grid (one cluster an arm, every block striding
+    over the (arm, knot) pairs): arm 1 bails at iteration 2 and stays
+    frozen while arm 0 iterates."""
+    lib, model, tab = host
+    X, U, goals, xs = _arms(traj_0_0, 4, 2, 6)
+    kw = dict(K10_KW, rho_max=0.05)
+    args = (X, U, goals, xs, torch.zeros(2, 4, 14), torch.tensor([1e-3, 0.1]),
+            torch.ones(2), 40, 1e-4, 5)
+    want = k10.sqp_solve_mega_pcg_packed_reference(model, *args, **kw)
+    got = _k10_form(lib, tab, args, kw, 2, grid=4)
+    _k10_close(got, want)
+    assert got.bailed.tolist() == [False, True]
+    assert got.sqp_iters.tolist() == [5, 2]
+
+
+@pytest.mark.parametrize("cluster", [0, 2])
+def test_k10_host_build_arm_with_zero_residual(host, traj_0_0, cluster):
+    """A third arm at rest (torch_systems.with_resting_arm): its CG
+    residual is exactly zero, so alpha and beta are 0/0, which the packed
+    CG takes as 0.  Its duals stay exactly zero, nothing turns NaN, and
+    the two other arms come out as they do packed alone -- the same shared
+    CG count, the same bits (no sum of an arm reads another arm) -- in
+    the one-block form (0) and the cluster form (2), and in the plain
+    version."""
+    lib, model, tab = host
+    X, U, goals, xs = packed_arms(*traj_0_0, 8, 2, 5)
+    rest = (40, 5e-5, 5)
+    two = (X, U, goals.contiguous(), xs, torch.zeros(2, 8, 14),
+           torch.tensor([1e-3, 0.1]), torch.ones(2)) + rest
+    three = with_resting_arm(X, U, goals, xs) + (
+        torch.zeros(3, 8, 14), torch.tensor([1e-3, 0.1, 1e-3]),
+        torch.ones(3)) + rest
+    got2 = _k10_form(lib, tab, two, K10_KW, cluster)
+    got3 = _k10_form(lib, tab, three, K10_KW, cluster)
+    plain2 = k10.sqp_solve_mega_pcg_packed_reference(model, *two, **K10_KW)
+    plain3 = k10.sqp_solve_mega_pcg_packed_reference(model, *three, **K10_KW)
+    for g3, g2 in ((got3, got2), (plain3, plain2)):
+        assert all(bool(torch.isfinite(t).all()) for t in g3[:5])
+        assert not bool(g3.lam[2].any())
+        assert int(g3.pcg_iters_total) == int(g2.pcg_iters_total)
+        for f in ("X", "U", "lam", "rho", "merit", "sqp_iters", "bailed"):
+            assert torch.equal(getattr(g3, f)[:2], getattr(g2, f)), f
+    _k10_close(got3, plain3)
 
 
 @pytest.mark.parametrize("b", [2, 3])

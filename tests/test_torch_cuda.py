@@ -1,7 +1,8 @@
 """The CUDA kernels K1-K7, K7s, K9p, K9b and K10, K3 at the long horizons
 of the TPU's tiled K8, the grid-CG forms K4g, K4bg, K5g and K9pg, and the
-cluster forms of K5, K9p and K6 at every cluster size the card admits,
-against their plain versions, on the card.
+cluster forms of K5, K9p, K6 and K10 at every cluster size the card
+admits (K10 also in its one-block form), against their plain versions, on
+the card.
 
 Marked ``cuda``: each test needs a CUDA device and skips without one.
 The file uses no fixture of tests/conftest.py, which imports JAX, so on a
@@ -27,6 +28,7 @@ import torch
 from mpcgpu_tpu_torch.config import SolverConfig
 from mpcgpu_tpu_torch.models.robot import iiwa14
 from mpcgpu_tpu_torch.ops.btridiag import BlockTri, spmv
+from mpcgpu_tpu_torch.ops.cuda import _lib
 from mpcgpu_tpu_torch.ops.cuda import bcr_kernel as k6
 from mpcgpu_tpu_torch.ops.cuda import bcr_kernel as k7
 from mpcgpu_tpu_torch.ops.cuda import kkt_schur_kernel as k3
@@ -39,8 +41,9 @@ from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k10
 from mpcgpu_tpu_torch.utils.trajfiles import load_fixture_pair
 # by its bare name (pytest puts tests/ on sys.path): the card machine may
 # have another package named "tests"
-from torch_systems import (bcr_iteration_given_lam, random_knot_schur,
-                           relative_residual)
+from torch_systems import (bcr_iteration_given_lam, packed_arms,
+                           random_knot_schur, relative_residual,
+                           with_resting_arm)
 
 pytestmark = pytest.mark.cuda
 
@@ -748,3 +751,121 @@ def test_k6_cluster_factor_equals_the_one_block_factor(card, n):
         k6._launch(lib, ks, torch.zeros(n, 14, device=dev), 3, 1e-9,
                    _lib.stream_of(ks.gamma), scratch=cluster, cluster=c)
         assert torch.equal(cluster, one_block), c
+
+
+# ---- K10's forms, the cases of tests/test_torch_csrc_host.py's block
+# emulation on the card: the cluster form at C = 2 and 4 and the one-block
+# form (cluster 0), against the plain version
+K10_KW = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
+              num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=10.0,
+              rho_reset=1e-3)
+
+
+def _k10_form(model, args, kw, cluster, grid=None):
+    """One K10 launch in the cluster form at `cluster` blocks a cluster on
+    the plan's grid (or `grid`), or the one-block form (cluster 0)."""
+    b, n = args[0].shape[:2]
+    lib = _lib.library()
+    plan = k10.packed_plan(n, b, kw["num_alphas"], lib,
+                           cluster=cluster if cluster else -1)
+    out = k10._launch_packed(
+        lib, _lib.model_tables(model), *args, grid=grid or plan.grid,
+        stream=_lib.stream_of(args[0]), cluster=plan.cluster,
+        stair=plan.stair, **kw)
+    torch.cuda.synchronize()
+    assert int(k10.sqp_solve_mega_pcg_packed.cluster_size) == cluster
+    return out
+
+
+def _k10_close(got, want):
+    """The host-build tests' tolerances (tests/test_megakernel.py:225-240)."""
+    _close(got.X, want.X, 1e-3, 1e-5)
+    _close(got.U, want.U, 1e-3, 1e-5)
+    _close(got.lam, want.lam, 1e-3, 1e-4)
+    _close(got.rho, want.rho, 1e-6, 0)
+    _close(got.merit, want.merit, 1e-3, 0)
+    for f in ("sqp_iters", "bailed", "pcg_iters_total"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def _fixture():
+    xu, ee = load_fixture_pair(Path(__file__).resolve().parent / "fixtures")
+    return xu.astype(np.float32), ee.astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("b", [2, 3])
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_k10_cluster_form_matches_plain(card, n, b, cluster):
+    """As test_k10_cluster_form_host_build_matches_plain: arms as
+    chip_smoke.py's K10 check makes them, rhos 0.1, 0.3 (1.0), 4 SQP
+    iterations, cap 40, tol 5e-5."""
+    dev = card["X"].device
+    X, U, goals, xs = packed_arms(*_fixture(), n, b, 5, device=dev)
+    args = (X, U, goals, xs, torch.zeros(b, n, 14, device=dev),
+            torch.tensor((0.1, 0.3, 1.0)[:b], device=dev),
+            torch.ones(b, device=dev), 40, 5e-5, 4)
+    want = k10.sqp_solve_mega_pcg_packed_reference(card["model"], *args,
+                                                   **K10_KW)
+    _k10_close(_k10_form(card["model"], args, K10_KW, cluster), want)
+
+
+def test_k10_cluster_form_freezes_a_bailed_arm(card):
+    """The host build's bail case at C = 2 on the least grid: arm 1 bails
+    at iteration 2 and stays frozen while arm 0 iterates."""
+    dev = card["X"].device
+    xu, ee = _fixture()
+    rng = np.random.default_rng(6)
+    X = torch.as_tensor(np.stack([xu[:4, :14] + 0.02 * rng.normal(size=(4, 14))
+                                  for _ in range(2)]).astype(np.float32),
+                        device=dev)
+    U = torch.as_tensor(np.stack([xu[:3, 14:]] * 2), device=dev)
+    goals = torch.as_tensor(ee[:4], device=dev).expand(2, 4, 6)
+    kw = dict(K10_KW, rho_max=0.05)
+    args = (X, U, goals, X[:, 0].clone(), torch.zeros(2, 4, 14, device=dev),
+            torch.tensor([1e-3, 0.1], device=dev), torch.ones(2, device=dev),
+            40, 1e-4, 5)
+    want = k10.sqp_solve_mega_pcg_packed_reference(card["model"], *args, **kw)
+    got = _k10_form(card["model"], args, kw, 2, grid=4)
+    _k10_close(got, want)
+    assert got.bailed.tolist() == [False, True]
+    assert got.sqp_iters.tolist() == [5, 2]
+
+
+@pytest.mark.parametrize("cluster", [0, 2])
+def test_k10_arm_with_zero_residual(card, cluster):
+    """As test_k10_host_build_arm_with_zero_residual: an arm at rest has a
+    CG residual of exactly zero (0/0 -> 0 for alpha and beta); its duals
+    stay zero, nothing turns NaN, and the two other arms come out as they
+    do packed alone, the shared CG count and the bits alike."""
+    dev = card["X"].device
+    X, U, goals, xs = packed_arms(*_fixture(), 8, 2, 5, device=dev)
+    rest = (40, 5e-5, 5)
+    z = lambda b: torch.zeros(b, 8, 14, device=dev)
+    two = (X, U, goals.contiguous(), xs, z(2),
+           torch.tensor([1e-3, 0.1], device=dev), torch.ones(2, device=dev)
+           ) + rest
+    three = with_resting_arm(X, U, goals, xs) + (
+        z(3), torch.tensor([1e-3, 0.1, 1e-3], device=dev),
+        torch.ones(3, device=dev)) + rest
+    got2 = _k10_form(card["model"], two, K10_KW, cluster)
+    got3 = _k10_form(card["model"], three, K10_KW, cluster)
+    assert all(bool(torch.isfinite(t).all()) for t in got3[:5])
+    assert not bool(got3.lam[2].any())
+    assert int(got3.pcg_iters_total) == int(got2.pcg_iters_total)
+    for f in ("X", "U", "lam", "rho", "merit", "sqp_iters", "bailed"):
+        assert torch.equal(getattr(got3, f)[:2], getattr(got2, f)), f
+
+
+def test_k10_gives_the_same_bits_on_two_launches(card):
+    """The planned launch (the cluster form) twice on the same inputs."""
+    dev = card["X"].device
+    X, U, goals, xs = packed_arms(*_fixture(), 64, 2, 5, device=dev)
+    args = (card["model"], X, U, goals, xs, torch.zeros(2, 64, 14, device=dev),
+            torch.tensor([1e-3, 0.1], device=dev), torch.ones(2, device=dev),
+            40, 5e-5, 4)
+    a = k10.sqp_solve_mega_pcg_packed(*args, **K10_KW)
+    b = k10.sqp_solve_mega_pcg_packed(*args, **K10_KW)
+    assert int(k10.sqp_solve_mega_pcg_packed.cluster_size) > 0
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

@@ -88,3 +88,37 @@ def bcr_iteration_given_lam(model, X, U, goals, xs, rho, drho, merit, lam,
     return step(X, U, lam, torch.as_tensor(rho, **f32),
                 torch.as_tensor(drho, **f32),
                 torch.as_tensor(merit, **f32)), ks
+
+
+def packed_arms(xu, ee, n, b, seed, device="cpu"):
+    """b arms as chip_smoke.py's K10 check makes them: fixture 0_0's first n
+    states, arm a's perturbed by 0.02 N(0, 1) from seed + a with knot 0
+    kept, the recorded controls, the shared end-effector goals and start
+    expanded over the arms: (X (b, n, 14), U (b, n-1, 7), goals (b, n, 6),
+    xs (b, 14))."""
+    perts = []
+    for a in range(b):
+        pert = 0.02 * np.random.default_rng(seed + a).normal(size=(n, 14))
+        pert[0] = 0.0
+        perts.append(xu[:n, :14] + pert)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return (t(np.stack(perts)), t(np.stack([xu[:n - 1, 14:]] * b)),
+            t(ee[:n]).expand(b, n, 6), t(xu[0, :14]).expand(b, 14).contiguous())
+
+
+def with_resting_arm(X, U, goals, xs):
+    """The arms given, and one more at rest: every knot at q = 0, qd = 0,
+    u = 0, its start there, its goal (0, 0, 1) above the base.  With no
+    gravity the arm's defects are exactly zero (no bias force moves it),
+    so are its cost gradients (its end effector is on the base's axis,
+    where every joint moves it sideways only: the x and y errors and the
+    height's derivatives are exact zeros) and so its Schur right-hand side
+    gamma: from cold duals its CG residual is exactly zero, and the packed
+    CG's 0/0 -> 0 keeps it there.  Goals come out per arm (contiguous)."""
+    b, n = X.shape[:2]
+    z = lambda t: torch.zeros((1,) + t.shape[1:], dtype=t.dtype,
+                              device=t.device)
+    g = z(goals)
+    g[0, :, 2] = 1.0
+    return (torch.cat([X, z(X)]), torch.cat([U, z(U)]),
+            torch.cat([goals, g]).contiguous(), torch.cat([xs, z(xs)]))

@@ -26,6 +26,16 @@ from pathlib import Path
 REPS = 20
 
 
+def packed_grid(lib, n, b):
+    """The grid of K10's planned launch (0 past every fit): the plan's
+    where the library has one, else its grid entry (before the cluster
+    form)."""
+    if not hasattr(lib, "mpc_mega_packed_plan"):
+        return lib.mpc_mega_packed_grid(n, b, 8)
+    plan = (ctypes.c_int * 3)()
+    return plan[2] if lib.mpc_mega_packed_plan(n, b, 8, 0, -1, plan) else 0
+
+
 def _event_ms(fn, reps=REPS, warmup=3):
     import torch
 
@@ -139,8 +149,7 @@ def run_tree(tree: Path, out: Path) -> None:
             "K9b N max": lib.mpc_mega_max_knots(k5.ITER_BCR),
             "K10 N max (B = 2)": lib.mpc_mega_packed_max_knots(2, 8),
             "K10 B max (N = 64)": max(
-                b for b in range(1, 1025)
-                if lib.mpc_mega_packed_grid(64, b, 8) >= b)}
+                b for b in range(1, 1025) if packed_grid(lib, 64, b) >= b)}
     for n in (64, 128, 256, 512, 1024):
         for name, kind in (("K5", k5.SOLVE_PCG), ("K5g", k5.SOLVE_PCG_GRID),
                            ("K9pg", k5.ITER_PCG_GRID),

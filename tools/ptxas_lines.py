@@ -1,7 +1,8 @@
 """Build the CUDA library anew and print ptxas' registers, stack and spills
 for the kernels K1, K2, K3 and the megakernels that run K3's stage bodies
-and K2's merit contributions; then K5's and K9p's counts with their
-__maxnreg__ cap lifted (sqp_mega.cu compiled alone, LD_MAXNREG empty).
+and K2's merit contributions (K10 in both its forms); then K5's and K9p's
+counts with their __maxnreg__ cap lifted (sqp_mega.cu compiled alone,
+LD_MAXNREG empty).
 
     python3 tools/ptxas_lines.py
 """
@@ -16,7 +17,8 @@ from mpcgpu_tpu_torch.ops.cuda import _lib  # noqa: E402
 KERNELS = ("rollout_kernel", "12merit_kernel", "k3_perknot", "k3_theta",
            "k3_stair", "15sqp_mega_kernelE", "24sqp_iter_mega_pcg_kernelE",
            "24sqp_iter_mega_bcr_kernel", "20sqp_mega_grid_kernel",
-           "29sqp_iter_mega_pcg_grid_kernel", "sqp_mega_packed_kernel")
+           "29sqp_iter_mega_pcg_grid_kernel", "22sqp_mega_packed_kernel",
+           "30sqp_mega_packed_cluster_kernel")
 UNCAPPED = ("15sqp_mega_kernelE", "24sqp_iter_mega_pcg_kernelE")
 
 
