@@ -70,10 +70,13 @@ CUDA toolkit:
    N = 2 and at N = 256, 512 and 1024 (it serves the TPU's tiled K8), the grid-CG
    kernels K4g and K4bg at N = 64-1024 (and on the seeded random system,
    where the CG exits early), the cluster K6 at N = 128-512 (the former
-   K6l's horizons), the grid form K5g at N = 64-512 beside the cluster K5
-   on the same inputs, at rho 1e-3 and at rhos where CGs exit before the
-   cap, K9pg at N = 256 (four launches bit-equal to one K5g launch), each
-   against its plain version and timed; and runs 8-update loops through
+   K6l's horizons), K5g (its CG joined across every co-resident cluster)
+   at N = 64-512 beside the cluster K5 on the same inputs and at N = 657,
+   1000 and 1024, at its plan's cluster size and every other one the card
+   admits (its first launches under the watchdog), at rho 1e-3 and at
+   rhos where CGs exit before the cap, K9pg at N = 256 and 1024 (four
+   launches bit-equal to one K5g launch), each against its plain version
+   and timed; and runs 8-update loops through
    the kernels and the plain modules, warm duals, checked and timed as in
    4: auto at N = 128, 256 and 512 (K2, K5, K1) and at N = 1024, past the
    cluster form's fit (K2, K5g, K1), and at N = 256 staged pcg (K3, K4g,
@@ -106,8 +109,7 @@ CUDA toolkit:
    time of a solve less that of the same solve with the CG capped at 0,
    over its CG steps) and the stages at N = 64-512 for the cluster K5
    (stair bands on chip and in L2; the one-thread recursions' beside
-   them) beside the grid
-   form K5g, and for K6
+   them) beside K5g, and K5g's at N = 1024 with its plan, and for K6
    (the solve less the solve with the CG capped at 0) at N = 64-512;
 11. K10's forms (each arm's CG across a thread-block cluster of its own,
    the exit shared through tagged words; the one-block form past that
@@ -167,6 +169,9 @@ LONG_KNOTS = 128                # the staged bcr loop above K7's fit
 LONG_K3_KNOTS = (256, 512, 1024)
 LONG_CG_KNOTS = (64, 128, 256, 512, 1024)
 LONG_MEGA_KNOTS = (64, 128, 256, 512)
+# K5g's own horizons, past K5's cluster fit: just past it, an uneven cut
+# of the knots over the blocks, and the auto loop's
+JOINED_KNOTS = (657, 1000, 1024)
 LONG_BCR_KNOTS = (128, 256, 512)  # K6 past N = 64, the former K6l's horizons
 LONG_AUTO_KNOTS = (128, 256, 512)
 LONG_LOOP_KNOT = 256            # the staged, failover and per-iteration loops
@@ -183,7 +188,7 @@ GLOO_RANKS = 2
 # phase 10, the cluster forms
 CLUSTER_KNOTS = (2, 4, 64, 128, 256, 512)
 CLUSTER_BCR_KNOTS = (2, 4, 8, 16, 32, 64, 128, 256, 512)
-CLUSTER_STEP_KNOTS = (64, 128, 256, 512)
+CLUSTER_STEP_KNOTS = (64, 128, 256, 512, 1024)   # 1024: K5g alone
 # phase 11, K10's forms: the cluster form at two arms (and the largest N
 # its fit admits), the packs at N = 64, the horizons timed; at N = 7 the
 # cluster form beside the one-block form and C = 2, each holding lam to
@@ -1804,8 +1809,13 @@ def main() -> int:
     # horizon (at N = 64 on K5's inputs, beside K5): at rho 1e-3 every CG
     # stops at the cap (lam at atol 1e-3, as K5's), at the larger rhos the
     # schedule reaches some CG exits before it (lam at rtol 1e-3, atol
-    # 1e-4); X, U at rtol 1e-3, atol 1e-5, decisions identical, CG counts
-    # within 2 per SQP iteration
+    # 1e-4, against the float64 plain version: at N = 64, rho 0.3, K5g at
+    # C = 16 parts from the float32 plain version by 1.03 times that
+    # tolerance while it is 8.8e-5 from the float64 plain version and the
+    # float32 plain version 1.5e-4, on the NVIDIA H100 80GB HBM3 at 700 W;
+    # both distances and the ratio to the float32 plain version are
+    # printed); X, U at rtol 1e-3, atol 1e-5, decisions identical, CG
+    # counts within 2 per SQP iteration
     def long_kw(n_l):
         return dict(k5_kw, r_cost=long_cfg(n_l).cost.r_cost)
 
@@ -1824,40 +1834,96 @@ def main() -> int:
                  torch.tensor(rho0, device=dev), 1.0, m0, cl.pcg.max_iter,
                  default_pcg_exit_tols(n_l)[0], SQP_ITERS), kw_l)
 
+    def k5g_plans(n_l):
+        """{C: K5g's plan at that cluster size}: the plan's own C, and at
+        K5g's own horizons (past K5's fit) every other size the card
+        admits for it."""
+        own = k5.grid_plan(n_l, lib)
+        plans = {own.cluster: own}
+        for c in ((16, 8, 4) if n_l in JOINED_KNOTS else ()):
+            plan = k5.grid_plan(n_l, lib, c)
+            if plan.grid > 0 and c not in plans:
+                plans[c] = plan
+        return plans
+
+    model64 = iiwa14(device=dev, dtype=torch.float64)
+
     def k5g_pair(n_l, rho0, lam_rtol, lam_atol, exit_tol=None):
+        """K5g (the wrapper, the plan's C; then every other C of
+        k5g_plans) against the plain version (lam, at rtol lam_rtol > 0,
+        against the float64 plain version)."""
         args, kw_l = long_mega_args(n_l, rho0)
         if exit_tol is not None:
             args = (*args[:10], exit_tol, *args[11:])
-        out = k5.sqp_solve_mega_pcg_grid(*args, **kw_l)
         ref = k5.sqp_solve_mega_pcg_reference(*args, **kw_l)
-        sync()
-        label = f"K5g N = {n_l} at rho {rho0:g}, tol {args[10]:g}"
-        print(f"{label}: pcg iters {out.pcg_iters.tolist()} vs "
-              f"{ref.pcg_iters.tolist()}, accepted {out.accepted.tolist()}, "
-              f"sqp_iters {int(out.sqp_iters)} vs {int(ref.sqp_iters)}, "
-              f"lam err {_max_err([(out.lam, ref.lam)]):.3e}")
-        for f in ("accepted", "sqp_iters", "bailed"):
-            if not torch.equal(getattr(out, f), getattr(ref, f)):
-                raise AssertionError(f"{label}: {f} differs from the plain "
-                                     f"version")
-        if int((out.pcg_iters - ref.pcg_iters).abs().max()) > 2:
-            raise AssertionError(f"{label}: CG counts differ by more than 2")
-        err = max(checked(f"{label} X, U", [(out.X, ref.X), (out.U, ref.U)],
-                          1e-3, 1e-5),
-                  checked(f"{label} lam", [(out.lam, ref.lam)], lam_rtol,
-                          lam_atol))
-        return args, kw_l, out, ref, err
+        lam64 = None
+        if lam_rtol:
+            lam64 = k5.sqp_solve_mega_pcg_reference(
+                model64, *(a.double() if torch.is_tensor(a) else a
+                           for a in args[1:]), **kw_l).lam.to(torch.float32)
+        err, out0 = 0.0, None
+        for c, plan in k5g_plans(n_l).items():
+            with _watchdog(FIRST_LAUNCH_DEADLINE):
+                out = (k5.sqp_solve_mega_pcg_grid(*args, **kw_l)
+                       if out0 is None else
+                       k5._launch(lib, tab, *args[1:], grid=plan.grid,
+                                  stream=_lib.stream_of(args[1]),
+                                  kind=k5.SOLVE_PCG_GRID, cluster=c, **kw_l))
+                sync()
+            read = int(k5.sqp_solve_mega_pcg_grid.cluster_size)
+            label = (f"K5g N = {n_l} at rho {rho0:g}, tol {args[10]:g}, "
+                     f"C = {c} (read {read}), G = {plan.clusters}, place "
+                     f"{plan.place}")
+            ratio = ((out.lam - ref.lam).abs()
+                     / (1e-4 + 1e-3 * ref.lam.abs())).max().item()
+            print(f"{label}: pcg iters {out.pcg_iters.tolist()} vs "
+                  f"{ref.pcg_iters.tolist()}, accepted "
+                  f"{out.accepted.tolist()}, sqp_iters {int(out.sqp_iters)} "
+                  f"vs {int(ref.sqp_iters)}, lam err "
+                  f"{_max_err([(out.lam, ref.lam)]):.3e} (the JAX tolerance "
+                  f"ratio {ratio:.3f})"
+                  + ("" if lam64 is None else
+                     f", from the float64 plain version "
+                     f"{_max_err([(out.lam, lam64)]):.3e} (the float32 plain "
+                     f"version: {_max_err([(ref.lam, lam64)]):.3e})"))
+            if read != c:
+                raise AssertionError(f"{label}: the kernel read "
+                                     f"%cluster_nctarank = {read}")
+            for f in ("accepted", "sqp_iters", "bailed"):
+                if not torch.equal(getattr(out, f), getattr(ref, f)):
+                    raise AssertionError(f"{label}: {f} differs from the "
+                                         f"plain version")
+            if int((out.pcg_iters - ref.pcg_iters).abs().max()) > 2:
+                raise AssertionError(f"{label}: CG counts differ by more "
+                                     f"than 2")
+            err = max(err, checked(f"{label} X, U",
+                                   [(out.X, ref.X), (out.U, ref.U)],
+                                   1e-3, 1e-5),
+                      checked(f"{label} lam", [(out.lam, ref.lam)], 0,
+                              lam_atol) if lam64 is None else
+                      checked(f"{label} lam against the float64 plain "
+                              f"version", [(out.lam, lam64)], lam_rtol,
+                              lam_atol))
+            out0 = out0 or out
+        return args, kw_l, out0, ref, err
 
     k5g_rows, err5g = {}, 0.0
-    for n_l in LONG_MEGA_KNOTS:
+    for n_l in (*LONG_MEGA_KNOTS, *JOINED_KNOTS):
         args, kw_l, out, _, err = k5g_pair(n_l, cfg.rho_init, 0, 1e-3)
         err5g, exited = max(err5g, err), False
         # CGs that exit before the cap: at the larger rhos the schedule
         # reaches, at this N's exit tol, or where those stay at the cap, at
-        # the loosest tol of the reference's sweep (default_pcg_exit_tols)
+        # the loosest tol of the reference's sweep (default_pcg_exit_tols).
+        # Past K5's fit not at rho 1 and tol 1e-5: there every CG stops at
+        # the cap (40 at N = 657) on a system where float32 solves part in
+        # lam by more than the JAX tolerance, the plain float32 version
+        # from the float64 one among them (as the host build's arithmetic
+        # shows), which is no longer that tolerance's regime
         loose = max(default_pcg_exit_tols(n_l))
-        for rho_early, tol_e in ((0.3, None), (1.0, None), (0.3, loose),
-                                 (1.0, loose)):
+        for rho_early, tol_e in (((0.3, None), (0.3, loose))
+                                 if n_l in JOINED_KNOTS else
+                                 ((0.3, None), (1.0, None), (0.3, loose),
+                                  (1.0, loose))):
             if exited and tol_e is not None:
                 break
             _, _, _, ref, e = k5g_pair(n_l, rho_early, 1e-3, 1e-4, tol_e)
@@ -1869,22 +1935,26 @@ def main() -> int:
                                  f"cap at rho 0.3 or 1, tol {args[10]:g} or "
                                  f"{loose:g}")
         run = (lambda a=args, k=kw_l: k5.sqp_solve_mega_pcg_grid(*a, **k))
-        # the cluster form on the same inputs, the direct comparison
+        # the cluster form on the same inputs (where it fits), the direct
+        # comparison
         run_c = (lambda a=args, k=kw_l: k5.sqp_solve_mega_pcg(*a, **k))
+        fits = k5.pcg_kind(n_l) == k5.SOLVE_PCG
         k5g_rows[n_l] = {"args": args, "kw": kw_l, "run": run,
                          "ms": _event_ms(run), "us": _device_us(run, "K5g"),
-                         "cluster_ms": _event_ms(run_c),
-                         "cluster_us": _device_us(run_c, "K5"),
+                         "cluster_ms": _event_ms(run_c) if fits else None,
+                         "cluster_us": (_device_us(run_c, "K5") if fits
+                                        else None),
+                         "plan": tuple(k5.grid_plan(n_l)),
                          "cg_iters": [int(i) for i in out.pcg_iters.tolist()
                                       if i >= 0]}
-    print(f"K5g (grid form) ms per call by N: "
+    print(f"K5g (joined form) ms per call by N: "
           f"{ {m: r['ms'] for m, r in k5g_rows.items()} }; device us per call "
           f"{ {m: r['us'] for m, r in k5g_rows.items()} }; K5 (cluster form) "
           f"on the same inputs: ms "
           f"{ {m: r['cluster_ms'] for m, r in k5g_rows.items()} }, device us "
           f"{ {m: r['cluster_us'] for m, r in k5g_rows.items()} }")
-    row = k5g_rows[LONG_LOOP_KNOT]
-    n_l, args, kw_l = LONG_LOOP_KNOT, row["args"], row["kw"]
+    row = k5g_rows[GRID_LOOP_KNOT]
+    n_l, args, kw_l = GRID_LOOP_KNOT, row["args"], row["kw"]
     na = cfg.num_alphas
     record("K5g", "sqp_solve_mega_pcg_grid", "mpcgpu_tpu_torch/csrc/sqp_mega.cu",
            "mpcgpu_tpu/ops/pallas/sqp_megakernel.py:1027", err5g, row["run"],
@@ -1894,6 +1964,7 @@ def main() -> int:
            F32 * (2 * (2 * n_l * NX + (n_l - 1) * NU) + n_l * 6 + NX + TAB
                   + 5) + 4 * (2 + 3 * SQP_ITERS),
            n=n_l, grid=grids[n_l]["K5g"],
+           plan_by_n={str(m): r["plan"] for m, r in k5g_rows.items()},
            ms_by_n={str(m): r["ms"] for m, r in k5g_rows.items()},
            cg_iters_by_n={str(m): r["cg_iters"] for m, r in k5g_rows.items()},
            device_us_by_n={str(m): r["us"] for m, r in k5g_rows.items()},
@@ -1902,56 +1973,65 @@ def main() -> int:
            cluster_device_us_by_n={str(m): r["cluster_us"]
                                    for m, r in k5g_rows.items()})
 
-    # K9pg at N = 256: one iteration against the plain iteration; four
-    # launches against one K5g launch, bit for bit (the same body, sums
-    # that do not depend on the grid)
-    args5, kw_l = k5g_rows[LONG_LOOP_KNOT]["args"], k5g_rows[LONG_LOOP_KNOT]["kw"]
-    (_, Xl, Ul, gl, xsl, lam0_l, _, _, m0, cap_l, tol_l, _) = args5
-    err9pg = 0.0
-    for rho0, lam_rtol, lam_atol in ((cfg.rho_init, 0, 1e-3),
-                                     (0.3, 1e-3, 1e-4)):
-        a9 = (model, Xl, Ul, gl, xsl, lam0_l, torch.tensor(rho0, device=dev),
-              one, m0, cap_l, tol_l)
-        out = k9.sqp_iter_mega_pcg_grid(*a9, **kw_l)
-        ref = k9.sqp_iter_mega_pcg_reference(*a9, **kw_l)
+    # K9pg at N = 256 and 1024: one iteration against the plain iteration;
+    # four launches against one K5g launch, bit for bit (the same body and
+    # plan, sums that depend on the plan alone)
+    err9pg, k9pg_rows = 0.0, {}
+    for n_l in (LONG_LOOP_KNOT, GRID_LOOP_KNOT):
+        args5, kw_l = k5g_rows[n_l]["args"], k5g_rows[n_l]["kw"]
+        (_, Xl, Ul, gl, xsl, lam0_l, _, _, m0, cap_l, tol_l, _) = args5
+        for rho0, lam_rtol, lam_atol in ((cfg.rho_init, 0, 1e-3),
+                                         (0.3, 1e-3, 1e-4)):
+            a9 = (model, Xl, Ul, gl, xsl, lam0_l,
+                  torch.tensor(rho0, device=dev), one, m0, cap_l, tol_l)
+            with _watchdog(FIRST_LAUNCH_DEADLINE):
+                out = k9.sqp_iter_mega_pcg_grid(*a9, **kw_l)
+                sync()
+            ref = k9.sqp_iter_mega_pcg_reference(*a9, **kw_l)
+            sync()
+            label = f"K9pg N = {n_l} at rho {rho0:g}"
+            print(f"{label}: CG {int(out.pcg_iters)} vs "
+                  f"{int(ref.pcg_iters)}, accept {bool(out.accept)} vs "
+                  f"{bool(ref.accept)}")
+            for f in ("accept", "bail"):
+                if not torch.equal(getattr(out, f), getattr(ref, f)):
+                    raise AssertionError(f"{label}: {f} differs")
+            if abs(int(out.pcg_iters) - int(ref.pcg_iters)) > 2:
+                raise AssertionError(f"{label}: CG counts differ by more "
+                                     f"than 2")
+            err9pg = max(err9pg, checked(f"{label} X, U", [(out.X, ref.X),
+                                                           (out.U, ref.U)],
+                                         1e-3, 1e-5),
+                         checked(f"{label} lam", [(out.lam, ref.lam)],
+                                 lam_rtol, lam_atol))
+            if rho0 == cfg.rho_init:
+                k9pg_rows[n_l] = (a9, kw_l, int(out.pcg_iters))
+
+        def k9pg_step(Xc, Uc, lamc, rhoc, drhoc, meritc, gl=gl, xsl=xsl,
+                      cap_l=cap_l, tol_l=tol_l, kw_l=kw_l):
+            return k9.sqp_iter_mega_pcg_grid(model, Xc, Uc, gl, xsl, lamc,
+                                             rhoc, drhoc, meritc, cap_l,
+                                             tol_l, **kw_l)
+
+        k5g_once = k5.sqp_solve_mega_pcg_grid(*args5, **kw_l)
+        four = iterate(Xl, Ul, lam0_l, torch.tensor(cfg.rho_init, device=dev),
+                       one, m0, SQP_ITERS, k9pg_step)
         sync()
-        label = f"K9pg N = {LONG_LOOP_KNOT} at rho {rho0:g}"
-        print(f"{label}: CG {int(out.pcg_iters)} vs {int(ref.pcg_iters)}, "
-              f"accept {bool(out.accept)} vs {bool(ref.accept)}")
-        for f in ("accept", "bail"):
-            if not torch.equal(getattr(out, f), getattr(ref, f)):
-                raise AssertionError(f"{label}: {f} differs")
-        if abs(int(out.pcg_iters) - int(ref.pcg_iters)) > 2:
-            raise AssertionError(f"{label}: CG counts differ by more than 2")
-        err9pg = max(err9pg, checked(f"{label} X, U", [(out.X, ref.X),
-                                                       (out.U, ref.U)],
-                                     1e-3, 1e-5),
-                     checked(f"{label} lam", [(out.lam, ref.lam)], lam_rtol,
-                             lam_atol))
-        if rho0 == cfg.rho_init:
-            a9_main, it9g = a9, int(out.pcg_iters)
-
-    def k9pg_step(Xc, Uc, lamc, rhoc, drhoc, meritc):
-        return k9.sqp_iter_mega_pcg_grid(model, Xc, Uc, gl, xsl, lamc, rhoc,
-                                         drhoc, meritc, cap_l, tol_l, **kw_l)
-
-    k5g_once = k5.sqp_solve_mega_pcg_grid(*args5, **kw_l)
-    four = iterate(Xl, Ul, lam0_l, torch.tensor(cfg.rho_init, device=dev),
-                   one, m0, SQP_ITERS, k9pg_step)
-    sync()
-    pairs = {"X": (four[0], k5g_once.X), "U": (four[1], k5g_once.U),
-             "lam": (four[2], k5g_once.lam), "rho": (four[3], k5g_once.rho),
-             "merit": (four[5], k5g_once.merit),
-             "sqp_iters": (four[6], k5g_once.sqp_iters),
-             "pcg_iters": (four[8], k5g_once.pcg_iters),
-             "accepted": (four[10], k5g_once.accepted)}
-    unequal = [f for f, (x, y) in pairs.items() if not torch.equal(x, y)]
-    if unequal:
-        raise AssertionError(f"{SQP_ITERS} K9pg launches and one K5g launch "
-                             f"differ in {unequal}")
-    print(f"{SQP_ITERS} K9pg launches bit-equal to one K5g launch at N = "
-          f"{LONG_LOOP_KNOT}")
-    n_l = LONG_LOOP_KNOT
+        pairs = {"X": (four[0], k5g_once.X), "U": (four[1], k5g_once.U),
+                 "lam": (four[2], k5g_once.lam),
+                 "rho": (four[3], k5g_once.rho),
+                 "merit": (four[5], k5g_once.merit),
+                 "sqp_iters": (four[6], k5g_once.sqp_iters),
+                 "pcg_iters": (four[8], k5g_once.pcg_iters),
+                 "accepted": (four[10], k5g_once.accepted)}
+        unequal = [f for f, (x, y) in pairs.items() if not torch.equal(x, y)]
+        if unequal:
+            raise AssertionError(f"{SQP_ITERS} K9pg launches and one K5g "
+                                 f"launch differ in {unequal} at N = {n_l}")
+        print(f"{SQP_ITERS} K9pg launches bit-equal to one K5g launch at "
+              f"N = {n_l}")
+    n_l = GRID_LOOP_KNOT
+    a9_main, kw_l, it9g = k9pg_rows[n_l]
     record("K9pg", "sqp_iter_mega_pcg_grid", "mpcgpu_tpu_torch/csrc/sqp_mega.cu",
            "mpcgpu_tpu/ops/pallas/sqp_megakernel.py:960", err9pg,
            lambda: k9.sqp_iter_mega_pcg_grid(*a9_main, **kw_l),
@@ -1960,7 +2040,8 @@ def main() -> int:
            + _dz_ops(n_l) + _merits_ops(n_l, na),
            F32 * (2 * (2 * n_l * NX + (n_l - 1) * NU) + 6 * n_l + NX + TAB
                   + 6) + 20,
-           n=n_l, grid=grids[n_l]["K9pg"], bit_equal_to_k5g=True,
+           n=n_l, grid=grids[n_l]["K9pg"], plan=tuple(k5.grid_plan(n_l)),
+           bit_equal_to_k5g_at_n=[LONG_LOOP_KNOT, GRID_LOOP_KNOT],
            device_us=_device_us(
                lambda: k9.sqp_iter_mega_pcg_grid(*a9_main, **kw_l), "K9pg"))
 
@@ -2521,6 +2602,12 @@ def main() -> int:
                                        tag, its)
             row[name] = {"grid": grid, "device_us": full, "stages_us": base,
                          "cg_steps": its, "cg_step_us": step}
+            if kind == k5.SOLVE_PCG_GRID:
+                row[name]["plan"] = plan = k5.grid_plan(n_c, lib)
+                print(f"N = {n_c} K5g plan: C = {plan.cluster}, G = "
+                      f"{plan.clusters} clusters, grid {plan.grid}, place "
+                      f"{plan.place} (3: S's and the stair's bands and the "
+                      f"vectors on chip; 0: all in L2)")
             before = (f" (one-thread recursions: "
                       f"{ONE_THREAD_K5_STAGES_US[n_c]} us; one-thread merit "
                       f"contribution: {ONE_THREAD_MERIT_K5_STAGES_US[n_c]} "

@@ -2,11 +2,13 @@
 // K4 and K4b (pcg_dz.cu) and K10's one-block form (sqp_mega_packed.cu,
 // which drives cg_init and cg_step itself: its arms' CGs share one exit);
 // the grid-wide form of the stair-PCG and the primal step (grid_cg_solve,
-// grid_dz) for K4g, K4bg (pcg_dz.cu), K5g and K9pg (sqp_mega.cu), past the
-// cluster form's fit; and the cluster form (cluster_cg_solve, cluster_dz)
-// for K5 and K9p (sqp_mega.cu, the stair), K6 (bcr_pcg_dz.cu, the block
-// cyclic reduction) and K10's cluster form (one cluster an arm, the exit
-// shared by the arms' clusters: SharedExit).
+// grid_dz) for K4g and K4bg (pcg_dz.cu) past the one-block fit; and the
+// cluster form (cluster_cg_solve, cluster_dz) for K5 and K9p (sqp_mega.cu,
+// the stair), K6 (bcr_pcg_dz.cu, the block cyclic reduction), K10's
+// cluster form (one cluster an arm, the exit shared by the arms' clusters:
+// SharedExit) and K5g and K9pg (sqp_mega.cu past K5's fit: one CG across
+// every cluster of the launch, the clusters joined by tagged words:
+// JoinedExit).
 //
 // One thread block holds S's three (N, 14, 14) bands and the CG vectors in
 // shared memory; one thread per (knot, row) entry of an (N, 14) vector
@@ -276,13 +278,14 @@ LD_DEV void pcg_dz_body(float* smem, int N, const float* SLg,
 }
 
 // ---------------------------------------------------------------------------
-// The grid-wide stair-PCG (the original GBD-PCG's form, pcg/sqp.cuh:137-166):
+// The grid-wide stair-PCG (the original GBD-PCG's form, pcg/sqp.cuh:137-166;
+// K4g and K4bg):
 // one cooperative launch, every block in the solve, S, the stair bands,
 // gamma and the CG vectors in global memory (2.4 MB of bands at N = 512,
 // L2-resident), nothing N-sized in shared memory.  Block b owns knots
 // b, b + gridDim, ...; thread i < 14 of a block computes row i of the
 // owned knot's entries.  The owner of knot k is the block that wrote rows k
-// of the bands and gamma in the stages before (K5g), so bands are read by
+// of the bands and gamma in the stages before, so bands are read by
 // their writer; vectors at k - 1 and k + 1 come from other blocks and are
 // read past L1 (load_cg), as are the dot slots.
 //
@@ -301,7 +304,7 @@ LD_DEV void pcg_dz_body(float* smem, int N, const float* SLg,
 //   z = P r, eta slots | eta', beta; p = z + beta p |
 // (S p and P r read p and r at k +- 1; each slot sum follows its writes).
 // The first barrier is also the one between the last read of lam0 and the
-// first write of lam, which lets lam0 and lam alias (K5g's warm start in
+// first write of lam, which lets lam0 and lam alias (a warm start in
 // place); every exit follows a barrier after the last write of lam, which
 // grid_dz's read of lam_{k+1} needs.
 
@@ -497,9 +500,26 @@ LD_DEV void grid_dz(int N, const float* lam, const float* A, const float* B,
 // same way.  The M^-1 apply is the preconditioner's (ClusterStair here,
 // bcr::ClusterBcr), which may hold cluster barriers of its own: every block
 // calls it the same number of times.
+//
+// The joined form (K5g, K9pg) runs the same body across the launch's G
+// clusters of C blocks: block b = cl C + r (cluster cl, rank r) owns the
+// knots [b N / (G C), (b + 1) N / (G C)) (the even cut, G C <= N: every
+// block owns nk or nk - 1 knots, nk = ceil(N / (G C))), so at N = 1024 a
+// block owns 3 knots (45 clusters of 8 on the H100) where one cluster of 16
+// would give it 64.  Within a cluster it is the cluster CG; JoinedExit
+// (below) joins the clusters with no grid barrier: each dot's cluster sum
+// goes out as a tagged word that every block reads, and the rows at a
+// cluster's edges go out as tagged words that the neighbouring cluster
+// reads.  Past what shared memory holds, the stair's and S's bands are
+// read from L2, and last the vectors too (joined_area's `place`).
 
 // Knots per block of an N-knot solve over C blocks.
 LD_HD int cluster_knots(int N, int C) { return (N + C - 1) / C; }
+
+// First knot of block b of nb in the even cut of N knots.
+LD_HD int even_start(int N, int nb, int b) {
+  return (int)((long long)b * N / nb);
+}
 
 #ifdef __CUDACC__
 // Co-resident clusters of C blocks of kernel fn, `threads` threads and
@@ -529,21 +549,72 @@ inline int active_clusters(const void* fn, int C, int threads, size_t smem) {
 }
 #endif
 
-// Shared floats of one block: S's bands of nk knots (and the stair's when
-// `stair`), eight (nk + 2, 14) vectors, 32 reduction and 2 dot slots, then
-// `extra` floats (ClusterCg::extra).
+// Shared floats of one block's area of nk knots: S's bands where `place`
+// >= 2 and the stair's where `place` == 3, eight (nk + 2, 14) vectors where
+// `place` >= 1, 32 reduction and 2 dot slots, then `extra` floats
+// (ClusterCg::extra).
+LD_HD size_t area_floats(int nk, int place, size_t extra) {
+  const size_t bands = (size_t)(place >= 2) + (place == 3);
+  return bands * 3 * nk * S * S
+         + (place >= 1 ? (size_t)8 * (nk + 2) * S : 0) + 34 + extra;
+}
+
+// Shared floats of one block of the cluster form: S's bands of nk knots
+// (and the stair's when `stair`), the vectors, the slots and `extra`.
 LD_HD size_t cluster_cg_floats(int N, int C, bool stair, size_t extra) {
-  const size_t nk = cluster_knots(N, C);
-  return (stair ? 6 : 3) * nk * S * S + 8 * (nk + 2) * S + 34 + extra;
+  return area_floats(cluster_knots(N, C), stair ? 3 : 2, extra);
+}
+
+// The joined form's shared floats of one block of nb at `place`
+// (joined_area; extra: the block's copy of each dot and the rows at its
+// cluster's edges, JoinedExit::total), and the global floats of its
+// vectors at place 0.
+LD_HD size_t joined_cg_floats(int N, int nb, int place) {
+  return area_floats(cluster_knots(N, nb), place, 1 + 4 * S);
+}
+LD_HD size_t joined_vec_floats(int N, int nb) {
+  return (size_t)8 * (cluster_knots(N, nb) + 2) * S;
 }
 
 struct ClusterCg {
   int N, C, rank, nk, k0, own;
+  int G, cl, lo_row;     // clusters in the solve, this one's index, and the
+                         // row of knot k0 - 1 in block rank - 1's vectors
+  long long vstride;     // 0: vectors in shared memory; else the floats
+                         // between two blocks' vectors in global memory
   float *SL, *SD, *SU;            // own knots' S bands (nk, 14, 14)
   float *PL, *PD, *PU;            // the stair's, where on chip
   float *lam, *w, *z, *g, *r[2], *p[2];   // (nk + 2, 14) each
   float *red, *slots, *extra;
 };
+
+// Lay out the area from smem: S's bands where place >= 2, the vectors (in
+// gvec where it is not null), the slots, the stair's bands where place ==
+// 3, then extra.
+LD_DEV void lay_out(ClusterCg& a, float* smem, float* gvec, int place) {
+  const size_t nb = (size_t)S * S * a.nk, nv = (size_t)S * (a.nk + 2);
+  float* f = smem;
+  a.SL = a.SD = a.SU = nullptr;
+  if (place >= 2) {
+    a.SL = f; f += nb;
+    a.SD = f; f += nb;
+    a.SU = f; f += nb;
+  }
+  float* v = gvec ? gvec : f;
+  float** vecs[] = {&a.lam, &a.w, &a.z, &a.g, &a.r[0], &a.r[1], &a.p[0],
+                    &a.p[1]};
+  for (float** x : vecs) { *x = v; v += nv; }
+  if (!gvec) f = v;
+  a.red = f; f += 32;
+  a.slots = f; f += 2;
+  a.PL = a.PD = a.PU = nullptr;
+  if (place == 3) {
+    a.PL = f; f += nb;
+    a.PD = f; f += nb;
+    a.PU = f; f += nb;
+  }
+  a.extra = f;
+}
 
 // This block's part of an N-knot cluster solve laid out in smem
 // (cluster_cg_floats(N, C, stair, ...) floats).
@@ -555,23 +626,35 @@ LD_DEV ClusterCg cluster_area(float* smem, int N, bool stair) {
   a.nk = cluster_knots(N, a.C);
   a.k0 = a.rank * a.nk;
   a.own = a.k0 >= N ? 0 : (N - a.k0 < a.nk ? N - a.k0 : a.nk);
-  const size_t nb = (size_t)S * S * a.nk, nv = (size_t)S * (a.nk + 2);
-  float* f = smem;
-  a.SL = f; f += nb;
-  a.SD = f; f += nb;
-  a.SU = f; f += nb;
-  float** vecs[] = {&a.lam, &a.w, &a.z, &a.g, &a.r[0], &a.r[1], &a.p[0],
-                    &a.p[1]};
-  for (float** v : vecs) { *v = f; f += nv; }
-  a.red = f; f += 32;
-  a.slots = f; f += 2;
-  a.PL = a.PD = a.PU = nullptr;
-  if (stair) {
-    a.PL = f; f += nb;
-    a.PD = f; f += nb;
-    a.PU = f; f += nb;
-  }
-  a.extra = f;
+  a.G = 1;
+  a.cl = 0;
+  a.lo_row = a.nk;
+  a.vstride = 0;
+  lay_out(a, smem, nullptr, stair ? 3 : 2);
+  return a;
+}
+
+// This block's part of the joined form's N-knot solve over the launch's G
+// clusters (the even cut; G C <= N), laid out by `place`: 3 S's and the
+// stair's bands and the vectors on chip (joined_cg_floats of smem), 2 S's
+// bands and the vectors, 1 the vectors, 0 none of them -- block b's vectors
+// then at gvecs + b joined_vec_floats(N, G C) in global memory.  The caller
+// points the bands that are not on chip at L2.
+LD_DEV ClusterCg joined_area(float* smem, float* gvecs, int N, int G,
+                             int place) {
+  ClusterCg a;
+  a.N = N;
+  a.C = ld_cluster_size();
+  a.rank = ld_cluster_rank();
+  a.G = G;
+  a.cl = LD_BID / a.C;
+  const int nb = G * a.C, b = a.cl * a.C + a.rank;
+  a.nk = cluster_knots(N, nb);
+  a.k0 = even_start(N, nb, b);
+  a.own = even_start(N, nb, b + 1) - a.k0;
+  a.lo_row = b > 0 ? a.k0 - even_start(N, nb, b - 1) : 0;
+  a.vstride = place == 0 ? (long long)joined_vec_floats(N, nb) : 0;
+  lay_out(a, smem, place == 0 ? gvecs + a.vstride * b : nullptr, place);
   return a;
 }
 
@@ -618,6 +701,14 @@ LD_DEV float band_row_own(const ClusterCg& a, const float* L,
 LD_DEV const float* knot_row(const ClusterCg& a, const float* v, int k) {
   const int q = k / a.nk, j = k - q * a.nk;
   return (q == a.rank ? v : ld_cluster_map(v, q)) + S * (j + 1);
+}
+
+// Entry i of row `row` of block q's vector v (v's offset in block q's
+// area; q in this cluster): through DSMEM, or from global memory past L1.
+LD_DEV float peer_at(const ClusterCg& a, const float* v, int q, int row,
+                     int i) {
+  if (a.vstride) return load_cg(v + (q - a.rank) * a.vstride + S * row + i);
+  return ld_cluster_map(v, q)[S * row + i];
 }
 
 // The block's sum of v over its threads in a fixed order (warp shuffles,
@@ -705,7 +796,7 @@ struct ClusterStair {
 // The CG's exit.  LocalExit is cg_solve's (K5, K9p, K6): go on while
 // it < max_iter and |eta| > tol, from this CG's own eta.
 struct LocalExit {
-  static constexpr bool SHARED = false;
+  static constexpr bool SHARED = false, JOINED = false;
   int max_iter;
   float tol;
   LD_DEV bool may_step(int it, float eta) const {
@@ -762,7 +853,7 @@ inline float wait_tagged(const unsigned long long* p, unsigned tag) {
 #endif
 
 struct SharedExit {
-  static constexpr bool SHARED = true;
+  static constexpr bool SHARED = true, JOINED = false;
   unsigned long long* words;  // 2 x B, zeroed before the launch's first CG
   int B, arm, max_iter;
   float tol;
@@ -797,9 +888,187 @@ struct SharedExit {
   LD_DEV float div(float num, float den) const { return cg_div(num, den, true); }
 };
 
+// JoinedExit joins the G clusters of the joined form (K5g, K9pg) into one
+// CG: cg_solve's exit (LocalExit's test, on an eta every block of every
+// cluster holds alike) and two exchanges across clusters, each through
+// 64-bit words of global memory that carry a float beside a tag
+// (store_tagged, wait_tagged; zeroed before the launch), with no grid
+// barrier:
+// - each dot (total): after the cluster barrier that follows the blocks'
+//   partials, every block sums its cluster's partials in rank order, rank
+//   0 publishes that sum as cluster cl's word of the dot's tag (the count
+//   of dots in the launch), double-buffered by the tag's parity, and warp
+//   0 of every block waits for the G words of the tag and sums them in one
+//   fixed order (lane l the words l, l + 32, ... in turn, then a shuffle
+//   tree): every block holds the same bits and takes the same exit.  A
+//   word is overwritten two tags later, only after every block has read
+//   it: a cluster publishes tag t + 2 only after its blocks have read
+//   every cluster's word of tag t + 1, which a cluster publishes only after
+//   its blocks have read tag t.
+// - the halo rows at a cluster's edge (put, row): rank 0 puts its first
+//   knot's row for cluster cl - 1 and rank C - 1 its last knot's for
+//   cluster cl + 1, one tagged word a float: of r (kind 0) and z (kind 1)
+//   at the start, of w and r after w = S p (kind 0), of p and z after
+//   M^-1 (kind 1), and of the solution after the CG (kind 0, for dz).  The
+//   reader builds its halo row from them with the owner's expression on the
+//   owner's inputs (halo_fma's fmaf), so both hold the same bits.  The tag
+//   is the count of puts of that kind; one buffer a kind suffices: the
+//   reader takes a row before its cluster publishes the next dot, and the
+//   owner puts the next row of that kind only after it has read the
+//   dot's words.  In a step the rows put before a dot are read while
+//   that dot's words are awaited (total's `kind`): warp 1 of an edge
+//   block waits for them beside warp 0, into shared memory, so the halo
+//   rows after the dot cost no second wait on L2.
+// Words: 2 G dot words, then 112 a cluster (its first knot's rows, then
+// its last's; kind 0, then 1; x, then y; 14 each).
+LD_HD size_t joined_words(int G) { return (size_t)114 * G; }
+
+struct JoinedExit {
+  static constexpr bool SHARED = false, JOINED = true;
+  unsigned long long* words;  // joined_words(G), zeroed before the launch
+  int G, max_iter;
+  float tol;
+  unsigned dots = 0, puts[2] = {0, 0};  // tags: this launch's counts
+  LD_DEV bool may_step(int it, float eta) const {
+    return it < max_iter && fabsf(eta) > tol;
+  }
+  LD_DEV void publish(const ClusterCg&, float) {}
+  LD_DEV float div(float num, float den) const { return num / den; }
+  LD_DEV unsigned long long* rows(int cl, bool last, int kind) const {
+    return words + 2 * (size_t)G + 112 * (size_t)cl + 56 * last + 28 * kind;
+  }
+  // Whether the knot before this block's first (hi: after its last) lies
+  // in another cluster.
+  LD_DEV bool outside(const ClusterCg& a, bool hi) const {
+    return hi ? a.rank == a.C - 1 && a.cl < G - 1 : a.rank == 0 && a.cl > 0;
+  }
+  // The dot whose block partials are in `slot`, over the G clusters; call
+  // after the cluster barrier that follows the partials' writes.  With
+  // kind >= 0 the last put rows of that kind at this block's edges are
+  // read meanwhile (fetched).  Ends in a block barrier.
+  LD_DEV float total(const ClusterCg& a, const float* slot, int kind = -1) {
+    const float s = cluster_sum(a, slot);
+    if (G == 1) return s;
+    ++dots;
+    unsigned long long* const w = words + (size_t)G * (dots & 1);
+    if (a.rank == 0 && LD_TID == 0) store_tagged(w + a.cl, dots, s);
+#ifdef __CUDACC__
+    if (LD_TID < 32) {
+      float v = 0.0f;
+      for (int q = LD_TID; q < G; q += 32) v += wait_tagged(w + q, dots);
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      if (LD_TID == 0) *a.extra = v;
+    } else if (kind >= 0 && LD_TID < 32 + 4 * S) {
+      fetch(a, kind, LD_TID - 32);
+    }
+#else
+    if (LD_TID == 0) {
+      float v[32] = {};
+      for (int q = 0; q < G; ++q) v[q % 32] += wait_tagged(w + q, dots);
+      for (int off = 16; off > 0; off >>= 1)
+        for (int l = 0; l < off; ++l) v[l] += v[l + off];
+      *a.extra = v[0];
+      if (kind >= 0)
+        for (int e = 0; e < 4 * S; ++e) fetch(a, kind, e);
+    }
+#endif
+    LD_SYNC();
+    return *a.extra;
+  }
+  // Entry e of the rows total() reads: the knot before this block's first
+  // (e < 2 S) or after its last, vector x then y, 14 entries each.
+  LD_DEV void fetch(const ClusterCg& a, int kind, int e) const {
+    const bool hi = e >= 2 * S;
+    if (outside(a, hi)) a.extra[1 + e] = row(a, kind, hi, (e / S) & 1, e % S);
+  }
+  LD_DEV float fetched(const ClusterCg& a, bool hi, int v, int i) const {
+    return a.extra[1 + 2 * S * hi + S * v + i];
+  }
+  // Put this block's edge rows of x (and y, unless null) where the
+  // neighbouring clusters read them.  Every block calls it alike, after a
+  // block barrier that follows the rows' writes.
+  LD_DEV void put(const ClusterCg& a, int kind, const float* x,
+                  const float* y) {
+    const unsigned tag = ++puts[kind];
+    const bool first = outside(a, false), last = outside(a, true);
+    if (!first && !last) return;
+    for (int e = LD_TID; e < 4 * S; e += LD_NTID) {
+      const bool hi = e >= 2 * S;
+      const int v = (e / S) & 1, i = e % S;
+      const float* src = v ? y : x;
+      if ((hi ? last : first) && src)
+        store_tagged(rows(a.cl, hi, kind) + S * v + i, tag,
+                     src[S * (hi ? a.own : 1) + i]);
+    }
+  }
+  // Entry i of vector v (0 x, 1 y) of the last put of `kind` of the knot
+  // before this block's first (hi: after its last), from the neighbouring
+  // cluster.
+  LD_DEV float row(const ClusterCg& a, int kind, bool hi, int v,
+                   int i) const {
+    return wait_tagged(rows(a.cl + (hi ? 1 : -1), !hi, kind) + S * v + i,
+                       puts[kind]);
+  }
+};
+
+// The dot whose block partials are in `slot`, after the cluster barrier
+// that follows their writes: the cluster's rank-ordered sum, or the joined
+// form's sum over its clusters (reading meanwhile the rows of `kind` at
+// the block's edges, -1 none, for halo_fma).
+template <class Exit>
+LD_DEV float dot_sum(const ClusterCg& a, const float* slot, Exit& ex,
+                     int kind = -1) {
+  if constexpr (Exit::JOINED) return ex.total(a, slot, kind);
+  else return cluster_sum(a, slot);
+}
+
+// fetch_halos, and halo_fma, under the exit `ex`: in the joined form a
+// halo row comes from the neighbouring block, in this cluster (DSMEM or
+// global memory) or put by the next or previous cluster: for
+// fetch_halos the last put of kind `kind`, for halo_fma the rows the dot
+// before it fetched.
+template <class Exit>
+LD_DEV void fetch_halos(const ClusterCg& a, float* x, const Exit& ex,
+                        int kind) {
+  if constexpr (!Exit::JOINED) {
+    fetch_halos(a, x);
+  } else {
+    for (int e = LD_TID; e < 2 * S; e += LD_NTID) {
+      const bool hi = e >= S;
+      const int k = hi ? a.k0 + a.own : a.k0 - 1, i = e % S;
+      if (k < 0 || k >= a.N) continue;
+      x[S * (hi ? a.own + 1 : 0) + i] =
+          ex.outside(a, hi)
+              ? ex.row(a, kind, hi, 0, i)
+              : peer_at(a, x, a.rank + (hi ? 1 : -1), hi ? 1 : a.lo_row, i);
+    }
+  }
+}
+
+template <class Exit>
+LD_DEV void halo_fma(const ClusterCg& a, float* y, float s, const float* x,
+                     const float* b, const Exit& ex) {
+  if constexpr (!Exit::JOINED) {
+    halo_fma(a, y, s, x, b);
+  } else {
+    for (int e = LD_TID; e < 2 * S; e += LD_NTID) {
+      const bool hi = e >= S;
+      const int k = hi ? a.k0 + a.own : a.k0 - 1, i = e % S;
+      if (k < 0 || k >= a.N) continue;
+      const int q = a.rank + (hi ? 1 : -1), row = hi ? 1 : a.lo_row;
+      const bool out = ex.outside(a, hi);
+      y[S * (hi ? a.own + 1 : 0) + i] =
+          fmaf(s, out ? ex.fetched(a, hi, 0, i) : peer_at(a, x, q, row, i),
+               out ? ex.fetched(a, hi, 1, i) : peer_at(a, b, q, row, i));
+    }
+  }
+}
+
 // The warm-started preconditioned CG (MPCGPU alg. 2) over the cluster,
 // every block calling it alike, with the exit `ex` (LocalExit: cg_solve's;
-// SharedExit: the packed arms'): S's own bands in a.SL, SD, SU, gamma and
+// SharedExit: the packed arms'; JoinedExit: one CG over the joined form's
+// clusters): S's own bands in a.SL, SD, SU (shared or global memory), gamma and
 // lam0 in global memory (lam0 read past L1, whole: the first residual
 // reads the neighbours' rows).  The solution's own rows end in a.lam;
 // returns the iteration count and the final eta.
@@ -824,17 +1093,22 @@ LD_DEV int cluster_cg_solve(const ClusterCg& a, const float* gamma,
                     - band_row3(a.SL + o, a.SD + o, a.SU + o, xm, x0, xp, a.N, k);
     lam[S + e] = x0[i];
   }
+  if constexpr (Exit::JOINED) {
+    LD_SYNC();
+    ex.put(a, 0, a.r[0], nullptr);
+  }
   LD_CLUSTER_SYNC();
-  fetch_halos(a, a.r[0]);
+  fetch_halos(a, a.r[0], ex, 0);
   LD_SYNC();
   // z = M^-1 r, p = z, eta = r . z
   float part = pre.apply(a, a.r[0], z);
   for (int e = t; e < n; e += nt) a.p[0][S + e] = z[S + e];
+  if constexpr (Exit::JOINED) ex.put(a, 1, z, nullptr);
   block_partial(part, a.red, a.slots + 1);
   LD_CLUSTER_SYNC();
-  float eta = cluster_sum(a, a.slots + 1);
+  float eta = dot_sum(a, a.slots + 1, ex);
   ex.publish(a, eta);
-  fetch_halos(a, a.p[0]);
+  fetch_halos(a, a.p[0], ex, 1);
   LD_SYNC();
   int it = 0, c = 0;
   while (ex.may_step(it, eta)) {
@@ -850,6 +1124,7 @@ LD_DEV int cluster_cg_solve(const ClusterCg& a, const float* gamma,
       part += P[S + e] * v;
     }
     block_partial(part, a.red, a.slots);
+    if constexpr (Exit::JOINED) ex.put(a, 0, w, R);
     if constexpr (Exit::SHARED) {
       LD_CLUSTER_ARRIVE();
       ex.poll();
@@ -859,24 +1134,25 @@ LD_DEV int cluster_cg_solve(const ClusterCg& a, const float* gamma,
     } else {
       LD_CLUSTER_SYNC();
     }
-    const float alpha = ex.div(eta, cluster_sum(a, a.slots));
+    const float alpha = ex.div(eta, dot_sum(a, a.slots, ex, 0));
     // lam += alpha p, r' = r - alpha w (own rows and halos)
     for (int e = t; e < n; e += nt) {
       lam[S + e] = fmaf(alpha, P[S + e], lam[S + e]);
       Rn[S + e] = fmaf(-alpha, w[S + e], R[S + e]);
     }
-    halo_fma(a, Rn, -alpha, w, R);
+    halo_fma(a, Rn, -alpha, w, R, ex);
     LD_SYNC();
     // z = M^-1 r', eta' = r' . z
     part = pre.apply(a, Rn, z);
+    if constexpr (Exit::JOINED) ex.put(a, 1, P, z);
     block_partial(part, a.red, a.slots + 1);
     LD_CLUSTER_SYNC();
-    const float eta_new = cluster_sum(a, a.slots + 1);
+    const float eta_new = dot_sum(a, a.slots + 1, ex, 1);
     ex.publish(a, eta_new);
     const float beta = ex.div(eta_new, eta);
     // p' = z + beta p (own rows and halos)
     for (int e = t; e < n; e += nt) Pn[S + e] = fmaf(beta, P[S + e], z[S + e]);
-    halo_fma(a, Pn, beta, P, z);
+    halo_fma(a, Pn, beta, P, z, ex);
     LD_SYNC();
     eta = eta_new;
     ++it;
@@ -900,16 +1176,25 @@ LD_DEV int cluster_cg_solve(const ClusterCg& a, const float* gamma,
 // access to another block's shared memory: the block arrives at the cluster
 // barrier right after it and waits at the end, so no block leaves (or
 // reuses its shared memory) while another may still read it, and the dz
-// overlaps the wait.
+// overlaps the wait.  In the joined form (JoinedExit) the lam rows at the
+// clusters' edges are put and read as the CG's halo rows are.
+template <class Exit>
 LD_DEV void cluster_dz(const ClusterCg& a, const float* A, const float* B,
                        const float* q, const float* r_in, const float* Qinv,
                        const float* Rinv, float* lam_out, float* dX,
-                       float* dU) {
+                       float* dU, Exit& ex) {
   const int t = LD_TID, nt = LD_NTID, N = a.N, k0 = a.k0;
   const float* lam = a.lam;
+  if constexpr (Exit::JOINED) ex.put(a, 0, a.lam, nullptr);
   if (a.own > 0 && k0 + a.own < N)
-    for (int e = t; e < S; e += nt)
-      a.lam[S * (a.own + 1) + e] = knot_row(a, a.lam, k0 + a.own)[e];
+    for (int e = t; e < S; e += nt) {
+      if constexpr (Exit::JOINED)
+        a.lam[S * (a.own + 1) + e] = ex.outside(a, true)
+                                         ? ex.row(a, 0, true, 0, e)
+                                         : peer_at(a, a.lam, a.rank + 1, 1, e);
+      else
+        a.lam[S * (a.own + 1) + e] = knot_row(a, a.lam, k0 + a.own)[e];
+    }
   LD_CLUSTER_ARRIVE();
   LD_SYNC();
   float* const rx = a.w + S;
@@ -946,6 +1231,14 @@ LD_DEV void cluster_dz(const ClusterCg& a, const float* A, const float* B,
     dU[NU * k + i] = -acc;
   }
   LD_CLUSTER_WAIT();
+}
+
+LD_DEV void cluster_dz(const ClusterCg& a, const float* A, const float* B,
+                       const float* q, const float* r_in, const float* Qinv,
+                       const float* Rinv, float* lam_out, float* dX,
+                       float* dU) {
+  LocalExit ex{0, 0.0f};
+  cluster_dz(a, A, B, q, r_in, Qinv, Rinv, lam_out, dX, dU, ex);
 }
 
 }  // namespace pcgc

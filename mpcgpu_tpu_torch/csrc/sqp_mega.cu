@@ -1,7 +1,8 @@
 // K5: the whole SQP solve -- every iteration -- in one cooperative launch;
 // K9p and K9b: ONE SQP iteration per cooperative launch, with the stair-PCG
 // and the refined block cyclic reduction (BCR) dual solve; K5g and K9pg:
-// K5 and K9p with the grid-wide CG, past the cluster form's fit.
+// K5 and K9p past the cluster form's fit, their CG joined across every
+// cluster of the launch.
 //
 // Replaces the TPU kernels mpcgpu_tpu/ops/pallas/sqp_megakernel.py
 // sqp_solve_mega_pcg (_solve_kernel_pcg -> _iteration_pcg, _line_search,
@@ -55,20 +56,27 @@
 // block asks for that shared memory, so it bounds N (mpc_mega_max_knots,
 // about 670 on the H100) and the grid.
 //
-// K5g and K9pg (the grid dual) run stage 4 in EVERY block: the grid-wide
-// stair-PCG of pcg_common.cuh (S, P and the CG vectors in global memory,
-// per-knot dot slots summed alike by every block, four grid barriers per
-// CG step), then dz per owned knot; they serve N past the cluster form's
-// fit.  Their blocks ask for no N-sized shared memory, only the merit
-// stage's groups' (as every kind does; merit.cuh): the grid is
-// min(N, co-resident blocks).
+// K5g and K9pg (the joined kinds) serve N past the cluster form's fit,
+// and run stage 4 in EVERY block: the launch is a cooperative cluster
+// launch of G clusters of C blocks (grid_plan: C = 16 where the card
+// schedules it, unless a smaller C gives the stages fewer passes over the
+// knots; G the co-resident clusters, at most N / C), and the
+// stair-PCG is the cluster CG's body across all of them (pcg_common.cuh's
+// joined form): each block owns about N / (G C) knots (3 at N = 1024 on
+// the H100) with their bands and vector rows on chip where the plan fits
+// them (else in L2), two cluster barriers a step, and no grid barrier --
+// each dot's cluster sums and the rows at the clusters' edges cross as
+// tagged words in global memory (JoinedExit), zeroed at the launch's
+// start.  Then dz per owned knot (cluster_dz).  A block of these kinds
+// keeps its decision state at the head of its dynamic shared memory.
 //
-// No sum of any stage depends on the grid (a cluster's CG depends on C
-// alone), so four K9p launches equal one K5 launch bit for bit, as four
-// K9pg launches equal one K5g launch.  K9b's block 0 factors and applies
-// the BCR with 128 threads (4 warps for the 14x14 inverses) while the
-// other blocks wait at the barrier: the simplest right design, not a fast
-// one.
+// No sum of any stage depends on the grid; a cluster's CG depends on C
+// alone and the joined CG on (C, G), which the plan takes from N and the
+// device alone (K9pg launches K5g's plan), so four K9p launches equal one
+// K5 launch bit for bit, as four K9pg launches equal one K5g launch.
+// K9b's block 0 factors and applies the BCR with 128 threads (4 warps for
+// the 14x14 inverses) while the other blocks wait at the barrier: the
+// simplest right design, not a fast one.
 //
 // Bound on the H100: latency.  The dual solve is a chain of dependent CG
 // iterations; the other stages are short per-knot chains.
@@ -101,9 +109,12 @@ struct MegaParams {
   float *SL, *SD, *SU, *PL, *PD, *PU, *Qinv, *A, *AQi, *T, *B, *Rinv;
   float *gamma, *q, *tvec, *Qiq, *fpred, *dX, *r, *dU, *contrib;
   float* fac;  // K9b: the BCR factors
-  float* cg;   // K5g, K9pg: the grid CG's vectors and slots
+  unsigned long long* words;  // K5g, K9pg: the joined CG's tagged words
+  float* vecs;  // K5g, K9pg at place 0: the blocks' CG vectors
   int stair_on_chip;  // K5, K9p: the stair bands in the cluster's shared memory
-  int* cg_it;   // the CG iterations, then (K5, K9p) the cluster size read
+  int G, place;  // K5g, K9pg: clusters in the CG, where its area lies
+  int* cg_it;   // the CG iterations, then (K5, K9p, K5g, K9pg) the cluster
+                // size read
   bool* cg_hit;
 };
 
@@ -113,30 +124,56 @@ enum Kind {
   ITER_PCG_GRID = 4
 };
 
-bool grid_cg(int kind) { return kind == SOLVE_PCG_GRID || kind == ITER_PCG_GRID; }
+bool joined_cg(int kind) {
+  return kind == SOLVE_PCG_GRID || kind == ITER_PCG_GRID;
+}
 bool cluster_cg(int kind) { return kind == SOLVE_PCG || kind == ITER_PCG; }
 
-// The grid kinds hold nothing N-sized in shared memory; this bound keeps
-// the 32-bit offsets of their global scratch (about 2,200 floats a knot)
-// far from overflow.
+// The longest horizon of the joined kinds, whose CG area may lie in global
+// memory (place 0); this bound keeps the 32-bit offsets of their global
+// scratch (about 2,900 floats a knot) far from overflow.
 constexpr int GRID_MAX_KNOTS = 1 << 16;
 
-// Dynamic shared floats of every block: the cluster CG's at cluster size C
-// (K5, K9p) or K9b's BCR vectors, and no fewer than the merit stage's
-// groups of 8 lanes take (the grid kinds hold only those).
+// Dynamic shared floats of every block of K5, K9p or K9b: the cluster CG's
+// at cluster size C (K5, K9p) or K9b's BCR vectors, and no fewer than the
+// merit stage's groups of 8 lanes take.
 size_t mega_smem_floats(int N, int kind, int C, bool stair_on_chip) {
   const size_t merit = k2::areas_floats(THREADS, 8);
   size_t dual = 0;
   if (cluster_cg(kind)) dual = pcgc::cluster_cg_floats(N, C, stair_on_chip, 0);
-  else if (!grid_cg(kind)) dual = bcr::dz_vec_floats(N);
+  else dual = bcr::dz_vec_floats(N);
   return dual > merit ? dual : merit;
+}
+
+// The joined kinds keep a block's decision state (rho, drho, merit, step;
+// the candidates' merits; done, the iteration count) in the head of the
+// dynamic area, the other kinds in static shared arrays: the host build's
+// block emulation, which runs the joined kinds' blocks in turn, gives each
+// block a dynamic area of its own but one static array a launch.
+constexpr int HEAD_FLOATS = 32;  // N_SCAL + MAX_ALPHAS floats and 2 ints
+
+// Dynamic shared floats of every block of K5g or K9pg over nb blocks at
+// `place`: the head, then the joined CG's area (pcgc::joined_area) or the
+// merit stage's groups, whichever takes more.
+size_t joined_smem_floats(int N, int nb, int place) {
+  const size_t merit = k2::areas_floats(THREADS, 8);
+  const size_t dual = pcgc::joined_cg_floats(N, nb, place);
+  return HEAD_FLOATS + (dual > merit ? dual : merit);
+}
+
+// Global floats of the joined kinds' blocks' vectors at place 0 (nb
+// joined_vec_floats(N, nb) <= 448 N for any nb <= N), and of those with
+// their tagged words (at most N clusters).
+size_t joined_vecs_floats(int N) { return (size_t)448 * N; }
+size_t joined_scratch_floats(int N) {
+  return 2 * pcgc::joined_words(N) + joined_vecs_floats(N);
 }
 
 size_t mega_scratch_floats(int N, int num_alphas, int kind) {
   return (size_t)N * (10 * SS + S * NU + NU * NU + 6 * S + 2 * NU
                       + num_alphas)
          + (kind == ITER_BCR ? bcr::factor_floats(N) : 0)
-         + (grid_cg(kind) ? pcgc::grid_cg_floats(N) : 0);
+         + (joined_cg(kind) ? joined_scratch_floats(N) : 0);
 }
 
 // X[k] += step dX[k], U[k] += step dU[k]
@@ -156,18 +193,32 @@ enum { RHO, DRHO, MERIT, STEP, N_SCAL };
 #endif
 
 // The dual solve of stage 4: K9b's BCR in block 0, the cluster stair-PCG
-// (K5, K9p) or the grid stair-PCG (K5g, K9pg).
-enum Dual { DUAL_BCR, DUAL_CLUSTER, DUAL_GRID };
+// (K5, K9p) or the stair-PCG joined across every cluster (K5g, K9pg).
+enum Dual { DUAL_BCR, DUAL_CLUSTER, DUAL_JOINED };
 
 template <int DUAL>
 MEGA_INLINE void mega_body(const MegaParams& p) {
-  constexpr bool BCR = DUAL == DUAL_BCR;
+  constexpr bool BCR = DUAL == DUAL_BCR, JOINED = DUAL == DUAL_JOINED;
   LD_SHARED float tab[ld::TAB_SIZE];
-  LD_SHARED float merits[MAX_ALPHAS];
-  LD_SHARED float st[N_SCAL];
-  LD_SHARED int done, itc;
+  LD_SHARED float merits_s[JOINED ? 1 : MAX_ALPHAS];
+  LD_SHARED float st_s[JOINED ? 1 : N_SCAL];
+  LD_SHARED int flags_s[JOINED ? 1 : 2];
   LD_DYN_SMEM(smem);
+  // the decision state (HEAD_FLOATS), and the dynamic area past it
+  float* const st = JOINED ? smem : st_s;
+  float* const merits = JOINED ? smem + N_SCAL : merits_s;
+  int* const flags =
+      JOINED ? reinterpret_cast<int*>(smem + N_SCAL + MAX_ALPHAS) : flags_s;
+  int& done = flags[0];
+  int& itc = flags[1];
+  float* const dyn = JOINED ? smem + HEAD_FLOATS : smem;
   const int N = p.N, t = LD_TID, nt = LD_NTID, bid = LD_BID, nb = LD_NBID;
+  // K5g, K9pg: the joined CG's exchanges (their tags run over the launch)
+  pcgc::JoinedExit ex{p.words, p.G, p.max_iter, p.tol};
+  if constexpr (JOINED)
+    for (size_t e = (size_t)bid * nt + t; e < pcgc::joined_words(p.G);
+         e += (size_t)nb * nt)
+      p.words[e] = 0;
 
   for (int k = bid; k < N; k += nb) {
     for (int e = t; e < S; e += nt) {
@@ -215,11 +266,11 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
       LD_GRID_SYNC();
     }
     // 4. the dual solve and dz: the warm-started stair-PCG across the
-    // first cluster (K5, K9p) or the whole grid (K5g, K9pg); or the refined
-    // BCR in block 0 (0 CG iterations, no hit)
+    // first cluster (K5, K9p) or joined across every cluster (K5g, K9pg);
+    // or the refined BCR in block 0 (0 CG iterations, no hit)
     if constexpr (DUAL == DUAL_CLUSTER) {
       if (bid < ld_cluster_size()) {
-        const pcgc::ClusterCg a = pcgc::cluster_area(smem, N, p.stair_on_chip);
+        const pcgc::ClusterCg a = pcgc::cluster_area(dyn, N, p.stair_on_chip);
         pcgc::cluster_load_bands(a, p.SL, p.SD, p.SU, a.SL, a.SD, a.SU);
         const size_t o = (size_t)SS * a.k0;
         pcgc::ClusterStair pre{p.PL + o, p.PD + o, p.PU + o};
@@ -238,20 +289,35 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
           p.cg_hit[0] = fabsf(eta) > p.tol;
         }
       }
-    } else if constexpr (DUAL == DUAL_GRID) {
+    } else if constexpr (JOINED) {
+      // the bands on chip where the plan puts them (place 2: S's; 3: and
+      // the stair's), else read from L2 at the block's first knot
+      pcgc::ClusterCg a = pcgc::joined_area(dyn, p.vecs, N, p.G, p.place);
+      const size_t o = (size_t)SS * a.k0;
+      if (p.place >= 2) {
+        pcgc::cluster_load_bands(a, p.SL, p.SD, p.SU, a.SL, a.SD, a.SU);
+      } else {
+        a.SL = p.SL + o;
+        a.SD = p.SD + o;
+        a.SU = p.SU + o;
+      }
+      pcgc::ClusterStair pre{p.PL + o, p.PD + o, p.PU + o};
+      if (p.place == 3) {
+        pcgc::cluster_load_bands(a, p.PL, p.PD, p.PU, a.PL, a.PD, a.PU);
+        pre = pcgc::ClusterStair{a.PL, a.PD, a.PU};
+      }
       float eta;
-      const int its = pcgc::grid_cg_solve(
-          N, p.SL, p.SD, p.SU, p.PL, p.PD, p.PU, p.gamma, p.lam, p.lam,
-          pcgc::grid_cg_area(p.cg, N), p.max_iter, p.tol, &eta);
-      pcgc::grid_dz(N, p.lam, p.A, p.B, p.q, p.r, p.Qinv, p.Rinv, nullptr,
-                    p.dX, p.dU);
+      const int its = pcgc::cluster_cg_solve(a, p.gamma, p.lam, pre, ex, &eta);
+      pcgc::cluster_dz(a, p.A, p.B, p.q, p.r, p.Qinv, p.Rinv, p.lam, p.dX,
+                       p.dU, ex);
       if (bid == 0 && t == 0) {
         p.cg_it[0] = its;
+        p.cg_it[2] = a.C;
         p.cg_hit[0] = fabsf(eta) > p.tol;
       }
     } else if (bid == 0) {
       bcr::bcr_dz_body(N, p.SL, p.SD, p.SU, p.gamma, p.A, p.B, p.q, p.r,
-                       p.Qinv, p.Rinv, p.fac, smem, p.lam, p.dX, p.dU);
+                       p.Qinv, p.Rinv, p.fac, dyn, p.lam, p.dX, p.dU);
       if (t == 0) {
         p.cg_it[0] = 0;
         p.cg_hit[0] = false;
@@ -262,7 +328,7 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
     // 5. merit contributions of every (candidate, knot) pair, on groups
     // of lanes spread over the blocks (merit.cuh), in the dynamic shared
     // area, which the dual solve no longer needs
-    k2::contribs_at(k2::group_for(p.num_alphas * N, nb, nt), tab, smem,
+    k2::contribs_at(k2::group_for(p.num_alphas * N, nb, nt), tab, dyn,
                     k2::Job{p.X, p.dX, p.U, p.dU, p.goals, p.xs, p.contrib, N,
                             1, p.num_alphas, p.num_alphas, p.gstride, 0, 0,
                             p.dt, p.mu, p.qd_cost, p.r_cost, p.grav});
@@ -333,10 +399,10 @@ LD_GLOBAL void sqp_iter_mega_bcr_kernel(MegaParams p) {
   mega_body<DUAL_BCR>(p);
 }
 LD_GLOBAL void sqp_mega_grid_kernel(MegaParams p) {
-  mega_body<DUAL_GRID>(p);
+  mega_body<DUAL_JOINED>(p);
 }
 LD_GLOBAL void sqp_iter_mega_pcg_grid_kernel(MegaParams p) {
-  mega_body<DUAL_GRID>(p);
+  mega_body<DUAL_JOINED>(p);
 }
 
 using MegaKernel = void (*)(MegaParams);
@@ -423,6 +489,91 @@ MegaPlan mega_plan(int N, int kind, int C_req, int stair_req) {
   return pl;
 }
 
+// The launch of the joined kinds (K5g's; K9pg launches it too, so that
+// four K9pg launches equal one K5g launch bit for bit): C blocks a
+// cluster, G clusters, where the CG's area lies (`place`, as
+// pcgc::joined_area's: 3 S's and the stair's bands and the vectors on chip,
+// 2 S's bands and the vectors, 1 the vectors, 0 none) and the grid C G.
+// C: C_req where it is a power of 2 up to 16; else 16 where the card holds
+// clusters of 16 of K5g, unless a smaller size (8, 4, 2, 1; C <= N) gives
+// the stages fewer passes over the knots (ceil(N / (C G)): at N = 1024
+// the H100 holds 21 clusters of 16, 336 blocks, a fourth pass that 45 of
+// 8 avoid), and then the largest such size.  G: the most clusters that
+// are co-resident at the shared memory their knots take (fewer clusters
+// give a block more knots), at most N / C, so that every block owns a
+// knot.  place: place_req where it is 0-3; else the most on chip of those
+// with the most clusters.  The host build plans one block (C = G =
+// 1) unless C_req asks for a size, and then N / C clusters of it (a test
+// runs them under the block emulation); place 3 unless asked.
+struct GridPlan {
+  int C = 0, G = 0, place = 0, grid = 0;
+};
+
+GridPlan grid_plan(int N, int C_req, int place_req) {
+  GridPlan pl;
+  if (N < 2 || N > GRID_MAX_KNOTS || place_req < -1 || place_req > 3 ||
+      C_req < 0 || C_req > 16 || (C_req & (C_req - 1)))
+    return pl;
+#ifdef __CUDACC__
+  static std::map<long long, GridPlan> known;
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return pl;
+  const long long key =
+      (((long long)dev * 32 + C_req) * 8 + (place_req + 1))
+          * (GRID_MAX_KNOTS + 1) + N;
+  const auto hit = known.find(key);
+  if (hit != known.end()) return hit->second;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return pl;
+  const long long stat = mega_static_smem(SOLVE_PCG_GRID);
+  if (stat < 0) return pl;
+  int passes = 0;  // the best plan's passes of the stages over the knots
+  for (int C : {16, 8, 4, 2, 1}) {
+    if ((C_req > 0 && C != C_req) || C > N) continue;
+    GridPlan at;  // the most clusters at size C, the most on chip
+    for (int place = 3; place >= 0; --place) {
+      if (place_req >= 0 && place != place_req) continue;
+      // clusters co-resident at the shared memory of G clusters' knots
+      auto resident = [&](int G) {
+        const size_t bytes =
+            joined_smem_floats(N, C * G, place) * sizeof(float);
+        if ((long long)bytes + stat > optin) return 0;
+        return active_clusters(SOLVE_PCG_GRID, C, bytes);
+      };
+      // the largest G <= resident(G): resident(G) falls with G, so
+      // stepping G down to it from the most ends at that G (or 0)
+      int G = N / C;
+      while (G > 0) {
+        const int r = resident(G);
+        if (r >= G) break;
+        G = r;
+      }
+      if (G > at.G) {
+        at.C = C;
+        at.G = G;
+        at.place = place;
+      }
+    }
+    if (at.G < 1) continue;
+    const int p = (N + C * at.G - 1) / (C * at.G);
+    if (pl.G == 0 || p < passes) {
+      pl = at;
+      passes = p;
+    }
+  }
+  pl.grid = pl.C * pl.G;
+  known[key] = pl;
+#else
+  pl.C = C_req > 0 ? C_req : 1;
+  if (pl.C > N) return GridPlan{};
+  pl.G = C_req > 0 ? N / pl.C : 1;
+  pl.place = place_req >= 0 ? place_req : 3;
+  pl.grid = pl.C * pl.G;
+#endif
+  return pl;
+}
+
 int check_kind(int kind) { return kind >= SOLVE_PCG && kind <= ITER_PCG_GRID; }
 
 // The parameters of one launch.  drho0_p (device memory) overrides drho0
@@ -447,6 +598,16 @@ MegaParams make_params(
   p.X = X; p.U = U; p.lam = lam; p.scal = scal; p.ints = ints;
   p.st_iters = stats; p.st_hit = stats + n_sqp; p.st_acc = stats + 2 * n_sqp;
   float* f = scratch;
+  // the joined kinds' tagged words first (8-byte aligned), then their
+  // blocks' vectors (place 0)
+  p.words = nullptr;
+  p.vecs = nullptr;
+  if (joined_cg(kind)) {
+    p.words = reinterpret_cast<unsigned long long*>(f);
+    f += 2 * pcgc::joined_words(N);
+    p.vecs = f;
+    f += joined_vecs_floats(N);
+  }
   const size_t nb = (size_t)N * SS, nv = (size_t)N * S, nu = (size_t)N * NU;
   float** bands[] = {&p.SL, &p.SD, &p.SU, &p.PL, &p.PD, &p.PU,
                      &p.Qinv, &p.A, &p.AQi, &p.T};
@@ -460,8 +621,8 @@ MegaParams make_params(
   p.contrib = f; f += (size_t)N * num_alphas;
   p.fac = kind == ITER_BCR ? f : nullptr;
   if (kind == ITER_BCR) f += bcr::factor_floats(N);
-  p.cg = grid_cg(kind) ? f : nullptr;
   p.stair_on_chip = 0;
+  p.G = p.place = 0;
   p.cg_it = iscratch;
   p.cg_hit = reinterpret_cast<bool*>(iscratch + 1);
   return p;
@@ -474,10 +635,11 @@ MegaParams make_params(
 // of 16 or 8 blocks, each holding its knots' S and stair bands, the CG
 // vectors and the stages' static arrays); for K9b (2) the largest N whose
 // block-0 BCR vectors fit every block; 0 if the attributes cannot be read.
-// The grid kinds (3 K5g, 4 K9pg) answer GRID_MAX_KNOTS.
+// The joined kinds (3 K5g, 4 K9pg) answer GRID_MAX_KNOTS (their area goes
+// to global memory where shared memory cannot hold it).
 extern "C" int mpc_mega_max_knots(int kind) {
   if (!check_kind(kind)) return 0;
-  if (grid_cg(kind)) return GRID_MAX_KNOTS;
+  if (joined_cg(kind)) return GRID_MAX_KNOTS;
   if (cluster_cg(kind)) {
     // the fit is monotone in N: bisect for the last N with a cluster
     int lo = 1, hi = GRID_MAX_KNOTS + 1;
@@ -511,15 +673,30 @@ extern "C" int mpc_mega_cluster_plan(int N, int kind, int cluster, int stair,
   return pl.C > 0;
 }
 
+// The launch of K5g and K9pg over N knots (grid_plan) at the cluster size
+// `cluster` asks (1-16; 0 the plan's choice) with the CG's area where
+// `place` asks (0-3; -1 the plan's choice): writes the cluster size, the
+// clusters, the place and the grid to out[0..3]; returns 0 where no such
+// launch fits, else 1.
+extern "C" int mpc_mega_grid_plan(int N, int cluster, int place, int* out) {
+  const GridPlan pl = grid_plan(N, cluster, place);
+  out[0] = pl.C;
+  out[1] = pl.G;
+  out[2] = pl.place;
+  out[3] = pl.grid;
+  return pl.grid > 0;
+}
+
 // The grid a launch of kernel `kind` over N knots uses.  K5, K9p: the
-// cluster plan's (stair bands placed by the plan).  K5g, K9pg, K9b:
-// min(N, blocks that can be resident at once), from the occupancy API at
-// the kernel's block size and shared memory (the counterpart of the
+// cluster plan's (stair bands placed by the plan); K5g, K9pg: grid_plan's.
+// K9b: min(N, blocks that can be resident at once), from the occupancy API
+// at the kernel's block size and shared memory (the counterpart of the
 // reference's checkPcgOccupancy).  0 if not one block (cluster) fits or
 // the device has no cooperative launch.
 extern "C" int mpc_mega_grid(int N, int kind) {
   if (!check_kind(kind)) return 0;
   if (cluster_cg(kind)) return mega_plan(N, kind, 0, -1).grid;
+  if (joined_cg(kind)) return grid_plan(N, 0, -1).grid;
 #ifdef __CUDACC__
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
@@ -551,9 +728,10 @@ extern "C" long long mpc_sqp_mega_scratch_floats(int N, int num_alphas,
 
 namespace {
 
-// One launch of kernel `kind` on `grid` blocks; cluster and stair (K5,
-// K9p) as mpc_mega_cluster_plan's.  Returns the launch's error: a grid past
-// co-residency, a horizon past the cluster form's fit or a launch the
+// One launch of kernel `kind` on `grid` blocks; cluster and stair as
+// mpc_mega_cluster_plan's (K5, K9p) or as mpc_mega_grid_plan's cluster and
+// place (K5g, K9pg: grid / C clusters).  Returns the launch's error: a grid
+// past co-residency, a horizon past the cluster form's fit or a launch the
 // runtime refuses is never made.
 int launch(const MegaParams& p, int kind, int grid, int cluster, int stair,
            void* stream) {
@@ -561,19 +739,33 @@ int launch(const MegaParams& p, int kind, int grid, int cluster, int stair,
     return 1;  // cudaErrorInvalidValue
   MegaParams arg = p;
   int C = 1;
-  if (cluster_cg(kind)) {
-    const MegaPlan pl = mega_plan(p.N, kind, cluster, stair);
-    if (pl.C < 1) return 1;  // past the fit
+  size_t smem;
+  if (joined_cg(kind)) {
+    const GridPlan pl = grid_plan(p.N, cluster, stair);
+    if (pl.C < 1) return 1;  // no such plan
     if (grid > pl.grid || grid % pl.C) return 720;  // cudaErrorCooperativeLaunchTooLarge
     C = pl.C;
-    arg.stair_on_chip = pl.stair;
+    arg.G = grid / C;
+    arg.place = pl.place;
+    smem = joined_smem_floats(p.N, grid, pl.place) * sizeof(float);
+  } else {
+    if (cluster_cg(kind)) {
+      const MegaPlan pl = mega_plan(p.N, kind, cluster, stair);
+      if (pl.C < 1) return 1;  // past the fit
+      if (grid > pl.grid || grid % pl.C) return 720;
+      C = pl.C;
+      arg.stair_on_chip = pl.stair;
+    }
+    smem = mega_smem_floats(p.N, kind, C, arg.stair_on_chip != 0)
+           * sizeof(float);
   }
-  const size_t smem =
-      mega_smem_floats(p.N, kind, C, arg.stair_on_chip != 0) * sizeof(float);
 #ifdef __CUDACC__
   const void* fn = (const void*)kernel_of(kind);
   cudaError_t err;
-  if (cluster_cg(kind)) {
+  // a K9pg launch takes K5g's plan: its own kernel must hold the clusters
+  if (joined_cg(kind) && active_clusters(kind, C, smem) < arg.G)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (cluster_cg(kind) || joined_cg(kind)) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -604,9 +796,13 @@ int launch(const MegaParams& p, int kind, int grid, int cluster, int stair,
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 #else
-  (void)C;
+  // the host build: one block walks every knot, or (the joined kinds on
+  // more than one block) the block emulation runs the clusters
   const MegaKernel kern = kernel_of(kind);
-  LD_LAUNCH(kern, 1, THREADS, smem, stream, arg);
+  if (joined_cg(kind) && grid > 1)
+    ld_emu_blocks(grid, C, smem / sizeof(float), [&] { kern(arg); });
+  else
+    LD_LAUNCH(kern, 1, THREADS, smem, stream, arg);
   return 0;
 #endif
 }
@@ -614,8 +810,8 @@ int launch(const MegaParams& p, int kind, int grid, int cluster, int stair,
 }  // namespace
 
 // K5 (kind 0) or K5g (kind 3): n_sqp iterations from drho0 = drho0 (a host
-// number).  iscratch holds 3 ints (K5 leaves the cluster size it read in
-// the third); cluster and stair as mpc_mega_cluster_plan's (K5 only).
+// number).  iscratch holds 3 ints (K5 and K5g leave the cluster size they
+// read in the third); cluster and stair as launch's.
 extern "C" int mpc_sqp_mega(
     const float* tab, int N, const float* X0, const float* U0,
     const float* goals, int gstride, const float* xs, const float* lam0,
@@ -674,3 +870,77 @@ extern "C" int mpc_sqp_iter_mega(
       iscratch, ITER_BCR);
   return launch(p, ITER_BCR, grid, 0, -1, stream);
 }
+
+#ifndef __CUDACC__
+namespace {
+
+// The joined CG's exit with one kind of rows never put by the last block of
+// cluster 0 (drop: that kind; -1 none): a broken copy for the test below.
+struct DroppedRows : pcgc::JoinedExit {
+  int drop = -1;
+  void put(const pcgc::ClusterCg& a, int kind, const float* x,
+           const float* y) {
+    if (kind == drop && a.cl == 0 && a.rank == a.C - 1) {
+      ++puts[kind];
+      return;
+    }
+    pcgc::JoinedExit::put(a, kind, x, y);
+  }
+};
+
+}  // namespace
+
+// Host build only: K5g's dual solve alone -- the joined stair-PCG of
+// cluster_cg_solve over G clusters of C blocks under the block emulation,
+// its area at `place` (pcgc::joined_area) -- from S's and the stair's
+// bands ((N, 14, 14) each), gamma and lam0 ((N, 14)): writes the solution
+// to lam and the CG count to iters.  With drop >= 0 the last block of
+// cluster 0 never puts its rows of that kind.  Returns 1 where the
+// emulation found a wait no block could end (the card would hang), 2 for
+// arguments no launch takes, else 0.
+extern "C" int mpc_joined_cg_host(int N, int G, int C, int place, int drop,
+                                  const float* SL, const float* SD,
+                                  const float* SU, const float* PL,
+                                  const float* PD, const float* PU,
+                                  const float* gamma, const float* lam0,
+                                  int max_iter, float tol, float* lam,
+                                  int* iters) {
+  if (N < 2 || G < 1 || C < 1 || G * C > N || place < 0 || place > 3)
+    return 2;
+  const int nb = G * C;
+  std::vector<unsigned long long> words(pcgc::joined_words(G), 0);
+  std::vector<float> vecs(place == 0 ? nb * pcgc::joined_vec_floats(N, nb)
+                                     : 1);
+  ld_emu_failed = false;
+  ld_emu_blocks(nb, C, pcgc::joined_cg_floats(N, nb, place), [&] {
+    pcgc::ClusterCg a = pcgc::joined_area(ld_emu_dyn, vecs.data(), N, G,
+                                          place);
+    const size_t o = (size_t)SS * a.k0;
+    if (place >= 2) {
+      pcgc::cluster_load_bands(a, SL, SD, SU, a.SL, a.SD, a.SU);
+    } else {
+      a.SL = const_cast<float*>(SL) + o;
+      a.SD = const_cast<float*>(SD) + o;
+      a.SU = const_cast<float*>(SU) + o;
+    }
+    pcgc::ClusterStair pre{PL + o, PD + o, PU + o};
+    if (place == 3) {
+      pcgc::cluster_load_bands(a, PL, PD, PU, a.PL, a.PD, a.PU);
+      pre = pcgc::ClusterStair{a.PL, a.PD, a.PU};
+    }
+    DroppedRows ex;
+    ex.words = words.data();
+    ex.G = G;
+    ex.max_iter = max_iter;
+    ex.tol = tol;
+    ex.drop = drop;
+    float eta;
+    const int its = pcgc::cluster_cg_solve(a, gamma, lam0, pre, ex, &eta);
+    for (int e = 0; e < S * a.own; ++e) lam[S * a.k0 + e] = a.lam[S + e];
+    if (LD_BID == 0) *iters = its;
+  });
+  const bool failed = ld_emu_failed;
+  ld_emu_failed = false;
+  return failed ? 1 : 0;
+}
+#endif

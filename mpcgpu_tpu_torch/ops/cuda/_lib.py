@@ -11,11 +11,12 @@ The same sources also build with the host C++ compiler
 (``host_library``): a kernel "launch" then runs every block in turn on
 the calling thread, on CPU memory, or -- once a test has switched the
 emulation on (``mpc_emu_threads_host``) -- on as many host threads as the
-launch names, with real barriers; K10's cluster form runs its blocks one
-after another between the grid and cluster barriers, each on a host
-thread of its own (lanedyn.cuh's block emulation).  That build exists to check the
-kernels' arithmetic against the plain PyTorch versions on a machine
-without a GPU.
+launch names, with real barriers; K10's cluster form, and K5g's and
+K9pg's joined form on more than one block, run their blocks one after
+another between the grid and cluster barriers and the waits on tagged
+words, each on a host thread of its own (lanedyn.cuh's block
+emulation).  That build exists to check the kernels' arithmetic against
+the plain PyTorch versions on a machine without a GPU.
 """
 from __future__ import annotations
 
@@ -78,6 +79,7 @@ _SIGNATURES = {
     "mpc_mega_max_knots": [_I],
     "mpc_mega_grid": [_I, _I],
     "mpc_mega_cluster_plan": [_I] * 4 + [_P],
+    "mpc_mega_grid_plan": [_I] * 3 + [_P],
     "mpc_sqp_mega_scratch_floats": [_I, _I, _I],
     "mpc_sqp_mega_packed": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                             _I, _F, _I] + [_F] * 5 + [_I] + [_F] * 4
@@ -87,6 +89,7 @@ _SIGNATURES = {
     "mpc_sqp_mega_packed_scratch_floats": [_I, _I, _I],
     "mpc_spmv_halo": [_I] + [_P] * 8,
     "mpc_emu_threads_host": [_I],
+    "mpc_joined_cg_host": [_I] * 5 + [_P] * 8 + [_I, _F, _P, _P],
     "mpc_ld_aba_host": [_P, _P, _P, _P, _F, _P],
     "mpc_ld_crba_host": [_P, _P, _P],
     "mpc_ld_rnea_host": [_P, _P, _P, _P, _F, _P, _P],
@@ -104,6 +107,7 @@ _RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
 # entries of the host build alone (test hooks that run no device code)
 _HOST_ONLY = {"mpc_bcr_cluster_factor_host", "mpc_bcr_cluster_apply_host",
               "mpc_cluster_dot_host", "mpc_emu_threads_host",
+              "mpc_joined_cg_host",
               "mpc_ld_aba_host", "mpc_ld_crba_host", "mpc_ld_rnea_host",
               "mpc_ld_fk_host", "mpc_ld_dtau_host", "mpc_ld_spd_inverse_host",
               "mpc_k2_contrib_host"}

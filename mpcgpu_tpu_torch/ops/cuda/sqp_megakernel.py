@@ -1,8 +1,8 @@
 """The SQP megakernels: K5, the whole SQP solve in one cooperative launch,
 and K9p / K9b, one SQP iteration per launch with the stair-PCG / the
-refined BCR dual solve, with K5g and K9pg, K5 and K9p over the grid-wide
-CG (csrc/sqp_mega.cu); K10, K5 for B arms at once
-(csrc/sqp_mega_packed.cu).
+refined BCR dual solve, with K5g and K9pg, K5 and K9p past the cluster
+CG's fit, their CG joined across every cluster of the launch
+(csrc/sqp_mega.cu); K10, K5 for B arms at once (csrc/sqp_mega_packed.cu).
 
 Counterpart of mpcgpu_tpu/ops/pallas/sqp_megakernel.py
 (sqp_solve_mega_pcg, sqp_iter_mega_pcg, sqp_iter_mega,
@@ -23,12 +23,17 @@ between its stages.  K5's and K9p's CG stage runs across the first
 thread-block cluster of the launch (16 blocks where the card schedules
 them, else 8), each block holding its knots' S bands in shared memory, and
 every block asks for that memory (N <= about 670 on the H100).  K5g and
-K9pg run the CG over the whole grid with S in global memory and ask for
-no N-sized shared memory.  ``sqp_solve_mega_pcg`` and
-``sqp_iter_mega_pcg`` launch the cluster kind where it fits and the grid
-kind past it (``pcg_kind``: a function of N and the device alone);
-``sqp_solve_mega_pcg_grid`` and ``sqp_iter_mega_pcg_grid`` launch the grid
-kind at any N.  ``check_mega_fit`` raises past the largest N a kind
+K9pg run one CG across all G clusters of C blocks of the launch
+(``grid_plan``: C = 16 where the card schedules it unless a smaller C
+gives the stages fewer passes over the knots, G the co-resident clusters;
+each block holds about N / (G C) knots' bands and vector rows,
+on chip where they fit, else in L2), the clusters joined by tagged words
+in global memory, with no grid barrier in the CG; K9pg launches K5g's
+plan.  ``sqp_solve_mega_pcg`` and ``sqp_iter_mega_pcg`` launch the
+cluster kind where it fits and the joined kind past it (``pcg_kind``: a
+function of N and the device alone); ``sqp_solve_mega_pcg_grid`` and
+``sqp_iter_mega_pcg_grid`` launch the joined kind at any N.
+``check_mega_fit`` raises past the largest N a kind
 serves, and before a grid that could not be co-resident (the counterpart
 of the reference's checkPcgOccupancy and of the TPU's
 check_pcg_vmem_fit): an oversubscribed cooperative launch is never made.
@@ -39,9 +44,10 @@ which the B clusters are co-resident), the one-block form (an arm's whole
 S in one block's shared memory) serves packs past that; the wrapper
 launches the planned form or raises, and counts each form's launches in
 ``sqp_solve_mega_pcg_packed.form_launches`` beside ``launches``.  After
-each K5 or K9p launch, ``sqp_solve_mega_pcg.cluster_size`` or
-``sqp_iter_mega_pcg.cluster_size`` holds the cluster size the kernel read
-(a device int32), and after each K10 launch
+each K5, K9p, K5g or K9pg launch, the ``cluster_size`` of its wrapper
+(``sqp_solve_mega_pcg``, ``sqp_iter_mega_pcg``,
+``sqp_solve_mega_pcg_grid``, ``sqp_iter_mega_pcg_grid``) holds the cluster
+size the kernel read (a device int32), and after each K10 launch
 ``sqp_solve_mega_pcg_packed.cluster_size`` (0 for the one-block form).
 
 K10's public layout is knot-major with a leading arm axis: X (B, N, nx),
@@ -156,15 +162,15 @@ SOLVE_PCG, ITER_PCG, ITER_BCR, SOLVE_PCG_GRID, ITER_PCG_GRID = 0, 1, 2, 3, 4
 _KIND_NAMES = {SOLVE_PCG: "the cluster whole-solve kernel",
                ITER_PCG: "the cluster per-iteration PCG kernel",
                ITER_BCR: "the per-iteration BCR kernel",
-               SOLVE_PCG_GRID: "the grid-CG whole-solve kernel",
-               ITER_PCG_GRID: "the grid-CG per-iteration kernel"}
+               SOLVE_PCG_GRID: "the joined-CG whole-solve kernel",
+               ITER_PCG_GRID: "the joined-CG per-iteration kernel"}
 _GRID_KIND = {SOLVE_PCG: SOLVE_PCG_GRID, ITER_PCG: ITER_PCG_GRID}
 
 
 def pcg_kind(knot_points: int, lib=None, kind: int = SOLVE_PCG) -> int:
     """The kind that serves the PCG megakernel `kind` (SOLVE_PCG or
     ITER_PCG) at this horizon: itself where a cluster's shared memory
-    holds its CG, else its grid-CG form."""
+    holds its CG, else its joined form (K5g, K9pg)."""
     lib = lib or _lib.library()
     if knot_points <= lib.mpc_mega_max_knots(kind):
         return kind
@@ -176,10 +182,11 @@ def check_mega_fit(knot_points: int, lib=None, kind: int = SOLVE_PCG,
     """Raise unless kernel `kind` (K5, K9p, K9b, K5g, K9pg) serves this
     horizon on this device and at least one block (K5, K9p: one cluster)
     can be resident; return the grid a launch uses: min(N, co-resident
-    blocks), for K5 and K9p C x min(co-resident clusters, ceil(N / C)).
-    cluster and stair (K5, K9p) ask for a cluster size (8 or 16; 0 the
-    plan's choice) and place the stair bands (1 on chip, 0 in L2, -1 the
-    plan's choice) as mpc_mega_cluster_plan's arguments."""
+    blocks) for K9b, C x min(co-resident clusters, ceil(N / C)) for K5 and
+    K9p, C x G for K5g and K9pg (grid_plan's).  cluster and stair (K5, K9p)
+    ask for a cluster size (8 or 16; 0 the plan's choice) and place the
+    stair bands (1 on chip, 0 in L2, -1 the plan's choice) as
+    mpc_mega_cluster_plan's arguments."""
     lib = lib or _lib.library()
     key = (id(lib), knot_points, kind, stair, cluster, _current_device())
     if key in _grids:
@@ -214,6 +221,30 @@ def _current_device():
     return torch.cuda.current_device() if torch.cuda.is_available() else -1
 
 
+class GridPlan(NamedTuple):
+    cluster: int   # C, blocks a cluster
+    clusters: int  # G, clusters in the joined CG
+    place: int     # the CG's area: 3 S's and the stair's bands and the
+                   # vectors on chip, 2 S's bands and the vectors, 1 the
+                   # vectors, 0 none (in L2)
+    grid: int      # C x G blocks
+
+
+def grid_plan(knot_points: int, lib=None, cluster: int = 0,
+              place: int = -1) -> GridPlan:
+    """K5g's and K9pg's launch at this horizon (mpc_mega_grid_plan, from the
+    occupancy API; a function of N and the device alone): cluster 0 the
+    plan's choice (16, or a smaller size whose co-resident clusters give
+    the stages fewer passes over the knots), else that size; place -1 the
+    plan's choice, else that placement.  grid is 0 where no such launch
+    fits.  The host build plans one block unless a size is asked, and then
+    N / C clusters of it for its block emulation."""
+    lib = lib or _lib.library()
+    out = (ctypes.c_int * 4)()
+    lib.mpc_mega_grid_plan(knot_points, cluster, place, out)
+    return GridPlan(*out)
+
+
 def _expect_iterate(tab, X, U, goals, xs, rho, merit, num_alphas: int) -> int:
     """Raise unless the single-arm inputs are what the kernels take;
     return N."""
@@ -244,7 +275,8 @@ def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
             kind: int = SOLVE_PCG, stair: int = -1,
             cluster: int = 0) -> MegaResult:
     """One K5 (kind SOLVE_PCG) or K5g (SOLVE_PCG_GRID) launch; stair and
-    cluster as check_mega_fit's (K5)."""
+    cluster as check_mega_fit's (K5), as grid_plan's place and cluster
+    (K5g, on grid / C clusters)."""
     dev = X.device
     nx, nu = 2 * _lib.NJ, _lib.NJ
     n = _expect_iterate(tab, X, U, goals, xs, rho, merit0, num_alphas)
@@ -270,8 +302,8 @@ def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
         stats.data_ptr(), scratch.data_ptr(), iscratch.data_ptr(), int(kind),
         int(grid), int(cluster), int(stair), stream)
     _lib.check(rc, "mpc_sqp_mega")
-    if kind == SOLVE_PCG:
-        sqp_solve_mega_pcg.cluster_size = iscratch[2]
+    (sqp_solve_mega_pcg if kind == SOLVE_PCG
+     else sqp_solve_mega_pcg_grid).cluster_size = iscratch[2]
     return MegaResult(
         X=Xo, U=Uo, lam=lam, rho=scal[0], drho=scal[1], merit=scal[2],
         sqp_iters=ints[0], bailed=ints[1] != 0, pcg_iters=stats[0],
@@ -330,7 +362,8 @@ def sqp_solve_mega_pcg_grid(model, X, U, goals, xs, lam0, rho, drho, merit0,
                             qd_cost, r_cost, gravity, mu, num_alphas: int,
                             rho_factor, rho_min, rho_max,
                             rho_reset) -> MegaResult:
-    """K5g: sqp_solve_mega_pcg's solve with the grid-wide CG, at any N."""
+    """K5g: sqp_solve_mega_pcg's solve with its CG joined across the
+    launch's clusters (grid_plan), at any N."""
     args = (model, X, U, goals, xs, lam0, rho, drho, merit0, max_iter,
             exit_tol, n_sqp_iter, dt, qd_cost, r_cost, gravity, mu,
             num_alphas, rho_factor, rho_min, rho_max, rho_reset)
@@ -340,6 +373,7 @@ def sqp_solve_mega_pcg_grid(model, X, U, goals, xs, lam0, rho, drho, merit0,
 
 
 sqp_solve_mega_pcg_grid.launches = 0
+sqp_solve_mega_pcg_grid.cluster_size = None
 
 
 def sqp_iter_mega_pcg_reference(model, X, U, goals, xs, lam0, rho, drho,
@@ -369,8 +403,8 @@ def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
                  grid: int, stream, stair: int = -1,
                  cluster: int = 0) -> IterResult:
     """One launch of K9p or K9pg (kind ITER_PCG or ITER_PCG_GRID, lam0 the
-    warm start; stair and cluster as check_mega_fit's) or K9b (ITER_BCR,
-    lam0 None)."""
+    warm start; stair and cluster as _launch's) or K9b (ITER_BCR, lam0
+    None)."""
     dev = X.device
     nx, nu = 2 * _lib.NJ, _lib.NJ
     n = _expect_iterate(tab, X, U, goals, xs, rho, merit, num_alphas)
@@ -401,8 +435,8 @@ def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
             *tail[:-2], int(kind), tail[-2], int(cluster), int(stair),
             tail[-1])
         _lib.check(rc, "mpc_sqp_iter_mega_pcg")
-        if kind == ITER_PCG:
-            sqp_iter_mega_pcg.cluster_size = iscratch[2]
+        (sqp_iter_mega_pcg if kind == ITER_PCG
+         else sqp_iter_mega_pcg_grid).cluster_size = iscratch[2]
     else:
         if n & (n - 1):
             raise ValueError(f"the per-iteration BCR kernel needs a "
@@ -459,8 +493,8 @@ def sqp_iter_mega_pcg_grid(model, X, U, goals, xs, lam0, rho, drho, merit,
                            max_iter: int, exit_tol, dt, qd_cost, r_cost,
                            gravity, mu, num_alphas: int, rho_factor, rho_min,
                            rho_max, rho_reset) -> IterResult:
-    """K9pg: sqp_iter_mega_pcg's iteration with the grid-wide CG, at any
-    N."""
+    """K9pg: sqp_iter_mega_pcg's iteration with its CG joined across the
+    launch's clusters (K5g's plan), at any N."""
     args = (model, X, U, goals, xs, lam0, rho, drho, merit, max_iter,
             exit_tol, dt, qd_cost, r_cost, gravity, mu, num_alphas,
             rho_factor, rho_min, rho_max, rho_reset)
@@ -470,6 +504,7 @@ def sqp_iter_mega_pcg_grid(model, X, U, goals, xs, lam0, rho, drho, merit,
 
 
 sqp_iter_mega_pcg_grid.launches = 0
+sqp_iter_mega_pcg_grid.cluster_size = None
 
 
 def sqp_iter_mega(model, X, U, goals, xs, rho, drho, merit, dt, qd_cost,

@@ -1091,9 +1091,10 @@ def test_per_iteration_loop_through_the_host_build(host, traj_0_0, linsys,
     _close(got.U, want.U, *tol)
 
 
-# ---- the grid-wide CG forms (K4g, K4bg, K5g, K9pg) at long horizons: the
-# host build runs one block over every knot (a cooperative grid of one),
-# so the per-knot dot slots and their sums are checked, not the barriers
+# ---- the grid-wide CG forms (K4g, K4bg) and K5g, K9pg at long horizons:
+# the host build runs one block over every knot (a cooperative grid of
+# one), so the per-knot dot slots and their sums are checked, not the
+# barriers (K5g's and K9pg's joined form over several clusters: below)
 LONG_R_COST = 1e-4   # CostConfig.for_knots(N) at N != 64
 
 
@@ -1202,6 +1203,146 @@ def test_four_k9pg_launches_equal_one_k5g_launch(host, traj_0_0):
                       (pcgi, k5g.pcg_iters), (hiti, k5g.hit_max),
                       (acci, k5g.accepted)):
         assert torch.equal(got, want)
+
+
+# ---- K5g's and K9pg's joined form under the block emulation (lanedyn.cuh's
+# ld_emu_blocks): one CG across G clusters of C blocks, each block on a
+# host thread of its own, one after another between the barriers and the
+# waits on tagged words (the dots' cluster sums, the rows at the clusters'
+# edges); a wait that no block can end fails the test.
+def _joined(lib, launch, n, cluster, clusters, place=-1):
+    """launch(grid=, cluster=, stair=) of a joined kind on `clusters`
+    clusters of `cluster` blocks under the block emulation, which must not
+    hang."""
+    plan = k5.grid_plan(n, lib, cluster, place)
+    assert plan.cluster == cluster and plan.clusters >= clusters
+    lib.mpc_emu_threads_host(0)
+    try:
+        got = launch(grid=cluster * clusters, cluster=cluster,
+                     stair=plan.place)
+    finally:
+        assert lib.mpc_emu_threads_host(0) == 0, "an emulated wait hung"
+    return got
+
+
+@pytest.fixture(scope="module")
+def k5g_plain():
+    """The plain solves of the joined-form cases, one per (N, rho)."""
+    return {}
+
+
+def _k5g_args(model, traj_0_0, n, rho):
+    X, U, goals, xs = _k9_start(traj_0_0, n, None)
+    return (X, U, goals, xs, torch.zeros(n, 14), torch.tensor(rho), 1.0,
+            _merit0(model, X, U, goals, xs), 24, 1e-5, 4)
+
+
+@pytest.mark.parametrize("n,cluster,clusters,place,rho", [
+    # knot counts the blocks do not split evenly; every place of the CG's
+    # area (3: S's and the stair's bands and the vectors on chip ... 0: all
+    # in global memory); at rho 0.3 and N = 128 some CG exits early
+    (13, 2, 2, 3, 1e-3), (13, 4, 3, 2, 1e-3), (37, 4, 2, 1, 1e-3),
+    (37, 2, 3, 0, 1e-3), (128, 4, 3, 3, 0.3), (128, 2, 3, 0, 0.3)])
+def test_k5g_joined_form_host_build_matches_plain(host, traj_0_0, k5g_plain,
+                                                  n, cluster, clusters, place,
+                                                  rho):
+    """K5g on G = 2 or 3 clusters of C = 2 or 4 blocks against its plain
+    version, at test_k5g_host_build_matches_plain's inputs and tolerances:
+    X, U at rtol 1e-3, atol 1e-5; lam at rtol 1e-3, atol 1e-4; decisions
+    identical; CG counts within 2; the kernel read C."""
+    lib, model, tab = host
+    kw = _long_kw()
+    args = _k5g_args(model, traj_0_0, n, rho)
+    if (n, rho) not in k5g_plain:
+        k5g_plain[n, rho] = k5.sqp_solve_mega_pcg_reference(model, *args,
+                                                            **kw)
+    want = k5g_plain[n, rho]
+    got = _joined(lib, lambda **g: k5._launch(
+        lib, tab, *args, stream=None, kind=k5.SOLVE_PCG_GRID, **g, **kw),
+        n, cluster, clusters, place)
+    assert int(k5.sqp_solve_mega_pcg_grid.cluster_size) == cluster
+    _close(got.X, want.X, 1e-3, 1e-5)
+    _close(got.U, want.U, 1e-3, 1e-5)
+    _close(got.lam, want.lam, 1e-3, 1e-4)
+    for f in ("sqp_iters", "bailed", "hit_max", "accepted"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int((got.pcg_iters - want.pcg_iters).abs().max()) <= 2
+    if n == 128:
+        assert bool(((want.pcg_iters >= 0) & (want.pcg_iters < 24)).any())
+
+
+def test_k5g_joined_form_places_give_the_same_bits(host, traj_0_0):
+    """The CG's area on chip or in global memory (every place) gives the
+    same bits, at N = 37 over 3 clusters of 2."""
+    lib, model, tab = host
+    n, kw = 37, _long_kw()
+    args = _k5g_args(model, traj_0_0, n, 1e-3)
+    runs = [_joined(lib, lambda **g: k5._launch(
+        lib, tab, *args, stream=None, kind=k5.SOLVE_PCG_GRID, **g, **kw),
+        n, 2, 3, place) for place in (3, 2, 1, 0)]
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
+
+
+def test_four_k9pg_launches_equal_one_joined_k5g_launch(host, traj_0_0):
+    """sqp.iterate over four K9pg launches against one K5g launch, both on
+    3 clusters of 2 blocks at N = 13: the same plan and body, bit for
+    bit."""
+    from mpcgpu_tpu_torch.sqp import iterate
+
+    lib, model, tab = host
+    n, kw = 13, _long_kw()
+    X, U, goals, xs, lam0, rho, _, merit0, cap, tol, _ = _k5g_args(
+        model, traj_0_0, n, 1e-3)
+    once = _joined(lib, lambda **g: k5._launch(
+        lib, tab, X, U, goals, xs, lam0, rho, 1.0, merit0, cap, tol, 4,
+        stream=None, kind=k5.SOLVE_PCG_GRID, **g, **kw), n, 2, 3)
+
+    def step(Xc, Uc, lamc, rhoc, drhoc, meritc):
+        return _joined(lib, lambda **g: k9._launch_iter(
+            lib, k9.ITER_PCG_GRID, tab, Xc, Uc, goals, xs, lamc, rhoc,
+            drhoc, meritc, cap, tol, **kw, stream=None, **g), n, 2, 3)
+
+    four = iterate(X, U, lam0, rho, torch.tensor(1.0), merit0, 4, step)
+    assert int(k9.sqp_iter_mega_pcg_grid.cluster_size) == 2
+    for got, want in zip(four, (once.X, once.U, once.lam, once.rho,
+                                once.drho, once.merit, once.sqp_iters,
+                                once.bailed, once.pcg_iters, once.hit_max,
+                                once.accepted)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,cluster,clusters,place", [
+    (37, 2, 3, 3), (64, 4, 3, 0), (64, 1, 5, 1)])
+def test_joined_cg_matches_plain_and_a_missing_row_fails(host, n, cluster,
+                                                         clusters, place):
+    """K5g's dual solve alone (mpc_joined_cg_host: cluster_cg_solve with
+    the joined exit under the block emulation) on the seeded
+    well-conditioned system, where the CG exits before the cap, against
+    the plain CG at K4's tolerances (lam at rtol 5e-3, atol 5e-3; counts
+    within 2).  Then a copy of the exit whose last block of cluster 0 never
+    puts its rows of one kind: the emulation reports the wait no block
+    can end (the card would hang) and returns."""
+    lib = host[0]
+    ks = random_knot_schur(n)
+    S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
+    lam0 = torch.zeros(n, 14)
+    want, want_its = k4.pcg_solve_reference(S, P, ks.gamma, lam0, 300,
+                                            1e-9)[:2]
+    got = torch.full((n, 14), float("nan"))
+    its = torch.zeros(1, dtype=torch.int32)
+    ptrs = [t.data_ptr() for t in (ks.SL, ks.SD, ks.SU, ks.PL, ks.PD, ks.PU,
+                                   ks.gamma, lam0)]
+    assert lib.mpc_joined_cg_host(n, clusters, cluster, place, -1, *ptrs,
+                                  300, 1e-9, got.data_ptr(),
+                                  its.data_ptr()) == 0
+    _close(got, want, 5e-3, 5e-3)
+    assert abs(int(its) - int(want_its)) <= 2 and int(want_its) < 300
+    for kind in (0, 1):
+        assert lib.mpc_joined_cg_host(n, clusters, cluster, place, kind,
+                                      *ptrs, 300, 1e-9, got.data_ptr(),
+                                      its.data_ptr()) == 1
 
 
 class _SmallMegaFit:

@@ -1,5 +1,6 @@
 """The CUDA kernels K1-K7, K7s, K9p, K9b and K10, K3 at the long horizons
-of the TPU's tiled K8, the grid-CG forms K4g, K4bg, K5g and K9pg, and the
+of the TPU's tiled K8, the grid-CG forms K4g and K4bg, the joined forms
+K5g and K9pg (at every cluster size the card admits for them), and the
 cluster forms of K5, K9p, K6 and K10 at every cluster size the card
 admits (K10 also in its one-block form), against their plain versions, on
 the card.
@@ -400,23 +401,26 @@ def test_k9b_kernel_matches_plain(card):
         _close(getattr(got, f), getattr(given, f), 1e-3, 2e-4)
 
 
-# ---- long horizons: K3 at the TPU's tiled K8 horizons, and the grid-CG
-# forms K4g, K4bg, K5g, K9pg (fixture 0_0's first N knots, r_cost 1e-4,
-# cap 24, exit tol 1e-5: for_knots(N), tpu_tuned_max_iter(N) and
+# ---- long horizons: K3 at the TPU's tiled K8 horizons, the grid-CG
+# forms K4g, K4bg and the joined forms K5g, K9pg (fixture 0_0's first N
+# knots, its rows repeated past its last by np.resize, r_cost 1e-4, cap
+# 24, exit tol 1e-5: for_knots(N), tpu_tuned_max_iter(N) and
 # default_pcg_exit_tols(N)[0] at N = 128 and 256)
 LONG_R_COST, LONG_CAP, LONG_TOL = 1e-4, 24, 1e-5
 
 
 def _long(card, n, seed):
-    """The first n knots of fixture 0_0 on the card, every knot but 0
-    moved by a seeded 0.02-scale normal draw."""
+    """The first n knots of fixture 0_0 on the card (its rows repeated
+    past its last, np.resize), every knot but 0 moved by a seeded
+    0.02-scale normal draw."""
     dev = card["X"].device
     xu, ee = load_fixture_pair(Path(__file__).resolve().parent / "fixtures")
+    rows = np.resize(np.arange(xu.shape[0]), n)
     pert = 0.02 * np.random.default_rng(seed).normal(size=(n, 14))
     pert[0] = 0.0
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32),
                                   device=dev)
-    return (t(xu[:n, :14] + pert), t(xu[:n - 1, 14:]), t(ee[:n]),
+    return (t(xu[rows, :14] + pert), t(xu[rows[:-1], 14:]), t(ee[rows]),
             t(xu[0, :14]))
 
 
@@ -505,15 +509,28 @@ def _k5g_args(card, n, rho):
             LONG_TOL, 4)
 
 
-@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("n", [128, 256, 657, 1000, 1024])
 @pytest.mark.parametrize("rho", [1e-3, 0.3])
-def test_k5g_kernel_matches_plain(card, n, rho):
+@pytest.mark.parametrize("cluster", [0, 16, 8])
+def test_k5g_kernel_matches_plain(card, n, rho, cluster):
     """K5's checks: X, U at rtol 1e-3, atol 1e-5; accepted, sqp_iters and
     rho_bailed identical; CG counts within 2 per SQP iteration; lam at
     atol 1e-3 at rho 1e-3 (every CG at the cap), else rtol 1e-3, atol
-    1e-4."""
+    1e-4.  The wrapper (the plan's cluster size, 0), and each cluster
+    size the plan admits at this N; the kernel reads that size."""
     args, kw = _k5g_args(card, n, rho), _long_kw()
-    got = k5.sqp_solve_mega_pcg_grid(*args, **kw)
+    if cluster == 0:
+        got = k5.sqp_solve_mega_pcg_grid(*args, **kw)
+        cluster = k5.grid_plan(n).cluster
+    else:
+        plan = k5.grid_plan(n, cluster=cluster)
+        if plan.grid < 1:
+            pytest.skip(f"the card admits no clusters of {cluster} here")
+        got = k5._launch(_lib.library(), _lib.model_tables(args[0]),
+                         *args[1:], grid=plan.grid,
+                         stream=_lib.stream_of(args[1]),
+                         kind=k5.SOLVE_PCG_GRID, cluster=cluster, **kw)
+    assert int(k5.sqp_solve_mega_pcg_grid.cluster_size) == cluster
     want = k5.sqp_solve_mega_pcg_reference(*args, **kw)
     _close(got.X, want.X, 1e-3, 1e-5)
     _close(got.U, want.U, 1e-3, 1e-5)
@@ -523,7 +540,7 @@ def test_k5g_kernel_matches_plain(card, n, rho):
     assert int((got.pcg_iters - want.pcg_iters).abs().max()) <= 2
 
 
-@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("n", [128, 256, 1024])
 def test_four_k9pg_launches_equal_one_k5g_launch(card, n):
     """One K9pg launch against the plain iteration (K9p's checks), and
     sqp.iterate over four K9pg launches against one K5g launch, bit for
@@ -555,6 +572,48 @@ def test_four_k9pg_launches_equal_one_k5g_launch(card, n):
         assert torch.equal(g, w)
     assert torch.equal(four[8], once.pcg_iters)
     assert torch.equal(four[10], once.accepted)
+
+
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_k5g_places_give_the_same_bits(card, n):
+    """K5g with its CG's area at every place the card admits at this N (3:
+    S's and the stair's bands and the vectors on chip, 2 and 1 fewer of
+    them, 0: all in global memory), on the plan's cluster size and one
+    grid, gives the same bits."""
+    args, kw = _k5g_args(card, n, 1e-3), _long_kw()
+    lib = _lib.library()
+    c = k5.grid_plan(n, lib).cluster
+    grids = {place: k5.grid_plan(n, lib, c, place).grid
+             for place in (3, 2, 1, 0)}
+    grid = min(g for g in grids.values() if g > 0)
+    runs = [k5._launch(lib, _lib.model_tables(args[0]), *args[1:], grid=grid,
+                       stream=_lib.stream_of(args[1]),
+                       kind=k5.SOLVE_PCG_GRID, cluster=c, stair=place, **kw)
+            for place, g in grids.items() if g > 0]
+    assert len(runs) >= 2
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [16384, 65536])
+def test_k5g_serves_the_longest_horizons(card, n):
+    """K5g up to GRID_MAX_KNOTS (65536 knots), where the plan moves its
+    CG's area to L2, one SQP iteration at a cap of 8, against the plain
+    version at K5's rho 1e-3 tolerances (every CG at the cap): decisions
+    equal, CG counts within 2, X and U at rtol 1e-3, atol 1e-4, lam at
+    atol 1e-3."""
+    assert k5.check_mega_fit(n, kind=k5.SOLVE_PCG_GRID) == k5.grid_plan(n).grid
+    args, kw = _k5g_args(card, n, 1e-3), _long_kw()
+    args = (*args[:9], 8, LONG_TOL, 1)
+    got = k5.sqp_solve_mega_pcg_grid(*args, **kw)
+    want = k5.sqp_solve_mega_pcg_reference(*args, **kw)
+    _close(got.X, want.X, 1e-3, 1e-4)
+    _close(got.U, want.U, 1e-3, 1e-4)
+    _close(got.lam, want.lam, 0, 1e-3)
+    for f in ("sqp_iters", "bailed", "accepted"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int((got.pcg_iters - want.pcg_iters).abs().max()) <= 2
 
 
 @pytest.mark.parametrize("nl", [1, 64])

@@ -1,7 +1,8 @@
-"""Hold K1, K2, K3 and K5 of two checkouts of this repository against each
-other on the card: the same seeded inputs through each tree's wrappers, the
-largest difference of every output, and each kernel's CUDA-event time in
-turns (other, this, this, other), each turn a process of its own.
+"""Hold K1, K2, K3, K5, K9p, K6, K10, K4g and K4bg of two checkouts of this
+repository against each other on the card: the same seeded inputs through
+each tree's wrappers, the largest difference of every output, and each
+kernel's CUDA-event time in turns (other, this, this, other), each turn a
+process of its own.
 
     python3 tools/compare_trees.py OTHER_CHECKOUT [--out DIR]
 
@@ -10,7 +11,10 @@ fixture 0_0's first N knots (N = 64 and 256 for K2, K3 and K5; K1 at 64),
 for K2 the step of chip_smoke.py's check (the plain K3 and K4's dX, dU at
 cold duals; the step itself is compared too) and a seeded 0.05-scale step,
 a seeded 0.02-scale perturbation for K5's start (cold duals, rho 1e-3, cap
-40, 4 SQP iterations), and K1 at the three offsets of the host tests.
+40, 4 SQP iterations; K9p one iteration from it), K6 on K3's system
+without the stair and K4g, K4bg on K3's (cold duals, cap 40), K10 at N = 64
+on two arms (K5's start and a second seeded perturbation), and K1 at the
+three offsets of the host tests.
 Also prints both libraries' fits and grids (K5, K9p, K9b, K10; K5, K5g,
 K9pg and K9b's grids at N = 64-1024).
 """
@@ -61,6 +65,8 @@ def run_tree(tree: Path, out: Path) -> None:
 
     from mpcgpu_tpu_torch.config import PCGConfig, SolverConfig
     from mpcgpu_tpu_torch.models.robot import iiwa14
+    from mpcgpu_tpu_torch.ops.btridiag import BlockTri
+    from mpcgpu_tpu_torch.ops.cuda import bcr_kernel as k6
     from mpcgpu_tpu_torch.ops.cuda import kkt_schur_kernel as k3
     from mpcgpu_tpu_torch.ops.cuda import merit_kernel as k2
     from mpcgpu_tpu_torch.ops.cuda import pcg_kernel as k4
@@ -141,6 +147,43 @@ def run_tree(tree: Path, out: Path) -> None:
             res[f"K5 N={n} {f}"] = getattr(o, f).cpu()
         times[f"K5 N={n}"] = _event_ms(
             lambda: k5.sqp_solve_mega_pcg(*args, **kw))
+        # K9p: the first SQP iteration from K5's start
+        one = torch.tensor(1.0, device=dev)
+        a9 = (model, Xp, U, goals, xs, torch.zeros_like(X), rho, one, merit0,
+              40, 5e-5)
+        o = k5.sqp_iter_mega_pcg(*a9, **kw)
+        for f in o._fields:
+            res[f"K9p N={n} {f}"] = getattr(o, f).cpu()
+        times[f"K9p N={n}"] = _event_ms(lambda: k5.sqp_iter_mega_pcg(*a9,
+                                                                      **kw))
+        # K6 on K3's system without the stair; K4g and K4bg on K3's
+        lam0 = torch.zeros_like(X)
+        ks6 = k3.form_kkt_schur(*a, precond=False)
+        for i, t in enumerate(k6.bcr_pcg_dz(ks6, lam0, 40, 5e-5)):
+            res[f"K6 N={n} out{i}"] = t.cpu()
+        times[f"K6 N={n}"] = _event_ms(
+            lambda: k6.bcr_pcg_dz(ks6, lam0, 40, 5e-5))
+        S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
+        for kid, run in (
+                ("K4g", lambda: k4.pcg_dz_grid(ks, lam0, 40, 5e-5)),
+                ("K4bg", lambda: k4.pcg_solve_grid(S, P, ks.gamma, lam0, 40,
+                                                   5e-5))):
+            for i, t in enumerate(run()):
+                res[f"{kid} N={n} out{i}"] = t.cpu()
+            times[f"{kid} N={n}"] = _event_ms(run)
+        if n == 64:
+            # K10: two arms, K5's start and a second seeded perturbation
+            pert2 = torch.as_tensor(0.02 * np.random.default_rng(6).normal(
+                size=(n, 14)), dtype=torch.float32, device=dev)
+            pert2[0] = 0.0
+            a10 = (model, torch.stack([Xp, X + pert2]), torch.stack([U, U]),
+                   goals.expand(2, n, goals.shape[1]), torch.stack([xs, xs]),
+                   torch.zeros(2, n, 14, device=dev), rho, 1.0, 40, 5e-5, 4)
+            o = k5.sqp_solve_mega_pcg_packed(*a10, **kw)
+            for f in o._fields:
+                res[f"K10 N={n} {f}"] = getattr(o, f).cpu()
+            times[f"K10 N={n}"] = _event_ms(
+                lambda: k5.sqp_solve_mega_pcg_packed(*a10, **kw))
     torch.cuda.synchronize()
     # the fits and grids the library reports (occupancy API, shared memory)
     lib, plan = k5._lib.library(), (ctypes.c_int * 3)()

@@ -1,8 +1,9 @@
 """Build the CUDA library anew and print ptxas' registers, stack and spills
 for the kernels K1, K2, K3 and the megakernels that run K3's stage bodies
-and K2's merit contributions (K10 in both its forms); then K5's and K9p's
-counts with their __maxnreg__ cap lifted (sqp_mega.cu compiled alone,
-LD_MAXNREG empty).
+and K2's merit contributions (K10 in both its forms; K5g and K9pg beside
+their grid-CG form's count, which held them to 3 blocks an SM); then K5's
+and K9p's counts with their __maxnreg__ cap lifted (sqp_mega.cu compiled
+alone, LD_MAXNREG empty).
 
     python3 tools/ptxas_lines.py
 """
@@ -20,6 +21,10 @@ KERNELS = ("rollout_kernel", "12merit_kernel", "k3_perknot", "k3_theta",
            "29sqp_iter_mega_pcg_grid_kernel", "22sqp_mega_packed_kernel",
            "30sqp_mega_packed_cluster_kernel")
 UNCAPPED = ("15sqp_mega_kernelE", "24sqp_iter_mega_pcg_kernelE")
+# K5g's and K9pg's count with the grid-wide CG (grid_cg_solve), before
+# their CG was joined across clusters
+GRID_CG_REGISTERS = {"20sqp_mega_grid_kernel": 168,
+                     "29sqp_iter_mega_pcg_grid_kernel": 168}
 
 
 def main() -> int:
@@ -27,7 +32,10 @@ def main() -> int:
     found = _lib.ptxas_resources(path.with_suffix(".log").read_text(),
                                  KERNELS)
     for frag, (regs, stack) in found.items():
-        print(f"{frag}: {regs} | {stack}")
+        before = GRID_CG_REGISTERS.get(frag)
+        print(f"{frag}: {regs} | {stack}"
+              + (f" | with the grid-wide CG: {before} registers"
+                 if before else ""))
     out = _lib.BUILD / "sqp_mega_uncapped.o"
     log = subprocess.run(
         [_lib.nvcc_path(), *_lib.NVCC_FLAGS, "-DLD_MAXNREG(n)=", "-c",
