@@ -16,19 +16,19 @@ CUDA toolkit:
 3. checks each kernel K1-K7, K7s, K9p, K9b and K10 against its plain
    PyTorch version on the card at the slice's N = 64 inputs from fixture
    0_0 (K6 and K7 also on a seeded well-conditioned system, K7s also at
-   N = 128 and 256, K2 also at N = 2, 256 and 1024 on seeded steps and
+   N = 128, 256 and 1024 with its library yardstick at 128 and 256, K2
+   also at N = 2, 256 and 1024 on seeded steps and
    twice on the same inputs (bit-equal), K5, K9p and K10 also at larger
    carried rhos where their CGs exit before the cap, K10 with two arms
    from seeded perturbations and its shared CG exit shown to decide, four K9p
-   launches against one K5 launch (bit-equal), K6's cluster factor against
-   K7s's one-block factor (bit-equal), the split BCR paths against K7 and
-   K6), and the arm-batched K1 launch against single K1 launches
+   launches against one K5 launch (bit-equal), the split BCR paths against
+   K7 and K6), and the arm-batched K1 launch against single K1 launches
    (bit-equal), with the tolerances of the JAX package's own kernel tests
    (the exact BCR solves by relative residual on the slice's systems), and
    times both (CUDA events, median after warm-up), K1's, K2's and K3's
    device times (torch.profiler) beside the one-thread recursions'; the
-   first launches of the cluster forms (K5, K9p, K6, and K10 at every
-   cluster size the card admits for two arms at N = 64, and in its
+   first launches of the cluster forms (K5, K9p, K6, K7s, K9b, and K10 at
+   every cluster size the card admits for two arms at N = 64, and in its
    one-block form) run under a watchdog that ends the process if they
    hang;
 4. runs three closed loops -- fixture pair 0_0, N = 64,
@@ -105,7 +105,8 @@ CUDA toolkit:
    checks K5 at N = 2, 4, 64, 128, 256 and 512 and K6 at every power of 2
    up to 512, at every cluster size the card admits, against the plain
    versions (CG counts, accepts and bails identical), and K6's factor
-   against K7s's bit for bit; and times a CG step (the profiler's device
+   against K7's one-block factor (N <= 64) or K7s's, bit for bit; and
+   times a CG step (the profiler's device
    time of a solve less that of the same solve with the CG capped at 0,
    over its CG steps) and the stages at N = 64-512 for the cluster K5
    (stair bands on chip and in L2; the one-thread recursions' beside
@@ -130,7 +131,15 @@ CUDA toolkit:
    two-arm loop at N = 128 (cap 24, tol 1e-5, warm duals, 8 updates)
    through the kernels and the plain modules, checked (sqp_iters, bails
    and shared CG counts equal, tracking within 5e-3 m) and timed;
-12. prints one JSON line of the kernels, then the result line.
+12. the cluster BCR forms (K7s one cluster, K9b's refined BCR solve and
+   dz across the first cluster of its launch): prints their ptxas lines,
+   fits and K9b's plan (C, grid) at each N; checks K7s at N = 2, 64, 128,
+   256 and 1024 at every cluster size the card admits against the plain
+   version (its factor bit-equal to K7's one-block factor where K7 fits),
+   and K9b at N = 2, 4, 64, 256 and 512 likewise against the plain
+   iteration (first launches under the watchdog); and prints their device
+   times a launch (K7s at N = 128 and 256, K9b at 64, 256 and 512);
+13. prints one JSON line of the kernels, then the result line.
 
 A watchdog (faulthandler) ends the process with a traceback and a
 non-zero exit code if the run passes SCRIPT_DEADLINE seconds, and sooner
@@ -164,6 +173,15 @@ BATCHED_UPDATES = 8
 SWEEP_ARMS = (1, 2, 4, 8, 16)
 NEW_UPDATES = 8                 # the loops of this file's phase 6
 LONG_KNOTS = 128                # the staged bcr loop above K7's fit
+# K7s against its plain version past N = 64 (phase 3), its library
+# yardstick where the staged bcr loops launch it
+K7S_KNOTS = (128, 256, 1024)
+K7S_LIBRARY_KNOTS = (128, 256)
+# phase 12, the cluster BCR forms: K7s and K9b at every admitted cluster
+# size, and K9b's device time at the horizons named
+K7S_CLUSTER_KNOTS = (2, 64, 128, 256, 1024)
+K9B_KNOTS = (2, 4, 64, 256, 512, 1024)
+K9B_TIMED_KNOTS = (64, 256, 512, 1024)
 # phase 8, the long horizons: K3 (K8's counterpart), the grid-CG kernels
 # and the loops
 LONG_K3_KNOTS = (256, 512, 1024)
@@ -219,8 +237,9 @@ ONE_THREAD_MERIT_K5_STAGES_US = {64: 284.9, 128: 307.8, 256: 478.0,
 # inputs; the others a seeded step)
 K2_KNOTS = (2, 64, 256, 1024)
 # the kernels whose ptxas resource lines phase 2 prints: K1, K2 at each
-# group size, K3's three, and the megakernels that run K3's stage bodies
-# and K2's merit contribution (with the one-thread recursions:
+# group size, K3's three, the megakernels that run K3's stage bodies and
+# K2's merit contribution, and K7s's cluster kernel (with the one-thread
+# recursions:
 # rollout_kernel 165 registers and 704 bytes of stack, k3_perknot 128 and
 # 176, sqp_mega_kernel 202 and 896)
 PTXAS_KERNELS = (("K1", "14rollout_kernel"), ("K2 G = 8", "12merit_kernelILi8E"),
@@ -232,6 +251,7 @@ PTXAS_KERNELS = (("K1", "14rollout_kernel"), ("K2 G = 8", "12merit_kernelILi8E")
                  ("K9p", "24sqp_iter_mega_pcg_kernelE"),
                  ("K9pg", "29sqp_iter_mega_pcg_grid_kernel"),
                  ("K9b", "24sqp_iter_mega_bcr_kernel"),
+                 ("K7s", "16bcr_solve_kernel"),
                  ("K10", "22sqp_mega_packed_kernel"),
                  ("K10 cluster form", "30sqp_mega_packed_cluster_kernel"))
 MEGA_MAX_REGS = 202             # K5's and K9p's count with the one-thread
@@ -1037,24 +1057,41 @@ def main() -> int:
            residual=res7[0], residual_plain=res7[1])
 
     def k7s_pair(ks_sys):
-        out = k7.bcr_solve(ks_sys.SL, ks_sys.SD, ks_sys.SU, ks_sys.gamma)
+        # the cluster kernel's first launches under the watchdog
+        with _watchdog(FIRST_LAUNCH_DEADLINE):
+            out = k7.bcr_solve(ks_sys.SL, ks_sys.SD, ks_sys.SU, ks_sys.gamma)
+            sync()
         ref = k7.bcr_solve_reference(ks_sys.SL, ks_sys.SD, ks_sys.SU,
                                      ks_sys.gamma)
         sync()
         return out, ref
 
+    def chol_ms_of(ks_sys):
+        """K7s's library yardstick: torch.linalg.cholesky + cholesky_solve
+        on the dense S, the same function on the same inputs."""
+        dense = to_dense(BlockTri(ks_sys.SL, ks_sys.SD, ks_sys.SU))
+        g_col = ks_sys.gamma.reshape(-1, 1)
+        return _event_ms(lambda: torch.cholesky_solve(
+            g_col, torch.linalg.cholesky(dense)))
+
     err7s = tight_bcr("K7s random system", *k7s_pair(ks_rand))
     errs7s = {}
-    for n_long in (LONG_KNOTS, 2 * LONG_KNOTS):
+    for n_long in K7S_KNOTS:
+        ks_long = systems.random_knot_schur(n_long, device=dev)
         errs7s[f"max_abs_err_n{n_long}"] = tight_bcr(
-            f"K7s random system, N = {n_long}",
-            *k7s_pair(systems.random_knot_schur(n_long, device=dev)))
+            f"K7s random system, N = {n_long}", *k7s_pair(ks_long))
+        if n_long in K7S_LIBRARY_KNOTS:
+            S_l = (ks_long.SL, ks_long.SD, ks_long.SU)
+            errs7s[f"ms_n{n_long}"] = _event_ms(
+                lambda: k7.bcr_solve(*S_l, ks_long.gamma))
+            errs7s[f"library_ms_n{n_long}"] = chol_ms_of(ks_long)
+            print(f"K7s N = {n_long}: kernel {errs7s[f'ms_n{n_long}']:.4f} ms, "
+                  f"library yardstick (the dense Cholesky pair, "
+                  f"{n_long * NX} x {n_long * NX}) "
+                  f"{errs7s[f'library_ms_n{n_long}']:.4f} ms")
     res7s = residual_pair("K7s slice system", ks_np, *k7s_pair(ks_np))
     S_np = BlockTri(ks_np.SL, ks_np.SD, ks_np.SU)
-    dense_np = to_dense(S_np)
-    g_col = ks_np.gamma.reshape(-1, 1)
-    chol_ms = _event_ms(lambda: torch.cholesky_solve(
-        g_col, torch.linalg.cholesky(dense_np)))
+    chol_ms = chol_ms_of(ks_np)
     print(f"K7s library yardstick: torch.linalg.cholesky + cholesky_solve on "
           f"the dense S ({n * NX} x {n * NX}): {chol_ms:.4f} ms")
     record("K7s", "bcr_solve", "mpcgpu_tpu_torch/csrc/bcr_dz.cu",
@@ -1153,7 +1190,9 @@ def main() -> int:
     # stages after it against the plain iteration given the kernel's lam
     k9b_args = (model, Xp, U, goals, xs, torch.tensor(cfg.rho_init,
                                                       device=dev), one, merit0)
-    k9b_out = k9.sqp_iter_mega(*k9b_args, **k5_kw)
+    with _watchdog(FIRST_LAUNCH_DEADLINE):   # its stage 4 across a cluster
+        k9b_out = k9.sqp_iter_mega(*k9b_args, **k5_kw)
+        sync()
     k9b_ref = k9.sqp_iter_mega_reference(*k9b_args, **k5_kw)
     sync()
     for f in ("accept", "bail"):
@@ -2534,16 +2573,22 @@ def main() -> int:
 
     # K6 against the plain version (the seeded random system, K6's
     # tolerances) at every power of 2 up to 512 and admitted cluster size,
-    # CG counts and hit identical; its factor against K7s's, bit for bit
+    # CG counts and hit identical; its factor against the one-block factor
+    # of K7 where K7 fits (N <= 64), else K7s's cluster factor, bit for bit
     err6c, k6_read = 0.0, {}
+    n7 = k7.check_bcr_dz_fit(2)
     for n_c in CLUSTER_BCR_KNOTS:
         ks_r = systems.random_knot_schur(n_c, device=dev)
         lam0_c = torch.zeros(n_c, NX, device=dev)
         ref = k6.bcr_pcg_dz_reference(ks_r, lam0_c, 40, 5e-5)
         size = lib.mpc_bcr_scratch_floats(n_c)
         one_block = torch.zeros(size, device=dev)
-        k7._launch_solve(lib, ks_r.SL, ks_r.SD, ks_r.SU, ks_r.gamma,
-                         _lib.stream_of(lam0_c), scratch=one_block)
+        if n_c <= n7:
+            k7._launch_dz(lib, ks_r, _lib.stream_of(lam0_c),
+                          scratch=one_block)
+        else:
+            k7._launch_solve(lib, ks_r.SL, ks_r.SD, ks_r.SU, ks_r.gamma,
+                             _lib.stream_of(lam0_c), scratch=one_block)
         for c in (16, 8):
             if lib.mpc_bcr_cluster(n_c, c) != c:
                 continue
@@ -2565,10 +2610,11 @@ def main() -> int:
                                      f" ({bool(ref[4])})")
             if not torch.equal(fac, one_block):
                 raise AssertionError(f"{label}: the factors differ from "
-                                     f"K7s's one-block factor")
+                                     f"K7's (N <= {n7}) or K7s's")
             err6c = max(err6c, tight_bcr(label, out, ref))
             print(f"{label}: kernel read C = {read}; CG {int(out[3])} as "
-                  f"plain; factors bit-equal to K7s's")
+                  f"plain; factors bit-equal to "
+                  f"{'K7' if n_c <= n7 else 'K7s'}'s")
 
     # a CG step's device time: a solve less the same solve with the CG
     # capped at 0 (the stages, or the factor, the first residual and
@@ -2904,6 +2950,126 @@ def main() -> int:
                             form_counts[main_packed]["one_block"],
                         "checked_past_the_cluster_fit": f"N = 16, B = {b_one}"})
     print(f"phase 11 (K10's forms): {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 12. the cluster BCR forms: K7s (one cluster) and K9b (its refined
+    # BCR solve and dz across the first cluster of its cooperative launch)
+    t_phase = time.perf_counter()
+    bcr_forms = (("K7s", "16bcr_solve_kernel"),
+                 ("K9b", "24sqp_iter_mega_bcr_kernel"))
+    found = _lib.ptxas_resources(build_log, [f for _, f in bcr_forms])
+    for kid, fragment in bcr_forms:
+        print(f"{kid} (cluster form) ptxas: {found[fragment][0]}")
+    n9 = lib.mpc_mega_max_knots(k9.ITER_BCR)
+    print(f"fit: K7s power-of-2 N <= {k7.check_bcr_solve_fit(2)}; K9b's "
+          f"cluster form N <= {n9}, power-of-2 N <= "
+          f"{1 << (n9.bit_length() - 1)}")
+    # K7s at every admitted cluster size against the plain version (the
+    # seeded random system, K6's tolerances); its factor against K7's
+    # one-block factor where K7 fits, bit for bit
+    err7sc, k7s_read = 0.0, {}
+    for n_c in K7S_CLUSTER_KNOTS:
+        ks_r = systems.random_knot_schur(n_c, device=dev)
+        ref = k7.bcr_solve_reference(ks_r.SL, ks_r.SD, ks_r.SU, ks_r.gamma)
+        size = lib.mpc_bcr_scratch_floats(n_c)
+        one_block = None
+        if n_c <= n7:
+            one_block = torch.zeros(size, device=dev)
+            k7._launch_dz(lib, ks_r, _lib.stream_of(ks_r.gamma),
+                          scratch=one_block)
+        for c in (16, 8):
+            if lib.mpc_bcr_solve_cluster(n_c, c) != c:
+                continue
+            fac = torch.zeros(size, device=dev)
+            with _watchdog(FIRST_LAUNCH_DEADLINE):
+                out = k7._launch_solve(lib, ks_r.SL, ks_r.SD, ks_r.SU,
+                                       ks_r.gamma, _lib.stream_of(ks_r.gamma),
+                                       scratch=fac, cluster=c)
+                sync()
+            label = f"K7s cluster C = {c}, N = {n_c}"
+            read = int(k7.bcr_solve.cluster_size)
+            k7s_read[f"{n_c}/{c}"] = read
+            if read != c:
+                raise AssertionError(f"{label}: the kernel read "
+                                     f"%cluster_nctarank = {read}")
+            err7sc = max(err7sc, tight_bcr(label, out, ref))
+            same = None
+            if one_block is not None:
+                same = torch.equal(fac, one_block)
+                if not same:
+                    raise AssertionError(f"{label}: the factors differ from "
+                                         f"K7's one-block factor")
+            print(f"{label}: kernel read C = {read}"
+                  + ("; factors bit-equal to K7's" if same else ""))
+    # K9b at every admitted cluster size against the plain iteration, as in
+    # phase 3: accept and bail equal, no CG; lam by residual; X, U and merit
+    # against the plain iteration given the kernel's lam
+    err9bc, k9b_read, k9b_plans, k9b_inputs = 0.0, {}, {}, {}
+    for n_c in K9B_KNOTS:
+        args, kw_c = long_mega_args(n_c, cfg.rho_init)
+        a9 = (*args[:5], args[6], torch.tensor(1.0, device=dev), args[8])
+        k9b_inputs[n_c] = (a9, kw_c)
+        ref = k9.sqp_iter_mega_reference(*a9, **kw_c)
+        own = mega_plan(n_c, k9.ITER_BCR)
+        k9b_plans[n_c] = {"C": own[0], "grid": own[2]}
+        print(f"K9b N = {n_c}: plan C = {own[0]}, grid {own[2]}")
+        for c in (16, 8):
+            plan = mega_plan(n_c, k9.ITER_BCR, c)
+            if plan is None:
+                continue
+            with _watchdog(FIRST_LAUNCH_DEADLINE):
+                out = k9._launch_iter(
+                    lib, k9.ITER_BCR, tab, *a9[1:5], None, *a9[5:], 0, 0.0,
+                    **kw_c, grid=plan[2], stream=_lib.stream_of(a9[1]),
+                    cluster=c)
+                sync()
+            label = f"K9b cluster C = {c}, N = {n_c}"
+            read = int(k9.sqp_iter_mega.cluster_size)
+            k9b_read[f"{n_c}/{c}"] = read
+            if read != c:
+                raise AssertionError(f"{label}: the kernel read "
+                                     f"%cluster_nctarank = {read}")
+            for f in ("accept", "bail"):
+                if not torch.equal(getattr(out, f), getattr(ref, f)):
+                    raise AssertionError(f"{label}: {f} differs from the "
+                                         f"plain iteration")
+            if int(out.pcg_iters) != 0 or bool(out.hit_max):
+                raise AssertionError(f"{label}: reports CG iterations")
+            given, ks_b = systems.bcr_iteration_given_lam(*a9, out.lam,
+                                                          **kw_c)
+            residual_pair(label, ks_b, out.lam, ref.lam)
+            err9bc = max(err9bc, checked(
+                f"{label} X, U, merit against the plain iteration given its "
+                f"lam", [(out.X, given.X), (out.U, given.U),
+                         (out.merit, given.merit)], 1e-3, 2e-4))
+            print(f"{label}: kernel read C = {read}, grid {plan[2]}; accept "
+                  f"{bool(out.accept)} as plain")
+    # device times a launch (the profiler), where the paths launch them
+    bcr_us = {}
+    for n_c in K7S_LIBRARY_KNOTS:
+        ks_r = systems.random_knot_schur(n_c, device=dev)
+        bcr_us[f"K7s N={n_c}"] = _device_us(
+            lambda: k7.bcr_solve(ks_r.SL, ks_r.SD, ks_r.SU, ks_r.gamma),
+            "K7s")
+    for n_c in K9B_TIMED_KNOTS:
+        a9, kw_c = k9b_inputs[n_c]
+        bcr_us[f"K9b N={n_c}"] = _device_us(
+            lambda: k9.sqp_iter_mega(*a9, **kw_c), "K9b")
+    for key, t in bcr_us.items():
+        print(f"{key}: {_us(t)} a launch (device)")
+    for k in kernels:
+        kid = k["name"].split()[0]
+        if kid == "K7s":
+            k.update(cluster_forms_max_abs_err=err7sc,
+                     cluster_read=k7s_read,
+                     device_us={key: t for key, t in bcr_us.items()
+                                if key.startswith("K7s")})
+        elif kid == "K9b":
+            k.update(cluster_forms_max_abs_err=err9bc,
+                     cluster_read=k9b_read, plans=k9b_plans,
+                     device_us={key: t for key, t in bcr_us.items()
+                                if key.startswith("K9b")})
+    print(f"phase 12 (cluster BCR forms): {time.perf_counter() - t_phase:.1f} "
+          f"s")
 
     # each kernel's launches: the first run of this slice's paths that
     # launched it (the default auto loop, its failover branch, the staged

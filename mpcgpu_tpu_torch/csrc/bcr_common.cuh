@@ -1,8 +1,9 @@
 // The block cyclic reduction (BCR) of S lam = gamma, factored once and
-// applied many times; shared by K7 and K7s (bcr_dz.cu: the refined solve +
-// dz, and one unrefined solve) and K9b (sqp_mega.cu, the dual-solve stage
-// of its per-iteration kernel) in one block, and by K6 (bcr_pcg_dz.cu, its
-// CG's preconditioner) across one thread-block cluster (cluster_factor,
+// applied many times; shared by K7 (bcr_dz.cu: the refined solve + dz) in
+// one block, and by K6 (bcr_pcg_dz.cu, its CG's preconditioner), K7s
+// (bcr_dz.cu, one unrefined solve) and K9b (sqp_mega.cu, the dual-solve
+// stage of its per-iteration kernel: the refined solve + dz,
+// cluster_bcr_dz) across one thread-block cluster (cluster_factor,
 // ClusterBcr, below).
 //
 // Design: factor once, apply many times.  The TPU kernels
@@ -19,9 +20,10 @@
 // pass g_i -= LDm g_{i-h} + UDp g_{i+h} and the back substitution
 // z_j = Dinv_j g_j - DL_j z_{j-h} - DU_j z_{j+h}: 2 log2(N) + 2 barriers.
 // The factors take (6 + 2 log2 N) N 784 B in global memory (0.9 MB at
-// N = 64), which stays in L2; the SPD inverses are lanedyn's warp
-// Gauss-Jordan in shared memory, one warp per knot.  Everything runs in
-// one thread block; S's bands may be in shared or global memory.
+// N = 64), which stays in L2; the SPD inverses are lanedyn's register
+// Gauss-Jordan (reg_spd_inverse: a row a lane, bit-equal to the
+// shared-memory form), one warp per knot.  S's bands may be in shared or
+// global memory.
 #pragma once
 #include "pcg_common.cuh"
 
@@ -31,7 +33,11 @@ constexpr int S = ld::NX, SS = S * S;
 // 512 threads at most: K6's registers (96 a thread without a bound) times
 // 896 threads would pass the SM's 65,536
 constexpr int MAX_THREADS = 512, MAX_WARPS = MAX_THREADS / 32;
-// Shared floats of the cluster factor's per-warp scratch (two 14x14 blocks)
+// Shared floats of the cluster factor's per-warp scratch (two 14x14 blocks
+// a warp) for a block of `threads` threads, and for the largest block
+LD_HD size_t scratch_floats(int threads) {
+  return (size_t)2 * ((threads + 31) / 32) * SS;
+}
 constexpr int SCRATCH_FLOATS = 2 * MAX_WARPS * SS;
 
 LD_HD int levels_of(int N) {
@@ -77,6 +83,10 @@ LD_DEV float mv_row(const float* M, const float* x, int i) {
   return acc;
 }
 
+// Shared floats of a warp's inverse: the 14x14 block and the register
+// inverse's two pivot rows
+constexpr int INV_FLOATS = SS + 2 * S;
+
 struct BcrFactor {
   float* D;     // (N, S, S) working diagonal blocks
   float* L;     // (N, S, S) working lower blocks
@@ -101,7 +111,22 @@ struct BcrFactor {
   }
 };
 
-// Dinv[j] = D[j]^-1 for j = first, first + step, ... < N; one warp per knot.
+// Warp gw of nw: Dinv[j] = D[j]^-1 for j = first + step t, t = gw,
+// gw + nw, ...; A is the warp's 14x14 shared scratch and buf the register
+// inverse's pivot rows (2 x 14 floats of shared memory).
+LD_DEV void spread_inverses(const BcrFactor& f, int first, int step, int gw,
+                            int nw, float* A, float* buf) {
+  for (int j = first + gw * step; j < f.N; j += nw * step) {
+    for (int e = ld::lane(); e < SS; e += ld::lanes()) A[e] = f.D[SS * j + e];
+    ld::warp_sync();
+    ld::reg_spd_inverse<S>(A, buf);
+    for (int e = ld::lane(); e < SS; e += ld::lanes()) f.Dinv[SS * j + e] = A[e];
+    ld::warp_sync();
+  }
+}
+
+// Dinv[j] = D[j]^-1 for j = first, first + step, ... < N; one warp per knot
+// of the block, each with INV_FLOATS of scratch.
 LD_DEV void warp_inverses(const BcrFactor& f, int first, int step,
                           float* scratch) {
 #ifdef __CUDACC__
@@ -109,18 +134,12 @@ LD_DEV void warp_inverses(const BcrFactor& f, int first, int step,
 #else
   const int w = 0, nw = 1;
 #endif
-  float* A = scratch + SS * w;
-  for (int j = first + w * step; j < f.N; j += nw * step) {
-    for (int e = ld::lane(); e < SS; e += ld::lanes()) A[e] = f.D[SS * j + e];
-    ld::warp_sync();
-    ld::warp_spd_inverse<S>(A);
-    for (int e = ld::lane(); e < SS; e += ld::lanes()) f.Dinv[SS * j + e] = A[e];
-    ld::warp_sync();
-  }
+  float* A = scratch + INV_FLOATS * w;
+  spread_inverses(f, first, step, w, nw, A, A + SS);
 }
 
-// The elimination, once per solve, from S's bands.  inv_scratch: one
-// 14x14 block of shared memory per warp.
+// The elimination, once per solve, from S's bands.  inv_scratch:
+// INV_FLOATS of shared memory per warp.
 LD_DEV void bcr_factor(const BcrFactor& f, const float* SL, const float* SD,
                        const float* SU, float* inv_scratch) {
   const int tid = LD_TID, nt = LD_NTID, n = f.N;
@@ -204,10 +223,10 @@ struct BcrPre {
   }
 };
 
-// Shared floats of bcr_dz_body: lam, r, w, g (each (N, S)) and one 14x14
-// inverse scratch per warp.
+// Shared floats of bcr_dz_body: lam, r, w, g (each (N, S)) and one
+// inverse's scratch per warp.
 LD_HD size_t dz_vec_floats(int N) {
-  return (size_t)4 * N * S + (size_t)MAX_WARPS * SS;
+  return (size_t)4 * N * S + (size_t)MAX_WARPS * INV_FLOATS;
 }
 
 // The TPU's _bcr_refined and its dz (bcr_kernel.py:107-120, 164-183):
@@ -240,16 +259,16 @@ LD_DEV void bcr_dz_body(int N, const float* SL, const float* SD,
 }
 
 // ---------------------------------------------------------------------------
-// The cluster form (K6): the same factor and apply spread over the C blocks
-// of a thread-block cluster (pcg_common.cuh's ClusterCg: block r owns knots
-// [r nk, r nk + own) and their S bands).  The factors stay in global memory
-// (L2), laid out as above; another SM of the cluster may have written what
-// a warp reads, and the cluster barrier between (release / acquire at
-// cluster scope) makes those writes visible to ordinary loads.  At each
-// level the eliminated knots' inverses, then each
-// (kept i, eliminated i + h) pair's products and kept-knot update, are
-// taken one warp per knot or pair by all C x (warps per block) warps, with
-// a cluster barrier after each: 2 log2(N) + 2 barriers.  A pair's products
+// The cluster form (K6, K7s, K9b): the same factor and apply spread over
+// the C blocks of a thread-block cluster (pcg_common.cuh's ClusterCg: block
+// r owns knots [r nk, r nk + own) and their S bands).  The factors stay in
+// global memory (L2), laid out as above; another SM of the cluster may have
+// written what a warp reads, and the cluster barrier between (release /
+// acquire at cluster scope) makes those writes visible to ordinary loads.
+// At each level the eliminated knots' inverses, then each (kept i,
+// eliminated i + h) pair's products and kept-knot update, are taken one
+// warp per knot or pair by all C x (warps per block) warps, with a cluster
+// barrier after each: 2 log2(N) + 2 barriers.  A pair's products
 // and its kept knot's update read nothing another pair writes, so one warp
 // does both with a warp barrier between.  Each entry is bcr_factor's
 // expression on the same operands, so the factors equal the one-block
@@ -258,34 +277,33 @@ LD_DEV void bcr_dz_body(int N, const float* SL, const float* SD,
 // log2(N) forward levels, the root, log2(N) back levels, a cluster barrier
 // after each but the last.
 
-// Warp gw of nw: Dinv[j] = D[j]^-1 for j = first + step t, t = gw,
-// gw + nw, ...; A is the warp's 14x14 shared scratch.
-LD_DEV void spread_inverses(const BcrFactor& f, int first, int step, int gw,
-                            int nw, float* A) {
-  for (int j = first + gw * step; j < f.N; j += nw * step) {
-    for (int e = ld::lane(); e < SS; e += ld::lanes()) A[e] = f.D[SS * j + e];
-    ld::warp_sync();
-    ld::warp_spd_inverse<S>(A);
-    for (int e = ld::lane(); e < SS; e += ld::lanes()) f.Dinv[SS * j + e] = A[e];
-    ld::warp_sync();
-  }
-}
-
-// A lane's entries of a 14x14 block (ee = lane, lane + lanes, ...).
+// A lane's entries of a 14x14 block (ee = lane + lanes q, q = 0, 1, ...).
 #ifdef __CUDACC__
 constexpr int LANE_ENTRIES = (SS + 31) / 32;
 #else
 constexpr int LANE_ENTRIES = SS;
 #endif
+using Entries = float[LANE_ENTRIES];
 
-// Copy the 14x14 blocks x and y (global memory; null: keep what is there)
-// into the warp's shared scratch sx and sy, coalesced, between warp
-// barriers.
-LD_DEV void stage(float* sx, const float* x, float* sy, const float* y) {
+// The lane's entries of the 14x14 block x (global memory) into r.
+LD_DEV void fetch(Entries& r, const float* x) {
+  const int ln = ld::lane(), lns = ld::lanes();
+#pragma unroll
+  for (int q = 0; q < LANE_ENTRIES; ++q)
+    if (ln + lns * q < SS) r[q] = x[ln + lns * q];
+}
+
+// The warp's entries rx and ry (null: keep what is there) into its shared
+// blocks sx and sy, between warp barriers.
+LD_DEV void put(float* sx, const float* rx, float* sy, const float* ry) {
+  const int ln = ld::lane(), lns = ld::lanes();
   ld::warp_sync();
-  for (int e = ld::lane(); e < SS; e += ld::lanes()) {
-    if (x) sx[e] = x[e];
-    if (y) sy[e] = y[e];
+#pragma unroll
+  for (int q = 0; q < LANE_ENTRIES; ++q) {
+    const int ee = ln + lns * q;
+    if (ee >= SS) continue;
+    if (rx) sx[ee] = rx[q];
+    if (ry) sy[ee] = ry[q];
   }
   ld::warp_sync();
 }
@@ -293,47 +311,75 @@ LD_DEV void stage(float* sx, const float* x, float* sy, const float* y) {
 // Warp gw of nw at level l: for pairs t = gw, gw + nw, ... (kept
 // i = 2 h t, eliminated j = i + h) the products LDm_i, UDp_i, DL_j, DU_j,
 // then the kept knot's D_i, L_i, U_i: bcr_factor's expressions, each
-// product's operands staged in the warp's shared scratch sx, sy first
-// (one coalesced copy from L2 in place of a load per multiply-add).
+// product's operands in the warp's shared blocks sx, sy.  Each operand
+// block goes from L2 to the lanes' registers while the product before it
+// runs, and LDm_i and UDp_i stay in registers for the kept knot's update,
+// so a pair waits on L2 once, not once a product.
 LD_DEV void spread_level(const BcrFactor& f, int l, int gw, int nw, float* sx,
                          float* sy) {
   const int h = 1 << l, n = f.N, nk = n / (2 * h), ln = ld::lane(),
             lns = ld::lanes();
+  Entries a, b, c, m, d, lo, up;
+  // each of the lane's entries of a product of the blocks in sx, sy
+  auto each = [&](auto&& use) {
+#pragma unroll
+    for (int q = 0; q < LANE_ENTRIES; ++q)
+      if (ln + lns * q < SS) use(q, ln + lns * q);
+  };
   for (int t = gw; t < nk; t += nw) {
     const int i = 2 * h * t, j = i + h;
+    const bool has_l = i >= h, has_u = j + h <= n - 1;
     float* LDm = f.LDm + (size_t)l * n * SS + SS * i;
     float* UDp = f.UDp + (size_t)l * n * SS + SS * i;
-    if (i >= h) stage(sx, f.L + SS * i, sy, f.Dinv + SS * (i - h));
-    for (int ee = ln; ee < SS; ee += lns) LDm[ee] = i >= h ? mm(sx, sy, ee) : 0.0f;
-    stage(sx, f.U + SS * i, sy, f.Dinv + SS * j);
-    for (int ee = ln; ee < SS; ee += lns) UDp[ee] = mm(sx, sy, ee);
-    stage(sx, f.Dinv + SS * j, sy, f.L + SS * j);
-    for (int ee = ln; ee < SS; ee += lns) f.DL[SS * j + ee] = mm(sx, sy, ee);
-    const bool has_u = j + h <= n - 1;
-    if (has_u) stage(nullptr, nullptr, sy, f.U + SS * j);
-    for (int ee = ln; ee < SS; ee += lns)
-      f.DU[SS * j + ee] = has_u ? mm(sx, sy, ee) : 0.0f;
-    // the kept knot: D_i - UDp_i L_{i+h} - LDm_i U_{i-h},
-    // L_i = -LDm_i L_{i-h}, U_i = -UDp_i U_{i+h}
-    float d[LANE_ENTRIES], lo[LANE_ENTRIES], up[LANE_ENTRIES];
-    stage(sx, UDp, sy, f.L + SS * j);
-    for (int q = 0, ee = ln; ee < SS; ++q, ee += lns)
-      d[q] = f.D[SS * i + ee] - mm(sx, sy, ee);
-    stage(nullptr, nullptr, sy, f.U + SS * j);
-    for (int q = 0, ee = ln; ee < SS; ++q, ee += lns) up[q] = -mm(sx, sy, ee);
-    if (i >= h) {
-      stage(sx, LDm, sy, f.U + SS * (i - h));
-      for (int q = 0, ee = ln; ee < SS; ++q, ee += lns) d[q] -= mm(sx, sy, ee);
-      stage(nullptr, nullptr, sy, f.L + SS * (i - h));
-      for (int q = 0, ee = ln; ee < SS; ++q, ee += lns) lo[q] = -mm(sx, sy, ee);
-    } else {
-      for (int q = 0; q < LANE_ENTRIES; ++q) lo[q] = 0.0f;
+    // LDm_i = L_i Dinv_{i-h} (0 at the first pair)
+    if (has_l) {
+      fetch(a, f.L + SS * i);
+      fetch(b, f.Dinv + SS * (i - h));
+      put(sx, a, sy, b);
     }
-    for (int q = 0, ee = ln; ee < SS; ++q, ee += lns) {
+    fetch(a, f.U + SS * i);
+    fetch(b, f.Dinv + SS * j);
+    each([&](int q, int ee) {
+      m[q] = has_l ? mm(sx, sy, ee) : 0.0f;
+      LDm[ee] = m[q];
+    });
+    // UDp_i = U_i Dinv_j
+    put(sx, a, sy, b);
+    fetch(a, f.L + SS * j);
+    each([&](int q, int ee) {
+      c[q] = mm(sx, sy, ee);
+      UDp[ee] = c[q];
+    });
+    // DL_j = Dinv_j L_j, DU_j = Dinv_j U_j (0 at the last pair)
+    put(sx, b, sy, a);
+    fetch(b, f.U + SS * j);
+    each([&](int, int ee) { f.DL[SS * j + ee] = mm(sx, sy, ee); });
+    put(nullptr, nullptr, sy, b);
+    fetch(d, f.D + SS * i);
+    each([&](int, int ee) {
+      f.DU[SS * j + ee] = has_u ? mm(sx, sy, ee) : 0.0f;
+    });
+    // the kept knot: U_i = -UDp_i U_{i+h},
+    // D_i - UDp_i L_{i+h} - LDm_i U_{i-h}, L_i = -LDm_i L_{i-h}
+    put(sx, c, nullptr, nullptr);
+    if (has_l) fetch(b, f.U + SS * (i - h));
+    each([&](int q, int ee) { up[q] = -mm(sx, sy, ee); });
+    put(nullptr, nullptr, sy, a);
+    if (has_l) fetch(c, f.L + SS * (i - h));
+    each([&](int q, int ee) { d[q] -= mm(sx, sy, ee); });
+    if (has_l) {
+      put(sx, m, sy, b);
+      each([&](int q, int ee) { d[q] -= mm(sx, sy, ee); });
+      put(nullptr, nullptr, sy, c);
+      each([&](int q, int ee) { lo[q] = -mm(sx, sy, ee); });
+    } else {
+      each([&](int q, int) { lo[q] = 0.0f; });
+    }
+    each([&](int q, int ee) {
       f.D[SS * i + ee] = d[q];
       f.L[SS * i + ee] = lo[q];
       f.U[SS * i + ee] = up[q];
-    }
+    });
     ld::warp_sync();
   }
 }
@@ -360,14 +406,83 @@ LD_DEV void cluster_factor(const BcrFactor& f, const pcgc::ClusterCg& a,
   float* sy = sx + SS;
   for (int l = 0; l < f.levels; ++l) {
     const int h = 1 << l;
-    spread_inverses(f, h, 2 * h, gw, nw, sx);   // knots eliminated at l
+    spread_inverses(f, h, 2 * h, gw, nw, sx, sy);  // knots eliminated at l
     LD_CLUSTER_SYNC();
     spread_level(f, l, gw, nw, sx, sy);
     LD_CLUSTER_SYNC();
   }
-  spread_inverses(f, 0, f.N, gw, nw, sx);      // the root
+  spread_inverses(f, 0, f.N, gw, nw, sx, sy);  // the root
   LD_CLUSTER_SYNC();
 }
+
+// Shared floats of one block of a one-cluster BCR kernel (K6, K7s: blocks
+// of MAX_THREADS) at cluster size C: its knots' S bands, the cluster CG's
+// vectors and slots, two 14x14 blocks of scratch per warp.
+LD_HD size_t cluster_floats(int N, int C) {
+  return pcgc::cluster_cg_floats(N, C, false, SCRATCH_FLOATS);
+}
+
+#ifdef __CUDACC__
+// The cluster size of a launch of the one-cluster BCR kernel fn over N
+// knots (a power of 2 up to 2^16): `cluster` where it is 8 or 16 and fits;
+// for cluster 0, 16 where the card can schedule a cluster of 16 blocks of
+// fn (a non-portable size), else 8; 0 if none fits.  known: the caller's
+// answers per device, log2 N and request (C + 1; 0 unasked).
+inline int plan_cluster(const void* fn, int N, int cluster,
+                        int (*known)[17][3]) {
+  if (N < 1 || (N & (N - 1)) || N > (1 << 16)) return 0;
+  if (cluster != 0 && cluster != 8 && cluster != 16) return 0;
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 16) return 0;
+  int& c = known[dev][levels_of(N)][cluster / 8];
+  if (c == 0) {
+    if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess)
+      return 0;
+    auto fits = [&](int C) {
+      const size_t smem = cluster_floats(N, C) * sizeof(float);
+      return smem <= (size_t)optin &&
+             pcgc::active_clusters(fn, C, MAX_THREADS, smem) >= 1;
+    };
+    c = 1 + (cluster != 0 ? (fits(cluster) ? cluster : 0)
+             : fits(16) ? 16 : fits(8) ? 8 : 0);
+  }
+  return c - 1;
+}
+
+// One launch of the one-cluster BCR kernel fn on a cluster of C blocks of
+// MAX_THREADS threads; returns the launch's error.
+template <class... P, class... A>
+inline int launch_cluster(void (*fn)(P...), int N, int C, void* stream,
+                          A... args) {
+  const size_t smem = cluster_floats(N, C) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(MAX_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fn, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+#else
+// The host build runs the cluster as one block: 1 where the card's
+// arithmetic at 227 KB fits C = 16, else 0.
+inline int host_cluster(int N) {
+  if (N < 1 || (N & (N - 1)) || N > (1 << 16)) return 0;
+  return cluster_floats(N, 16) * sizeof(float) <= 232448 ? 1 : 0;
+}
+#endif
 
 // The own knots i = first, first + 2h, ... < k0 + own with i % 2h == off:
 // the first of them and their count.
@@ -446,5 +561,37 @@ struct ClusterBcr {
     return part;
   }
 };
+
+// bcr_dz_body across the cluster (K9b's stage 4): factor S from the own
+// knots' bands (a.SL, SD, SU) into f, lam = BCR(gamma), r = gamma - S lam
+// (each owner's rows, the halo rows of lam read through DSMEM), lam +=
+// BCR(r), then the owners' dz (pcgc::cluster_dz); lam to lam_out.  Every
+// sum keeps bcr_dz_body's terms, order and multiply-add pairing, so the
+// outputs equal its bit for bit.  a.extra holds scratch_floats(threads);
+// the vectors are a.r[0] (gamma, then r), a.lam and a.w.  Every block of
+// the cluster calls it alike; ends in a cluster barrier.
+LD_DEV void cluster_bcr_dz(const pcgc::ClusterCg& a, const BcrFactor& f,
+                           const float* gamma, const float* A,
+                           const float* B, const float* q, const float* r_in,
+                           const float* Qinv, const float* Rinv,
+                           float* lam_out, float* dX, float* dU) {
+  cluster_factor(f, a, a.extra);
+  float* const r = a.r[0];
+  for (int e = LD_TID; e < S * a.own; e += LD_NTID) r[S + e] = gamma[S * a.k0 + e];
+  LD_SYNC();
+  const ClusterBcr pre{f};
+  pre.apply(a, r, a.lam);
+  LD_CLUSTER_SYNC();  // every owner's rows of lam are whole
+  pcgc::fetch_halos(a, a.lam);
+  LD_SYNC();
+  for (int e = LD_TID; e < S * a.own; e += LD_NTID)
+    r[S + e] -= pcgc::band_row_own(a, a.SL, a.SD, a.SU, a.lam, e / S, e % S);
+  LD_SYNC();
+  pre.apply(a, r, a.w);
+  for (int e = LD_TID; e < S * a.own; e += LD_NTID) a.lam[S + e] += a.w[S + e];
+  // no block reads another's w (the last back level) or lam past here
+  LD_CLUSTER_SYNC();
+  pcgc::cluster_dz(a, A, B, q, r_in, Qinv, Rinv, lam_out, dX, dU);
+}
 
 }  // namespace bcr

@@ -17,9 +17,9 @@
 // cyclic reduction is factored once per solve over the cluster, one warp
 // per knot or (kept, eliminated) pair at each level, by all C x 16 warps;
 // the factors stay in global memory (L2, bcr_common.cuh's layout) and equal
-// the one-block factor of K7, K7s and K9b bit for bit.  Each apply is one
-// forward and one back pass with g and z in the owners' shared memory:
-// 2 log2(N) + 1 cluster barriers.  The owner of each knot computes its dz.
+// the one-block factor of K7 bit for bit (K7s and K9b run it too).  Each
+// apply is one forward and one back pass with g and z in the owners'
+// shared memory: 2 log2(N) + 1 cluster barriers.  The owner of each knot computes its dz.
 // This one kernel serves every power-of-2 N whose S fits the cluster's
 // shared memory (mpc_bcr_max_knots: 1024 on the H100 at C = 16); the TPU
 // runs this solve as one kernel up to N = 256 (bcr_kernel.py:232-233).
@@ -33,12 +33,6 @@ namespace {
 
 using bcr::MAX_THREADS;
 constexpr int S = ld::NX, SS = S * S;
-
-// One block's shared floats at cluster size C: its knots' S bands, the
-// cluster CG's vectors and slots, two 14x14 blocks of scratch per warp.
-size_t bcr_smem_floats(int N, int C) {
-  return pcgc::cluster_cg_floats(N, C, false, bcr::SCRATCH_FLOATS);
-}
 
 #define BCR_PCG_DZ_PARAMS                                                   \
   int N, int levels, const float *SLg, const float *SDg, const float *SUg, \
@@ -68,46 +62,19 @@ LD_GLOBAL void LD_LAUNCH_BOUNDS(MAX_THREADS)
 
 }  // namespace
 
-#ifdef __CUDACC__
-namespace {
-
-// cudaOccupancyMaxActiveClusters' answer for C blocks of K6 over N knots:
-// at least one cluster fits.
-bool cluster_fits(int N, int C, int optin) {
-  const size_t smem = bcr_smem_floats(N, C) * sizeof(float);
-  return smem <= (size_t)optin &&
-         pcgc::active_clusters((const void*)bcr_pcg_dz_kernel, C, MAX_THREADS,
-                               smem) >= 1;
-}
-
-}  // namespace
-#endif
-
 // The cluster size a launch over N knots (a power of 2) uses: `cluster`
 // where it is 8 or 16 and fits; for cluster 0, 16 where the card can
 // schedule a cluster of 16 blocks of K6 (a non-portable size), else 8; 0 if
-// none fits.  Asked once per device, N and request.  The host build
-// answers 1 where the card's arithmetic at 227 KB fits C = 16 (it runs the
-// cluster as one block).
+// none fits (bcr::plan_cluster).  Asked once per device, N and request.
+// The host build answers 1 where the card's arithmetic at 227 KB fits
+// C = 16 (it runs the cluster as one block).
 extern "C" int mpc_bcr_cluster(int N, int cluster) {
-  if (N < 1 || (N & (N - 1)) || N > (1 << 16)) return 0;
-  if (cluster != 0 && cluster != 8 && cluster != 16) return 0;
 #ifdef __CUDACC__
-  static int known[16][17][3];  // device, log2 N, request: C + 1; 0 unasked
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 16) return 0;
-  int& c = known[dev][bcr::levels_of(N)][cluster / 8];
-  if (c == 0) {
-    if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev) != cudaSuccess)
-      return 0;
-    c = 1 + (cluster != 0 ? (cluster_fits(N, cluster, optin) ? cluster : 0)
-             : cluster_fits(N, 16, optin) ? 16
-             : cluster_fits(N, 8, optin) ? 8 : 0);
-  }
-  return c - 1;
+  static int known[16][17][3];
+  return bcr::plan_cluster((const void*)bcr_pcg_dz_kernel, N, cluster, known);
 #else
-  return bcr_smem_floats(N, 16) * sizeof(float) <= 232448 ? 1 : 0;
+  return cluster == 0 || cluster == 8 || cluster == 16 ? bcr::host_cluster(N)
+                                                       : 0;
 #endif
 }
 
@@ -141,31 +108,13 @@ extern "C" int mpc_bcr_pcg_dz(int N, const float* SL, const float* SD,
   if (C < 1) return 1;
   const int levels = bcr::levels_of(N);
 #ifdef __CUDACC__
-  const size_t smem = bcr_smem_floats(N, C) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      (const void*)bcr_pcg_dz_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C);
-  cfg.blockDim = dim3(MAX_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = C;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, bcr_pcg_dz_kernel, N, levels, SL, SD, SU,
-                           gamma, lam0, A, B, q, r, Qinv, Rinv, max_iter, tol,
-                           scratch, lam_out, dX, dU, ints, hit);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return bcr::launch_cluster(bcr_pcg_dz_kernel, N, C, stream, N, levels, SL,
+                             SD, SU, gamma, lam0, A, B, q, r, Qinv, Rinv,
+                             max_iter, tol, scratch, lam_out, dX, dU, ints,
+                             hit);
 #else
-  const size_t smem = bcr_smem_floats(N, 1) * sizeof(float);
-  LD_LAUNCH(bcr_pcg_dz_kernel, 1, MAX_THREADS, smem, stream, N, levels, SL,
+  LD_LAUNCH(bcr_pcg_dz_kernel, 1, MAX_THREADS,
+            bcr::cluster_floats(N, 1) * sizeof(float), stream, N, levels, SL,
             SD, SU, gamma, lam0, A, B, q, r, Qinv, Rinv, max_iter, tol,
             scratch, lam_out, dX, dU, ints, hit);
   return 0;
@@ -189,17 +138,18 @@ extern "C" int mpc_bcr_cluster_factor_host(int N, int C, const float* SL,
   }
   float x[SS], y[SS];
   for (int l = 0; l < f.levels; ++l) {
-    for (int gw = 0; gw < C; ++gw) bcr::spread_inverses(f, 1 << l, 2 << l, gw, C, x);
+    for (int gw = 0; gw < C; ++gw)
+      bcr::spread_inverses(f, 1 << l, 2 << l, gw, C, x, y);
     for (int gw = 0; gw < C; ++gw) bcr::spread_level(f, l, gw, C, x, y);
   }
-  for (int gw = 0; gw < C; ++gw) bcr::spread_inverses(f, 0, N, gw, C, x);
+  for (int gw = 0; gw < C; ++gw) bcr::spread_inverses(f, 0, N, gw, C, x, y);
   return 0;
 }
 
 // Host build only: K6's preconditioner apply z = BCR(r) over C emulated
 // blocks, each with its own shared memory, the phases between its cluster
 // barriers run rank after rank, from the factors in fac; a test holds it
-// against K7s's one-block apply, bit for bit.
+// against the one-block apply (BcrPre), bit for bit.
 extern "C" int mpc_bcr_cluster_apply_host(int N, int C, const float* fac,
                                           const float* r, float* z) {
   if (N < 1 || (N & (N - 1)) || C < 1) return 1;

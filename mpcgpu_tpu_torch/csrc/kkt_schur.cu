@@ -191,7 +191,7 @@ LD_GLOBAL void ld_dtau_kernel(const float* tab_g, const float* q,
   for (int e = LD_TID; e < ld::NJ * ld::NX; e += LD_NTID) dtau[e] = out[e];
 }
 
-// reg: the register inverse, else warp_spd_inverse (K6's and K7's)
+// reg: the register inverse, else warp_spd_inverse (the shared-memory form)
 template <int n>
 LD_GLOBAL void ld_inverse_kernel(int reg, float* A) {
   LD_SHARED float a[n * n], buf[2 * n];

@@ -15,10 +15,11 @@
 // RNEA tangents of rnea_lane_dtau_units (rnea_dtau_direction), CRBA (crba),
 // end-effector FK with its position Jacobian (fk_ee_jac; the position alone
 // when J is null), and SPD inverses: reg_spd_inverse keeps a row a lane in
-// registers and passes the pivot row through a small shared buffer;
-// warp_spd_inverse, the shared-memory Gauss-Jordan that K6's and K7's
-// factors share (they must stay bit-equal), stays for them.  There is one
-// form of each recursion.
+// registers and passes the pivot row through a small shared buffer (K3's
+// stages and the BCR factors of K6, K7, K7s and K9b);
+// warp_spd_inverse, the shared-memory Gauss-Jordan it is bit-equal to,
+// stays as the form a test holds it to.  There is one form of each
+// recursion.
 //
 // The robot is the 7-joint serial chain of models/robot.py: joint j's
 // transforms are Xc + sin(q_j) Xs + cos(q_j) Xk (6x6, child <- parent) and

@@ -27,9 +27,9 @@
 // The caller supplies merit0 (K2) and drho starts at 1 (K5); K9p and K9b
 // take drho and the incumbent merit from device memory, so the caller's
 // loop of single iterations reads nothing on the host.  K9b skips stage 3
-// and runs stage 4 as bcr_common.cuh's refined BCR solve and dz in block 0,
-// reading S from global memory (L2); it has no warm start and reports 0
-// CG iterations.  One templated body serves the five kernels.
+// and runs stage 4 as bcr_common.cuh's refined BCR solve and dz across the
+// first cluster (cluster_bcr_dz); it has no warm start and reports 0 CG
+// iterations.  One templated body serves the five kernels.
 //
 // The model is the original's (include/pcg/sqp.cuh:275): one persistent
 // cooperative kernel, stages separated by cooperative_groups grid syncs.
@@ -41,20 +41,23 @@
 // hang the card.  A bail ends the loop in every block at once, which
 // leaves state and stats as the TPU kernel's masked iterations do.
 //
-// Stage 4 of K5 and K9p is the cluster CG (pcg_common.cuh): the launch is
+// Stage 4 of K5, K9p and K9b runs across the first cluster: the launch is
 // a cluster launch (cudaLaunchKernelEx with a cluster dimension of C = 16
 // where the card schedules it, else 8) that is also cooperative -- the
 // runtime takes both attributes together on the H100 (a probe of
 // cooperative_groups' grid sync inside a cluster launch, CUDA 12.9), so
 // the other stages keep the grid barrier, and the grid is held to
-// cudaOccupancyMaxActiveClusters x C.  The first cluster runs the
-// stair-PCG: each of its blocks loads S's bands of the knots it owns from
-// L2 at the start of stage 4, and the stair's when they go on chip
-// (mega_plan: unless that shrinks the grid the stages run on), solves with
-// the halo rows through DSMEM and the dots summed in rank order (two
-// cluster barriers per CG step), then computes its knots' dz.  Every
-// block asks for that shared memory, so it bounds N (mpc_mega_max_knots,
-// about 670 on the H100) and the grid.
+// cudaOccupancyMaxActiveClusters x C.  Each block of the first cluster
+// loads S's bands of the knots it owns from L2 at the start of stage 4.
+// K5 and K9p run the stair-PCG there (pcg_common.cuh), with the stair's
+// bands on chip too where they fit (mega_plan: unless that shrinks the
+// grid the stages run on): the halo rows through DSMEM and the dots summed
+// in rank order (two cluster barriers per CG step), then each block's
+// knots' dz.  K9b factors the BCR over the cluster's 4 x C warps, applies
+// it twice with the residual between and computes the owners' dz
+// (bcr_common.cuh cluster_bcr_dz), its factors in global memory (L2).
+// Every block asks for that shared memory, so it bounds N
+// (mpc_mega_max_knots, about 670 on the H100 for K5 and K9p) and the grid.
 //
 // K5g and K9pg (the joined kinds) serve N past the cluster form's fit,
 // and run stage 4 in EVERY block: the launch is a cooperative cluster
@@ -74,9 +77,8 @@
 // alone and the joined CG on (C, G), which the plan takes from N and the
 // device alone (K9pg launches K5g's plan), so four K9p launches equal one
 // K5 launch bit for bit, as four K9pg launches equal one K5g launch.
-// K9b's block 0 factors and applies the BCR with 128 threads (4 warps for
-// the 14x14 inverses) while the other blocks wait at the barrier: the
-// simplest right design, not a fast one.
+// K9b's factor and solve equal the one-block bcr_dz_body's (K7's) bit for
+// bit: each sum keeps its terms and their order.
 //
 // Bound on the H100: latency.  The dual solve is a chain of dependent CG
 // iterations; the other stages are short per-knot chains.
@@ -128,29 +130,35 @@ bool joined_cg(int kind) {
   return kind == SOLVE_PCG_GRID || kind == ITER_PCG_GRID;
 }
 bool cluster_cg(int kind) { return kind == SOLVE_PCG || kind == ITER_PCG; }
+// The kinds whose stage 4 runs across the first cluster (mega_plan)
+bool first_cluster(int kind) { return cluster_cg(kind) || kind == ITER_BCR; }
 
 // The longest horizon of the joined kinds, whose CG area may lie in global
 // memory (place 0); this bound keeps the 32-bit offsets of their global
 // scratch (about 2,900 floats a knot) far from overflow.
 constexpr int GRID_MAX_KNOTS = 1 << 16;
 
+// K9b and the joined kinds keep a block's decision state (rho, drho,
+// merit, step; the candidates' merits; done, the iteration count) in the
+// head of the dynamic area, K5 and K9p in static shared arrays: the host
+// build's block emulation, which runs those kinds' blocks in turn, gives
+// each block a dynamic area of its own but one static array a launch.
+constexpr int HEAD_FLOATS = 32;  // N_SCAL + MAX_ALPHAS floats and 2 ints
+
 // Dynamic shared floats of every block of K5, K9p or K9b: the cluster CG's
-// at cluster size C (K5, K9p) or K9b's BCR vectors, and no fewer than the
-// merit stage's groups of 8 lanes take.
+// area at cluster size C (K5, K9p), or the head and the cluster BCR's area
+// with two 14x14 blocks of scratch a warp (K9b); no fewer than the merit
+// stage's groups of 8 lanes take.
 size_t mega_smem_floats(int N, int kind, int C, bool stair_on_chip) {
   const size_t merit = k2::areas_floats(THREADS, 8);
-  size_t dual = 0;
-  if (cluster_cg(kind)) dual = pcgc::cluster_cg_floats(N, C, stair_on_chip, 0);
-  else dual = bcr::dz_vec_floats(N);
+  if (kind == ITER_BCR) {
+    const size_t dual = pcgc::cluster_cg_floats(N, C, false,
+                                                bcr::scratch_floats(THREADS));
+    return HEAD_FLOATS + (dual > merit ? dual : merit);
+  }
+  const size_t dual = pcgc::cluster_cg_floats(N, C, stair_on_chip, 0);
   return dual > merit ? dual : merit;
 }
-
-// The joined kinds keep a block's decision state (rho, drho, merit, step;
-// the candidates' merits; done, the iteration count) in the head of the
-// dynamic area, the other kinds in static shared arrays: the host build's
-// block emulation, which runs the joined kinds' blocks in turn, gives each
-// block a dynamic area of its own but one static array a launch.
-constexpr int HEAD_FLOATS = 32;  // N_SCAL + MAX_ALPHAS floats and 2 ints
 
 // Dynamic shared floats of every block of K5g or K9pg over nb blocks at
 // `place`: the head, then the joined CG's area (pcgc::joined_area) or the
@@ -192,26 +200,28 @@ enum { RHO, DRHO, MERIT, STEP, N_SCAL };
 #define MEGA_INLINE inline
 #endif
 
-// The dual solve of stage 4: K9b's BCR in block 0, the cluster stair-PCG
-// (K5, K9p) or the stair-PCG joined across every cluster (K5g, K9pg).
+// The dual solve of stage 4: K9b's refined BCR across the first cluster,
+// the cluster stair-PCG (K5, K9p) or the stair-PCG joined across every
+// cluster (K5g, K9pg).
 enum Dual { DUAL_BCR, DUAL_CLUSTER, DUAL_JOINED };
 
 template <int DUAL>
 MEGA_INLINE void mega_body(const MegaParams& p) {
   constexpr bool BCR = DUAL == DUAL_BCR, JOINED = DUAL == DUAL_JOINED;
+  constexpr bool HEAD = DUAL != DUAL_CLUSTER;  // the state in the head
   LD_SHARED float tab[ld::TAB_SIZE];
-  LD_SHARED float merits_s[JOINED ? 1 : MAX_ALPHAS];
-  LD_SHARED float st_s[JOINED ? 1 : N_SCAL];
-  LD_SHARED int flags_s[JOINED ? 1 : 2];
+  LD_SHARED float merits_s[HEAD ? 1 : MAX_ALPHAS];
+  LD_SHARED float st_s[HEAD ? 1 : N_SCAL];
+  LD_SHARED int flags_s[HEAD ? 1 : 2];
   LD_DYN_SMEM(smem);
   // the decision state (HEAD_FLOATS), and the dynamic area past it
-  float* const st = JOINED ? smem : st_s;
-  float* const merits = JOINED ? smem + N_SCAL : merits_s;
+  float* const st = HEAD ? smem : st_s;
+  float* const merits = HEAD ? smem + N_SCAL : merits_s;
   int* const flags =
-      JOINED ? reinterpret_cast<int*>(smem + N_SCAL + MAX_ALPHAS) : flags_s;
+      HEAD ? reinterpret_cast<int*>(smem + N_SCAL + MAX_ALPHAS) : flags_s;
   int& done = flags[0];
   int& itc = flags[1];
-  float* const dyn = JOINED ? smem + HEAD_FLOATS : smem;
+  float* const dyn = HEAD ? smem + HEAD_FLOATS : smem;
   const int N = p.N, t = LD_TID, nt = LD_NTID, bid = LD_BID, nb = LD_NBID;
   // K5g, K9pg: the joined CG's exchanges (their tags run over the launch)
   pcgc::JoinedExit ex{p.words, p.G, p.max_iter, p.tol};
@@ -267,7 +277,8 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
     }
     // 4. the dual solve and dz: the warm-started stair-PCG across the
     // first cluster (K5, K9p) or joined across every cluster (K5g, K9pg);
-    // or the refined BCR in block 0 (0 CG iterations, no hit)
+    // or the refined BCR across the first cluster (K9b: 0 CG iterations,
+    // no hit)
     if constexpr (DUAL == DUAL_CLUSTER) {
       if (bid < ld_cluster_size()) {
         const pcgc::ClusterCg a = pcgc::cluster_area(dyn, N, p.stair_on_chip);
@@ -315,11 +326,15 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
         p.cg_it[2] = a.C;
         p.cg_hit[0] = fabsf(eta) > p.tol;
       }
-    } else if (bid == 0) {
-      bcr::bcr_dz_body(N, p.SL, p.SD, p.SU, p.gamma, p.A, p.B, p.q, p.r,
-                       p.Qinv, p.Rinv, p.fac, dyn, p.lam, p.dX, p.dU);
-      if (t == 0) {
+    } else if (bid < ld_cluster_size()) {
+      const pcgc::ClusterCg a = pcgc::cluster_area(dyn, N, false);
+      pcgc::cluster_load_bands(a, p.SL, p.SD, p.SU, a.SL, a.SD, a.SU);
+      bcr::cluster_bcr_dz(a, bcr::BcrFactor(p.fac, N, bcr::levels_of(N)),
+                          p.gamma, p.A, p.B, p.q, p.r, p.Qinv, p.Rinv, p.lam,
+                          p.dX, p.dU);
+      if (a.rank == 0 && t == 0) {
         p.cg_it[0] = 0;
+        p.cg_it[2] = a.C;
         p.cg_hit[0] = false;
       }
     }
@@ -433,20 +448,22 @@ int active_clusters(int kind, int C, size_t smem) {
 }
 #endif
 
-// The launch of a cluster kind (K5, K9p) over N knots: the cluster size C
-// (C_req where it is 8 or 16; else 16 where a cluster of 16 blocks holding
-// S's and the stair's bands on chip is co-resident, else 8; 0 past the
-// fit), where the stair bands go (stair_req 1 on chip, 0 in L2, -1 on chip
-// unless that gives a smaller grid than L2 does) and the grid,
-// C x min(co-resident clusters, ceil(N / C)).  The host build runs the cluster as one block: C = 1 where
-// the card's arithmetic at 227 KB fits C = 16, the grid 1.
+// The launch of a kind whose stage 4 runs across the first cluster (K5,
+// K9p, K9b) over N knots: the cluster size C (C_req where it is 8 or 16;
+// else 16 where a cluster of 16 blocks holding S's bands, and for K5 and
+// K9p the stair's, on chip is co-resident, else 8; 0 past the fit), where
+// the stair bands go (K5, K9p: stair_req 1 on chip, 0 in L2, -1 on chip
+// unless that gives a smaller grid than L2 does; K9b has none, 0) and the
+// grid, C x min(co-resident clusters, ceil(N / C)).  The host build runs
+// the cluster as one block: C = 1 where the card's arithmetic at 227 KB
+// fits C = 16, the grid 1.
 struct MegaPlan {
   int C = 0, stair = 0, grid = 0;
 };
 
 MegaPlan mega_plan(int N, int kind, int C_req, int stair_req) {
   MegaPlan pl;
-  if (!cluster_cg(kind) || N < 2 || N > GRID_MAX_KNOTS ||
+  if (!first_cluster(kind) || N < 2 || N > GRID_MAX_KNOTS ||
       (C_req != 0 && C_req != 8 && C_req != 16))
     return pl;
 #ifdef __CUDACC__
@@ -474,7 +491,8 @@ MegaPlan mega_plan(int N, int kind, int C_req, int stair_req) {
     const int n_off = active_clusters(kind, C, off);
     const int g_off = C * (n_off < want ? n_off : want);
     pl.C = C;
-    pl.stair = stair_req >= 0 ? stair_req : g_on >= g_off;
+    pl.stair = kind == ITER_BCR ? 0
+               : stair_req >= 0 ? stair_req : g_on >= g_off;
     pl.grid = pl.stair ? g_on : g_off;
     break;
   }
@@ -482,7 +500,7 @@ MegaPlan mega_plan(int N, int kind, int C_req, int stair_req) {
 #else
   if (mega_smem_floats(N, kind, 16, true) * sizeof(float) <= 232448) {
     pl.C = 1;
-    pl.stair = stair_req != 0;
+    pl.stair = kind != ITER_BCR && stair_req != 0;
     pl.grid = 1;
   }
 #endif
@@ -630,40 +648,30 @@ MegaParams make_params(
 
 }  // namespace
 
-// Largest horizon kernel `kind` serves on this device: for K5 and K9p
-// (kinds 0, 1) the largest N whose cluster form fits (mega_plan: a cluster
-// of 16 or 8 blocks, each holding its knots' S and stair bands, the CG
-// vectors and the stages' static arrays); for K9b (2) the largest N whose
-// block-0 BCR vectors fit every block; 0 if the attributes cannot be read.
-// The joined kinds (3 K5g, 4 K9pg) answer GRID_MAX_KNOTS (their area goes
-// to global memory where shared memory cannot hold it).
+// Largest horizon kernel `kind` serves on this device: for K5, K9p and K9b
+// (kinds 0-2) the largest N whose cluster form fits (mega_plan: a cluster
+// of 16 or 8 blocks, each holding its knots' S bands (and for K5 and K9p
+// the stair's), the dual solve's vectors and the stages' static arrays;
+// K9b serves the powers of 2 up to it); 0 if the attributes cannot be
+// read.  The joined kinds (3 K5g, 4 K9pg) answer GRID_MAX_KNOTS (their
+// area goes to global memory where shared memory cannot hold it).
 extern "C" int mpc_mega_max_knots(int kind) {
   if (!check_kind(kind)) return 0;
   if (joined_cg(kind)) return GRID_MAX_KNOTS;
-  if (cluster_cg(kind)) {
-    // the fit is monotone in N: bisect for the last N with a cluster
-    int lo = 1, hi = GRID_MAX_KNOTS + 1;
-    while (hi - lo > 1) {
-      const int mid = lo + (hi - lo) / 2;
-      (mega_plan(mid, kind, 0, 1).C > 0 ? lo : hi) = mid;
-    }
-    return lo < 2 ? 0 : lo;
+  // the fit is monotone in N: bisect for the last N with a cluster
+  int lo = 1, hi = GRID_MAX_KNOTS + 1;
+  while (hi - lo > 1) {
+    const int mid = lo + (hi - lo) / 2;
+    (mega_plan(mid, kind, 0, 1).C > 0 ? lo : hi) = mid;
   }
-  auto floats = [kind](int n) { return mega_smem_floats(n, kind, 1, false); };
-#ifdef __CUDACC__
-  const long long stat = mega_static_smem(kind);
-  if (stat < 0) return 0;
-  return pcgc::max_knots_for(floats, (size_t)stat);
-#else
-  return pcgc::max_knots_for(floats, 0);
-#endif
+  return lo < 2 ? 0 : lo;
 }
 
-// The cluster launch of K5 or K9p (kind 0, 1) over N knots at the cluster
-// size `cluster` asks (8, 16; 0 the plan's choice) with the stair bands as
-// `stair` asks (1 on chip, 0 in L2, -1 the plan's choice): writes the
-// cluster size, where the stair bands go (1 on chip) and the grid to
-// out[0..2]; returns 0 where no such cluster fits, else 1.
+// The cluster launch of K5, K9p or K9b (kind 0-2) over N knots at the
+// cluster size `cluster` asks (8, 16; 0 the plan's choice) with the stair
+// bands as `stair` asks (1 on chip, 0 in L2, -1 the plan's choice; K9b
+// none): writes the cluster size, where the stair bands go (1 on chip) and
+// the grid to out[0..2]; returns 0 where no such cluster fits, else 1.
 extern "C" int mpc_mega_cluster_plan(int N, int kind, int cluster, int stair,
                                      int* out) {
   const MegaPlan pl = mega_plan(N, kind, cluster, stair);
@@ -687,37 +695,14 @@ extern "C" int mpc_mega_grid_plan(int N, int cluster, int place, int* out) {
   return pl.grid > 0;
 }
 
-// The grid a launch of kernel `kind` over N knots uses.  K5, K9p: the
-// cluster plan's (stair bands placed by the plan); K5g, K9pg: grid_plan's.
-// K9b: min(N, blocks that can be resident at once), from the occupancy API
-// at the kernel's block size and shared memory (the counterpart of the
-// reference's checkPcgOccupancy).  0 if not one block (cluster) fits or
-// the device has no cooperative launch.
+// The grid a launch of kernel `kind` over N knots uses.  K5, K9p, K9b: the
+// cluster plan's (stair bands placed by the plan), held to the co-resident
+// clusters (the counterpart of the reference's checkPcgOccupancy); K5g,
+// K9pg: grid_plan's.  0 if not one cluster fits.
 extern "C" int mpc_mega_grid(int N, int kind) {
   if (!check_kind(kind)) return 0;
-  if (cluster_cg(kind)) return mega_plan(N, kind, 0, -1).grid;
   if (joined_cg(kind)) return grid_plan(N, 0, -1).grid;
-#ifdef __CUDACC__
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) != cudaSuccess || !coop)
-    return 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  const size_t smem = mega_smem_floats(N, kind, 1, false) * sizeof(float);
-  const void* fn = (const void*)kernel_of(kind);
-  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess)
-    return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS,
-                                                    smem) != cudaSuccess)
-    return 0;
-  const long long resident = (long long)per_sm * sms;
-  return (int)(resident < N ? resident : N);
-#else
-  (void)N;
-  return 1;  // the host build walks every knot in one block
-#endif
+  return mega_plan(N, kind, 0, -1).grid;
 }
 
 // Floats of global scratch one launch of kernel `kind` takes.
@@ -749,13 +734,18 @@ int launch(const MegaParams& p, int kind, int grid, int cluster, int stair,
     arg.place = pl.place;
     smem = joined_smem_floats(p.N, grid, pl.place) * sizeof(float);
   } else {
-    if (cluster_cg(kind)) {
-      const MegaPlan pl = mega_plan(p.N, kind, cluster, stair);
-      if (pl.C < 1) return 1;  // past the fit
-      if (grid > pl.grid || grid % pl.C) return 720;
-      C = pl.C;
-      arg.stair_on_chip = pl.stair;
-    }
+    MegaPlan pl = mega_plan(p.N, kind, cluster, stair);
+#ifndef __CUDACC__
+    // the host build alone: K9b at a cluster size of 1-16 plans ceil(N / C)
+    // clusters of it, which the block emulation runs (tests of its barriers)
+    if (kind == ITER_BCR && cluster > 0 && cluster <= 16 &&
+        mega_plan(p.N, kind, 0, stair).C > 0)
+      pl = MegaPlan{cluster, 0, cluster * ((p.N + cluster - 1) / cluster)};
+#endif
+    if (pl.C < 1) return 1;  // past the fit
+    if (grid > pl.grid || grid % pl.C) return 720;
+    C = pl.C;
+    arg.stair_on_chip = pl.stair;
     smem = mega_smem_floats(p.N, kind, C, arg.stair_on_chip != 0)
            * sizeof(float);
   }
@@ -765,41 +755,31 @@ int launch(const MegaParams& p, int kind, int grid, int cluster, int stair,
   // a K9pg launch takes K5g's plan: its own kernel must hold the clusters
   if (joined_cg(kind) && active_clusters(kind, C, smem) < arg.G)
     return (int)cudaErrorCooperativeLaunchTooLarge;
-  if (cluster_cg(kind) || joined_cg(kind)) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(grid);
-    cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = (cudaStream_t)stream;
-    cudaLaunchAttribute at[2];
-    at[0].id = cudaLaunchAttributeClusterDimension;
-    at[0].val.clusterDim.x = C;
-    at[0].val.clusterDim.y = 1;
-    at[0].val.clusterDim.z = 1;
-    at[1].id = cudaLaunchAttributeCooperative;
-    at[1].val.cooperative = 1;
-    cfg.attrs = at;
-    cfg.numAttrs = 2;
-    err = cudaLaunchKernelEx(&cfg, kernel_of(kind), arg);
-  } else {
-    // mpc_mega_grid also sets the kernel's dynamic shared memory limit;
-    // never launch past co-residency
-    if (grid > mpc_mega_grid(p.N, kind))
-      return (int)cudaErrorCooperativeLaunchTooLarge;
-    void* args[] = {&arg};
-    err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(THREADS), args,
-                                      smem, (cudaStream_t)stream);
-  }
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeCooperative;
+  at[1].val.cooperative = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, kernel_of(kind), arg);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 #else
-  // the host build: one block walks every knot, or (the joined kinds on
-  // more than one block) the block emulation runs the clusters
+  // the host build: one block walks every knot, or (the joined kinds and
+  // K9b on more than one block) the block emulation runs the clusters
   const MegaKernel kern = kernel_of(kind);
-  if (joined_cg(kind) && grid > 1)
+  if ((joined_cg(kind) || kind == ITER_BCR) && grid > 1)
     ld_emu_blocks(grid, C, smem / sizeof(float), [&] { kern(arg); });
   else
     LD_LAUNCH(kern, 1, THREADS, smem, stream, arg);
@@ -853,7 +833,8 @@ extern "C" int mpc_sqp_iter_mega_pcg(
 }
 
 // K9b: one iteration with the refined BCR dual solve (power-of-2 N); no
-// warm start, no CG.  Outputs as K9p's, stats' CG count 0.
+// warm start, no CG.  Outputs as K9p's, stats' CG count 0; iscratch's
+// third int the cluster size read.  cluster as mpc_mega_cluster_plan's.
 extern "C" int mpc_sqp_iter_mega(
     const float* tab, int N, const float* X0, const float* U0,
     const float* goals, int gstride, const float* xs, const float* rho0,
@@ -861,14 +842,14 @@ extern "C" int mpc_sqp_iter_mega(
     float r_cost, float grav, float mu, int num_alphas, float rho_factor,
     float rho_min, float rho_max, float rho_reset, float* X, float* U,
     float* lam, float* scal, int* ints, int* stats, float* scratch,
-    int* iscratch, int grid, void* stream) {
+    int* iscratch, int grid, int cluster, void* stream) {
   if (N & (N - 1)) return 1;  // cudaErrorInvalidValue
   const MegaParams p = make_params(
       tab, N, X0, U0, goals, gstride, xs, nullptr, rho0, merit0, drho0, 1.0f,
       0, 0.0f, 1, dt, qd_cost, r_cost, grav, mu, num_alphas, rho_factor,
       rho_min, rho_max, rho_reset, X, U, lam, scal, ints, stats, scratch,
       iscratch, ITER_BCR);
-  return launch(p, ITER_BCR, grid, 0, -1, stream);
+  return launch(p, ITER_BCR, grid, cluster, -1, stream);
 }
 
 #ifndef __CUDACC__

@@ -66,8 +66,11 @@ _SIGNATURES = {
     "mpc_bcr_scratch_floats": [_I],
     "mpc_bcr_dz": [_I] + [_P] * 15,
     "mpc_bcr_dz_max_knots": [],
-    "mpc_bcr_solve": [_I] + [_P] * 7,
+    "mpc_bcr_solve": [_I] + [_P] * 7 + [_I, _P],
+    "mpc_bcr_solve_cluster": [_I, _I],
     "mpc_bcr_solve_max_knots": [],
+    "mpc_bcr_one_block_solve_host": [_I] + [_P] * 6,
+    "mpc_bcr_cluster_dz_host": [_I, _I] + [_P] * 14,
     "mpc_sqp_mega": [_P, _I, _P, _P, _P, _I] + [_P] * 4
                     + [_F, _I, _F, _I] + [_F] * 5 + [_I] + [_F] * 4
                     + [_P] * 8 + [_I] * 4 + [_P],
@@ -75,7 +78,7 @@ _SIGNATURES = {
                              + [_I] + [_F] * 6 + [_I] + [_F] * 4
                              + [_P] * 8 + [_I] * 4 + [_P],
     "mpc_sqp_iter_mega": [_P, _I, _P, _P, _P, _I] + [_P] * 4 + [_F] * 5
-                         + [_I] + [_F] * 4 + [_P] * 8 + [_I, _P],
+                         + [_I] + [_F] * 4 + [_P] * 8 + [_I, _I, _P],
     "mpc_mega_max_knots": [_I],
     "mpc_mega_grid": [_I, _I],
     "mpc_mega_cluster_plan": [_I] * 4 + [_P],
@@ -106,6 +109,7 @@ _RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
 
 # entries of the host build alone (test hooks that run no device code)
 _HOST_ONLY = {"mpc_bcr_cluster_factor_host", "mpc_bcr_cluster_apply_host",
+              "mpc_bcr_one_block_solve_host", "mpc_bcr_cluster_dz_host",
               "mpc_cluster_dot_host", "mpc_emu_threads_host",
               "mpc_joined_cg_host",
               "mpc_ld_aba_host", "mpc_ld_crba_host", "mpc_ld_rnea_host",

@@ -14,19 +14,20 @@ preconditioner (K3 with ``precond=False``); the kernels read S, gamma and
 the dz blocks only.  Each factors the cyclic reduction once per launch
 (csrc/bcr_common.cuh).
 
-K6 is one cluster of 16 (else 8) blocks whose shared memory holds S's
-bands, so it serves power-of-2 N up to the largest that fits
-(``check_bcr_fit``: 1024 on the H100); K7 keeps S in one block's shared
-memory (``check_bcr_dz_fit``); K7s reads S from global memory and serves
-longer horizons (``check_bcr_solve_fit``).  Above K7's fit, above K6's,
-or when ``split=True`` forces it, they take the split path of the JAX
+K6 and K7s are each one cluster of 16 (else 8) blocks whose shared
+memory holds S's bands, so they serve power-of-2 N up to the largest that
+fits (``check_bcr_fit``, ``check_bcr_solve_fit``: 1024 on the H100); K7
+keeps S in one block's shared memory (``check_bcr_dz_fit``: 64).  Above
+K7's fit, above K6's, or when ``split=True`` forces it, they take the
+split path of the JAX
 package (bcr_kernel.py:234-264,308-317): K7 becomes K7s, the residual as
 tensor glue, K7s again, then the primal step; K6 becomes the CG as tensor
 glue (``ops.btsolve.bcr_pcg``: a fixed max_iter steps, those after the
 exit masked) with K7s as each preconditioner apply.  On the TPU that split
 works around VMEM; here it serves the refined solve past N = 64 and the
-BCR-PCG past K6's fit.  ``bcr_pcg_dz.cluster_size`` holds, after each K6
-launch, the cluster size the kernel read (a device int32).
+BCR-PCG past K6's fit.  ``bcr_pcg_dz.cluster_size`` and
+``bcr_solve.cluster_size`` hold, after each K6 or K7s launch, the cluster
+size the kernel read (a device int32).
 """
 from __future__ import annotations
 
@@ -84,11 +85,12 @@ def check_bcr_dz_fit(knot_points: int, lib=None) -> int:
 
 
 def check_bcr_solve_fit(knot_points: int, lib=None) -> int:
-    """The same for K7s (two vectors and the inverse scratch; S stays in
-    global memory)."""
+    """The same for K7s (one cluster: S's bands, the apply's vectors and
+    the inverse scratch)."""
     return _check_fit(knot_points,
                       (lib or _lib.library()).mpc_bcr_solve_max_knots(),
-                      "the solve-only BCR kernel")
+                      "the cluster BCR solve kernel holds S in one "
+                      "cluster's shared memory and")
 
 
 def _split(n: int, split, n_max_of) -> bool:
@@ -108,8 +110,25 @@ def bcr_solve_reference(SL, SD, SU, gamma):
     return _plain_bcr(BlockTri(SL, SD, SU), gamma, refine=0)
 
 
-def _launch_solve(lib, SL, SD, SU, gamma, stream, scratch=None):
-    """One K7s launch; its factors go to scratch when given (as K6's)."""
+_SOLVE_INTS: dict = {}
+
+
+def _solve_ints(dev):
+    """K7s's int output on dev (the cluster size the kernel read), one
+    buffer a device that every launch reuses, and its view."""
+    got = _SOLVE_INTS.get(dev)
+    if got is None:
+        ints = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = _SOLVE_INTS[dev] = (ints, ints[0])
+    return got
+
+
+def _launch_solve(lib, SL, SD, SU, gamma, stream, scratch=None,
+                  cluster: int = 0):
+    """One K7s launch; its factors go to scratch when given (as K6's);
+    cluster asks for a cluster size (8 or 16; 0 the kernel's choice,
+    mpc_bcr_solve_cluster; the host build runs that many blocks under its
+    block emulation)."""
     dev = gamma.device
     nx = 2 * _lib.NJ
     if gamma.dim() != 2 or gamma.shape[1] != nx:
@@ -124,10 +143,13 @@ def _launch_solve(lib, SL, SD, SU, gamma, stream, scratch=None):
         scratch = torch.empty(lib.mpc_bcr_scratch_floats(n), **f32)
     _lib.expect(scratch, "scratch", (lib.mpc_bcr_scratch_floats(n),), dev)
     lam = torch.empty((n, nx), **f32)
+    ints, read = _solve_ints(dev)
     rc = lib.mpc_bcr_solve(n, SL.data_ptr(), SD.data_ptr(), SU.data_ptr(),
                            gamma.data_ptr(), scratch.data_ptr(),
-                           lam.data_ptr(), stream)
+                           lam.data_ptr(), ints.data_ptr(), int(cluster),
+                           stream)
     _lib.check(rc, "mpc_bcr_solve")
+    bcr_solve.cluster_size = read
     return lam
 
 
@@ -144,6 +166,7 @@ def bcr_solve(SL, SD, SU, gamma):
 
 
 bcr_solve.launches = 0
+bcr_solve.cluster_size = None
 
 
 def _solver_of(ks: KnotSchur):
@@ -167,13 +190,16 @@ def bcr_dz_split(ks: KnotSchur, solve):
     return (lam, dX, dU, *_zero_stats(lam.device))
 
 
-def _launch_dz(lib, ks: KnotSchur, stream):
+def _launch_dz(lib, ks: KnotSchur, stream, scratch=None):
+    """One K7 launch; its factors go to scratch when given (as K6's)."""
     dev = ks.gamma.device
     nx, nu = 2 * _lib.NJ, _lib.NJ
     n = expect_system(ks, ks.gamma, _FIELDS, dev)
     check_bcr_dz_fit(n, lib)
     f32 = dict(dtype=torch.float32, device=dev)
-    scratch = torch.empty(lib.mpc_bcr_scratch_floats(n), **f32)
+    if scratch is None:
+        scratch = torch.empty(lib.mpc_bcr_scratch_floats(n), **f32)
+    _lib.expect(scratch, "scratch", (lib.mpc_bcr_scratch_floats(n),), dev)
     lam = torch.empty((n, nx), **f32)
     dX = torch.empty((n, nx), **f32)
     dU = torch.empty((n - 1, nu), **f32)

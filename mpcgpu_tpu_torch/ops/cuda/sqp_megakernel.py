@@ -19,10 +19,11 @@ iterations (sqp.sqp_solve with ``megakernel`` and without
 ``megakernel_solve``) reads nothing on the host.
 
 The kernel is one persistent cooperative launch with grid barriers
-between its stages.  K5's and K9p's CG stage runs across the first
-thread-block cluster of the launch (16 blocks where the card schedules
-them, else 8), each block holding its knots' S bands in shared memory, and
-every block asks for that memory (N <= about 670 on the H100).  K5g and
+between its stages.  K5's and K9p's CG stage, and K9b's refined BCR
+solve, run across the first thread-block cluster of the launch (16 blocks
+where the card schedules them, else 8), each block holding its knots' S
+bands in shared memory, and every block asks for that memory (N <= about
+670 on the H100 for K5 and K9p).  K5g and
 K9pg run one CG across all G clusters of C blocks of the launch
 (``grid_plan``: C = 16 where the card schedules it unless a smaller C
 gives the stages fewer passes over the knots, G the co-resident clusters;
@@ -44,8 +45,8 @@ which the B clusters are co-resident), the one-block form (an arm's whole
 S in one block's shared memory) serves packs past that; the wrapper
 launches the planned form or raises, and counts each form's launches in
 ``sqp_solve_mega_pcg_packed.form_launches`` beside ``launches``.  After
-each K5, K9p, K5g or K9pg launch, the ``cluster_size`` of its wrapper
-(``sqp_solve_mega_pcg``, ``sqp_iter_mega_pcg``,
+each K5, K9p, K9b, K5g or K9pg launch, the ``cluster_size`` of its
+wrapper (``sqp_solve_mega_pcg``, ``sqp_iter_mega_pcg``, ``sqp_iter_mega``,
 ``sqp_solve_mega_pcg_grid``, ``sqp_iter_mega_pcg_grid``) holds the cluster
 size the kernel read (a device int32), and after each K10 launch
 ``sqp_solve_mega_pcg_packed.cluster_size`` (0 for the one-block form).
@@ -180,13 +181,12 @@ def pcg_kind(knot_points: int, lib=None, kind: int = SOLVE_PCG) -> int:
 def check_mega_fit(knot_points: int, lib=None, kind: int = SOLVE_PCG,
                    stair: int = -1, cluster: int = 0) -> int:
     """Raise unless kernel `kind` (K5, K9p, K9b, K5g, K9pg) serves this
-    horizon on this device and at least one block (K5, K9p: one cluster)
-    can be resident; return the grid a launch uses: min(N, co-resident
-    blocks) for K9b, C x min(co-resident clusters, ceil(N / C)) for K5 and
-    K9p, C x G for K5g and K9pg (grid_plan's).  cluster and stair (K5, K9p)
-    ask for a cluster size (8 or 16; 0 the plan's choice) and place the
-    stair bands (1 on chip, 0 in L2, -1 the plan's choice) as
-    mpc_mega_cluster_plan's arguments."""
+    horizon on this device and at least one cluster can be resident; return
+    the grid a launch uses: C x min(co-resident clusters, ceil(N / C)) for
+    K5, K9p and K9b, C x G for K5g and K9pg (grid_plan's).  cluster (K5,
+    K9p, K9b) and stair (K5, K9p) ask for a cluster size (8 or 16; 0 the
+    plan's choice) and place the stair bands (1 on chip, 0 in L2, -1 the
+    plan's choice) as mpc_mega_cluster_plan's arguments."""
     lib = lib or _lib.library()
     key = (id(lib), knot_points, kind, stair, cluster, _current_device())
     if key in _grids:
@@ -196,13 +196,11 @@ def check_mega_fit(knot_points: int, lib=None, kind: int = SOLVE_PCG,
     if knot_points > n_max:
         where = ("keeps its scratch in global memory"
                  if kind in (SOLVE_PCG_GRID, ITER_PCG_GRID) else
-                 "holds its dual solve in one block's shared memory"
-                 if kind == ITER_BCR else
                  "holds its dual solve in one cluster's shared memory")
         raise ValueError(
             f"{name} {where} and serves N <= {n_max} on this device; got "
             f"N = {knot_points}")
-    if kind in (SOLVE_PCG, ITER_PCG):
+    if kind in (SOLVE_PCG, ITER_PCG, ITER_BCR):
         plan = (ctypes.c_int * 3)()
         lib.mpc_mega_cluster_plan(knot_points, kind, cluster, stair, plan)
         grid = plan[2]
@@ -211,8 +209,7 @@ def check_mega_fit(knot_points: int, lib=None, kind: int = SOLVE_PCG,
     if grid < 1:
         raise ValueError(
             f"{name} cannot make a cooperative launch of N = {knot_points} "
-            f"on this device: no block of it can be resident, or the device "
-            f"has no cooperative launch")
+            f"on this device: no cluster of it can be resident")
     _grids[key] = grid
     return grid
 
@@ -404,7 +401,8 @@ def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
                  cluster: int = 0) -> IterResult:
     """One launch of K9p or K9pg (kind ITER_PCG or ITER_PCG_GRID, lam0 the
     warm start; stair and cluster as _launch's) or K9b (ITER_BCR, lam0
-    None)."""
+    None; cluster as check_mega_fit's, and on the host build a size of
+    1-16 that its block emulation runs on grid / C clusters)."""
     dev = X.device
     nx, nu = 2 * _lib.NJ, _lib.NJ
     n = _expect_iterate(tab, X, U, goals, xs, rho, merit, num_alphas)
@@ -442,8 +440,10 @@ def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
             raise ValueError(f"the per-iteration BCR kernel needs a "
                              f"power-of-2 horizon, got N = {n}")
         rc = lib.mpc_sqp_iter_mega(*head, rho.data_ptr(), drho.data_ptr(),
-                                   merit.data_ptr(), *schedule, *tail)
+                                   merit.data_ptr(), *schedule, *tail[:-1],
+                                   int(cluster), tail[-1])
         _lib.check(rc, "mpc_sqp_iter_mega")
+        sqp_iter_mega.cluster_size = iscratch[2]
     return IterResult(X=Xo, U=Uo, lam=lam, rho=scal[0], drho=scal[1],
                       merit=scal[2], accept=stats[2] != 0, bail=ints[1] != 0,
                       pcg_iters=stats[0], hit_max=stats[1] != 0)
@@ -523,6 +523,7 @@ def sqp_iter_mega(model, X, U, goals, xs, rho, drho, merit, dt, qd_cost,
 
 
 sqp_iter_mega.launches = 0
+sqp_iter_mega.cluster_size = None
 
 
 class PackedResult(NamedTuple):

@@ -500,21 +500,44 @@ def test_bcr_pcg_dz_takes_k6_then_k6l_then_the_split_path(host):
         _close(got[0] / scale, ref[0] / scale, 0, 2e-5)
 
 
-@pytest.mark.parametrize("n", [8, 64])
+def _one_block_solve(lib, ks, fac=None):
+    """bcr_factor, then one BcrPre apply, in one block (K7s's body before
+    its cluster form): lam, and the factors in fac when given."""
+    n = ks.gamma.shape[0]
+    if fac is None:
+        fac = torch.zeros(lib.mpc_bcr_scratch_floats(n))
+    lam = torch.full((n, 14), float("nan"))
+    assert lib.mpc_bcr_one_block_solve_host(
+        n, ks.SL.data_ptr(), ks.SD.data_ptr(), ks.SU.data_ptr(),
+        ks.gamma.data_ptr(), fac.data_ptr(), lam.data_ptr()) == 0
+    return lam
+
+
+@contextlib.contextmanager
+def _no_hang(lib):
+    """Fail where the block emulation found a wait no block could end."""
+    lib.mpc_emu_threads_host(0)
+    try:
+        yield
+    finally:
+        assert lib.mpc_emu_threads_host(0) == 0, "an emulated wait hung"
+
+
+@pytest.mark.parametrize("n", [8, 64, 256, 512, 1024])
 @pytest.mark.parametrize("clusters", [1, 2, 16])
 def test_k6_cluster_factor_equals_the_one_block_factor(host, n, clusters):
-    """The cluster factor against bcr_factor (K7s's), bit for bit over the
-    whole factor scratch (both zeroed first): at C = 1 as the K6 launch
-    runs it, and at C = 2 and 16 through the host build's emulation of the
-    cluster's schedule (each level's ranks one after another between the
-    barriers), which spreads the warps' knots over the ranks as the card
-    does."""
+    """The cluster factor against bcr_factor (one block, as K7 runs it),
+    bit for bit over the whole factor scratch (both zeroed first): at C = 1
+    as the K6 launch runs it, and at C = 2 and 16 through the host build's
+    emulation of the cluster's schedule (each level's ranks one after
+    another between the barriers), which spreads the warps' knots over the
+    ranks as the card does.  Past K7's fit (N = 64) no kernel on the card
+    runs the one-block factor: N = 256-1024 are checked here alone."""
     lib = host[0]
     ks = random_knot_schur(n, seed=7)
     size = lib.mpc_bcr_scratch_floats(n)
     one_block, cluster = torch.zeros(size), torch.zeros(size)
-    k7._launch_solve(lib, ks.SL, ks.SD, ks.SU, ks.gamma, None,
-                     scratch=one_block)
+    _one_block_solve(lib, ks, one_block)
     if clusters == 1:
         k6._launch(lib, ks, torch.zeros(n, 14), 3, 1e-9, None,
                    scratch=cluster)
@@ -526,25 +549,98 @@ def test_k6_cluster_factor_equals_the_one_block_factor(host, n, clusters):
     assert bool(one_block.abs().sum() > 0)
 
 
-@pytest.mark.parametrize("n", [8, 64])
+@pytest.mark.parametrize("n", [8, 64, 256, 512, 1024])
 @pytest.mark.parametrize("clusters", [2, 3, 16])
 def test_k6_cluster_apply_equals_the_one_block_apply(host, n, clusters):
     """K6's preconditioner apply z = BCR(r) over C emulated blocks (each
     block's knots and shared memory its own, the rows of other blocks read
     through the emulated DSMEM map, the phases between cluster barriers
     run rank after rank; C = 3 leaves the last block fewer knots, C = 16
-    at N = 8 some none) against K7s's one-block apply of the same factors,
-    bit for bit."""
+    at N = 8 some none) against the one-block apply (BcrPre) of the same
+    factors, bit for bit."""
     lib = host[0]
     ks = random_knot_schur(n, seed=7)
     fac = torch.zeros(lib.mpc_bcr_scratch_floats(n))
-    want = k7._launch_solve(lib, ks.SL, ks.SD, ks.SU, ks.gamma, None,
-                            scratch=fac)
+    want = _one_block_solve(lib, ks, fac)
     got = torch.full_like(want, float("nan"))
     assert lib.mpc_bcr_cluster_apply_host(n, clusters, fac.data_ptr(),
                                           ks.gamma.data_ptr(),
                                           got.data_ptr()) == 0
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [8, 64, 256, 512, 1024])
+@pytest.mark.parametrize("clusters", [2, 3, 16])
+def test_k7s_cluster_kernel_equals_the_one_block_solve(host, n, clusters):
+    """K7s's kernel on C blocks under the block emulation (each block on a
+    host thread of its own, one after another between the cluster
+    barriers; C = 3 leaves the last block fewer knots, C = 16 at N = 8
+    some none) against bcr_factor and one BcrPre apply in one block: lam
+    and the whole factor scratch bit for bit; no wait hangs; the kernel
+    read C."""
+    lib = host[0]
+    ks = random_knot_schur(n, seed=7)
+    size = lib.mpc_bcr_scratch_floats(n)
+    one_block, cluster = torch.zeros(size), torch.zeros(size)
+    want = _one_block_solve(lib, ks, one_block)
+    with _no_hang(lib):
+        got = k7._launch_solve(lib, ks.SL, ks.SD, ks.SU, ks.gamma, None,
+                               scratch=cluster, cluster=clusters)
+    assert int(k7.bcr_solve.cluster_size) == clusters
+    assert torch.equal(got, want)
+    assert torch.equal(cluster, one_block)
+
+
+@pytest.mark.parametrize("n,clusters", [(8, 2), (8, 4), (64, 2), (64, 4),
+                                        (64, 3), (8, 16)])
+def test_k9b_cluster_stage_equals_the_one_block_body(host, n, clusters):
+    """K9b's stage 4 (bcr_common.cuh cluster_bcr_dz: the cluster factor,
+    two cluster applies with the residual between, its halo rows read
+    through the emulated DSMEM map, and the owners' dz) on C emulated
+    blocks, against the one-block refined solve and dz (bcr_dz_body, as
+    K7 runs it) on the same system: lam, dX, dU and the factors bit for
+    bit; no wait hangs."""
+    lib = host[0]
+    ks = random_knot_schur(n, seed=7)
+    size = lib.mpc_bcr_scratch_floats(n)
+    fac_one, fac = torch.zeros(size), torch.zeros(size)
+    want = k7._launch_dz(lib, ks, None, scratch=fac_one)
+    lam, dX = torch.full((2, n, 14), float("nan"))
+    dU = torch.full((n - 1, 7), float("nan"))
+    assert lib.mpc_bcr_cluster_dz_host(
+        n, clusters, *(getattr(ks, f).data_ptr() for f in k7._FIELDS),
+        fac.data_ptr(), lam.data_ptr(), dX.data_ptr(), dU.data_ptr()) == 0
+    for got, w in zip((lam, dX, dU, fac), (*want[:3], fac_one)):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.parametrize("n,clusters,grid", [(8, 2, 8), (8, 4, 8),
+                                             (4, 4, 4)])
+def test_k9b_cluster_form_equals_its_one_block_launch(host, traj_0_0, n,
+                                                      clusters, grid):
+    """A whole K9b launch on grid / C clusters of C blocks under the block
+    emulation (the stages over every block, stage 4 across the first
+    cluster while the others wait at the grid barrier, the decision state
+    in each block's own head) against the host build's one-block launch:
+    every output bit for bit; no wait hangs; the kernel read C."""
+    lib, model, tab = host
+    X, U, goals, xs = _k9_start(traj_0_0, n, 1e-3)
+    merit = k2.line_search_merits_reference(
+        model, X, U, torch.zeros_like(X), torch.zeros_like(U), 8, goals, xs,
+        DT, 10.0, QD_COST, R_COST)[8]
+    args = (X, U, goals, xs, None, torch.tensor(1e-3), torch.tensor(1.0),
+            merit, 0, 0.0)
+    kw = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
+              num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=10.0,
+              rho_reset=1e-3)
+    want = k9._launch_iter(lib, k9.ITER_BCR, tab, *args, **kw, grid=1,
+                           stream=None)
+    with _no_hang(lib):
+        got = k9._launch_iter(lib, k9.ITER_BCR, tab, *args, **kw, grid=grid,
+                              stream=None, cluster=clusters)
+    assert int(k9.sqp_iter_mega.cluster_size) == clusters
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n,clusters", [(8, 3), (64, 16), (2, 16)])
@@ -1011,8 +1107,18 @@ def test_k9b_host_build_matches_plain(host, traj_0_0, rho):
     lam by relative residual on S(X), within 1e-5; and against the plain
     iteration given the kernel's own lam (tests/torch_systems.py), X, U
     and merit at rtol 1e-3, atol 1e-5."""
+    _check_k9b(host, traj_0_0, 8, rho)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_k9b_host_build_matches_plain_at_short_horizons(host, traj_0_0, n):
+    """test_k9b_host_build_matches_plain's checks at N = 2 and 4 (one and
+    two levels of the reduction), rho 1e-3."""
+    _check_k9b(host, traj_0_0, n, 1e-3)
+
+
+def _check_k9b(host, traj_0_0, n, rho):
     lib, model, tab = host
-    n = 8
     X, U, goals, xs = _k9_start(traj_0_0, n, rho)
     kw = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
               num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=10.0,

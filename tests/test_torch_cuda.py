@@ -1,9 +1,9 @@
 """The CUDA kernels K1-K7, K7s, K9p, K9b and K10, K3 at the long horizons
 of the TPU's tiled K8, the grid-CG forms K4g and K4bg, the joined forms
 K5g and K9pg (at every cluster size the card admits for them), and the
-cluster forms of K5, K9p, K6 and K10 at every cluster size the card
-admits (K10 also in its one-block form), against their plain versions, on
-the card.
+cluster forms of K5, K9p, K6, K7s, K9b and K10 at every cluster size the
+card admits (K10 also in its one-block form), against their plain
+versions, on the card.
 
 Marked ``cuda``: each test needs a CUDA device and skips without one.
 The file uses no fixture of tests/conftest.py, which imports JAX, so on a
@@ -791,25 +791,97 @@ def test_k6_cluster_form_matches_plain(card, n):
         assert int(got[3]) == int(want[3]) and bool(got[4]) == bool(want[4])
 
 
+def _reference_factor(lib, ks):
+    """The factor scratch of K7's one-block factor where K7 fits (N <= 64
+    on the H100), else of K7s's cluster factor."""
+    n = ks.gamma.shape[0]
+    fac = torch.zeros(lib.mpc_bcr_scratch_floats(n), device=ks.gamma.device)
+    if n <= lib.mpc_bcr_dz_max_knots():
+        k7._launch_dz(lib, ks, _lib.stream_of(ks.gamma), scratch=fac)
+    else:
+        k7._launch_solve(lib, ks.SL, ks.SD, ks.SU, ks.gamma,
+                         _lib.stream_of(ks.gamma), scratch=fac)
+    return fac
+
+
 @pytest.mark.parametrize("n", [2, 64, 256, 512])
 def test_k6_cluster_factor_equals_the_one_block_factor(card, n):
     """The cluster factor of K6, at each admitted cluster size, against
-    the one-block factor of K7s on the same bands: the whole factor
-    scratch (both zeroed first) bit for bit."""
+    the one-block factor of K7 on the same bands where K7 fits (N <= 64),
+    else K7s's cluster factor: the whole factor scratch (both zeroed first)
+    bit for bit.  Past N = 64 no kernel on the card runs the one-block
+    factor; tests/test_torch_csrc_host.py holds the cluster factor to it
+    there (N = 256-1024, the host build)."""
     from mpcgpu_tpu_torch.ops.cuda import _lib
 
     lib = _lib.library()
     dev = card["X"].device
     ks = random_knot_schur(n, device=dev)
     size = lib.mpc_bcr_scratch_floats(n)
-    one_block = torch.zeros(size, device=dev)
-    k7._launch_solve(lib, ks.SL, ks.SD, ks.SU, ks.gamma,
-                     _lib.stream_of(ks.gamma), scratch=one_block)
+    one_block = _reference_factor(lib, ks)
     for c in _k6_admitted(lib, n):
         cluster = torch.zeros(size, device=dev)
         k6._launch(lib, ks, torch.zeros(n, 14, device=dev), 3, 1e-9,
                    _lib.stream_of(ks.gamma), scratch=cluster, cluster=c)
         assert torch.equal(cluster, one_block), c
+
+
+@pytest.mark.parametrize("n", [2, 64, 128, 256, 1024])
+def test_k7s_cluster_form_matches_plain(card, n):
+    """K7s (one cluster) at each admitted cluster size on the random
+    system against the plain solve, tests/test_bcr.py:62-74's tolerance
+    (lam scaled by its largest entry at atol 2e-5); the kernel reads the
+    cluster size it was launched with; where K7 fits (N <= 64), its factor
+    equals K7's one-block factor bit for bit."""
+    lib = _lib.library()
+    dev = card["X"].device
+    ks = random_knot_schur(n, device=dev)
+    want = k7.bcr_solve_reference(ks.SL, ks.SD, ks.SU, ks.gamma)
+    admitted = [c for c in (8, 16) if lib.mpc_bcr_solve_cluster(n, c) == c]
+    assert admitted
+    one_block = (_reference_factor(lib, ks)
+                 if n <= lib.mpc_bcr_dz_max_knots() else None)
+    for c in admitted:
+        fac = torch.zeros(lib.mpc_bcr_scratch_floats(n), device=dev)
+        got = k7._launch_solve(lib, ks.SL, ks.SD, ks.SU, ks.gamma,
+                               _lib.stream_of(ks.gamma), scratch=fac,
+                               cluster=c)
+        assert int(k7.bcr_solve.cluster_size) == c
+        scale = want.abs().max()
+        _close(got / scale, want / scale, 0, 2e-5)
+        if one_block is not None:
+            assert torch.equal(fac, one_block), c
+
+
+@pytest.mark.parametrize("n", [2, 4, 64, 256, 512, 1024])
+def test_k9b_cluster_form_matches_plain(card, n):
+    """K9b (its refined BCR solve and dz across the first cluster) at each
+    admitted cluster size, one iteration at rho 1e-3 from _k5_case's start:
+    accept and bail as the plain iteration's, no CG; lam by residual
+    (within 2x of the plain solve's); X, U and merit at rtol 1e-3, atol
+    2e-4 against the plain iteration given the kernel's own lam; the
+    kernel reads the cluster size it was launched with."""
+    lib = _lib.library()
+    args, kw = _k5_case(card, n, 1e-3)
+    a9 = (*args[:5], args[6], torch.tensor(1.0, device=args[1].device),
+          args[8])
+    want = k9.sqp_iter_mega_reference(*a9, **kw)
+    admitted = _mega_admitted(lib, n, k9.ITER_BCR)
+    assert admitted
+    for c, grid in admitted.items():
+        got = k9._launch_iter(lib, k9.ITER_BCR, _lib.model_tables(a9[0]),
+                              *a9[1:5], None, *a9[5:], 0, 0.0, **kw,
+                              grid=grid, stream=_lib.stream_of(a9[1]),
+                              cluster=c)
+        assert int(k9.sqp_iter_mega.cluster_size) == c
+        for f in ("accept", "bail"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (c, f)
+        assert int(got.pcg_iters) == 0 and not bool(got.hit_max)
+        given, ks = bcr_iteration_given_lam(*a9, got.lam, **kw)
+        assert relative_residual(ks, got.lam) <= 2 * relative_residual(
+            ks, want.lam)
+        for f in ("X", "U", "merit"):
+            _close(getattr(got, f), getattr(given, f), 1e-3, 2e-4)
 
 
 # ---- K10's forms, the cases of tests/test_torch_csrc_host.py's block

@@ -1,8 +1,8 @@
-"""Hold K1, K2, K3, K5, K9p, K6, K10, K4g and K4bg of two checkouts of this
-repository against each other on the card: the same seeded inputs through
-each tree's wrappers, the largest difference of every output, and each
-kernel's CUDA-event time in turns (other, this, this, other), each turn a
-process of its own.
+"""Hold K1, K2, K3, K5, K9p, K9b, K5g, K9pg, K6, K7, K7s, K10, K4, K4b, K4g,
+K4bg and K11 of two checkouts of this repository against each other on the
+card: the same seeded inputs through each tree's wrappers, the largest
+difference of every output, and each kernel's CUDA-event time in turns
+(other, this, this, other), each turn a process of its own.
 
     python3 tools/compare_trees.py OTHER_CHECKOUT [--out DIR]
 
@@ -11,10 +11,12 @@ fixture 0_0's first N knots (N = 64 and 256 for K2, K3 and K5; K1 at 64),
 for K2 the step of chip_smoke.py's check (the plain K3 and K4's dX, dU at
 cold duals; the step itself is compared too) and a seeded 0.05-scale step,
 a seeded 0.02-scale perturbation for K5's start (cold duals, rho 1e-3, cap
-40, 4 SQP iterations; K9p one iteration from it), K6 on K3's system
-without the stair and K4g, K4bg on K3's (cold duals, cap 40), K10 at N = 64
-on two arms (K5's start and a second seeded perturbation), and K1 at the
-three offsets of the host tests.
+40, 4 SQP iterations; K9p, K9b and K9pg one iteration from it, K5g the
+whole solve), K6, K7s (and K7 at N = 64) on K3's system without the
+stair and K4g, K4bg (and K4, K4b at N = 64) on K3's (cold duals, cap 40),
+K10 at N = 64 on two arms (K5's start and a second seeded perturbation),
+K11 on seeded random bands of 64 rows with nonzero halo rows, and K1 at
+the three offsets of the host tests.
 Also prints both libraries' fits and grids (K5, K9p, K9b, K10; K5, K5g,
 K9pg and K9b's grids at N = 64-1024).
 """
@@ -156,6 +158,17 @@ def run_tree(tree: Path, out: Path) -> None:
             res[f"K9p N={n} {f}"] = getattr(o, f).cpu()
         times[f"K9p N={n}"] = _event_ms(lambda: k5.sqp_iter_mega_pcg(*a9,
                                                                       **kw))
+        # K9b the same iteration with the refined BCR; K5g and K9pg, the
+        # joined forms, on K5's and K9p's inputs
+        a9b = (*a9[:5], *a9[6:9])
+        runs = {"K9b": lambda: k5.sqp_iter_mega(*a9b, **kw),
+                "K5g": lambda: k5.sqp_solve_mega_pcg_grid(*args, **kw),
+                "K9pg": lambda: k5.sqp_iter_mega_pcg_grid(*a9, **kw)}
+        for kid, run in runs.items():
+            o = run()
+            for f in o._fields:
+                res[f"{kid} N={n} {f}"] = getattr(o, f).cpu()
+            times[f"{kid} N={n}"] = _event_ms(run)
         # K6 on K3's system without the stair; K4g and K4bg on K3's
         lam0 = torch.zeros_like(X)
         ks6 = k3.form_kkt_schur(*a, precond=False)
@@ -164,10 +177,17 @@ def run_tree(tree: Path, out: Path) -> None:
         times[f"K6 N={n}"] = _event_ms(
             lambda: k6.bcr_pcg_dz(ks6, lam0, 40, 5e-5))
         S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
-        for kid, run in (
-                ("K4g", lambda: k4.pcg_dz_grid(ks, lam0, 40, 5e-5)),
-                ("K4bg", lambda: k4.pcg_solve_grid(S, P, ks.gamma, lam0, 40,
-                                                   5e-5))):
+        runs = {"K4g": lambda: k4.pcg_dz_grid(ks, lam0, 40, 5e-5),
+                "K4bg": lambda: k4.pcg_solve_grid(S, P, ks.gamma, lam0, 40,
+                                                  5e-5),
+                "K7s": lambda: (k6.bcr_solve(ks6.SL, ks6.SD, ks6.SU,
+                                             ks6.gamma),)}
+        if n == 64:  # the one-block forms' horizon
+            runs.update({
+                "K4": lambda: k4.pcg_dz(ks, lam0, 40, 5e-5),
+                "K4b": lambda: k4.pcg_solve(S, P, ks.gamma, lam0, 40, 5e-5),
+                "K7": lambda: k6.bcr_dz(ks6)})
+        for kid, run in runs.items():
             for i, t in enumerate(run()):
                 res[f"{kid} N={n} out{i}"] = t.cpu()
             times[f"{kid} N={n}"] = _event_ms(run)
@@ -184,12 +204,21 @@ def run_tree(tree: Path, out: Path) -> None:
                 res[f"K10 N={n} {f}"] = getattr(o, f).cpu()
             times[f"K10 N={n}"] = _event_ms(
                 lambda: k5.sqp_solve_mega_pcg_packed(*a10, **kw))
+    # K11 on seeded random bands of 64 rows, nonzero halo rows
+    from mpcgpu_tpu_torch.ops.cuda import spmv_halo_kernel as k11
+    gen = np.random.default_rng(64)
+    bands = [torch.as_tensor(gen.normal(size=shape).astype(np.float32),
+                             device=dev)
+             for shape in ((64, 14, 14),) * 3 + ((64, 14), (14,), (14,))]
+    res["K11 nl=64 y"] = k11.spmv_halo(*bands).cpu()
+    times["K11 nl=64"] = _event_ms(lambda: k11.spmv_halo(*bands))
     torch.cuda.synchronize()
     # the fits and grids the library reports (occupancy API, shared memory)
     lib, plan = k5._lib.library(), (ctypes.c_int * 3)()
     fits = {"K5 N max": lib.mpc_mega_max_knots(k5.SOLVE_PCG),
             "K9p N max": lib.mpc_mega_max_knots(k5.ITER_PCG),
             "K9b N max": lib.mpc_mega_max_knots(k5.ITER_BCR),
+            "K7s N max": lib.mpc_bcr_solve_max_knots(),
             "K10 N max (B = 2)": lib.mpc_mega_packed_max_knots(2, 8),
             "K10 B max (N = 64)": max(
                 b for b in range(1, 1025) if packed_grid(lib, 64, b) >= b)}
