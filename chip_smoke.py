@@ -29,14 +29,15 @@ CUDA toolkit:
    device times (torch.profiler) beside the one-thread recursions'; the
    first launches of the cluster forms (K5, K9p, K6, K7s, K9b, and K10 at
    every cluster size the card admits for two arms at N = 64, and in its
-   one-block form) run under a watchdog that ends the process if they
-   hang;
+   one-block form, and K4 and K4b in their cluster form) run under a
+   watchdog that ends the process if they hang;
 4. runs three closed loops -- fixture pair 0_0, N = 64,
    SolverConfig.for_knots(64, sqp_max_iter=4), PCG cap 40, exit tol
    5e-5, lam warm-started by 5 solves at tol 1e-11, simulate_mpc_scan for
    16 control updates -- each once through the kernels and once through
    the plain modules:
-   - the staged pcg loop (K3, K4, K2, K1 per update);
+   - the staged pcg loop (K3, K4 -- the plan's form at N = 64, the
+     cluster form --, K2, K1 per update);
    - the bench's default, linsys="auto" with megakernel and
      megakernel_solve (K2, K5, K1 per update), timed: CUDA-event update
      median, host clock per update, device time by kernel
@@ -58,7 +59,8 @@ CUDA toolkit:
    through the kernels and the plain modules: the staged bcr loop (K3,
    K7, K2; K1) at N = 64 and at N = 128 (K7s, the split path), the
    per-iteration megakernel loops (K2, then K9p or K9b per SQP
-   iteration; K1), the pcg_pallas backend (plain stages and K4b), and the
+   iteration; K1), the pcg_pallas backend (plain stages and K4b, the
+   cluster form), and the
    dense and qdldl oracles against each other;
 7. prints the linear-solve comparison (the reference's TIME_LINSYS) on
    the slice's warm system: each backend's time per solve, CG iterations
@@ -67,9 +69,15 @@ CUDA toolkit:
    its 666 by np.resize, for_knots(N), PCG cap
    PCGConfig.tpu_tuned_max_iter(N), exit tol default_pcg_exit_tols(N)[0]):
    prints the fits and the kernels' grids at N = 64-1024; checks K3 at
-   N = 2 and at N = 256, 512 and 1024 (it serves the TPU's tiled K8), the grid-CG
-   kernels K4g and K4bg at N = 64-1024 (and on the seeded random system,
-   where the CG exits early), the cluster K6 at N = 128-512 (the former
+   N = 2 and at N = 256, 512 and 1024 (it serves the TPU's tiled K8); K4
+   and K4b in both forms -- the cluster form (K4, K4b) where it fits and
+   the joined form (K4g, K4bg) -- at N = 2, 3, 7, 64, 128, 256, 512 and
+   1024 against the plain CG (and at N = 256 on the seeded random system,
+   where the CG exits early), their first launches under the watchdog,
+   printing each form's plan (C, G, place, grid) and a CG step's device
+   time per form and N (a solve less the same solve with the CG capped at
+   0, over its steps), and K4 and K4g bit for bit against K9p's and K9pg's
+   dual solve on the card's K3 system; the cluster K6 at N = 128-512 (the former
    K6l's horizons), K5g (its CG joined across every co-resident cluster)
    at N = 64-512 beside the cluster K5 on the same inputs and at N = 657,
    1000 and 1024, at its plan's cluster size and every other one the card
@@ -79,10 +87,11 @@ CUDA toolkit:
    and timed; and runs 8-update loops through
    the kernels and the plain modules, warm duals, checked and timed as in
    4: auto at N = 128, 256 and 512 (K2, K5, K1) and at N = 1024, past the
-   cluster form's fit (K2, K5g, K1), and at N = 256 staged pcg (K3, K4g,
+   cluster form's fit (K2, K5g, K1), and at N = 256 staged pcg (K3, K4,
    K2), the forced failover (K5 for 4 updates, then K3, K6, K2), the
    per-iteration megakernel (K2, K9p; at N = 1024 K9pg) and pcg_pallas
-   (the plain stages and K4bg);
+   (the plain stages and K4b), and at N = 512, past the cut of K4's plan,
+   staged pcg (K3, K4g, K2) and pcg_pallas (the plain stages and K4bg);
 9. runs the sharded paths, the JAX package's dryrun_multichip legs on one
    card (8 in-process shards, mpcgpu_tpu_torch/parallel): K11 (the
    per-shard banded SpMV with halo rows) against its plain version on
@@ -186,6 +195,10 @@ K9B_TIMED_KNOTS = (64, 256, 512, 1024)
 # and the loops
 LONG_K3_KNOTS = (256, 512, 1024)
 LONG_CG_KNOTS = (64, 128, 256, 512, 1024)
+# K4 and K4b in both forms (the cluster form where it fits, the joined
+# form K4g, K4bg), and a CG step's device time per form at these
+K4_KNOTS = (2, 3, 7, 64, 128, 256, 512, 1024)
+K4_STEP_KNOTS = (64, 128, 256, 512, 1024)
 LONG_MEGA_KNOTS = (64, 128, 256, 512)
 # K5g's own horizons, past K5's cluster fit: just past it, an uneven cut
 # of the knots over the blocks, and the auto loop's
@@ -194,6 +207,7 @@ LONG_BCR_KNOTS = (128, 256, 512)  # K6 past N = 64, the former K6l's horizons
 LONG_AUTO_KNOTS = (128, 256, 512)
 LONG_LOOP_KNOT = 256            # the staged, failover and per-iteration loops
 GRID_LOOP_KNOT = 1024           # past the cluster form's fit: K5g, K9pg
+JOINED_LOOP_KNOT = 512          # past K4's cut: K4g, K4bg in the loops
 LONG_UPDATES = 8                # the first horizon shift is at update 7
 # phase 9, the sharded paths (__graft_entry__.dryrun_multichip's legs)
 SHARD_KNOTS, SHARDS = 512, 8    # 64 knots a shard
@@ -238,7 +252,7 @@ ONE_THREAD_MERIT_K5_STAGES_US = {64: 284.9, 128: 307.8, 256: 478.0,
 K2_KNOTS = (2, 64, 256, 1024)
 # the kernels whose ptxas resource lines phase 2 prints: K1, K2 at each
 # group size, K3's three, the megakernels that run K3's stage bodies and
-# K2's merit contribution, and K7s's cluster kernel (with the one-thread
+# K2's merit contribution, K7s's cluster kernel and K4's four forms (with the one-thread
 # recursions:
 # rollout_kernel 165 registers and 704 bytes of stack, k3_perknot 128 and
 # 176, sqp_mega_kernel 202 and 896)
@@ -253,7 +267,11 @@ PTXAS_KERNELS = (("K1", "14rollout_kernel"), ("K2 G = 8", "12merit_kernelILi8E")
                  ("K9b", "24sqp_iter_mega_bcr_kernel"),
                  ("K7s", "16bcr_solve_kernel"),
                  ("K10", "22sqp_mega_packed_kernel"),
-                 ("K10 cluster form", "30sqp_mega_packed_cluster_kernel"))
+                 ("K10 cluster form", "30sqp_mega_packed_cluster_kernel"),
+                 ("K4", "21pcg_dz_cluster_kernel"),
+                 ("K4b", "24pcg_solve_cluster_kernel"),
+                 ("K4g", "20pcg_dz_joined_kernel"),
+                 ("K4bg", "23pcg_solve_joined_kernel"))
 MEGA_MAX_REGS = 202             # K5's and K9p's count with the one-thread
                                 # recursions, which sets their grid
 FIRST_LAUNCH_DEADLINE = 240     # s for the first launches of a cluster form
@@ -359,14 +377,14 @@ def _assert_close(name, pairs, rtol, atol):
 
 
 _TAGS = {"K5g": "sqp_mega_grid_kernel", "K9pg": "sqp_iter_mega_pcg_grid_kernel",
-         "K4g": "pcg_dz_grid_kernel", "K4bg": "pcg_solve_grid_kernel",
+         "K4g": "pcg_dz_joined_kernel", "K4bg": "pcg_solve_joined_kernel",
          "K10": "sqp_mega_packed_cluster_kernel",
          "K10 one-block": "sqp_mega_packed_kernel", "K5": "sqp_mega_kernel",
          "K9p": "sqp_iter_mega_pcg_kernel", "K9b": "sqp_iter_mega_bcr_kernel",
          "K6": "bcr_pcg_dz_kernel",
          "K7": "bcr_dz_kernel",
-         "K7s": "bcr_solve_kernel", "K3": "k3_", "K4": "pcg_dz_kernel",
-         "K4b": "pcg_solve_kernel", "K2": "merit_kernel",
+         "K7s": "bcr_solve_kernel", "K3": "k3_", "K4": "pcg_dz_cluster_kernel",
+         "K4b": "pcg_solve_cluster_kernel", "K2": "merit_kernel",
          "K1": "rollout_kernel", "K11": "spmv_halo_kernel"}
 
 
@@ -523,6 +541,7 @@ def main() -> int:
     from mpcgpu_tpu_torch.ops.cuda import merit_kernel as k2
     from mpcgpu_tpu_torch.ops.cuda import pcg_kernel as k4
     from mpcgpu_tpu_torch.ops.cuda import reset_launch_counts
+    from mpcgpu_tpu_torch.ops.cuda.kkt_schur_kernel import compute_dz_knots
     from mpcgpu_tpu_torch.ops.cuda import rollout_kernel as k1
     from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k5
     from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k9
@@ -591,7 +610,8 @@ def main() -> int:
     rho = torch.tensor(cfg.rho_init, device=dev)
     print(f"slice: N={N_KNOTS} sqp_max_iter={SQP_ITERS} pcg cap={cap} "
           f"tol={tol:g} r_cost={cc.r_cost:g} updates={N_UPDATES}")
-    print(f"fit: K4 serves N <= {lib.mpc_pcg_max_knots()}, K6 (one "
+    print(f"fit: K4 at N = {n} takes plan {tuple(k4.pcg_plan(n))} (form, "
+          f"C, G, place, grid), K6 (one "
           f"cluster) power-of-2 N <= {k6.check_bcr_fit(n)}, K5 (its CG "
           f"across a cluster) N <= {lib.mpc_mega_max_knots(k5.SOLVE_PCG)} "
           f"(grid {k5.check_mega_fit(n)} blocks at N = {n})")
@@ -643,9 +663,10 @@ def main() -> int:
                                           "K3 stage 3")})
 
     lam0 = torch.zeros_like(X)
-    k4_out = k4.pcg_dz(ks_ref, lam0, cap, tol)
+    with _watchdog(FIRST_LAUNCH_DEADLINE):   # K4's cluster form's first launch
+        k4_out = k4.pcg_dz(ks_ref, lam0, cap, tol)
+        sync()
     k4_ref = k4.pcg_dz_reference(ks_ref, lam0, cap, tol)
-    sync()
     it, it_ref = int(k4_out[3]), int(k4_ref[3])
     print(f"K4 CG iterations: kernel {it} (hit {bool(k4_out[4])}), plain "
           f"{it_ref} (hit {bool(k4_ref[4])})")
@@ -1020,9 +1041,10 @@ def main() -> int:
     S_ref = BlockTri(ks_ref.SL, ks_ref.SD, ks_ref.SU)
     P_ref = BlockTri(ks_ref.PL, ks_ref.PD, ks_ref.PU)
     k4b_args = (S_ref, P_ref, ks_ref.gamma, lam0, cap, tol)
-    k4b_out = k4.pcg_solve(*k4b_args)
+    with _watchdog(FIRST_LAUNCH_DEADLINE):
+        k4b_out = k4.pcg_solve(*k4b_args)
+        sync()
     k4b_ref = k4.pcg_solve_reference(*k4b_args)
-    sync()
     it, it_ref = int(k4b_out[1]), int(k4b_ref[1])
     print(f"K4b CG iterations: kernel {it} (hit {bool(k4b_out[2])}), plain "
           f"{it_ref} (hit {bool(k4b_ref[2])})")
@@ -1345,9 +1367,13 @@ def main() -> int:
     plain_cfg = dataclasses.replace(cfg, fused_stages=False)
     u, s = N_UPDATES, SQP_ITERS
     none = dict.fromkeys(launch_counts(), 0)
+    k4_kid = lambda n_k, dz=True: (
+        ("K4" if dz else "K4b") if k4.pcg_plan(n_k, dz=dz).form == k4.CLUSTER
+        else ("K4g" if dz else "K4bg"))
     staged, staged_counts = run_loop(
         "staged pcg, fused", cfg, "pcg", detail=True,
-        want={**none, "K1": u, "K2": u + u * s, "K3": u * s, "K4": u * s})
+        want={**none, "K1": u, "K2": u + u * s, "K3": u * s,
+              k4_kid(n): u * s})
     compare("staged pcg", staged, run_loop("staged pcg, plain", plain_cfg,
                                            "pcg")[0])
 
@@ -1522,7 +1548,8 @@ def main() -> int:
     # per update): the host clock only, as profiling them costs minutes
     pp_loop, pp_counts = run_loop(
         "pcg_pallas, plain stages + K4b", plain_cfg, "pcg_pallas",
-        detail="host", n_updates=u8, want={**none, "K4b": u8 * s})
+        detail="host", n_updates=u8,
+        want={**none, k4_kid(n, dz=False): u8 * s})
     compare("pcg_pallas", pp_loop, pcg_plain8)
 
     # the oracles: the dense Cholesky and the host LDL', each against the
@@ -1628,7 +1655,19 @@ def main() -> int:
             cl.cost.r_cost, cl.gravity), cl.pcg.max_iter,
             default_pcg_exit_tols(n_l)[0])
 
-    print(f"ceilings: one block: K4 and K4b N <= {lib.mpc_pcg_max_knots()}; "
+    # K4's cluster form: the longest horizon it fits and the plan's cut
+    # (both bisected: each holds up to an N and not past it)
+    def last_knot(holds):
+        lo, hi = 2, 1 << 16
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if holds(mid) else (lo, mid)
+        return lo
+
+    k4_fit = last_knot(lambda m: k4.pcg_plan(m, form=k4.CLUSTER).form)
+    k4_cut = last_knot(lambda m: k4.pcg_plan(m).form == k4.CLUSTER)
+    print(f"ceilings: K4 and K4b's cluster form N <= {k4_fit}, the plan's cut "
+          f"N <= {k4_cut} (the joined form K4g, K4bg past it, N <= 65536); "
           f"one cluster: K5 N <= {lib.mpc_mega_max_knots(k5.SOLVE_PCG)}, "
           f"K9p N <= {lib.mpc_mega_max_knots(k9.ITER_PCG)}, K6 power-of-2 "
           f"N <= {lib.mpc_bcr_max_knots()}; the grid kinds K5g, K9pg "
@@ -1650,12 +1689,13 @@ def main() -> int:
     grids = {}
     for n_l in sorted({64, 128, 256, 512, 1024, *LONG_CG_KNOTS,
                        *LONG_MEGA_KNOTS}):
-        grids[n_l] = {"K4g": lib.mpc_pcg_grid(n_l, 1),
-                      "K4bg": lib.mpc_pcg_grid(n_l, 0),
+        grids[n_l] = {"K4g": k4.pcg_plan(n_l, form=k4.JOINED).grid,
+                      "K4bg": k4.pcg_plan(n_l, dz=False,
+                                          form=k4.JOINED).grid,
                       "K5": lib.mpc_mega_grid(n_l, k5.SOLVE_PCG),
                       "K5g": lib.mpc_mega_grid(n_l, k5.SOLVE_PCG_GRID),
                       "K9pg": lib.mpc_mega_grid(n_l, k9.ITER_PCG_GRID)}
-        forms = ("K4" if k4.one_block_fits(n_l) else "K4g",
+        forms = (k4_kid(n_l),
                  "K5" if k5.pcg_kind(n_l) == k5.SOLVE_PCG else "K5g")
         print(f"N = {n_l}: grids {grids[n_l]}; pcg_dz takes {forms[0]}, "
               f"sqp_solve_mega_pcg {forms[1]}")
@@ -1701,86 +1741,125 @@ def main() -> int:
            F32 * (n_l * NX + (n_l - 1) * NU + n_l * 6 + 1 + TAB
                   + _knot_schur_floats(n_l)), n=n_l, **k8_extra)
 
-    # K4g and K4bg against the plain CG at every horizon (at N = 64 on K4's
-    # inputs, beside K4 and K4b), with K4's tolerances; and on the seeded
-    # well-conditioned system, where the CG exits before the cap (the exit
-    # every block must take alike)
-    def grid_cg_pair(label, n_l, ks_l, cap_l, tol_l):
+    # K4 and K4b in both forms against the plain CG at every horizon of
+    # K4_KNOTS (at N = 64 on K4's check inputs), with K4's tolerances: the
+    # cluster form (K4, K4b) where it fits and the joined form (K4g, K4bg)
+    # in the plan's C, G and place, each form's first launches under the
+    # watchdog; and at N = LONG_LOOP_KNOT on the seeded well-conditioned
+    # system, where the CG exits before the cap (the exit every block must
+    # take alike).  lam, the CG count and the hit against the plain CG; dX
+    # and dU against the plain primal step from the kernel's own lam (rtol
+    # 1e-3, atol 2e-4, K9b's precedent) and, from N = 16, against the plain
+    # solve's: below that, on the fixture's first knots at rho 1e-3 (29 CG
+    # steps at N = 7), the float32 and float64 plain versions themselves
+    # part by 4.9e-3 in dX (on the CPU), K4's whole tolerance.
+    K4_FORMS = (("K4", True, k4.CLUSTER), ("K4b", False, k4.CLUSTER),
+                ("K4g", True, k4.JOINED), ("K4bg", False, k4.JOINED))
+
+    def k4_forms(label, n_l, ks_l, cap_l, tol_l):
         lam0_l = torch.zeros(n_l, NX, device=dev)
         S_l = BlockTri(ks_l.SL, ks_l.SD, ks_l.SU)
         P_l = BlockTri(ks_l.PL, ks_l.PD, ks_l.PU)
-        runs = {"K4g": (lambda: k4.pcg_dz_grid(ks_l, lam0_l, cap_l, tol_l),
-                        lambda: k4.pcg_dz_reference(ks_l, lam0_l, cap_l,
-                                                    tol_l), 3),
-                "K4bg": (lambda: k4.pcg_solve_grid(S_l, P_l, ks_l.gamma,
-                                                   lam0_l, cap_l, tol_l),
-                         lambda: k4.pcg_solve_reference(
-                             S_l, P_l, ks_l.gamma, lam0_l, cap_l, tol_l), 1)}
+        systems_l = {True: ks_l, False: k4._solve_system(S_l, P_l, ks_l.gamma)}
+        plains = {True: lambda: k4.pcg_dz_reference(ks_l, lam0_l, cap_l,
+                                                    tol_l),
+                  False: lambda: k4.pcg_solve_reference(
+                      S_l, P_l, ks_l.gamma, lam0_l, cap_l, tol_l)}
+        refs = {dz: plain() for dz, plain in plains.items()}
         row = {}
-        for kid, (run, plain, nv) in runs.items():
-            out, ref = run(), plain()
-            sync()
+        for kid, dz, form in K4_FORMS:
+            plan = k4.pcg_plan(n_l, dz=dz, form=form)
+            if not plan.form:
+                continue            # the cluster form past its fit
+            nv = 3 if dz else 1
+
+            def run(c=cap_l, plan=plan, dz=dz):
+                return k4._launch(lib, systems_l[dz], lam0_l, c, tol_l,
+                                  _lib.stream_of(lam0_l), plan, dz)
+
+            with _watchdog(FIRST_LAUNCH_DEADLINE):
+                out = run()
+                sync()
+            ref = refs[dz]
             it, it_ref = int(out[nv]), int(ref[nv])
             if not (abs(it - it_ref) <= 2 or it == it_ref == cap_l):
                 raise AssertionError(f"{kid} {label}: CG iterations {it} vs "
                                      f"{it_ref}")
-            err = checked(f"{kid} {label}", list(zip(out[:nv], ref[:nv])),
-                          5e-3, 5e-3)
+            if bool(out[nv + 1]) != bool(ref[nv + 1]):
+                raise AssertionError(f"{kid} {label}: hit differs")
+            err = checked(f"{kid} {label}", [(out[0], ref[0])], 5e-3, 5e-3)
+            if dz:
+                err = max(err, checked(
+                    f"{kid} {label} dz of its lam",
+                    list(zip(out[1:3], compute_dz_knots(ks_l, out[0]))),
+                    1e-3, 2e-4))
+                if n_l >= 16:
+                    err = max(err, checked(f"{kid} {label} dz",
+                                           list(zip(out[1:3], ref[1:3])),
+                                           5e-3, 5e-3))
             row[kid] = {"err": err, "iters": it, "iters_plain": it_ref,
-                        "run": run, "plain": plain}
-        print(f"K4g / K4bg {label}: CG {row['K4g']['iters']} / "
-              f"{row['K4bg']['iters']} (plain {row['K4g']['iters_plain']}), "
-              f"errors {row['K4g']['err']:.2e} / {row['K4bg']['err']:.2e}")
+                        "plan": tuple(plan), "run": run, "plain": plains[dz],
+                        "cluster_read": int(k4._wrapper(dz, form)
+                                            .cluster_size)}
+            if row[kid]["cluster_read"] != plan.cluster:
+                raise AssertionError(f"{kid} {label}: the kernel read C = "
+                                     f"{row[kid]['cluster_read']}, planned "
+                                     f"{plan.cluster}")
+        print(f"K4 forms {label}: " + "; ".join(
+            f"{kid} plan {r['plan']} CG {r['iters']} (plain "
+            f"{r['iters_plain']}) err {r['err']:.2e}"
+            for kid, r in row.items()))
         return row
 
-    grid_cg = {n_l: grid_cg_pair(f"N = {n_l}", n_l, *long_system(n_l))
-               for n_l in LONG_CG_KNOTS}
-    early = grid_cg_pair(f"N = {LONG_LOOP_KNOT}, random system",
-                         LONG_LOOP_KNOT,
-                         systems.random_knot_schur(LONG_LOOP_KNOT, device=dev),
-                         300, 1e-9)
+    k4_rows = {n_l: k4_forms(f"N = {n_l}", n_l, *long_system(n_l))
+               for n_l in K4_KNOTS}
+    early = k4_forms(f"N = {LONG_LOOP_KNOT}, random system", LONG_LOOP_KNOT,
+                     systems.random_knot_schur(LONG_LOOP_KNOT, device=dev),
+                     300, 1e-9)
     if not early["K4g"]["iters"] < 300:
         raise AssertionError("K4g on the random system: no exit before the cap")
-    one_block = {kid: next(k["ms"] for k in kernels
-                           if k["name"].startswith(kid + " "))
-                 for kid in ("K4", "K4b")}
-    lam0_n = torch.zeros_like(X)
-    one_block_us = {
-        "K4": _device_us(lambda: k4.pcg_dz(ks_ref, lam0_n, cap, tol), "K4"),
-        "K4b": _device_us(lambda: k4.pcg_solve(
-            BlockTri(ks_ref.SL, ks_ref.SD, ks_ref.SU),
-            BlockTri(ks_ref.PL, ks_ref.PD, ks_ref.PU), ks_ref.gamma, lam0_n,
-            cap, tol), "K4b")}
-    for kid, one_kid in (("K4g", "K4"), ("K4bg", "K4b")):
-        ms_by_n = {n_l: _event_ms(grid_cg[n_l][kid]["run"])
-                   for n_l in LONG_CG_KNOTS}
-        us_by_n = {n_l: _device_us(grid_cg[n_l][kid]["run"], kid)
-                   for n_l in LONG_CG_KNOTS}
-        print(f"{kid} ms per call by N: {ms_by_n}; device us per call "
-              f"{us_by_n}; at N = {n}, {one_kid} on the same inputs "
-              f"{one_block[one_kid]:.4f} ms per call, "
-              f"{_us(one_block_us[one_kid])} of device time")
-        case = grid_cg[LONG_LOOP_KNOT][kid]
-        n_l, its = LONG_LOOP_KNOT, case["iters"]
+    # a CG step's device time per form and N: the solve less the same solve
+    # with the CG capped at 0 (the band loads, the first residual and apply,
+    # dz), over its steps
+    k4_steps = {}
+    for n_l in K4_STEP_KNOTS:
+        for kid in ("K4", "K4g"):
+            case = k4_rows[n_l].get(kid)
+            if case is None:
+                continue
+            full = _device_us(case["run"], kid)
+            base = _device_us(lambda: case["run"](0), kid)
+            step = (None if full is None or base is None
+                    else (full - base) / case["iters"])
+            k4_steps[f"{kid} N={n_l}"] = {"plan": case["plan"],
+                                          "device_us": full,
+                                          "cap0_device_us": base,
+                                          "cg_steps": case["iters"],
+                                          "cg_step_us": step}
+            print(f"{kid} N = {n_l}, plan {case['plan']}: {_us(full)} a "
+                  f"call, {_us(base)} with the CG capped at 0, a CG step "
+                  f"{_us(step)} over {case['iters']} steps")
+    for kid in ("K4g", "K4bg"):
+        n_l = JOINED_LOOP_KNOT
+        case = k4_rows[n_l][kid]
+        its = case["iters"]
         cg_ops = _cg_ops(n_l, its, _spmv_ops(n_l))
         record(kid, "pcg_dz_grid" if kid == "K4g" else "pcg_solve_grid",
                "mpcgpu_tpu_torch/csrc/pcg_dz.cu",
                "mpcgpu_tpu/ops/pallas/pcg_kernel.py:318" if kid == "K4g"
                else "mpcgpu_tpu/ops/pallas/pcg_kernel.py:187",
-               max(max(grid_cg[m][kid]["err"] for m in LONG_CG_KNOTS),
+               max(max(r[kid]["err"] for r in k4_rows.values()),
                    early[kid]["err"]), case["run"], case["plain"],
                cg_ops + _dz_ops(n_l) if kid == "K4g" else cg_ops,
                F32 * (_knot_schur_floats(n_l) + 3 * n_l * NX
                       + (n_l - 1) * NU) + 5 if kid == "K4g"
                else F32 * (6 * n_l * NX * NX + 3 * n_l * NX) + 5,
-               n=n_l, grid=grids[n_l][kid],
-               ms_by_n={str(m): t for m, t in ms_by_n.items()},
-               device_us_by_n={str(m): t for m, t in us_by_n.items()},
-               one_block_ms_n64=one_block[one_kid],
-               one_block_device_us_n64=one_block_us[one_kid],
-               iters_by_n={str(m): grid_cg[m][kid]["iters"]
-                           for m in LONG_CG_KNOTS},
-               iters_random_system=early[kid]["iters"])
+               n=n_l, plan=case["plan"],
+               iters_by_n={str(m): r[kid]["iters"]
+                           for m, r in k4_rows.items()},
+               plan_by_n={str(m): r[kid]["plan"] for m, r in k4_rows.items()},
+               iters_random_system=early[kid]["iters"],
+               cg_steps={k: v for k, v in k4_steps.items()})
 
     # K6 past N = 64, the forced failover's BCR-PCG at the horizons the
     # former K6l (K6 with S read from L2) served: on the seeded random
@@ -2015,7 +2094,7 @@ def main() -> int:
     # K9pg at N = 256 and 1024: one iteration against the plain iteration;
     # four launches against one K5g launch, bit for bit (the same body and
     # plan, sums that depend on the plan alone)
-    err9pg, k9pg_rows = 0.0, {}
+    err9pg, k9pg_rows, k9pg_lam = 0.0, {}, {}
     for n_l in (LONG_LOOP_KNOT, GRID_LOOP_KNOT):
         args5, kw_l = k5g_rows[n_l]["args"], k5g_rows[n_l]["kw"]
         (_, Xl, Ul, gl, xsl, lam0_l, _, _, m0, cap_l, tol_l, _) = args5
@@ -2045,6 +2124,7 @@ def main() -> int:
                                  lam_rtol, lam_atol))
             if rho0 == cfg.rho_init:
                 k9pg_rows[n_l] = (a9, kw_l, int(out.pcg_iters))
+                k9pg_lam[n_l] = out.lam
 
         def k9pg_step(Xc, Uc, lamc, rhoc, drhoc, meritc, gl=gl, xsl=xsl,
                       cap_l=cap_l, tol_l=tol_l, kw_l=kw_l):
@@ -2069,6 +2149,40 @@ def main() -> int:
                                  f"launch differ in {unequal} at N = {n_l}")
         print(f"{SQP_ITERS} K9pg launches bit-equal to one K5g launch at "
               f"N = {n_l}")
+    # K4 and K4g against K9p's and K9pg's dual solve: the card's K3 at the
+    # iteration's start, then K4 at the plan K9p launches (C, the stair's
+    # place) or K4g at K5g's plan (C, G, place): lam and the CG count bit
+    # for bit (stage 4 is the body K4 and K4g launch)
+    def dual_equal(label, a9, kw_l, lam9, its9, plan):
+        _, Xl, Ul, gl, xsl, lam0_l, rho_l, _, _, cap_l, tol_l = a9
+        ks_l = k3.form_kkt_schur(model, Xl, Ul, gl, xsl, rho_l, kw_l["dt"],
+                                 kw_l["qd_cost"], kw_l["r_cost"],
+                                 kw_l["gravity"])
+        got = k4._launch(lib, ks_l, lam0_l, cap_l, tol_l, _lib.stream_of(Xl),
+                         plan)
+        sync()
+        if not (torch.equal(got[0], lam9) and int(got[3]) == its9):
+            raise AssertionError(f"{label}: lam or the CG count differs from "
+                                 f"the megakernel's dual solve")
+        print(f"{label}, plan {tuple(plan)}: lam and the CG count ({its9}) "
+              f"bit-equal")
+
+    for n_l in (n, LONG_LOOP_KNOT):
+        args5, kw_l = long_mega_args(n_l, cfg.rho_init)
+        a9 = (*args5[:7], one, *args5[8:11])
+        out = k9.sqp_iter_mega_pcg(*a9, **kw_l)
+        plan9 = (ctypes.c_int * 3)()
+        lib.mpc_mega_cluster_plan(n_l, k9.ITER_PCG, 0, -1, plan9)
+        dual_equal(f"K4 against K9p at N = {n_l}", a9, kw_l, out.lam,
+                   int(out.pcg_iters), k4.PcgPlan(
+                       k4.CLUSTER, plan9[0], 1, 3 if plan9[1] else 2,
+                       plan9[0]))
+    for n_l in (LONG_LOOP_KNOT, GRID_LOOP_KNOT):
+        a9, kw_l, its9 = k9pg_rows[n_l]
+        gp = k5.grid_plan(n_l)
+        dual_equal(f"K4g against K9pg at N = {n_l}", a9, kw_l,
+                   k9pg_lam[n_l], its9, k4.PcgPlan(
+                       k4.JOINED, gp.cluster, gp.clusters, gp.place, gp.grid))
     n_l = GRID_LOOP_KNOT
     a9_main, kw_l, it9g = k9pg_rows[n_l]
     record("K9pg", "sqp_iter_mega_pcg_grid", "mpcgpu_tpu_torch/csrc/sqp_mega.cu",
@@ -2128,9 +2242,10 @@ def main() -> int:
         if any(sm["failed_over"]):
             raise AssertionError(f"auto N={n_l}: the latch tripped on 0_0")
     n_l, u_l = LONG_LOOP_KNOT, LONG_UPDATES
-    long_pair(f"staged pcg N={n_l}", n_l, long_cfg(n_l), "pcg",
-              {**none, "K1": u_l, "K2": u_l + u_l * s, "K3": u_l * s,
-               "K4g": u_l * s}, u_l)
+    for n_k in (n_l, JOINED_LOOP_KNOT):     # K4 at 256, K4g past the cut
+        long_pair(f"staged pcg N={n_k}", n_k, long_cfg(n_k), "pcg",
+                  {**none, "K1": u_l, "K2": u_l + u_l * s, "K3": u_l * s,
+                   k4_kid(n_k): u_l * s}, u_l)
     half_l = u_l // 2
     sm = long_pair(
         f"forced failover N={n_l}", n_l,
@@ -2145,11 +2260,14 @@ def main() -> int:
         long_pair(f"pcg per-iteration megakernel N={n_i}", n_i,
                   long_cfg(n_i, megakernel=True), "pcg",
                   {**none, "K1": u_l, "K2": u_l, kid: u_l * s}, u_l)
-    # the plain stages on the card with K4bg as the solve: host-bound, the
-    # host clock only (profiling their glue costs minutes)
-    long_pair(f"pcg_pallas N={n_l}", n_l,
-              dataclasses.replace(long_cfg(n_l), fused_stages=False),
-              "pcg_pallas", {**none, "K4bg": u_l * s}, u_l, detail="host")
+    # the plain stages on the card with K4b (K4bg past the cut) as the
+    # solve: host-bound, the host clock only (profiling their glue costs
+    # minutes)
+    for n_k in (n_l, JOINED_LOOP_KNOT):
+        long_pair(f"pcg_pallas N={n_k}", n_k,
+                  dataclasses.replace(long_cfg(n_k), fused_stages=False),
+                  "pcg_pallas", {**none, k4_kid(n_k, dz=False): u_l * s},
+                  u_l, detail="host")
 
     # ---- 9. the sharded paths (dryrun_multichip's legs) on 8 in-process
     # shards of one card: K11, the sharded CGs, the N = 512 solve and

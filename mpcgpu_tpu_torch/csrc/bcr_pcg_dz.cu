@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel mpcgpu_tpu/ops/pallas/bcr_kernel.py
 // (bcr_pcg_dz_pallas_lanes / _bcr_pcg_dz_kernel -> _pcg_loop_bcrM,
-// _bcr_lanes).  The loop is MPCGPU algorithm 2 as cg_solve runs it with
+// _bcr_lanes).  The loop is MPCGPU algorithm 2 (cluster_cg_solve) with
 // z = BCR(r), no refinement, in place of the stair apply: exit when
 // |eta| = |r' z| <= tol or at max_iter, hit = |eta| > tol at exit.  The dz
 // is K4's epilogue's arithmetic.

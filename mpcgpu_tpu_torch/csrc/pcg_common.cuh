@@ -1,23 +1,21 @@
-// The one-block CG solve of S lam = gamma and the primal step, shared by
-// K4 and K4b (pcg_dz.cu) and K10's one-block form (sqp_mega_packed.cu,
-// which drives cg_init and cg_step itself: its arms' CGs share one exit);
-// the grid-wide form of the stair-PCG and the primal step (grid_cg_solve,
-// grid_dz) for K4g and K4bg (pcg_dz.cu) past the one-block fit; and the
-// cluster form (cluster_cg_solve, cluster_dz) for K5 and K9p (sqp_mega.cu,
-// the stair), K6 (bcr_pcg_dz.cu, the block cyclic reduction), K10's
-// cluster form (one cluster an arm, the exit shared by the arms' clusters:
-// SharedExit) and K5g and K9pg (sqp_mega.cu past K5's fit: one CG across
-// every cluster of the launch, the clusters joined by tagged words:
-// JoinedExit).
+// The stair-PCG of S lam = gamma and the primal step, in two forms:
+// - the one-block CG pieces (cg_init, cg_step, StairPre, dz_epilogue) that
+//   K10's one-block form drives itself (sqp_mega_packed.cu: its arms' CGs
+//   share one exit);
+// - the cluster CG (cluster_cg_solve, cluster_dz): K6 (bcr_pcg_dz.cu, the
+//   block cyclic reduction), K10's cluster form (one cluster an arm, the
+//   exit shared by the arms' clusters: SharedExit), and the stair dual
+//   solve (stair_dual_solve) that K5 and K9p run across their first
+//   cluster, K5g and K9pg across every cluster of their launch (the
+//   clusters joined by tagged words: JoinedExit), and K4 and K4b
+//   (pcg_dz.cu) as a launch of their own in either form.
 //
-// One thread block holds S's three (N, 14, 14) bands and the CG vectors in
-// shared memory; one thread per (knot, row) entry of an (N, 14) vector
-// computes its 3x14-FMA band row, in strided loops when the block has
-// fewer threads than entries.  The dot products reduce in a fixed order
-// (warp shuffles, then warp 0) and every thread reads the one shared
-// result, so all threads take the same exit decision.  The preconditioner
-// is a template argument: the stair bands (K4) or, in the cluster form,
-// the stair bands or the block cyclic reduction solve (K6).
+// In the one-block pieces one thread block holds S's three (N, 14, 14)
+// bands and the CG vectors in shared memory; one thread per (knot, row)
+// entry of an (N, 14) vector computes its 3x14-FMA band row, in strided
+// loops when the block has fewer threads than entries.  The dot products
+// reduce in a fixed order (warp shuffles, then warp 0) and every thread
+// reads the one shared result, so all threads take the same exit decision.
 #pragma once
 #include "lanedyn.cuh"
 
@@ -164,25 +162,6 @@ LD_DEV float cg_step(int N, const float* SL, const float* SD, const float* SU,
   return eta_new;
 }
 
-// Warm-started preconditioned CG (MPCGPU alg. 2): exit when
-// |eta| = |r' M^-1 r| <= tol or at max_iter.  lam holds lam0 on entry and
-// the solution on exit; r, p, w are (N, 14) scratch vectors.  Returns the
-// iteration count and the final eta.
-template <class Pre>
-LD_DEV int cg_solve(int N, const float* SL, const float* SD, const float* SU,
-                    const float* gamma, float* lam, float* r, float* p,
-                    float* w, float* red, const Pre& pre, int max_iter,
-                    float tol, float* eta_out) {
-  float eta = cg_init(N, SL, SD, SU, gamma, lam, r, p, red, pre);
-  int it = 0;
-  while (it < max_iter && fabsf(eta) > tol) {
-    eta = cg_step(N, SL, SD, SU, lam, r, p, w, red, pre, eta, false);
-    ++it;
-  }
-  *eta_out = eta;
-  return it;
-}
-
 // Primal step recovery (dz.cuh:5-121) from lam (shared memory):
 //   dx_k = -Qinv_k (q_k - lam_k + A_k' lam_{k+1})   (no A term at k = N-1)
 //   du_k = -Rinv_k (r_k + B_k' lam_{k+1});
@@ -240,86 +219,6 @@ inline int max_knots_for(F floats_of, size_t static_bytes) {
   return n;
 }
 
-// K4b's solve in one block: S into shared memory, stair-PCG from lam0, the
-// iteration count and hit flag.  smem holds cg_smem_floats(N, 4); returns
-// its layout, with the solution in lam (the block synchronised).
-LD_DEV CgArea pcg_solve_body(float* smem, int N, const float* SLg,
-                             const float* SDg, const float* SUg,
-                             const float* PL, const float* PD,
-                             const float* PU, const float* gamma,
-                             const float* lam0, int max_iter, float tol,
-                             int* iters_out, bool* hit_out) {
-  const CgArea a = cg_area(smem, N);
-  load_system(N, SLg, SDg, SUg, lam0, a.SL, a.SD, a.SU, a.lam);
-  float eta;
-  const int it = cg_solve(N, a.SL, a.SD, a.SU, gamma, a.lam, a.r, a.p, a.w,
-                          a.red, StairPre{PL, PD, PU, N}, max_iter, tol, &eta);
-  if (LD_TID == 0) {
-    iters_out[0] = it;
-    hit_out[0] = fabsf(eta) > tol;
-  }
-  return a;
-}
-
-// K4's whole solve in one block: K4b's solve, then dz.  smem holds
-// cg_smem_floats(N, 4).
-LD_DEV void pcg_dz_body(float* smem, int N, const float* SLg,
-                        const float* SDg, const float* SUg, const float* PL,
-                        const float* PD, const float* PU, const float* gamma,
-                        const float* lam0, const float* A, const float* B,
-                        const float* q, const float* r_in, const float* Qinv,
-                        const float* Rinv, int max_iter, float tol,
-                        float* lam_out, float* dX, float* dU, int* iters_out,
-                        bool* hit_out) {
-  const CgArea a = pcg_solve_body(smem, N, SLg, SDg, SUg, PL, PD, PU, gamma,
-                                  lam0, max_iter, tol, iters_out, hit_out);
-  dz_epilogue(N, a.lam, A, B, q, r_in, Qinv, Rinv, a.r, a.p, lam_out, dX, dU);
-  LD_SYNC();
-}
-
-// ---------------------------------------------------------------------------
-// The grid-wide stair-PCG (the original GBD-PCG's form, pcg/sqp.cuh:137-166;
-// K4g and K4bg):
-// one cooperative launch, every block in the solve, S, the stair bands,
-// gamma and the CG vectors in global memory (2.4 MB of bands at N = 512,
-// L2-resident), nothing N-sized in shared memory.  Block b owns knots
-// b, b + gridDim, ...; thread i < 14 of a block computes row i of the
-// owned knot's entries.  The owner of knot k is the block that wrote rows k
-// of the bands and gamma in the stages before, so bands are read by
-// their writer; vectors at k - 1 and k + 1 come from other blocks and are
-// read past L1 (load_cg), as are the dot slots.
-//
-// Each dot product: the owner of knot k sums its 14 products in a fixed
-// order into slot k; after a grid barrier every block sums the N slots in
-// the same fixed order (thread t takes k = t, t + blockDim, ..., then
-// block_sum), so every block holds the same bits and takes the same exit
-// decision -- a block leaving the loop early would hang the next barrier.
-// No atomics: their order would change from run to run.  The sums do not
-// depend on the grid size.  One slot array serves each kind of dot: every
-// read of a slot is followed by a grid barrier before its next write.
-//
-// Grid barriers ("|"), in the simplest right order, four per iteration:
-//   r = gamma - S lam0 | z = P r, p = z, eta slots | eta; then per step
-//   w = S p, p.w slots | alpha; lam += alpha p, r -= alpha w |
-//   z = P r, eta slots | eta', beta; p = z + beta p |
-// (S p and P r read p and r at k +- 1; each slot sum follows its writes).
-// The first barrier is also the one between the last read of lam0 and the
-// first write of lam, which lets lam0 and lam alias (a warm start in
-// place); every exit follows a barrier after the last write of lam, which
-// grid_dz's read of lam_{k+1} needs.
-
-// The CG's global vectors (N, 14) each and its 2N dot slots (eta, p.w).
-struct GridCg {
-  float *r, *p, *w, *z, *slots;
-};
-
-LD_HD size_t grid_cg_floats(int N) { return (size_t)4 * N * S + (size_t)2 * N; }
-
-LD_DEV GridCg grid_cg_area(float* g, int N) {
-  const size_t n = (size_t)S * N;
-  return GridCg{g, g + n, g + 2 * n, g + 3 * n, g + 4 * n};
-}
-
 // A float another block wrote in this launch, read past L1 (ld.global.cg).
 LD_DEV float load_cg(const float* p) {
 #ifdef __CUDACC__
@@ -329,148 +228,9 @@ LD_DEV float load_cg(const float* p) {
 #endif
 }
 
-// Row i of band-row k of (L, D, U) times x, x read past L1.
-LD_DEV float band_row_cg(const float* L, const float* D, const float* U,
-                         const float* x, int N, int k, int i) {
-  const int o = S * S * k + S * i;
-  float acc = 0.0f;
-  for (int j = 0; j < S; ++j) acc += D[o + j] * load_cg(x + S * k + j);
-  if (k > 0)
-    for (int j = 0; j < S; ++j) acc += L[o + j] * load_cg(x + S * (k - 1) + j);
-  if (k < N - 1)
-    for (int j = 0; j < S; ++j) acc += U[o + j] * load_cg(x + S * (k + 1) + j);
-  return acc;
-}
-
-// The sum of the N slots, the same in every block.
-LD_DEV float slot_sum(const float* slots, int N, float* red) {
-  float v = 0.0f;
-  for (int k = LD_TID; k < N; k += LD_NTID) v += load_cg(slots + k);
-  return block_sum(v, red);
-}
-
-// y = M x over the owned knots (M's bands L, D, U), and slot k = the dot of
-// dot_x's and y's entries at knot k; copy, when not null, receives y too.
-// Every thread of the block takes part (block_sum).
-LD_DEV void grid_band_apply(int N, const float* L, const float* D,
-                            const float* U, const float* x, float* y,
-                            float* copy, const float* dot_x, float* slots,
-                            float* red) {
-  for (int k = LD_BID; k < N; k += LD_NBID) {
-    float part = 0.0f;
-    for (int i = LD_TID; i < S; i += LD_NTID) {
-      const float v = band_row_cg(L, D, U, x, N, k, i);
-      y[S * k + i] = v;
-      if (copy) copy[S * k + i] = v;
-      part += load_cg(dot_x + S * k + i) * v;
-    }
-    const float dot = block_sum(part, red);
-    if (LD_TID == 0) slots[k] = dot;
-  }
-}
-
-// The warm-started stair-PCG of S lam = gamma over the whole grid (every
-// block calls it, with the same arguments): exit when |eta| <= tol or at
-// max_iter.  lam0 and lam may alias; returns the iteration count and the
-// final eta.
-LD_DEV int grid_cg_solve(int N, const float* SL, const float* SD,
-                         const float* SU, const float* PL, const float* PD,
-                         const float* PU, const float* gamma,
-                         const float* lam0, float* lam, GridCg g,
-                         int max_iter, float tol, float* eta_out) {
-  LD_SHARED float red[33];
-  const int t = LD_TID, nt = LD_NTID, bid = LD_BID, nb = LD_NBID;
-  float* const eta_slots = g.slots;
-  float* const pw_slots = g.slots + N;
-
-  // r = gamma - S lam0, and lam = lam0 unless they alias
-  for (int k = bid; k < N; k += nb)
-    for (int i = t; i < S; i += nt) {
-      const int e = S * k + i;
-      g.r[e] = gamma[e] - band_row_cg(SL, SD, SU, lam0, N, k, i);
-      if (lam != lam0) lam[e] = lam0[e];
-    }
-  LD_GRID_SYNC();
-  // z = P r, p = z, eta = r . z
-  grid_band_apply(N, PL, PD, PU, g.r, g.z, g.p, g.r, eta_slots, red);
-  LD_GRID_SYNC();
-  float eta = slot_sum(eta_slots, N, red);
-  int it = 0;
-  while (it < max_iter && fabsf(eta) > tol) {
-    // w = S p, alpha = eta / p . w
-    grid_band_apply(N, SL, SD, SU, g.p, g.w, nullptr, g.p, pw_slots, red);
-    LD_GRID_SYNC();
-    const float alpha = eta / slot_sum(pw_slots, N, red);
-    for (int k = bid; k < N; k += nb)
-      for (int i = t; i < S; i += nt) {
-        const int e = S * k + i;
-        lam[e] += alpha * g.p[e];
-        g.r[e] -= alpha * g.w[e];
-      }
-    LD_GRID_SYNC();
-    // z = P r, eta' = r . z
-    grid_band_apply(N, PL, PD, PU, g.r, g.z, nullptr, g.r, eta_slots, red);
-    LD_GRID_SYNC();
-    const float eta_new = slot_sum(eta_slots, N, red);
-    const float beta = eta_new / eta;
-    for (int k = bid; k < N; k += nb)
-      for (int i = t; i < S; i += nt) {
-        const int e = S * k + i;
-        g.p[e] = g.z[e] + beta * g.p[e];
-      }
-    LD_GRID_SYNC();
-    eta = eta_new;
-    ++it;
-  }
-  *eta_out = eta;
-  return it;
-}
-
-// The primal step (dz_epilogue's arithmetic in the same order) over the
-// owned knots, lam in global memory after a grid barrier; also writes lam
-// to lam_out unless it is null.
-LD_DEV void grid_dz(int N, const float* lam, const float* A, const float* B,
-                    const float* q, const float* r_in, const float* Qinv,
-                    const float* Rinv, float* lam_out, float* dX, float* dU) {
-  LD_SHARED float rx[S], ru[NU];
-  const int t = LD_TID, nt = LD_NTID;
-  for (int k = LD_BID; k < N; k += LD_NBID) {
-    const bool has_u = k < N - 1;
-    for (int i = t; i < S; i += nt) {
-      const float lk = load_cg(lam + S * k + i);
-      float acc = q[S * k + i] - lk;
-      if (has_u)
-        for (int m = 0; m < S; ++m)
-          acc += A[S * S * k + S * m + i] * load_cg(lam + S * (k + 1) + m);
-      rx[i] = acc;
-      if (lam_out) lam_out[S * k + i] = lk;
-    }
-    if (has_u)
-      for (int i = t; i < NU; i += nt) {
-        float acc = r_in[NU * k + i];
-        for (int m = 0; m < S; ++m)
-          acc += B[S * NU * k + NU * m + i] * load_cg(lam + S * (k + 1) + m);
-        ru[i] = acc;
-      }
-    LD_SYNC();
-    for (int i = t; i < S; i += nt) {
-      float acc = 0.0f;
-      for (int j = 0; j < S; ++j) acc += Qinv[S * S * k + S * i + j] * rx[j];
-      dX[S * k + i] = -acc;
-    }
-    if (has_u)
-      for (int i = t; i < NU; i += nt) {
-        float acc = 0.0f;
-        for (int j = 0; j < NU; ++j) acc += Rinv[NU * NU * k + NU * i + j] * ru[j];
-        dU[NU * k + i] = -acc;
-      }
-    LD_SYNC();
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The cluster CG (K5, K9p: the stair; K6: the block cyclic reduction): one
-// thread-block cluster of C blocks on neighbouring SMs (C = 16 where the
+// The cluster CG (K5, K9p, K4, K4b: the stair; K6: the block cyclic
+// reduction): one thread-block cluster of C blocks on neighbouring SMs (C = 16 where the
 // card schedules it, else 8).  Block r owns the knots [r nk, r nk + own),
 // nk = ceil(N / C), and keeps their S bands (and the stair's, when they
 // are on chip) and their rows of the CG vectors in its shared memory.  A
@@ -485,8 +245,8 @@ LD_DEV void grid_dz(int N, const float* lam, const float* A, const float* B,
 // barrier every block sums the C slots in rank order (cluster_sum), so every
 // block holds the same bits and takes the same exit decision.  No atomics.
 //
-// MPCGPU algorithm 2 as cg_solve runs it (warm start, exit at |eta| <= tol
-// or the cap), with r and p double-buffered, so that a step takes two
+// MPCGPU algorithm 2 (warm start, exit at |eta| <= tol or the cap), with r
+// and p double-buffered, so that a step takes two
 // cluster barriers, not four:
 //   w = S p, p.w partial | alpha; lam += alpha p; r' = r - alpha w, and r''s
 //   halo rows from the neighbours' r and w; z = M^-1 r', r'.z partial |
@@ -501,7 +261,8 @@ LD_DEV void grid_dz(int N, const float* lam, const float* A, const float* B,
 // bcr::ClusterBcr), which may hold cluster barriers of its own: every block
 // calls it the same number of times.
 //
-// The joined form (K5g, K9pg) runs the same body across the launch's G
+// The joined form (K5g, K9pg, K4g, K4bg) runs the same body across the
+// launch's G
 // clusters of C blocks: block b = cl C + r (cluster cl, rank r) owns the
 // knots [b N / (G C), (b + 1) N / (G C)) (the even cut, G C <= N: every
 // block owns nk or nk - 1 knots, nk = ceil(N / (G C))), so at N = 1024 a
@@ -793,8 +554,8 @@ struct ClusterStair {
   }
 };
 
-// The CG's exit.  LocalExit is cg_solve's (K5, K9p, K6): go on while
-// it < max_iter and |eta| > tol, from this CG's own eta.
+// The CG's exit.  LocalExit is MPCGPU algorithm 2's (K5, K9p, K4, K4b,
+// K6): go on while it < max_iter and |eta| > tol, from this CG's own eta.
 struct LocalExit {
   static constexpr bool SHARED = false, JOINED = false;
   int max_iter;
@@ -888,8 +649,8 @@ struct SharedExit {
   LD_DEV float div(float num, float den) const { return cg_div(num, den, true); }
 };
 
-// JoinedExit joins the G clusters of the joined form (K5g, K9pg) into one
-// CG: cg_solve's exit (LocalExit's test, on an eta every block of every
+// JoinedExit joins the G clusters of the joined form (K5g, K9pg, K4g,
+// K4bg) into one CG: LocalExit's exit (LocalExit's test, on an eta every block of every
 // cluster holds alike) and two exchanges across clusters, each through
 // 64-bit words of global memory that carry a float beside a tag
 // (store_tagged, wait_tagged; zeroed before the launch), with no grid
@@ -1066,7 +827,7 @@ LD_DEV void halo_fma(const ClusterCg& a, float* y, float s, const float* x,
 }
 
 // The warm-started preconditioned CG (MPCGPU alg. 2) over the cluster,
-// every block calling it alike, with the exit `ex` (LocalExit: cg_solve's;
+// every block calling it alike, with the exit `ex` (LocalExit: MPCGPU's;
 // SharedExit: the packed arms'; JoinedExit: one CG over the joined form's
 // clusters): S's own bands in a.SL, SD, SU (shared or global memory), gamma and
 // lam0 in global memory (lam0 read past L1, whole: the first residual
@@ -1239,6 +1000,58 @@ LD_DEV void cluster_dz(const ClusterCg& a, const float* A, const float* B,
                        float* dU) {
   LocalExit ex{0, 0.0f};
   cluster_dz(a, A, B, q, r_in, Qinv, Rinv, lam_out, dX, dU, ex);
+}
+
+// The inputs of the stair dual solve, in global memory: S's and the
+// stair's bands ((N, 14, 14) each), gamma and the warm start lam0 ((N, 14));
+// and, for the primal step, A, B, q, r, Qinv and Rinv as dz_epilogue reads
+// them.
+struct DualIn {
+  const float *SL, *SD, *SU, *PL, *PD, *PU, *gamma, *lam0;
+  const float *A, *B, *q, *r, *Qinv, *Rinv;
+};
+
+// The stair dual solve, every block of the solve calling it alike: the
+// warm-started stair-PCG of S lam = gamma from lam0, then the primal step
+// into dX and dU when DZ (cluster_dz, which also writes lam to lam_out),
+// else lam alone into lam_out.  `a` is this block's area: cluster_area's
+// (one cluster; place 3 with the stair's bands on chip, 2 with them read
+// from L2) or joined_area's at `place` (every cluster of the launch, ex a
+// JoinedExit); the bands that the place keeps on chip are loaded into it
+// from L2 first, the others are read where they lie.  K5 and K9p run it
+// across their first cluster, K5g and K9pg across every cluster, as their
+// stage 4; K4, K4b, K4g and K4bg as a launch of their own.  Returns the CG
+// count; the final eta in *eta_out.  The block's last access to another
+// block's shared memory comes before a cluster barrier that every block
+// passes, so no block leaves while another may still read it.
+template <bool DZ, class Exit>
+LD_DEV int stair_dual_solve(ClusterCg& a, int place, const DualIn& in,
+                            Exit& ex, float* lam_out, float* dX, float* dU,
+                            float* eta_out) {
+  const size_t o = (size_t)S * S * a.k0;
+  if (place >= 2) {
+    cluster_load_bands(a, in.SL, in.SD, in.SU, a.SL, a.SD, a.SU);
+  } else {
+    a.SL = const_cast<float*>(in.SL) + o;
+    a.SD = const_cast<float*>(in.SD) + o;
+    a.SU = const_cast<float*>(in.SU) + o;
+  }
+  ClusterStair pre{in.PL + o, in.PD + o, in.PU + o};
+  if (place == 3) {
+    cluster_load_bands(a, in.PL, in.PD, in.PU, a.PL, a.PD, a.PU);
+    pre = ClusterStair{a.PL, a.PD, a.PU};
+  }
+  const int its = cluster_cg_solve(a, in.gamma, in.lam0, pre, ex, eta_out);
+  if constexpr (DZ) {
+    cluster_dz(a, in.A, in.B, in.q, in.r, in.Qinv, in.Rinv, lam_out, dX, dU,
+               ex);
+  } else {
+    LD_CLUSTER_ARRIVE();
+    for (int e = LD_TID; e < S * a.own; e += LD_NTID)
+      lam_out[S * a.k0 + e] = a.lam[S + e];
+    LD_CLUSTER_WAIT();
+  }
+  return its;
 }
 
 }  // namespace pcgc

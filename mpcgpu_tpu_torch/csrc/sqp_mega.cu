@@ -200,6 +200,13 @@ enum { RHO, DRHO, MERIT, STEP, N_SCAL };
 #define MEGA_INLINE inline
 #endif
 
+// Stage 4's inputs: the stages' bands, gamma, the warm start (the duals
+// in place) and the blocks of the primal step.
+MEGA_INLINE pcgc::DualIn dual_in(const MegaParams& p) {
+  return pcgc::DualIn{p.SL, p.SD, p.SU, p.PL, p.PD, p.PU, p.gamma, p.lam,
+                      p.A, p.B, p.q, p.r, p.Qinv, p.Rinv};
+}
+
 // The dual solve of stage 4: K9b's refined BCR across the first cluster,
 // the cluster stair-PCG (K5, K9p) or the stair-PCG joined across every
 // cluster (K5g, K9pg).
@@ -281,19 +288,12 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
     // no hit)
     if constexpr (DUAL == DUAL_CLUSTER) {
       if (bid < ld_cluster_size()) {
-        const pcgc::ClusterCg a = pcgc::cluster_area(dyn, N, p.stair_on_chip);
-        pcgc::cluster_load_bands(a, p.SL, p.SD, p.SU, a.SL, a.SD, a.SU);
-        const size_t o = (size_t)SS * a.k0;
-        pcgc::ClusterStair pre{p.PL + o, p.PD + o, p.PU + o};
-        if (p.stair_on_chip) {
-          pcgc::cluster_load_bands(a, p.PL, p.PD, p.PU, a.PL, a.PD, a.PU);
-          pre = pcgc::ClusterStair{a.PL, a.PD, a.PU};
-        }
+        pcgc::ClusterCg a = pcgc::cluster_area(dyn, N, p.stair_on_chip);
+        pcgc::LocalExit local{p.max_iter, p.tol};
         float eta;
-        const int its = pcgc::cluster_cg_solve(a, p.gamma, p.lam, pre,
-                                               p.max_iter, p.tol, &eta);
-        pcgc::cluster_dz(a, p.A, p.B, p.q, p.r, p.Qinv, p.Rinv, p.lam, p.dX,
-                         p.dU);
+        const int its = pcgc::stair_dual_solve<true>(
+            a, p.stair_on_chip ? 3 : 2, dual_in(p), local, p.lam, p.dX, p.dU,
+            &eta);
         if (a.rank == 0 && t == 0) {
           p.cg_it[0] = its;
           p.cg_it[2] = a.C;
@@ -304,23 +304,9 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
       // the bands on chip where the plan puts them (place 2: S's; 3: and
       // the stair's), else read from L2 at the block's first knot
       pcgc::ClusterCg a = pcgc::joined_area(dyn, p.vecs, N, p.G, p.place);
-      const size_t o = (size_t)SS * a.k0;
-      if (p.place >= 2) {
-        pcgc::cluster_load_bands(a, p.SL, p.SD, p.SU, a.SL, a.SD, a.SU);
-      } else {
-        a.SL = p.SL + o;
-        a.SD = p.SD + o;
-        a.SU = p.SU + o;
-      }
-      pcgc::ClusterStair pre{p.PL + o, p.PD + o, p.PU + o};
-      if (p.place == 3) {
-        pcgc::cluster_load_bands(a, p.PL, p.PD, p.PU, a.PL, a.PD, a.PU);
-        pre = pcgc::ClusterStair{a.PL, a.PD, a.PU};
-      }
       float eta;
-      const int its = pcgc::cluster_cg_solve(a, p.gamma, p.lam, pre, ex, &eta);
-      pcgc::cluster_dz(a, p.A, p.B, p.q, p.r, p.Qinv, p.Rinv, p.lam, p.dX,
-                       p.dU, ex);
+      const int its = pcgc::stair_dual_solve<true>(a, p.place, dual_in(p), ex,
+                                                   p.lam, p.dX, p.dU, &eta);
       if (bid == 0 && t == 0) {
         p.cg_it[0] = its;
         p.cg_it[2] = a.C;
@@ -871,31 +857,45 @@ struct DroppedRows : pcgc::JoinedExit {
 
 }  // namespace
 
-// Host build only: K5g's dual solve alone -- the joined stair-PCG of
-// cluster_cg_solve over G clusters of C blocks under the block emulation,
-// its area at `place` (pcgc::joined_area) -- from S's and the stair's
-// bands ((N, 14, 14) each), gamma and lam0 ((N, 14)): writes the solution
-// to lam and the CG count to iters.  With drop >= 0 the last block of
-// cluster 0 never puts its rows of that kind.  Returns 1 where the
-// emulation found a wait no block could end (the card would hang), 2 for
-// arguments no launch takes, else 0.
-extern "C" int mpc_joined_cg_host(int N, int G, int C, int place, int drop,
-                                  const float* SL, const float* SD,
-                                  const float* SU, const float* PL,
-                                  const float* PD, const float* PU,
-                                  const float* gamma, const float* lam0,
-                                  int max_iter, float tol, float* lam,
-                                  int* iters) {
-  if (N < 2 || G < 1 || C < 1 || G * C > N || place < 0 || place > 3)
+// Host build only: K5's or K5g's stage 4 alone, as the calls those
+// kernels made before stage 4 became one body shared with K4 and K4b
+// (pcgc::stair_dual_solve), under the block emulation: G = 0 K5's -- the
+// cluster CG and dz of one cluster of C blocks, the stair's bands on chip
+// at place 3 and read from L2 at place 2 -- else K5g's -- the joined
+// stair-PCG over G clusters of C blocks, its area at `place`
+// (pcgc::joined_area) -- from S's and the stair's bands ((N, 14, 14) each),
+// gamma and lam0 ((N, 14)): writes the solution to lam, the CG count to
+// iters, and with dz the primal step (cluster_dz) to dX and dU from A, B,
+// q, r, Qinv and Rinv (as K3 lays them out).  With drop >= 0 (G >= 1) the
+// last block of cluster 0 never puts its rows of that kind.  Returns 1
+// where the emulation found a wait no block could end (the card would
+// hang), 2 for arguments no launch takes, else 0.
+extern "C" int mpc_stage4_host(int N, int G, int C, int place, int drop,
+                               int dz, const float* SL, const float* SD,
+                               const float* SU, const float* PL,
+                               const float* PD, const float* PU,
+                               const float* gamma, const float* lam0,
+                               const float* A, const float* B,
+                               const float* q, const float* r,
+                               const float* Qinv, const float* Rinv,
+                               int max_iter, float tol, float* lam,
+                               float* dX, float* dU, int* iters) {
+  const bool joined = G >= 1;
+  if (N < 2 || G < 0 || C < 1 || C > 16 || place < 0 || place > 3 ||
+      (joined ? G * C > N : place < 2 || drop >= 0))
     return 2;
-  const int nb = G * C;
+  const int nb = joined ? G * C : C;
   std::vector<unsigned long long> words(pcgc::joined_words(G), 0);
-  std::vector<float> vecs(place == 0 ? nb * pcgc::joined_vec_floats(N, nb)
-                                     : 1);
+  std::vector<float> vecs(joined && place == 0
+                              ? nb * pcgc::joined_vec_floats(N, nb)
+                              : 1);
+  const size_t smem = joined ? pcgc::joined_cg_floats(N, nb, place)
+                             : pcgc::cluster_cg_floats(N, C, place == 3, 0);
   ld_emu_failed = false;
-  ld_emu_blocks(nb, C, pcgc::joined_cg_floats(N, nb, place), [&] {
-    pcgc::ClusterCg a = pcgc::joined_area(ld_emu_dyn, vecs.data(), N, G,
-                                          place);
+  ld_emu_blocks(nb, C, smem, [&] {
+    pcgc::ClusterCg a =
+        joined ? pcgc::joined_area(ld_emu_dyn, vecs.data(), N, G, place)
+               : pcgc::cluster_area(ld_emu_dyn, N, place == 3);
     const size_t o = (size_t)SS * a.k0;
     if (place >= 2) {
       pcgc::cluster_load_bands(a, SL, SD, SU, a.SL, a.SD, a.SU);
@@ -909,19 +909,46 @@ extern "C" int mpc_joined_cg_host(int N, int G, int C, int place, int drop,
       pcgc::cluster_load_bands(a, PL, PD, PU, a.PL, a.PD, a.PU);
       pre = pcgc::ClusterStair{a.PL, a.PD, a.PU};
     }
-    DroppedRows ex;
-    ex.words = words.data();
-    ex.G = G;
-    ex.max_iter = max_iter;
-    ex.tol = tol;
-    ex.drop = drop;
-    float eta;
-    const int its = pcgc::cluster_cg_solve(a, gamma, lam0, pre, ex, &eta);
-    for (int e = 0; e < S * a.own; ++e) lam[S * a.k0 + e] = a.lam[S + e];
-    if (LD_BID == 0) *iters = its;
+    auto solve = [&](auto& ex) {
+      float eta;
+      const int its = pcgc::cluster_cg_solve(a, gamma, lam0, pre, ex, &eta);
+      if (dz)
+        pcgc::cluster_dz(a, A, B, q, r, Qinv, Rinv, lam, dX, dU, ex);
+      else
+        for (int e = 0; e < S * a.own; ++e) lam[S * a.k0 + e] = a.lam[S + e];
+      if (LD_BID == 0) *iters = its;
+    };
+    if (joined) {
+      DroppedRows ex;
+      ex.words = words.data();
+      ex.G = G;
+      ex.max_iter = max_iter;
+      ex.tol = tol;
+      ex.drop = drop;
+      solve(ex);
+    } else {
+      pcgc::LocalExit ex{max_iter, tol};
+      solve(ex);
+    }
   });
   const bool failed = ld_emu_failed;
   ld_emu_failed = false;
   return failed ? 1 : 0;
+}
+
+// Host build only: K5g's dual solve alone (mpc_stage4_host on G >= 1
+// clusters, no dz).
+extern "C" int mpc_joined_cg_host(int N, int G, int C, int place, int drop,
+                                  const float* SL, const float* SD,
+                                  const float* SU, const float* PL,
+                                  const float* PD, const float* PU,
+                                  const float* gamma, const float* lam0,
+                                  int max_iter, float tol, float* lam,
+                                  int* iters) {
+  if (G < 1) return 2;
+  return mpc_stage4_host(N, G, C, place, drop, 0, SL, SD, SU, PL, PD, PU,
+                         gamma, lam0, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, max_iter, tol, lam, nullptr,
+                         nullptr, iters);
 }
 #endif

@@ -10,10 +10,10 @@ from __future__ import annotations
 
 
 def kernel_wrappers() -> dict:
-    """{kernel id: wrapper} for K1-K7, K7s, K9p, K9b, K10, the grid-CG
-    forms K4g and K4bg, the joined forms K5g and K9pg (K5's and K9p's past
-    their cluster fit), and K11 (the horizon-sharded CG's
-    per-shard SpMV).  K3 also serves the horizons of the TPU's tiled K8
+    """{kernel id: wrapper} for K1-K7, K7s, K9p, K9b, K10, the joined
+    forms K4g and K4bg (K4's and K4b's past their plan's cut) and K5g and
+    K9pg (K5's and K9p's past their cluster fit), and K11 (the
+    horizon-sharded CG's per-shard SpMV).  K3 also serves the horizons of the TPU's tiled K8
     (kkt_schur_kernel.py); the cluster K6 serves every horizon up to its
     fit, those of the former K6l (K6 with S read from L2) among them."""
     from mpcgpu_tpu_torch.ops.cuda.bcr_kernel import (bcr_dz, bcr_pcg_dz,

@@ -11,11 +11,11 @@ The same sources also build with the host C++ compiler
 (``host_library``): a kernel "launch" then runs every block in turn on
 the calling thread, on CPU memory, or -- once a test has switched the
 emulation on (``mpc_emu_threads_host``) -- on as many host threads as the
-launch names, with real barriers; K10's cluster form, and K5g's and
-K9pg's joined form on more than one block, run their blocks one after
-another between the grid and cluster barriers and the waits on tagged
-words, each on a host thread of its own (lanedyn.cuh's block
-emulation).  That build exists to check the kernels' arithmetic against
+launch names, with real barriers; K10's cluster form, and the cluster
+form of K4 and K4b and the joined forms (K5g, K9pg, K4g, K4bg) on more
+than one block, run their blocks one after another between the grid and
+cluster barriers and the waits on tagged words, each on a host thread of
+its own (lanedyn.cuh's block emulation).  That build exists to check the kernels' arithmetic against
 the plain PyTorch versions on a machine without a GPU.
 """
 from __future__ import annotations
@@ -50,13 +50,10 @@ _SIGNATURES = {
                    _F, _P, _P, _I, _P, _P],
     "mpc_kkt_schur": [_P, _I, _P, _P, _P, _I, _P, _F, _F, _F, _F, _I]
                      + [_P] * 19,
-    "mpc_pcg_dz": [_I] + [_P] * 14 + [_I, _F] + [_P] * 6,
-    "mpc_pcg_solve": [_I] + [_P] * 8 + [_I, _F] + [_P] * 4,
-    "mpc_pcg_max_knots": [],
-    "mpc_pcg_grid": [_I, _I],
-    "mpc_pcg_grid_scratch_floats": [_I],
-    "mpc_pcg_grid_solve": [_I, _I] + [_P] * 14 + [_I, _F] + [_P] * 6
-                          + [_I, _P],
+    "mpc_pcg_plan": [_I] * 5 + [_P],
+    "mpc_pcg_scratch_floats": [_I] * 5,
+    "mpc_pcg": [_I, _I] + [_P] * 14 + [_I, _F] + [_P] * 6 + [_I] * 4
+               + [_P],
     "mpc_bcr_pcg_dz": [_I] + [_P] * 11 + [_I, _F] + [_P] * 6 + [_I, _P],
     "mpc_bcr_cluster": [_I, _I],
     "mpc_bcr_max_knots": [],
@@ -93,6 +90,7 @@ _SIGNATURES = {
     "mpc_spmv_halo": [_I] + [_P] * 8,
     "mpc_emu_threads_host": [_I],
     "mpc_joined_cg_host": [_I] * 5 + [_P] * 8 + [_I, _F, _P, _P],
+    "mpc_stage4_host": [_I] * 6 + [_P] * 14 + [_I, _F] + [_P] * 4,
     "mpc_ld_aba_host": [_P, _P, _P, _P, _F, _P],
     "mpc_ld_crba_host": [_P, _P, _P],
     "mpc_ld_rnea_host": [_P, _P, _P, _P, _F, _P, _P],
@@ -103,7 +101,7 @@ _SIGNATURES = {
                            + [_I, _P],
 }
 _RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
-             "mpc_pcg_grid_scratch_floats": ctypes.c_longlong,
+             "mpc_pcg_scratch_floats": ctypes.c_longlong,
              "mpc_sqp_mega_scratch_floats": ctypes.c_longlong,
              "mpc_sqp_mega_packed_scratch_floats": ctypes.c_longlong}
 
@@ -111,7 +109,7 @@ _RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
 _HOST_ONLY = {"mpc_bcr_cluster_factor_host", "mpc_bcr_cluster_apply_host",
               "mpc_bcr_one_block_solve_host", "mpc_bcr_cluster_dz_host",
               "mpc_cluster_dot_host", "mpc_emu_threads_host",
-              "mpc_joined_cg_host",
+              "mpc_joined_cg_host", "mpc_stage4_host",
               "mpc_ld_aba_host", "mpc_ld_crba_host", "mpc_ld_rnea_host",
               "mpc_ld_fk_host", "mpc_ld_dtau_host", "mpc_ld_spd_inverse_host",
               "mpc_k2_contrib_host"}

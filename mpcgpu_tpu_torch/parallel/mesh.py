@@ -23,8 +23,8 @@ NCCL cannot put two ranks on one GPU):
 * ``halos``: each shard's neighbours' edge rows, zero at the global edges;
 * ``psum``: the sum of per-shard partials, taken by every shard from the
   same (size,) vector of slots, so the in-process and the distributed form
-  give the same bits (the rule of the grid CG's per-knot slots,
-  ``csrc/pcg_common.cuh``).
+  give the same bits (the rule of the cluster CG's rank-ordered dot
+  partials, ``csrc/pcg_common.cuh``).
 """
 from __future__ import annotations
 

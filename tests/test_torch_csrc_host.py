@@ -274,17 +274,33 @@ def test_k3_and_k1_with_their_threads_emulated_equal_one_thread(host,
 
 @pytest.mark.parametrize("cap,tol", [(300, 1e-9), (40, 5e-5), (3, 1e-12)])
 def test_k4_host_build_matches_plain(host, traj_0_0, cap, tol):
+    """K4's cluster form on C = 2 and 4 emulated blocks: lam, dX, dU at
+    rtol 5e-3, atol 5e-3; CG counts within 2 or both at the cap; the same
+    hit flag; the kernel read C."""
     lib, model, _ = host
     X, U, goals, xs = (T(a) for a in problem(traj_0_0))
     ks = k3.form_kkt_schur_reference(model, X, U, goals, xs, RHO, DT, QD_COST,
                                      R_COST)
     lam0 = torch.zeros(X.shape[0], 14)
     want = k4.pcg_dz_reference(ks, lam0, cap, tol)
-    got = k4._launch(lib, ks, lam0, cap, tol, None)
-    for g, w in zip(got[:3], want[:3]):
-        _close(g, w, 5e-3, 5e-3)
-    assert abs(int(got[3]) - int(want[3])) <= 2 or int(got[3]) == int(want[3]) == cap
-    assert bool(got[4]) == bool(want[4])
+    for c in (2, 4):
+        with _no_hang(lib):
+            got = k4._launch(lib, ks, lam0, cap, tol, None, _k4_plan(
+                lib, X.shape[0], k4.CLUSTER, c))
+        assert int(k4.pcg_dz.cluster_size) == c
+        for g, w in zip(got[:3], want[:3]):
+            _close(g, w, 5e-3, 5e-3)
+        assert (abs(int(got[3]) - int(want[3])) <= 2
+                or int(got[3]) == int(want[3]) == cap)
+        assert bool(got[4]) == bool(want[4])
+
+
+def _k4_plan(lib, n, form, cluster, place=-1, dz=True):
+    """The plan of K4 (dz) or K4b in `form` at `cluster` blocks a cluster
+    (the joined form on N / C clusters in the host build)."""
+    plan = k4.pcg_plan(n, lib, dz, form, cluster, place)
+    assert plan.form == form and plan.cluster == cluster
+    return plan
 
 
 def test_k2_host_build_matches_plain(host, traj_0_0):
@@ -987,8 +1003,9 @@ def test_packed_loop_through_the_host_build(host, traj_0_0, monkeypatch):
 
 @pytest.mark.parametrize("cap,tol", [(300, 1e-9), (40, 5e-5), (3, 1e-12)])
 def test_k4b_host_build_matches_plain(host, traj_0_0, cap, tol):
-    """K4's tolerances: lam at rtol 5e-3, atol 5e-3; CG counts within 2 or
-    both at the cap; the same hit flag."""
+    """K4b's cluster form on C = 2 and 4 emulated blocks, at K4's
+    tolerances: lam at rtol 5e-3, atol 5e-3; CG counts within 2 or both at
+    the cap; the same hit flag; the kernel read C."""
     lib, model, _ = host
     X, U, goals, xs = (T(a) for a in problem(traj_0_0))
     ks = k3.form_kkt_schur_reference(model, X, U, goals, xs, RHO, DT, QD_COST,
@@ -996,10 +1013,16 @@ def test_k4b_host_build_matches_plain(host, traj_0_0, cap, tol):
     S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
     lam0 = torch.zeros(X.shape[0], 14)
     want = k4.pcg_solve_reference(S, P, ks.gamma, lam0, cap, tol)
-    got = k4._launch_solve(lib, S, P, ks.gamma, lam0, cap, tol, None)
-    _close(got[0], want[0], 5e-3, 5e-3)
-    assert abs(int(got[1]) - int(want[1])) <= 2 or int(got[1]) == int(want[1]) == cap
-    assert bool(got[2]) == bool(want[2])
+    for c in (2, 4):
+        with _no_hang(lib):
+            got = k4._launch(lib, k4._solve_system(S, P, ks.gamma), lam0, cap,
+                             tol, None, _k4_plan(lib, X.shape[0], k4.CLUSTER,
+                                                 c, dz=False), dz=False)
+        assert int(k4.pcg_solve.cluster_size) == c
+        _close(got[0], want[0], 5e-3, 5e-3)
+        assert (abs(int(got[1]) - int(want[1])) <= 2
+                or int(got[1]) == int(want[1]) == cap)
+        assert bool(got[2]) == bool(want[2])
 
 
 @pytest.mark.parametrize("n", [8, 16])
@@ -1197,10 +1220,10 @@ def test_per_iteration_loop_through_the_host_build(host, traj_0_0, linsys,
     _close(got.U, want.U, *tol)
 
 
-# ---- the grid-wide CG forms (K4g, K4bg) and K5g, K9pg at long horizons:
-# the host build runs one block over every knot (a cooperative grid of
-# one), so the per-knot dot slots and their sums are checked, not the
-# barriers (K5g's and K9pg's joined form over several clusters: below)
+# ---- K4 and K4b in the joined form (K4g, K4bg) and K5g, K9pg at long
+# horizons: the host build runs the joined form's G clusters of C blocks
+# under the block emulation, or one block over every knot (a cooperative
+# grid of one)
 LONG_R_COST = 1e-4   # CostConfig.for_knots(N) at N != 64
 
 
@@ -1220,26 +1243,120 @@ def _long_system(model, traj_0_0, n, system):
     (128, "random", 300, 1e-9), (256, "random", 300, 1e-9)])
 def test_k4g_and_k4bg_host_build_match_plain(host, traj_0_0, n, system, cap,
                                              tol):
-    """K4's tolerances: lam, dX, dU at rtol 5e-3, atol 5e-3; CG counts
-    within 2 or both at the cap; the same hit flag."""
+    """K4g and K4bg (the joined form on G = 2 clusters of C = 2 emulated
+    blocks), and K4 and K4b in the cluster form on 4 emulated blocks, at
+    K4's tolerances: lam, dX, dU at rtol 5e-3, atol 5e-3; CG counts within
+    2 or both at the cap; the same hit flag."""
     lib, model, _ = host
     ks = _long_system(model, traj_0_0, n, system)
     lam0 = torch.zeros(n, 14)
     want = k4.pcg_dz_reference(ks, lam0, cap, tol)
-    assert k4.check_pcg_grid_fit(n, lib) == 1
-    got = k4._launch_grid(lib, ks, lam0, cap, tol, True, 1, None)
     S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
     want_b = k4.pcg_solve_reference(S, P, ks.gamma, lam0, cap, tol)
-    got_b = k4._launch_grid(lib, ks, lam0, cap, tol, False, 1, None)
-    pairs = ((got[:3], want[:3], got[3:], want[3:]),
-             (got_b[:1], want_b[:1], got_b[1:], want_b[1:]))
-    for vals, want_vals, (it, hit), (it_ref, hit_ref) in pairs:
-        for g, w in zip(vals, want_vals):
-            _close(g, w, 5e-3, 5e-3)
-        assert abs(int(it) - int(it_ref)) <= 2 or int(it) == int(it_ref) == cap
-        assert bool(hit) == bool(hit_ref)
+    joined = _k4_plan(lib, n, k4.JOINED, 2)._replace(clusters=2, grid=4)
+    for plan in (joined, _k4_plan(lib, n, k4.CLUSTER, 4)):
+        with _no_hang(lib):
+            got = k4._launch(lib, ks, lam0, cap, tol, None, plan)
+            got_b = k4._launch(lib, ks, lam0, cap, tol, None, plan, dz=False)
+        pairs = ((got[:3], want[:3], got[3:], want[3:]),
+                 (got_b[:1], want_b[:1], got_b[1:], want_b[1:]))
+        for vals, want_vals, (it, hit), (it_ref, hit_ref) in pairs:
+            for g, w in zip(vals, want_vals):
+                _close(g, w, 5e-3, 5e-3)
+            assert (abs(int(it) - int(it_ref)) <= 2
+                    or int(it) == int(it_ref) == cap)
+            assert bool(hit) == bool(hit_ref)
     if system == "random":
         assert int(want[3]) < cap
+
+
+def _stage4(lib, ks, lam0, clusters, cluster, place, cap, tol, dz=True):
+    """K5's (clusters 0) or K5g's stage 4 alone as those kernels ran it
+    before it became a body of its own (mpc_stage4_host): (lam, dX, dU,
+    iters), dX and dU NaN without dz."""
+    n = ks.gamma.shape[0]
+    lam = torch.full((n, 14), float("nan"))
+    dX, dU = torch.full((n, 14), float("nan")), torch.full((n - 1, 7),
+                                                           float("nan"))
+    its = torch.zeros(1, dtype=torch.int32)
+    fields = ("SL", "SD", "SU", "PL", "PD", "PU", "gamma")
+    assert lib.mpc_stage4_host(
+        n, clusters, cluster, place, -1, int(dz),
+        *(getattr(ks, f).data_ptr() for f in fields), lam0.data_ptr(),
+        *(getattr(ks, f).data_ptr() for f in k4._DZ_FIELDS), cap, tol,
+        lam.data_ptr(), dX.data_ptr(), dU.data_ptr(), its.data_ptr()) == 0
+    return lam, dX, dU, its[0]
+
+
+@pytest.mark.parametrize("n", [2, 3, 7, 16])
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_k4_cluster_form_equals_k5s_dual_solve(host, n, cluster):
+    """K4 and K4b in the cluster form on C emulated blocks (C = 4 leaves
+    blocks without a knot at N = 2 and 3), the stair's bands on chip and
+    in L2, on the seeded well-conditioned system (the CG exits before the
+    cap): bit for bit K5's stage 4 on the same S, P, gamma and lam0 (lam,
+    dX, dU, the CG count; K4b's lam and count K4's), and the plain version
+    at K4's tolerances (rtol 5e-3, atol 5e-3, counts within 2, the same
+    hit).  Where C <= N, the joined form (K4g, K4bg) on N / C clusters of
+    C blocks the same way against K5g's stage 4."""
+    lib = host[0]
+    ks = random_knot_schur(n)
+    S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
+    lam0 = torch.zeros(n, 14)
+    want = k4.pcg_dz_reference(ks, lam0, 300, 1e-9)
+    plans = [_k4_plan(lib, n, k4.CLUSTER, cluster, place)
+             for place in (3, 2)]
+    if cluster <= n:
+        plans += [_k4_plan(lib, n, k4.JOINED, cluster, place)
+                  for place in (3, 0)]
+    for plan in plans:
+        with _no_hang(lib):
+            got = k4._launch(lib, ks, lam0, 300, 1e-9, None, plan)
+            got_b = k4._launch(lib, k4._solve_system(S, P, ks.gamma), lam0,
+                               300, 1e-9, None, plan, dz=False)
+            ref = _stage4(lib, ks, lam0, plan.clusters
+                          if plan.form == k4.JOINED else 0, cluster,
+                          plan.place, 300, 1e-9)
+        for g, r in zip((*got[:4], got_b[0], got_b[1]), (*ref, ref[0], ref[3])):
+            assert torch.equal(g, r), plan
+        for g, w in zip(got[:3], want[:3]):
+            _close(g, w, 5e-3, 5e-3)
+        assert abs(int(got[3]) - int(want[3])) <= 2 and int(want[3]) < 300
+        assert bool(got[4]) == bool(want[4]) == bool(got_b[2])
+
+
+@pytest.mark.parametrize("n,clusters", [(13, 2), (13, 3), (37, 2), (37, 3)])
+def test_k4g_joined_form_equals_k5gs_dual_solve(host, traj_0_0, n,
+                                                clusters):
+    """K4g and K4bg on G clusters of 2 emulated blocks at every place of
+    the CG's area, on fixture 0_0's system at the long horizons' cap
+    (every CG at it): lam and the CG count bit for bit K5g's dual solve
+    alone (mpc_joined_cg_host), and K4g's dX and dU K5g's stage 4's
+    (mpc_stage4_host with dz)."""
+    lib, model, _ = host
+    ks = _long_system(model, traj_0_0, n, "fixture")
+    S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
+    lam0 = torch.zeros(n, 14)
+    ptrs = [t.data_ptr() for t in (ks.SL, ks.SD, ks.SU, ks.PL, ks.PD, ks.PU,
+                                   ks.gamma, lam0)]
+    for place in (3, 2, 1, 0):
+        plan = k4.PcgPlan(k4.JOINED, 2, clusters, place, 2 * clusters)
+        with _no_hang(lib):
+            got = k4._launch(lib, ks, lam0, 24, 1e-5, None, plan)
+            got_b = k4._launch(lib, k4._solve_system(S, P, ks.gamma), lam0,
+                               24, 1e-5, None, plan, dz=False)
+            ref = _stage4(lib, ks, lam0, clusters, 2, place, 24, 1e-5)
+        lam = torch.full((n, 14), float("nan"))
+        its = torch.zeros(1, dtype=torch.int32)
+        assert lib.mpc_joined_cg_host(n, clusters, 2, place, -1, *ptrs, 24,
+                                      1e-5, lam.data_ptr(),
+                                      its.data_ptr()) == 0
+        assert int(k4.pcg_dz_grid.cluster_size) == 2
+        for g in (got[0], got_b[0], ref[0]):
+            assert torch.equal(g, lam), place
+        for g in (got[3], got_b[1], ref[3]):
+            assert int(g) == int(its[0]) == 24
+        assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
 
 
 def _long_kw(rho_max=10.0):
@@ -1472,12 +1589,13 @@ def test_wrappers_route_k5_and_k9p_to_the_cluster_form_up_to_its_fit(
         host, traj_0_0, n, fit):
     """The CUDA wrappers' dispatch (pcg_dz, pcg_solve, sqp_solve_mega_pcg,
     sqp_iter_mega_pcg), driven through the host build, whose fits are the
-    card's arithmetic at 227 KB of shared memory (K4, K4b one block
-    N <= 90; K5, K9p a cluster of 16 holding S's and the stair's bands,
-    N <= 704): K5 and K9p take the cluster form at N = 2, 64, 128 and 512,
-    the grid form past the fit (a library whose fit is cut to 64), and K4
-    and K4b their one-block form up to 90; each launch counted once under
-    its own kernel."""
+    card's arithmetic at 227 KB of shared memory and clusters of 16 (K5,
+    K9p a cluster of 16 holding S's and the stair's bands, N <= 704): K5
+    and K9p take the cluster form at N = 2, 64, 128 and 512, the grid form
+    past the fit (a library whose fit is cut to 64); K4 and K4b their
+    cluster form while a block of 16 owns at most the plan's cut of 24
+    knots (N <= 384), the joined form past it (K4g, K4bg); each launch
+    counted once under its own kernel."""
     from mpcgpu_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     lib, model, _ = host
@@ -1501,8 +1619,9 @@ def test_wrappers_route_k5_and_k9p_to_the_cluster_form_up_to_its_fit(
                     3, 1e-5, *_long_kw().values())
     counts = launch_counts()
     want = dict.fromkeys(counts, 0)
-    want.update(dict(K4=1, K4b=1) if k4.one_block_fits(n, use)
-                else dict(K4g=1, K4bg=1))
+    assert [k4.pcg_plan(m, use).form for m in (n, 384, 385)] == [
+        k4.CLUSTER if n <= 384 else k4.JOINED, k4.CLUSTER, k4.JOINED]
+    want.update(dict(K4=1, K4b=1) if n <= 384 else dict(K4g=1, K4bg=1))
     want.update(dict(K5=1, K9p=1) if cluster else dict(K5g=1, K9pg=1))
     assert counts == want, n
     if cluster:
@@ -1570,10 +1689,11 @@ def test_four_k9p_launches_equal_one_k5_launch(host, traj_0_0):
 
 def test_a_grid_that_cannot_be_co_resident_raises():
     """No launch is made, and nothing falls back, where the occupancy API
-    finds no co-resident grid."""
+    finds no co-resident grid: K4's and K4b's plan (either form, and the
+    joined form asked for) and K5g's."""
 
     class NoGrid:
-        def mpc_pcg_grid(self, n, dz):
+        def mpc_pcg_plan(self, n, dz, form, cluster, place, out):
             return 0
 
         def mpc_mega_max_knots(self, kind):
@@ -1583,8 +1703,10 @@ def test_a_grid_that_cannot_be_co_resident_raises():
             return 0
 
     lib = NoGrid()
-    with pytest.raises(ValueError, match="cooperative launch"):
-        k4.check_pcg_grid_fit(256, lib)
+    for dz in (True, False):
+        for form in (0, k4.JOINED):
+            with pytest.raises(ValueError, match="cooperative launch"):
+                k4._checked_plan(256, lib, dz, form)
     with pytest.raises(ValueError, match="cooperative launch"):
         k5.check_mega_fit(256, lib, k5.SOLVE_PCG_GRID)
 

@@ -1,5 +1,7 @@
 """The CUDA kernels K1-K7, K7s, K9p, K9b and K10, K3 at the long horizons
-of the TPU's tiled K8, the grid-CG forms K4g and K4bg, the joined forms
+of the TPU's tiled K8, K4 and K4b in both forms (the cluster form K4,
+K4b and the joined form K4g, K4bg, at every cluster size the card admits,
+and bit for bit K9p's and K9pg's dual solve), the joined forms
 K5g and K9pg (at every cluster size the card admits for them), and the
 cluster forms of K5, K9p, K6, K7s, K9b and K10 at every cluster size the
 card admits (K10 also in its one-block form), against their plain
@@ -450,22 +452,95 @@ def test_k8_horizons_run_k3_against_plain(card, n):
             _close(g, w, 3e-3, 3e-3)
 
 
-@pytest.mark.parametrize("n", [128, 256])
+K4_KNOTS = (2, 3, 7, 64, 128, 256, 512, 1024)
+
+
+def _k4_admitted(n, dz):
+    """The plans of K4 (dz) or K4b the card admits at n: the cluster form
+    (while it fits) and the joined form, each at every cluster size."""
+    plans = []
+    for form in (k4.CLUSTER, k4.JOINED):
+        for c in (16, 8, 4, 2, 1):
+            plan = k4.pcg_plan(n, dz=dz, form=form, cluster=c)
+            if plan.form and plan not in plans:
+                plans.append(plan)
+    return plans
+
+
+@pytest.mark.parametrize("n", K4_KNOTS)
 def test_k4g_and_k4bg_kernels_match_plain(card, n):
-    """K4's tolerances: lam, dX, dU at rtol 5e-3, atol 5e-3; CG counts
-    within 2 or both at the cap."""
+    """K4 and K4b in both forms -- the cluster form (K4, K4b) where it
+    fits and the joined form (K4g, K4bg) -- at every cluster size the card
+    admits, on fixture 0_0's system at the long horizons' cap (every CG at
+    it), at K4's tolerances: lam, dX, dU at rtol 5e-3, atol 5e-3; CG
+    counts within 2 or both at the cap; the same hit; the kernel reads the
+    planned cluster size.  The wrappers (pcg_dz and pcg_dz_grid, pcg_solve
+    and pcg_solve_grid) launch the plan's forms."""
     ks = k3.form_kkt_schur_reference(*_long_k3_args(card, n))
     lam0 = torch.zeros(n, 14, device=card["X"].device)
-    got = k4.pcg_dz_grid(ks, lam0, LONG_CAP, LONG_TOL)
-    want = k4.pcg_dz_reference(ks, lam0, LONG_CAP, LONG_TOL)
     S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
-    got_b = k4.pcg_solve_grid(S, P, ks.gamma, lam0, LONG_CAP, LONG_TOL)
+    want = k4.pcg_dz_reference(ks, lam0, LONG_CAP, LONG_TOL)
     want_b = k4.pcg_solve_reference(S, P, ks.gamma, lam0, LONG_CAP, LONG_TOL)
-    for g, w in zip((*got[:3], got_b[0]), (*want[:3], want_b[0])):
-        _close(g, w, 5e-3, 5e-3)
-    for it, it_ref in ((got[3], want[3]), (got_b[1], want_b[1])):
-        it, it_ref = int(it), int(it_ref)
-        assert abs(it - it_ref) <= 2 or it == it_ref == LONG_CAP
+    lib = _lib.library()
+    for dz, ref, sys_ in ((True, want, ks),
+                          (False, want_b, k4._solve_system(S, P, ks.gamma))):
+        nv = 3 if dz else 1
+        runs = [k4._launch(lib, sys_, lam0, LONG_CAP, LONG_TOL,
+                           _lib.stream_of(lam0), plan, dz)
+                for plan in _k4_admitted(n, dz)]
+        runs += [k4.pcg_dz(ks, lam0, LONG_CAP, LONG_TOL),
+                 k4.pcg_dz_grid(ks, lam0, LONG_CAP, LONG_TOL)] if dz else [
+            k4.pcg_solve(S, P, ks.gamma, lam0, LONG_CAP, LONG_TOL),
+            k4.pcg_solve_grid(S, P, ks.gamma, lam0, LONG_CAP, LONG_TOL)]
+        for got in runs:
+            for g, w in zip(got[:nv], ref[:nv]):
+                _close(g, w, 5e-3, 5e-3)
+            it, it_ref = int(got[nv]), int(ref[nv])
+            assert abs(it - it_ref) <= 2 or it == it_ref == LONG_CAP
+            assert bool(got[nv + 1]) == bool(ref[nv + 1])
+    for dz in (True, False):
+        for form in (k4.CLUSTER, k4.JOINED):
+            plan = k4.pcg_plan(n, dz=dz, form=form)
+            if plan.form:
+                k4._launch(lib, ks, lam0, LONG_CAP, LONG_TOL,
+                           _lib.stream_of(lam0), plan, dz)
+                assert int(k4._wrapper(dz, form).cluster_size) == plan.cluster
+
+
+@pytest.mark.parametrize("n", [2, 64, 256, 1024])
+def test_k4_and_k4g_equal_k9p_and_k9pg_dual_solve(card, n):
+    """K3 on the card at K9p's start, then K4 at the plan K9p launches
+    (its C and the stair's place) and K4g at K5g's plan (C, G, place):
+    lam and the CG count bit for bit those of K9p's and K9pg's dual solve
+    (their stage 4 is the body K4 and K4g launch)."""
+    from ctypes import c_int
+
+    lib = _lib.library()
+    X, U, goals, xs = _long(card, n, 5)
+    kw = _long_kw()
+    rho, one = card["rho"], torch.tensor(1.0, device=X.device)
+    zero = torch.zeros_like
+    merit0 = k2.line_search_merits_reference(
+        card["model"], X, U, zero(X), zero(U), 8, goals, xs, DT, 10.0,
+        QD_COST, LONG_R_COST)[8]
+    a9 = (card["model"], X, U, goals, xs, zero(X), rho, one, merit0,
+          LONG_CAP, LONG_TOL)
+    ks = k3.form_kkt_schur(card["model"], X, U, goals, xs, rho, DT, QD_COST,
+                           LONG_R_COST, kw["gravity"])
+    cases = []
+    if n <= lib.mpc_mega_max_knots(k9.ITER_PCG):
+        plan = (c_int * 3)()
+        lib.mpc_mega_cluster_plan(n, k9.ITER_PCG, 0, -1, plan)
+        cases.append((k9.sqp_iter_mega_pcg(*a9, **kw), k4.PcgPlan(
+            k4.CLUSTER, plan[0], 1, 3 if plan[1] else 2, plan[0])))
+    gp = k5.grid_plan(n)
+    cases.append((k9.sqp_iter_mega_pcg_grid(*a9, **kw), k4.PcgPlan(
+        k4.JOINED, gp.cluster, gp.clusters, gp.place, gp.grid)))
+    for out, plan in cases:
+        got = k4._launch(lib, ks, zero(X), LONG_CAP, LONG_TOL,
+                         _lib.stream_of(X), plan)
+        assert torch.equal(got[0], out.lam), plan
+        assert int(got[3]) == int(out.pcg_iters), plan
 
 
 @pytest.mark.parametrize("n", [128, 256])

@@ -4,7 +4,8 @@ card: the same seeded inputs through each tree's wrappers, the largest
 difference of every output, and each kernel's CUDA-event time in turns
 (other, this, this, other), each turn a process of its own.
 
-    python3 tools/compare_trees.py OTHER_CHECKOUT [--out DIR]
+    python3 tools/compare_trees.py OTHER_CHECKOUT [--changed K4 K4b ...]
+        [--out DIR]
 
 Each tree builds its own library in its own package directory.  Inputs:
 fixture 0_0's first N knots (N = 64 and 256 for K2, K3 and K5; K1 at 64),
@@ -13,12 +14,15 @@ cold duals; the step itself is compared too) and a seeded 0.05-scale step,
 a seeded 0.02-scale perturbation for K5's start (cold duals, rho 1e-3, cap
 40, 4 SQP iterations; K9p, K9b and K9pg one iteration from it, K5g the
 whole solve), K6, K7s (and K7 at N = 64) on K3's system without the
-stair and K4g, K4bg (and K4, K4b at N = 64) on K3's (cold duals, cap 40),
+stair and K4, K4b, K4g, K4bg on K3's (cold duals, cap 40),
 K10 at N = 64 on two arms (K5's start and a second seeded perturbation),
 K11 on seeded random bands of 64 rows with nonzero halo rows, and K1 at
 the three offsets of the host tests.
 Also prints both libraries' fits and grids (K5, K9p, K9b, K10; K5, K5g,
-K9pg and K9b's grids at N = 64-1024).
+K9pg and K9b's grids at N = 64-1024).  The kernels of --changed (by
+default K4, K4b, K4g and K4bg) are reported with their differences and
+CG counts in both trees; every other output must be bit-equal, or the
+run exits with 1.
 """
 from __future__ import annotations
 
@@ -182,11 +186,11 @@ def run_tree(tree: Path, out: Path) -> None:
                                                   5e-5),
                 "K7s": lambda: (k6.bcr_solve(ks6.SL, ks6.SD, ks6.SU,
                                              ks6.gamma),)}
-        if n == 64:  # the one-block forms' horizon
-            runs.update({
-                "K4": lambda: k4.pcg_dz(ks, lam0, 40, 5e-5),
-                "K4b": lambda: k4.pcg_solve(S, P, ks.gamma, lam0, 40, 5e-5),
-                "K7": lambda: k6.bcr_dz(ks6)})
+        runs.update({
+            "K4": lambda: k4.pcg_dz(ks, lam0, 40, 5e-5),
+            "K4b": lambda: k4.pcg_solve(S, P, ks.gamma, lam0, 40, 5e-5)})
+        if n == 64:  # K7's horizon
+            runs["K7"] = lambda: k6.bcr_dz(ks6)
         for kid, run in runs.items():
             for i, t in enumerate(run()):
                 res[f"{kid} N={n} out{i}"] = t.cpu()
@@ -238,6 +242,8 @@ def run_tree(tree: Path, out: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path)
+    ap.add_argument("--changed", nargs="*", default=["K4", "K4b", "K4g",
+                                                     "K4bg"])
     ap.add_argument("--out", type=Path, default=Path("build") / "compare")
     ap.add_argument("--run", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--save", type=Path, help=argparse.SUPPRESS)
@@ -274,7 +280,16 @@ def main() -> int:
     same = all(torch.equal(runs[1][1]["res"][k], runs[2][1]["res"][k])
                for k in mine)
     print(f"this tree's two runs bit-equal: {same}")
-    return 0
+    changed = [k for k in other if k.split()[0] in a.changed]
+    counts = [k for k in changed if other[k].dtype == torch.int32]
+    print(f"changed kernels ({' '.join(a.changed)}): CG counts, other | "
+          f"this: " + "; ".join(f"{k} {int(other[k])} | {int(mine[k])}"
+                                for k in counts))
+    unequal = [k for k in other if k not in changed
+               and not torch.equal(mine[k], other[k])]
+    print(f"every other output bit-equal: {not unequal}"
+          + (f" (differ: {unequal})" if unequal else ""))
+    return 0 if same and not unequal else 1
 
 
 if __name__ == "__main__":
