@@ -27,10 +27,10 @@ CUDA toolkit:
    (the exact BCR solves by relative residual on the slice's systems), and
    times both (CUDA events, median after warm-up), K1's, K2's and K3's
    device times (torch.profiler) beside the one-thread recursions'; the
-   first launches of the cluster forms (K5, K9p, K6, K7s, K9b, and K10 at
-   every cluster size the card admits for two arms at N = 64, and in its
-   one-block form, and K4 and K4b in their cluster form) run under a
-   watchdog that ends the process if they hang;
+   first launches of the cluster forms (K5, K9p, K6, K7, K7s, K9b, and
+   K10 at every cluster size the card admits for two arms at N = 64, and
+   in its one-block form, and K4 and K4b in their cluster form) run under
+   a watchdog that ends the process if they hang;
 4. runs three closed loops -- fixture pair 0_0, N = 64,
    SolverConfig.for_knots(64, sqp_max_iter=4), PCG cap 40, exit tol
    5e-5, lam warm-started by 5 solves at tol 1e-11, simulate_mpc_scan for
@@ -57,7 +57,9 @@ CUDA toolkit:
    arms with K10's device time per call;
 6. runs the remaining sqp_solve configurations' loops, 8 updates each,
    through the kernels and the plain modules: the staged bcr loop (K3,
-   K7, K2; K1) at N = 64 and at N = 128 (K7s, the split path), the
+   K7, K2; K1) at N = 64 and at N = 128 (one K7 an SQP iteration), and
+   at N = 128 again with bcr_dz's split path forced (two K7s launches an
+   SQP iteration, the residual as tensor glue, as past K7's fit), the
    per-iteration megakernel loops (K2, then K9p or K9b per SQP
    iteration; K1), the pcg_pallas backend (plain stages and K4b, the
    cluster form), and the
@@ -94,9 +96,11 @@ CUDA toolkit:
    staged pcg (K3, K4g, K2) and pcg_pallas (the plain stages and K4bg);
 9. runs the sharded paths, the JAX package's dryrun_multichip legs on one
    card (8 in-process shards, mpcgpu_tpu_torch/parallel): K11 (the
-   per-shard banded SpMV with halo rows) against its plain version on
-   every shard of fixture 0_0's N = 512 Schur system and on random bands,
-   timed beside a torch.sparse BSR product; the sharded CG with K11
+   banded SpMV over every local shard in one launch, with the halo rows
+   outside them) against its plain version and bit for bit against one
+   launch per shard, on the 8 shards of fixture 0_0's N = 512 Schur
+   system and on random bands with nonzero outer halos, timed beside a
+   torch.sparse BSR product of the whole system; the sharded CG with K11
    (pcg_sharded_cuda) and with the plain SpMV (pcg_sharded) against K4bg
    and the plain CG at N = 512, to convergence on the seeded random
    system and at the cap on 0_0's, timed and profiled; sharded_sqp_solve
@@ -114,7 +118,7 @@ CUDA toolkit:
    checks K5 at N = 2, 4, 64, 128, 256 and 512 and K6 at every power of 2
    up to 512, at every cluster size the card admits, against the plain
    versions (CG counts, accepts and bails identical), and K6's factor
-   against K7's one-block factor (N <= 64) or K7s's, bit for bit; and
+   against K7's cluster factor, bit for bit; and
    times a CG step (the profiler's device
    time of a solve less that of the same solve with the CG capped at 0,
    over its CG steps) and the stages at N = 64-512 for the cluster K5
@@ -140,14 +144,19 @@ CUDA toolkit:
    two-arm loop at N = 128 (cap 24, tol 1e-5, warm duals, 8 updates)
    through the kernels and the plain modules, checked (sqp_iters, bails
    and shared CG counts equal, tracking within 5e-3 m) and timed;
-12. the cluster BCR forms (K7s one cluster, K9b's refined BCR solve and
-   dz across the first cluster of its launch): prints their ptxas lines,
-   fits and K9b's plan (C, grid) at each N; checks K7s at N = 2, 64, 128,
-   256 and 1024 at every cluster size the card admits against the plain
-   version (its factor bit-equal to K7's one-block factor where K7 fits),
-   and K9b at N = 2, 4, 64, 256 and 512 likewise against the plain
-   iteration (first launches under the watchdog); and prints their device
-   times a launch (K7s at N = 128 and 256, K9b at 64, 256 and 512);
+12. the cluster BCR forms (K7 and K7s one cluster, K9b's refined BCR
+   solve and dz across the first cluster of its launch): prints their
+   ptxas lines, fits and K9b's plan (C, grid) at each N; checks K7 at
+   N = 2, 4, 64, 128, 256, 512 and 1024 at every cluster size the card
+   admits against the plain version (tight on the seeded system, by
+   residual on fixture 0_0's), its factor bit-equal to K7s's, and the
+   forced split path against it at N = 64 and 128; K7s at N = 2, 64, 128,
+   256 and 1024 likewise (its factor bit-equal to K7's), and K9b at N = 2,
+   4, 64, 256 and 512 against the plain iteration (first launches under
+   the watchdog; no kernel on the card runs the one-block factor, which
+   tests/test_torch_csrc_host.py holds the cluster forms to); and prints
+   their device times a launch (K7 at N = 64-1024 beside the split path
+   at 128, K7s at N = 128 and 256, K9b at 64, 256 and 512);
 13. prints one JSON line of the kernels, then the result line.
 
 A watchdog (faulthandler) ends the process with a traceback and a
@@ -163,6 +172,7 @@ import contextlib
 import ctypes
 import dataclasses
 import faulthandler
+import functools
 import importlib.util
 import json
 import statistics
@@ -170,6 +180,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 from pathlib import Path
 
 N_KNOTS = 64
@@ -181,13 +192,17 @@ ARMS = 2                        # the packed loop's pack (bench.py --batch 2)
 BATCHED_UPDATES = 8
 SWEEP_ARMS = (1, 2, 4, 8, 16)
 NEW_UPDATES = 8                 # the loops of this file's phase 6
-LONG_KNOTS = 128                # the staged bcr loop above K7's fit
+LONG_KNOTS = 128                # the staged bcr loop past N = 64
 # K7s against its plain version past N = 64 (phase 3), its library
 # yardstick where the staged bcr loops launch it
 K7S_KNOTS = (128, 256, 1024)
 K7S_LIBRARY_KNOTS = (128, 256)
-# phase 12, the cluster BCR forms: K7s and K9b at every admitted cluster
-# size, and K9b's device time at the horizons named
+# phase 12, the cluster BCR forms: K7, K7s and K9b at every admitted
+# cluster size, K7's and K9b's device times at the horizons named, and
+# the forced split path against K7
+K7_KNOTS = (2, 4, 64, 128, 256, 512, 1024)
+K7_TIMED_KNOTS = (64, 128, 256, 1024)
+K7_SPLIT_KNOTS = (128,)         # and N = 64 in phase 3
 K7S_CLUSTER_KNOTS = (2, 64, 128, 256, 1024)
 K9B_KNOTS = (2, 4, 64, 256, 512, 1024)
 K9B_TIMED_KNOTS = (64, 256, 512, 1024)
@@ -252,7 +267,8 @@ ONE_THREAD_MERIT_K5_STAGES_US = {64: 284.9, 128: 307.8, 256: 478.0,
 K2_KNOTS = (2, 64, 256, 1024)
 # the kernels whose ptxas resource lines phase 2 prints: K1, K2 at each
 # group size, K3's three, the megakernels that run K3's stage bodies and
-# K2's merit contribution, K7s's cluster kernel and K4's four forms (with the one-thread
+# K2's merit contribution, K7's and K7s's cluster kernels, K4's four forms
+# and K11 (with the one-thread
 # recursions:
 # rollout_kernel 165 registers and 704 bytes of stack, k3_perknot 128 and
 # 176, sqp_mega_kernel 202 and 896)
@@ -265,13 +281,14 @@ PTXAS_KERNELS = (("K1", "14rollout_kernel"), ("K2 G = 8", "12merit_kernelILi8E")
                  ("K9p", "24sqp_iter_mega_pcg_kernelE"),
                  ("K9pg", "29sqp_iter_mega_pcg_grid_kernel"),
                  ("K9b", "24sqp_iter_mega_bcr_kernel"),
-                 ("K7s", "16bcr_solve_kernel"),
+                 ("K7", "13bcr_dz_kernel"), ("K7s", "16bcr_solve_kernel"),
                  ("K10", "22sqp_mega_packed_kernel"),
                  ("K10 cluster form", "30sqp_mega_packed_cluster_kernel"),
                  ("K4", "21pcg_dz_cluster_kernel"),
                  ("K4b", "24pcg_solve_cluster_kernel"),
                  ("K4g", "20pcg_dz_joined_kernel"),
-                 ("K4bg", "23pcg_solve_joined_kernel"))
+                 ("K4bg", "23pcg_solve_joined_kernel"),
+                 ("K11", "16spmv_halo_kernel"))
 MEGA_MAX_REGS = 202             # K5's and K9p's count with the one-thread
                                 # recursions, which sets their grid
 FIRST_LAUNCH_DEADLINE = 240     # s for the first launches of a cluster form
@@ -336,6 +353,16 @@ def _k3_no_stair_ops(n):
 def _knot_schur_floats(n):
     """K3's outputs: SL SD SU PL PD PU Qinv A, Rinv, B, gamma, q, r."""
     return n * (8 * NX * NX + NU * NU + NX * NU + 2 * NX + NU)
+
+
+def _k7_work(n):
+    """(bytes, operations) of K7 at N = n: S's bands, gamma and the dz
+    blocks read, lam, dX and dU written; the factor, two applies, the
+    residual's product and dz."""
+    return (F32 * (n * (5 * NX * NX + NX * NU + NU * NU + 2 * NX + NU)
+                   + 2 * n * NX + (n - 1) * NU),
+            _bcr_factor_ops(n) + 2 * _bcr_apply_ops(n) + _spmv_ops(n)
+            + _dz_ops(n))
 
 
 def _bound(nbytes, ops):
@@ -551,6 +578,7 @@ def main() -> int:
                                       simulate_mpc_scan,
                                       simulate_mpc_scan_batched,
                                       simulate_mpc_scan_packed)
+    from mpcgpu_tpu_torch import sqp as sqp_module
     from mpcgpu_tpu_torch.sqp import get_linsys_backend, iterate, sqp_solve
     from mpcgpu_tpu_torch.utils.trajfiles import horizon_slices, load_fixture_pair
     # the tests' seeded well-conditioned K6 system, loaded by path: the
@@ -615,7 +643,8 @@ def main() -> int:
           f"cluster) power-of-2 N <= {k6.check_bcr_fit(n)}, K5 (its CG "
           f"across a cluster) N <= {lib.mpc_mega_max_knots(k5.SOLVE_PCG)} "
           f"(grid {k5.check_mega_fit(n)} blocks at N = {n})")
-    print(f"fit: K7 power-of-2 N <= {k7.check_bcr_dz_fit(n)}, K7s power-of-2 "
+    print(f"fit: K7 (one cluster, C = {lib.mpc_bcr_dz_cluster(n, 0)} at "
+          f"N = {n}) power-of-2 N <= {k7.check_bcr_dz_fit(n)}, K7s power-of-2 "
           f"N <= {k7.check_bcr_solve_fit(n)}, K9p N <= "
           f"{lib.mpc_mega_max_knots(k9.ITER_PCG)} (grid "
           f"{k9.check_mega_fit(n, kind=k9.ITER_PCG)}), K9b N <= "
@@ -1060,8 +1089,11 @@ def main() -> int:
            F32 * (6 * n * NX * NX + 3 * n * NX) + 5)
 
     # K7 and K7s: tight on the seeded random system, by residual on the
-    # slice's K3 system without the stair (ks_np, the perturbed start)
-    k7_out = k7.bcr_dz(ks_rand)
+    # slice's K3 system without the stair (ks_np, the perturbed start); the
+    # first K7 launch under the watchdog
+    with _watchdog(FIRST_LAUNCH_DEADLINE):
+        k7_out = k7.bcr_dz(ks_rand)
+        sync()
     k7_ref = k7.bcr_dz_reference(ks_rand)
     sync()
     if int(k7_out[3]) != 0 or bool(k7_out[4]):
@@ -1072,11 +1104,7 @@ def main() -> int:
     record("K7", "bcr_dz", "mpcgpu_tpu_torch/csrc/bcr_dz.cu",
            "mpcgpu_tpu/ops/pallas/bcr_kernel.py:318", err7,
            lambda: k7.bcr_dz(ks_np), lambda: k7.bcr_dz_reference(ks_np),
-           _bcr_factor_ops(n) + 2 * _bcr_apply_ops(n) + _spmv_ops(n)
-           + _dz_ops(n),
-           F32 * (n * (5 * NX * NX + NX * NU + NU * NU + 2 * NX + NU)
-                  + 2 * n * NX + (n - 1) * NU),
-           residual=res7[0], residual_plain=res7[1])
+           *_k7_work(n)[::-1], residual=res7[0], residual_plain=res7[1])
 
     def k7s_pair(ks_sys):
         # the cluster kernel's first launches under the watchdog
@@ -1514,8 +1542,8 @@ def main() -> int:
     bcr_plain = run_loop("bcr, plain", plain_cfg, "bcr", n_updates=u8)[0]
     compare("staged bcr", bcr_fused, bcr_plain, bound=False)
 
-    # N = 128, above K7's fit: the split path (K7s, residual, K7s); the
-    # exact solve ignores lam, so no warm start
+    # N = 128, one K7 launch an SQP iteration; the exact solve ignores lam,
+    # so no warm start
     start_l = tuple(torch.as_tensor(a, device=dev)
                     for a in horizon_slices(xu, ee, LONG_KNOTS))
     cfg_l = SolverConfig.for_knots(
@@ -1525,11 +1553,24 @@ def main() -> int:
         f"staged bcr N={LONG_KNOTS}, fused", cfg_l, "bcr", detail=True,
         n_updates=u8, start=start_l, warm=False,
         want={**none, "K1": u8, "K2": u8 + u8 * s, "K3": u8 * s,
-              "K7s": 2 * u8 * s})
-    compare(f"staged bcr N={LONG_KNOTS}", long_fused, run_loop(
+              "K7": u8 * s})
+    long_plain = run_loop(
         f"bcr N={LONG_KNOTS}, plain", dataclasses.replace(
             cfg_l, fused_stages=False), "bcr", n_updates=u8, start=start_l,
-        warm=False)[0], bound=False)
+        warm=False)[0]
+    compare(f"staged bcr N={LONG_KNOTS}", long_fused, long_plain, bound=False)
+    # the same loop with bcr_dz's split path forced (K7s, the residual as
+    # tensor glue, K7s: what the loop runs past K7's fit, where K2 and the
+    # fixture's loops do not reach): K7s's launches in a closed loop
+    with unittest.mock.patch.object(sqp_module, "bcr_dz", functools.partial(
+            k7.bcr_dz, split=True)):
+        split_fused, split_counts = run_loop(
+            f"staged bcr N={LONG_KNOTS}, split path forced", cfg_l, "bcr",
+            n_updates=u8, start=start_l, warm=False,
+            want={**none, "K1": u8, "K2": u8 + u8 * s, "K3": u8 * s,
+                  "K7s": 2 * u8 * s})
+    compare(f"staged bcr N={LONG_KNOTS}, split path", split_fused,
+            long_plain, bound=False)
 
     # the per-iteration megakernels: K2, then K9p / K9b per SQP iteration
     iter_cfg = dataclasses.replace(cfg, megakernel=True)
@@ -2302,64 +2343,90 @@ def main() -> int:
                                  f"max|y| {scale:.3e}")
         return err
 
-    # K11 on every shard of 0_0's N = 512 Schur system (phase 8's perturbed
-    # start) times a seeded x, the halos the neighbours' edge rows (zero at
-    # the ends); and on random bands with nonzero halos
+    def k11_shards(label, bands, xs, xl, xr):
+        """K11 over every shard in one launch: bit-equal to one launch per
+        shard (its neighbours' edge rows, xl and xr at the ends), within
+        1e-5 of max|y| of the plain version; returns the largest error."""
+        before = k11.spmv_halo.launches
+        got = k11.spmv_halo_shards(bands, xs, xl, xr)
+        if k11.spmv_halo.launches != before + 1:
+            raise AssertionError(f"K11 {label}: not one launch")
+        last, err = len(xs) - 1, 0.0
+        for i, (b, x) in enumerate(zip(bands, xs)):
+            halos = (xs[i - 1][-1] if i > 0 else xl,
+                     xs[i + 1][0] if i < last else xr)
+            err = max(err, k11_pair(f"{label}, shard {i}", b, x, *halos))
+            if not torch.equal(got[i], k11.spmv_halo(*b, x, *halos)):
+                raise AssertionError(f"K11 {label}: shard {i} differs from "
+                                     f"its own launch")
+        return err
+
+    # K11 over the 8 shards of 0_0's N = 512 Schur system (phase 8's
+    # perturbed start) times a seeded x, the outer halos the global edges'
+    # zeros (Mesh.outer_halos); and over 8 shards of random bands with
+    # nonzero outer halos
     ks_s, cap_s, tol_s = long_system(n_s)
     S_s = BlockTri(ks_s.SL, ks_s.SD, ks_s.SU)
     P_s = BlockTri(ks_s.PL, ks_s.PD, ks_s.PU)
     x_s = rand(12, n_s, NX)
     shard_bands = list(zip(*(mesh.shard(t) for t in S_s)))
     x_sh = mesh.shard(x_s)
-    left, right = mesh.halos(x_sh)
-    err11 = max(k11_pair(f"shard {i} of 0_0's S", b, x, lf, rt)
-                for i, (b, x, lf, rt) in enumerate(zip(shard_bands, x_sh,
-                                                       left, right)))
-    rb = (rand(13, nl, NX, NX), rand(14, nl, NX, NX), rand(15, nl, NX, NX))
-    xb, hl, hr = rand(16, nl, NX), rand(17, NX), rand(18, NX)
-    err11 = max(err11, k11_pair("random bands", rb, xb, hl, hr))
-    mid = SHARDS // 2            # an interior shard: both halos nonzero
-    k11_args = (*shard_bands[mid], x_sh[mid], left[mid], right[mid])
+    outer = mesh.outer_halos(x_sh)
+    err11 = k11_shards("0_0's S", shard_bands, x_sh, *outer)
+    rb = [(rand(13 + 4 * i, nl, NX, NX), rand(14 + 4 * i, nl, NX, NX),
+           rand(15 + 4 * i, nl, NX, NX)) for i in range(SHARDS)]
+    xb = [rand(16 + 4 * i, nl, NX) for i in range(SHARDS)]
+    err11 = max(err11, k11_shards("random bands", rb, xb, rand(50, NX),
+                                  rand(51, NX)))
+    k11_args = (shard_bands, x_sh, *outer)
 
-    # the library yardstick: one torch.sparse BSR (block 14) product with
-    # the halo-padded x; torch.bmm of the stacked bands against the
-    # unfolded x where the card's build refuses BSR
-    pad = torch.cat([left[mid], x_sh[mid].reshape(-1), right[mid]])
+    # the library yardstick: one torch.sparse BSR (block 14) product of the
+    # whole banded S with x, the same work as one K11 launch over every
+    # shard; torch.bmm of the stacked bands against the unfolded x where
+    # the card's build refuses BSR
+    pad = torch.cat([outer[0], x_s.reshape(-1), outer[1]])
     try:
-        idx = torch.arange(nl, device=dev)
+        idx = torch.arange(n_s, device=dev)
+        cols = (idx[:, None] + torch.arange(-1, 2, device=dev)).reshape(-1)
+        keep = (cols >= 0) & (cols < n_s)
         bsr = torch.sparse_bsr_tensor(
-            torch.arange(0, 3 * nl + 1, 3, device=dev),
-            (idx[:, None] + torch.arange(3, device=dev)).reshape(-1),
-            torch.stack(shard_bands[mid], 1).reshape(3 * nl, NX, NX),
-            size=(nl * NX, (nl + 2) * NX))
-        col = pad[:, None]
+            torch.cat([idx.new_zeros(1), keep.view(n_s, 3).sum(1).cumsum(0)]),
+            cols[keep],
+            torch.stack(tuple(S_s), 1).reshape(3 * n_s, NX, NX)[keep],
+            size=(n_s * NX, n_s * NX))
+        col = x_s.reshape(-1, 1)
         lib_run = lambda: bsr @ col
-        lib_y = lib_run().reshape(nl, NX)
-        lib_name = "torch.sparse BSR (block 14) @ the halo-padded x"
+        lib_y = lib_run().reshape(n_s, NX)
+        lib_name = "torch.sparse BSR (block 14) of the whole S @ x"
     except (RuntimeError, NotImplementedError) as e:
         print(f"K11 library yardstick: BSR refused ({e}); timing torch.bmm")
-        stacked = torch.cat(shard_bands[mid], dim=2)           # (nl, 14, 42)
-        win = pad.view(nl + 2, NX).unfold(0, 3, 1).transpose(1, 2)
-        win = win.reshape(nl, 3 * NX, 1).contiguous()
+        stacked = torch.cat(tuple(S_s), dim=2)                 # (N, 14, 42)
+        win = pad.view(n_s + 2, NX).unfold(0, 3, 1).transpose(1, 2)
+        win = win.reshape(n_s, 3 * NX, 1).contiguous()
         lib_run = lambda: torch.bmm(stacked, win)
-        lib_y = lib_run().reshape(nl, NX)
-        lib_name = "torch.bmm of the (nl, 14, 42) stacked bands"
+        lib_y = lib_run().reshape(n_s, NX)
+        lib_name = "torch.bmm of the (N, 14, 42) stacked bands"
     sync()
-    want = k11.spmv_halo_reference(*k11_args)
+    want = torch.cat(k11.spmv_halo_shards_reference(*k11_args))
     if float((lib_y - want).abs().max()) > 1e-5 * float(want.abs().max()):
         raise AssertionError(f"K11 library yardstick ({lib_name}) computes "
                              f"another product")
     lib_ms = _event_ms(lib_run)
-    k11_us = _device_us(lambda: k11.spmv_halo(*k11_args), "K11")
-    print(f"K11 at nl = {nl}: max error {err11:.3e}; {_us(k11_us)} of device "
-          f"time per launch; library ({lib_name}) {lib_ms:.4f} ms")
+    k11_us = _device_us(lambda: k11.spmv_halo_shards(*k11_args), "K11")
+    one_args = (*shard_bands[0], x_sh[0], outer[0], x_sh[1][0])
+    k11_one_us = _device_us(lambda: k11.spmv_halo(*one_args), "K11")
+    print(f"K11 over {SHARDS} shards of nl = {nl}: max error {err11:.3e}; "
+          f"{_us(k11_us)} of device time per launch ({_us(k11_one_us)} for "
+          f"one shard); library ({lib_name}) {lib_ms:.4f} ms")
     record("K11", "spmv_halo", "mpcgpu_tpu_torch/csrc/spmv_halo.cu",
            "mpcgpu_tpu/parallel/pcg_sharded_pallas.py:74", err11,
-           lambda: k11.spmv_halo(*k11_args),
-           lambda: k11.spmv_halo_reference(*k11_args),
-           2 * 3 * nl * NX * NX, F32 * (3 * nl * NX * NX + 2 * nl * NX
-                                        + 2 * NX),
-           library_ms=lib_ms, library=lib_name, nl=nl, device_us=k11_us)
+           lambda: k11.spmv_halo_shards(*k11_args),
+           lambda: k11.spmv_halo_shards_reference(*k11_args),
+           2 * (3 * n_s - 2) * NX * NX,
+           F32 * ((3 * n_s - 2) * NX * NX + 2 * n_s * NX + 2 * NX),
+           library_ms=lib_ms, library=lib_name, shards=SHARDS, nl=nl,
+           device_us=k11_us, device_us_one_shard=k11_one_us,
+           ms_one_shard=_event_ms(lambda: k11.spmv_halo(*one_args)))
 
     # the sharded CGs against K4bg and the plain CG at N = 512: to
     # convergence on the JAX parallel test's random system (seed 7, the
@@ -2405,7 +2472,7 @@ def main() -> int:
                 [(outs_s[k][0], outs_s["plain"][0])], 5e-3, 5e-3)
     cg_ms = {k: _event_ms(run, reps=5, warmup=1) for k, run in runs_s.items()}
     k4bg_us = _device_us(runs_s["K4bg"], "K4bg")
-    k11_cg = SHARDS * (2 + 2 * cap_s)
+    k11_cg = 2 + 2 * cap_s      # one launch an SpMV over the 8 shards
     sync()
     reset_launch_counts()
     runs_s["pcg_sharded_cuda"]()
@@ -2474,7 +2541,7 @@ def main() -> int:
         pcg=PCGConfig(max_iter=SHARD_LOOP_CAP))
     fused_name = register_sharded_pcg(mesh, fused=True)
     u_s = SHARD_UPDATES
-    per_update = SHARD_LOOP_ITERS * SHARDS * (2 + 2 * SHARD_LOOP_CAP)
+    per_update = SHARD_LOOP_ITERS * (2 + 2 * SHARD_LOOP_CAP)
     X5, U5 = long_start(n_s, seed=5)[:2]     # the perturbed plan
     loop_args = (xu_d, ee_d, X5, U5, torch.zeros_like(X5), cfg.rho_init,
                  1e-5, u_s)
@@ -2604,7 +2671,7 @@ def main() -> int:
           f"{gloo_s:.1f} s with the ranks' start")
     k11_entry = next(k for k in kernels if k["name"].startswith("K11 "))
     k11_entry.update(
-        launches_per_cg_step=2 * SHARDS, launches_per_update=per_update,
+        launches_per_cg_step=2, launches_per_update=per_update,
         sharded_cg_ms=cg_ms, sharded_cg_iters=its_s,
         k4bg_device_us=k4bg_us,
         sharded_cg_device_ms={k: t / 1e3 for k, (t, _) in groups.items()},
@@ -2691,22 +2758,16 @@ def main() -> int:
 
     # K6 against the plain version (the seeded random system, K6's
     # tolerances) at every power of 2 up to 512 and admitted cluster size,
-    # CG counts and hit identical; its factor against the one-block factor
-    # of K7 where K7 fits (N <= 64), else K7s's cluster factor, bit for bit
+    # CG counts and hit identical; its factor against K7's cluster factor,
+    # bit for bit (no kernel on the card runs the one-block factor)
     err6c, k6_read = 0.0, {}
-    n7 = k7.check_bcr_dz_fit(2)
     for n_c in CLUSTER_BCR_KNOTS:
         ks_r = systems.random_knot_schur(n_c, device=dev)
         lam0_c = torch.zeros(n_c, NX, device=dev)
         ref = k6.bcr_pcg_dz_reference(ks_r, lam0_c, 40, 5e-5)
         size = lib.mpc_bcr_scratch_floats(n_c)
-        one_block = torch.zeros(size, device=dev)
-        if n_c <= n7:
-            k7._launch_dz(lib, ks_r, _lib.stream_of(lam0_c),
-                          scratch=one_block)
-        else:
-            k7._launch_solve(lib, ks_r.SL, ks_r.SD, ks_r.SU, ks_r.gamma,
-                             _lib.stream_of(lam0_c), scratch=one_block)
+        k7_fac = torch.zeros(size, device=dev)
+        k7._launch_dz(lib, ks_r, _lib.stream_of(lam0_c), scratch=k7_fac)
         for c in (16, 8):
             if lib.mpc_bcr_cluster(n_c, c) != c:
                 continue
@@ -2726,13 +2787,12 @@ def main() -> int:
                 raise AssertionError(f"{label}: CG {int(out[3])} (hit "
                                      f"{bool(out[4])}) vs plain {int(ref[3])}"
                                      f" ({bool(ref[4])})")
-            if not torch.equal(fac, one_block):
+            if not torch.equal(fac, k7_fac):
                 raise AssertionError(f"{label}: the factors differ from "
-                                     f"K7's (N <= {n7}) or K7s's")
+                                     f"K7's")
             err6c = max(err6c, tight_bcr(label, out, ref))
             print(f"{label}: kernel read C = {read}; CG {int(out[3])} as "
-                  f"plain; factors bit-equal to "
-                  f"{'K7' if n_c <= n7 else 'K7s'}'s")
+                  f"plain; factors bit-equal to K7's")
 
     # a CG step's device time: a solve less the same solve with the CG
     # capped at 0 (the stages, or the factor, the first residual and
@@ -3069,31 +3129,75 @@ def main() -> int:
                         "checked_past_the_cluster_fit": f"N = 16, B = {b_one}"})
     print(f"phase 11 (K10's forms): {time.perf_counter() - t_phase:.1f} s")
 
-    # ---- 12. the cluster BCR forms: K7s (one cluster) and K9b (its refined
-    # BCR solve and dz across the first cluster of its cooperative launch)
+    # ---- 12. the cluster BCR forms: K7 and K7s (one cluster) and K9b (its
+    # refined BCR solve and dz across the first cluster of its cooperative
+    # launch).  No kernel on the card runs the one-block factor any more:
+    # the forms are held to each other here and to the plain versions, and
+    # tests/test_torch_csrc_host.py holds them to the one-block forms
     t_phase = time.perf_counter()
-    bcr_forms = (("K7s", "16bcr_solve_kernel"),
+    bcr_forms = (("K7", "13bcr_dz_kernel"), ("K7s", "16bcr_solve_kernel"),
                  ("K9b", "24sqp_iter_mega_bcr_kernel"))
     found = _lib.ptxas_resources(build_log, [f for _, f in bcr_forms])
     for kid, fragment in bcr_forms:
         print(f"{kid} (cluster form) ptxas: {found[fragment][0]}")
     n9 = lib.mpc_mega_max_knots(k9.ITER_BCR)
-    print(f"fit: K7s power-of-2 N <= {k7.check_bcr_solve_fit(2)}; K9b's "
-          f"cluster form N <= {n9}, power-of-2 N <= "
-          f"{1 << (n9.bit_length() - 1)}")
+    print(f"fit: K7 power-of-2 N <= {k7.check_bcr_dz_fit(2)}, K7s power-of-2 "
+          f"N <= {k7.check_bcr_solve_fit(2)}; K9b's cluster form N <= {n9}, "
+          f"power-of-2 N <= {1 << (n9.bit_length() - 1)}")
+    # K7 at every admitted cluster size: tight against the plain refined
+    # solve on the seeded random system (tests/test_bcr.py:62-74), by
+    # residual on fixture 0_0's system at phase 8's perturbed start; its
+    # factor against K7s's, bit for bit; its first launches at each N under
+    # the watchdog; the forced split path (K7s, residual, K7s) against it
+    err7c, k7_read, k7_res, k7_facs = 0.0, {}, {}, {}
+    for n_c in K7_KNOTS:
+        ks_r = systems.random_knot_schur(n_c, device=dev)
+        st = _lib.stream_of(ks_r.gamma)
+        ref = k7.bcr_dz_reference(ks_r)
+        ks_f = long_system(n_c)[0]
+        ref_f = k7.bcr_dz_reference(ks_f)[0]
+        size = lib.mpc_bcr_scratch_floats(n_c)
+        fac_s = torch.zeros(size, device=dev)
+        k7._launch_solve(lib, ks_r.SL, ks_r.SD, ks_r.SU, ks_r.gamma, st,
+                         scratch=fac_s)
+        for c in (16, 8):
+            if lib.mpc_bcr_dz_cluster(n_c, c) != c:
+                continue
+            fac = torch.zeros(size, device=dev)
+            with _watchdog(FIRST_LAUNCH_DEADLINE):
+                out = k7._launch_dz(lib, ks_r, st, scratch=fac, cluster=c)
+                sync()
+            label = f"K7 cluster C = {c}, N = {n_c}"
+            read = int(k7.bcr_dz.cluster_size)
+            k7_read[f"{n_c}/{c}"] = read
+            if read != c:
+                raise AssertionError(f"{label}: the kernel read "
+                                     f"%cluster_nctarank = {read}")
+            if int(out[3]) != 0 or bool(out[4]):
+                raise AssertionError(f"{label}: reports CG iterations")
+            err7c = max(err7c, tight_bcr(label, out, ref))
+            if not torch.equal(fac, fac_s):
+                raise AssertionError(f"{label}: the factors differ from "
+                                     f"K7s's")
+            k7_res[f"{n_c}/{c}"] = residual_pair(
+                f"{label}, fixture 0_0", ks_f,
+                k7._launch_dz(lib, ks_f, st, cluster=c)[0], ref_f)[0]
+            print(f"{label}: kernel read C = {read}; factors bit-equal to "
+                  f"K7s's")
+        if n_c in K7_SPLIT_KNOTS:
+            tight_bcr(f"split bcr_dz (K7s, residual, K7s) vs K7, N = {n_c}",
+                      k7.bcr_dz(ks_r, split=True), k7.bcr_dz(ks_r))
+        k7_facs[n_c] = fac_s
     # K7s at every admitted cluster size against the plain version (the
     # seeded random system, K6's tolerances); its factor against K7's
-    # one-block factor where K7 fits, bit for bit
+    # cluster factor, bit for bit
     err7sc, k7s_read = 0.0, {}
     for n_c in K7S_CLUSTER_KNOTS:
         ks_r = systems.random_knot_schur(n_c, device=dev)
         ref = k7.bcr_solve_reference(ks_r.SL, ks_r.SD, ks_r.SU, ks_r.gamma)
         size = lib.mpc_bcr_scratch_floats(n_c)
-        one_block = None
-        if n_c <= n7:
-            one_block = torch.zeros(size, device=dev)
-            k7._launch_dz(lib, ks_r, _lib.stream_of(ks_r.gamma),
-                          scratch=one_block)
+        k7_fac = torch.zeros(size, device=dev)
+        k7._launch_dz(lib, ks_r, _lib.stream_of(ks_r.gamma), scratch=k7_fac)
         for c in (16, 8):
             if lib.mpc_bcr_solve_cluster(n_c, c) != c:
                 continue
@@ -3110,14 +3214,11 @@ def main() -> int:
                 raise AssertionError(f"{label}: the kernel read "
                                      f"%cluster_nctarank = {read}")
             err7sc = max(err7sc, tight_bcr(label, out, ref))
-            same = None
-            if one_block is not None:
-                same = torch.equal(fac, one_block)
-                if not same:
-                    raise AssertionError(f"{label}: the factors differ from "
-                                         f"K7's one-block factor")
-            print(f"{label}: kernel read C = {read}"
-                  + ("; factors bit-equal to K7's" if same else ""))
+            if not torch.equal(fac, k7_fac):
+                raise AssertionError(f"{label}: the factors differ from "
+                                     f"K7's")
+            print(f"{label}: kernel read C = {read}; factors bit-equal to "
+                  f"K7's")
     # K9b at every admitted cluster size against the plain iteration, as in
     # phase 3: accept and bail equal, no CG; lam by residual; X, U and merit
     # against the plain iteration given the kernel's lam
@@ -3161,8 +3262,18 @@ def main() -> int:
                          (out.merit, given.merit)], 1e-3, 2e-4))
             print(f"{label}: kernel read C = {read}, grid {plan[2]}; accept "
                   f"{bool(out.accept)} as plain")
-    # device times a launch (the profiler), where the paths launch them
-    bcr_us = {}
+    # device times a launch (the profiler), where the paths launch them;
+    # K7 beside the split path it replaced at N = 128 (CUDA events, a call)
+    bcr_us, k7_ms, k7_bounds = {}, {}, {}
+    for n_c in K7_TIMED_KNOTS:
+        ks_r = systems.random_knot_schur(n_c, device=dev)
+        bcr_us[f"K7 N={n_c}"] = _device_us(lambda: k7.bcr_dz(ks_r), "K7")
+        k7_ms[f"N={n_c}"] = _event_ms(lambda: k7.bcr_dz(ks_r))
+        if n_c in K7_SPLIT_KNOTS:
+            k7_ms[f"split N={n_c}"] = _event_ms(
+                lambda: k7.bcr_dz(ks_r, split=True))
+        k7_bounds[f"N={n_c}"] = _bound(*_k7_work(n_c))[0]
+    print(f"K7 a call (ms, events): {k7_ms}; bounds (ms): {k7_bounds}")
     for n_c in K7S_LIBRARY_KNOTS:
         ks_r = systems.random_knot_schur(n_c, device=dev)
         bcr_us[f"K7s N={n_c}"] = _device_us(
@@ -3176,7 +3287,13 @@ def main() -> int:
         print(f"{key}: {_us(t)} a launch (device)")
     for k in kernels:
         kid = k["name"].split()[0]
-        if kid == "K7s":
+        if kid == "K7":
+            k.update(cluster_forms_max_abs_err=err7c, cluster_read=k7_read,
+                     fixture_residuals=k7_res, call_ms=k7_ms,
+                     bound_ms_by_n=k7_bounds,
+                     device_us={key: t for key, t in bcr_us.items()
+                                if key.startswith("K7 ")})
+        elif kid == "K7s":
             k.update(cluster_forms_max_abs_err=err7sc,
                      cluster_read=k7s_read,
                      device_us={key: t for key, t in bcr_us.items()
@@ -3196,6 +3313,7 @@ def main() -> int:
              ("staged", staged_counts), ("packed", packed_counts),
              ("staged bcr", bcr_counts),
              (f"staged bcr N={LONG_KNOTS}", long_counts_bcr),
+             (f"staged bcr N={LONG_KNOTS}, split path forced", split_counts),
              ("pcg per-iteration megakernel", k9p_counts),
              ("bcr per-iteration megakernel", k9b_counts),
              ("pcg_pallas", pp_counts), *long_counts.items(),

@@ -1,10 +1,11 @@
 // The block cyclic reduction (BCR) of S lam = gamma, factored once and
-// applied many times; shared by K7 (bcr_dz.cu: the refined solve + dz) in
-// one block, and by K6 (bcr_pcg_dz.cu, its CG's preconditioner), K7s
-// (bcr_dz.cu, one unrefined solve) and K9b (sqp_mega.cu, the dual-solve
-// stage of its per-iteration kernel: the refined solve + dz,
-// cluster_bcr_dz) across one thread-block cluster (cluster_factor,
-// ClusterBcr, below).
+// applied many times; shared by K6 (bcr_pcg_dz.cu, its CG's
+// preconditioner), K7 (bcr_dz.cu: the refined solve + dz, cluster_bcr_dz),
+// K7s (bcr_dz.cu, one unrefined solve) and K9b (sqp_mega.cu, the dual-solve
+// stage of its per-iteration kernel: cluster_bcr_dz again) across one
+// thread-block cluster (cluster_factor, ClusterBcr, below).  The one-block
+// forms (bcr_factor, BcrPre, bcr_dz_body) are the references those equal
+// bit for bit; no kernel runs them.
 //
 // Design: factor once, apply many times.  The TPU kernels
 // (mpcgpu_tpu/ops/pallas/bcr_kernel.py _bcr_lanes) redo the whole
@@ -56,16 +57,6 @@ LD_HD size_t factor_floats(int N) {
 inline int threads_for(int N) {
   const int t = ((S * N + 31) / 32) * 32;
   return t < MAX_THREADS ? t : MAX_THREADS;
-}
-
-// Largest power-of-2 horizon whose `floats_of(N)` shared floats fit one
-// block on this device; 0 if the attribute cannot be read.
-template <class F>
-inline int pow2_max_knots(F floats_of) {
-  const int n = pcgc::max_knots_for(floats_of, 0);
-  int p = 0;
-  while ((2 << p) <= n) ++p;
-  return n > 0 ? 1 << p : 0;
 }
 
 // (A B)[i][j] for e = i*S + j, 14x14 row-major
@@ -229,10 +220,12 @@ LD_HD size_t dz_vec_floats(int N) {
   return (size_t)4 * N * S + (size_t)MAX_WARPS * INV_FLOATS;
 }
 
-// The TPU's _bcr_refined and its dz (bcr_kernel.py:107-120, 164-183):
-// factor S into fac (factor_floats(N) of global scratch), lam = BCR(gamma),
-// r = gamma - S lam, lam += BCR(r), then K4's dz epilogue; lam to lam_out.
-// vecs: dz_vec_floats(N) shared floats.  Ends in a barrier.
+// The TPU's _bcr_refined and its dz (bcr_kernel.py:107-120, 164-183) in
+// one block: factor S into fac (factor_floats(N) of global scratch),
+// lam = BCR(gamma), r = gamma - S lam, lam += BCR(r), then K4's dz
+// epilogue; lam to lam_out.  vecs: dz_vec_floats(N) shared floats.  Ends
+// in a barrier.  The reference cluster_bcr_dz equals (bcr_dz.cu
+// mpc_bcr_dz_one_block_host, tools/cluster_factor_bench.cu).
 LD_DEV void bcr_dz_body(int N, const float* SL, const float* SD,
                         const float* SU, const float* gamma, const float* A,
                         const float* B, const float* q, const float* r_in,
@@ -259,7 +252,7 @@ LD_DEV void bcr_dz_body(int N, const float* SL, const float* SD,
 }
 
 // ---------------------------------------------------------------------------
-// The cluster form (K6, K7s, K9b): the same factor and apply spread over
+// The cluster form (K6, K7, K7s, K9b): the same factor and apply spread over
 // the C blocks of a thread-block cluster (pcg_common.cuh's ClusterCg: block
 // r owns knots [r nk, r nk + own) and their S bands).  The factors stay in
 // global memory (L2), laid out as above; another SM of the cluster may have
@@ -415,9 +408,9 @@ LD_DEV void cluster_factor(const BcrFactor& f, const pcgc::ClusterCg& a,
   LD_CLUSTER_SYNC();
 }
 
-// Shared floats of one block of a one-cluster BCR kernel (K6, K7s: blocks
-// of MAX_THREADS) at cluster size C: its knots' S bands, the cluster CG's
-// vectors and slots, two 14x14 blocks of scratch per warp.
+// Shared floats of one block of a one-cluster BCR kernel (K6, K7, K7s:
+// blocks of MAX_THREADS) at cluster size C: its knots' S bands, the
+// cluster CG's vectors and slots, two 14x14 blocks of scratch per warp.
 LD_HD size_t cluster_floats(int N, int C) {
   return pcgc::cluster_cg_floats(N, C, false, SCRATCH_FLOATS);
 }
@@ -562,12 +555,12 @@ struct ClusterBcr {
   }
 };
 
-// bcr_dz_body across the cluster (K9b's stage 4): factor S from the own
-// knots' bands (a.SL, SD, SU) into f, lam = BCR(gamma), r = gamma - S lam
-// (each owner's rows, the halo rows of lam read through DSMEM), lam +=
-// BCR(r), then the owners' dz (pcgc::cluster_dz); lam to lam_out.  Every
-// sum keeps bcr_dz_body's terms, order and multiply-add pairing, so the
-// outputs equal its bit for bit.  a.extra holds scratch_floats(threads);
+// bcr_dz_body across the cluster (K7, and K9b's stage 4): factor S from
+// the own knots' bands (a.SL, SD, SU) into f, lam = BCR(gamma),
+// r = gamma - S lam (each owner's rows, the halo rows of lam read through
+// DSMEM), lam += BCR(r), then the owners' dz (pcgc::cluster_dz); lam to
+// lam_out.  Every sum keeps bcr_dz_body's terms, order and multiply-add
+// pairing, so the outputs equal its bit for bit.  a.extra holds scratch_floats(threads);
 // the vectors are a.r[0] (gamma, then r), a.lam and a.w.  Every block of
 // the cluster calls it alike; ends in a cluster barrier.
 LD_DEV void cluster_bcr_dz(const pcgc::ClusterCg& a, const BcrFactor& f,

@@ -7,58 +7,51 @@
 // r = gamma - S lam, lam += BCR(r), then K4's dz epilogue; it reports no
 // CG iterations (the "bcr" backend's iters 0, hit False).  K7s is
 // lam = BCR(gamma) alone, what the split paths of ops/cuda/bcr_kernel.py
-// call above K7's and K6's shared-memory fit.
+// call past K6's fit (and K7's, or when split=True forces them).
 //
 // Design: both run bcr_common.cuh's factor-once, apply-many code (shared
 // with K6 and K9b): the elimination is factored once per launch into
 // global scratch (L2-resident), and each solve is one forward and one back
 // pass over it, so K7's refinement costs one more apply, not a second
-// elimination as on the TPU.  K7 is one thread block holding S's bands in
-// shared memory for the factor's copy and the residual; that bounds N
-// (mpc_bcr_dz_max_knots: power-of-2 N, 64 on an NVIDIA H100 80GB HBM3).
-// K7s is one thread-block cluster, as K6 is: C = 16 blocks of 512 threads
-// where the card schedules them, else 8 (bcr::plan_cluster); block r owns
-// the knots [r nk, r nk + own) with their S bands, the factor's levels
-// are spread one warp a knot or (kept, eliminated) pair over all C x 16
-// warps (bcr::cluster_factor), and the apply keeps g and z in the owners'
-// shared memory, the rows at i +- h read through DSMEM (bcr::ClusterBcr).
-// Its factor and solve equal the one-block factor and apply (bcr_factor,
-// BcrPre) bit for bit.  S's bands bound its N (mpc_bcr_solve_max_knots,
-// 1024 on the H100 at C = 16).
+// elimination as on the TPU.  Both are one thread-block cluster, as K6 is:
+// C = 16 blocks of 512 threads where the card schedules them, else 8
+// (bcr::plan_cluster); block r owns the knots [r nk, r nk + own) with their
+// S bands, the factor's levels are spread one warp a knot or (kept,
+// eliminated) pair over all C x 16 warps (bcr::cluster_factor), and the
+// apply keeps g and z in the owners' shared memory, the rows at i +- h read
+// through DSMEM (bcr::ClusterBcr).  K7's body is K9b's stage 4
+// (bcr::cluster_bcr_dz): the factor, an apply, the residual over the own
+// knots (the halo rows of lam through DSMEM), the second apply on the same
+// factor, and the owners' dz (pcgc::cluster_dz).  Each sum keeps the
+// one-block forms' terms and multiply-add pairing, so K7 equals the
+// one-block refined solve (bcr_dz_body) and K7s the one-block factor and
+// apply (bcr_factor, BcrPre) bit for bit.  S's bands bound N
+// (mpc_bcr_dz_max_knots, mpc_bcr_solve_max_knots: 1024 on the H100 at
+// C = 16).
 //
 // Bound on the H100: latency.  log2(N) levels of dependent 14x14 products
-// and Gauss-Jordan inverses, 2 log2(N) + 2 barriers per apply; at N = 64
-// the work is ~5 MFLOP over ~1 MB, far from either roof.
+// and Gauss-Jordan inverses, 2 log2(N) + 2 cluster barriers per apply; at
+// N = 64 the work is ~5 MFLOP over ~1 MB, far from either roof.
 #include "bcr_common.cuh"
 
 namespace {
 
 using bcr::MAX_THREADS;
-constexpr int S = ld::NX, SS = S * S;
+constexpr int S = ld::NX;
 
-// K7's shared floats: S's three bands and bcr_dz_body's vectors
-size_t dz_smem_floats(int N) {
-  return (size_t)3 * N * SS + bcr::dz_vec_floats(N);
-}
-
+// K7: the refined solve and dz over the cluster (cluster_bcr_dz); ints: the
+// cluster size read.
 LD_GLOBAL void LD_LAUNCH_BOUNDS(MAX_THREADS) bcr_dz_kernel(
-    int N, const float* SLg, const float* SDg, const float* SUg,
+    int N, int levels, const float* SL, const float* SD, const float* SU,
     const float* gamma, const float* A, const float* B, const float* q,
     const float* r_in, const float* Qinv, const float* Rinv, float* fac,
-    float* lam_out, float* dX, float* dU) {
+    float* lam_out, float* dX, float* dU, int* ints) {
   LD_DYN_SMEM(smem);
-  const int nb = SS * N;
-  float* SL = smem;
-  float* SD = SL + nb;
-  float* SU = SD + nb;
-  for (int e = LD_TID; e < nb; e += LD_NTID) {
-    SL[e] = SLg[e];
-    SD[e] = SDg[e];
-    SU[e] = SUg[e];
-  }
-  LD_SYNC();
-  bcr::bcr_dz_body(N, SL, SD, SU, gamma, A, B, q, r_in, Qinv, Rinv, fac,
-                   SU + nb, lam_out, dX, dU);
+  const pcgc::ClusterCg a = pcgc::cluster_area(smem, N, false);
+  pcgc::cluster_load_bands(a, SL, SD, SU, a.SL, a.SD, a.SU);
+  bcr::cluster_bcr_dz(a, bcr::BcrFactor(fac, N, levels), gamma, A, B, q,
+                      r_in, Qinv, Rinv, lam_out, dX, dU);
+  if (a.rank == 0 && LD_TID == 0) ints[0] = a.C;
 }
 
 // K7s: lam = BCR(gamma) over the cluster; ints: the cluster size read.
@@ -85,10 +78,25 @@ LD_GLOBAL void LD_LAUNCH_BOUNDS(MAX_THREADS) bcr_solve_kernel(
 
 }  // namespace
 
-// Largest power-of-2 horizon K7 (S in shared memory) serves on this
-// device; 0 if the attribute cannot be read.
+// The cluster size of a K7 launch over N knots: as mpc_bcr_cluster's for
+// K6 (bcr::plan_cluster).  The host build answers `cluster` where it is
+// not 0 (a test's block emulation runs that many blocks), else 1, where
+// the card's arithmetic at 227 KB fits C = 16.
+extern "C" int mpc_bcr_dz_cluster(int N, int cluster) {
+#ifdef __CUDACC__
+  static int known[16][17][3];
+  return bcr::plan_cluster((const void*)bcr_dz_kernel, N, cluster, known);
+#else
+  return bcr::host_cluster(N) && cluster >= 0 ? (cluster > 0 ? cluster : 1)
+                                              : 0;
+#endif
+}
+
+// Largest power-of-2 horizon K7 serves on this device (0 if none).
 extern "C" int mpc_bcr_dz_max_knots(void) {
-  return bcr::pow2_max_knots(dz_smem_floats);
+  int n = 0;
+  for (int m = 1; mpc_bcr_dz_cluster(m, 0) > 0; m *= 2) n = m;  // cached
+  return n;
 }
 
 // The cluster size of a K7s launch over N knots: as mpc_bcr_cluster's for
@@ -113,23 +121,36 @@ extern "C" int mpc_bcr_solve_max_knots(void) {
 }
 
 // K7: lam, dX, dU from S, gamma and the dz blocks; scratch holds
-// mpc_bcr_scratch_floats(N) floats.
+// mpc_bcr_scratch_floats(N) floats, ints 1 (the cluster size the kernel
+// read); cluster as mpc_bcr_dz_cluster's.  A launch that the runtime
+// refuses, or a horizon no such cluster can hold, returns its error.
 extern "C" int mpc_bcr_dz(int N, const float* SL, const float* SD,
                           const float* SU, const float* gamma, const float* A,
                           const float* B, const float* q, const float* r,
                           const float* Qinv, const float* Rinv,
                           float* scratch, float* lam_out, float* dX,
-                          float* dU, void* stream) {
-  if (N < 1 || (N & (N - 1))) return 1;  // cudaErrorInvalidValue
-  const size_t smem = dz_smem_floats(N) * sizeof(float);
+                          float* dU, int* ints, int cluster, void* stream) {
+  const int C = mpc_bcr_dz_cluster(N, cluster);
+  if (C < 1) return 1;  // cudaErrorInvalidValue
+  const int levels = bcr::levels_of(N);
 #ifdef __CUDACC__
-  cudaError_t err = cudaFuncSetAttribute(
-      bcr_dz_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  return bcr::launch_cluster(bcr_dz_kernel, N, C, stream, N, levels, SL, SD,
+                             SU, gamma, A, B, q, r, Qinv, Rinv, scratch,
+                             lam_out, dX, dU, ints);
+#else
+  const size_t smem = bcr::cluster_floats(N, C);
+  auto run = [&] {
+    bcr_dz_kernel(N, levels, SL, SD, SU, gamma, A, B, q, r, Qinv, Rinv,
+                  scratch, lam_out, dX, dU, ints);
+  };
+  if (C > 1)  // the block emulation (lanedyn.cuh ld_emu_blocks)
+    ld_emu_blocks(C, C, smem, run);
+  else
+    LD_LAUNCH(bcr_dz_kernel, 1, MAX_THREADS, smem * sizeof(float), stream,
+              N, levels, SL, SD, SU, gamma, A, B, q, r, Qinv, Rinv, scratch,
+              lam_out, dX, dU, ints);
+  return 0;
 #endif
-  LD_LAUNCH(bcr_dz_kernel, 1, bcr::threads_for(N), smem, stream, N, SL, SD,
-            SU, gamma, A, B, q, r, Qinv, Rinv, scratch, lam_out, dX, dU);
-  return LD_LAST_ERROR();
 }
 
 // K7s: lam = BCR(gamma), unrefined; scratch as K7's, ints 1 (the cluster
@@ -172,6 +193,24 @@ extern "C" int mpc_bcr_one_block_solve_host(int N, const float* SL,
   const bcr::BcrFactor f(fac, N, bcr::levels_of(N));
   bcr::bcr_factor(f, SL, SD, SU, inv.data());
   bcr::BcrPre{f, g.data()}.apply(gamma, lam);
+  return 0;
+}
+
+// Host build only: the refined solve and dz in one block (bcr_dz_body:
+// bcr_factor, a BcrPre apply, the residual, a second apply, dz_epilogue)
+// from S's bands into fac, lam, dX and dU; the tests' reference for K7 and
+// K9b's stage 4, bit for bit.
+extern "C" int mpc_bcr_dz_one_block_host(int N, const float* SL,
+                                         const float* SD, const float* SU,
+                                         const float* gamma, const float* A,
+                                         const float* B, const float* q,
+                                         const float* r, const float* Qinv,
+                                         const float* Rinv, float* fac,
+                                         float* lam, float* dX, float* dU) {
+  if (N < 1 || (N & (N - 1))) return 1;
+  std::vector<float> vecs(bcr::dz_vec_floats(N));
+  bcr::bcr_dz_body(N, SL, SD, SU, gamma, A, B, q, r, Qinv, Rinv, fac,
+                   vecs.data(), lam, dX, dU);
   return 0;
 }
 

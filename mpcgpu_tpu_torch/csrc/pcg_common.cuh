@@ -201,24 +201,6 @@ LD_DEV void dz_epilogue(int N, const float* lam, const float* A,
   }
 }
 
-// Largest horizon whose `floats_of(N)` shared floats, plus `static_bytes`,
-// fit one block on this device; 0 if the attribute cannot be read.
-template <class F>
-inline int max_knots_for(F floats_of, size_t static_bytes) {
-#ifdef __CUDACC__
-  int dev = 0, bytes = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-#else
-  const int bytes = 232448;
-#endif
-  int n = 0;
-  while (floats_of(n + 1) * sizeof(float) + static_bytes <= (size_t)bytes) ++n;
-  return n;
-}
-
 // A float another block wrote in this launch, read past L1 (ld.global.cg).
 LD_DEV float load_cg(const float* p) {
 #ifdef __CUDACC__

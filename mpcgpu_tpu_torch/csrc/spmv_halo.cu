@@ -1,8 +1,10 @@
-// K11: the block-tridiagonal product over one knot shard, with the
-// neighbouring shards' edge rows as halos:
-//   y_k = L_k x_{k-1} + D_k x_k + U_k x_{k+1},   k = 0 .. nl-1,
-// where x_{-1} is xl (the left neighbour's last row) and x_{nl} is xr (the
-// right neighbour's first row), both zero at the global edges.
+// K11: the block-tridiagonal product over the consecutive knot shards one
+// process holds, in one launch:
+//   y_k = L_k x_{k-1} + D_k x_k + U_k x_{k+1},   k = 0 .. nl-1 of each shard,
+// where a shard's x_{-1} is the previous shard's last row and its x_{nl} the
+// next shard's first row; outside the shards the launch holds, xl (the
+// left neighbour's last row) and xr (the right neighbour's first row), both
+// zero at the global edges.
 //
 // Replaces the TPU kernel mpcgpu_tpu/parallel/pcg_sharded_pallas.py
 // (_spmv_halo_pallas / _spmv_halo_kernel), the SpMV that the horizon-sharded
@@ -11,36 +13,63 @@
 // lane roll and a mask; here everything is knot-major, as the rest of the
 // port: bands (nl, 14, 14) row-major, x and y (nl, 14), halos (14,).
 //
-// Bound on the H100: latency.  At nl = 64 the call moves ~158 KB (three
-// bands and four vectors), about 0.05 us at 3.35 TB/s, and does ~0.07
-// MFLOP; the launch costs more than either.  So the kernel is the simple
-// form: one thread per output row (k, i), reading its three band rows
-// (42 contiguous floats) and the three neighbouring x rows, summing in the
-// TPU kernel's order (the D row, then L and U interleaved by column).
-// Blocks of 128 threads stride over the rows, so any nl launches.
+// Bound on the H100: latency.  A shard of nl = 64 knots moves ~158 KB
+// (three bands and four vectors), about 0.05 us at 3.35 TB/s, and does
+// ~0.07 MFLOP; a launch costs about 2 us.  So one launch covers every shard
+// of the process (of an in-process mesh, the whole horizon), and the rows
+// at a shard's edge read the neighbouring shard's x row where it lies:
+// only the two rows outside the process come from the mesh's collective.
+// The shards' pointers pass by value in the kernel's parameters (Shards,
+// read in place through __grid_constant__), so a launch needs no pointer
+// table in device memory; past MAX_SHARDS shards the entry launches once
+// per group.  One thread per output row (s, k, i) reads its three band
+// rows (42 contiguous floats) and the three neighbouring x rows and sums
+// in the TPU kernel's order (the D row, then L and U interleaved by
+// column), so each shard's y equals a launch over that shard alone bit for
+// bit.  Blocks of 128 threads stride over the rows, so any count launches.
 #include "lanedyn.cuh"
 
 namespace {
 
 constexpr int S = ld::NX;
 constexpr int THREADS = 128;
+// shards per launch: 5 pointers a shard, 2.6 KB of the 4 KB of kernel
+// parameters
+constexpr int MAX_SHARDS = 64;
 
-LD_GLOBAL void spmv_halo_kernel(int nl, const float* __restrict__ L,
-                                const float* __restrict__ D,
-                                const float* __restrict__ U,
-                                const float* __restrict__ x,
-                                const float* __restrict__ xl,
-                                const float* __restrict__ xr,
-                                float* __restrict__ y) {
-  const int rows = nl * S;
-  for (int e = LD_BID * LD_NTID + LD_TID; e < rows; e += LD_NBID * LD_NTID) {
-    const int k = e / S;
-    const float* xm = k > 0 ? x + (size_t)(k - 1) * S : xl;
+struct Shards {
+  const float* L[MAX_SHARDS];
+  const float* D[MAX_SHARDS];
+  const float* U[MAX_SHARDS];
+  const float* x[MAX_SHARDS];
+  float* y[MAX_SHARDS];
+  const float* xl;   // x_{-1} of shard 0
+  const float* xr;   // x_{nl} of the last shard
+  int n, nl;         // shards, knots a shard
+};
+
+#ifdef __CUDACC__
+#define K11_SHARDS const __grid_constant__ Shards
+#else
+#define K11_SHARDS const Shards&
+#endif
+
+LD_GLOBAL void spmv_halo_kernel(K11_SHARDS p) {
+  const int nl = p.nl, rows = nl * S;
+  for (int e = LD_BID * LD_NTID + LD_TID; e < p.n * rows;
+       e += LD_NBID * LD_NTID) {
+    const int s = e / rows, er = e - s * rows, k = er / S;
+    const float* x = p.x[s];
+    const float* xm = k > 0 ? x + (size_t)(k - 1) * S
+                      : s > 0 ? p.x[s - 1] + (size_t)(nl - 1) * S
+                      : p.xl;
     const float* xk = x + (size_t)k * S;
-    const float* xp = k < nl - 1 ? x + (size_t)(k + 1) * S : xr;
-    const float* Lr = L + (size_t)e * S;
-    const float* Dr = D + (size_t)e * S;
-    const float* Ur = U + (size_t)e * S;
+    const float* xp = k < nl - 1 ? x + (size_t)(k + 1) * S
+                      : s < p.n - 1 ? p.x[s + 1]
+                      : p.xr;
+    const float* Lr = p.L[s] + (size_t)er * S;
+    const float* Dr = p.D[s] + (size_t)er * S;
+    const float* Ur = p.U[s] + (size_t)er * S;
     float acc = Dr[0] * xk[0];
 #pragma unroll
     for (int j = 1; j < S; ++j) acc += Dr[j] * xk[j];
@@ -49,18 +78,41 @@ LD_GLOBAL void spmv_halo_kernel(int nl, const float* __restrict__ L,
       acc += Lr[j] * xm[j];
       acc += Ur[j] * xp[j];
     }
-    y[e] = acc;
+    p.y[s][er] = acc;
   }
 }
 
 }  // namespace
 
-extern "C" int mpc_spmv_halo(int nl, const float* L, const float* D,
-                             const float* U, const float* x, const float* xl,
-                             const float* xr, float* y, void* stream) {
-  if (nl < 1) return 1;  // cudaErrorInvalidValue
-  const int blocks = (nl * S + THREADS - 1) / THREADS;
-  LD_LAUNCH(spmv_halo_kernel, blocks, THREADS, 0, stream, nl, L, D, U, x, xl,
-            xr, y);
-  return LD_LAST_ERROR();
+// Shards one launch of K11 covers.
+extern "C" int mpc_spmv_halo_max_shards(void) { return MAX_SHARDS; }
+
+// K11 over n consecutive shards of nl knots: L, D, U, x and y are host
+// arrays of the shards' n device pointers ((nl, 14, 14) bands, (nl, 14)
+// vectors), xl and xr the rows outside them.  One launch per MAX_SHARDS
+// shards, a group's outer rows its neighbour groups' edge rows.
+extern "C" int mpc_spmv_halo(int n, int nl, const float* const* L,
+                             const float* const* D, const float* const* U,
+                             const float* const* x, float* const* y,
+                             const float* xl, const float* xr, void* stream) {
+  if (n < 1 || nl < 1) return 1;  // cudaErrorInvalidValue
+  for (int g = 0; g < n; g += MAX_SHARDS) {
+    Shards p = {};
+    p.n = n - g < MAX_SHARDS ? n - g : MAX_SHARDS;
+    p.nl = nl;
+    for (int i = 0; i < p.n; ++i) {
+      p.L[i] = L[g + i];
+      p.D[i] = D[g + i];
+      p.U[i] = U[g + i];
+      p.x[i] = x[g + i];
+      p.y[i] = y[g + i];
+    }
+    p.xl = g > 0 ? x[g - 1] + (size_t)(nl - 1) * S : xl;
+    p.xr = g + p.n < n ? x[g + p.n] : xr;
+    const int blocks = (p.n * nl * S + THREADS - 1) / THREADS;
+    LD_LAUNCH(spmv_halo_kernel, blocks, THREADS, 0, stream, p);
+    const int err = LD_LAST_ERROR();
+    if (err != 0) return err;
+  }
+  return 0;
 }

@@ -61,12 +61,14 @@ _SIGNATURES = {
     "mpc_bcr_cluster_apply_host": [_I, _I] + [_P] * 3,
     "mpc_cluster_dot_host": [_I, _I] + [_P] * 3,
     "mpc_bcr_scratch_floats": [_I],
-    "mpc_bcr_dz": [_I] + [_P] * 15,
+    "mpc_bcr_dz": [_I] + [_P] * 15 + [_I, _P],
+    "mpc_bcr_dz_cluster": [_I, _I],
     "mpc_bcr_dz_max_knots": [],
     "mpc_bcr_solve": [_I] + [_P] * 7 + [_I, _P],
     "mpc_bcr_solve_cluster": [_I, _I],
     "mpc_bcr_solve_max_knots": [],
     "mpc_bcr_one_block_solve_host": [_I] + [_P] * 6,
+    "mpc_bcr_dz_one_block_host": [_I] + [_P] * 14,
     "mpc_bcr_cluster_dz_host": [_I, _I] + [_P] * 14,
     "mpc_sqp_mega": [_P, _I, _P, _P, _P, _I] + [_P] * 4
                     + [_F, _I, _F, _I] + [_F] * 5 + [_I] + [_F] * 4
@@ -87,7 +89,8 @@ _SIGNATURES = {
     "mpc_mega_packed_plan": [_I] * 5 + [_P],
     "mpc_mega_packed_max_knots": [_I, _I],
     "mpc_sqp_mega_packed_scratch_floats": [_I, _I, _I],
-    "mpc_spmv_halo": [_I] + [_P] * 8,
+    "mpc_spmv_halo": [_I, _I] + [_P] * 8,
+    "mpc_spmv_halo_max_shards": [],
     "mpc_emu_threads_host": [_I],
     "mpc_joined_cg_host": [_I] * 5 + [_P] * 8 + [_I, _F, _P, _P],
     "mpc_stage4_host": [_I] * 6 + [_P] * 14 + [_I, _F] + [_P] * 4,
@@ -107,7 +110,8 @@ _RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
 
 # entries of the host build alone (test hooks that run no device code)
 _HOST_ONLY = {"mpc_bcr_cluster_factor_host", "mpc_bcr_cluster_apply_host",
-              "mpc_bcr_one_block_solve_host", "mpc_bcr_cluster_dz_host",
+              "mpc_bcr_one_block_solve_host", "mpc_bcr_dz_one_block_host",
+              "mpc_bcr_cluster_dz_host",
               "mpc_cluster_dot_host", "mpc_emu_threads_host",
               "mpc_joined_cg_host", "mpc_stage4_host",
               "mpc_ld_aba_host", "mpc_ld_crba_host", "mpc_ld_rnea_host",

@@ -4,30 +4,31 @@
   solve, then the primal step (bcr_pcg_dz_pallas_lanes), across one
   thread-block cluster;
 * K7 ``bcr_dz``: the exact BCR solve with one refinement pass, then the
-  primal step -- the fused "bcr" backend (bcr_dz_pallas_lanes);
-* K7s ``bcr_solve``: one unrefined BCR solve (bcr_solve_pallas_lanes).
+  primal step -- the fused "bcr" backend (bcr_dz_pallas_lanes) -- across
+  one cluster;
+* K7s ``bcr_solve``: one unrefined BCR solve (bcr_solve_pallas_lanes),
+  across one cluster.
 
 Counterparts of mpcgpu_tpu/ops/pallas/bcr_kernel.py.  A CPU tensor runs
 the plain version (``ops.btsolve`` + ``ops.dz.compute_dz``); a CUDA
 tensor launches the kernel or raises.  The system needs no stair
 preconditioner (K3 with ``precond=False``); the kernels read S, gamma and
 the dz blocks only.  Each factors the cyclic reduction once per launch
-(csrc/bcr_common.cuh).
+(csrc/bcr_common.cuh): K7's refinement applies the same factor again.
 
-K6 and K7s are each one cluster of 16 (else 8) blocks whose shared
-memory holds S's bands, so they serve power-of-2 N up to the largest that
-fits (``check_bcr_fit``, ``check_bcr_solve_fit``: 1024 on the H100); K7
-keeps S in one block's shared memory (``check_bcr_dz_fit``: 64).  Above
-K7's fit, above K6's, or when ``split=True`` forces it, they take the
-split path of the JAX
-package (bcr_kernel.py:234-264,308-317): K7 becomes K7s, the residual as
-tensor glue, K7s again, then the primal step; K6 becomes the CG as tensor
-glue (``ops.btsolve.bcr_pcg``: a fixed max_iter steps, those after the
-exit masked) with K7s as each preconditioner apply.  On the TPU that split
-works around VMEM; here it serves the refined solve past N = 64 and the
-BCR-PCG past K6's fit.  ``bcr_pcg_dz.cluster_size`` and
-``bcr_solve.cluster_size`` hold, after each K6 or K7s launch, the cluster
-size the kernel read (a device int32).
+Each is one cluster of 16 (else 8) blocks whose shared memory holds S's
+bands, so they serve power-of-2 N up to the largest that fits
+(``check_bcr_fit``, ``check_bcr_dz_fit``, ``check_bcr_solve_fit``: 1024
+on the H100).  Past K7's or K6's fit, or when ``split=True`` forces it,
+they take the split path of the JAX package
+(bcr_kernel.py:234-264,308-317): K7 becomes K7s, the residual as tensor
+glue, K7s again, then the primal step; K6 becomes the CG as tensor glue
+(``ops.btsolve.bcr_pcg``: a fixed max_iter steps, those after the exit
+masked) with K7s as each preconditioner apply.  On the TPU that split
+works around VMEM; here it serves N past the clusters' fit.
+``bcr_pcg_dz.cluster_size``, ``bcr_dz.cluster_size`` and
+``bcr_solve.cluster_size`` hold, after each K6, K7 or K7s launch, the
+cluster size the kernel read (a device int32).
 """
 from __future__ import annotations
 
@@ -77,11 +78,12 @@ def check_bcr_fit(knot_points: int, lib=None) -> int:
 
 
 def check_bcr_dz_fit(knot_points: int, lib=None) -> int:
-    """The same for K7 (S, four vectors and the inverse scratch)."""
+    """The same for K7 (one cluster: S's bands, the refined solve's and
+    dz's vectors and the inverse scratch)."""
     return _check_fit(knot_points,
                       (lib or _lib.library()).mpc_bcr_dz_max_knots(),
-                      "the one-block refined BCR kernel holds S in shared "
-                      "memory and")
+                      "the cluster refined BCR kernel holds S in one "
+                      "cluster's shared memory and")
 
 
 def check_bcr_solve_fit(knot_points: int, lib=None) -> int:
@@ -95,7 +97,7 @@ def check_bcr_solve_fit(knot_points: int, lib=None) -> int:
 
 def _split(n: int, split, n_max_of) -> bool:
     """The split path's choice: forced by split, else taken above the
-    one-block kernel's fit."""
+    kernel's fit."""
     return n > n_max_of() if split is None else bool(split)
 
 
@@ -110,16 +112,17 @@ def bcr_solve_reference(SL, SD, SU, gamma):
     return _plain_bcr(BlockTri(SL, SD, SU), gamma, refine=0)
 
 
-_SOLVE_INTS: dict = {}
+_INTS: dict = {}
 
 
-def _solve_ints(dev):
-    """K7s's int output on dev (the cluster size the kernel read), one
-    buffer a device that every launch reuses, and its view."""
-    got = _SOLVE_INTS.get(dev)
+def _ints(dev, kid: str):
+    """The int output of K7 or K7s (kid) on dev (the cluster size the
+    kernel read), one buffer a kernel and device that every launch reuses,
+    and its view."""
+    got = _INTS.get((kid, dev))
     if got is None:
         ints = torch.zeros(1, dtype=torch.int32, device=dev)
-        got = _SOLVE_INTS[dev] = (ints, ints[0])
+        got = _INTS[(kid, dev)] = (ints, ints[0])
     return got
 
 
@@ -143,7 +146,7 @@ def _launch_solve(lib, SL, SD, SU, gamma, stream, scratch=None,
         scratch = torch.empty(lib.mpc_bcr_scratch_floats(n), **f32)
     _lib.expect(scratch, "scratch", (lib.mpc_bcr_scratch_floats(n),), dev)
     lam = torch.empty((n, nx), **f32)
-    ints, read = _solve_ints(dev)
+    ints, read = _ints(dev, "K7s")
     rc = lib.mpc_bcr_solve(n, SL.data_ptr(), SD.data_ptr(), SU.data_ptr(),
                            gamma.data_ptr(), scratch.data_ptr(),
                            lam.data_ptr(), ints.data_ptr(), int(cluster),
@@ -190,8 +193,10 @@ def bcr_dz_split(ks: KnotSchur, solve):
     return (lam, dX, dU, *_zero_stats(lam.device))
 
 
-def _launch_dz(lib, ks: KnotSchur, stream, scratch=None):
-    """One K7 launch; its factors go to scratch when given (as K6's)."""
+def _launch_dz(lib, ks: KnotSchur, stream, scratch=None, cluster: int = 0):
+    """One K7 launch; its factors go to scratch when given (as K6's);
+    cluster asks for a cluster size as _launch_solve's (mpc_bcr_dz_cluster
+    the kernel's choice)."""
     dev = ks.gamma.device
     nx, nu = 2 * _lib.NJ, _lib.NJ
     n = expect_system(ks, ks.gamma, _FIELDS, dev)
@@ -203,11 +208,26 @@ def _launch_dz(lib, ks: KnotSchur, stream, scratch=None):
     lam = torch.empty((n, nx), **f32)
     dX = torch.empty((n, nx), **f32)
     dU = torch.empty((n - 1, nu), **f32)
+    ints, read = _ints(dev, "K7")
     rc = lib.mpc_bcr_dz(
         n, *(getattr(ks, f).data_ptr() for f in _FIELDS), scratch.data_ptr(),
-        lam.data_ptr(), dX.data_ptr(), dU.data_ptr(), stream)
+        lam.data_ptr(), dX.data_ptr(), dU.data_ptr(), ints.data_ptr(),
+        int(cluster), stream)
     _lib.check(rc, "mpc_bcr_dz")
+    bcr_dz.cluster_size = read
     return (lam, dX, dU, *_zero_stats(dev))
+
+
+def _bcr_dz_on(lib, ks: KnotSchur, split, stream):
+    """K7 where it fits, the split path past its fit (or as split forces),
+    through library lib."""
+    n = ks.gamma.shape[0]
+    _check_pow2(n)
+    if _split(n, split, lib.mpc_bcr_dz_max_knots):
+        return bcr_dz_split(ks, _solver_of(ks))
+    out = _launch_dz(lib, ks, stream)
+    bcr_dz.launches += 1
+    return out
 
 
 def bcr_dz(ks: KnotSchur, split=None):
@@ -218,16 +238,11 @@ def bcr_dz(ks: KnotSchur, split=None):
     if ks.gamma.device.type == "cpu":
         return bcr_dz_reference(ks)
     _cuda_device(ks.gamma)
-    n = ks.gamma.shape[0]
-    _check_pow2(n)
-    if _split(n, split, lambda: _lib.library().mpc_bcr_dz_max_knots()):
-        return bcr_dz_split(ks, _solver_of(ks))
-    out = _launch_dz(_lib.library(), ks, _lib.stream_of(ks.gamma))
-    bcr_dz.launches += 1
-    return out
+    return _bcr_dz_on(_lib.library(), ks, split, _lib.stream_of(ks.gamma))
 
 
 bcr_dz.launches = 0
+bcr_dz.cluster_size = None
 
 
 # ---- K6: the BCR-preconditioned CG and dz

@@ -21,6 +21,9 @@ CUDA tensors in ``all_reduce`` but not in ``all_gather`` or ``send``, and
 NCCL cannot put two ranks on one GPU):
 
 * ``halos``: each shard's neighbours' edge rows, zero at the global edges;
+  ``outer_halos`` only the two rows outside the local shards, which need
+  no collective in-process (zeros there: the local shards are the whole
+  axis);
 * ``psum``: the sum of per-shard partials, taken by every shard from the
   same (size,) vector of slots, so the in-process and the distributed form
   give the same bits (the rule of the cluster CG's rank-ordered dot
@@ -29,9 +32,17 @@ NCCL cannot put two ranks on one GPU):
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.distributed as dist
+
+
+@functools.lru_cache(maxsize=None)
+def _zero_row(device: torch.device, s: int, dtype) -> torch.Tensor:
+    """A zero row of s entries on device, made once: the halo rows at the
+    global edges, read and never written."""
+    return torch.zeros(s, dtype=dtype, device=device)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -109,6 +120,17 @@ class Mesh:
         right = [ends[0, i + 1] if i < self.size - 1 else zero
                  for i in self.local]
         return left, right
+
+    def outer_halos(self, xs: list) -> tuple:
+        """(x_{-1} of the first local shard, x_{nl} of the last): the rows
+        outside the local shards, zero at the global edges.  In-process the
+        local shards are the whole axis, so both are zeros and nothing is
+        launched; over a group, halos' all_reduce."""
+        if self.group is None:
+            zero = _zero_row(xs[0].device, xs[0].shape[-1], xs[0].dtype)
+            return zero, zero
+        left, right = self.halos(xs)
+        return left[0], right[-1]
 
     def psum(self, parts: list) -> torch.Tensor:
         """The sum over every shard of the 0-d per-shard partials, the same

@@ -13,7 +13,8 @@ shards and each CG step runs, on every shard,
 The loop is ``ops.pcg.pcg``'s: ``max_iter`` steps with every step after
 the exit masked, so it reads nothing on the host.  The shard bodies take
 lists of the local shards (``parallel/mesh.py``); ``pcg_sharded_cuda``
-runs the same loop with the SpMV as the kernel K11.
+runs the same loop with each SpMV as one launch of the kernel K11 over
+every local shard.
 """
 from __future__ import annotations
 
@@ -26,11 +27,13 @@ from mpcgpu_tpu_torch.parallel.mesh import Mesh
 
 def _spmv_local(mesh: Mesh, bands: list, xs: list, spmv=None) -> list:
     """Each shard's rows of T x: bands are per-shard (L, D, U) triples.
-    spmv(L, D, U, x, xl, xr) computes one shard (the plain version of K11
-    by default)."""
-    spmv = spmv or spmv_halo_reference
+    spmv(bands, xs, xl, xr) computes every local shard at once from the two
+    rows outside them (``Mesh.outer_halos``); None runs the plain version of
+    K11 shard by shard, each with its neighbours' rows (``Mesh.halos``)."""
+    if spmv is not None:
+        return spmv(bands, xs, *mesh.outer_halos(xs))
     left, right = mesh.halos(xs)
-    return [spmv(*b, x, lf, rt)
+    return [spmv_halo_reference(*b, x, lf, rt)
             for b, x, lf, rt in zip(bands, xs, left, right)]
 
 

@@ -6,12 +6,13 @@ shardings; PyTorch has no such partitioner.  Here the horizon-sharded
 paths shard the one stage whose collectives matter, the CG over the
 block-tridiagonal Schur system: ``sharded_sqp_solve(explicit_pcg=True)``
 and ``simulate_mpc_scan_sharded`` reach ``pcg_sharded`` (the plain
-per-shard SpMV), ``fused_pcg=True`` reaches ``pcg_sharded_cuda`` (the
-per-shard SpMV as the kernel K11), through the linear-solver backend
-registry (``sqp.register_linsys_backend``).  The per-knot stages (KKT,
-Schur condensation, line search) and the closed loop's carry run on the
-whole horizon, replicated on every rank of a ``torch.distributed`` mesh;
-sharding them across ranks is left for later.
+per-shard SpMV), ``fused_pcg=True`` reaches ``pcg_sharded_cuda`` (each
+SpMV one launch of the kernel K11 over the local shards), through the
+linear-solver backend registry (``sqp.register_linsys_backend``).  The
+per-knot stages (KKT, Schur condensation, line search) and the closed
+loop's carry run on the whole horizon, replicated on every rank of a
+``torch.distributed`` mesh; sharding them across ranks is left for
+later.
 
 A mesh (``horizon_mesh``, ``arms_mesh``) holds its shards in this process
 on one device, or one per rank of a process group that the caller has
@@ -113,7 +114,7 @@ def sharded_sqp_solve(model, cfg: SolverConfig, mesh: Mesh, X, U, lam, goals,
 
     explicit_pcg=True solves the Schur system with pcg_sharded (the plain
     per-shard SpMV, mesh collectives between the CG stages); fused_pcg=True
-    with pcg_sharded_cuda (the per-shard SpMV as K11).  Either runs the
+    with pcg_sharded_cuda (each SpMV one K11 launch).  Either runs the
     plain stages (cfg's fused_stages off), as the JAX package reaches its
     sharded backends only on its portable path.  With neither, this is
     sqp_solve(linsys) on the whole horizon, as the JAX package's GSPMD

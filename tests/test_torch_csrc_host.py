@@ -607,27 +607,52 @@ def test_k7s_cluster_kernel_equals_the_one_block_solve(host, n, clusters):
     assert torch.equal(cluster, one_block)
 
 
-@pytest.mark.parametrize("n,clusters", [(8, 2), (8, 4), (64, 2), (64, 4),
-                                        (64, 3), (8, 16)])
-def test_k9b_cluster_stage_equals_the_one_block_body(host, n, clusters):
-    """K9b's stage 4 (bcr_common.cuh cluster_bcr_dz: the cluster factor,
-    two cluster applies with the residual between, its halo rows read
-    through the emulated DSMEM map, and the owners' dz) on C emulated
-    blocks, against the one-block refined solve and dz (bcr_dz_body, as
-    K7 runs it) on the same system: lam, dX, dU and the factors bit for
-    bit; no wait hangs."""
+def _one_block_dz(lib, ks, fac):
+    """bcr_dz_body in one block (K7's body before its cluster form): lam,
+    dX and dU, and the factors in fac."""
+    n = ks.gamma.shape[0]
+    lam, dX = torch.full((2, n, 14), float("nan"))
+    dU = torch.full((n - 1, 7), float("nan"))
+    assert lib.mpc_bcr_dz_one_block_host(
+        n, *(getattr(ks, f).data_ptr() for f in k7._FIELDS), fac.data_ptr(),
+        lam.data_ptr(), dX.data_ptr(), dU.data_ptr()) == 0
+    return lam, dX, dU
+
+
+@pytest.mark.parametrize("kernel,n,clusters", [
+    ("K9b", 8, 2), ("K9b", 8, 4), ("K9b", 64, 2), ("K9b", 64, 4),
+    ("K9b", 64, 3), ("K9b", 8, 16),
+    *(("K7", n, c) for n in (2, 4, 16, 64, 256) for c in (1, 2, 4))])
+def test_k9b_cluster_stage_equals_the_one_block_body(host, kernel, n,
+                                                     clusters):
+    """The refined solve and dz across a cluster (bcr_common.cuh
+    cluster_bcr_dz: the cluster factor, two cluster applies with the
+    residual between, its halo rows read through the emulated DSMEM map,
+    and the owners' dz) on C emulated blocks -- as K9b's stage 4 alone, and
+    as the whole K7 launch (C = 1 one block; at N = 2 and 4 with C = 4 some
+    blocks own no knot) -- against the one-block refined solve and dz
+    (bcr_dz_body, K7's body before its cluster form) on the same system:
+    lam, dX, dU and the factors bit for bit; no wait hangs; K7 read C."""
     lib = host[0]
     ks = random_knot_schur(n, seed=7)
     size = lib.mpc_bcr_scratch_floats(n)
     fac_one, fac = torch.zeros(size), torch.zeros(size)
-    want = k7._launch_dz(lib, ks, None, scratch=fac_one)
-    lam, dX = torch.full((2, n, 14), float("nan"))
-    dU = torch.full((n - 1, 7), float("nan"))
-    assert lib.mpc_bcr_cluster_dz_host(
-        n, clusters, *(getattr(ks, f).data_ptr() for f in k7._FIELDS),
-        fac.data_ptr(), lam.data_ptr(), dX.data_ptr(), dU.data_ptr()) == 0
-    for got, w in zip((lam, dX, dU, fac), (*want[:3], fac_one)):
+    want = _one_block_dz(lib, ks, fac_one)
+    if kernel == "K7":
+        with _no_hang(lib):
+            lam, dX, dU = k7._launch_dz(lib, ks, None, scratch=fac,
+                                        cluster=clusters)[:3]
+        assert int(k7.bcr_dz.cluster_size) == clusters
+    else:
+        lam, dX = torch.full((2, n, 14), float("nan"))
+        dU = torch.full((n - 1, 7), float("nan"))
+        assert lib.mpc_bcr_cluster_dz_host(
+            n, clusters, *(getattr(ks, f).data_ptr() for f in k7._FIELDS),
+            fac.data_ptr(), lam.data_ptr(), dX.data_ptr(),
+            dU.data_ptr()) == 0
+    for got, w in zip((lam, dX, dU, fac), (*want, fac_one)):
         assert torch.equal(got, w)
+    assert bool(fac_one.abs().sum() > 0)
 
 
 @pytest.mark.parametrize("n,clusters,grid", [(8, 2, 8), (8, 4, 8),
@@ -1054,6 +1079,37 @@ def test_k7_host_build_residual_on_the_fixture_system(host, traj_0_0):
                                      QD_COST, R_COST, precond=False)
     assert relative_residual(ks, k7._launch_dz(lib, ks, None)[0]) < 1e-5
     assert relative_residual(ks, k7.bcr_dz_reference(ks)[0]) < 1e-5
+
+
+def test_bcr_dz_takes_k7_up_to_its_fit_then_the_split_path(host):
+    """bcr_dz's dispatch through the host build, whose fit is the card's
+    arithmetic at 227 KB for a cluster of 16 (power-of-2 N <= 1024): K7,
+    one launch, at N = 128 (the split path's horizon before K7's cluster
+    form), within K7's tolerances (lam scaled by its largest entry at atol
+    2e-5, dX and dU at rtol 1e-3, atol 2e-4) of the plain refined solve and
+    of the split path with the host build's K7s as its solves; split=True
+    takes the split path, which on CPU tensors launches no kernel."""
+    from mpcgpu_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    lib = host[0]
+    assert lib.mpc_bcr_dz_max_knots() == 1024
+    assert ([lib.mpc_bcr_dz_cluster(n, 0) for n in (2, 512, 1024, 2048)]
+            == [1, 1, 1, 0])
+    ks = random_knot_schur(128, seed=7)
+    solve = lambda rhs: k7._launch_solve(lib, ks.SL, ks.SD, ks.SU, rhs, None)
+    outs = {}
+    for split, want in ((None, {"K7": 1}), (True, {})):
+        reset_launch_counts()
+        outs[split] = k7._bcr_dz_on(lib, ks, split, None)
+        assert {k: c for k, c in launch_counts().items() if c} == want
+    got = outs[None]
+    assert int(got[3]) == 0 and not bool(got[4])
+    for want in (k7.bcr_dz_reference(ks), k7.bcr_dz_split(ks, solve),
+                 outs[True]):
+        scale = want[0].abs().max()
+        _close(got[0] / scale, want[0] / scale, 0, 2e-5)
+        for g, w in zip(got[1:3], want[1:3]):
+            _close(g, w, 1e-3, 2e-4)
 
 
 def test_split_paths_through_the_host_build_match_the_one_block_kernels(host):
@@ -1726,16 +1782,52 @@ def test_k11_host_build_matches_plain(host, nl, halos):
     x = f32(nl, 14)
     xl, xr = ((f32(14), f32(14)) if halos == "nonzero"
               else (torch.zeros(14), torch.zeros(14)))
-    got = k11._launch(lib, L, D, U, x, xl, xr, None)
+    got = k11._launch(lib, [(L, D, U)], [x], xl, xr, None)[0]
     want = k11.spmv_halo_reference(L, D, U, x, xl, xr)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shards,nl", [(1, 1), (1, 2), (1, 5), (3, 1),
+                                       (3, 2), (3, 5), (8, 1), (8, 2),
+                                       (8, 5), (70, 1)])
+@pytest.mark.parametrize("halos", ["zero", "nonzero"])
+def test_k11_all_shard_launch_equals_per_shard_launches(host, shards, nl,
+                                                        halos):
+    """K11 over consecutive shards in one launch (70 shards: two, a group
+    of 64 and one of 6, the second's outer row the first's last x row),
+    given the rows outside them, against one launch per shard with its
+    neighbours' edge rows as halos: bit for bit; and within 1e-5 of max|y|
+    of the plain version (float32 sums of 42 products in another
+    order)."""
+    from mpcgpu_tpu_torch.ops.cuda import spmv_halo_kernel as k11
+
+    lib = host[0]
+    assert lib.mpc_spmv_halo_max_shards() == 64
+    rng = np.random.default_rng(100 * shards + nl)
+    f32 = lambda *shape: T(rng.normal(size=shape).astype(np.float32))
+    bands = [(f32(nl, 14, 14), f32(nl, 14, 14), f32(nl, 14, 14))
+             for _ in range(shards)]
+    xs = [f32(nl, 14) for _ in range(shards)]
+    xl, xr = ((f32(14), f32(14)) if halos == "nonzero"
+              else (torch.zeros(14), torch.zeros(14)))
+    got = k11._launch(lib, bands, xs, xl, xr, None)
+    want = k11.spmv_halo_shards_reference(bands, xs, xl, xr)
+    assert len(got) == shards
+    for i, (b, x) in enumerate(zip(bands, xs)):
+        left = xs[i - 1][-1] if i > 0 else xl
+        right = xs[i + 1][0] if i < shards - 1 else xr
+        one = k11._launch(lib, [b], [x], left, right, None)[0]
+        assert torch.equal(got[i], one), i
+        assert (float((got[i] - want[i]).abs().max())
+                <= 1e-5 * float(want[i].abs().max())), i
 
 
 def test_k11_cg_through_the_host_build_matches_plain(host, monkeypatch):
     """pcg_sharded_cuda with every K11 launch through the host build, on
     an in-process mesh of 4 shards (N = 16, the seeded random system with
     the stair), against pcg_sharded: iterations equal, lam within 1e-5 of
-    max|lam|; each CG step launches K11 twice per shard."""
+    max|lam|; each SpMV is one launch over the 4 shards, 2 + 2 x cap a
+    solve."""
     from mpcgpu_tpu_torch.ops.cuda import spmv_halo_kernel as k11
     from mpcgpu_tpu_torch.parallel import pcg_sharded_cuda as mod
     from mpcgpu_tpu_torch.parallel.pcg_sharded import pcg_sharded
@@ -1744,11 +1836,11 @@ def test_k11_cg_through_the_host_build_matches_plain(host, monkeypatch):
     lib = host[0]
     launches = []
 
-    def through_host(L, D, U, x, xl, xr):
-        launches.append(x.shape[0])
-        return k11._launch(lib, L, D, U, x, xl, xr, None)
+    def through_host(bands, xs, xl, xr):
+        launches.append(len(xs))
+        return k11._launch(lib, bands, xs, xl, xr, None)
 
-    monkeypatch.setattr(mod, "spmv_halo", through_host)
+    monkeypatch.setattr(mod, "spmv_halo_shards", through_host)
     ks = random_system(16, seed=11, precond=True)
     S = BlockTri(*(T(ks[f]) for f in ("SL", "SD", "SU")))
     P = BlockTri(*(T(ks[f]) for f in ("PL", "PD", "PU")))
@@ -1758,4 +1850,4 @@ def test_k11_cg_through_the_host_build_matches_plain(host, monkeypatch):
     lam_p, iters_p, hit_p = pcg_sharded(mesh, *args)
     assert int(iters) == int(iters_p) and bool(hit) == bool(hit_p)
     assert float((lam - lam_p).abs().max()) <= 1e-5 * float(lam_p.abs().max())
-    assert launches == [4] * (4 * (2 + 2 * 12))
+    assert launches == [4] * (2 + 2 * 12)

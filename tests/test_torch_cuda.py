@@ -1,11 +1,11 @@
-"""The CUDA kernels K1-K7, K7s, K9p, K9b and K10, K3 at the long horizons
-of the TPU's tiled K8, K4 and K4b in both forms (the cluster form K4,
-K4b and the joined form K4g, K4bg, at every cluster size the card admits,
-and bit for bit K9p's and K9pg's dual solve), the joined forms
-K5g and K9pg (at every cluster size the card admits for them), and the
-cluster forms of K5, K9p, K6, K7s, K9b and K10 at every cluster size the
-card admits (K10 also in its one-block form), against their plain
-versions, on the card.
+"""The CUDA kernels K1-K7, K7s, K9p, K9b, K10 and K11, K3 at the long
+horizons of the TPU's tiled K8, K4 and K4b in both forms (the cluster
+form K4, K4b and the joined form K4g, K4bg, at every cluster size the
+card admits, and bit for bit K9p's and K9pg's dual solve), the joined
+forms K5g and K9pg (at every cluster size the card admits for them), the
+cluster forms of K5, K9p, K6, K7, K7s, K9b and K10 at every cluster size
+the card admits (K10 also in its one-block form), and K11 over every
+local shard in one launch, against their plain versions, on the card.
 
 Marked ``cuda``: each test needs a CUDA device and skips without one.
 The file uses no fixture of tests/conftest.py, which imports JAX, so on a
@@ -712,11 +712,42 @@ def test_k11_kernel_matches_plain(card, nl, halos):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("shards", [1, 3, 8, 70])
+def test_k11_all_shard_launch_equals_per_shard_launches(card, shards):
+    """K11 over consecutive shards of nl = 64 (nl = 2 at 70 shards: two
+    launches, a group of 64 and one of 6) given nonzero rows outside them:
+    one launch per 64 shards, each shard's y bit-equal to one launch over
+    that shard with its neighbours' edge rows as halos, and within 1e-5 of
+    max|y| of the plain version."""
+    from mpcgpu_tpu_torch.ops.cuda import spmv_halo_kernel as k11
+
+    dev = card["X"].device
+    nl = 64 if shards <= 8 else 2
+    rng = np.random.default_rng(shards)
+    f32 = lambda *shape: torch.as_tensor(
+        rng.normal(size=shape).astype(np.float32), device=dev)
+    bands = [(f32(nl, 14, 14), f32(nl, 14, 14), f32(nl, 14, 14))
+             for _ in range(shards)]
+    xs = [f32(nl, 14) for _ in range(shards)]
+    xl, xr = f32(14), f32(14)
+    before = k11.spmv_halo.launches
+    got = k11.spmv_halo_shards(bands, xs, xl, xr)
+    assert k11.spmv_halo.launches == before + -(-shards // 64)
+    want = k11.spmv_halo_shards_reference(bands, xs, xl, xr)
+    for i, (b, x) in enumerate(zip(bands, xs)):
+        one = k11.spmv_halo(*b, x, xs[i - 1][-1] if i > 0 else xl,
+                            xs[i + 1][0] if i < shards - 1 else xr)
+        assert torch.equal(got[i], one), i
+        assert (float((got[i] - want[i]).abs().max())
+                <= 1e-5 * float(want[i].abs().max())), i
+
+
 def test_k11_sharded_cg_matches_plain(card):
-    """pcg_sharded_cuda (K11 per shard) on an in-process mesh of 8 shards
+    """pcg_sharded_cuda (K11 as every SpMV) on an in-process mesh of 8 shards
     against pcg_sharded (the plain per-shard SpMV) on the card, N = 64,
     the seeded random system with the stair: iterations within 3, lam at
-    K4's rtol = atol = 5e-3; two K11 launches per shard per CG step."""
+    K4's rtol = atol = 5e-3; one K11 launch over the 8 shards per SpMV,
+    two per CG step."""
     from mpcgpu_tpu_torch.ops.cuda import spmv_halo_kernel as k11
     from mpcgpu_tpu_torch.parallel.pcg_sharded import pcg_sharded
     from mpcgpu_tpu_torch.parallel.pcg_sharded_cuda import pcg_sharded_cuda
@@ -734,7 +765,7 @@ def test_k11_sharded_cg_matches_plain(card):
     before = k11.spmv_halo.launches
     lam, iters, hit = pcg_sharded_cuda(mesh, *args)
     torch.cuda.synchronize()
-    assert k11.spmv_halo.launches - before == 8 * (2 + 2 * cap)
+    assert k11.spmv_halo.launches - before == 2 + 2 * cap
     lam_p, iters_p, hit_p = pcg_sharded(mesh, *args)
     assert abs(int(iters) - int(iters_p)) <= 3 and not bool(hit)
     _close(lam, lam_p, 5e-3, 5e-3)
@@ -866,27 +897,26 @@ def test_k6_cluster_form_matches_plain(card, n):
         assert int(got[3]) == int(want[3]) and bool(got[4]) == bool(want[4])
 
 
-def _reference_factor(lib, ks):
-    """The factor scratch of K7's one-block factor where K7 fits (N <= 64
-    on the H100), else of K7s's cluster factor."""
+def _reference_factor(lib, ks, solve=False):
+    """The factor scratch of K7's cluster factor, or K7s's with solve."""
     n = ks.gamma.shape[0]
     fac = torch.zeros(lib.mpc_bcr_scratch_floats(n), device=ks.gamma.device)
-    if n <= lib.mpc_bcr_dz_max_knots():
-        k7._launch_dz(lib, ks, _lib.stream_of(ks.gamma), scratch=fac)
-    else:
+    if solve:
         k7._launch_solve(lib, ks.SL, ks.SD, ks.SU, ks.gamma,
                          _lib.stream_of(ks.gamma), scratch=fac)
+    else:
+        k7._launch_dz(lib, ks, _lib.stream_of(ks.gamma), scratch=fac)
     return fac
 
 
 @pytest.mark.parametrize("n", [2, 64, 256, 512])
 def test_k6_cluster_factor_equals_the_one_block_factor(card, n):
     """The cluster factor of K6, at each admitted cluster size, against
-    the one-block factor of K7 on the same bands where K7 fits (N <= 64),
-    else K7s's cluster factor: the whole factor scratch (both zeroed first)
-    bit for bit.  Past N = 64 no kernel on the card runs the one-block
-    factor; tests/test_torch_csrc_host.py holds the cluster factor to it
-    there (N = 256-1024, the host build)."""
+    K7's cluster factor on the same bands: the whole factor scratch (both
+    zeroed first) bit for bit.  No kernel on the card runs the one-block
+    factor (K7 ran it to N = 64 before its cluster form);
+    tests/test_torch_csrc_host.py holds the cluster factors to it (N = 8-1024,
+    the host build)."""
     from mpcgpu_tpu_torch.ops.cuda import _lib
 
     lib = _lib.library()
@@ -906,16 +936,16 @@ def test_k7s_cluster_form_matches_plain(card, n):
     """K7s (one cluster) at each admitted cluster size on the random
     system against the plain solve, tests/test_bcr.py:62-74's tolerance
     (lam scaled by its largest entry at atol 2e-5); the kernel reads the
-    cluster size it was launched with; where K7 fits (N <= 64), its factor
-    equals K7's one-block factor bit for bit."""
+    cluster size it was launched with; its factor equals K7's cluster
+    factor bit for bit (the one-block factor runs on the card no more:
+    tests/test_torch_csrc_host.py holds both to it)."""
     lib = _lib.library()
     dev = card["X"].device
     ks = random_knot_schur(n, device=dev)
     want = k7.bcr_solve_reference(ks.SL, ks.SD, ks.SU, ks.gamma)
     admitted = [c for c in (8, 16) if lib.mpc_bcr_solve_cluster(n, c) == c]
     assert admitted
-    one_block = (_reference_factor(lib, ks)
-                 if n <= lib.mpc_bcr_dz_max_knots() else None)
+    k7_fac = _reference_factor(lib, ks)
     for c in admitted:
         fac = torch.zeros(lib.mpc_bcr_scratch_floats(n), device=dev)
         got = k7._launch_solve(lib, ks.SL, ks.SD, ks.SU, ks.gamma,
@@ -924,8 +954,48 @@ def test_k7s_cluster_form_matches_plain(card, n):
         assert int(k7.bcr_solve.cluster_size) == c
         scale = want.abs().max()
         _close(got / scale, want / scale, 0, 2e-5)
-        if one_block is not None:
-            assert torch.equal(fac, one_block), c
+        assert torch.equal(fac, k7_fac), c
+
+
+@pytest.mark.parametrize("n", [2, 4, 64, 128, 256, 512, 1024])
+def test_k7_cluster_form_matches_plain(card, n):
+    """K7 (one cluster) at each admitted cluster size on the random system
+    against the plain refined solve and dz, tests/test_bcr.py:62-74's
+    tolerances (lam scaled by its largest entry at atol 2e-5, dX and dU at
+    rtol 1e-3, atol 2e-4), no CG iterations reported; the kernel reads the
+    cluster size it was launched with; its factor equals K7s's cluster
+    factor bit for bit (the one-block factor runs on the card no more:
+    tests/test_torch_csrc_host.py holds both to it); bcr_dz launches K7 at
+    every N to its fit, and its forced split path (K7s, residual, K7s)
+    agrees with it at N = 64 and 128 within the same tolerances."""
+    lib = _lib.library()
+    dev = card["X"].device
+    ks = random_knot_schur(n, device=dev)
+    want = k7.bcr_dz_reference(ks)
+    admitted = [c for c in (8, 16) if lib.mpc_bcr_dz_cluster(n, c) == c]
+    assert admitted and n <= lib.mpc_bcr_dz_max_knots()
+    k7s_fac = _reference_factor(lib, ks, solve=True)
+
+    def close(got, ref):
+        scale = ref[0].abs().max()
+        _close(got[0] / scale, ref[0] / scale, 0, 2e-5)
+        for g, w in zip(got[1:3], ref[1:3]):
+            _close(g, w, 1e-3, 2e-4)
+
+    for c in admitted:
+        fac = torch.zeros(lib.mpc_bcr_scratch_floats(n), device=dev)
+        got = k7._launch_dz(lib, ks, _lib.stream_of(ks.gamma), scratch=fac,
+                            cluster=c)
+        assert int(k7.bcr_dz.cluster_size) == c
+        assert int(got[3]) == 0 and not bool(got[4])
+        close(got, want)
+        assert torch.equal(fac, k7s_fac), c
+    before = k7.bcr_dz.launches
+    got = k7.bcr_dz(ks)
+    assert k7.bcr_dz.launches == before + 1
+    close(got, want)
+    if n in (64, 128):
+        close(k7.bcr_dz(ks, split=True), got)
 
 
 @pytest.mark.parametrize("n", [2, 4, 64, 256, 512, 1024])

@@ -175,9 +175,10 @@ def test_sharded_sqp_solve_matches_jax(jax_sqp, traj_0_0, mode):
 
 def test_sharded_modes_reach_their_backends(traj_0_0, monkeypatch):
     """explicit_pcg runs pcg_sharded (the plain per-shard SpMV), fused_pcg
-    K11's CG, each on the mesh's 8 shards; with neither, no sharded CG
-    runs.  Counts the sharded SpMVs of one SQP iteration."""
-    from mpcgpu_tpu_torch.ops.cuda.spmv_halo_kernel import spmv_halo
+    K11's CG (each SpMV one K11 call over every shard), each on the mesh's
+    8 shards; with neither, no sharded CG runs.  Counts the sharded SpMVs
+    of one SQP iteration."""
+    from mpcgpu_tpu_torch.ops.cuda.spmv_halo_kernel import spmv_halo_shards
     from mpcgpu_tpu_torch.parallel import pcg_sharded as mod
 
     calls = []
@@ -191,7 +192,7 @@ def test_sharded_modes_reach_their_backends(traj_0_0, monkeypatch):
     cfg = SolverConfig.for_knots(N_SHARD, sqp_max_iter=1,
                                  pcg=PCGConfig(max_iter=3))
     inputs = tuple(T(a) for a in _sqp_inputs(traj_0_0))
-    for mode, spmv in (("explicit", None), ("fused", spmv_halo),
+    for mode, spmv in (("explicit", None), ("fused", spmv_halo_shards),
                        ("whole", None)):
         calls.clear()
         sharded_sqp_solve(iiwa14(device="cpu"), cfg, _mesh(), *inputs, 1e-3,
@@ -294,14 +295,18 @@ def test_packed_arms_sharded_equals_the_unsharded_packed_groups(traj_0_0):
 
 
 def test_mesh_collectives_in_process():
-    """halos: the neighbours' edge rows, zero at the global edges; psum:
-    one sum of the shards' partials; shard and gather invert each other."""
+    """halos: the neighbours' edge rows, zero at the global edges;
+    outer_halos: the rows outside the local shards, here the global
+    edges' zeros; psum: one sum of the shards' partials; shard and gather
+    invert each other."""
     mesh = Mesh.in_process(4, "cpu", "knots")
     x = torch.arange(8 * 3, dtype=torch.float32).view(8, 3)
     xs = mesh.shard(x)
     left, right = mesh.halos(xs)
     assert torch.equal(left[0], torch.zeros(3))
     assert torch.equal(right[3], torch.zeros(3))
+    for row in mesh.outer_halos(xs):
+        assert torch.equal(row, torch.zeros(3))
     for i in range(1, 4):
         assert torch.equal(left[i], x[2 * i - 1])
         assert torch.equal(right[i - 1], x[2 * i])

@@ -1,12 +1,16 @@
-"""Time K7s and K9b of two checkouts of this repository on the card, and
-hold their outputs against each other.
+"""Time K7, K7s and K9b of two checkouts of this repository on the card,
+and hold their outputs against each other.
 
-    python3 tools/bcr_split.py OTHER_CHECKOUT [--k7s 64 128 256 1024]
-        [--k9b 2 4 64 256 512 1024] [--loops UPDATES] [--out DIR]
+    python3 tools/bcr_split.py OTHER_CHECKOUT [--k7 64 128 256 1024]
+        [--k7s 64 128 256 1024] [--k9b 2 4 64 256 512 1024]
+        [--loops UPDATES] [--out DIR]
 
-K7s (one unrefined block-cyclic-reduction solve, ``bcr_solve``) runs at
-each N of --k7s on the tests' seeded well-conditioned system
-(tests/torch_systems.py ``random_knot_schur``); K9b (one SQP iteration
+K7 (the refined block-cyclic-reduction solve and dz, ``bcr_dz``: the
+kernel where the tree's K7 fits, else the tree's split path, K7s twice
+with the residual between) runs at each N of --k7, and K7s (one
+unrefined solve, ``bcr_solve``) at each N of --k7s, on the tests' seeded
+well-conditioned system (tests/torch_systems.py ``random_knot_schur``);
+K9b (one SQP iteration
 with the refined BCR dual solve, ``sqp_iter_mega``) at each N of --k9b
 from chip_smoke.py's long-horizon start (fixture 0_0's rows repeated by
 np.resize, knots 1.. moved by a seeded 0.02-scale draw, rho 1e-3,
@@ -17,16 +21,17 @@ step) and by CUDA events (median of 20 calls).  The trees run in turns
 its tree's library in its package directory; then the largest difference
 of every output between the trees, and whether this tree's two turns
 gave the same bits.  Also prints each tree's fits and, where the tree has
-one, K7s's cluster size and K9b's cluster plan (C, grid) at each N; an N
-past a tree's fit is skipped in that tree's turns.
+one, K7's and K7s's cluster size and K9b's cluster plan (C, grid) at each
+N; an N past a tree's K9b fit is skipped in that tree's turns.
 The factor / apply split of K7s and K9b's stage 4 alone come from
 tools/cluster_factor_bench.cu.
 
 With --loops U (default 16; 0 skips them), each turn also runs the three
 closed loops that launch K7, K7s and K9b, as chip_smoke.py's phase 6 runs
 them (fixture 0_0, 4 SQP iterations, the fused stages): staged bcr at
-N = 64 (warm duals) and at N = 128 (the split path: two K7s launches an
-SQP iteration; cold duals), and the per-iteration bcr megakernel at
+N = 64 (warm duals) and at N = 128 (cold duals: one K7 launch an SQP
+iteration where the tree's K7 fits, else the split path's two K7s
+launches), and the per-iteration bcr megakernel at
 N = 64 (K9b).  For each: the median of U updates' CUDA-event times
 (simulate_mpc_scan's update_ms), and the host clock per update of a second
 run, enqueue and to the end of the device work -- so that the two trees'
@@ -43,7 +48,8 @@ import sys
 from pathlib import Path
 
 REPS = 20
-KERNELS = {"K7s": "bcr_solve_kernel", "K9b": "sqp_iter_mega_bcr_kernel"}
+KERNELS = {"K7": "bcr_dz_kernel", "K7s": "bcr_solve_kernel",
+           "K9b": "sqp_iter_mega_bcr_kernel"}
 
 
 def _event_ms(fn, reps=REPS, warmup=3):
@@ -142,7 +148,7 @@ def run_loops(tree: Path, n_updates: int, model, dev) -> dict:
     return rows
 
 
-def run_tree(tree: Path, k7s_knots, k9b_knots, out: Path,
+def run_tree(tree: Path, k7_knots, k7s_knots, k9b_knots, out: Path,
              loops: int = 0) -> None:
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -165,7 +171,8 @@ def run_tree(tree: Path, k7s_knots, k9b_knots, out: Path,
     dev = torch.device("cuda", 0)
     lib = _lib.library()
     res, rows = {}, {}
-    fits = {"K7s N max": lib.mpc_bcr_solve_max_knots(),
+    fits = {"K7 N max": lib.mpc_bcr_dz_max_knots(),
+            "K7s N max": lib.mpc_bcr_solve_max_knots(),
             "K9b N max": lib.mpc_mega_max_knots(k9.ITER_BCR)}
 
     def timed(kid, n, go, extra):
@@ -176,6 +183,14 @@ def run_tree(tree: Path, k7s_knots, k9b_knots, out: Path,
             "event_ms": _event_ms(go), **extra}
         return out
 
+    for n in k7_knots:
+        ks7 = systems.random_knot_schur(n, device=dev)
+        extra = {"form": "kernel" if n <= fits["K7 N max"] else "split"}
+        if hasattr(lib, "mpc_bcr_dz_cluster"):
+            extra["cluster"] = lib.mpc_bcr_dz_cluster(n, 0)
+        o = timed("K7", n, lambda: k7.bcr_dz(ks7), extra)
+        for f, t in zip(("lam", "dX", "dU"), o[:3]):
+            res[f"K7 N={n} {f}"] = t.cpu()
     for n in k7s_knots:
         ks = systems.random_knot_schur(n, device=dev)
         args = (ks.SL, ks.SD, ks.SU, ks.gamma)
@@ -228,6 +243,7 @@ def run_tree(tree: Path, k7s_knots, k9b_knots, out: Path,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path)
+    ap.add_argument("--k7", type=int, nargs="*", default=[64, 128, 256, 1024])
     ap.add_argument("--k7s", type=int, nargs="*", default=[64, 128, 256, 1024])
     ap.add_argument("--k9b", type=int, nargs="*", default=[2, 4, 64, 256, 512, 1024])
     ap.add_argument("--loops", type=int, default=16)
@@ -236,7 +252,7 @@ def main() -> int:
     ap.add_argument("--save", type=Path, help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.run is not None:
-        run_tree(a.run, a.k7s, a.k9b, a.save, a.loops)
+        run_tree(a.run, a.k7, a.k7s, a.k9b, a.save, a.loops)
         return 0
     import torch
 
@@ -251,8 +267,8 @@ def main() -> int:
         save = a.out / f"bcr_{i}_{label}.pt"
         subprocess.run([sys.executable, __file__, str(a.other), "--run",
                         str(tree), "--save", str(save), "--loops",
-                        str(a.loops), "--k7s", *map(str, a.k7s), "--k9b",
-                        *map(str, a.k9b)],
+                        str(a.loops), "--k7", *map(str, a.k7), "--k7s",
+                        *map(str, a.k7s), "--k9b", *map(str, a.k9b)],
                        check=True)
         r = torch.load(save)
         runs.append(r)
