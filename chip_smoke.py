@@ -157,7 +157,27 @@ CUDA toolkit:
    tests/test_torch_csrc_host.py holds the cluster forms to); and prints
    their device times a launch (K7 at N = 64-1024 beside the split path
    at 128, K7s at N = 128 and 256, K9b at 64, 256 and 512);
-13. prints one JSON line of the kernels, then the result line.
+13. the real-time host loop (sim.simulate_mpc, the plant run for each
+   solve's wall time on the host clock around a device sync): fixture
+   0_0 at N = 32 (the flagship driver's default) and 64 with the
+   whole-solve kernel (K2, K5, K1 an update), warm-up solves at a CG
+   cap of 10000, RT_TIMESTEPS timesteps (several hundred updates),
+   printing the solve time's p50, p95 and max, the share over the 2000
+   us budget, the
+   updates past the rollout's 2.2 ms window, the tracking errors, SQP
+   iterations and the CG cap-exit rate beside the card's name and power
+   limit; the host loop at the constant period against simulate_mpc_scan
+   (sqp_iters and bails equal, tracking errors within 1e-3 m); auto on
+   pair 1_0 (its end-effector trace by forward kinematics, the default
+   thresholds, 512 updates) with the update it failed over at beside the
+   JAX record; the fine-grained mode at N = 32 with pcg_pallas (the plain
+   phases, K4b) and each phase's device time; sqp_solve_timeboxed in a
+   2000 us box (K2, then K9p an iteration) against
+   calibrated_iteration_budget of the measured iteration time; and the
+   flagship driver examples/track_iiwa_pcg_torch.py in-process, its
+   .result files checked; every run's launch counts checked;
+14. prints one JSON line of the kernels (with each one's launches on
+   phase 13's paths), then the result line.
 
 A watchdog (faulthandler) ends the process with a traceback and a
 non-zero exit code if the run passes SCRIPT_DEADLINE seconds, and sooner
@@ -251,6 +271,24 @@ K10_ARMS = (1, 16)
 K10_STEP_KNOTS = (64, 128, 256)
 K10_LOOP_KNOT = 128
 SCRIPT_DEADLINE = 1150          # s; the run's limit is 1200
+# phase 13, the real-time host loop (sim.simulate_mpc): fixture 0_0 at
+# the flagship driver's default N = 32 and at N = 64,
+# const_update_freq=False, the whole-solve kernel, RT_WARMUP warm-up
+# solves (each CG capped at 10000, as the reference's REMOVE_JITTERS),
+# RT_TIMESTEPS trajectory timesteps
+# (several hundred updates); the host loop against the scan for
+# EQ_UPDATES constant-period updates; auto on pair 1_0 for the JAX
+# record's 512 updates; the fine-grained mode for FG_UPDATES updates; the
+# 2000 us box BOX_SOLVES times at sqp_max_iter BOX_SQP_ITERS
+RT_KNOTS = (32, 64)
+RT_WARMUP = 2
+RT_TIMESTEPS = 30
+EQ_UPDATES = 64
+AUTO_PAIR_UPDATES = 512
+FG_UPDATES = 8
+BOX_US = 2000.0
+BOX_SOLVES = 8
+BOX_SQP_ITERS = 40
 # The kernels' numbers with the one-thread recursions, before lanedyn.cuh's
 # warp-cooperative forms (an NVIDIA H100 80GB HBM3 at 700 W, PERF.md
 # section 6), printed beside this run's: K1's and K3's device times per
@@ -3306,6 +3344,209 @@ def main() -> int:
     print(f"phase 12 (cluster BCR forms): {time.perf_counter() - t_phase:.1f} "
           f"s")
 
+
+    # ---- 13. the real-time host loop (sim.simulate_mpc) and what hangs
+    # off it: the plant run for the measured solve time, the host loop
+    # against the scan, the auto latch on pair 1_0, the fine-grained mode,
+    # the wall-clock box and the flagship driver
+    t_phase = time.perf_counter()
+    from mpcgpu_tpu_torch.sim import simulate_mpc
+    from mpcgpu_tpu_torch.sqp import (calibrated_iteration_budget,
+                                      sqp_iteration, sqp_solve_timeboxed)
+    card = smi.stdout.strip().splitlines()[0]
+    window_us = max_substeps_for(cfg) * cfg.sim_step_time * 1e6
+    host_paths = {}
+
+    def rt_cfg(n_k, **kw):
+        """The bench's solver at horizon n_k: sqp_max_iter SQP_ITERS, the
+        tpu_tuned CG cap, the whole-solve kernel."""
+        return SolverConfig.for_knots(n_k, **{
+            "sqp_max_iter": SQP_ITERS,
+            "pcg": PCGConfig(max_iter=PCGConfig.tpu_tuned_max_iter(n_k)),
+            "fused_stages": True, "megakernel": True,
+            "megakernel_solve": True, **kw})
+
+    def per_update(counts, u_k):
+        return {k: round(v / u_k, 3) for k, v in counts.items() if v}
+
+    # the real-time loop: the plant runs for each solve's wall time
+    rt_summary = {}
+    for n_k in RT_KNOTS:
+        c = rt_cfg(n_k)
+        tol_k = default_pcg_exit_tols(n_k)[0]
+        label = f"real-time loop N={n_k}"
+        with _watchdog(FIRST_LAUNCH_DEADLINE):
+            rec, counts = counted(label, lambda: simulate_mpc(
+                model, c, xu, ee, pcg_exit_tol=tol_k,
+                warmup_iters=RT_WARMUP, max_timesteps=RT_TIMESTEPS,
+                const_update_freq=False), None)
+        u_k = rec.control_updates
+        solves = u_k + RT_WARMUP + 1
+        if counts != {**none, "K1": u_k, "K2": solves, "K5": solves}:
+            raise AssertionError(f"{label}: launch counts {counts}")
+        st = np.asarray(rec.sqp_times_us)
+        te = np.asarray(rec.tracking_errors)
+        if (rec.timesteps != RT_TIMESTEPS or not np.isfinite(te).all()
+                or not np.isfinite(rec.final_tracking_error)):
+            raise AssertionError(f"{label}: {rec.timesteps} timesteps, "
+                                 f"errors {te}")
+        rt_summary[n_k] = {
+            "updates": u_k, "solve_us_p50": float(np.percentile(st, 50)),
+            "solve_us_p95": float(np.percentile(st, 95)),
+            "solve_us_max": float(st.max()),
+            "share_over_budget": float(np.mean(st > BOX_US)),
+            "updates_past_rollout_window": int(np.sum(st > window_us)),
+            "mean_err_m": float(te.mean()),
+            "final_err_m": rec.final_tracking_error,
+            "sqp_iters_mean": float(np.mean(rec.sqp_iters)),
+            "rho_bails": int(np.sum(rec.sqp_exits)),
+            "cg_cap_exit_rate": float(np.mean(rec.pcg_exits)),
+            "launches_per_update": per_update(counts, u_k)}
+        host_paths[label] = counts
+        print(f"{label}: {card}: {json.dumps(rt_summary[n_k])}")
+        if rt_summary[n_k]["mean_err_m"] > 0.1:
+            raise AssertionError(f"{label}: mean tracking error over 0.1 m")
+
+    # the host loop against the scan: constant period, the same updates
+    c = rt_cfg(N_KNOTS)
+    label = f"host loop, constant period N={N_KNOTS}"
+    rec, counts = counted(label, lambda: simulate_mpc(
+        model, c, xu, ee, pcg_exit_tol=tol, warmup_iters=0,
+        max_control_updates=EQ_UPDATES), {**none, "K1": EQ_UPDATES,
+                                          "K2": EQ_UPDATES,
+                                          "K5": EQ_UPDATES})
+    host_paths[label] = counts
+    Xh, Uh = (torch.as_tensor(a, device=dev)
+              for a in horizon_slices(xu, ee, N_KNOTS)[:2])
+    scan = simulate_mpc_scan(model, c, xu_d, ee_d, Xh, Uh,
+                             torch.zeros_like(Xh), rho, tol, EQ_UPDATES)
+    scan_errs = scan["tracking_errors"][scan["shifted"].to(dev)]
+    eq_err = float((torch.as_tensor(rec.tracking_errors, device=dev)
+                    - scan_errs).abs().max())
+    if (rec.sqp_iters != scan["sqp_iters"].tolist()
+            or rec.sqp_exits != scan["rho_bailed"].tolist() or eq_err > 1e-3
+            or len(rec.tracking_errors) != len(scan_errs)):
+        raise AssertionError(f"{label}: against the scan: sqp_iters "
+                             f"{rec.sqp_iters} / {scan['sqp_iters'].tolist()}"
+                             f", tracking errors differ by {eq_err}")
+    print(f"{label}: equal to simulate_mpc_scan in sqp_iters and bails, "
+          f"tracking errors within {eq_err:.3e} m over "
+          f"{len(rec.tracking_errors)} shifts")
+
+    # auto on pair 1_0: the FK-made trace, the default thresholds
+    xu10, ee10 = load_fixture_pair(repo / "tests" / "fixtures", 1, 0,
+                                   model=model)
+    jax_10 = json.loads((repo / "results" / "round4" / "tpu_all_pairs.json")
+                        .read_text())["rows"]["1_0"]["auto"]
+    label = f"auto on pair 1_0, N={N_KNOTS}"
+    with _watchdog(FIRST_LAUNCH_DEADLINE):
+        rec10, counts = counted(label, lambda: simulate_mpc(
+            model, c, xu10, ee10, pcg_exit_tol=tol, warmup_iters=0,
+            max_control_updates=AUTO_PAIR_UPDATES, linsys="auto"), None)
+    u10, fo = rec10.control_updates, rec10.failed_over
+    n_fo = int(sum(fo))
+    if (u10 != AUTO_PAIR_UPDATES or fo != [False] * (u10 - n_fo) + [True] * n_fo
+            or not np.isfinite(rec10.tracking_errors).all()):
+        raise AssertionError(f"{label}: {u10} updates, failed_over {fo}")
+    it_fo = n_fo * SQP_ITERS   # the staged loop runs every iteration
+    want = {**none, "K1": u10, "K2": u10 + it_fo, "K5": u10 - n_fo,
+            "K3": it_fo, "K6": it_fo}
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts}, expected "
+                             f"{want}")
+    host_paths[label] = counts
+    auto10 = {"updates": u10,
+              "failed_over_at": (u10 - n_fo) if n_fo else None,
+              "failover_rate": n_fo / u10,
+              "mean_err_m": float(np.mean(rec10.tracking_errors)),
+              "rho_bail_rate": float(np.mean(rec10.sqp_exits)),
+              "launches_per_update": per_update(counts, u10)}
+    print(f"{label}: {card}: {json.dumps(auto10)}; the JAX record "
+          f"(results/round4/tpu_all_pairs.json, its scan, 512 updates): "
+          f"failed over {jax_10['failed_over']}, failover_rate "
+          f"{jax_10['failover_rate']} (from about update "
+          f"{round(512 * (1 - jax_10['failover_rate']))}), mean error "
+          f"{jax_10['avg_tracking_error_m']} m")
+
+    # the fine-grained mode: the plain phases, K4b as pcg_pallas's solve
+    c32 = rt_cfg(32)
+    label = "fine-grained loop N=32, pcg_pallas"
+    rec_fg, counts = counted(label, lambda: simulate_mpc(
+        model, c32, xu, ee, pcg_exit_tol=default_pcg_exit_tols(32)[0],
+        warmup_iters=0, max_control_updates=FG_UPDATES, linsys="pcg_pallas",
+        fine_grained_timing=True), None)
+    k4b_kid = k4_kid(32, dz=False)
+    if counts != {**none, "K1": FG_UPDATES,
+                  k4b_kid: sum(rec_fg.sqp_iters)}:
+        raise AssertionError(f"{label}: launch counts {counts}")
+    host_paths[label] = counts
+    # the median over the updates: the first one also pays the plain
+    # modules' first calls
+    phases = {k: [float(np.median(getattr(rec_fg, f"{k}_times_us"))),
+                  float(getattr(rec_fg, f"{k}_times_us")[0])]
+              for k in ("kkt", "schur", "linsys", "dz", "line_search")}
+    print(f"{label}: {card}: device us an update by phase, [median, first "
+          f"update] (CUDA events, {np.mean(rec_fg.sqp_iters):.2f} SQP "
+          f"iterations an update): {json.dumps(phases)}; launches per "
+          f"update {per_update(counts, FG_UPDATES)}")
+
+    # the 2000 us box: K9p an iteration, each finished before the clock
+    # is read again
+    cbox = rt_cfg(N_KNOTS, sqp_max_iter=BOX_SQP_ITERS)
+    lam_box = warm_lam(mega_cfg, start64)
+    sqp_iteration(model, cbox, X, U, lam_box, goals, xs, rho, 1.0,
+                  float("inf"), tol)
+    one = torch.ones((), device=dev)
+    inf = torch.full((), float("inf"), device=dev)
+    it_us = []
+    for _ in range(REPS):
+        sync()
+        t0 = time.perf_counter()
+        sqp_iteration(model, cbox, X, U, lam_box, goals, xs, rho, one, inf,
+                      tol)
+        sync()
+        it_us.append((time.perf_counter() - t0) * 1e6)
+    per_iter_us = statistics.median(it_us)
+    label = f"time box {BOX_US:.0f} us N={N_KNOTS}"
+    boxes, counts = counted(label, lambda: [sqp_solve_timeboxed(
+        model, cbox, X, U, lam_box, goals, xs, rho, tol, max_time_us=BOX_US)
+        for _ in range(BOX_SOLVES)], None)
+    box_iters = [int(b.stats.sqp_iters) for b in boxes]
+    if counts != {**none, "K2": BOX_SOLVES,
+                  "K9p": BOX_SOLVES + sum(box_iters)}:
+        raise AssertionError(f"{label}: launch counts {counts}")
+    host_paths[label] = counts
+    budget = calibrated_iteration_budget(BOX_US, per_iter_us,
+                                         cap=BOX_SQP_ITERS)
+    print(f"{label}: {card}: iterations run {box_iters} (rho bails "
+          f"{[bool(b.stats.rho_bailed) for b in boxes]}); an iteration "
+          f"{per_iter_us:.1f} us on the host clock (median of {REPS}, "
+          f"K9p, synced), calibrated_iteration_budget {budget}")
+
+    # the flagship driver, in-process: a few timesteps, one tolerance
+    spec = importlib.util.spec_from_file_location(
+        "_track_iiwa_pcg_torch", repo / "examples" / "track_iiwa_pcg_torch.py")
+    driver = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(driver)
+    with tempfile.TemporaryDirectory() as out_dir:
+        _, counts = counted("driver track_iiwa_pcg_torch", lambda: driver.main(
+            ["--max-timesteps", "2", "--warmup-iters", "1", "--tols",
+             "5e-6", "--output-dir", out_dir]), None)
+        dumps = sorted(p.name for p in Path(out_dir).iterdir())
+    kinds = ("pcg_iters", "pcg_exits", "sqp_times", "sqp_iters", "sqp_exits",
+             "tracking_errors", "tracking_path", "stats")
+    missing = [k for k in kinds if f"32_PCG_5e-06_0_{k}.result" not in dumps]
+    if missing or "32_PCG_5e-06_overall_stats.csv" not in dumps or not (
+            counts["K1"] and counts["K5"] == counts["K2"]
+            == counts["K1"] + 2):
+        raise AssertionError(f"driver: files {dumps} (missing {missing}), "
+                             f"launches {counts}")
+    host_paths["driver track_iiwa_pcg_torch"] = counts
+    print(f"driver track_iiwa_pcg_torch: {len(dumps)} files, launches "
+          f"{counts}")
+    print(f"phase 13 (real-time host loop): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
     # each kernel's launches: the first run of this slice's paths that
     # launched it (the default auto loop, its failover branch, the staged
     # loop, the packed loop, then this file's phase 6 loops)
@@ -3333,6 +3574,8 @@ def main() -> int:
         if not count:
             raise AssertionError(f"{kid} was launched in no closed loop")
         k["launches"], k["path"] = count, path
+        k["host_loop_launches"] = {p: c[kid] for p, c in host_paths.items()
+                                   if c.get(kid)}
 
     k10_entry["device_ms"] = packed["k10_device_ms"]
     k10_entry["sweep"] = sweep

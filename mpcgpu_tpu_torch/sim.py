@@ -7,9 +7,14 @@ shift with tail refill when the trajectory clock crosses a timestep
 (mpcsim.cuh:343-387), and re-injection of the measured state x_0 <- xs
 (mpcsim.cuh:394).
 
-``simulate_mpc_scan`` is the device-resident loop: the shift schedule is
-computed on the host once, and no update of a fixed backend reads a
-device value on the host, so the host only enqueues work.
+``simulate_mpc`` is the reference's real-time host loop: each update's
+solve is timed on the host clock around a device sync, the plant can run
+for exactly that time (``const_update_freq=False``), and the statistics
+are read on the host every update into an ``MPCRecord``.
+``simulate_mpc_scan`` is the device-resident loop at the constant
+period: the shift schedule is computed on the host once, and no update
+of a fixed backend reads a device value on the host, so the host only
+enqueues work.
 
 ``linsys="auto"`` solves with "pcg" and latches over to "bcr_pcg" once
 the EMAs of the rho-bail rate and of the tracking error both pass their
@@ -35,6 +40,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -42,10 +49,70 @@ import torch
 from mpcgpu_tpu_torch.config import SolverConfig
 from mpcgpu_tpu_torch.models import dynamics as dyn
 from mpcgpu_tpu_torch.models.robot import RobotModel
+from mpcgpu_tpu_torch.ops.btridiag import spmv
 from mpcgpu_tpu_torch.ops.cuda.rollout_kernel import plant_rollout
 from mpcgpu_tpu_torch.ops.cuda.sqp_megakernel import (
     sqp_solve_mega_pcg_packed, sqp_solve_mega_pcg_packed_reference)
-from mpcgpu_tpu_torch.sqp import check_fused_config, sqp_solve
+from mpcgpu_tpu_torch.ops.kkt import form_kkt
+from mpcgpu_tpu_torch.ops.schur import form_schur
+from mpcgpu_tpu_torch.sqp import (_sync, check_fused_config, sqp_solve,
+                                  sqp_solve_fine_grained)
+
+
+@dataclasses.dataclass
+class MPCRecord:
+    """Per-run statistics of simulate_mpc (the reference's .result dumps,
+    mpcsim.cuh:59-138); the JAX package's fields and summary keys."""
+
+    tracking_errors: List[float] = dataclasses.field(default_factory=list)
+    tracking_path: List[np.ndarray] = dataclasses.field(default_factory=list)
+    sqp_iters: List[int] = dataclasses.field(default_factory=list)
+    sqp_times_us: List[float] = dataclasses.field(default_factory=list)
+    sqp_exits: List[bool] = dataclasses.field(default_factory=list)
+    pcg_iters: List[int] = dataclasses.field(default_factory=list)
+    pcg_exits: List[bool] = dataclasses.field(default_factory=list)
+    # per-update phase times in fine_grained_timing mode (the reference's
+    # FINE_GRAINED_TIMING dumps, mpcsim.cuh:108-113)
+    kkt_times_us: List[float] = dataclasses.field(default_factory=list)
+    schur_times_us: List[float] = dataclasses.field(default_factory=list)
+    linsys_times_us: List[float] = dataclasses.field(default_factory=list)
+    dz_times_us: List[float] = dataclasses.field(default_factory=list)
+    line_search_times_us: List[float] = dataclasses.field(default_factory=list)
+    # per update with linsys="auto": True where the bcr_pcg failover
+    # backend ran
+    failed_over: List[bool] = dataclasses.field(default_factory=list)
+    # per update with record_dual_residual: the backward-error dual
+    # residual at the returned iterate (_dual_residual)
+    dual_residuals: List[float] = dataclasses.field(default_factory=list)
+    final_tracking_error: float = float("nan")
+    control_updates: int = 0
+    timesteps: int = 0
+
+    def summary(self) -> dict:
+        te = np.asarray(self.tracking_errors, np.float64)
+        st = np.asarray(self.sqp_times_us, np.float64)
+        pi = np.asarray(self.pcg_iters, np.float64)
+        nan = float("nan")
+        return {
+            "avg_tracking_error": float(te.mean()) if te.size else nan,
+            "max_tracking_error": float(te.max()) if te.size else nan,
+            "final_tracking_error": self.final_tracking_error,
+            "avg_sqp_time_us": float(st.mean()) if st.size else nan,
+            "p50_sqp_time_us": float(np.median(st)) if st.size else nan,
+            "p95_sqp_time_us": (float(np.percentile(st, 95)) if st.size
+                                else nan),
+            "avg_pcg_iters": float(pi.mean()) if pi.size else nan,
+            "pcg_max_exit_rate": (
+                float(np.mean(self.pcg_exits)) if self.pcg_exits
+                else float("nan")),
+            "control_updates": self.control_updates,
+            "timesteps": self.timesteps,
+            **({"dual_residual_p50": float(np.median(self.dual_residuals)),
+                "dual_residual_p90": float(np.percentile(
+                    self.dual_residuals, 90)),
+                "dual_residual_max": float(np.max(self.dual_residuals))}
+               if self.dual_residuals else {}),
+        }
 
 
 def _plant_rollout(model: RobotModel, cfg: SolverConfig, x, U_prev,
@@ -174,6 +241,229 @@ def _update_ms(events) -> list:
     """Each update's time between consecutive events, read once."""
     events[-1].synchronize()
     return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def _dual_residual(model: RobotModel, cfg: SolverConfig, X, U, lam, goals,
+                   xs, rho):
+    """Backward-error dual residual at the returned iterate,
+    ``||gamma - S lam|| / (||S||_F ||lam|| + ||gamma||)`` with (S, gamma)
+    formed again at (X, U, rho) without the preconditioner: how well the
+    carried duals satisfy the new linearization, the warm start the next
+    solve inherits.  The counterweight to the CG's cap-exit rate (the
+    reference warns past 50%, mpcsim.cuh:436-441).  A diagnostic outside
+    the timed region: the plain modules on the tensors' device, a 0-d
+    tensor."""
+    cc = cfg.cost
+    kkt = form_kkt(model, X, U, goals, xs, cfg.timestep, cc.qd_cost,
+                   cc.r_cost, cfg.integrator_type, cfg.gravity, cc.hessian,
+                   cfg.angle_wrap, cc.tracking, cc.q_cost)
+    sch = form_schur(kkt, rho, preconditioned=False)
+    r = sch.gamma - spmv(sch.S, lam)
+    s_f = torch.sqrt((sch.S.lower ** 2).sum() + (sch.S.diag ** 2).sum()
+                     + (sch.S.upper ** 2).sum())
+    denom = s_f * torch.linalg.norm(lam) + torch.linalg.norm(sch.gamma)
+    return torch.linalg.norm(r) / torch.clamp(denom, min=1e-30)
+
+
+def _mpc_update(model: RobotModel, cfg: SolverConfig, xs, X, U, goals, lam,
+                U_prev, xu_traj, ee_traj, traj_offset: int, offset_us: float,
+                sim_time_us: float, do_shift: bool, max_substeps: int):
+    """Everything between two solves of the host loop: the plant rollout
+    and tracking-error probe (K1 under fused_stages), the horizon shift
+    when do_shift (a host bool), and the measured-state re-injection."""
+    xs, err = _rollout_and_error(model, cfg, xs, U_prev, goals, offset_us,
+                                 sim_time_us, max_substeps)
+    if do_shift:
+        X, U, goals, lam = _shift_horizon(X, U, goals, lam, xu_traj, ee_traj,
+                                          traj_offset)
+    X = torch.cat([xs[None], X[1:]])  # measured-state re-injection
+    return xs, X, U, goals, lam, err
+
+
+def simulate_mpc(
+    model: RobotModel,
+    cfg: SolverConfig,
+    xu_traj: np.ndarray,
+    ee_traj: np.ndarray,
+    *,
+    pcg_exit_tol: float,
+    linsys: str = "pcg",
+    max_control_updates: int = 100000,
+    max_timesteps: Optional[int] = None,
+    warmup_iters: int = 100,
+    const_update_freq: bool = True,
+    fine_grained_timing: bool = False,
+    record_dual_residual: bool = False,
+    verbose: bool = False,
+) -> MPCRecord:
+    """Track a recorded trajectory with the SQP solver in the loop, one
+    control update after another from the host: the reference's
+    simulateMPC (mpcsim.cuh:170-498).  Runs on the model's device.
+
+    Each update times the solve on the host clock (the module's
+    time.perf_counter) around a device sync, so the time is the wall time
+    the controller took, launches included.  const_update_freq=False runs
+    the plant for exactly that time (the reference's real-time mode); the
+    rollout integrates at most max_substeps_for(cfg) substeps (11 x 0.2 ms
+    at the 2 ms period) plus the remainder, as the JAX package and K1 do.
+    True runs it for cfg.simulation_period_us.
+
+    Warm-up (REMOVE_JITTERS, mpcsim.cuh:259-279): warmup_iters solves at
+    tol 1e-11 with a CG cap of 10000, the iterate reset each time while
+    lam and rho carry, then rho reset and one solve of the measured
+    configuration, whose result is dropped.
+
+    linsys="auto" solves with "pcg" until the EMAs of the rho-bail rate
+    and of the tracking error both pass their thresholds, then with
+    "bcr_pcg"; the latch is read on the host every update.
+    fine_grained_timing runs sqp_solve_fine_grained and records each
+    phase's time per update; record_dual_residual adds _dual_residual
+    after each solve, outside the timed region.
+    """
+    dev = model.Xc.device
+    n = cfg.knot_points
+    nx = cfg.state_size
+    traj_steps = xu_traj.shape[0] if max_timesteps is None else min(
+        xu_traj.shape[0], max_timesteps)
+    dt = getattr(torch, cfg.dtype)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                  device=dev)
+
+    xu_t, ee_t = t(xu_traj), t(ee_traj)
+    X, U, goals = t(xu_traj[:n, :nx]), t(xu_traj[:n - 1, nx:]), t(ee_traj[:n])
+    xs = X[0]
+    lam = torch.zeros((n, nx), dtype=dt, device=dev)
+    rho = torch.tensor(cfg.rho_init, dtype=dt, device=dev)
+
+    auto = linsys == "auto"
+    cur_linsys = "pcg" if auto else linsys
+    bail_ema, err_ema, failed = 0.0, 0.0, False
+
+    if warmup_iters > 0:
+        warm_cfg = dataclasses.replace(
+            cfg, pcg=dataclasses.replace(cfg.pcg, max_iter=10000))
+        for _ in range(warmup_iters):
+            res = sqp_solve(model, warm_cfg, X, U, lam, goals, xs, rho,
+                            1e-11, cur_linsys)
+            lam, rho = res.lam, res.rho   # the iterate stays at the start
+        rho = torch.tensor(cfg.rho_init, dtype=dt, device=dev)
+        # the measured configuration's kernels, warmed before the first
+        # timed update
+        sqp_solve(model, cfg, X, U, lam, goals, xs, rho, pcg_exit_tol,
+                  cur_linsys)
+        if fine_grained_timing:
+            sqp_solve_fine_grained(model, cfg, X, U, lam, goals, xs, rho,
+                                   pcg_exit_tol, cur_linsys)
+        _sync(dev)
+
+    max_substeps = max_substeps_for(cfg)
+    rec = MPCRecord()
+    rec.tracking_path.append(xs.cpu().numpy())
+
+    time_since_timestep = 0.0
+    shifted = False
+    traj_offset = 0
+    prev_sim_time = 0.0
+    U_prev = U  # the previous plan's controls (xu_old)
+
+    for update in range(max_control_updates):
+        if traj_offset >= traj_steps:
+            break
+
+        t0 = time.perf_counter()
+        if fine_grained_timing:
+            res, phase_times = sqp_solve_fine_grained(
+                model, cfg, X, U, lam, goals, xs, rho, pcg_exit_tol,
+                cur_linsys)
+        else:
+            res = sqp_solve(model, cfg, X, U, lam, goals, xs, rho,
+                            pcg_exit_tol, cur_linsys)
+        _sync(dev)
+        solve_us = (time.perf_counter() - t0) * 1e6
+        if fine_grained_timing:
+            rec.kkt_times_us.append(sum(phase_times["kkt"]))
+            rec.schur_times_us.append(sum(phase_times["schur"]))
+            rec.linsys_times_us.append(sum(phase_times["linsys"]))
+            rec.dz_times_us.append(sum(phase_times["dz"]))
+            rec.line_search_times_us.append(sum(phase_times["line_search"]))
+        X, U, lam, rho = res.X, res.U, res.lam, res.rho
+        if record_dual_residual:
+            # at the returned iterate, with the goals and xs the solve saw
+            rec.dual_residuals.append(float(_dual_residual(
+                model, cfg, X, U, lam, goals, xs, rho)))
+
+        sim_time = cfg.simulation_period_us if const_update_freq else solve_us
+
+        do_shift = not shifted and (
+            time_since_timestep + sim_time * 1e-6
+            > cfg.shift_threshold_fraction * cfg.timestep)
+        time_since_timestep += sim_time * 1e-6
+        if do_shift:
+            traj_offset += 1
+            shifted = True
+        if time_since_timestep > cfg.timestep:
+            shifted = False
+            time_since_timestep = float(np.fmod(time_since_timestep,
+                                                cfg.timestep))
+
+        U_post_solve = U  # xu_old is taken before the shift (mpcsim.cuh:337)
+        xs, X, U, goals, lam, err = _mpc_update(
+            model, cfg, xs, X, U, goals, lam, U_prev, xu_t, ee_t, traj_offset,
+            prev_sim_time, sim_time, do_shift, max_substeps)
+        U_prev = U_post_solve
+        err = float(err)
+        if do_shift:
+            rec.tracking_errors.append(err)
+        prev_sim_time = sim_time
+
+        st = res.stats
+        iters = st.pcg_iters.cpu().numpy()
+        ran = iters >= 0
+        rec.pcg_iters.extend(int(i) for i in iters[ran])
+        rec.pcg_exits.extend(
+            bool(b) for b in st.pcg_hit_max.cpu().numpy()[ran])
+        rec.sqp_iters.append(int(st.sqp_iters))
+        rec.sqp_times_us.append(solve_us)
+        bailed = bool(st.rho_bailed)
+        rec.sqp_exits.append(bailed)
+        rec.tracking_path.append(xs.cpu().numpy())
+        if auto:
+            rec.failed_over.append(failed)
+            if not failed:
+                d = cfg.failover_ema_decay
+                bail_ema = d * bail_ema + (1.0 - d) * float(bailed)
+                err_ema = d * err_ema + (1.0 - d) * err
+                if (bail_ema > cfg.failover_bail_rate
+                        and err_ema > cfg.failover_err_threshold_m):
+                    failed = True
+                    cur_linsys = "bcr_pcg"
+                    if verbose:
+                        print(f"update {update}: rho-bail EMA "
+                              f"{bail_ema:.3f} > {cfg.failover_bail_rate} "
+                              f"and err EMA {err_ema:.3f} > "
+                              f"{cfg.failover_err_threshold_m} "
+                              f"-- failing over to bcr_pcg")
+
+        if verbose and update % 200 == 0:
+            last = rec.tracking_errors[-1] if rec.tracking_errors else float(
+                "nan")
+            print(f"update {update}: traj_offset {traj_offset}/{traj_steps} "
+                  f"solve {solve_us:.0f}us sqp_iters {rec.sqp_iters[-1]} "
+                  f"err {last:.4f}")
+
+    rec.final_tracking_error = float(_tracking_error(model, xs, goals[0]))
+    rec.control_updates = len(rec.sqp_times_us)
+    rec.timesteps = traj_offset
+
+    # the CG cap-exit self-diagnostic (reference mpcsim.cuh:436-441)
+    if rec.pcg_exits:
+        exit_rate = float(np.mean(rec.pcg_exits))
+        if exit_rate > 0.5:
+            print(f"WARNING: PCG hit its max-iteration cap in "
+                  f"{100.0 * exit_rate:.1f}% of solves "
+                  f"(exit tol {pcg_exit_tol:g}, max_iter {cfg.pcg.max_iter}); "
+                  f"results may be unreliable")
+    return rec
 
 
 def simulate_mpc_scan(model: RobotModel, cfg: SolverConfig, xu_traj, ee_traj,

@@ -252,13 +252,16 @@ def _jax_package_refs(tree):
 
 
 def test_port_imports_no_jax():
-    pkg = Path(__file__).resolve().parents[1] / "mpcgpu_tpu_torch"
-    files = sorted(pkg.rglob("*.py"))
-    assert files
+    """Every file of the port's package and its drivers
+    (examples/*_torch.py)."""
+    root = Path(__file__).resolve().parents[1]
+    drivers = sorted((root / "examples").glob("*_torch.py"))
+    assert len(drivers) >= 2
+    files = sorted((root / "mpcgpu_tpu_torch").rglob("*.py")) + drivers
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         refs = list(_jax_package_refs(tree))
-        assert not refs, f"{path.relative_to(pkg.parent)} has {refs}"
+        assert not refs, f"{path.relative_to(root)} has {refs}"
 
 
 def test_chip_smoke_and_card_helpers_import_no_jax():

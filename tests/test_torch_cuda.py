@@ -5,7 +5,10 @@ card admits, and bit for bit K9p's and K9pg's dual solve), the joined
 forms K5g and K9pg (at every cluster size the card admits for them), the
 cluster forms of K5, K9p, K6, K7, K7s, K9b and K10 at every cluster size
 the card admits (K10 also in its one-block form), and K11 over every
-local shard in one launch, against their plain versions, on the card.
+local shard in one launch, against their plain versions, on the card;
+and the card twins of tests/test_torch_host_loop.py: the real-time host
+loop's launches, the host loop against the scan, the fine-grained mode's
+K4b, the time box's K9p and the forward-kinematics fixture trace.
 
 Marked ``cuda``: each test needs a CUDA device and skips without one.
 The file uses no fixture of tests/conftest.py, which imports JAX, so on a
@@ -1145,3 +1148,102 @@ def test_k10_gives_the_same_bits_on_two_launches(card):
     assert int(k10.sqp_solve_mega_pcg_packed.cluster_size) > 0
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# ---- the real-time host loop (sim.simulate_mpc) and what hangs off it,
+# the card twins of tests/test_torch_host_loop.py
+
+
+def _host_cfg(n=64, **kw):
+    from mpcgpu_tpu_torch.config import PCGConfig
+
+    kw = {"sqp_max_iter": 4, "pcg": PCGConfig(max_iter=40),
+          "fused_stages": True, "megakernel": True, "megakernel_solve": True,
+          **kw}
+    return SolverConfig.for_knots(n, **kw)
+
+
+def _counted(run):
+    from mpcgpu_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in launch_counts().items() if v}
+
+
+def test_host_loop_real_time_runs_the_kernels(card):
+    """const_update_freq=False: the plant runs for each solve's wall time;
+    K2 and K5 a solve (one warm-up and the measured warm solve besides),
+    K1 an update; finite tracking at every shift."""
+    from mpcgpu_tpu_torch.sim import simulate_mpc
+
+    xu, ee = _fixture()
+    rec, counts = _counted(lambda: simulate_mpc(
+        card["model"], _host_cfg(), xu, ee, pcg_exit_tol=5e-5,
+        warmup_iters=1, max_timesteps=3, const_update_freq=False))
+    u = rec.control_updates
+    assert rec.timesteps == 3 and u > 3
+    assert counts == {"K1": u, "K2": u + 2, "K5": u + 2}
+    assert np.isfinite(rec.tracking_errors).all()
+    assert all(t > 0 for t in rec.sqp_times_us)
+
+
+def test_host_loop_equals_the_scan_on_the_card(card):
+    """At the constant period the host loop equals simulate_mpc_scan:
+    sqp_iters and bails equal, tracking errors within 1e-3 m."""
+    from mpcgpu_tpu_torch.sim import simulate_mpc, simulate_mpc_scan
+
+    xu, ee = _fixture()
+    cfg = _host_cfg()
+    rec = simulate_mpc(card["model"], cfg, xu, ee, pcg_exit_tol=5e-5,
+                       warmup_iters=0, max_control_updates=16)
+    dev = card["X"].device
+    t = lambda a: torch.as_tensor(a, device=dev)
+    scan = simulate_mpc_scan(card["model"], cfg, t(xu), t(ee), card["X"],
+                             card["U"], torch.zeros_like(card["X"]),
+                             1e-3, 5e-5, 16)
+    assert rec.sqp_iters == scan["sqp_iters"].tolist()
+    assert rec.sqp_exits == scan["rho_bailed"].tolist()
+    errs = scan["tracking_errors"][scan["shifted"].to(dev)].cpu().numpy()
+    np.testing.assert_allclose(rec.tracking_errors, errs, atol=1e-3)
+
+
+def test_fine_grained_pcg_pallas_launches_k4b(card):
+    """The fine-grained mode runs the plain phases on the card and solves
+    pcg_pallas with K4b, one launch an SQP iteration run."""
+    from mpcgpu_tpu_torch.sqp import sqp_solve_fine_grained
+
+    c = card
+    (res, times), counts = _counted(lambda: sqp_solve_fine_grained(
+        c["model"], _host_cfg(), c["X"], c["U"], torch.zeros_like(c["X"]),
+        c["goals"], c["xs"], c["rho"], 5e-5, "pcg_pallas"))
+    its = int(res.stats.sqp_iters)
+    assert counts == {"K4b": its} and its >= 1
+    assert all(len(v) == its and min(v) > 0 for v in times.values())
+
+
+def test_timebox_runs_k9p_and_stops_at_its_budget(card):
+    """The box's iterations are K9p launches (one more before the box
+    opens) after one K2 merit; a zero budget runs none."""
+    from mpcgpu_tpu_torch.sqp import sqp_solve_timeboxed
+
+    c = card
+    args = (c["model"], _host_cfg(sqp_max_iter=40), c["X"], c["U"],
+            torch.zeros_like(c["X"]), c["goals"], c["xs"], c["rho"], 5e-5)
+    res, counts = _counted(lambda: sqp_solve_timeboxed(*args,
+                                                       max_time_us=2000.0))
+    its = int(res.stats.sqp_iters)
+    assert counts == {"K2": 1, "K9p": its + 1} and its >= 1
+    res0 = sqp_solve_timeboxed(*args, max_time_us=0.0)
+    assert int(res0.stats.sqp_iters) == 0
+
+
+def test_fixture_pair_trace_by_forward_kinematics_on_the_card(card):
+    """Pair 1_0's end-effector trace made on the card equals the CPU's
+    within 1e-5."""
+    d = Path(__file__).resolve().parent / "fixtures"
+    _, ee_card = load_fixture_pair(d, 1, 0, model=card["model"])
+    _, ee_cpu = load_fixture_pair(d, 1, 0, model=iiwa14(device="cpu"))
+    np.testing.assert_allclose(ee_card, ee_cpu, rtol=0, atol=1e-5)
