@@ -3471,10 +3471,11 @@ def main() -> int:
     # the fine-grained mode: the plain phases, K4b as pcg_pallas's solve
     c32 = rt_cfg(32)
     label = "fine-grained loop N=32, pcg_pallas"
-    rec_fg, counts = counted(label, lambda: simulate_mpc(
-        model, c32, xu, ee, pcg_exit_tol=default_pcg_exit_tols(32)[0],
-        warmup_iters=0, max_control_updates=FG_UPDATES, linsys="pcg_pallas",
-        fine_grained_timing=True), None)
+    with _watchdog(FIRST_LAUNCH_DEADLINE):   # K4b's first launch at N = 32
+        rec_fg, counts = counted(label, lambda: simulate_mpc(
+            model, c32, xu, ee, pcg_exit_tol=default_pcg_exit_tols(32)[0],
+            warmup_iters=0, max_control_updates=FG_UPDATES,
+            linsys="pcg_pallas", fine_grained_timing=True), None)
     k4b_kid = k4_kid(32, dz=False)
     if counts != {**none, "K1": FG_UPDATES,
                   k4b_kid: sum(rec_fg.sqp_iters)}:
