@@ -232,7 +232,7 @@ LONG_K3_KNOTS = (256, 512, 1024)
 LONG_CG_KNOTS = (64, 128, 256, 512, 1024)
 # K4 and K4b in both forms (the cluster form where it fits, the joined
 # form K4g, K4bg), and a CG step's device time per form at these
-K4_KNOTS = (2, 3, 7, 64, 128, 256, 512, 1024)
+K4_KNOTS = (2, 3, 7, 32, 64, 128, 256, 512, 1024)
 K4_STEP_KNOTS = (64, 128, 256, 512, 1024)
 LONG_MEGA_KNOTS = (64, 128, 256, 512)
 # K5g's own horizons, past K5's cluster fit: just past it, an uneven cut
@@ -253,7 +253,7 @@ ARMS_KNOTS, ARMS_GROUPS, ARMS_UPDATES = 8, 8, 2
 PACKED_GROUPS, PACKED_ARMS, PACKED_UPDATES = 2, 2, 2
 GLOO_RANKS = 2
 # phase 10, the cluster forms
-CLUSTER_KNOTS = (2, 4, 64, 128, 256, 512)
+CLUSTER_KNOTS = (2, 4, 32, 64, 128, 256, 512)
 CLUSTER_BCR_KNOTS = (2, 4, 8, 16, 32, 64, 128, 256, 512)
 CLUSTER_STEP_KNOTS = (64, 128, 256, 512, 1024)   # 1024: K5g alone
 # phase 11, K10's forms: the cluster form at two arms (and the largest N
@@ -302,7 +302,7 @@ ONE_THREAD_MERIT_K5_STAGES_US = {64: 284.9, 128: 307.8, 256: 478.0,
                                  512: 651.0}
 # K2 against its plain version at these horizons (N = 64: the check's
 # inputs; the others a seeded step)
-K2_KNOTS = (2, 64, 256, 1024)
+K2_KNOTS = (2, 32, 64, 256, 1024)
 # the kernels whose ptxas resource lines phase 2 prints: K1, K2 at each
 # group size, K3's three, the megakernels that run K3's stage bodies and
 # K2's merit contribution, K7's and K7s's cluster kernels, K4's four forms
@@ -820,10 +820,24 @@ def main() -> int:
     k1_dev = _device_us(lambda: k1.plant_rollout(*k1_args), "K1")
     print(f"K1 device time per call: {_us(k1_dev)} (one-thread "
           f"recursions: {ONE_THREAD_US['K1']} us)")
+    # K1 at the real-time loop's shapes (phase 13): N = 32, the plant run
+    # for a solve time under the period and for one past the rollout's
+    # 2.2 ms window (11 substeps and the remainder), from the previous
+    # update's time
+    err1 = checked("K1", list(zip(r, r_ref)), 1e-4, 1e-5)
+    for n_r, off_us, sim_us in ((RT_KNOTS[0], period, 1300.0),
+                                (RT_KNOTS[0], 1300.0, 2600.0)):
+        a_r = (model, cfg, xs, U[:n_r - 1].contiguous(), goals[0], off_us,
+               sim_us, max_substeps_for(cfg))
+        err1 = max(err1, checked(
+            f"K1 N = {n_r}, {sim_us:g} us after {off_us:g}",
+            list(zip(k1.plant_rollout(*a_r),
+                     k1.plant_rollout_reference(*a_r))), 1e-4, 1e-5))
+    print(f"K1 at N = {RT_KNOTS[0]}, 1300 and 2600 us plant times: "
+          f"max_abs_err {err1:.3e} against plain")
     steps = int(period * 1e-6 / cfg.sim_step_time + 1e-9) + 1  # + remainder
     record("K1", "plant_rollout", "mpcgpu_tpu_torch/csrc/rollout.cu",
-           "mpcgpu_tpu/ops/pallas/rollout_kernel.py:92",
-           checked("K1", list(zip(r, r_ref)), 1e-4, 1e-5),
+           "mpcgpu_tpu/ops/pallas/rollout_kernel.py:92", err1,
            lambda: k1.plant_rollout(*k1_args),
            lambda: k1.plant_rollout_reference(*k1_args),
            steps * (OPS_ABA + 60) + OPS_FK,

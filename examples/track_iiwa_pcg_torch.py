@@ -88,17 +88,23 @@ def solver_config(args, device):
         megakernel_solve=mega_solve)
 
 
-def route(cfg, linsys: str, device) -> str:
+def route(cfg, linsys: str, device, fine_grained: bool = False) -> str:
     """The kernels (or plain stages) an SQP solve runs under (cfg,
-    linsys); raises where the kernels refuse the configuration."""
+    linsys); raises where the kernels refuse the configuration.  With
+    fine_grained the timed solves run sqp_solve_fine_grained's plain
+    phases (K4b for pcg_pallas on the card), the warm-up the route
+    named after them."""
     from mpcgpu_tpu_torch.sqp import check_fused_config, megakernel_engages
 
+    k4b = ", K4b" if linsys == "pcg_pallas" and device.type == "cuda" else ""
+    if fine_grained:
+        k1 = ", K1 an update" if cfg.fused_stages else ""
+        return (f"fine-grained: plain phases on {device}{k4b}{k1}; the "
+                f"warm-up on the {route(cfg, linsys, device)}")
     if not cfg.fused_stages:
         host = " with the LDL' on the host" if linsys == "qdldl" else ""
         why = (f", no kernel serves {linsys!r}" if device.type == "cuda"
                else "")
-        k4b = ", K4b" if linsys == "pcg_pallas" and device.type == "cuda" \
-            else ""
         return f"plain stages on {device}{host}{k4b}{why}"
     backends = ("pcg", "bcr_pcg") if linsys == "auto" else (linsys,)
     parts = []
@@ -146,7 +152,7 @@ def main(argv=None):
     print(f"Solver: {args.linsys.upper()}  precond: {cfg.pcg.preconditioned}")
     print(f"Max sqp iter: {cfg.sqp_max_iter}  Max pcg iter: {cfg.pcg.max_iter}")
     print(f"R cost: {cfg.cost.r_cost}  QD cost: {cfg.cost.qd_cost}")
-    print(f"Route: {route(cfg, args.linsys, device)}\n")
+    print(f"Route: {route(cfg, args.linsys, device, args.fine_grained)}\n")
 
     recorded_states = 5
     pairs = [

@@ -9,84 +9,47 @@ CUDA events on the card, the host clock on the CPU.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict
 
 import torch
 
 from mpcgpu_tpu_torch.config import SolverConfig
 from mpcgpu_tpu_torch.models.robot import RobotModel
-
-
-def _timeit(fn, device, reps: int = 30) -> float:
-    """Microseconds per call of fn over reps calls after one warm call."""
-    fn()
-    if device.type == "cuda":
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) * 1e3 / reps
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    return (time.perf_counter() - t0) / reps * 1e6
+from mpcgpu_tpu_torch.sqp import (_phase_dz, _phase_kkt, _phase_line_search,
+                                  _phase_linsys, _phase_schur, _timer)
 
 
 def stage_latencies(model: RobotModel, cfg: SolverConfig, X, U, goals, xs,
                     rho: float = 1e-3, pcg_exit_tol: float = 1e-9,
                     reps: int = 30) -> Dict[str, float]:
     """Microseconds per solver phase at the given operating point (X, U,
-    goals, xs on one device), lam = 0: kkt, schur, the linear solve by
-    the plain CG ("pcg_while_loop_us") and by K4b on the card
-    ("pcg_pallas_us"; its plain version on the CPU), dz and the
-    8-candidate line search, with the plain CG's iteration count."""
-    from mpcgpu_tpu_torch.ops import merit as merit_ops
-    from mpcgpu_tpu_torch.ops.btridiag import BlockTri
-    from mpcgpu_tpu_torch.ops.cuda.pcg_kernel import pcg_solve
-    from mpcgpu_tpu_torch.ops.dz import compute_dz
-    from mpcgpu_tpu_torch.ops.kkt import form_kkt
-    from mpcgpu_tpu_torch.ops.pcg import pcg
-    from mpcgpu_tpu_torch.ops.schur import form_schur
-
-    dev = X.device
-    cc = cfg.cost
+    goals, xs on one device), lam = 0: sqp_solve_fine_grained's plain
+    phases (kkt, schur, the linear solve by the plain CG,
+    "pcg_while_loop_us", and by K4b on the card, "pcg_pallas_us", its
+    plain version on the CPU; dz; the 8-candidate line search), each the
+    mean of reps calls after one warm call, with the plain CG's iteration
+    count."""
     lam = torch.zeros((cfg.knot_points, cfg.state_size), dtype=X.dtype,
-                      device=dev)
-    alphas = 0.5 ** torch.arange(cfg.num_alphas, dtype=X.dtype, device=dev)
-
-    def kkt_fn():
-        return form_kkt(model, X, U, goals, xs, cfg.timestep, cc.qd_cost,
-                        cc.r_cost, cfg.integrator_type, cfg.gravity,
-                        cc.hessian)
-
-    kkt = kkt_fn()
-    schur_fn = lambda: form_schur(kkt, rho,
-                                  preconditioned=cfg.pcg.preconditioned)
-    sd = schur_fn()
-    S, P = (BlockTri(*(b.contiguous() for b in bands))
-            for bands in (sd.S, sd.Pinv))
-    gamma = sd.gamma.contiguous()
-    pcg_fn = lambda: pcg(sd.S, sd.Pinv, sd.gamma, lam, cfg.pcg.max_iter,
-                         pcg_exit_tol)
-    pal_fn = lambda: pcg_solve(S, P, gamma, lam, cfg.pcg.max_iter,
-                               pcg_exit_tol)
-    res = pcg_fn()
-    dz_fn = lambda: compute_dz(kkt, sd, res.lam)
-    dX, dU = dz_fn()
-    ls_fn = lambda: merit_ops.line_search_merits(
-        model, X, U, dX, dU, alphas, goals, xs, cfg.timestep, cfg.merit_mu,
-        cc.qd_cost, cc.r_cost, cfg.integrator_type, cfg.gravity)
-
-    return {
-        "kkt_us": _timeit(kkt_fn, dev, reps),
-        "schur_us": _timeit(schur_fn, dev, reps),
-        "pcg_while_loop_us": _timeit(pcg_fn, dev, reps),
-        "pcg_pallas_us": _timeit(pal_fn, dev, reps),
-        "dz_us": _timeit(dz_fn, dev, reps),
-        "line_search_us": _timeit(ls_fn, dev, reps),
-        "pcg_iters": int(res.iters),
+                      device=X.device)
+    kkt = _phase_kkt(model, cfg, X, U, goals, xs)
+    sd = _phase_schur(cfg, kkt, rho)
+    lam1, iters, _ = _phase_linsys(cfg, sd, lam, pcg_exit_tol)
+    dX, dU = _phase_dz(kkt, sd, lam1)
+    calls = {
+        "kkt_us": lambda: _phase_kkt(model, cfg, X, U, goals, xs),
+        "schur_us": lambda: _phase_schur(cfg, kkt, rho),
+        "pcg_while_loop_us": lambda: _phase_linsys(cfg, sd, lam,
+                                                   pcg_exit_tol),
+        "pcg_pallas_us": lambda: _phase_linsys(cfg, sd, lam, pcg_exit_tol,
+                                               "pcg_pallas"),
+        "dz_us": lambda: _phase_dz(kkt, sd, lam1),
+        "line_search_us": lambda: _phase_line_search(model, cfg, X, U, dX,
+                                                     dU, goals, xs),
     }
+    timed = _timer(X.device)
+    out = {}
+    for key, fn in calls.items():
+        fn()
+        out[key] = timed(lambda: [fn() for _ in range(reps)])[1] / reps
+    out["pcg_iters"] = int(iters)
+    return out

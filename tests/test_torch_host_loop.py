@@ -6,12 +6,16 @@ under a fake clock, the forced auto failover; the warm-up's calls) and
 the port's flagship driver.  The host-driven SQP modes are in
 tests/test_torch_sqp_modes.py.
 
-One JAX simulate_mpc call per mode, shared through module-scoped
-fixtures.  Tolerances (tests/test_torch_closed_loop.py): per-update
-tracking errors at atol 1e-3; X, U and the tracking path at atol 5e-3;
-sqp_iters, rho bails and failed_over equal.
+One JAX simulate_mpc call per mode, all on one configuration (one
+compile), shared through module-scoped fixtures; the port's run of the
+constant-period mode is the driver's.  Tolerances
+(tests/test_torch_closed_loop.py): per-update tracking errors at atol
+1e-3; X, U and the tracking path at atol 5e-3; sqp_iters, rho bails and
+failed_over equal.
 """
+import contextlib
 import importlib.util
+import io
 from pathlib import Path
 
 import numpy as np
@@ -20,7 +24,6 @@ import torch
 
 import mpcgpu_tpu.sim as jax_sim
 import mpcgpu_tpu_torch.sim as sim
-from mpcgpu_tpu.config import PCGConfig as JaxPCGConfig
 from mpcgpu_tpu.config import SolverConfig as JaxSolverConfig
 from mpcgpu_tpu.sim import MPCRecord as JaxMPCRecord
 from mpcgpu_tpu.utils import results as jax_results
@@ -63,30 +66,25 @@ class FakeTime:
 
 
 
-def _cfgs(cap=None, **kw):
-    """(JAX config, port config) at N = 8 with the same fields; cap the
-    CG cap (for_knots' 200 at N = 8 by default)."""
-    if cap is None:
-        return JaxSolverConfig.for_knots(N, **kw), SolverConfig.for_knots(
-            N, **kw)
-    return (JaxSolverConfig.for_knots(N, pcg=JaxPCGConfig(max_iter=cap), **kw),
-            SolverConfig.for_knots(N, pcg=PCGConfig(max_iter=cap), **kw))
+def _cfgs():
+    """(JAX config, port config) at N = 8 with the same fields."""
+    return (JaxSolverConfig.for_knots(N, **CFG_KW),
+            SolverConfig.for_knots(N, **CFG_KW))
 
 
+# One configuration for every mode, so the JAX solves of all three share
+# one compile: both failover thresholds at -1, which only "auto" reads
+# (its latch trips after update 0, tests/test_auto_failover.py:159)
+CFG_KW = dict(sqp_max_iter=2, failover_bail_rate=-1.0,
+              failover_err_threshold_m=-1.0)
 MODES = {
     # constant period, the dual residual recorded: the driver test's run
-    "constant": dict(cfg=dict(sqp_max_iter=2),
-                     run=dict(max_timesteps=2, warmup_iters=0,
-                              record_dual_residual=True)),
-    "real_time": dict(cfg=dict(sqp_max_iter=2),
-                      run=dict(max_timesteps=3, warmup_iters=0,
-                               const_update_freq=False)),
-    # both thresholds at -1: the latch trips after update 0
-    # (tests/test_auto_failover.py:159)
-    "auto": dict(cfg=dict(sqp_max_iter=2, cap=40, failover_bail_rate=-1.0,
-                          failover_err_threshold_m=-1.0),
-                 run=dict(max_timesteps=2, warmup_iters=0,
-                          max_control_updates=5, linsys="auto")),
+    "constant": dict(max_timesteps=2, warmup_iters=0,
+                     record_dual_residual=True),
+    "real_time": dict(max_timesteps=3, warmup_iters=0,
+                      const_update_freq=False),
+    "auto": dict(max_timesteps=2, warmup_iters=0, max_control_updates=5,
+                 linsys="auto"),
 }
 
 
@@ -114,16 +112,43 @@ def jax_runs(iiwa, traj_0_0):
             seen = _spy_updates(mp, jax_sim)
             if mode == "real_time":
                 mp.setattr(jax_sim, "time", FakeTime())
-            cfg = _cfgs(**m["cfg"])[0]
-            out[mode] = (jax_sim.simulate_mpc(iiwa, cfg, xu, ee,
-                                              pcg_exit_tol=TOL, **m["run"]),
-                         seen)
+            out[mode] = (jax_sim.simulate_mpc(iiwa, _cfgs()[0], xu, ee,
+                                              pcg_exit_tol=TOL, **m), seen)
     return out
 
 
+@pytest.fixture(scope="module")
+def driver_run(tmp_path_factory):
+    """The port driver's main with --cpu, the "constant" mode's run (pcg,
+    no warm-up, 2 timesteps), its simulate_mpc also recording the dual
+    residual as that mode does: (MPCRecord, [(X, U) per update], the
+    printed output, the output directory)."""
+    out_dir = tmp_path_factory.mktemp("port")
+    recs = []
+    with pytest.MonkeyPatch.context() as mp:
+        seen = _spy_updates(mp, sim)
+        inner = sim.simulate_mpc
+
+        def run(*args, **kw):
+            recs.append(inner(*args, record_dual_residual=True, **kw))
+            return recs[-1]
+
+        mp.setattr(sim, "simulate_mpc", run)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            _driver().main(["--cpu", "--knots", str(N), "--max-timesteps",
+                            "2", "--sqp-max-iter", "2", "--warmup-iters",
+                            "0", "--tols", str(TOL), "--output-dir",
+                            str(out_dir)])
+    assert len(recs) == 1
+    return recs[0], seen, printed.getvalue(), out_dir
+
+
 @pytest.mark.parametrize("mode", list(MODES))
-def test_simulate_mpc_matches_jax(traj_0_0, jax_runs, monkeypatch, mode):
-    """The host loop in each mode against the JAX loop.  The real-time
+def test_simulate_mpc_matches_jax(traj_0_0, jax_runs, driver_run,
+                                  monkeypatch, mode):
+    """The host loop in each mode against the JAX loop ("constant": the
+    port driver's run, driver_run).  The real-time
     mode's plant runs for each fake solve time (1.5-4.0 ms: below and
     past the 2.2 ms the rollout integrates, plus its remainder) and
     shifts on that clock.  The dual residual, a backward error of about
@@ -132,14 +157,15 @@ def test_simulate_mpc_matches_jax(traj_0_0, jax_runs, monkeypatch, mode):
     digits, and S lam nearly cancels gamma in the residual's numerator,
     which multiplies those parts by the ratio |gamma| / |r|."""
     xu, ee = traj_0_0
-    m = MODES[mode]
     want, want_xu = jax_runs[mode]
-    seen = _spy_updates(monkeypatch, sim)
-    if mode == "real_time":
-        monkeypatch.setattr(sim, "time", FakeTime())
-    cfg = _cfgs(**m["cfg"])[1]
-    got = sim.simulate_mpc(iiwa14(device="cpu"), cfg, xu, ee,
-                           pcg_exit_tol=TOL, **m["run"])
+    if mode == "constant":      # the port driver's run of this mode
+        got, seen = driver_run[:2]
+    else:
+        seen = _spy_updates(monkeypatch, sim)
+        if mode == "real_time":
+            monkeypatch.setattr(sim, "time", FakeTime())
+        got = sim.simulate_mpc(iiwa14(device="cpu"), _cfgs()[1], xu, ee,
+                               pcg_exit_tol=TOL, **MODES[mode])
 
     assert got.control_updates == want.control_updates >= 5
     assert got.timesteps == want.timesteps
@@ -207,15 +233,40 @@ def test_stats_and_results_equal_jax(tmp_path, capsys):
                 == (tmp_path / "jax" / name).read_bytes()), name
 
 
+@pytest.fixture(scope="module")
+def jax_traces(iiwa, fixtures_dir):
+    """{pair: (xu, ee)} from the JAX loader's forward kinematics, the
+    loader's own jitted map run once over every pair's rows (one compile
+    where a call a pair compiles a shape each); pair 1_0 by the JAX
+    loader itself, which the one call must equal bit for bit."""
+    import jax
+
+    from mpcgpu_tpu.models import dynamics as jax_dyn
+    from mpcgpu_tpu.utils.trajfiles import load_traj
+
+    xus = [load_traj(fixtures_dir / f"{s}_{g}_traj.csv") for s, g in PAIRS]
+    fk = jax.jit(jax.vmap(lambda q: jax_dyn.ee_pos(iiwa, q)))
+    ee = np.asarray(fk(np.concatenate([xu[:, :7] for xu in xus])),
+                    np.float32)
+    cuts = np.cumsum([len(xu) for xu in xus])[:-1]
+    out = dict(zip(PAIRS, zip(xus, np.split(ee, cuts))))
+    out[0, 0] = jax_load_pair(fixtures_dir, 0, 0)
+    jxu, jee = jax_load_pair(fixtures_dir, 1, 0, model=iiwa)
+    np.testing.assert_array_equal(out[1, 0][0], jxu)
+    np.testing.assert_array_equal(out[1, 0][1], np.asarray(jee))
+    return out
+
+
 @pytest.mark.parametrize("pair", PAIRS, ids=[f"{s}_{g}" for s, g in PAIRS])
-def test_load_fixture_pair_matches_jax(iiwa, fixtures_dir, pair):
+def test_load_fixture_pair_matches_jax(fixtures_dir, jax_traces, pair):
     """The end-effector trace by forward kinematics (every pair but 0_0,
-    whose recorded trace both read) against the JAX loader, atol 1e-5."""
+    whose recorded trace both read) against the JAX loader's, atol
+    1e-5."""
     xu, ee = load_fixture_pair(fixtures_dir, *pair, model=iiwa14(device="cpu"))
-    jxu, jee = jax_load_pair(fixtures_dir, *pair, model=iiwa)
+    jxu, jee = jax_traces[pair]
     np.testing.assert_array_equal(xu, jxu)
     assert ee.dtype == np.float32 and ee.shape == (len(xu), 6)
-    np.testing.assert_allclose(ee, np.asarray(jee), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ee, jee, rtol=0, atol=1e-5)
 
 
 def test_load_fixture_pair_without_a_model(fixtures_dir):
@@ -238,32 +289,30 @@ def _numbers(path):
             for x in line.rstrip(",").split(",") if x]
 
 
-def test_driver_cpu_results_match_jax_record(jax_runs, tmp_path, capsys):
-    """The port driver's main with --cpu, the "constant" mode's run
-    (pcg, no warm-up, 2 timesteps): each .result file against
-    dump_tracking_data of the JAX record of that run -- the same files;
-    counts, exits and stats equal, CG counts within 2, tracking errors at
-    atol 1e-3, the path at atol 5e-3, one solve time per update."""
+def test_driver_cpu_results_match_jax_record(jax_runs, driver_run,
+                                            tmp_path):
+    """The port driver's main with --cpu (driver_run): each .result file
+    against dump_tracking_data of the JAX record of that run -- the same
+    files; counts, exits and stats equal, CG counts within 2, tracking
+    errors at atol 1e-3, the path at atol 5e-3, one solve time per
+    update."""
     want, _ = jax_runs["constant"]
-    _driver().main(["--cpu", "--knots", str(N), "--max-timesteps", "2",
-                    "--sqp-max-iter", "2", "--warmup-iters", "0", "--tols",
-                    str(TOL), "--output-dir", str(tmp_path / "port")])
-    out = capsys.readouterr().out
+    _, _, out, port = driver_run
     assert "Route: plain stages on cpu" in out
     assert "Average final tracking err" in out
     prefix = f"{N}_PCG_{TOL}"
     jax_results.dump_tracking_data(want, prefix, 0, tmp_path / "jax")
     names = sorted(p.name for p in (tmp_path / "jax").iterdir())
-    assert names == sorted(p.name for p in (tmp_path / "port").iterdir()
+    assert names == sorted(p.name for p in port.iterdir()
                            if p.suffix == ".result")
-    assert (tmp_path / "port" / f"{prefix}_overall_stats.csv").exists()
+    assert (port / f"{prefix}_overall_stats.csv").exists()
     for name in names:
         kind = name[len(prefix) + 3:-len(".result")]
         if kind == "stats":
-            assert ((tmp_path / "port" / name).read_text()
+            assert ((port / name).read_text()
                     == (tmp_path / "jax" / name).read_text())
             continue
-        got, ref = (_numbers(tmp_path / d / name) for d in ("port", "jax"))
+        got, ref = _numbers(port / name), _numbers(tmp_path / "jax" / name)
         assert len(got) == len(ref), name
         if kind in ("sqp_iters", "sqp_exits", "pcg_exits"):
             assert got == ref, name
@@ -313,6 +362,13 @@ def test_driver_route_on_the_card(linsys, hessian, want):
     cfg = mod.solver_config(args, cuda)
     assert not cfg.megakernel and "pcg: K3, K4, K2" in mod.route(cfg, "pcg",
                                                                  cuda)
+    # --fine-grained: the timed solves run the plain phases (K4b for
+    # pcg_pallas), the warm-up the kernels
+    args = mod.parse_args(["--linsys", "pcg_pallas", "--fine-grained"])
+    cfg = mod.solver_config(args, cuda)
+    got = mod.route(cfg, "pcg_pallas", cuda, fine_grained=True)
+    assert got.startswith("fine-grained: plain phases on cuda:0, K4b, K1")
+    assert "warm-up on the kernels on cuda:0 (pcg_pallas: K3, K4, K2" in got
 
 
 def test_warm_up_carries_lam_and_rho_and_resets_the_iterate(traj_0_0,
