@@ -8,11 +8,14 @@ CUDA toolkit:
 
 1. prints the card's name and power limit (nvidia-smi) and the versions;
 2. builds the hand-written kernels (csrc/*.cu, one nvcc per source, all at
-   once, sm_90a) and prints the build time and ptxas' register / spill
-   report, with the registers, stack and spills of K1, K2 (at each group
-   size), K3's three kernels and the megakernels that run K3's stage bodies
-   and K2's merit contribution (K5, K5g, K9p, K9pg, K9b, K10) picked out;
-   a spill, or K5 or K9p past MEGA_MAX_REGS registers, fails the run;
+   once, sm_90a) twice, for the 7-joint IIWA and for two joints (the
+   sources of K1-K5, -DMPC_NJ=2), every source of both at once, and prints
+   the build time and ptxas' register / spill report, with the registers,
+   stack and spills of K1, K2 (at each group size), K3's three kernels and
+   the megakernels that run K3's stage bodies and K2's merit contribution
+   (K5, K5g, K9p, K9pg, K9b, K10) picked out, and those of the two-joint
+   build's K1-K5; a spill, or K5 or K9p past MEGA_MAX_REGS registers,
+   fails the run;
 3. checks each kernel K1-K7, K7s, K9p, K9b and K10 against its plain
    PyTorch version on the card at the slice's N = 64 inputs from fixture
    0_0 (K6 and K7 also on a seeded well-conditioned system, K7s also at
@@ -176,8 +179,24 @@ CUDA toolkit:
    calibrated_iteration_budget of the measured iteration time; and the
    flagship driver examples/track_iiwa_pcg_torch.py in-process, its
    .result files checked; every run's launch counts checked;
-14. prints one JSON line of the kernels (with each one's launches on
-   phase 13's paths), then the result line.
+14. the second robot: the planar 2R arm (models/planar2r.py; nq = 2, nx =
+   4) with its synthesized fixture (utils/synth.py: q0 = [0.4, 0.6],
+   amplitude 0.35, dt 0.05, 4 N rows), qd_cost 1e-3, r_cost 1e-4, 3 SQP
+   iterations, CG cap 30, exit tol 1e-6, at N = 16 (the JAX hardware
+   gate's) and 64: K3, K4, K2, K1 and K5 of the two-joint build, each
+   against its plain version (first launches under the watchdog) at
+   scripts/tpu_kernel_regression.py:520-553's tolerances (K3's bands and
+   stair within 1e-4 of their largest entry, gamma 1e-3; sqp_solve staged
+   within 1e-2 of plain, the whole solve within 1e-3 of staged in X and
+   1e-2 in lam, equal SQP iterations and accepts), each one's device us a
+   call; then 6-update closed loops from cold duals, staged (K3, K4, K2;
+   K1) and the whole solve (K2, K5; K1), each beside the plain loop (mean
+   tracking error under 0.1 m, SQP iterations and bails equal), their
+   launches per update; the kernels line gets K1-K5 at nq = 2 (N = 64,
+   N = 16 beside it, launches from the N = 64 loops);
+15. prints one JSON line of the kernels (with each one's launches on
+   phase 13's paths, and phase 14's for the nq = 2 forms), then the
+   result line.
 
 A watchdog (faulthandler) ends the process with a traceback and a
 non-zero exit code if the run passes SCRIPT_DEADLINE seconds, and sooner
@@ -202,6 +221,7 @@ import tempfile
 import time
 import unittest.mock
 from pathlib import Path
+from typing import NamedTuple
 
 N_KNOTS = 64
 N_UPDATES = 16
@@ -271,6 +291,19 @@ K10_ARMS = (1, 16)
 K10_STEP_KNOTS = (64, 128, 256)
 K10_LOOP_KNOT = 128
 SCRIPT_DEADLINE = 1150          # s; the run's limit is 1200
+# phase 14, the second robot: the planar 2R arm (models/planar2r.py, nq =
+# 2) with the synthesized fixture and the solver of the JAX hardware gate
+# (scripts/tpu_kernel_regression.py:481-556): 4 N rows, 3 SQP iterations,
+# CG cap 30, exit tol 1e-6, at its N = 16 and the main path's N = 64
+NQ2 = 2
+NQ2_KNOTS = (16, 64)
+NQ2_Q0, NQ2_AMPLITUDE, NQ2_DT = (0.4, 0.6), 0.35, 0.05
+NQ2_QD_COST, NQ2_R_COST = 1e-3, 1e-4
+NQ2_SQP_ITERS, NQ2_CAP, NQ2_TOL = 3, 30, 1e-6
+NQ2_UPDATES = 6
+# the kernels of the two-joint build whose ptxas lines phase 2 prints
+NQ2_PTXAS = ("K1", "K2 G = 8", "K2 G = 16", "K2 G = 32", "K3 stage 1",
+             "K3 stage 2", "K3 stage 3", "K4", "K4g", "K5", "K5g")
 # phase 13, the real-time host loop (sim.simulate_mpc): fixture 0_0 at
 # the flagship driver's default N = 32 and at N = 64,
 # const_update_freq=False, the whole-solve kernel, RT_WARMUP warm-up
@@ -354,23 +387,64 @@ OPS_ABA, OPS_FK, OPS_MERIT_KNOT = 11_900, 1_220, 13_300
 OPS_K3_KNOT, OPS_GJ14, OPS_MM14, OPS_MV14 = 120_000, 5_490, 5_488, 392
 
 
-def _spmv_ops(n):
-    return OPS_MV14 * (3 * n - 2)
+class Dims(NamedTuple):
+    """A robot's widths, table floats and the operation counts above."""
+    nx: int
+    nu: int
+    tab: int
+    aba: int
+    fk: int
+    merit_knot: int
+    k3_knot: int
+    gj: int
+    mm: int
+    mv: int
 
 
-def _dz_ops(n):
-    return 2 * (n * NX * 2 * NX + (n - 1) * NU * (NX + NU))
+IIWA = Dims(NX, NU, TAB, OPS_ABA, OPS_FK, OPS_MERIT_KNOT, OPS_K3_KNOT,
+            OPS_GJ14, OPS_MM14, OPS_MV14)
 
 
-def _cg_ops(n, its, apply_ops):
+def dims_for(nj: int) -> Dims:
+    """The counts for a robot of nj joints (nx = 2 nj), from the IIWA's:
+    the dense algebra by its order in nx (a product and a Gauss-Jordan
+    inverse 2 nx^3, a matrix-vector product 2 nx^2); ABA, FK and a merit
+    knot linear in nj; K3's knot its dense part (six products, B R^-1 B',
+    two nx inverses, the nq inverse, A's product and the vectors: 50,274 at
+    nx = 14) plus its recursions, the tangents' 2 nj directions over nj
+    joints making them quadratic in nj (69,726 at 7 joints)."""
+    if nj == 7:
+        return IIWA
+    nx, nu, r = 2 * nj, nj, nj / 7
+    mm, mv = 2 * nx ** 3, 2 * nx ** 2
+
+    def dense(x, u):
+        return (6 * 2 * x ** 3 + 2 * x * x * u + 2 * 2 * x ** 3
+                + 2 * u ** 3 + 2 * u * u * x + 8 * x * x)
+
+    recursions = (OPS_K3_KNOT - dense(14, 7)) * r * r
+    return Dims(nx, nu, 240 * nj, round(OPS_ABA * r), round(OPS_FK * r),
+                round(OPS_MERIT_KNOT * r), round(recursions + dense(nx, nu)),
+                mm, mm, mv)
+
+
+def _spmv_ops(n, d=IIWA):
+    return d.mv * (3 * n - 2)
+
+
+def _dz_ops(n, d=IIWA):
+    return 2 * (n * d.nx * 2 * d.nx + (n - 1) * d.nu * (d.nx + d.nu))
+
+
+def _cg_ops(n, its, apply_ops, d=IIWA):
     """CG from a warm start: the first residual and apply, then per
     iteration one S product, one preconditioner apply, two dots and
     three axpys."""
-    return (_spmv_ops(n) + apply_ops) * (1 + its) + its * 10 * NX * n
+    return (_spmv_ops(n, d) + apply_ops) * (1 + its) + its * 10 * d.nx * n
 
 
-def _merits_ops(n, cands):
-    return cands * ((n - 1) * OPS_MERIT_KNOT + OPS_FK + 50)
+def _merits_ops(n, cands, d=IIWA):
+    return cands * ((n - 1) * d.merit_knot + d.fk + 50)
 
 
 def _bcr_factor_ops(n):
@@ -388,9 +462,10 @@ def _k3_no_stair_ops(n):
     return n * (OPS_K3_KNOT - OPS_GJ14 - 4 * OPS_MM14)
 
 
-def _knot_schur_floats(n):
+def _knot_schur_floats(n, d=IIWA):
     """K3's outputs: SL SD SU PL PD PU Qinv A, Rinv, B, gamma, q, r."""
-    return n * (8 * NX * NX + NU * NU + NX * NU + 2 * NX + NU)
+    return n * (8 * d.nx * d.nx + d.nu * d.nu + d.nx * d.nu + 2 * d.nx
+                + d.nu)
 
 
 def _k7_work(n):
@@ -639,27 +714,39 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
 
-    # ---- 2. build
+    # ---- 2. build: the IIWA's library and the two-joint one, every
+    # source of both compiled at once
     t0 = time.perf_counter()
-    lib_path = _lib.build(force=True)
-    lib = _lib.library()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
+    lib_path, lib2_path = _lib.build_all(force=True, counts=(7, NQ2))
+    lib, lib2 = _lib.library(), _lib.library(NQ2)
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}, "
+          f"{lib2_path.name}")
     build_log = lib_path.with_suffix(".log").read_text()
     for line in build_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
-    found = _lib.ptxas_resources(build_log,
-                                 [frag for _, frag in PTXAS_KERNELS])
-    ptxas_k = {}
-    for kid, fragment in PTXAS_KERNELS:
-        regs, stack = found[fragment]
-        ptxas_k[kid] = f"{regs} | {stack}"
-        print(f"ptxas {kid}: {ptxas_k[kid]}")
-        if "0 bytes spill stores, 0 bytes spill loads" not in stack:
-            raise AssertionError(f"{kid} spills: {stack}")
-        if kid in ("K5", "K9p") and int(regs.split()[1]) > MEGA_MAX_REGS:
-            raise AssertionError(f"{kid} above {MEGA_MAX_REGS} registers "
-                                 f"(its co-resident grid shrinks): {regs}")
+
+    def ptxas_of(log, kids, tag=""):
+        found = _lib.ptxas_resources(log, [frag for kid, frag in PTXAS_KERNELS
+                                           if kid in kids])
+        lines = {}
+        for kid, fragment in PTXAS_KERNELS:
+            if kid not in kids:
+                continue
+            regs, stack = found[fragment]
+            lines[kid] = f"{regs} | {stack}"
+            print(f"ptxas {kid}{tag}: {lines[kid]}")
+            if "0 bytes spill stores, 0 bytes spill loads" not in stack:
+                raise AssertionError(f"{kid}{tag} spills: {stack}")
+            if kid in ("K5", "K9p") and int(regs.split()[1]) > MEGA_MAX_REGS:
+                raise AssertionError(f"{kid}{tag} above {MEGA_MAX_REGS} "
+                                     f"registers (its co-resident grid "
+                                     f"shrinks): {regs}")
+        return lines
+
+    ptxas_k = ptxas_of(build_log, [kid for kid, _ in PTXAS_KERNELS])
+    ptxas_k2 = ptxas_of(lib2_path.with_suffix(".log").read_text(), NQ2_PTXAS,
+                        f" (nq = {NQ2})")
 
     # ---- 3. each kernel against its plain version, slice inputs
     model = iiwa14(device=dev)
@@ -3562,6 +3649,282 @@ def main() -> int:
     print(f"phase 13 (real-time host loop): "
           f"{time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 14. the second robot: the planar 2R arm (nq = 2, nx = 4) with
+    # its synthesized fixture, through the two-joint build of K1-K5 (lib2):
+    # each kernel against its plain version at N = 16 and 64 (the JAX
+    # hardware gate's tolerances), then the closed loops
+    t_phase = time.perf_counter()
+    from mpcgpu_tpu_torch.config import CostConfig
+    from mpcgpu_tpu_torch.models.planar2r import planar2r
+    from mpcgpu_tpu_torch.utils.synth import synthesize_tracking_fixture
+    model2, d2 = planar2r(device=dev), dims_for(NQ2)
+    nx2, nu2 = d2.nx, d2.nu
+
+    def rel(got, want):
+        """The largest error relative to the target's largest entry."""
+        return float((got.double() - want.double()).abs().max()
+                     / want.double().abs().max().clamp_min(1e-12))
+
+    nq2 = {}     # per N: errors, device us, loop summaries
+    nq2_counts = {}
+    for n2 in NQ2_KNOTS:
+        tag = f"nq={NQ2} N={n2}"
+        xu2, ee2 = synthesize_tracking_fixture(
+            model2, q0=NQ2_Q0, amplitude=NQ2_AMPLITUDE, n_steps=4 * n2,
+            dt=NQ2_DT)
+        X2, U2, g2, xs2 = (torch.as_tensor(a, device=dev) for a in
+                           horizon_slices(xu2, ee2, n2, nx=nx2))
+        cfg2 = SolverConfig(
+            knot_points=n2, state_size=nx2, control_size=nu2,
+            timestep=NQ2_DT, sqp_max_iter=NQ2_SQP_ITERS,
+            pcg=PCGConfig(max_iter=NQ2_CAP),
+            cost=CostConfig(qd_cost=NQ2_QD_COST, r_cost=NQ2_R_COST))
+        staged2 = dataclasses.replace(cfg2, fused_stages=True)
+        mega2 = dataclasses.replace(staged2, megakernel=True,
+                                    megakernel_solve=True)
+        c2 = cfg2.cost
+        rho2 = torch.tensor(cfg2.rho_init, device=dev)
+        lam2 = torch.zeros_like(X2)
+        res = {}
+        # K3: S's and the stair's bands within 1e-4 of their largest
+        # entry, the rest at K3's rtol 3e-3, atol 3e-3; gamma within 1e-3
+        # of its largest entry at the gate's N = 16, and at every N no
+        # farther from the float64 plain version than the float32 plain
+        # version is, plus that 1e-3 (gamma = Q^-1 q - ... - c cancels
+        # terms 1/rho larger: at N = 64 both float32 forms part from the
+        # float64 one by about 4e-3 of its largest entry)
+        a3 = (model2, X2, U2, g2, xs2, rho2, NQ2_DT, c2.qd_cost, c2.r_cost,
+              cfg2.gravity)
+        with _watchdog(FIRST_LAUNCH_DEADLINE):
+            ks2 = k3.form_kkt_schur(*a3)
+            sync()
+        ks2_ref = k3.form_kkt_schur_reference(*a3)
+        g64 = k3.form_kkt_schur_reference(
+            planar2r(device=dev, dtype=torch.float64),
+            *(t.double() for t in (X2, U2, g2, xs2, rho2)),
+            *a3[6:]).gamma
+        e3 = {f: rel(getattr(ks2, f), getattr(ks2_ref, f))
+              for f in ("SL", "SD", "SU", "PL", "PD", "PU", "gamma")}
+        e3["gamma_f64"] = rel(ks2.gamma, g64)
+        e3["plain_gamma_f64"] = rel(ks2_ref.gamma, g64)
+        if (max(e3[f] for f in ("SL", "SD", "SU", "PL", "PD", "PU")) >= 1e-4
+                or (n2 == NQ2_KNOTS[0] and e3["gamma"] >= 1e-3)
+                or e3["gamma_f64"] >= e3["plain_gamma_f64"] + 1e-3):
+            raise AssertionError(f"K3 {tag}: relative errors {e3}")
+        res["K3"] = checked(f"K3 {tag}", list(zip(ks2, ks2_ref)), 3e-3, 3e-3)
+        print(f"K3 {tag}: relative errors {json.dumps(e3)}")
+        # K4 on the plain K3's system
+        with _watchdog(FIRST_LAUNCH_DEADLINE):
+            k4o = k4.pcg_dz(ks2_ref, lam2, NQ2_CAP, NQ2_TOL)
+            sync()
+        k4r = k4.pcg_dz_reference(ks2_ref, lam2, NQ2_CAP, NQ2_TOL)
+        its2 = int(k4o[3]), int(k4r[3])
+        if not (abs(its2[0] - its2[1]) <= 2 or its2[0] == its2[1] == NQ2_CAP):
+            raise AssertionError(f"K4 {tag}: CG iterations {its2}")
+        res["K4"] = checked(f"K4 {tag}", list(zip(k4o[:3], k4r[:3])), 5e-3,
+                            5e-3)
+        plan2 = k4.pcg_plan(n2, lib2)
+        print(f"K4 {tag}: plan {tuple(plan2)} (form, C, G, place, grid), "
+              f"CG iterations {its2[0]} vs plain {its2[1]}")
+        # K2 at the plain K4's step, twice bit-equal
+        a2 = (model2, X2, U2, k4r[1], k4r[2], cfg2.num_alphas, g2, xs2,
+              NQ2_DT, cfg2.merit_mu, c2.qd_cost, c2.r_cost, cfg2.gravity)
+        m2, m2b = k2.line_search_merits(*a2), k2.line_search_merits(*a2)
+        sync()
+        if not torch.equal(m2, m2b):
+            raise AssertionError(f"K2 {tag}: two launches differ")
+        res["K2"] = checked(f"K2 {tag}",
+                            [(m2, k2.line_search_merits_reference(*a2))],
+                            2e-4, 2e-4)
+        # K1: one control period from the fixture start under the plan U
+        period2 = cfg2.simulation_period_us
+        a1 = (model2, cfg2, xs2, U2, g2[0], period2, period2,
+              max_substeps_for(cfg2))
+        res["K1"] = checked(f"K1 {tag}", list(zip(
+            k1.plant_rollout(*a1), k1.plant_rollout_reference(*a1))), 1e-4,
+            1e-5)
+        # the solves through sqp_solve: plain, staged (K3, K4, K2), whole
+        # (K2, K5); K5 also against its own plain version
+        solve = lambda c: sqp_solve(model2, c, X2, U2, lam2, g2, xs2, rho2,
+                                    NQ2_TOL)
+        r_plain = solve(cfg2)
+        r_staged, counts_s = counted(f"sqp_solve staged {tag}",
+                                     lambda: solve(staged2), None)
+        with _watchdog(FIRST_LAUNCH_DEADLINE):
+            r_mega, counts_m = counted(f"sqp_solve whole {tag}",
+                                       lambda: solve(mega2), None)
+        s2 = NQ2_SQP_ITERS
+        k4id = "K4" if plan2.form == k4.CLUSTER else "K4g"
+        if (counts_s != {**none, "K2": 1 + s2, "K3": s2, k4id: s2}
+                or counts_m != {**none, "K2": 1, "K5": 1}):
+            raise AssertionError(f"sqp_solve {tag}: launches {counts_s}, "
+                                 f"{counts_m}")
+        e5 = {"staged_vs_plain_x": rel(r_staged.X, r_plain.X),
+              "whole_vs_staged_x": rel(r_mega.X, r_staged.X),
+              "whole_vs_staged_lam": rel(r_mega.lam, r_staged.lam),
+              "sqp_iters": [int(r.stats.sqp_iters)
+                            for r in (r_plain, r_staged, r_mega)],
+              "accepts_equal": bool(torch.equal(r_mega.stats.accepted,
+                                                r_staged.stats.accepted))}
+        print(f"sqp_solve {tag}: {json.dumps(e5)}")
+        if not (e5["staged_vs_plain_x"] < 1e-2
+                and e5["whole_vs_staged_x"] < 1e-3
+                and e5["whole_vs_staged_lam"] < 1e-2
+                and e5["sqp_iters"][1] == e5["sqp_iters"][2]
+                and e5["accepts_equal"]):
+            raise AssertionError(f"sqp_solve {tag}: {e5}")
+        merit2 = k2.line_search_merits_reference(
+            model2, X2, U2, torch.zeros_like(X2), torch.zeros_like(U2),
+            cfg2.num_alphas, g2, xs2, NQ2_DT, cfg2.merit_mu, c2.qd_cost,
+            c2.r_cost, cfg2.gravity)[cfg2.num_alphas]
+        a5 = (model2, X2, U2, g2, xs2, lam2, rho2, 1.0, merit2, NQ2_CAP,
+              NQ2_TOL, s2)
+        kw5 = dict(dt=NQ2_DT, qd_cost=c2.qd_cost, r_cost=c2.r_cost,
+                   gravity=cfg2.gravity, mu=cfg2.merit_mu,
+                   num_alphas=cfg2.num_alphas, rho_factor=cfg2.rho_factor,
+                   rho_min=cfg2.rho_min, rho_max=cfg2.rho_max,
+                   rho_reset=cfg2.rho_reset)
+        o5 = k5.sqp_solve_mega_pcg(*a5, **kw5)
+        p5 = k5.sqp_solve_mega_pcg_reference(*a5, **kw5)
+        sync()
+        for f in ("accepted", "sqp_iters", "bailed"):
+            if not torch.equal(getattr(o5, f), getattr(p5, f)):
+                raise AssertionError(f"K5 {tag}: {f} differs from plain")
+        if int((o5.pcg_iters - p5.pcg_iters).abs().max()) > 2 \
+                or rel(o5.X, p5.X) >= 1e-2:
+            raise AssertionError(f"K5 {tag}: CG iterations {o5.pcg_iters} "
+                                 f"vs {p5.pcg_iters}, X {rel(o5.X, p5.X)}")
+        res["K5"] = _max_err([(o5.X, p5.X), (o5.U, p5.U), (o5.lam, p5.lam)])
+        print(f"K5 {tag}: CG iterations {o5.pcg_iters.tolist()} vs plain "
+              f"{p5.pcg_iters.tolist()}, X within {rel(o5.X, p5.X):.3e} of "
+              f"the largest entry, cluster size "
+              f"{int(k5.sqp_solve_mega_pcg.cluster_size)}, grid "
+              f"{k5.check_mega_fit(n2, lib2)}, fit N <= "
+              f"{lib2.mpc_mega_max_knots(k5.SOLVE_PCG)}")
+        # device time of one call of each kernel
+        dev_us = {
+            "K1": _device_us(lambda: k1.plant_rollout(*a1), "K1"),
+            "K2": _device_us(lambda: k2.line_search_merits(*a2), "K2"),
+            "K3": _device_us(lambda: k3.form_kkt_schur(*a3), "K3",
+                             per_call=3),
+            "K4": _device_us(lambda: k4.pcg_dz(ks2_ref, lam2, NQ2_CAP,
+                                               NQ2_TOL), k4id),
+            "K5": _device_us(lambda: k5.sqp_solve_mega_pcg(*a5, **kw5),
+                             "K5")}
+        print(f"{tag}: {card}: device us a call "
+              f"{json.dumps({k: v and round(v, 1) for k, v in dev_us.items()})}")
+        # the closed loops: staged (K3, K4, K2; K1) and the whole solve
+        # (K2, K5; K1), each beside the plain loop, cold duals
+        xu2_d, ee2_d = (torch.as_tensor(a, device=dev) for a in (xu2, ee2))
+        u2 = NQ2_UPDATES
+
+        def loop2(c, timing=False):
+            return simulate_mpc_scan(model2, c, xu2_d, ee2_d, X2, U2, lam2,
+                                     rho2, NQ2_TOL, u2, timing=timing)
+
+        loops = {}
+        for label, c, want in (
+                ("staged pcg", staged2, {**none, "K1": u2, "K2": u2 + u2 * s2,
+                                         "K3": u2 * s2, k4id: u2 * s2}),
+                ("whole solve", mega2, {**none, "K1": u2, "K2": u2,
+                                        "K5": u2}),
+                ("plain", cfg2, none)):
+            loop2(c)
+            out, counts = counted(f"{label} loop {tag}",
+                                  lambda: loop2(c, c.fused_stages), want)
+            errs = out["tracking_errors"]
+            if not torch.isfinite(errs).all() or float(errs.mean()) >= 0.10:
+                raise AssertionError(f"{label} loop {tag}: tracking errors "
+                                     f"{errs.tolist()}")
+            loops[label] = {
+                "mean_err_m": float(errs.mean()),
+                "sqp_iters": out["sqp_iters"].tolist(),
+                "rho_bailed": int(out["rho_bailed"].sum()),
+                "pcg_iters_total": out["pcg_iters_total"].tolist(),
+                "launches_per_update": per_update(counts, u2),
+                "path": out["tracking_path"]}
+            if c.fused_stages:
+                loops[label]["update_ms_median"] = statistics.median(
+                    out["update_ms"])
+                nq2_counts[f"{label} loop {tag}"] = counts
+        for label in ("staged pcg", "whole solve"):
+            f, p = loops[label], loops["plain"]
+            if (f["sqp_iters"], f["rho_bailed"]) != (p["sqp_iters"],
+                                                     p["rho_bailed"]):
+                raise AssertionError(f"{label} loop {tag}: sqp_iters / bails "
+                                     f"differ from the plain loop")
+            f["path_vs_plain_max"] = _max_err([(f["path"], p["path"])])
+        for sm in loops.values():
+            del sm["path"]
+        print(f"loops {tag}: {card}: {json.dumps(loops)}")
+        nq2[n2] = dict(err=res, device_us=dev_us, relerr_k3=e3, solve=e5,
+                       loops=loops, args=dict(K1=a1, K2=a2, K3=a3, K5=a5),
+                       ks=ks2_ref, lam=lam2, its=its2[0], kw5=kw5,
+                       run_its=[int(i) for i in o5.pcg_iters.tolist()
+                                if i >= 0], k4id=k4id)
+
+    # the kernels line: each nq = 2 kernel at the main path's N = 64, its
+    # N = 16 numbers beside it, its launches from the N = 64 loops
+    n2 = NQ2_KNOTS[-1]
+    e, a = nq2[n2], nq2[n2]["args"]
+    by_n = lambda kid: {str(k): {"max_abs_err": v["err"][kid],
+                                 "device_us": v["device_us"][kid]}
+                        for k, v in nq2.items()}
+    src, pal = "mpcgpu_tpu_torch/csrc/", "mpcgpu_tpu/ops/pallas/"
+    steps2 = int(cfg2.simulation_period_us * 1e-6 / cfg2.sim_step_time
+                 + 1e-9) + 1
+    ks2_ref, lam2 = e["ks"], e["lam"]
+    entries = (
+        ("K1", "plant_rollout", "rollout.cu", "rollout_kernel.py:92",
+         lambda: k1.plant_rollout(*a["K1"]),
+         lambda: k1.plant_rollout_reference(*a["K1"]),
+         steps2 * (d2.aba + 60) + d2.fk,
+         F32 * (nx2 + (n2 - 1) * nu2 + 6 + d2.tab + nx2 + 1)),
+        ("K2", "line_search_merits", "merit.cu", "merit_kernel.py:145",
+         lambda: k2.line_search_merits(*a["K2"]),
+         lambda: k2.line_search_merits_reference(*a["K2"]),
+         _merits_ops(n2, 9, d2),
+         F32 * (2 * (n2 * nx2 + (n2 - 1) * nu2) + n2 * 6 + nx2 + d2.tab
+                + 9)),
+        ("K3", "form_kkt_schur", "kkt_schur.cu", "kkt_schur_kernel.py:379",
+         lambda: k3.form_kkt_schur(*a["K3"]),
+         lambda: k3.form_kkt_schur_reference(*a["K3"]),
+         n2 * d2.k3_knot,
+         F32 * (n2 * nx2 + (n2 - 1) * nu2 + n2 * 6 + 1 + d2.tab
+                + _knot_schur_floats(n2, d2))),
+        ("K4", "pcg_dz", "pcg_dz.cu", "pcg_kernel.py:318",
+         lambda: k4.pcg_dz(ks2_ref, lam2, NQ2_CAP, NQ2_TOL),
+         lambda: k4.pcg_dz_reference(ks2_ref, lam2, NQ2_CAP, NQ2_TOL),
+         _cg_ops(n2, e["its"], _spmv_ops(n2, d2), d2) + _dz_ops(n2, d2),
+         F32 * (_knot_schur_floats(n2, d2) + n2 * nx2 + 2 * n2 * nx2
+                + (n2 - 1) * nu2) + 5),
+        ("K5", "sqp_solve_mega_pcg", "sqp_mega.cu",
+         "sqp_megakernel.py:1027",
+         lambda: k5.sqp_solve_mega_pcg(*a["K5"], **e["kw5"]),
+         lambda: k5.sqp_solve_mega_pcg_reference(*a["K5"], **e["kw5"]),
+         sum(n2 * d2.k3_knot + _cg_ops(n2, i, _spmv_ops(n2, d2), d2)
+             + _dz_ops(n2, d2) + _merits_ops(n2, 8, d2)
+             for i in e["run_its"]),
+         F32 * (2 * (2 * n2 * nx2 + (n2 - 1) * nu2) + n2 * 6 + nx2 + d2.tab
+                + 5) + 4 * (2 + 3 * NQ2_SQP_ITERS)))
+    ptx2 = {"K1": ptxas_k2["K1"], "K2": ptxas_k2["K2 G = 8"],
+            "K3": ptxas_k2["K3 stage 1"], "K4": ptxas_k2["K4"],
+            "K5": ptxas_k2["K5"]}
+    for kid, name, source, replaces, run, plain, ops, nbytes in entries:
+        record(kid, f"{name} nq={NQ2}", src + source, pal + replaces,
+               max(v["err"][kid] for v in nq2.values()), run, plain, ops,
+               nbytes, nq=NQ2, knots=n2, by_knots=by_n(kid),
+               device_us=e["device_us"][kid], ptxas=ptx2[kid])
+        lkid = e["k4id"] if kid == "K4" else kid
+        path, count = next(((p, c[lkid]) for p, c in nq2_counts.items()
+                            if f"N={n2}" in p and c[lkid]), ("none", 0))
+        if not count:
+            raise AssertionError(f"{kid} nq={NQ2} was launched in no loop")
+        kernels[-1].update(launches=count, path=path,
+                           launches_per_update=count / NQ2_UPDATES)
+    print(f"phase 14 (second robot, nq = {NQ2}): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
     # each kernel's launches: the first run of this slice's paths that
     # launched it (the default auto loop, its failover branch, the staged
     # loop, the packed loop, then this file's phase 6 loops)
@@ -3575,6 +3938,8 @@ def main() -> int:
              ("pcg_pallas", pp_counts), *long_counts.items(),
              (f"knot-sharded loop N={SHARD_KNOTS}", shard_loop_counts))
     for k in kernels:
+        if k.get("nq") == NQ2:   # phase 14's own loops counted these
+            continue
         kid = k["name"].split()[0]
         # K8's horizons (N % 128 == 0) run K3, the former K6l's the cluster
         # K6: their launches on those paths

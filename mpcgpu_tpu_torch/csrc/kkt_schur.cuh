@@ -29,13 +29,19 @@ constexpr int NX = ld::NX, NU = ld::NU, NQ = ld::NQ;
 // at once, one warp each, lane-parallel inside each joint (lanedyn.cuh);
 // then warp 0 inverts M in registers, forms qdd and runs the primal RNEA
 // chain while warp 1 forms the cost gradient, Q and its register inverse;
-// then the 14 tangent directions on 8 lanes each; then the products, one
-// output entry a thread.  One shared scratch area serves each phase in turn.
-constexpr int WORK_FLOATS = 14 * ld::DIR_FLOATS;  // the largest phase's
+// then the NX = 2 NJ tangent directions on 8 lanes each; then the
+// products, one output entry a thread.  One shared scratch area serves each
+// phase in turn: the largest phase's (the directions' at NJ = 7, the three
+// recursions' at NJ = 2).
 constexpr int PRIM_FLOATS = (int)(sizeof(ld::RneaPrimal) / sizeof(float));
-static_assert(ld::CRBA_FLOATS + ld::RNEA_FLOATS + ld::FK_FLOATS + PRIM_FLOATS <=
-                  WORK_FLOATS,
-              "the recursions' scratch");
+constexpr int RECUR_FLOATS =
+    ld::CRBA_FLOATS + ld::RNEA_FLOATS + ld::FK_FLOATS + PRIM_FLOATS;
+constexpr int WORK_FLOATS = NX * ld::DIR_FLOATS > RECUR_FLOATS
+                                ? NX * ld::DIR_FLOATS
+                                : RECUR_FLOATS;
+static_assert(ld::NJ != 7 || WORK_FLOATS == 14 * 96, "the IIWA build's scratch");
+static_assert(ld::RNEA_FLOATS + 2 * NQ + 2 * NX <= WORK_FLOATS,
+              "the primal chain's scratch and the inverses' buffers");
 static_assert(4 * NX * NX + 2 * NX * NU <= WORK_FLOATS, "A, AQi, B, BRi");
 
 LD_NOINLINE void perknot(const float* tab, int k, int N, const float* X,
@@ -111,8 +117,8 @@ LD_NOINLINE void perknot(const float* tab, int k, int N, const float* X,
   LD_SYNC();
   LD_STAMP(2);
 
-  // ---- the 14 tangent directions, 8 lanes each, the groups of a warp in
-  // lockstep (on the card groups 14 and 15 only keep step): dtau[i][d]
+  // ---- the NX tangent directions, 8 lanes each, the groups of a warp in
+  // lockstep (on the card the groups past NX only keep step): dtau[i][d]
   {
     const ld::Lanes g8 = ld::group(8, true);
     const int groups = nt >= 8 ? nt / 8 : 1, dirs = nt >= 8 ? groups : NX;

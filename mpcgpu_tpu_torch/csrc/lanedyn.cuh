@@ -21,11 +21,14 @@
 // stays as the form a test holds it to.  There is one form of each
 // recursion.
 //
-// The robot is the 7-joint serial chain of models/robot.py: joint j's
-// transforms are Xc + sin(q_j) Xs + cos(q_j) Xk (6x6, child <- parent) and
-// Hc + sin Hs + cos Hk (4x4), every joint revolute about local z.  The
-// tables travel as one float buffer (layout: TAB_* offsets, 1680 floats,
-// 6720 B) that each block copies into shared memory.
+// The robot is a serial chain of NJ joints (models/robot.py; MPC_NJ at
+// build time, 2-7, default 7: the IIWA): joint j's transforms are Xc +
+// sin(q_j) Xs + cos(q_j) Xk (6x6, child <- parent) and Hc + sin Hs + cos Hk
+// (4x4), every joint revolute about local z.  The tables travel as one
+// float buffer (layout: TAB_* offsets, 240 NJ floats: 1680, 6720 B, for the
+// IIWA) that each block copies into shared memory.  Every size and offset
+// below is an expression of NJ; the static_asserts after each scratch
+// layout hold the IIWA build to the numbers its kernels were tuned with.
 //
 // The same sources also build with a host C++ compiler (no __CUDACC__):
 // a "block" is then one thread that runs every stride loop itself and
@@ -192,8 +195,9 @@ inline float* ld_emu_dyn = nullptr;
   } while (0)
 #define LD_LAST_ERROR() 0
 // The grid and cluster barriers do nothing where a launch runs its blocks
-// in turn (one block walks the whole grid's work); under the block
-// emulation they are real (below).
+// in turn (one block walks the whole grid's work) but meet the block's
+// emulated threads, as they do on the card; under the block emulation they
+// are real (below).
 #define LD_GRID_SYNC() ld_emu_grid_sync()
 #define LD_CLUSTER_SYNC() (ld_emu_cluster_arrive(), ld_emu_cluster_wait())
 #define LD_CLUSTER_ARRIVE() ld_emu_cluster_arrive()
@@ -292,7 +296,10 @@ inline void ld_emu_until(P&& pred) {
 }
 
 inline void ld_emu_grid_sync() {
-  if (!ld_emu_blk) return;
+  if (!ld_emu_blk) {  // one block: its threads' barrier, as on the card
+    ld_emu_barrier(0, ld_emu_ntid);
+    return;
+  }
   LdEmuBlocks& s = *ld_emu_blk;
   std::unique_lock<std::mutex> lk(s.m);
   const long long gen = s.grid_gen;
@@ -318,7 +325,10 @@ inline void ld_emu_cluster_arrive() {
 }
 
 inline void ld_emu_cluster_wait() {
-  if (!ld_emu_blk) return;
+  if (!ld_emu_blk) {  // a cluster of one block: its threads' barrier
+    ld_emu_barrier(0, ld_emu_ntid);
+    return;
+  }
   LdEmuBlocks& s = *ld_emu_blk;
   std::unique_lock<std::mutex> lk(s.m);
   const int me = ld_emu_me, c = me / s.C;
@@ -505,7 +515,11 @@ LD_FORCE void each2(const Lanes& g, V1&& value1, S1&& store1, V2&& value2,
   each2_n<N, C1, C2>(g, value1, store1, value2, store2);
 }
 
-constexpr int NJ = 7;        // joints
+#ifndef MPC_NJ
+#define MPC_NJ 7
+#endif
+constexpr int NJ = MPC_NJ;   // joints
+static_assert(NJ >= 2 && NJ <= 7, "the kernels serve 2-7 joints");
 constexpr int NQ = NJ;
 constexpr int NX = 2 * NJ;   // state width
 constexpr int NU = NJ;       // control width
@@ -522,7 +536,8 @@ constexpr int TAB_HK = TAB_HS + NJ * 16;
 constexpr int TAB_DHC = TAB_HK + NJ * 16;
 constexpr int TAB_DHS = TAB_DHC + NJ * 16;
 constexpr int TAB_DHK = TAB_DHS + NJ * 16;
-constexpr int TAB_SIZE = TAB_DHK + NJ * 16;   // 1680
+constexpr int TAB_SIZE = TAB_DHK + NJ * 16;   // 240 NJ
+static_assert(NJ != 7 || TAB_SIZE == 1680, "the IIWA's tables");
 
 // Block-cooperative copy of the model tables into shared memory.
 LD_DEV void load_tables(float* dst, const float* __restrict__ src) {
@@ -633,16 +648,20 @@ LD_FORCE void joint_transforms(const Lanes& g, const float* tab, const float* s,
 
 // Articulated-body algorithm (models/dynamics.forward_dynamics): qdd from
 // the joint transforms X, qd and the torques u.
-constexpr int ABA_FLOATS = 392;
+constexpr int ABA_FLOATS = 38 * NJ + 126;
+static_assert(NJ != 7 || ABA_FLOATS == 392, "the IIWA build's ABA scratch");
 
 template <int N>
 LD_FORCE void aba(const Lanes& g, const float* tab, const float* X,
                   const float* qd, const float* u, float grav, float* qdd,
                   float* w) {
   const float* I = tab + TAB_I;
-  float *v = w, *cvel = w + 42, *Iv = w + 84, *pA = w + 126, *IA = w + 168,
-        *Ia = w + 204, *AX = w + 240, *pa = w + 276, *Uc = w + 282,
-        *dc = w + 324, *uc = w + 331, *an = w + 338, *zero = w + 380;
+  // v, cvel, Iv, pA: 6 NJ each; IA, Ia, AX: 6x6; pa; Uc: 6 NJ; dc, uc: NJ;
+  // an: 6 NJ; zero: 6 (at NJ = 7: w + 0, 42, ..., 338, 380)
+  float *v = w, *cvel = v + 6 * NJ, *Iv = cvel + 6 * NJ, *pA = Iv + 6 * NJ,
+        *IA = pA + 6 * NJ, *Ia = IA + 36, *AX = Ia + 36, *pa = AX + 36,
+        *Uc = pa + 6, *dc = Uc + 6 * NJ, *uc = dc + NJ, *an = uc + NJ,
+        *zero = an + 6 * NJ;
   each<N, 6>(g, [&](int) { return 0.0f; }, [&](int e, float x) { zero[e] = x; });
   g.sync();
   // velocities outward
@@ -658,7 +677,7 @@ LD_FORCE void aba(const Lanes& g, const float* tab, const float* X,
     g.sync();
   }
   // cvel = crm_z(v, qd), I v, every joint at once; IA = I_{NJ-1}
-  each2<N, 42, 42>(
+  each2<N, 6 * NJ, 6 * NJ>(
       g,
       [&](int e) {
         const int j = e / 6, i = e % 6;
@@ -670,7 +689,7 @@ LD_FORCE void aba(const Lanes& g, const float* tab, const float* X,
   each<N, 36>(g, [&](int e) { return I[36 * (NJ - 1) + e]; },
               [&](int e, float x) { IA[e] = x; });
   g.sync();
-  each<N, 42>(g, [&](int e) { return crf_at(v + 6 * (e / 6), Iv + 6 * (e / 6), e % 6); },
+  each<N, 6 * NJ>(g, [&](int e) { return crf_at(v + 6 * (e / 6), Iv + 6 * (e / 6), e % 6); },
               [&](int e, float x) { pA[e] = x; });
   g.sync();
   // articulated inertias inward
@@ -766,15 +785,16 @@ struct RneaPrimal {
 
 // Recursive Newton-Euler for (q, qd, qdd) (qdd null: zero), keeping the
 // chain in P; tau[j] = facc[j][z] when tau is not null.
-constexpr int RNEA_FLOATS = 138;
+constexpr int RNEA_FLOATS = 18 * NJ + 12;
+static_assert(NJ != 7 || RNEA_FLOATS == 138, "the IIWA build's RNEA scratch");
 
 template <int N>
 LD_FORCE void rnea(const Lanes& g, const float* tab, const float* X,
                    const float* qd, const float* qdd, float grav, RneaPrimal& P,
                    float* tau, float* w) {
   const float* I = tab + TAB_I;
-  float *an = w, *Ian = w + 42, *fs = w + 84, *zero = w + 126,
-        *gvec = w + 132;
+  float *an = w, *Ian = w + 6 * NJ, *fs = w + 12 * NJ, *zero = w + 18 * NJ,
+        *gvec = zero + 6;
   each<N, 12>(g, [&](int e) { return e == 11 ? grav : 0.0f; },
               [&](int e, float x) { zero[e] = x; });
   g.sync();
@@ -804,18 +824,18 @@ LD_FORCE void rnea(const Lanes& g, const float* tab, const float* X,
     g.sync();
   }
   // I v and I a, every joint at once; then fs = I a + crf(v) I v
-  each2<N, 42, 42>(
+  each2<N, 6 * NJ, 6 * NJ>(
       g, [&](int e) { return mv6_at(I + 36 * (e / 6), P.v[e / 6], e % 6); },
       [&](int e, float x) { P.Iv[e / 6][e % 6] = x; },
       [&](int e) { return mv6_at(I + 36 * (e / 6), an + 6 * (e / 6), e % 6); },
       [&](int e, float x) { Ian[e] = x; });
   g.sync();
-  each<N, 42>(
+  each<N, 6 * NJ>(
       g,
       [&](int e) { return Ian[e] + crf_at(P.v[e / 6], P.Iv[e / 6], e % 6); },
       [&](int e, float x) {
         fs[e] = x;
-        if (e >= 36) P.facc[NJ - 1][e - 36] = x;
+        if (e >= 6 * (NJ - 1)) P.facc[NJ - 1][e - 6 * (NJ - 1)] = x;
       });
   g.sync();
   for (int j = NJ - 1; j > 0; --j) {
@@ -837,7 +857,8 @@ LD_FORCE void rnea(const Lanes& g, const float* tab, const float* X,
 // primal chain P; dtau[stride * j] for joint j.  It propagates only from its
 // seed joint outward, so the directions are independent: K3 runs them on
 // 8-lane groups in lockstep, every group taking every joint's steps.
-constexpr int DIR_FLOATS = 96;
+constexpr int DIR_FLOATS = 6 * NJ + 54;
+static_assert(NJ != 7 || DIR_FLOATS == 96, "the IIWA build's tangent scratch");
 
 template <int N>
 LD_FORCE void rnea_dtau_direction(const Lanes& g, const float* tab,
@@ -849,7 +870,7 @@ LD_FORCE void rnea_dtau_direction(const Lanes& g, const float* tab,
   const int jd = pos ? d : (on ? d - NJ : NJ);
   // dv, da (two buffers each), Idv, part, the seed's dX' facc, dfs, df
   float *dv = w, *da = w + 12, *Idv = w + 24, *part = w + 30, *sx = w + 36,
-        *dfs = w + 42, *df = w + 84;
+        *dfs = w + 42, *df = dfs + 6 * NJ;
   const int js = on ? jd : 0;
   const float sd = s[js], cd = c[js];
   // seed: dv = dX v_in, da = dX a_in + crm_z(dv, qd) (dq); dv = e_z,
@@ -918,7 +939,8 @@ LD_FORCE void rnea_dtau_direction(const Lanes& g, const float* tab,
 
 // Composite-rigid-body mass matrix M (NJ x NJ, row-major) from the joint
 // transforms X.
-constexpr int CRBA_FLOATS = 156;
+constexpr int CRBA_FLOATS = 12 * NJ + 72;
+static_assert(NJ != 7 || CRBA_FLOATS == 156, "the IIWA build's CRBA scratch");
 
 template <int N>
 LD_FORCE void crba(const Lanes& g, const float* tab, const float* X, float* M,
@@ -965,10 +987,10 @@ LD_FORCE void crba(const Lanes& g, const float* tab, const float* X, float* M,
   }
   // F_i <- X_j' F_i for i >= j, j = NJ-1 .. 1, into the other buffer (row
   // j-1 comes from the first, where no pass has touched it)
-  float *Fc = F, *Fn = F + 42;
+  float *Fc = F, *Fn = F + 6 * NJ;
   for (int j = NJ - 1; j > 0; --j) {
     const float* Xj = X + 36 * j;
-    each<N, 42>(
+    each<N, 6 * NJ>(
         g, 6 * (NJ - j + 1),
         [&](int e) {
           const int i = j - 1 + e / 6, r = e % 6;
@@ -993,17 +1015,24 @@ LD_FORCE void crba(const Lanes& g, const float* tab, const float* X, float* M,
 // (3 x NJ, row-major): column j = (H_0..H_{j-1} dH_j H_{j+1}..H_{NJ-1})[:3, 3].
 // The prefix products P_j = H_0..H_{j-1} and the suffix columns
 // sv_j = (H_j..H_{NJ-1})[:, 3] run as two chains at once.
-constexpr int FK_FLOATS = 412;
+constexpr int FK_FLOATS = 56 * NJ + 20;
+static_assert(NJ != 7 || FK_FLOATS == 412, "the IIWA build's FK scratch");
 
 template <int N>
 LD_FORCE void fk_ee_jac(const Lanes& g, const float* tab, const float* s,
                         const float* c, float* ee, float* J, float* w) {
-  float *H = w, *dH = w + 112, *Pp = w + 224, *sv = w + 352, *wv = w + 384;
-  // H_j and dH_j; P_0 = identity; sv_NJ = (0, 0, 0, 1)
-  each<N, 244>(
-      g, J ? 244 : 112,
+  // H, dH: 16 NJ each; the prefixes P_0 .. P_NJ; sv_0 .. sv_NJ; wv: 4 NJ
+  float *H = w, *dH = w + 16 * NJ, *Pp = w + 32 * NJ, *sv = Pp + 16 * (NJ + 1),
+        *wv = sv + 4 * (NJ + 1);
+  // H_j and dH_j; P_0 = identity; sv_NJ = (0, 0, 0, 1).  The first step
+  // runs 20 entries past dH into P_0, which the second overwrites from the
+  // same lanes (32 NJ is a multiple of every group size).
+  constexpr int HD = 32 * NJ + 20;
+  each<N, HD>(
+      g, J ? HD : 16 * NJ,
       [&](int e) {
-        const int base = e < 112 ? TAB_HC : TAB_DHC, f = e % 112, j = f / 16;
+        const int base = e < 16 * NJ ? TAB_HC : TAB_DHC, f = e % (16 * NJ),
+                  j = f / 16;
         const int q = f % 16;
         return tab[base + 16 * j + q] + s[j] * tab[base + NJ * 16 + 16 * j + q] +
                c[j] * tab[base + 2 * NJ * 16 + 16 * j + q];

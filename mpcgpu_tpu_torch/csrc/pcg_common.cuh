@@ -23,6 +23,26 @@ namespace pcgc {
 
 constexpr int S = ld::NX, NU = ld::NU;
 
+#ifndef __CUDACC__
+// The host build's block sum: v itself on one thread; under the thread
+// emulation the threads' values summed in thread order, every thread
+// returning the sum (not the card's order: the CG's dots there part from
+// one thread's in the last bits).
+inline float emu_block_sum(float v) {
+  if (LD_NTID == 1) return v;
+  static float parts[1024], total;
+  parts[LD_TID] = v;
+  LD_SYNC();
+  if (LD_TID == 0) {
+    float s = 0.0f;
+    for (int q = 0; q < LD_NTID; ++q) s += parts[q];
+    total = s;
+  }
+  LD_SYNC();
+  return total;
+}
+#endif
+
 // Block-wide sum in a fixed order; every thread returns the same value.
 LD_DEV float block_sum(float v, float* red) {
 #ifdef __CUDACC__
@@ -40,7 +60,7 @@ LD_DEV float block_sum(float v, float* red) {
   return red[32];
 #else
   (void)red;
-  return v;
+  return emu_block_sum(v);
 #endif
 }
 
@@ -470,7 +490,8 @@ LD_DEV void block_partial(float v, float* red, float* slot) {
   }
 #else
   (void)red;
-  *slot = v;
+  const float sum = emu_block_sum(v);
+  if (LD_TID == 0) *slot = sum;
 #endif
 }
 
@@ -662,9 +683,9 @@ struct SharedExit {
 //   that dot's words are awaited (total's `kind`): warp 1 of an edge
 //   block waits for them beside warp 0, into shared memory, so the halo
 //   rows after the dot cost no second wait on L2.
-// Words: 2 G dot words, then 112 a cluster (its first knot's rows, then
-// its last's; kind 0, then 1; x, then y; 14 each).
-LD_HD size_t joined_words(int G) { return (size_t)114 * G; }
+// Words: 2 G dot words, then 8 S a cluster (its first knot's rows, then
+// its last's; kind 0, then 1; x, then y; S each).
+LD_HD size_t joined_words(int G) { return (size_t)(8 * S + 2) * G; }
 
 struct JoinedExit {
   static constexpr bool SHARED = false, JOINED = true;
@@ -678,7 +699,8 @@ struct JoinedExit {
   LD_DEV void publish(const ClusterCg&, float) {}
   LD_DEV float div(float num, float den) const { return num / den; }
   LD_DEV unsigned long long* rows(int cl, bool last, int kind) const {
-    return words + 2 * (size_t)G + 112 * (size_t)cl + 56 * last + 28 * kind;
+    return words + 2 * (size_t)G + 8 * S * (size_t)cl + 4 * S * last +
+           2 * S * kind;
   }
   // Whether the knot before this block's first (hi: after its last) lies
   // in another cluster.

@@ -170,9 +170,9 @@ size_t joined_smem_floats(int N, int nb, int place) {
 }
 
 // Global floats of the joined kinds' blocks' vectors at place 0 (nb
-// joined_vec_floats(N, nb) <= 448 N for any nb <= N), and of those with
+// joined_vec_floats(N, nb) <= 32 S N for any nb <= N), and of those with
 // their tagged words (at most N clusters).
-size_t joined_vecs_floats(int N) { return (size_t)448 * N; }
+size_t joined_vecs_floats(int N) { return (size_t)32 * S * N; }
 size_t joined_scratch_floats(int N) {
   return 2 * pcgc::joined_words(N) + joined_vecs_floats(N);
 }

@@ -3,8 +3,10 @@
 Each kernel module holds the wrapper, its plain PyTorch version
 (``*_reference``) and a launch counter (``wrapper.launches``); a wrapper
 that launches one of two kernels (K10's cluster and one-block forms) also
-counts each in ``wrapper.form_launches``.  Nothing here builds or imports
-CUDA code at import time.
+counts each in ``wrapper.form_launches``.  A wrapper launches the library
+built for its problem's joint count (``_lib.library(nj)``: K1-K5 serve 2-7
+joints, the others the IIWA's 7 and raise by name for another count).
+Nothing here builds or imports CUDA code at import time.
 """
 from __future__ import annotations
 

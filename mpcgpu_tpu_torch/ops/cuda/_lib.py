@@ -1,11 +1,16 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
 All kernels build with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, ``mpcgpu_tpu_torch/build/libmpcgpu_kernels.so``,
-at first use, and again whenever a source is newer than the library: one
-``nvcc -c`` per source, all started together, then one link.  The library
-is bound with ``ctypes``: pointers and the stream pass as ``c_void_p``,
-and every entry returns ``cudaGetLastError()``.
+with a plain C interface per joint count (``-DMPC_NJ=<nj>``, csrc/
+lanedyn.cuh): ``mpcgpu_tpu_torch/build/libmpcgpu_kernels.so`` for the
+7-joint IIWA, ``libmpcgpu_kernels_nj<nj>.so`` for another count, each at
+its first use, and again whenever a source is newer than the library: one
+``nvcc -c`` per source, all started together, then one link.  A count
+other than 7 builds only ``NJ_SOURCES``, the kernels that serve it (K1-K5
+and the forms of K4 and K5 past their fits); the wrappers of the others
+raise for it by name (``require_iiwa``).  The library is bound with
+``ctypes``: pointers and the stream pass as ``c_void_p``, and every entry
+returns ``cudaGetLastError()``.
 
 The same sources also build with the host C++ compiler
 (``host_library``): a kernel "launch" then runs every block in turn on
@@ -37,6 +42,11 @@ SOURCES = ("rollout.cu", "merit.cu", "kkt_schur.cu", "pcg_dz.cu",
            "spmv_halo.cu")
 HEADERS = ("lanedyn.cuh", "kkt_schur.cuh", "merit.cuh", "pcg_common.cuh",
            "bcr_common.cuh")
+IIWA_NJ = 7
+# the sources a joint count other than IIWA_NJ builds
+NJ_SOURCES = ("rollout.cu", "merit.cu", "kkt_schur.cu", "pcg_dz.cu",
+              "sqp_mega.cu")
+MIN_NJ, MAX_NJ = 2, 7
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
@@ -128,9 +138,9 @@ def _stale(lib: Path) -> bool:
     return lib.stat().st_mtime < newest
 
 
-def _run(cmds, outs) -> str:
+def _run(cmds, outs) -> list:
     """Run the commands at once, each writing its output file (atomically:
-    to a temporary name, renamed on success); return their joined logs."""
+    to a temporary name, renamed on success); return their logs."""
     BUILD.mkdir(parents=True, exist_ok=True)
     tmps = [out.with_name(f"{out.name}.{os.getpid()}.tmp") for out in outs]
     procs = [subprocess.Popen([*cmd, "-o", str(tmp)], cwd=CSRC,
@@ -148,23 +158,28 @@ def _run(cmds, outs) -> str:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return "".join(logs)
+    return logs
 
 
 def _compile(cmd, out: Path) -> str:
-    log = _run([cmd], [out])
+    log = _run([cmd], [out])[0]
     out.with_suffix(".log").write_text(log)
     return log
 
 
-def _bind(path: Path) -> ctypes.CDLL:
+def _bind(path: Path, nj: int) -> ctypes.CDLL:
+    """Bind the library's entries; a build of NJ_SOURCES (nj != 7) leaves
+    out the others' entries, as every build but the host's leaves out the
+    host-only ones."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
-        if name in _HOST_ONLY and not hasattr(lib, name):
+        if ((name in _HOST_ONLY or nj != IIWA_NJ)
+                and not hasattr(lib, name)):
             continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _RESTYPES.get(name, ctypes.c_int)
+    lib.joints = nj
     return lib
 
 
@@ -179,18 +194,62 @@ def nvcc_path() -> str:
                        "(set NVCC or put the CUDA toolkit on PATH)")
 
 
-def build(force: bool = False) -> Path:
-    """Compile the CUDA library if it is missing or stale; return its path.
-    The build log (ptxas' registers and spills per kernel) is written
-    beside it with the suffix .log."""
-    out = BUILD / "libmpcgpu_kernels.so"
-    if force or _stale(out):
-        nvcc = nvcc_path()
-        objs = [BUILD / f"{Path(src).stem}.o" for src in SOURCES]
-        log = _run([[nvcc, *NVCC_FLAGS, "-c", src] for src in SOURCES], objs)
-        log += _run([[nvcc, *ARCH, "-shared", *map(str, objs)]], [out])
-        out.with_suffix(".log").write_text(log)
-    return out
+def check_nj(nj: int) -> int:
+    if not MIN_NJ <= nj <= MAX_NJ:
+        raise ValueError(f"the CUDA kernels serve robots of {MIN_NJ}-{MAX_NJ} "
+                         f"joints, got {nj}")
+    return nj
+
+
+def _suffix(nj: int) -> str:
+    return "" if nj == IIWA_NJ else f"_nj{nj}"
+
+
+def _sources(nj: int) -> tuple:
+    return SOURCES if nj == IIWA_NJ else NJ_SOURCES
+
+
+def _library_path(nj: int) -> Path:
+    return BUILD / f"libmpcgpu_kernels{_suffix(check_nj(nj))}.so"
+
+
+def _build_commands(nj: int):
+    """(compile commands, their objects): one ``nvcc -c`` per source of
+    the nj-joint build."""
+    nvcc = nvcc_path()
+    srcs = _sources(check_nj(nj))
+    objs = [BUILD / f"{Path(src).stem}{_suffix(nj)}.o" for src in srcs]
+    return ([[nvcc, *NVCC_FLAGS, f"-DMPC_NJ={nj}", "-c", src]
+             for src in srcs], objs)
+
+
+def build(force: bool = False, nj: int = IIWA_NJ) -> Path:
+    """Compile the CUDA library of nj joints if it is missing or stale;
+    return its path.  The build log (ptxas' registers and spills per
+    kernel) is written beside it with the suffix .log."""
+    return build_all(force, (nj,))[0]
+
+
+def build_all(force: bool = False, counts=(IIWA_NJ,)) -> list:
+    """build() for each joint count, the sources of every count compiled
+    at once, then one link each; returns the libraries' paths."""
+    outs = [_library_path(nj) for nj in counts]
+    todo = [(nj, out) for nj, out in zip(counts, outs)
+            if force or _stale(out)]
+    if todo:
+        cmds, objs, spans = [], [], []
+        for nj, _ in todo:
+            c, o = _build_commands(nj)
+            spans.append((len(objs), len(objs) + len(o)))
+            cmds += c
+            objs += o
+        logs = _run(cmds, objs)
+        links = _run([[nvcc_path(), *ARCH, "-shared",
+                       *map(str, objs[a:b])] for a, b in spans],
+                     [out for _, out in todo])
+        for (_, out), (a, b), link in zip(todo, spans, links):
+            out.with_suffix(".log").write_text("".join(logs[a:b]) + link)
+    return outs
 
 
 def ptxas_resources(log: str, fragments) -> dict:
@@ -219,26 +278,26 @@ def ptxas_resources(log: str, fragments) -> dict:
     return found
 
 
-def library() -> ctypes.CDLL:
-    """The bound CUDA library (built at first use)."""
-    if "cuda" not in _libs:
-        _libs["cuda"] = _bind(build())
-    return _libs["cuda"]
+def library(nj: int = IIWA_NJ) -> ctypes.CDLL:
+    """The bound CUDA library of nj joints (built at first use)."""
+    if ("cuda", nj) not in _libs:
+        _libs["cuda", nj] = _bind(build(nj=nj), nj)
+    return _libs["cuda", nj]
 
 
-def host_library() -> ctypes.CDLL:
+def host_library(nj: int = IIWA_NJ) -> ctypes.CDLL:
     """The same sources built by the host C++ compiler (see module doc)."""
-    if "host" not in _libs:
+    if ("host", nj) not in _libs:
         cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
         if not cxx:
             raise RuntimeError("no host C++ compiler found")
-        out = BUILD / "libmpcgpu_kernels_host.so"
+        out = BUILD / f"libmpcgpu_kernels_host{_suffix(check_nj(nj))}.so"
         if _stale(out):
             _compile([cxx, "-x", "c++", "-std=c++17", "-O2", "-shared",
-                      "-fPIC", "-pthread", "-Wno-unknown-pragmas", *SOURCES],
-                     out)
-        _libs["host"] = _bind(out)
-    return _libs["host"]
+                      "-fPIC", "-pthread", "-Wno-unknown-pragmas",
+                      f"-DMPC_NJ={nj}", *_sources(nj)], out)
+        _libs["host", nj] = _bind(out, nj)
+    return _libs["host", nj]
 
 
 def check(rc: int, name: str) -> None:
@@ -274,22 +333,59 @@ def expect(t: torch.Tensor, name: str, shape, device) -> None:
 # a weak reference, so a cached table never outlives or mismatches it.
 _TABLE_FIELDS = ("Xc", "Xs", "Xk", "I", "Hc", "Hs", "Hk", "dHc", "dHs", "dHk")
 _tables: dict = {}
-TAB_SIZE = 1680
-NJ = 7
+TAB_PER_JOINT = 240   # floats of a joint's tables (TAB_SIZE / NJ)
 
 
 def model_tables(model) -> torch.Tensor:
-    """(1680,) float32 tables of a 7-joint model, on the model's device."""
-    if model.num_joints != NJ:
-        raise ValueError(f"the CUDA kernels serve {NJ}-joint robots, got "
-                         f"{model.num_joints}")
+    """(240 nj,) float32 tables of an nj-joint model (2 <= nj <= 7), on
+    the model's device."""
+    nj = check_nj(model.num_joints)
     entry = _tables.get(id(model.Xc))
     if entry is not None and entry[0]() is model.Xc:
         return entry[1]
     tab = torch.cat([getattr(model, f).to(torch.float32).reshape(-1)
                      for f in _TABLE_FIELDS]).contiguous()
-    if tab.numel() != TAB_SIZE:
+    if tab.numel() != TAB_PER_JOINT * nj:
         raise ValueError(f"model tables hold {tab.numel()} floats, the "
-                         f"kernels expect {TAB_SIZE}")
+                         f"kernels expect {TAB_PER_JOINT * nj}")
     _tables[id(model.Xc)] = (weakref.ref(model.Xc), tab)
     return tab
+
+
+def expect_joints(lib, nj: int) -> None:
+    """Raise unless lib is the build of nj joints."""
+    if lib.joints != nj:
+        raise ValueError(f"the kernel library of {lib.joints} joints got a "
+                         f"{nj}-joint problem")
+
+
+def sizes(tab: torch.Tensor, lib=None):
+    """(nj, nx, nu) of the robot whose packed tables (model_tables) tab
+    are; raise unless lib (where given) is the build of that joint
+    count."""
+    if tab.numel() % TAB_PER_JOINT:
+        raise ValueError(f"tables of {tab.numel()} floats are not "
+                         f"{TAB_PER_JOINT} a joint")
+    nj = check_nj(tab.numel() // TAB_PER_JOINT)
+    if lib is not None:
+        expect_joints(lib, nj)
+    return nj, 2 * nj, nj
+
+
+def width_joints(nx: int, lib=None) -> int:
+    """The joint count of a state width nx (2 nj); raise unless lib (where
+    given) is the build of that joint count."""
+    if nx % 2:
+        raise ValueError(f"state width {nx} is not 2 nj")
+    nj = check_nj(nx // 2)
+    if lib is not None:
+        expect_joints(lib, nj)
+    return nj
+
+
+def require_iiwa(nj: int, kernel: str) -> None:
+    """Raise unless nj is the IIWA's 7: kernel (a name) serves only it."""
+    if nj != IIWA_NJ:
+        raise ValueError(f"{kernel} serves {IIWA_NJ}-joint robots only, got "
+                         f"{nj} joints (the kernels of other joint counts: "
+                         f"K1-K5)")

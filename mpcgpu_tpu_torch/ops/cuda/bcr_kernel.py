@@ -133,7 +133,7 @@ def _launch_solve(lib, SL, SD, SU, gamma, stream, scratch=None,
     mpc_bcr_solve_cluster; the host build runs that many blocks under its
     block emulation)."""
     dev = gamma.device
-    nx = 2 * _lib.NJ
+    nx = 2 * _lib.IIWA_NJ
     if gamma.dim() != 2 or gamma.shape[1] != nx:
         raise ValueError(f"gamma must be (N, {nx}), got {tuple(gamma.shape)}")
     n = gamma.shape[0]
@@ -162,6 +162,7 @@ def bcr_solve(SL, SD, SU, gamma):
     if gamma.device.type == "cpu":
         return bcr_solve_reference(SL, SD, SU, gamma)
     _cuda_device(gamma)
+    _lib.require_iiwa(_lib.width_joints(gamma.shape[-1]), "K7s (bcr_solve)")
     out = _launch_solve(_lib.library(), SL, SD, SU, gamma,
                         _lib.stream_of(gamma))
     bcr_solve.launches += 1
@@ -198,7 +199,7 @@ def _launch_dz(lib, ks: KnotSchur, stream, scratch=None, cluster: int = 0):
     cluster asks for a cluster size as _launch_solve's (mpc_bcr_dz_cluster
     the kernel's choice)."""
     dev = ks.gamma.device
-    nx, nu = 2 * _lib.NJ, _lib.NJ
+    nx, nu = 2 * _lib.IIWA_NJ, _lib.IIWA_NJ
     n = expect_system(ks, ks.gamma, _FIELDS, dev)
     check_bcr_dz_fit(n, lib)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -238,6 +239,7 @@ def bcr_dz(ks: KnotSchur, split=None):
     if ks.gamma.device.type == "cpu":
         return bcr_dz_reference(ks)
     _cuda_device(ks.gamma)
+    _lib.require_iiwa(_lib.width_joints(ks.gamma.shape[-1]), "K7 (bcr_dz)")
     return _bcr_dz_on(_lib.library(), ks, split, _lib.stream_of(ks.gamma))
 
 
@@ -268,7 +270,7 @@ def _launch(lib, ks: KnotSchur, lam0, max_iter: int, exit_tol, stream,
     floats) when given, else to a scratch of its own; cluster asks for a
     cluster size (8 or 16; 0 the kernel's choice, mpc_bcr_cluster)."""
     dev = ks.gamma.device
-    nx, nu = 2 * _lib.NJ, _lib.NJ
+    nx, nu = 2 * _lib.IIWA_NJ, _lib.IIWA_NJ
     n = expect_system(ks, lam0, _FIELDS, dev)
     check_bcr_fit(n, lib)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -312,6 +314,7 @@ def bcr_pcg_dz(ks: KnotSchur, lam0, max_iter: int, exit_tol, split=None):
     if lam0.device.type == "cpu":
         return bcr_pcg_dz_reference(ks, lam0, max_iter, exit_tol)
     _cuda_device(lam0)
+    _lib.require_iiwa(_lib.width_joints(lam0.shape[-1]), "K6 (bcr_pcg_dz)")
     return _bcr_pcg_dz_on(_lib.library(), ks, lam0, max_iter, exit_tol,
                           split, _lib.stream_of(lam0))
 

@@ -64,11 +64,11 @@ def compute_dz_knots(ks: KnotSchur, lam):
 def expect_system(ks: KnotSchur, lam0, fields, device) -> int:
     """Raise unless lam0 and the named KnotSchur fields are contiguous
     float32 knot-major tensors on device; return N."""
-    nx, nu = 2 * _lib.NJ, _lib.NJ
-    if ks.gamma.dim() != 2 or ks.gamma.shape[1] != nx:
-        raise ValueError(f"gamma must be (N, {nx}), got "
+    if ks.gamma.dim() != 2:
+        raise ValueError(f"gamma must be (N, nx), got "
                          f"{tuple(ks.gamma.shape)}")
-    n = ks.gamma.shape[0]
+    n, nx = ks.gamma.shape
+    nu = _lib.width_joints(nx)
     shapes = dict(SL=(n, nx, nx), SD=(n, nx, nx), SU=(n, nx, nx),
                   PL=(n, nx, nx), PD=(n, nx, nx), PU=(n, nx, nx),
                   gamma=(n, nx), Qinv=(n, nx, nx), Rinv=(n, nu, nu),
@@ -98,7 +98,7 @@ def form_kkt_schur_reference(model, X, U, goals, xs, rho, dt, qd_cost, r_cost,
 def _launch(lib, tab, X, U, goals, rho, dt, qd_cost, r_cost, gravity,
             precond: bool, stream) -> KnotSchur:
     dev = X.device
-    nx, nu = 2 * _lib.NJ, _lib.NJ
+    _, nx, nu = _lib.sizes(tab, lib)
     if X.dim() != 2 or X.shape[1] != nx or X.shape[0] < 2:
         raise ValueError(f"X must be (N >= 2, {nx}), got {tuple(X.shape)}")
     n = X.shape[0]
@@ -108,7 +108,7 @@ def _launch(lib, tab, X, U, goals, rho, dt, qd_cost, r_cost, gravity,
         raise ValueError(f"goals must be ({n}, >=3), got {tuple(goals.shape)}")
     _lib.expect(goals, "goals", tuple(goals.shape), dev)
     _lib.expect(rho, "rho", (), dev)
-    _lib.expect(tab, "tables", (_lib.TAB_SIZE,), dev)
+    _lib.expect(tab, "tables", (tab.numel(),), dev)
     f32 = dict(dtype=torch.float32, device=dev)
     band = lambda: torch.empty((n, nx, nx), **f32)
     out = KnotSchur(
@@ -139,7 +139,8 @@ def form_kkt_schur(model, X, U, goals, xs, rho, dt, qd_cost, r_cost,
     if X.device.type != "cuda":
         raise ValueError(f"unsupported device {X.device}")
     rho = torch.as_tensor(rho, dtype=torch.float32, device=X.device)
-    out = _launch(_lib.library(), _lib.model_tables(model), X, U, goals, rho,
+    out = _launch(_lib.library(model.num_joints), _lib.model_tables(model),
+                  X, U, goals, rho,
                   dt, qd_cost, r_cost, gravity, precond, _lib.stream_of(X))
     form_kkt_schur.launches += 1
     return out

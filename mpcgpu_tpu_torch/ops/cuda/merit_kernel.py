@@ -47,21 +47,21 @@ def _launch(lib, tab, X, U, dX, dU, num_alphas: int, goals, xs, dt, mu,
     """One launch; group: the lanes of a pair's group (8, 16, 32; 0 the
     kernel's choice)."""
     dev = X.device
-    if X.dim() != 2 or X.shape[1] != 2 * _lib.NJ or X.shape[0] < 2:
-        raise ValueError(f"X must be (N >= 2, {2 * _lib.NJ}), got "
-                         f"{tuple(X.shape)}")
+    _, nx, nu = _lib.sizes(tab, lib)
+    if X.dim() != 2 or X.shape[1] != nx or X.shape[0] < 2:
+        raise ValueError(f"X must be (N >= 2, {nx}), got {tuple(X.shape)}")
     n = X.shape[0]
     if n > 1024:
         raise ValueError(f"merit kernel serves N <= 1024 knots, got {n}")
-    _lib.expect(X, "X", (n, 2 * _lib.NJ), dev)
-    _lib.expect(dX, "dX", (n, 2 * _lib.NJ), dev)
-    _lib.expect(U, "U", (n - 1, _lib.NJ), dev)
-    _lib.expect(dU, "dU", (n - 1, _lib.NJ), dev)
+    _lib.expect(X, "X", (n, nx), dev)
+    _lib.expect(dX, "dX", (n, nx), dev)
+    _lib.expect(U, "U", (n - 1, nu), dev)
+    _lib.expect(dU, "dU", (n - 1, nu), dev)
     if goals.dim() != 2 or goals.shape[0] != n or goals.shape[1] < 3:
         raise ValueError(f"goals must be ({n}, >=3), got {tuple(goals.shape)}")
     _lib.expect(goals, "goals", tuple(goals.shape), dev)
-    _lib.expect(xs, "xs", (2 * _lib.NJ,), dev)
-    _lib.expect(tab, "tables", (_lib.TAB_SIZE,), dev)
+    _lib.expect(xs, "xs", (nx,), dev)
+    _lib.expect(tab, "tables", (tab.numel(),), dev)
     if group not in (0, 8, 16, 32):
         raise ValueError(f"group must be 0, 8, 16 or 32, got {group}")
     out = torch.empty(num_alphas + 1, dtype=torch.float32, device=dev)
@@ -87,7 +87,8 @@ def line_search_merits(model, X, U, dX, dU, num_alphas: int, goals, xs, dt,
                                             r_cost, gravity)
     if X.device.type != "cuda":
         raise ValueError(f"unsupported device {X.device}")
-    out = _launch(_lib.library(), _lib.model_tables(model), X, U, dX, dU,
+    out = _launch(_lib.library(model.num_joints), _lib.model_tables(model),
+                  X, U, dX, dU,
                   num_alphas, goals, xs, dt, mu, qd_cost, r_cost, gravity,
                   _lib.stream_of(X))
     line_search_merits.launches += 1

@@ -106,9 +106,10 @@ def _launch(lib, ks: KnotSchur, lam0, max_iter: int, exit_tol, stream,
     K4b only S, P and gamma of ks are read, and (lam, iters, hit) is
     returned, else (lam, dX, dU, iters, hit)."""
     dev = ks.gamma.device
-    nx, nu = 2 * _lib.NJ, _lib.NJ
     n = expect_system(ks, lam0, _SOLVE_FIELDS + (_DZ_FIELDS if dz else ()),
                       dev)
+    nx = ks.gamma.shape[1]
+    nu = _lib.width_joints(nx, lib)
     f32 = dict(dtype=torch.float32, device=dev)
     lam = torch.empty((n, nx), **f32)
     ints = torch.empty(2, dtype=torch.int32, device=dev)
@@ -167,10 +168,19 @@ def _pcg_solve_on(lib, S, Pinv, gamma, lam0, max_iter, exit_tol, stream,
                    exit_tol, stream, False, form)
 
 
-def _on_card(lam0):
+_K4B = "K4b (pcg_solve, the 'pcg_pallas' backend's CG)"
+
+
+def _on_card(lam0, iiwa_only: str = ""):
+    """The library of lam0's joint count and its stream; raise unless the
+    count is the IIWA's where the kernel iiwa_only (a name) serves only
+    it."""
     if lam0.device.type != "cuda":
         raise ValueError(f"unsupported device {lam0.device}")
-    return _lib.library(), _lib.stream_of(lam0)
+    nj = _lib.width_joints(lam0.shape[-1])
+    if iiwa_only:
+        _lib.require_iiwa(nj, iiwa_only)
+    return _lib.library(nj), _lib.stream_of(lam0)
 
 
 def pcg_solve(S: BlockTri, Pinv: BlockTri, gamma, lam0, max_iter: int,
@@ -181,7 +191,7 @@ def pcg_solve(S: BlockTri, Pinv: BlockTri, gamma, lam0, max_iter: int,
     exit_tol are host numbers."""
     if lam0.device.type == "cpu":
         return pcg_solve_reference(S, Pinv, gamma, lam0, max_iter, exit_tol)
-    lib, stream = _on_card(lam0)
+    lib, stream = _on_card(lam0, _K4B)
     return _pcg_solve_on(lib, S, Pinv, gamma, lam0, max_iter, exit_tol,
                          stream)
 
@@ -194,7 +204,7 @@ def pcg_solve_grid(S: BlockTri, Pinv: BlockTri, gamma, lam0, max_iter: int,
     """K4bg: pcg_solve's CG in the joined form, at any N."""
     if lam0.device.type == "cpu":
         return pcg_solve_reference(S, Pinv, gamma, lam0, max_iter, exit_tol)
-    lib, stream = _on_card(lam0)
+    lib, stream = _on_card(lam0, "K4bg (pcg_solve_grid)")
     return _pcg_solve_on(lib, S, Pinv, gamma, lam0, max_iter, exit_tol,
                          stream, JOINED)
 

@@ -25,21 +25,21 @@ def plant_rollout_reference(model, cfg, x, U_prev, goal0, offset_us,
 def _launch(lib, tab, cfg, x, U_prev, goal0, offset_us, sim_time_us,
             max_substeps: int, stream):
     dev = x.device
-    nx = _lib.NJ * 2
+    _, nx, nu = _lib.sizes(tab, lib)
     arms = x.shape[:-1]
     if x.dim() not in (1, 2) or x.shape[-1] != nx:
         raise ValueError(f"x must be ({nx},) or (B, {nx}), got "
                          f"{tuple(x.shape)}")
     _lib.expect(x, "x", tuple(x.shape), dev)
     if (U_prev.shape[:-2] != arms or U_prev.dim() != x.dim() + 1
-            or U_prev.shape[-1] != _lib.NJ or U_prev.shape[-2] < 1):
-        raise ValueError(f"U_prev must be {arms} + (N-1, {_lib.NJ}), got "
+            or U_prev.shape[-1] != nu or U_prev.shape[-2] < 1):
+        raise ValueError(f"U_prev must be {arms} + (N-1, {nu}), got "
                          f"{tuple(U_prev.shape)}")
     _lib.expect(U_prev, "U_prev", tuple(U_prev.shape), dev)
     _lib.expect(goal0, "goal0", tuple(goal0.shape), dev)
     if goal0.numel() < 3:
         raise ValueError("goal0 needs at least 3 entries")
-    _lib.expect(tab, "tables", (_lib.TAB_SIZE,), dev)
+    _lib.expect(tab, "tables", (tab.numel(),), dev)
     x_new = torch.empty_like(x)
     err = torch.empty(arms, dtype=torch.float32, device=dev)
     args = (x.data_ptr(), U_prev.data_ptr(), U_prev.shape[-2],
@@ -68,7 +68,8 @@ def plant_rollout(model, cfg, x, U_prev, goal0, offset_us, sim_time_us,
                                        offset_us, sim_time_us, max_substeps)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    out = _launch(_lib.library(), _lib.model_tables(model), cfg, x, U_prev,
+    out = _launch(_lib.library(model.num_joints), _lib.model_tables(model),
+                  cfg, x, U_prev,
                   goal0, offset_us, sim_time_us, max_substeps,
                   _lib.stream_of(x))
     plant_rollout.launches += 1

@@ -46,7 +46,7 @@ def _launch(lib, bands, xs, xl, xr, stream) -> list:
         raise ValueError(f"K11 needs one (L, D, U) triple per x shard, got "
                          f"{len(bands)} for {len(xs)}")
     dev = xs[0].device
-    s = 2 * _lib.NJ
+    s = 2 * _lib.IIWA_NJ
     if xs[0].dim() != 2 or xs[0].shape[1] != s or xs[0].shape[0] < 1:
         raise ValueError(f"x must be (nl >= 1, {s}), got "
                          f"{tuple(xs[0].shape)}")
@@ -77,6 +77,8 @@ def spmv_halo_shards(bands, xs, xl, xr) -> list:
         return spmv_halo_shards_reference(bands, xs, xl, xr)
     if xs[0].device.type != "cuda":
         raise ValueError(f"unsupported device {xs[0].device}")
+    _lib.require_iiwa(_lib.width_joints(xs[0].shape[-1]),
+                      "K11 (spmv_halo, the horizon-sharded CG's SpMV)")
     lib = _lib.library()
     ys = _launch(lib, bands, xs, xl, xr, _lib.stream_of(xs[0]))
     spmv_halo.launches += -(-len(xs) // lib.mpc_spmv_halo_max_shards())

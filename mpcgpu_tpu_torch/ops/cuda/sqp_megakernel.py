@@ -242,11 +242,12 @@ def grid_plan(knot_points: int, lib=None, cluster: int = 0,
     return GridPlan(*out)
 
 
-def _expect_iterate(tab, X, U, goals, xs, rho, merit, num_alphas: int) -> int:
-    """Raise unless the single-arm inputs are what the kernels take;
-    return N."""
+def _expect_iterate(lib, tab, X, U, goals, xs, rho, merit,
+                    num_alphas: int):
+    """Raise unless the single-arm inputs are what the kernels of lib
+    take; return (N, nx, nu)."""
     dev = X.device
-    nx, nu = 2 * _lib.NJ, _lib.NJ
+    _, nx, nu = _lib.sizes(tab, lib)
     if X.dim() != 2 or X.shape[1] != nx or X.shape[0] < 2:
         raise ValueError(f"X must be (N >= 2, {nx}), got {tuple(X.shape)}")
     n = X.shape[0]
@@ -258,11 +259,11 @@ def _expect_iterate(tab, X, U, goals, xs, rho, merit, num_alphas: int) -> int:
     _lib.expect(xs, "xs", (nx,), dev)
     _lib.expect(rho, "rho", (), dev)
     _lib.expect(merit, "merit", (), dev)
-    _lib.expect(tab, "tables", (_lib.TAB_SIZE,), dev)
+    _lib.expect(tab, "tables", (tab.numel(),), dev)
     if not 1 <= num_alphas <= 16:
         raise ValueError(f"the kernel serves 1..16 step sizes, got "
                          f"{num_alphas}")
-    return n
+    return n, nx, nu
 
 
 def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
@@ -275,8 +276,8 @@ def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
     cluster as check_mega_fit's (K5), as grid_plan's place and cluster
     (K5g, on grid / C clusters)."""
     dev = X.device
-    nx, nu = 2 * _lib.NJ, _lib.NJ
-    n = _expect_iterate(tab, X, U, goals, xs, rho, merit0, num_alphas)
+    n, nx, nu = _expect_iterate(lib, tab, X, U, goals, xs, rho, merit0,
+                                num_alphas)
     _lib.expect(lam0, "lam0", (n, nx), dev)
     f32 = dict(dtype=torch.float32, device=dev)
     Xo = torch.empty((n, nx), **f32)
@@ -320,10 +321,15 @@ def _solve_on(lib, kind: int, model, X, U, goals, xs, lam0, rho, drho,
     return out
 
 
-def _card_library(X):
+def _card_library(X, model, iiwa_only: str = ""):
+    """The library of the model's joint count; raise unless the count is
+    the IIWA's where the kernel iiwa_only (a name) serves only it."""
     if X.device.type != "cuda":
         raise ValueError(f"unsupported device {X.device}")
-    return _lib.library()
+    nj = _lib.check_nj(model.num_joints)
+    if iiwa_only:
+        _lib.require_iiwa(nj, iiwa_only)
+    return _lib.library(nj)
 
 
 def sqp_solve_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit0,
@@ -341,7 +347,7 @@ def sqp_solve_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit0,
             num_alphas, rho_factor, rho_min, rho_max, rho_reset)
     if X.device.type == "cpu":
         return sqp_solve_mega_pcg_reference(*args)
-    return _solve_pcg_on(_card_library(X), *args)
+    return _solve_pcg_on(_card_library(X, model), *args)
 
 
 def _solve_pcg_on(lib, model, X, *rest):
@@ -366,7 +372,7 @@ def sqp_solve_mega_pcg_grid(model, X, U, goals, xs, lam0, rho, drho, merit0,
             num_alphas, rho_factor, rho_min, rho_max, rho_reset)
     if X.device.type == "cpu":
         return sqp_solve_mega_pcg_reference(*args)
-    return _solve_on(_card_library(X), SOLVE_PCG_GRID, *args)
+    return _solve_on(_card_library(X, model), SOLVE_PCG_GRID, *args)
 
 
 sqp_solve_mega_pcg_grid.launches = 0
@@ -404,8 +410,8 @@ def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
     None; cluster as check_mega_fit's, and on the host build a size of
     1-16 that its block emulation runs on grid / C clusters)."""
     dev = X.device
-    nx, nu = 2 * _lib.NJ, _lib.NJ
-    n = _expect_iterate(tab, X, U, goals, xs, rho, merit, num_alphas)
+    n, nx, nu = _expect_iterate(lib, tab, X, U, goals, xs, rho, merit,
+                                num_alphas)
     _lib.expect(drho, "drho", (), dev)
     f32 = dict(dtype=torch.float32, device=dev)
     Xo = torch.empty((n, nx), **f32)
@@ -476,7 +482,8 @@ def sqp_iter_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit,
             rho_factor, rho_min, rho_max, rho_reset)
     if X.device.type == "cpu":
         return sqp_iter_mega_pcg_reference(*args)
-    return _iter_pcg_on(_card_library(X), *args)
+    return _iter_pcg_on(_card_library(X, model, "K9p (sqp_iter_mega_pcg)"),
+                        *args)
 
 
 def _iter_pcg_on(lib, model, X, *rest):
@@ -500,7 +507,8 @@ def sqp_iter_mega_pcg_grid(model, X, U, goals, xs, lam0, rho, drho, merit,
             rho_factor, rho_min, rho_max, rho_reset)
     if X.device.type == "cpu":
         return sqp_iter_mega_pcg_reference(*args)
-    return _iter_on(_card_library(X), ITER_PCG_GRID, *args)
+    return _iter_on(_card_library(X, model, "K9pg (sqp_iter_mega_pcg_grid)"),
+                    ITER_PCG_GRID, *args)
 
 
 sqp_iter_mega_pcg_grid.launches = 0
@@ -517,7 +525,8 @@ def sqp_iter_mega(model, X, U, goals, xs, rho, drho, merit, dt, qd_cost,
         return sqp_iter_mega_reference(
             model, X, U, goals, xs, rho, drho, merit, dt, qd_cost, r_cost,
             gravity, mu, num_alphas, rho_factor, rho_min, rho_max, rho_reset)
-    return _iter_on(_card_library(X), ITER_BCR, model, X, U, goals, xs, None,
+    return _iter_on(_card_library(X, model, "K9b (sqp_iter_mega)"), ITER_BCR,
+                    model, X, U, goals, xs, None,
                     rho, drho, merit, 0, 0.0, dt, qd_cost, r_cost, gravity,
                     mu, num_alphas, rho_factor, rho_min, rho_max, rho_reset)
 
@@ -631,7 +640,7 @@ def _launch_packed(lib, tab, X, U, goals, xs, lam0, rho, drho,
     floats); its first 4 B floats hold the cluster form's published etas
     (2 x B words: the tag in the high 32 bits, eta's bits in the low)."""
     dev = X.device
-    nx, nu = 2 * _lib.NJ, _lib.NJ
+    _, nx, nu = _lib.sizes(tab, lib)
     if X.dim() != 3 or X.shape[2] != nx or X.shape[1] < 2:
         raise ValueError(f"X must be (B, N >= 2, {nx}), got "
                          f"{tuple(X.shape)}")
@@ -651,7 +660,7 @@ def _launch_packed(lib, tab, X, U, goals, xs, lam0, rho, drho,
     garm = 0 if goals.stride(0) == 0 else n * goals.shape[2]
     base = goals[0] if garm == 0 else goals
     _lib.expect(base, "goals", tuple(base.shape), dev)
-    _lib.expect(tab, "tables", (_lib.TAB_SIZE,), dev)
+    _lib.expect(tab, "tables", (tab.numel(),), dev)
     if not 1 <= num_alphas <= 16:
         raise ValueError(f"the kernel serves 1..16 step sizes, got "
                          f"{num_alphas}")
@@ -695,9 +704,7 @@ def sqp_solve_mega_pcg_packed(model, X, U, goals, xs, lam0, rho, drho,
             model, X, U, goals, xs, lam0, rho, drho, max_iter, exit_tol,
             n_sqp_iter, dt, qd_cost, r_cost, gravity, mu, num_alphas,
             rho_factor, rho_min, rho_max, rho_reset)
-    if X.device.type != "cuda":
-        raise ValueError(f"unsupported device {X.device}")
-    lib = _lib.library()
+    lib = _card_library(X, model, "K10 (sqp_solve_mega_pcg_packed)")
     plan = packed_plan(X.shape[1], X.shape[0], num_alphas, lib)
     out = _launch_packed(lib, _lib.model_tables(model), X, U, goals, xs,
                          lam0, rho, drho, max_iter, exit_tol, n_sqp_iter, dt,

@@ -60,6 +60,7 @@ from mpcgpu_tpu_torch.ops import merit as merit_ops
 from mpcgpu_tpu_torch.ops.btridiag import BlockTri, to_dense
 from mpcgpu_tpu_torch.ops.btsolve import (_solve_linsys_bcr,
                                           _solve_linsys_bcr_pcg)
+from mpcgpu_tpu_torch.ops.cuda import _lib
 from mpcgpu_tpu_torch.ops.cuda.bcr_kernel import bcr_dz, bcr_pcg_dz
 from mpcgpu_tpu_torch.ops.cuda.kkt_schur_kernel import form_kkt_schur
 from mpcgpu_tpu_torch.ops.cuda.merit_kernel import line_search_merits
@@ -153,9 +154,28 @@ def megakernel_engages(cfg: SolverConfig, linsys: str) -> bool:
                 and linsys in ("pcg", "bcr"))
 
 
-def check_fused_config(cfg: SolverConfig, linsys: str) -> None:
+def _iiwa_only_kernel(cfg: SolverConfig, linsys: str,
+                     whole_solve: bool) -> str:
+    """The kernel of this route that serves 7-joint robots only ('' where
+    the route's kernels serve 2-7 joints: K3, K4 and K2 staged with
+    "pcg", K5 for a whole solve with megakernel_solve)."""
+    if linsys == "pcg_pallas":
+        return "K4b (the 'pcg_pallas' backend's CG)"
+    if linsys == "bcr_pcg":
+        return "K6 (bcr_pcg_dz)"
+    if linsys == "bcr":
+        return ("K9b (sqp_iter_mega)" if cfg.megakernel
+                else "K7 (bcr_dz)")
+    if cfg.megakernel and not (cfg.megakernel_solve and whole_solve):
+        return "K9p (sqp_iter_mega_pcg)"
+    return ""
+
+
+def check_fused_config(cfg: SolverConfig, linsys: str,
+                       whole_solve: bool = False) -> None:
     """Raise unless the CUDA kernels serve this configuration, saying
-    why."""
+    why.  whole_solve: the caller runs a whole solve (sqp_solve, where
+    megakernel_solve launches K5), not single iterations."""
     if linsys in ("dense", "qdldl"):
         raise ValueError(
             f"fused_stages=True with linsys={linsys!r}: the JAX package "
@@ -180,15 +200,25 @@ def check_fused_config(cfg: SolverConfig, linsys: str) -> None:
         unsupported.append("angle_wrap=True")
     if cfg.dtype != "float32":
         unsupported.append(f"dtype={cfg.dtype!r}")
-    if (cfg.state_size, cfg.control_size) != (14, 7):
+    nq = cfg.control_size
+    if (cfg.state_size != 2 * nq
+            or not _lib.MIN_NJ <= nq <= _lib.MAX_NJ):
         unsupported.append(f"nx, nu = {cfg.state_size}, {cfg.control_size}")
     if unsupported:
         raise ValueError("fused_stages=True: the CUDA stage kernels do not "
                          f"serve {', '.join(unsupported)}")
+    kernel = _iiwa_only_kernel(cfg, linsys, whole_solve) \
+        if nq != _lib.IIWA_NJ else ""
+    if kernel:
+        raise ValueError(
+            f"fused_stages=True with linsys={linsys!r} at nq = {nq}: "
+            f"{kernel} serves 7-joint robots only; at 2-7 joints the "
+            f"kernels serve linsys='pcg' staged (K3, K4, K2) and the "
+            f"whole solve with megakernel and megakernel_solve (K5)")
 
 
 def _stages(model: RobotModel, cfg: SolverConfig, goals, xs,
-            pcg_exit_tol: float, linsys: str):
+            pcg_exit_tol: float, linsys: str, whole_solve: bool = False):
     """The route of one SQP iteration under (cfg, linsys), as sqp_solve
     takes it: (merit_of(X, U), step(X, U, lam, rho, drho, merit) ->
     IterResult).  Fused: K2 for the merits, then one K9p / K9b launch an
@@ -197,7 +227,7 @@ def _stages(model: RobotModel, cfg: SolverConfig, goals, xs,
     cc = cfg.cost
     alphas = _alphas(cfg, xs)
     if cfg.fused_stages:
-        check_fused_config(cfg, linsys)
+        check_fused_config(cfg, linsys, whole_solve)
 
         def merits_with_base(Xc, Uc, dX, dU):
             return line_search_merits(
@@ -281,7 +311,8 @@ def sqp_solve(model: RobotModel, cfg: SolverConfig, X, U, lam, goals, xs,
         raise ValueError("an arm axis runs the plain modules with linsys="
                          "'pcg' (the arm-packed kernel path is "
                          "ops.cuda.sqp_megakernel.sqp_solve_mega_pcg_packed)")
-    merit_of, step = _stages(model, cfg, goals, xs, pcg_exit_tol, linsys)
+    merit_of, step = _stages(model, cfg, goals, xs, pcg_exit_tol, linsys,
+                             whole_solve=True)
     if megakernel_engages(cfg, linsys) and linsys == "pcg" \
             and cfg.megakernel_solve:
         r = sqp_solve_mega_pcg(

@@ -1,10 +1,13 @@
 """Trajectory fixture IO (counterpart of mpcgpu_tpu/utils/trajfiles.py).
 
-``{start}_{goal}_traj.csv`` rows hold 14 state + 7 control values,
+The recorded fixtures are the IIWA's: ``{start}_{goal}_traj.csv`` rows
+hold its 14 state + 7 control values (``NX``, ``NU``),
 ``{start}_{goal}_eepos.traj`` rows 6 end-effector pose values.  Only the
 (0, 0) pair ships a recorded end-effector trace; given a model, the
-loader makes the others' by forward kinematics.  Numpy only, unless a
-model is given.
+loader makes the others' by forward kinematics.  ``horizon_slices`` takes
+any state width: a synthesized fixture of another robot
+(utils/synth.py) has rows of nx + nu values.  Numpy only, unless a model
+is given.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ from pathlib import Path
 
 import numpy as np
 
-NX, NU = 14, 7
+NX, NU = 14, 7   # the IIWA fixtures' state and control widths
 
 
 def load_traj(path) -> np.ndarray:

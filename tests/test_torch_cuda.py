@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K7, K7s, K9p, K9b, K10 and K11, K3 at the long
+"""The CUDA kernels K1-K7, K7s, K9p, K9b, K10 and K11 (K1-K5 also built for
+the planar 2R arm's two joints, whose other wrappers raise), K3 at the long
 horizons of the TPU's tiled K8, K4 and K4b in both forms (the cluster
 form K4, K4b and the joined form K4g, K4bg, at every cluster size the
 card admits, and bit for bit K9p's and K9pg's dual solve), the joined
@@ -1247,3 +1248,103 @@ def test_fixture_pair_trace_by_forward_kinematics_on_the_card(card):
     _, ee_card = load_fixture_pair(d, 1, 0, model=card["model"])
     _, ee_cpu = load_fixture_pair(d, 1, 0, model=iiwa14(device="cpu"))
     np.testing.assert_allclose(ee_card, ee_cpu, rtol=0, atol=1e-5)
+
+
+# ---- the second robot: the planar 2R arm (nq = 2) through the two-joint
+# build of K1-K5, at the JAX hardware gate's N = 16 and solver
+
+@pytest.fixture(scope="module")
+def arm2():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mpcgpu_tpu_torch.config import CostConfig, PCGConfig
+    from mpcgpu_tpu_torch.models.planar2r import planar2r
+    from mpcgpu_tpu_torch.utils.synth import synthesize_tracking_fixture
+    from mpcgpu_tpu_torch.utils.trajfiles import horizon_slices
+
+    dev = torch.device("cuda", 0)
+    model = planar2r(device=dev)
+    n = 16
+    xu, ee = synthesize_tracking_fixture(model, q0=[0.4, 0.6],
+                                         amplitude=0.35, n_steps=4 * n,
+                                         dt=0.05)
+    X, U, goals, xs = (torch.as_tensor(a, device=dev)
+                       for a in horizon_slices(xu, ee, n, nx=4))
+    cfg = SolverConfig(knot_points=n, state_size=4, control_size=2,
+                       timestep=0.05, sqp_max_iter=3,
+                       pcg=PCGConfig(max_iter=30),
+                       cost=CostConfig(qd_cost=1e-3, r_cost=1e-4))
+    return dict(model=model, X=X, U=U, goals=goals, xs=xs, cfg=cfg,
+                rho=torch.tensor(1e-3, device=dev))
+
+
+def test_two_joint_kernels_match_plain_on_the_card(arm2):
+    """K3 (bands within 1e-4 of their largest entry, gamma 1e-3), K4 (rtol
+    5e-3, atol 5e-3), K2 (2e-4), K1 (rtol 1e-4, atol 1e-5) and the whole
+    solve (decisions equal, X within 1e-2 of the plain solve's largest
+    entry), each launched once."""
+    c = arm2
+    a3 = (c["model"], c["X"], c["U"], c["goals"], c["xs"], c["rho"], 0.05,
+          1e-3, 1e-4)
+    ks, ks_ref = k3.form_kkt_schur(*a3), k3.form_kkt_schur_reference(*a3)
+    for f in ("SL", "SD", "SU", "PL", "PD", "PU", "gamma"):
+        g, w = getattr(ks, f), getattr(ks_ref, f)
+        bound = 1e-3 if f == "gamma" else 1e-4
+        assert float((g - w).abs().max() / w.abs().max()) < bound, f
+    lam0 = torch.zeros_like(c["X"])
+    got, want = (k4.pcg_dz(ks_ref, lam0, 30, 1e-6),
+                 k4.pcg_dz_reference(ks_ref, lam0, 30, 1e-6))
+    for g, w in zip(got[:3], want[:3]):
+        _close(g, w, 5e-3, 5e-3)
+    a2 = (c["model"], c["X"], c["U"], want[1], want[2], 8, c["goals"],
+          c["xs"], 0.05, 10.0, 1e-3, 1e-4)
+    _close(k2.line_search_merits(*a2), k2.line_search_merits_reference(*a2),
+           2e-4, 2e-4)
+    a1 = (c["model"], c["cfg"], c["xs"], c["U"], c["goals"][0], 2000.0,
+          2000.0, 11)
+    for g, w in zip(k1.plant_rollout(*a1), k1.plant_rollout_reference(*a1)):
+        _close(g, w, 1e-4, 1e-5)
+    import dataclasses
+
+    from mpcgpu_tpu_torch.sqp import sqp_solve
+    mega = dataclasses.replace(c["cfg"], fused_stages=True, megakernel=True,
+                               megakernel_solve=True)
+    args = (c["X"], c["U"], lam0, c["goals"], c["xs"], c["rho"], 1e-6)
+    res, counts = _counted(lambda: sqp_solve(c["model"], mega, *args))
+    plain = sqp_solve(c["model"], c["cfg"], *args)
+    assert counts == {"K2": 1, "K5": 1}
+    assert torch.equal(res.stats.accepted, plain.stats.accepted)
+    assert float((res.X - plain.X).abs().max() / plain.X.abs().max()) < 1e-2
+
+
+def test_two_joint_wrappers_of_the_iiwa_only_kernels_raise_by_name(arm2):
+    """K4b, K6, K7, K7s, K9p, K9b, K10 and K11 raise for a 2-joint problem
+    on the card, before any launch."""
+    from mpcgpu_tpu_torch.ops.cuda.spmv_halo_kernel import spmv_halo
+
+    c = arm2
+    ks = k3.form_kkt_schur_reference(c["model"], c["X"], c["U"], c["goals"],
+                                     c["xs"], c["rho"], 0.05, 1e-3, 1e-4)
+    lam0 = torch.zeros_like(c["X"])
+    S, P = BlockTri(ks.SL, ks.SD, ks.SU), BlockTri(ks.PL, ks.PD, ks.PU)
+    one = torch.ones((), device=lam0.device)
+    kw = dict(dt=0.05, qd_cost=1e-3, r_cost=1e-4, gravity=0.0, mu=10.0,
+              num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=10.0,
+              rho_reset=1e-3)
+    m, X, U, g, xs = (c[k] for k in ("model", "X", "U", "goals", "xs"))
+    calls = {
+        "K4b": lambda: k4.pcg_solve(S, P, ks.gamma, lam0, 30, 1e-6),
+        "K6": lambda: k6.bcr_pcg_dz(ks, lam0, 30, 1e-6),
+        "K7": lambda: k7.bcr_dz(ks),
+        "K7s": lambda: k7.bcr_solve(ks.SL, ks.SD, ks.SU, ks.gamma),
+        "K9p": lambda: k9.sqp_iter_mega_pcg(m, X, U, g, xs, lam0, one, one,
+                                            one, 30, 1e-6, **kw),
+        "K9b": lambda: k9.sqp_iter_mega(m, X, U, g, xs, one, one, one, **kw),
+        "K10": lambda: k10.sqp_solve_mega_pcg_packed(
+            m, X[None], U[None], g[None], xs[None], lam0[None], one[None],
+            one[None], 30, 1e-6, 3, **kw),
+        "K11": lambda: spmv_halo(ks.SL, ks.SD, ks.SU, lam0, lam0[0],
+                                 lam0[0])}
+    for kid, call in calls.items():
+        with pytest.raises(ValueError, match=kid):
+            call()
