@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (mpcgpu_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phase 15]
 
 From the root of a checkout, on a machine with one NVIDIA H100 and the
 CUDA toolkit:
@@ -194,7 +194,36 @@ CUDA toolkit:
    tracking error under 0.1 m, SQP iterations and bails equal), their
    launches per update; the kernels line gets K1-K5 at nq = 2 (N = 64,
    N = 16 beside it, launches from the N = 64 loops);
-15. prints one JSON line of the kernels (with each one's launches on
+15. the solver knobs (`knob_phase`; tests/torch_systems.py KNOB_CASES:
+   joint tracking with q_cost 2, the Gauss-Newton Hessian, semi-implicit
+   Euler and the angle wrap, each alone, and joint + semi-implicit + wrap
+   and eepos + Gauss-Newton + semi-implicit + wrap): K3 and K2 under each
+   case against their plain versions at N = 64 (the slice's perturbed
+   start; under the wrap joints 0 and 3 within 0.03 of +-3.14159, where
+   the wrap changes the defects), first launches under the watchdog, at
+   the default checks' tolerances (K3 rtol, atol 3e-3; K2 2e-4), K3 held
+   to the float64 plain version where the end-effector position block is
+   near singular (the Gauss-Newton Hessian; eepos under the wrap cases'
+   moved joints: torch_systems.within_twice_plain, entry by entry);
+   K2's, K3's and K5's device us a call under each combination beside the
+   default's; one SQP iteration of K5, K9p, K9b and K10 (two arms) under
+   both combinations at N = 64 against their plain versions (decisions
+   and CG counts equal; X, U, lam against the float64 plain version by
+   within_twice_plain; K9b at rho 0.1, its duals within three times the
+   float64 solve's residual, its X, U and merit against the plain
+   iteration given its duals); 8-update closed loops from cold duals under both combinations
+   -- the whole solve (K2, K5), staged pcg (K3, K4, K2), the per-iteration
+   pcg and bcr kernels (K9p, K9b) and the packed two-arm loop (K10), each
+   with K1 -- each beside the plain loop of its linsys (SQP iterations and
+   bails equal; the CG routes' plant path within KNOB_PATH_TOL; the bcr
+   loop's path held to the plain bcr loop run in float64 by
+   within_twice_plain), their launches checked; K5g and K9pg at N = 1024
+   under the first combination, one SQP iteration against the plain
+   version with the float64 one as the yardstick; the kernels line gets
+   each knob kernel's checks, device us and launches.  Every check of the
+   phase runs before it fails; `python3 chip_smoke.py --phase 15` runs it
+   alone after building the IIWA library;
+16. prints one JSON line of the kernels (with each one's launches on
    phase 13's paths, and phase 14's for the nq = 2 forms), then the
    result line.
 
@@ -262,6 +291,9 @@ LONG_BCR_KNOTS = (128, 256, 512)  # K6 past N = 64, the former K6l's horizons
 LONG_AUTO_KNOTS = (128, 256, 512)
 LONG_LOOP_KNOT = 256            # the staged, failover and per-iteration loops
 GRID_LOOP_KNOT = 1024           # past the cluster form's fit: K5g, K9pg
+KNOB_PATH_TOL = 5e-11           # phase 15: a CG route's knob loop's plant
+                                # path against the plain loop's (rad, rad/s;
+                                # 1.09e-11 at most on the H100)
 JOINED_LOOP_KNOT = 512          # past K4's cut: K4g, K4bg in the loops
 LONG_UPDATES = 8                # the first horizon shift is at update 7
 # phase 9, the sharded paths (__graft_entry__.dryrun_multichip's legs)
@@ -656,6 +688,467 @@ def _device_breakdown(run, n_updates: int, counts: dict,
     return groups, complete
 
 
+def knob_phase(model, xu, ee, cfg, counted, card: str, systems) -> dict:
+    """Phase 15, the solver knobs (tests/torch_systems.py KNOB_CASES:
+    joint tracking with q_cost 2, the Gauss-Newton Hessian, semi-implicit
+    Euler and the angle wrap, each alone, and the two combinations) through
+    the kernels that take them, at the slice's N = 64 on fixture 0_0 (xu,
+    ee as load_fixture_pair gives them).  model is the IIWA on the card,
+    cfg the slice's fused configuration, counted(label, run, want) runs
+    `run` with every launch count set to 0 just before and checks the
+    counts read just after against want (returning run's output and the
+    counts), card nvidia-smi's name and power-limit line, systems the
+    module tests/torch_systems.py.  Every check runs; the phase then
+    raises AssertionError naming each one that failed.  Returns each knob
+    kernel's entry of the kernels line, by kernel id."""
+    import types
+
+    import numpy as np
+    import torch
+    from mpcgpu_tpu_torch.config import default_pcg_exit_tols
+    from mpcgpu_tpu_torch.models.robot import iiwa14
+    from mpcgpu_tpu_torch.ops.cuda import _lib, launch_counts
+    from mpcgpu_tpu_torch.ops.cuda import kkt_schur_kernel as k3
+    from mpcgpu_tpu_torch.ops.cuda import merit_kernel as k2
+    from mpcgpu_tpu_torch.ops.cuda import pcg_kernel as k4
+    # K5, K9 and K10 share one module
+    from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k5
+    from mpcgpu_tpu_torch.sim import (arm_starts, simulate_mpc_scan,
+                                      simulate_mpc_scan_packed)
+    from mpcgpu_tpu_torch.utils.trajfiles import horizon_slices
+
+    t_phase = time.perf_counter()
+    dev = model.Xc.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    KC, COMBOS = systems.KNOB_CASES, ("joint_semi_wrap", "gn_semi_wrap")
+    SOLVE_TOLS = systems.SOLVE_TOLS
+    n, na, cc = N_KNOTS, cfg.num_alphas, cfg.cost
+    model64 = iiwa14(device=dev, dtype=torch.float64)
+    on_card = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    X, U, goals, xs = (on_card(a) for a in horizon_slices(xu, ee, n))
+    # the slice's perturbed start (knot 0 kept), so that the CGs iterate
+    pert = torch.as_tensor(0.02 * np.random.default_rng(5).normal(
+        size=(n, NX)), dtype=torch.float32, device=dev)
+    pert[0] = 0.0
+    Xp = X + pert
+    rho, rho_lo = (torch.tensor(r, device=dev) for r in (cfg.rho_init, 1e-3))
+    one = torch.tensor(1.0, device=dev)
+    cap, tol = cfg.pcg.max_iter, default_pcg_exit_tols(n)[0]
+    k5_kw = dict(dt=cfg.timestep, qd_cost=cc.qd_cost, r_cost=cc.r_cost,
+                 gravity=cfg.gravity, mu=cfg.merit_mu, num_alphas=na,
+                 rho_factor=cfg.rho_factor, rho_min=cfg.rho_min,
+                 rho_max=cfg.rho_max, rho_reset=cfg.rho_reset)
+    xu_d, ee_d = on_card(xu), on_card(ee)
+    none = dict.fromkeys(launch_counts(), 0)
+    k4_kid = "K4" if k4.pcg_plan(n).form == k4.CLUSTER else "K4g"
+    failed = []
+
+    def held(name, check, *args):
+        """check(*args), or None with the failure noted."""
+        try:
+            return check(*args)
+        except AssertionError as e:
+            failed.append(f"{name}: {e}"[:600])
+            print(f"FAILED {failed[-1]}", flush=True)
+            return None
+
+    def expect(ok, name):
+        if not ok:
+            failed.append(name)
+            print(f"FAILED {name}", flush=True)
+
+    def knob_start(knob, n_k=N_KNOTS, seed=5, move=True):
+        """torch_systems.knob_start on the card."""
+        return tuple(on_card(a) for a in systems.knob_start(
+            xu, ee, n_k, knob, seed, move))
+
+    def merit_at(kn, Xm, Um, gm, xsm, c=cfg):
+        return k2.line_search_merits_reference(
+            model, Xm, Um, torch.zeros_like(Xm), torch.zeros_like(Um), na, gm,
+            xsm, c.timestep, c.merit_mu, c.cost.qd_cost, c.cost.r_cost,
+            c.gravity, knobs=kn)[na]
+
+    # (a) K3 and K2 under each case against their plain versions, from the
+    # slice's perturbed start (under the wrap joints 0 and 3 moved to
+    # within 0.03 of +-3.14159, where the wrap changes the defects; under
+    # joint tracking the state rows as goals), first launches under the
+    # watchdog.  K3 at the default check's rtol 3e-3, atol 3e-3 where the
+    # end-effector position block is well conditioned; where it is near
+    # singular -- the Gauss-Newton J'J (rank 3), and under the wrap cases'
+    # moved joints the rank-1 g_q g_q' of an end effector far from its
+    # goals, each beside rho = 1e-3 -- against the float64 plain version
+    # at those tolerances, each entry widened by twice the float32 plain
+    # version's largest distance to it in the entry's row
+    # (torch_systems.within_twice_plain; the two float32 forms part there
+    # in a few S entries by 1e-2 to 0.16).  K2 at its 2e-4, 2e-4.
+    rng = np.random.default_rng(5)
+    step = [on_card((0.05 * rng.normal(size=shape)).astype(np.float32))
+            for shape in ((n, NX), (n - 1, NU))]
+    knob_err = {}
+    for knob, kn in KC.items():
+        Xk, Uk, gk, xsk = knob_start(knob)
+        if kn.angle_wrap:
+            expect(systems.wrap_changes_defects(
+                model, Xk, Uk, cfg.timestep, kn.integrator_type),
+                f"knobs {knob}: the wrap changes no defect")
+        a3k = (model, Xk, Uk, gk, xsk, rho, cfg.timestep, cc.qd_cost,
+               cc.r_cost, cfg.gravity)
+        a2k = (model, Xk, Uk, *step, na, gk, xsk, cfg.timestep, cfg.merit_mu,
+               cc.qd_cost, cc.r_cost, cfg.gravity)
+        with _watchdog(FIRST_LAUNCH_DEADLINE):
+            ksk, m2k = (k3.form_kkt_schur(*a3k, knobs=kn),
+                        k2.line_search_merits(*a2k, knobs=kn))
+            sync()
+        pairs3 = list(zip(ksk, k3.form_kkt_schur_reference(*a3k, knobs=kn)))
+        if kn.hessian == "gauss_newton" or (kn.tracking == "eepos"
+                                            and kn.angle_wrap):
+            rep = held(f"K3 under {knob}", systems.within_twice_plain, ksk,
+                       k3.KnotSchur(*(w for _, w in pairs3)),
+                       k3.form_kkt_schur_reference(
+                           model64, *systems.as_float64(a3k[1:]), knobs=kn),
+                       systems.K3_TOLS, True)
+            e3 = {"against": "float64", "report": rep}
+        else:
+            held(f"K3 under {knob}", _assert_close, f"K3 under {knob}",
+                 pairs3, 3e-3, 3e-3)
+            e3 = {"against": "plain", "max_abs_err": _max_err(pairs3)}
+        pairs2 = [(m2k, k2.line_search_merits_reference(*a2k, knobs=kn))]
+        held(f"K2 under {knob}", _assert_close, f"K2 under {knob}", pairs2,
+             2e-4, 2e-4)
+        knob_err[knob] = {"K3": e3, "K2": {"against": "plain",
+                                           "max_abs_err": _max_err(pairs2)}}
+    print(f"knobs: K3 and K2 against their plain versions at N = {n}: "
+          f"{json.dumps(knob_err)}")
+
+    # (b) device us a call on the slice's perturbed start (the wrap does
+    # not fire there; the state rows as goals under joint tracking), beside
+    # the default knobs on the same inputs; K5's CG counts printed beside
+    # its time, since its work follows them
+    state_goals = on_card(xu[:n, :NX])
+    knob_us = {}
+    for label in ("default",) + COMBOS:
+        kn = KC.get(label, _lib.DEFAULT_KNOBS)
+        gl = state_goals if kn.tracking == "joint" else goals
+        a3t = (model, Xp, U, gl, xs, rho, cfg.timestep, cc.qd_cost,
+               cc.r_cost, cfg.gravity)
+        a2t = (model, Xp, U, *step, na, gl, xs, cfg.timestep, cfg.merit_mu,
+               cc.qd_cost, cc.r_cost, cfg.gravity)
+        a5t = (model, Xp, U, gl, xs, torch.zeros_like(Xp), rho, 1.0,
+               merit_at(kn, Xp, U, gl, xs), cap, tol, SQP_ITERS)
+        o5 = k5.sqp_solve_mega_pcg(*a5t, **k5_kw, knobs=kn)
+        knob_us[label] = {
+            "K3": _device_us(lambda: k3.form_kkt_schur(*a3t, knobs=kn), "K3",
+                             per_call=3),
+            "K2": _device_us(lambda: k2.line_search_merits(*a2t, knobs=kn),
+                             "K2"),
+            "K5": _device_us(lambda: k5.sqp_solve_mega_pcg(
+                *a5t, **k5_kw, knobs=kn), "K5"),
+            "K5_cg_iters": o5.pcg_iters.tolist()}
+    print(f"knobs: {card}: device us a call (K5 with its CG iterations): "
+          f"{json.dumps(knob_us)}")
+
+    # (c) one SQP iteration of K5, K9p, K9b and K10 (two arms, the second
+    # from seed 6, rhos 1e-3 and 0.1) under each combination at N = 64,
+    # cold duals, rho 1e-3, from the moved start of (a): the decisions and
+    # CG counts of the plain version, X, U and lam against the float64
+    # plain version (torch_systems.within_twice_plain at the solves'
+    # default rtol, atol).  K9b as its default check judges it, at rho
+    # 0.1: its duals by relative residual, within three times the float64
+    # plain solve's rounded to float32 (torch_systems.
+    # residual_near_float64), its X, U and merit at rtol 1e-3, atol 2e-4
+    # against the plain iteration given its own duals.  Its exact float32
+    # solve of these systems (condition ~1e7) parts from the plain one in
+    # the duals, and dz carries that through Q^-1: at rho 1e-3 (entries to
+    # 1e3) the iteration given its duals parts by up to 2.4 times that
+    # tolerance, and X parts from float64 by up to 6.7 times twice the
+    # plain version's distance at rho 0.1 (PERF.md §6)
+    knob_solve = {kid: {} for kid in ("K5", "K9p", "K9b", "K10")}
+    for combo in COMBOS:
+        kn = KC[combo]
+        kw = dict(k5_kw, knobs=kn)
+        Xk, Uk, gk, xsk = knob_start(combo)
+        m0 = merit_at(kn, Xk, Uk, gk, xsk)
+        lam0 = torch.zeros_like(Xk)
+        Xb = torch.stack([Xk, knob_start(combo, seed=6)[0]])
+        cases = (
+            ("K5", k5.sqp_solve_mega_pcg, k5.sqp_solve_mega_pcg_reference,
+             (Xk, Uk, gk, xsk, lam0, rho_lo, 1.0, m0, cap, tol, 1),
+             ("sqp_iters", "bailed", "accepted", "pcg_iters")),
+            ("K9p", k5.sqp_iter_mega_pcg, k5.sqp_iter_mega_pcg_reference,
+             (Xk, Uk, gk, xsk, lam0, rho_lo, one, m0, cap, tol),
+             ("accept", "bail", "pcg_iters")),
+            ("K9b", k5.sqp_iter_mega, k5.sqp_iter_mega_reference,
+             (Xk, Uk, gk, xsk, torch.tensor(0.1, device=dev), one, m0),
+             ("accept", "bail")),
+            ("K10", k5.sqp_solve_mega_pcg_packed,
+             k5.sqp_solve_mega_pcg_packed_reference,
+             (Xb, Uk.expand(2, n - 1, NU).contiguous(),
+              gk.expand((2,) + gk.shape), Xb[:, 0].contiguous(),
+              torch.zeros_like(Xb), torch.tensor([1e-3, 0.1], device=dev),
+              torch.ones(2, device=dev), cap, tol, 1),
+             ("sqp_iters", "bailed", "pcg_iters_total")))
+        for kid, run, plain, args, same in cases:
+            name = f"{kid} N = {n} under {combo}"
+            with _watchdog(FIRST_LAUNCH_DEADLINE):
+                got = run(model, *args, **kw)
+                sync()
+            want = plain(model, *args, **kw)
+            want64 = plain(model64, *systems.as_float64(args), **kw)
+            for f in same:
+                expect(torch.equal(getattr(got, f), getattr(want, f)),
+                       f"{name}: {f} differs from the plain version's")
+            row = {"max_abs_err": _max_err([(getattr(got, f), getattr(
+                       want, f)) for f in ("X", "U", "lam")]),
+                   **{f: getattr(got, f).tolist() for f in same}}
+            if kid != "K9b":
+                row["float64"] = held(name, systems.within_twice_plain, got,
+                                      want, want64, SOLVE_TOLS)
+            else:
+                given, ks = systems.bcr_iteration_given_lam(
+                    model, *args, got.lam, **kw)
+                row["residual"] = held(f"{name}: lam",
+                                       systems.residual_near_float64, ks,
+                                       got.lam, want.lam, want64.lam)
+                pairs = [(getattr(got, f), getattr(given, f))
+                         for f in ("X", "U", "merit")]
+                held(f"{name}, given its lam", _assert_close,
+                     f"{name}, given its lam", pairs, 1e-3, 2e-4)
+                row["given_max_abs_err"] = _max_err(pairs)
+            knob_solve[kid][combo] = row
+    print(f"knobs: one SQP iteration at N = {n}: {json.dumps(knob_solve)}")
+
+    # (d) the closed loops, cold duals, from the slice's start along the
+    # fixture (the state rows as the goals' trace under joint tracking);
+    # each fused loop against the plain loop of its linsys: sqp_iters and
+    # rho bails equal (the CG totals are printed, not compared: PERF.md);
+    # the CG routes' plant path within KNOB_PATH_TOL of the plain loop's;
+    # the exact BCR's (K9b's), whose float32 solves of the near-singular
+    # Gauss-Newton system part from the plain ones, held to the plain bcr
+    # loop run in float64: within_twice_plain on the path at X's rtol, atol
+    u8, s = NEW_UPDATES, SQP_ITERS
+    dq = torch.as_tensor(0.02 * np.random.default_rng(11).normal(
+        size=(ARMS, NX // 2)), dtype=torch.float32, device=dev)
+    Xs2, Us2, lams2 = arm_starts(X, U, torch.zeros_like(X), dq)
+    knob_loops, knob_counts = {}, {}
+    for combo in COMBOS:
+        kn = KC[combo]
+        base = dataclasses.replace(
+            cfg, integrator_type=kn.integrator_type, angle_wrap=kn.angle_wrap,
+            cost=dataclasses.replace(cc, tracking=kn.tracking,
+                                     hessian=kn.hessian, q_cost=kn.q_cost))
+        plain_k = dataclasses.replace(base, fused_stages=False)
+        trace = (xu_d[:, :NX].contiguous() if kn.tracking == "joint"
+                 else ee_d)
+
+        def go(run_cfg, linsys, timing=False, packed=False):
+            if packed:
+                return simulate_mpc_scan_packed(
+                    model, run_cfg, xu_d, trace, Xs2, Us2, lams2,
+                    cfg.rho_init, tol, u8, timing=timing)
+            return simulate_mpc_scan(model, run_cfg, xu_d, trace, X, U,
+                                     torch.zeros_like(X), rho, tol, u8,
+                                     linsys, timing=timing)
+
+        plain_out = {"pcg": go(plain_k, "pcg"), "bcr": go(plain_k, "bcr"),
+                     "packed": go(plain_k, "pcg", packed=True)}
+        bcr64 = simulate_mpc_scan(
+            model64, dataclasses.replace(plain_k, dtype="float64"),
+            xu_d.double(), trace.double(), X.double(), U.double(),
+            torch.zeros_like(X, dtype=torch.float64), rho.double(), tol, u8,
+            "bcr")
+        for label, run_cfg, linsys, want in (
+                ("whole solve", dataclasses.replace(
+                    base, megakernel=True, megakernel_solve=True), "pcg",
+                 {**none, "K1": u8, "K2": u8, "K5": u8}),
+                ("staged pcg", base, "pcg",
+                 {**none, "K1": u8, "K2": u8 + u8 * s, "K3": u8 * s,
+                  k4_kid: u8 * s}),
+                ("pcg per-iteration", dataclasses.replace(
+                    base, megakernel=True), "pcg",
+                 {**none, "K1": u8, "K2": u8, "K9p": u8 * s}),
+                ("bcr per-iteration", dataclasses.replace(
+                    base, megakernel=True), "bcr",
+                 {**none, "K1": u8, "K2": u8, "K9b": u8 * s}),
+                ("packed, 2 arms", base, "packed",
+                 {**none, "K1": u8, "K10": u8})):
+            is_packed = linsys == "packed"
+            with _watchdog(FIRST_LAUNCH_DEADLINE):
+                go(run_cfg, "pcg" if is_packed else linsys, packed=is_packed)
+                sync()
+            tag = f"{label} under {combo}"
+            out, counts = counted(tag, lambda: go(
+                run_cfg, "pcg" if is_packed else linsys, True, is_packed),
+                want)
+            ref = plain_out["packed" if is_packed else linsys]
+            expect(bool(torch.isfinite(out["tracking_errors"]).all()
+                        and torch.isfinite(out["final_xs"]).all()),
+                   f"{tag}: not finite")
+            summary = {
+                "sqp_iters": out["sqp_iters"].tolist(),
+                "rho_bailed": out["rho_bailed"].tolist(),
+                "pcg_iters_total": out["pcg_iters_total"].tolist(),
+                "plain_pcg_iters_total": ref["pcg_iters_total"].tolist(),
+                "path_vs_plain_max": _max_err([(out["tracking_path"],
+                                                ref["tracking_path"])]),
+                "mean_err_m": float(out["tracking_errors"].mean()),
+                "plain_mean_err_m": float(ref["tracking_errors"].mean()),
+                "update_ms_median": statistics.median(out["update_ms"])}
+            for key in ("sqp_iters", "rho_bailed"):
+                expect(torch.equal(out[key], ref[key]),
+                       f"{tag}: {key} differs from the plain loop's")
+            if linsys == "bcr":
+                summary["float64_sqp_iters"] = bcr64["sqp_iters"].tolist()
+                summary["float64_mean_err_m"] = float(
+                    bcr64["tracking_errors"].mean())
+                summary["path"] = held(
+                    f"{tag}: path", systems.within_twice_plain,
+                    *(types.SimpleNamespace(path=o["tracking_path"])
+                      for o in (out, ref, bcr64)),
+                    {"path": SOLVE_TOLS["X"]})
+            else:
+                expect(summary["path_vs_plain_max"] <= KNOB_PATH_TOL,
+                       f"{tag}: the path parts from the plain loop's by "
+                       f"{summary['path_vs_plain_max']}, more than "
+                       f"{KNOB_PATH_TOL}")
+            print(f"{tag}: {json.dumps(summary)}")
+            knob_loops[tag], knob_counts[f"{tag} loop"] = summary, counts
+
+    # (e) K5g and K9pg at N = 1024 under the first combination: one SQP
+    # iteration each from the repeated fixture's perturbed start (its
+    # joints where the fixture has them: the wrap's branch runs, and the
+    # step is accepted), against the plain version with the float64 plain
+    # version as the yardstick (torch_systems.within_twice_plain), the
+    # decisions and CG counts equal
+    n_g, combo = GRID_LOOP_KNOT, COMBOS[0]
+    kn = KC[combo]
+    Xg, Ug, gg, xsg = knob_start(combo, n_g, seed=0, move=False)
+    cg = slice_cfg(n_g)
+    kw_g = dict(dt=cg.timestep, qd_cost=cg.cost.qd_cost,
+                r_cost=cg.cost.r_cost, gravity=cg.gravity, mu=cg.merit_mu,
+                num_alphas=na, rho_factor=cg.rho_factor, rho_min=cg.rho_min,
+                rho_max=cg.rho_max, rho_reset=cg.rho_reset, knobs=kn)
+    m0g = merit_at(kn, Xg, Ug, gg, xsg, cg)
+    tol_g = default_pcg_exit_tols(n_g)[0]
+    grid_pairs = (
+        ("K5g", k5.sqp_solve_mega_pcg_grid, k5.sqp_solve_mega_pcg_reference,
+         (Xg, Ug, gg, xsg, torch.zeros_like(Xg), rho, 1.0, m0g,
+          cg.pcg.max_iter, tol_g, 1),
+         ("sqp_iters", "bailed", "accepted", "pcg_iters")),
+        ("K9pg", k5.sqp_iter_mega_pcg_grid, k5.sqp_iter_mega_pcg_reference,
+         (Xg, Ug, gg, xsg, torch.zeros_like(Xg), rho, one, m0g,
+          cg.pcg.max_iter, tol_g),
+         ("accept", "bail", "pcg_iters")))
+    knob_grid = {}
+    for kid, run, plain, a_g, same in grid_pairs:
+        name = f"{kid} N = {n_g} under {combo}"
+        with _watchdog(FIRST_LAUNCH_DEADLINE):
+            o_g = run(model, *a_g, **kw_g)
+            sync()
+        p_g = plain(model, *a_g, **kw_g)
+        p64 = plain(model64, *systems.as_float64(a_g), **kw_g)
+        for f in same:
+            expect(torch.equal(getattr(o_g, f), getattr(p_g, f)),
+                   f"{name}: {f} differs from the plain version's")
+        knob_grid[kid] = {
+            "max_abs_err": _max_err([(o_g.X, p_g.X), (o_g.U, p_g.U),
+                                     (o_g.lam, p_g.lam)]),
+            "float64": held(name, systems.within_twice_plain, o_g, p_g, p64,
+                            SOLVE_TOLS),
+            **{f: getattr(o_g, f).tolist() for f in same}}
+    print(f"knobs: K5g and K9pg at N = {n_g} under {combo}: "
+          f"{json.dumps(knob_grid)}")
+
+    # the kernels line: each knob-taking kernel's checks, its device us
+    # under each combination and its launches in this phase's loops
+    entries = {}
+    for kid in ("K1", "K2", "K3", k4_kid, "K5", "K9p", "K9b", "K10"):
+        entry = {"launches": {p: c[kid] for p, c in knob_counts.items()
+                              if c.get(kid)}}
+        expect(bool(entry["launches"]), f"{kid} was launched in no knob loop")
+        if kid in ("K2", "K3"):
+            entry["checks"] = {k: e[kid] for k, e in knob_err.items()}
+        if kid in knob_solve:
+            entry["checks"] = knob_solve[kid]
+        if kid in ("K2", "K3", "K5"):
+            entry["device_us"] = {k: u[kid] for k, u in knob_us.items()}
+        entries[kid] = entry
+    for kid, row in knob_grid.items():
+        entries[kid] = {"checks": {combo: row}}
+    print(f"phase 15 (solver knobs): {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise AssertionError(f"phase 15: {len(failed)} checks failed: "
+                             + "; ".join(failed))
+    return entries
+
+
+def slice_cfg(n: int, **kw):
+    """The slice's fused configuration at n knots: SQP_ITERS SQP
+    iterations, the PCG cap of the JAX package's sweeps."""
+    from mpcgpu_tpu_torch.config import PCGConfig, SolverConfig
+
+    return SolverConfig.for_knots(
+        n, sqp_max_iter=SQP_ITERS, fused_stages=True,
+        pcg=PCGConfig(max_iter=PCGConfig.tpu_tuned_max_iter(n)), **kw)
+
+
+def load_systems(repo: Path):
+    """tests/torch_systems.py, loaded by path: the machine may have
+    another package named "tests"."""
+    spec = importlib.util.spec_from_file_location(
+        "_torch_systems", repo / "tests" / "torch_systems.py")
+    systems = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(systems)
+    return systems
+
+
+def knob_phase_alone() -> int:
+    """`python3 chip_smoke.py --phase 15`: the IIWA library built, then
+    phase 15 alone, its kernels-line entries printed as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this run needs a CUDA card")
+    faulthandler.dump_traceback_later(max(1.0, _END - time.monotonic()),
+                                      exit=True)
+    repo = Path(__file__).resolve().parent
+    sys.path.insert(0, str(repo))
+    from mpcgpu_tpu_torch.models.robot import iiwa14
+    from mpcgpu_tpu_torch.ops.cuda import (_lib, launch_counts,
+                                           reset_launch_counts)
+    from mpcgpu_tpu_torch.utils.trajfiles import load_fixture_pair
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    t0 = time.perf_counter()
+    _lib.build_all(force=True, counts=(7,))
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+
+    def counted(label, run, want):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"{label}: launches {counts}")
+        if counts != want:
+            raise AssertionError(f"{label}: launch counts {counts}, expected "
+                                 f"{want}")
+        return out, counts
+
+    xu, ee = load_fixture_pair(repo / "tests" / "fixtures", 0, 0)
+    entries = knob_phase(iiwa14(device=torch.device("cuda", 0)), xu, ee,
+                         slice_cfg(N_KNOTS), counted, card,
+                         load_systems(repo))
+    faulthandler.cancel_dump_traceback_later()
+    print(json.dumps({"knobs": entries}))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -694,12 +1187,9 @@ def main() -> int:
     from mpcgpu_tpu_torch import sqp as sqp_module
     from mpcgpu_tpu_torch.sqp import get_linsys_backend, iterate, sqp_solve
     from mpcgpu_tpu_torch.utils.trajfiles import horizon_slices, load_fixture_pair
-    # the tests' seeded well-conditioned K6 system, loaded by path: the
-    # machine may have another package named "tests"
-    spec = importlib.util.spec_from_file_location(
-        "_torch_systems", repo / "tests" / "torch_systems.py")
-    systems = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(systems)
+    # the tests' seeded systems (the well-conditioned K6 system, the knob
+    # cases)
+    systems = load_systems(repo)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -756,9 +1246,7 @@ def main() -> int:
     n = N_KNOTS
     cap = PCGConfig.tpu_tuned_max_iter(N_KNOTS)
     tol = default_pcg_exit_tols(N_KNOTS)[0]
-    cfg = SolverConfig.for_knots(N_KNOTS, sqp_max_iter=SQP_ITERS,
-                                 pcg=PCGConfig(max_iter=cap),
-                                 fused_stages=True)
+    cfg = slice_cfg(N_KNOTS)
     cc = cfg.cost
     rho = torch.tensor(cfg.rho_init, device=dev)
     print(f"slice: N={N_KNOTS} sqp_max_iter={SQP_ITERS} pcg cap={cap} "
@@ -1817,11 +2305,7 @@ def main() -> int:
         return (on_card(Xl), on_card(xu[rows[:-1], NX:]), on_card(ee[rows]),
                 on_card(xu[0, :NX]))
 
-    def long_cfg(n_l, **kw):
-        """for_knots(n_l) with the PCG cap of the JAX package's sweeps."""
-        return SolverConfig.for_knots(
-            n_l, sqp_max_iter=SQP_ITERS, fused_stages=True,
-            pcg=PCGConfig(max_iter=PCGConfig.tpu_tuned_max_iter(n_l)), **kw)
+    long_cfg = slice_cfg
 
     def long_system(n_l):
         """(K3's plain system at the perturbed start, cap, exit tol) at
@@ -3925,6 +4409,12 @@ def main() -> int:
     print(f"phase 14 (second robot, nq = {NQ2}): "
           f"{time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 15. the solver knobs (knob_phase)
+    main_entry = {k["name"].split()[0]: k for k in kernels if "nq" not in k}
+    for kid, entry in knob_phase(model, xu, ee, cfg, counted, card,
+                                 systems).items():
+        main_entry[kid]["knobs"] = entry
+
     # each kernel's launches: the first run of this slice's paths that
     # launched it (the default auto loop, its failover branch, the staged
     # loop, the packed loop, then this file's phase 6 loops)
@@ -3968,4 +4458,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:] not in ([], ["--phase", "15"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--phase 15]")
+    sys.exit(knob_phase_alone() if sys.argv[1:] else main())

@@ -19,9 +19,9 @@ iteration, for "pcg_pallas" and "bcr_pcg" the staged kernels (K3 with K4
 or K6, then K2).  --no-precond turns the whole-solve kernel off, so the
 flag reaches K3's stair preconditioner through the staged route.
 "dense" and "qdldl" have no kernel and run the plain stages on the card
-(qdldl's LDL' on the host); the header names the route.  A configuration
-the kernels do not serve (--hessian gauss_newton) raises.  Without a
-card and without --cpu the driver raises.
+(qdldl's LDL' on the host); the header names the route.  --hessian
+gauss_newton reaches the kernels as a knob (K3's and K5's stage 1).
+Without a card and without --cpu the driver raises.
 
 Like the reference (which stops after the first combination,
 track_iiwa_pcg.cu:177), only (start=0, goal=0) runs by default;

@@ -80,8 +80,9 @@ class SolverConfig:
 
     # Run the SQP stages (K3 KKT+Schur; K4 PCG+dz, K6 BCR-PCG+dz or K7
     # refined BCR+dz; K2 merits) and the plant rollout (K1) through the
-    # CUDA kernels of ops/cuda.  The kernels serve the eepos tracking
-    # cost, the Euler integrator and the reference Hessian, float32.
+    # CUDA kernels of ops/cuda.  The stage kernels take the knobs above
+    # (tracking and q_cost, hessian, integrator_type, angle_wrap), in
+    # float32; K1, the plant, takes none (as the JAX package's).
     fused_stages: bool = False
     # With fused_stages and linsys "pcg" or "bcr": the SQP iteration as
     # one kernel (ops/cuda/sqp_megakernel.py).  For "pcg",

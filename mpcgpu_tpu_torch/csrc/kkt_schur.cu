@@ -15,11 +15,13 @@
 // boundaries that the cross-knot terms need (the stage bodies live in
 // kkt_schur.cuh, shared with K5):
 //   1. per knot: dynamics and their gradient (CRBA, Minv, RNEA bias, the
-//      hand-written RNEA tangents, dqdd = -Minv dtau), explicit-Euler A, B
-//      and the predicted state, the eepos cost gradient and rank-1
-//      Hessian, rho-regularized Q^-1 and R^-1, and the per-knot Schur
+//      hand-written RNEA tangents, dqdd = -Minv dtau), the integrator's
+//      A, B and the predicted state (explicit or semi-implicit Euler, the
+//      angle wrap on its positions), the cost gradient and Hessian (eepos
+//      with the rank-1 or Gauss-Newton position block, or joint
+//      tracking), rho-regularized Q^-1 and R^-1, and the per-knot Schur
 //      products A Q^-1, T = A Q^-1 A' + B R^-1 B', Q^-1 q and
-//      A Q^-1 q + B R^-1 r into scratch;
+//      A Q^-1 q + B R^-1 r into scratch (the knobs: kkt_schur.cuh);
 //   2. per knot with its left neighbour: theta, phi (SL), SU, gamma with
 //      the defect c_k = x_k - f(x_{k-1}, u_{k-1}) (c_0 left out, as in the
 //      reference), and PD = theta^-1;
@@ -49,15 +51,16 @@ constexpr int THREADS = 128;
 LD_GLOBAL void k3_perknot(const float* tab_g, int N, const float* X,
                           const float* U, const float* goals, int gstride,
                           const float* rho_p, float dt, float qd_cost,
-                          float r_cost, float grav, float* A_o, float* B_o,
+                          float r_cost, float grav, ld::Knobs kn,
+                          float* A_o, float* B_o,
                           float* Qinv_o, float* Rinv_o, float* q_o,
                           float* r_o, float* AQi_s, float* T_s,
                           float* tvec_s, float* Qiq_s, float* fpred_s) {
   LD_SHARED float tab[ld::TAB_SIZE];
   ld::load_tables(tab, tab_g);
   k3::perknot(tab, LD_BID, N, X, U, goals, gstride, rho_p, dt, qd_cost,
-              r_cost, grav, A_o, B_o, Qinv_o, Rinv_o, q_o, r_o, AQi_s, T_s,
-              tvec_s, Qiq_s, fpred_s);
+              r_cost, grav, kn, A_o, B_o, Qinv_o, Rinv_o, q_o, r_o, AQi_s,
+              T_s, tvec_s, Qiq_s, fpred_s);
 }
 
 LD_GLOBAL void k3_theta(int N, const float* X, const float* Qinv,
@@ -76,6 +79,9 @@ LD_GLOBAL void k3_stair(int N, const float* SL, const float* SU,
 
 }  // namespace
 
+// tracking, hessian, integrator, wrap, q_cost: the knobs (ld::Knobs; 0 the
+// defaults: eepos, the reference Hessian, explicit Euler, no wrap); goals'
+// rows are gstride floats apart, nx of them under joint tracking.
 extern "C" int mpc_kkt_schur(const float* tab, int N, const float* X,
                              const float* U, const float* goals, int gstride,
                              const float* rho, float dt, float qd_cost,
@@ -85,9 +91,13 @@ extern "C" int mpc_kkt_schur(const float* tab, int N, const float* X,
                              float* Rinv, float* A, float* B, float* q,
                              float* r, float* AQi_s, float* T_s,
                              float* tvec_s, float* Qiq_s, float* fpred_s,
-                             void* stream) {
+                             int tracking, int hessian, int integrator,
+                             int wrap, float q_cost, void* stream) {
+  ld::Knobs kn;
+  if (!ld::make_knobs(tracking, hessian, integrator, wrap, q_cost, &kn))
+    return 1;  // cudaErrorInvalidValue
   LD_LAUNCH(k3_perknot, N, THREADS, 0, stream, tab, N, X, U, goals, gstride,
-            rho, dt, qd_cost, r_cost, grav, A, B, Qinv, Rinv, q, r, AQi_s,
+            rho, dt, qd_cost, r_cost, grav, kn, A, B, Qinv, Rinv, q, r, AQi_s,
             T_s, tvec_s, Qiq_s, fpred_s);
   int err = LD_LAST_ERROR();
   if (err) return err;

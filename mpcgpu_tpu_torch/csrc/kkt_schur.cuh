@@ -19,14 +19,24 @@ namespace k3 {
 constexpr int NX = ld::NX, NU = ld::NU, NQ = ld::NQ;
 
 // Stage 1, per knot: dynamics and their gradient (CRBA, Minv, RNEA bias,
-// the hand-written RNEA tangents, dqdd = -Minv dtau), explicit-Euler A, B
-// and the predicted state, the eepos cost gradient and rank-1 Hessian,
+// the hand-written RNEA tangents, dqdd = -Minv dtau), the integrator's A, B
+// and the predicted state, the cost gradient and Hessian,
 // rho-regularized Q^-1 and R^-1, and the per-knot Schur products
 // A Q^-1, T = A Q^-1 A' + B R^-1 B', Q^-1 q and A Q^-1 q + B R^-1 r into
-// scratch.  tab: the model tables in shared memory.
+// scratch.  tab: the model tables in shared memory.  The knobs
+// (kkt_schur_kernel.py:146-190 of the JAX package, ops/kkt.py here):
+//   * tracking: eepos, q = [J'(ee - g), qd_cost qd] with the position block
+//     g_q g_q' (hessian 0) or J'J (hessian 1); joint,
+//     q = [q_cost (q - g_q), qd_cost (qd - g_qd)] with q_cost I, and no FK;
+//   * integrator: explicit Euler, A = [[I, dt I], [dt dqdd/dq, I + dt
+//     dqdd/dqd]], B = [[0], [dt Minv]]; semi-implicit, A's top rows
+//     [I + dt^2 dqdd/dq, dt I + dt^2 dqdd/dqd], B's dt^2 Minv, and the
+//     position predicted from the new velocity;
+//   * wrap: the predicted positions wrapped (ld::angle_wrap), never A.
 //
-// The block's warps: the three recursions (CRBA, RNEA bias, FK + Jacobian)
-// at once, one warp each, lane-parallel inside each joint (lanedyn.cuh);
+// The block's warps: the three recursions (CRBA, RNEA bias, FK + Jacobian;
+// no FK under joint tracking) at once, one warp each, lane-parallel inside
+// each joint (lanedyn.cuh);
 // then warp 0 inverts M in registers, forms qdd and runs the primal RNEA
 // chain while warp 1 forms the cost gradient, Q and its register inverse;
 // then the NX = 2 NJ tangent directions on 8 lanes each; then the
@@ -47,9 +57,10 @@ static_assert(4 * NX * NX + 2 * NX * NU <= WORK_FLOATS, "A, AQi, B, BRi");
 LD_NOINLINE void perknot(const float* tab, int k, int N, const float* X,
                          const float* U, const float* goals, int gstride,
                          const float* rho_p, float dt, float qd_cost, float r_cost,
-                         float grav, float* A_o, float* B_o, float* Qinv_o,
-                         float* Rinv_o, float* q_o, float* r_o, float* AQi_s,
-                         float* T_s, float* tvec_s, float* Qiq_s, float* fpred_s) {
+                         float grav, ld::Knobs kn, float* A_o, float* B_o,
+                         float* Qinv_o, float* Rinv_o, float* q_o, float* r_o,
+                         float* AQi_s, float* T_s, float* tvec_s,
+                         float* Qiq_s, float* fpred_s) {
   LD_SHARED float x[NX], u[NU], s[NQ], c[NQ], bias[NQ], qdd[NQ];
   LD_SHARED float M[NQ * NQ], ee[3], J[3 * NQ], qg[NX], rg[NU];
   LD_SHARED float dtau[NQ * NX], Q[NX * NX], Xj[ld::NJ * 36];
@@ -81,13 +92,14 @@ LD_NOINLINE void perknot(const float* tab, int k, int N, const float* X,
     ld::rnea<32>(w, tab, Xj, x + NQ, nullptr, grav,
                  *reinterpret_cast<ld::RneaPrimal*>(work + W_PRIM), bias,
                  work + W_RNEA);
-  if (ld::in_warp(2)) ld::fk_ee_jac<32>(w, tab, s, c, ee, J, work + W_FK);
+  if (ld::in_warp(2) && !kn.tracking)
+    ld::fk_ee_jac<32>(w, tab, s, c, ee, J, work + W_FK);
   LD_SYNC();
   LD_STAMP(1);
 
   // ---- warp 0: Minv (in place), qdd = Minv (u - bias), the primal RNEA
   // chain for the tangents; warp 1: the cost gradient (plant :297-378),
-  // Qr = [[gq gq', 0], [0, qd_cost I]] + rho I and Qinv (in place)
+  // Qr = [[Q_pos, 0], [0, qd_cost I]] + rho I and Qinv (in place)
   if (ld::in_warp(0)) {
     ld::reg_spd_inverse<NQ>(M, work + W_INV0);
     for (int i = w.l; i < NQ; i += w.n) {
@@ -99,16 +111,32 @@ LD_NOINLINE void perknot(const float* tab, int k, int N, const float* X,
     ld::rnea<32>(w, tab, Xj, x + NQ, qdd, grav, prim, nullptr, work);
   }
   if (ld::in_warp(1)) {
-    const float e3[3] = {ee[0] - g[0], ee[1] - g[1], ee[2] - g[2]};
-    for (int j = w.l; j < NX; j += w.n)
-      qg[j] = j < NQ ? J[j] * e3[0] + J[NQ + j] * e3[1] + J[2 * NQ + j] * e3[2]
-                     : qd_cost * x[j];
+    if (kn.tracking) {
+      for (int j = w.l; j < NX; j += w.n)
+        qg[j] = (j < NQ ? kn.q_cost : qd_cost) * (x[j] - g[j]);
+    } else {
+      const float e3[3] = {ee[0] - g[0], ee[1] - g[1], ee[2] - g[2]};
+      for (int j = w.l; j < NX; j += w.n)
+        qg[j] = j < NQ
+                    ? J[j] * e3[0] + J[NQ + j] * e3[1] + J[2 * NQ + j] * e3[2]
+                    : qd_cost * x[j];
+    }
     for (int j = w.l; j < NU; j += w.n) rg[j] = r_cost * u[j];
     w.sync();
     for (int e = w.l; e < NX * NX; e += w.n) {
       const int i = e / NX, j = e % NX;
-      const float h =
-          (i < NQ && j < NQ) ? qg[i] * qg[j] : (i == j ? qd_cost : 0.0f);
+      float h;
+      if (i < NQ && j < NQ) {
+        if (kn.tracking)
+          h = i == j ? kn.q_cost : 0.0f;
+        else if (kn.hessian)  // J'J
+          h = J[i] * J[j] + J[NQ + i] * J[NQ + j] +
+              J[2 * NQ + i] * J[2 * NQ + j];
+        else
+          h = qg[i] * qg[j];
+      } else {
+        h = i == j ? qd_cost : 0.0f;
+      }
       Q[e] = h + (i == j ? rho : 0.0f);
     }
     w.sync();
@@ -133,28 +161,40 @@ LD_NOINLINE void perknot(const float* tab, int k, int N, const float* X,
 
   float *A = work, *AQi = work + NX * NX, *B = work + 2 * NX * NX,
         *BRi = work + 2 * NX * NX + NX * NU;
-  // ---- explicit-Euler integrator gradient (integrator.cuh:61-100):
-  // A = [[I, dt I], [dt dqdd/dq, I + dt dqdd/dqd]], B = [[0], [dt Minv]],
-  // dqdd = -Minv dtau
+  // ---- the integrator's gradient (integrator.cuh:61-100), dqdd =
+  // -Minv dtau: explicit Euler, A = [[I, dt I], [dt dqdd/dq, I + dt
+  // dqdd/dqd]], B = [[0], [dt Minv]]; semi-implicit Euler, the top rows
+  // [I + dt^2 dqdd/dq, dt I + dt^2 dqdd/dqd] and dt^2 Minv
+  const bool semi = kn.integrator != 0;
   for (int e = t; e < NX * NX; e += nt) {
     const int i = e / NX, j = e % NX;
     float a;
-    if (i < NQ) {
+    if (i < NQ && !semi) {
       a = (j == i ? 1.0f : 0.0f) + (j == NQ + i ? dt : 0.0f);
     } else {
+      const int r = i < NQ ? i : i - NQ;
       float acc = 0.0f;
-      for (int m = 0; m < NQ; ++m) acc += M[NQ * (i - NQ) + m] * dtau[NX * m + j];
-      a = (j == i ? 1.0f : 0.0f) + dt * -acc;
+      for (int m = 0; m < NQ; ++m) acc += M[NQ * r + m] * dtau[NX * m + j];
+      if (i < NQ)
+        a = (j == i ? 1.0f : 0.0f) + (j == NQ + i ? dt : 0.0f) +
+            dt * dt * -acc;
+      else
+        a = (j == i ? 1.0f : 0.0f) + dt * -acc;
     }
     A[e] = a;
   }
   for (int e = t; e < NX * NU; e += nt) {
     const int i = e / NU, j = e % NU;
-    B[e] = i < NQ ? 0.0f : dt * M[NQ * (i - NQ) + j];
+    B[e] = i < NQ ? (semi ? dt * dt * M[NQ * i + j] : 0.0f)
+                  : dt * M[NQ * (i - NQ) + j];
   }
+  // the predicted state, its positions wrapped under kn.wrap
   for (int i = t; i < NQ; i += nt) {
-    fpred_s[NX * k + i] = x[i] + dt * x[NQ + i];
-    fpred_s[NX * k + NQ + i] = x[NQ + i] + dt * qdd[i];
+    const float qdn = x[NQ + i] + dt * qdd[i];
+    float qn = x[i] + dt * (semi ? qdn : x[NQ + i]);
+    if (kn.wrap) qn = ld::angle_wrap(qn);
+    fpred_s[NX * k + i] = qn;
+    fpred_s[NX * k + NQ + i] = qdn;
   }
   LD_SYNC();
   LD_STAMP(4);

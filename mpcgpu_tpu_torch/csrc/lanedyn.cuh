@@ -539,6 +539,37 @@ constexpr int TAB_DHK = TAB_DHS + NJ * 16;
 constexpr int TAB_SIZE = TAB_DHK + NJ * 16;   // 240 NJ
 static_assert(NJ != 7 || TAB_SIZE == 1680, "the IIWA's tables");
 
+// The solver's knobs (config.py: cost.tracking, cost.hessian,
+// integrator_type, angle_wrap, cost.q_cost), passed by value in each
+// kernel's parameters.  A launch has one set, so every branch on them is
+// uniform across its blocks and lanes.  Zero is the default of each.
+struct Knobs {
+  int tracking;    // 0 the end-effector position (goals' first 3 columns),
+                   // 1 the joint states (goals nx wide)
+  int hessian;     // eepos: 0 the reference's g_q g_q', 1 Gauss-Newton J'J
+  int integrator;  // 0 explicit Euler, 1 semi-implicit Euler
+  int wrap;        // 1: the angle wrap on the integrated positions
+  float q_cost;    // joint tracking's position weight
+};
+
+// The C entries' knob arguments as a Knobs; false unless each is one the
+// kernels serve.
+LD_HD bool make_knobs(int tracking, int hessian, int integrator, int wrap,
+                      float q_cost, Knobs* kn) {
+  *kn = Knobs{tracking, hessian, integrator, wrap, q_cost};
+  return (tracking | hessian | integrator | wrap) >= 0 && tracking <= 1 &&
+         hessian <= 1 && integrator <= 1 && wrap <= 1;
+}
+
+// The reference's angle wrap (integrator.cuh:13-19; ops/integrator.py
+// angle_wrap): a position past +-3.14159 reflected back into range.  It
+// applies to the integrated positions alone, never to the gradient.
+LD_HD float angle_wrap(float q) {
+  const float pi = 3.14159f;
+  q = q > pi ? -(q - pi) : q;
+  return q < -pi ? -(q + pi) : q;
+}
+
 // Block-cooperative copy of the model tables into shared memory.
 LD_DEV void load_tables(float* dst, const float* __restrict__ src) {
   for (int e = LD_TID; e < TAB_SIZE; e += LD_NTID) dst[e] = src[e];

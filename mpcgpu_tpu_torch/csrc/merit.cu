@@ -8,7 +8,8 @@
 //   merit = sum_k J_k + mu * (sum_{k<N-1} ||x_{k+1} - f(x_k, u_k)||_1
 //                              + ||x_0 - xs||_1)
 //
-// with the eepos tracking cost J_k and explicit-Euler ABA dynamics f.
+// with the tracking cost J_k and ABA dynamics f under the knobs (merit.cuh:
+// eepos or joint tracking, explicit or semi-implicit Euler, the angle wrap).
 //
 // Bound on the H100: the latency of one knot's FK + ABA chain.  Each
 // (candidate, knot) pair is one group of G lanes (merit.cuh's
@@ -44,13 +45,15 @@ LD_GLOBAL void LD_LAUNCH_BOUNDS(K2_THREADS) merit_kernel(
     const float* __restrict__ tab_g, const float* X, const float* U,
     const float* dX, const float* dU, const float* goals, int gstride,
     const float* xs, int N, int num_alphas, float dt, float mu, float qd_cost,
-    float r_cost, float grav, float* contrib, unsigned* done, float* out) {
+    float r_cost, float grav, ld::Knobs kn, float* contrib, unsigned* done,
+    float* out) {
   LD_SHARED float tab[ld::TAB_SIZE];
   LD_SHARED int last;
   LD_DYN_SMEM(smem);
   ld::load_tables(tab, tab_g);
   const k2::Job job{X, dX, U, dU, goals, xs, contrib, N, 1, num_alphas + 1,
-                    num_alphas, gstride, 0, 0, dt, mu, qd_cost, r_cost, grav};
+                    num_alphas, gstride, 0, 0, dt, mu, qd_cost, r_cost, grav,
+                    kn};
   k2::contribs<G>(tab, smem, job);
   // the last block to finish sums the contributions
   K2_FENCE();
@@ -74,8 +77,8 @@ template <int G>
 int launch(const float* tab, const float* X, const float* U, const float* dX,
            const float* dU, const float* goals, int gstride, const float* xs,
            int N, int num_alphas, float dt, float mu, float qd_cost,
-           float r_cost, float grav, float* contrib, unsigned* done,
-           float* out, void* stream) {
+           float r_cost, float grav, ld::Knobs kn, float* contrib,
+           unsigned* done, float* out, void* stream) {
   const int pairs = (num_alphas + 1) * N, per_block = K2_THREADS / G;
   const int blocks = (pairs + per_block - 1) / per_block;
   const size_t smem = sizeof(float) * k2::areas_floats(K2_THREADS, G);
@@ -87,7 +90,7 @@ int launch(const float* tab, const float* X, const float* U, const float* dX,
 #endif
   LD_LAUNCH(merit_kernel<G>, blocks, K2_THREADS, smem, stream, tab, X, U, dX,
             dU, goals, gstride, xs, N, num_alphas, dt, mu, qd_cost, r_cost,
-            grav, contrib, done, out);
+            grav, kn, contrib, done, out);
   return LD_LAST_ERROR();
 }
 
@@ -95,19 +98,27 @@ int launch(const float* tab, const float* X, const float* U, const float* dX,
 
 // contrib: (num_alphas + 1) N floats of scratch; done: one unsigned count,
 // zero before the first launch (each launch leaves it zero).  group: the
-// lanes of a pair's group (8, 16 or 32), 0 for K2's own choice.
+// lanes of a pair's group (8, 16 or 32), 0 for K2's own choice.  tracking,
+// hessian, integrator, wrap, q_cost: the knobs (ld::Knobs; the Hessian is
+// not read here); goals' rows gstride floats apart, nx of them under joint
+// tracking.
 extern "C" int mpc_merits(const float* tab, const float* X, const float* U,
                           const float* dX, const float* dU,
                           const float* goals, int gstride, const float* xs,
                           int N, int num_alphas, float dt, float mu,
                           float qd_cost, float r_cost, float grav,
                           float* contrib, unsigned* done, int group,
-                          float* out, void* stream) {
-  if (N < 2 || num_alphas < 0) return 1;  // cudaErrorInvalidValue
+                          float* out, int tracking, int hessian,
+                          int integrator, int wrap, float q_cost,
+                          void* stream) {
+  ld::Knobs kn;
+  if (N < 2 || num_alphas < 0 ||
+      !ld::make_knobs(tracking, hessian, integrator, wrap, q_cost, &kn))
+    return 1;  // cudaErrorInvalidValue
   const int G = group ? group : k2_group((num_alphas + 1) * N);
   auto go = [&](auto launcher) {
     return launcher(tab, X, U, dX, dU, goals, gstride, xs, N, num_alphas, dt,
-                    mu, qd_cost, r_cost, grav, contrib, done, out, stream);
+                    mu, qd_cost, r_cost, grav, kn, contrib, done, out, stream);
   };
   if (G == 32) return go(launch<32>);
   if (G == 16) return go(launch<16>);
@@ -129,13 +140,13 @@ LD_GLOBAL void k2_pair_kernel(const float* tab_g, const float* X,
                               const float* dU, const float* goals, int gstride,
                               const float* xs, int N, int k, float alpha,
                               float dt, float mu, float qd_cost, float r_cost,
-                              float grav, float* out) {
+                              float grav, ld::Knobs kn, float* out) {
   LD_SHARED float tab[ld::TAB_SIZE], areas[32 / G * k2::AREA_FLOATS];
   ld::load_tables(tab, tab_g);
   const int l = LD_NTID >= G ? LD_TID / G : 0;
   const float v = k2::merit_contrib<G>(
       ld::group(G, true), tab, areas + k2::AREA_FLOATS * l, X, dX, U, dU, k,
-      N, alpha, goals + gstride * k, xs, dt, mu, qd_cost, r_cost, grav);
+      N, alpha, goals + gstride * k, xs, dt, mu, qd_cost, r_cost, grav, kn);
   if (LD_TID % G == 0) out[l] = v;
 }
 
@@ -147,16 +158,24 @@ extern "C" int mpc_k2_contrib_host(const float* tab, const float* X,
                                    int gstride, const float* xs, int N, int k,
                                    float alpha, float dt, float mu,
                                    float qd_cost, float r_cost, float grav,
-                                   int group, float* out) {
+                                   int group, float* out, int tracking,
+                                   int hessian, int integrator, int wrap,
+                                   float q_cost) {
+  ld::Knobs kn;
+  if (!ld::make_knobs(tracking, hessian, integrator, wrap, q_cost, &kn))
+    return 1;
   if (group == 32)
     LD_LAUNCH(k2_pair_kernel<32>, 1, 32, 0, nullptr, tab, X, U, dX, dU, goals,
-              gstride, xs, N, k, alpha, dt, mu, qd_cost, r_cost, grav, out);
+              gstride, xs, N, k, alpha, dt, mu, qd_cost, r_cost, grav, kn,
+              out);
   else if (group == 16)
     LD_LAUNCH(k2_pair_kernel<16>, 1, 32, 0, nullptr, tab, X, U, dX, dU, goals,
-              gstride, xs, N, k, alpha, dt, mu, qd_cost, r_cost, grav, out);
+              gstride, xs, N, k, alpha, dt, mu, qd_cost, r_cost, grav, kn,
+              out);
   else if (group == 8)
     LD_LAUNCH(k2_pair_kernel<8>, 1, 32, 0, nullptr, tab, X, U, dX, dU, goals,
-              gstride, xs, N, k, alpha, dt, mu, qd_cost, r_cost, grav, out);
+              gstride, xs, N, k, alpha, dt, mu, qd_cost, r_cost, grav, kn,
+              out);
   else
     return 1;
   return 0;

@@ -4,8 +4,13 @@
 //
 //   J_k + mu * (||x_{k+1} - f(x_k, u_k)||_1 [k < N-1] + ||x_0 - xs||_1 [k = 0])
 //
-// with the eepos tracking cost J_k and explicit-Euler ABA dynamics f, at the
-// candidate (X, U) + alpha (dX, dU).  The group (ld::Lanes, G lanes of one
+// with the tracking cost J_k and ABA dynamics f at the candidate
+// (X, U) + alpha (dX, dU).  The knobs (ld::Knobs; merit_kernel.py:46-68 of
+// the JAX package, ops/merit.py here): J_k tracks the end-effector position
+// (0.5 ||ee - g||^2 + 0.5 qd_cost ||qd||^2) or the joint states
+// (0.5 q_cost ||q - g_q||^2 + 0.5 qd_cost ||qd - g_qd||^2, no FK), plus
+// 0.5 r_cost ||u||^2 where k < N-1; f is explicit or semi-implicit Euler,
+// its positions wrapped under kn.wrap.  The group (ld::Lanes, G lanes of one
 // warp, its warp's groups in lockstep) stages the candidate's rows with sin
 // and cos of q in its shared area, forms the joint transforms beside
 // fk_ee_jac's end-effector position, runs ld::aba for qdd, and then every
@@ -53,7 +58,7 @@ LD_FORCE float merit_contrib(const ld::Lanes& grp, const float* tab,
                              const float* U, const float* dU, int k, int N,
                              float alpha, const float* g, const float* xs,
                              float dt, float mu, float qd_cost, float r_cost,
-                             float grav) {
+                             float grav, const ld::Knobs& kn) {
   const bool has_u = k < N - 1, first = k == 0;
   float *x = area + A_X, *xn = area + A_XN, *u = area + A_U, *s = area + A_S,
         *c = area + A_C, *ee = area + A_EE, *qdd = area + A_QDD,
@@ -86,22 +91,31 @@ LD_FORCE float merit_contrib(const ld::Lanes& grp, const float* tab,
                c[j] * tab[ld::TAB_XK + e];
       },
       [&](int e, float v) { Xj[e] = v; });
-  ld::fk_ee_jac<G>(grp, tab, s, c, ee, nullptr, w);
+  if (!kn.tracking) ld::fk_ee_jac<G>(grp, tab, s, c, ee, nullptr, w);
   LD_STAMP(32);
   ld::aba<G>(grp, tab, Xj, x + NQ, u, grav, qdd, w);
   LD_STAMP(33);
 
-  float e2 = 0.0f, qd2 = 0.0f, u2 = 0.0f;
-  for (int i = 0; i < 3; ++i) e2 += (ee[i] - g[i]) * (ee[i] - g[i]);
-  for (int i = 0; i < NQ; ++i) qd2 += x[NQ + i] * x[NQ + i];
+  float e2 = 0.0f, qd2 = 0.0f, u2 = 0.0f, cost;
+  if (kn.tracking) {
+    for (int i = 0; i < NQ; ++i) e2 += (x[i] - g[i]) * (x[i] - g[i]);
+    for (int i = NQ; i < NX; ++i) qd2 += (x[i] - g[i]) * (x[i] - g[i]);
+    cost = 0.5f * kn.q_cost * e2 + 0.5f * qd_cost * qd2;
+  } else {
+    for (int i = 0; i < 3; ++i) e2 += (ee[i] - g[i]) * (ee[i] - g[i]);
+    for (int i = 0; i < NQ; ++i) qd2 += x[NQ + i] * x[NQ + i];
+    cost = 0.5f * e2 + 0.5f * qd_cost * qd2;
+  }
   for (int i = 0; i < NU; ++i) u2 += u[i] * u[i];
-  float cost = 0.5f * e2 + 0.5f * qd_cost * qd2;
   if (has_u) cost += 0.5f * r_cost * u2;
   float defect = 0.0f;
   if (has_u)
     for (int j = 0; j < NQ; ++j) {
-      defect += fabsf(xn[j] - (x[j] + dt * x[NQ + j]));
-      defect += fabsf(xn[NQ + j] - (x[NQ + j] + dt * qdd[j]));
+      const float qdn = x[NQ + j] + dt * qdd[j];
+      float qn = x[j] + dt * (kn.integrator ? qdn : x[NQ + j]);
+      if (kn.wrap) qn = ld::angle_wrap(qn);
+      defect += fabsf(xn[j] - qn);
+      defect += fabsf(xn[NQ + j] - qdn);
     }
   float c0 = 0.0f;
   if (first)
@@ -122,6 +136,7 @@ struct Job {
   float* contrib;
   int N, B, NC, stepped, gstride, garm, cstride;
   float dt, mu, qd_cost, r_cost, grav;
+  ld::Knobs kn;
 };
 
 // Every triple of job j, spread over the groups of G lanes of the grid's
@@ -150,7 +165,7 @@ LD_NOINLINE void contribs(const float* tab, float* areas, Job j) {
         grp, tab, area, j.X + xa, j.dX ? j.dX + xa : nullptr,
         j.U + ua * (j.N - 1), j.dU ? j.dU + ua * j.N : nullptr, k, j.N, alpha,
         j.goals + (size_t)j.garm * a + j.gstride * k, j.xs + NX * a, j.dt,
-        j.mu, j.qd_cost, j.r_cost, j.grav);
+        j.mu, j.qd_cost, j.r_cost, j.grav, j.kn);
     if (live && grp.l == 0) j.contrib[(size_t)j.cstride * a + j.N * c + k] = v;
   }
 }

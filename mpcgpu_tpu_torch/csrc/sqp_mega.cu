@@ -104,6 +104,7 @@ struct MegaParams {
   const float* drho0_p;  // K9p, K9b: drho in device memory (else drho0)
   float drho0, tol, dt, qd_cost, r_cost, grav, mu;
   float rho_factor, rho_min, rho_max, rho_reset;
+  ld::Knobs kn;  // tracking, Hessian, integrator, wrap (kkt_schur.cuh)
   // outputs
   float *X, *U, *lam, *scal;  // scal: rho, drho, merit
   int *ints, *st_iters, *st_hit, *st_acc;  // ints: sqp_iters, bailed
@@ -268,7 +269,7 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
       if (step != 0.0f) apply_step(p, k, step);
       LD_SYNC();
       k3::perknot(tab, k, N, p.X, p.U, p.goals, p.gstride, &st[RHO], p.dt,
-                  p.qd_cost, p.r_cost, p.grav, p.A, p.B, p.Qinv, p.Rinv,
+                  p.qd_cost, p.r_cost, p.grav, p.kn, p.A, p.B, p.Qinv, p.Rinv,
                   p.q, p.r, p.AQi, p.T, p.tvec, p.Qiq, p.fpred);
     }
     LD_GRID_SYNC();
@@ -332,7 +333,7 @@ MEGA_INLINE void mega_body(const MegaParams& p) {
     k2::contribs_at(k2::group_for(p.num_alphas * N, nb, nt), tab, dyn,
                     k2::Job{p.X, p.dX, p.U, p.dU, p.goals, p.xs, p.contrib, N,
                             1, p.num_alphas, p.num_alphas, p.gstride, 0, 0,
-                            p.dt, p.mu, p.qd_cost, p.r_cost, p.grav});
+                            p.dt, p.mu, p.qd_cost, p.r_cost, p.grav, p.kn});
     LD_GRID_SYNC();
     LD_STAMP(41 + 3 * it);
     // 6. the decision, the same in every block
@@ -582,7 +583,7 @@ int check_kind(int kind) { return kind >= SOLVE_PCG && kind <= ITER_PCG_GRID; }
 
 // The parameters of one launch.  drho0_p (device memory) overrides drho0
 // when it is not null; lam0 is not read by K9b.
-MegaParams make_params(
+MegaParams make_params(const ld::Knobs& kn,
     const float* tab, int N, const float* X0, const float* U0,
     const float* goals, int gstride, const float* xs, const float* lam0,
     const float* rho0, const float* merit0, const float* drho0_p,
@@ -592,6 +593,7 @@ MegaParams make_params(
     float* lam, float* scal, int* ints, int* stats, float* scratch,
     int* iscratch, int kind) {
   MegaParams p;
+  p.kn = kn;
   p.tab = tab; p.N = N; p.gstride = gstride; p.max_iter = max_iter;
   p.n_sqp = n_sqp; p.num_alphas = num_alphas;
   p.X0 = X0; p.U0 = U0; p.goals = goals; p.xs = xs; p.lam0 = lam0;
@@ -777,7 +779,9 @@ int launch(const MegaParams& p, int kind, int grid, int cluster, int stair,
 
 // K5 (kind 0) or K5g (kind 3): n_sqp iterations from drho0 = drho0 (a host
 // number).  iscratch holds 3 ints (K5 and K5g leave the cluster size they
-// read in the third); cluster and stair as launch's.
+// read in the third); cluster and stair as launch's.  In each entry below,
+// tracking, hessian, integrator, wrap and q_cost are the knobs, as
+// mpc_kkt_schur's (goals nx wide under joint tracking).
 extern "C" int mpc_sqp_mega(
     const float* tab, int N, const float* X0, const float* U0,
     const float* goals, int gstride, const float* xs, const float* lam0,
@@ -786,11 +790,15 @@ extern "C" int mpc_sqp_mega(
     float mu, int num_alphas, float rho_factor, float rho_min, float rho_max,
     float rho_reset, float* X, float* U, float* lam, float* scal, int* ints,
     int* stats, float* scratch, int* iscratch, int kind, int grid,
-    int cluster, int stair, void* stream) {
-  if (kind != SOLVE_PCG && kind != SOLVE_PCG_GRID) return 1;
+    int cluster, int stair, int tracking, int hessian, int integrator,
+    int wrap, float q_cost, void* stream) {
+  ld::Knobs kn;
+  if ((kind != SOLVE_PCG && kind != SOLVE_PCG_GRID) ||
+      !ld::make_knobs(tracking, hessian, integrator, wrap, q_cost, &kn))
+    return 1;
   const MegaParams p = make_params(
-      tab, N, X0, U0, goals, gstride, xs, lam0, rho0, merit0, nullptr, drho0,
-      max_iter, tol, n_sqp, dt, qd_cost, r_cost, grav, mu, num_alphas,
+      kn, tab, N, X0, U0, goals, gstride, xs, lam0, rho0, merit0, nullptr,
+      drho0, max_iter, tol, n_sqp, dt, qd_cost, r_cost, grav, mu, num_alphas,
       rho_factor, rho_min, rho_max, rho_reset, X, U, lam, scal, ints, stats,
       scratch, iscratch, kind);
   return launch(p, kind, grid, cluster, stair, stream);
@@ -808,11 +816,15 @@ extern "C" int mpc_sqp_iter_mega_pcg(
     int num_alphas, float rho_factor, float rho_min, float rho_max,
     float rho_reset, float* X, float* U, float* lam, float* scal, int* ints,
     int* stats, float* scratch, int* iscratch, int kind, int grid,
-    int cluster, int stair, void* stream) {
-  if (kind != ITER_PCG && kind != ITER_PCG_GRID) return 1;
+    int cluster, int stair, int tracking, int hessian, int integrator,
+    int wrap, float q_cost, void* stream) {
+  ld::Knobs kn;
+  if ((kind != ITER_PCG && kind != ITER_PCG_GRID) ||
+      !ld::make_knobs(tracking, hessian, integrator, wrap, q_cost, &kn))
+    return 1;
   const MegaParams p = make_params(
-      tab, N, X0, U0, goals, gstride, xs, lam0, rho0, merit0, drho0, 1.0f,
-      max_iter, tol, 1, dt, qd_cost, r_cost, grav, mu, num_alphas,
+      kn, tab, N, X0, U0, goals, gstride, xs, lam0, rho0, merit0, drho0,
+      1.0f, max_iter, tol, 1, dt, qd_cost, r_cost, grav, mu, num_alphas,
       rho_factor, rho_min, rho_max, rho_reset, X, U, lam, scal, ints, stats,
       scratch, iscratch, kind);
   return launch(p, kind, grid, cluster, stair, stream);
@@ -828,11 +840,15 @@ extern "C" int mpc_sqp_iter_mega(
     float r_cost, float grav, float mu, int num_alphas, float rho_factor,
     float rho_min, float rho_max, float rho_reset, float* X, float* U,
     float* lam, float* scal, int* ints, int* stats, float* scratch,
-    int* iscratch, int grid, int cluster, void* stream) {
-  if (N & (N - 1)) return 1;  // cudaErrorInvalidValue
+    int* iscratch, int grid, int cluster, int tracking, int hessian,
+    int integrator, int wrap, float q_cost, void* stream) {
+  ld::Knobs kn;
+  if ((N & (N - 1)) ||
+      !ld::make_knobs(tracking, hessian, integrator, wrap, q_cost, &kn))
+    return 1;  // cudaErrorInvalidValue
   const MegaParams p = make_params(
-      tab, N, X0, U0, goals, gstride, xs, nullptr, rho0, merit0, drho0, 1.0f,
-      0, 0.0f, 1, dt, qd_cost, r_cost, grav, mu, num_alphas, rho_factor,
+      kn, tab, N, X0, U0, goals, gstride, xs, nullptr, rho0, merit0, drho0,
+      1.0f, 0, 0.0f, 1, dt, qd_cost, r_cost, grav, mu, num_alphas, rho_factor,
       rho_min, rho_max, rho_reset, X, U, lam, scal, ints, stats, scratch,
       iscratch, ITER_BCR);
   return launch(p, ITER_BCR, grid, cluster, -1, stream);

@@ -94,6 +94,7 @@ struct PackedParams {
   const float *X0, *U0, *goals, *xs, *lam0, *rho0, *drho0;
   float tol, dt, qd_cost, r_cost, grav, mu;
   float rho_factor, rho_min, rho_max, rho_reset;
+  ld::Knobs kn;  // tracking, Hessian, integrator, wrap (kkt_schur.cuh)
   int stair_on_chip;  // the cluster form: the stair bands in shared memory
   // outputs
   float *X, *U, *lam, *rho, *merit;
@@ -219,7 +220,7 @@ PACKED_INLINE void packed_body(const PackedParams& p) {
   k2::contribs_at(k2::group_for(B * N, nb, nt), tab, cg_mem,
                   k2::Job{p.X, nullptr, p.U, nullptr, p.goals, p.xs,
                           p.contrib, N, B, 1, 0, p.gstride, p.garm, NA * N,
-                          p.dt, p.mu, p.qd_cost, p.r_cost, p.grav});
+                          p.dt, p.mu, p.qd_cost, p.r_cost, p.grav, p.kn});
   LD_GRID_SYNC();
   for (int a = t; a < B; a += nt) {
     float m = 0.0f;
@@ -236,7 +237,7 @@ PACKED_INLINE void packed_body(const PackedParams& p) {
       LD_SYNC();
       k3::perknot(tab, k, N, p.X + nvec * a, p.U + (size_t)NU * (N - 1) * a,
                   p.goals + (size_t)p.garm * a, p.gstride, &rho[a], p.dt,
-                  p.qd_cost, p.r_cost, p.grav, p.A + nbnd * a,
+                  p.qd_cost, p.r_cost, p.grav, p.kn, p.A + nbnd * a,
                   p.Bm + (size_t)N * S * NU * a,
                   p.Qinv + nbnd * a, p.Rinv + (size_t)N * NU * NU * a,
                   p.q + nvec * a, p.r + nctl * a, p.AQi + nbnd * a,
@@ -338,7 +339,7 @@ PACKED_INLINE void packed_body(const PackedParams& p) {
     k2::contribs_at(k2::group_for(B * NA * N, nb, nt), tab, cg_mem,
                     k2::Job{p.X, p.dX, p.U, p.dU, p.goals, p.xs, p.contrib,
                             N, B, NA, NA, p.gstride, p.garm, NA * N, p.dt,
-                            p.mu, p.qd_cost, p.r_cost, p.grav});
+                            p.mu, p.qd_cost, p.r_cost, p.grav, p.kn});
     LD_GRID_SYNC();
     // 6. per arm, the decision, the same in every block
     for (int e = t; e < B * NA; e += nt) {
@@ -550,6 +551,8 @@ extern "C" long long mpc_sqp_mega_packed_scratch_floats(int N, int B,
 // cluster form at that size, with the stair bands as `stair` asks (as
 // mpc_mega_packed_plan's).  A grid past the plan's, a form past its fit or
 // a launch the runtime refuses is never made: its error is returned.
+// tracking, hessian, integrator, wrap, q_cost: the knobs, one set for every
+// arm (as mpc_kkt_schur's; goals nx wide under joint tracking).
 extern "C" int mpc_sqp_mega_packed(
     const float* tab, int B, int N, const float* X0, const float* U0,
     const float* goals, int gstride, int garm, const float* xs,
@@ -558,14 +561,19 @@ extern "C" int mpc_sqp_mega_packed(
     float mu, int num_alphas, float rho_factor, float rho_min, float rho_max,
     float rho_reset, float* X, float* U, float* lam, float* rho, float* merit,
     int* ints, float* scratch, int grid, int cluster, int stair,
+    int tracking, int hessian, int integrator, int wrap, float q_cost,
     void* stream) {
-  if (num_alphas < 1 || num_alphas > MAX_ALPHAS || N < 2 || B < 1 || grid < 1)
+  ld::Knobs kn;
+  if (num_alphas < 1 || num_alphas > MAX_ALPHAS || N < 2 || B < 1 ||
+      grid < 1 ||
+      !ld::make_knobs(tracking, hessian, integrator, wrap, q_cost, &kn))
     return 1;  // cudaErrorInvalidValue
   const PackedPlan pl =
       packed_plan(N, B, num_alphas, cluster > 0 ? cluster : -1, stair);
   if (pl.grid < 1) return 1;  // past the form's fit
   const int C = pl.C;
   PackedParams p;
+  p.kn = kn;
   p.tab = tab; p.B = B; p.N = N; p.gstride = gstride; p.garm = garm;
   p.max_iter = max_iter; p.n_sqp = n_sqp; p.num_alphas = num_alphas;
 #ifndef __CUDACC__

@@ -31,6 +31,7 @@ import shutil
 import subprocess
 import weakref
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -52,14 +53,15 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_KNOBS = [_I, _I, _I, _I, _F]  # knob_args
 _SIGNATURES = {
     "mpc_rollout": [_P, _P, _P, _I, _P, _F, _F, _F, _F, _I, _F, _P, _P, _P],
     "mpc_rollout_arms": [_P, _I, _P, _P, _I, _P, _F, _F, _F, _F, _I, _F, _P,
                          _P, _P],
     "mpc_merits": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F,
-                   _F, _P, _P, _I, _P, _P],
+                   _F, _P, _P, _I, _P] + _KNOBS + [_P],
     "mpc_kkt_schur": [_P, _I, _P, _P, _P, _I, _P, _F, _F, _F, _F, _I]
-                     + [_P] * 19,
+                     + [_P] * 18 + _KNOBS + [_P],
     "mpc_pcg_plan": [_I] * 5 + [_P],
     "mpc_pcg_scratch_floats": [_I] * 5,
     "mpc_pcg": [_I, _I] + [_P] * 14 + [_I, _F] + [_P] * 6 + [_I] * 4
@@ -82,12 +84,13 @@ _SIGNATURES = {
     "mpc_bcr_cluster_dz_host": [_I, _I] + [_P] * 14,
     "mpc_sqp_mega": [_P, _I, _P, _P, _P, _I] + [_P] * 4
                     + [_F, _I, _F, _I] + [_F] * 5 + [_I] + [_F] * 4
-                    + [_P] * 8 + [_I] * 4 + [_P],
+                    + [_P] * 8 + [_I] * 4 + _KNOBS + [_P],
     "mpc_sqp_iter_mega_pcg": [_P, _I, _P, _P, _P, _I] + [_P] * 5
                              + [_I] + [_F] * 6 + [_I] + [_F] * 4
-                             + [_P] * 8 + [_I] * 4 + [_P],
+                             + [_P] * 8 + [_I] * 4 + _KNOBS + [_P],
     "mpc_sqp_iter_mega": [_P, _I, _P, _P, _P, _I] + [_P] * 4 + [_F] * 5
-                         + [_I] + [_F] * 4 + [_P] * 8 + [_I, _I, _P],
+                         + [_I] + [_F] * 4 + [_P] * 8 + [_I, _I] + _KNOBS
+                         + [_P],
     "mpc_mega_max_knots": [_I],
     "mpc_mega_grid": [_I, _I],
     "mpc_mega_cluster_plan": [_I] * 4 + [_P],
@@ -95,7 +98,7 @@ _SIGNATURES = {
     "mpc_sqp_mega_scratch_floats": [_I, _I, _I],
     "mpc_sqp_mega_packed": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                             _I, _F, _I] + [_F] * 5 + [_I] + [_F] * 4
-                           + [_P] * 7 + [_I, _I, _I, _P],
+                           + [_P] * 7 + [_I, _I, _I] + _KNOBS + [_P],
     "mpc_mega_packed_plan": [_I] * 5 + [_P],
     "mpc_mega_packed_max_knots": [_I, _I],
     "mpc_sqp_mega_packed_scratch_floats": [_I, _I, _I],
@@ -111,7 +114,7 @@ _SIGNATURES = {
     "mpc_ld_dtau_host": [_P, _P, _P, _P, _F, _P],
     "mpc_ld_spd_inverse_host": [_I, _I, _P],
     "mpc_k2_contrib_host": [_P] * 6 + [_I, _P, _I, _I] + [_F] * 6
-                           + [_I, _P],
+                           + [_I, _P] + _KNOBS,
 }
 _RESTYPES = {"mpc_bcr_scratch_floats": ctypes.c_longlong,
              "mpc_pcg_scratch_floats": ctypes.c_longlong,
@@ -298,6 +301,78 @@ def host_library(nj: int = IIWA_NJ) -> ctypes.CDLL:
                       f"-DMPC_NJ={nj}", *_sources(nj)], out)
         _libs["host", nj] = _bind(out, nj)
     return _libs["host", nj]
+
+
+class Knobs(NamedTuple):
+    """The solver's knobs that the stage kernels (K2, K3, K5, K5g, K9p,
+    K9pg, K9b, K10) take, under SolverConfig's names: the tracking cost
+    ("eepos" or "joint", with the position weight q_cost), the eepos
+    Hessian ("reference" or "gauss_newton"), the integrator (0 explicit, 1
+    semi-implicit Euler) and the angle wrap.  The defaults are the
+    configuration's."""
+
+    tracking: str = "eepos"
+    hessian: str = "reference"
+    integrator_type: int = 0
+    angle_wrap: bool = False
+    q_cost: float = 1.0
+
+    def kkt_kw(self) -> dict:
+        """The keywords of the plain ops.kkt.form_kkt."""
+        return dict(integrator_type=self.integrator_type,
+                    hessian=self.hessian, angle_wrap=self.angle_wrap,
+                    tracking=self.tracking, q_cost=self.q_cost)
+
+    def merit_kw(self) -> dict:
+        """The keywords of the plain ops.merit functions (no Hessian)."""
+        kw = self.kkt_kw()
+        del kw["hessian"]
+        return kw
+
+
+DEFAULT_KNOBS = Knobs()
+
+
+def knobs_of(cfg) -> Knobs:
+    """A SolverConfig's knobs."""
+    cc = cfg.cost
+    return Knobs(cc.tracking, cc.hessian, cfg.integrator_type,
+                 bool(cfg.angle_wrap), cc.q_cost)
+
+
+def knob_args(knobs: Knobs) -> tuple:
+    """The knobs as the C entries take them (ld::Knobs, lanedyn.cuh):
+    tracking, hessian, integrator, wrap, q_cost; raise on a value the
+    kernels do not serve."""
+    codes = dict(tracking={"eepos": 0, "joint": 1},
+                 hessian={"reference": 0, "gauss_newton": 1},
+                 integrator_type={0: 0, 1: 1})
+    out = []
+    for name, table in codes.items():
+        v = getattr(knobs, name)
+        if v not in table:
+            raise ValueError(f"{name}={v!r} (the kernels serve "
+                             f"{list(table)})")
+        out.append(table[v])
+    return (*out, int(bool(knobs.angle_wrap)), float(knobs.q_cost))
+
+
+def expect_goals(goals: torch.Tensor, n: int, nx: int, knobs: Knobs,
+                 lead: tuple = ()) -> None:
+    """Raise unless goals are lead + (n, width) rows of the width the
+    tracking cost reads: at least 3 (the end-effector position first) for
+    "eepos", nx (the joint states) for "joint"."""
+    shape = tuple(goals.shape)
+    k = len(lead)
+    ok = goals.dim() == k + 2 and shape[:k + 1] == (*lead, n)
+    if knobs.tracking == "joint":
+        ok, want = ok and shape[-1] == nx, f"{nx}"
+    else:
+        ok, want = ok and shape[-1] >= 3, ">=3"
+    if not ok:
+        dims = ", ".join(map(str, (*lead, n, want)))
+        raise ValueError(f"goals must be ({dims}) under tracking="
+                         f"{knobs.tracking!r}, got {shape}")
 
 
 def check(rc: int, name: str) -> None:

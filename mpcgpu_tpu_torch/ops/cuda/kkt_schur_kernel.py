@@ -5,8 +5,9 @@ Counterpart of mpcgpu_tpu/ops/pallas/kkt_schur_kernel.py, in the
 knot-major layout: bands (N, nx, nx) as in ops/btridiag.BlockTri.  A CPU
 tensor runs the plain version (``ops.kkt.form_kkt`` +
 ``ops.schur.form_schur``); a CUDA tensor launches the kernel or raises.
-The kernel serves the eepos tracking cost with the reference Hessian,
-explicit Euler and no angle wrap.
+Both take the solver's knobs (``_lib.Knobs``: eepos or joint tracking,
+the reference or Gauss-Newton Hessian, explicit or semi-implicit Euler,
+the angle wrap), as the TPU kernel does.
 
 It replaces both TPU forms of that module: ``form_kkt_schur_pallas``
 (N <= 128) and ``form_kkt_schur_tiled`` (K8: the same ``LaneSchur`` over
@@ -84,9 +85,11 @@ def _pad_last(t: torch.Tensor) -> torch.Tensor:
 
 
 def form_kkt_schur_reference(model, X, U, goals, xs, rho, dt, qd_cost, r_cost,
-                             gravity: float = 0.0,
-                             precond: bool = True) -> KnotSchur:
-    kkt = form_kkt(model, X, U, goals, xs, dt, qd_cost, r_cost, 0, gravity)
+                             gravity: float = 0.0, precond: bool = True,
+                             knobs: _lib.Knobs = _lib.DEFAULT_KNOBS
+                             ) -> KnotSchur:
+    kkt = form_kkt(model, X, U, goals, xs, dt, qd_cost, r_cost,
+                   gravity=gravity, **knobs.kkt_kw())
     sd = form_schur(kkt, rho, preconditioned=precond)
     return KnotSchur(
         SL=sd.S.lower, SD=sd.S.diag, SU=sd.S.upper,
@@ -96,7 +99,8 @@ def form_kkt_schur_reference(model, X, U, goals, xs, rho, dt, qd_cost, r_cost,
 
 
 def _launch(lib, tab, X, U, goals, rho, dt, qd_cost, r_cost, gravity,
-            precond: bool, stream) -> KnotSchur:
+            precond: bool, stream,
+            knobs: _lib.Knobs = _lib.DEFAULT_KNOBS) -> KnotSchur:
     dev = X.device
     _, nx, nu = _lib.sizes(tab, lib)
     if X.dim() != 2 or X.shape[1] != nx or X.shape[0] < 2:
@@ -104,8 +108,7 @@ def _launch(lib, tab, X, U, goals, rho, dt, qd_cost, r_cost, gravity,
     n = X.shape[0]
     _lib.expect(X, "X", (n, nx), dev)
     _lib.expect(U, "U", (n - 1, nu), dev)
-    if goals.dim() != 2 or goals.shape[0] != n or goals.shape[1] < 3:
-        raise ValueError(f"goals must be ({n}, >=3), got {tuple(goals.shape)}")
+    _lib.expect_goals(goals, n, nx, knobs)
     _lib.expect(goals, "goals", tuple(goals.shape), dev)
     _lib.expect(rho, "rho", (), dev)
     _lib.expect(tab, "tables", (tab.numel(),), dev)
@@ -123,25 +126,31 @@ def _launch(lib, tab, X, U, goals, rho, dt, qd_cost, r_cost, gravity,
         tab.data_ptr(), n, X.data_ptr(), U.data_ptr(), goals.data_ptr(),
         goals.shape[1], rho.data_ptr(), float(dt), float(qd_cost),
         float(r_cost), float(gravity), int(bool(precond)),
-        *(t.data_ptr() for t in out), *(t.data_ptr() for t in scratch), stream)
+        *(t.data_ptr() for t in out), *(t.data_ptr() for t in scratch),
+        *_lib.knob_args(knobs), stream)
     _lib.check(rc, "mpc_kkt_schur")
     return out
 
 
 def form_kkt_schur(model, X, U, goals, xs, rho, dt, qd_cost, r_cost,
-                   gravity: float = 0.0, precond: bool = True) -> KnotSchur:
-    """Linearize at (X (N, nx), U (N-1, nu)) and condense.  rho is a
-    0-d tensor on X's device (or a number); xs is unused by the kernel,
-    since c_0 is left out of gamma as in the reference."""
+                   gravity: float = 0.0, precond: bool = True,
+                   knobs: _lib.Knobs = _lib.DEFAULT_KNOBS) -> KnotSchur:
+    """Linearize at (X (N, nx), U (N-1, nu)) and condense under the
+    knobs; goals (N, >=3) for eepos tracking, (N, nx) joint states for
+    joint tracking.  rho is a 0-d tensor on X's device (or a number); xs
+    is unused by the kernel, since c_0 is left out of gamma as in the
+    reference."""
     if X.device.type == "cpu":
         return form_kkt_schur_reference(model, X, U, goals, xs, rho, dt,
-                                        qd_cost, r_cost, gravity, precond)
+                                        qd_cost, r_cost, gravity, precond,
+                                        knobs)
     if X.device.type != "cuda":
         raise ValueError(f"unsupported device {X.device}")
     rho = torch.as_tensor(rho, dtype=torch.float32, device=X.device)
     out = _launch(_lib.library(model.num_joints), _lib.model_tables(model),
                   X, U, goals, rho,
-                  dt, qd_cost, r_cost, gravity, precond, _lib.stream_of(X))
+                  dt, qd_cost, r_cost, gravity, precond, _lib.stream_of(X),
+                  knobs)
     form_kkt_schur.launches += 1
     return out
 

@@ -2,8 +2,9 @@
 
 Counterpart of mpcgpu_tpu/ops/pallas/merit_kernel.py.  A CPU tensor runs
 the plain version (``ops.merit.line_search_merits`` + ``ops.merit.merit``);
-a CUDA tensor launches the kernel or raises.  The kernel serves the eepos
-tracking cost with explicit Euler and no angle wrap.
+a CUDA tensor launches the kernel or raises.  Both take the solver's
+knobs (``_lib.Knobs``: eepos or joint tracking, explicit or semi-implicit
+Euler, the angle wrap; the Hessian plays no part in a merit).
 """
 from __future__ import annotations
 
@@ -20,12 +21,14 @@ def alphas_for(num_alphas: int, like: torch.Tensor) -> torch.Tensor:
 
 def line_search_merits_reference(model, X, U, dX, dU, num_alphas: int, goals,
                                  xs, dt, mu, qd_cost, r_cost,
-                                 gravity: float = 0.0):
+                                 gravity: float = 0.0,
+                                 knobs: _lib.Knobs = _lib.DEFAULT_KNOBS):
+    kw = dict(gravity=gravity, **knobs.merit_kw())
     cand = merit_ops.line_search_merits(
         model, X, U, dX, dU, alphas_for(num_alphas, X), goals, xs, dt, mu,
-        qd_cost, r_cost, 0, gravity)
+        qd_cost, r_cost, **kw)
     base = merit_ops.merit(model, X, U, goals, xs, dt, mu, qd_cost, r_cost,
-                           0, gravity)
+                           **kw)
     return torch.cat([cand, base[None]])
 
 
@@ -43,7 +46,8 @@ def _done_count(dev, stream) -> torch.Tensor:
 
 
 def _launch(lib, tab, X, U, dX, dU, num_alphas: int, goals, xs, dt, mu,
-            qd_cost, r_cost, gravity, stream, group: int = 0):
+            qd_cost, r_cost, gravity, stream, group: int = 0,
+            knobs: _lib.Knobs = _lib.DEFAULT_KNOBS):
     """One launch; group: the lanes of a pair's group (8, 16, 32; 0 the
     kernel's choice)."""
     dev = X.device
@@ -57,8 +61,7 @@ def _launch(lib, tab, X, U, dX, dU, num_alphas: int, goals, xs, dt, mu,
     _lib.expect(dX, "dX", (n, nx), dev)
     _lib.expect(U, "U", (n - 1, nu), dev)
     _lib.expect(dU, "dU", (n - 1, nu), dev)
-    if goals.dim() != 2 or goals.shape[0] != n or goals.shape[1] < 3:
-        raise ValueError(f"goals must be ({n}, >=3), got {tuple(goals.shape)}")
+    _lib.expect_goals(goals, n, nx, knobs)
     _lib.expect(goals, "goals", tuple(goals.shape), dev)
     _lib.expect(xs, "xs", (nx,), dev)
     _lib.expect(tab, "tables", (tab.numel(),), dev)
@@ -72,25 +75,26 @@ def _launch(lib, tab, X, U, dX, dU, num_alphas: int, goals, xs, dt, mu,
         goals.data_ptr(), goals.shape[1], xs.data_ptr(), n, int(num_alphas),
         float(dt), float(mu), float(qd_cost), float(r_cost), float(gravity),
         contrib.data_ptr(), _done_count(dev, stream).data_ptr(), int(group),
-        out.data_ptr(), stream)
+        out.data_ptr(), *_lib.knob_args(knobs), stream)
     _lib.check(rc, "mpc_merits")
     return out
 
 
 def line_search_merits(model, X, U, dX, dU, num_alphas: int, goals, xs, dt,
-                       mu, qd_cost, r_cost, gravity: float = 0.0):
+                       mu, qd_cost, r_cost, gravity: float = 0.0,
+                       knobs: _lib.Knobs = _lib.DEFAULT_KNOBS):
     """(num_alphas + 1,): merits of (X + a dX, U + a dU) for a = 1/2^i,
-    then the merit of (X, U)."""
+    then the merit of (X, U), under the knobs (goals as form_kkt_schur's)."""
     if X.device.type == "cpu":
         return line_search_merits_reference(model, X, U, dX, dU, num_alphas,
                                             goals, xs, dt, mu, qd_cost,
-                                            r_cost, gravity)
+                                            r_cost, gravity, knobs)
     if X.device.type != "cuda":
         raise ValueError(f"unsupported device {X.device}")
     out = _launch(_lib.library(model.num_joints), _lib.model_tables(model),
                   X, U, dX, dU,
                   num_alphas, goals, xs, dt, mu, qd_cost, r_cost, gravity,
-                  _lib.stream_of(X))
+                  _lib.stream_of(X), knobs=knobs)
     line_search_merits.launches += 1
     return out
 

@@ -54,6 +54,13 @@ size the kernel read (a device int32), and after each K10 launch
 K10's public layout is knot-major with a leading arm axis: X (B, N, nx),
 U (B, N-1, nu), lam0 (B, N, nx), goals (B, N, >=3) (or one (N, >=3)
 expanded over the arms), xs (B, nx), rho and drho (B,).
+
+Every wrapper and plain version takes the solver's knobs as ``knobs``
+(``_lib.Knobs``: eepos or joint tracking, the reference or Gauss-Newton
+Hessian, explicit or semi-implicit Euler, the angle wrap; one set for
+every arm of K10), the kernels' stages K3's and K2's bodies under them;
+under joint tracking goals are the (N, nx) joint states ((B, N, nx) for
+K10).
 """
 from __future__ import annotations
 
@@ -109,21 +116,22 @@ class IterResult(NamedTuple):
 
 def _plain_step(model, goals, xs, solve, precond: bool, dt, qd_cost, r_cost,
                 gravity, mu, num_alphas: int, rho_factor, rho_min, rho_max,
-                rho_reset):
-    """sqp.sqp_step over the plain K3 and K2 versions, with
-    solve(ks, lam) -> (lam', dX, dU, iters, hit) as the dual solve."""
+                rho_reset, knobs: _lib.Knobs = _lib.DEFAULT_KNOBS):
+    """sqp.sqp_step over the plain K3 and K2 versions under the knobs,
+    with solve(ks, lam) -> (lam', dX, dU, iters, hit) as the dual solve."""
     from mpcgpu_tpu_torch.sqp import staged_step
 
     def linearize_and_solve(Xc, Uc, lamc, rhoc):
         ks = form_kkt_schur_reference(model, Xc, Uc, goals, xs, rhoc, dt,
-                                      qd_cost, r_cost, gravity, precond)
+                                      qd_cost, r_cost, gravity, precond,
+                                      knobs)
         lam_new, dX, dU, it, hit = solve(ks, lamc)
         return lam_new, it, hit, dX, dU
 
     def eval_merits(Xc, Uc, dX, dU):
         return line_search_merits_reference(
             model, Xc, Uc, dX, dU, num_alphas, goals, xs, dt, mu, qd_cost,
-            r_cost, gravity)[:num_alphas]
+            r_cost, gravity, knobs)[:num_alphas]
 
     return staged_step(linearize_and_solve, eval_merits,
                        alphas_for(num_alphas, goals), rho_factor, rho_min,
@@ -144,12 +152,14 @@ def sqp_solve_mega_pcg_reference(model, X, U, goals, xs, lam0, rho, drho,
                                  merit0, max_iter: int, exit_tol,
                                  n_sqp_iter: int, dt, qd_cost, r_cost,
                                  gravity, mu, num_alphas: int, rho_factor,
-                                 rho_min, rho_max, rho_reset) -> MegaResult:
+                                 rho_min, rho_max, rho_reset,
+                                 knobs: _lib.Knobs = _lib.DEFAULT_KNOBS
+                                 ) -> MegaResult:
     from mpcgpu_tpu_torch.sqp import iterate
 
     step = _plain_step(model, goals, xs, _pcg_solve(max_iter, exit_tol), True,
                        dt, qd_cost, r_cost, gravity, mu, num_alphas,
-                       rho_factor, rho_min, rho_max, rho_reset)
+                       rho_factor, rho_min, rho_max, rho_reset, knobs)
     st = iterate(X, U, lam0, *_scalars(X, rho, drho, merit0), n_sqp_iter,
                  step)
     return MegaResult(*st)
@@ -243,9 +253,9 @@ def grid_plan(knot_points: int, lib=None, cluster: int = 0,
 
 
 def _expect_iterate(lib, tab, X, U, goals, xs, rho, merit,
-                    num_alphas: int):
+                    num_alphas: int, knobs: _lib.Knobs = _lib.DEFAULT_KNOBS):
     """Raise unless the single-arm inputs are what the kernels of lib
-    take; return (N, nx, nu)."""
+    take under the knobs; return (N, nx, nu)."""
     dev = X.device
     _, nx, nu = _lib.sizes(tab, lib)
     if X.dim() != 2 or X.shape[1] != nx or X.shape[0] < 2:
@@ -253,8 +263,7 @@ def _expect_iterate(lib, tab, X, U, goals, xs, rho, merit,
     n = X.shape[0]
     _lib.expect(X, "X", (n, nx), dev)
     _lib.expect(U, "U", (n - 1, nu), dev)
-    if goals.dim() != 2 or goals.shape[0] != n or goals.shape[1] < 3:
-        raise ValueError(f"goals must be ({n}, >=3), got {tuple(goals.shape)}")
+    _lib.expect_goals(goals, n, nx, knobs)
     _lib.expect(goals, "goals", tuple(goals.shape), dev)
     _lib.expect(xs, "xs", (nx,), dev)
     _lib.expect(rho, "rho", (), dev)
@@ -271,13 +280,14 @@ def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
             gravity, mu, num_alphas: int, rho_factor, rho_min, rho_max,
             rho_reset, grid: int, stream,
             kind: int = SOLVE_PCG, stair: int = -1,
-            cluster: int = 0) -> MegaResult:
+            cluster: int = 0,
+            knobs: _lib.Knobs = _lib.DEFAULT_KNOBS) -> MegaResult:
     """One K5 (kind SOLVE_PCG) or K5g (SOLVE_PCG_GRID) launch; stair and
     cluster as check_mega_fit's (K5), as grid_plan's place and cluster
     (K5g, on grid / C clusters)."""
     dev = X.device
     n, nx, nu = _expect_iterate(lib, tab, X, U, goals, xs, rho, merit0,
-                                num_alphas)
+                                num_alphas, knobs)
     _lib.expect(lam0, "lam0", (n, nx), dev)
     f32 = dict(dtype=torch.float32, device=dev)
     Xo = torch.empty((n, nx), **f32)
@@ -298,7 +308,7 @@ def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
         float(rho_min), float(rho_max), float(rho_reset), Xo.data_ptr(),
         Uo.data_ptr(), lam.data_ptr(), scal.data_ptr(), ints.data_ptr(),
         stats.data_ptr(), scratch.data_ptr(), iscratch.data_ptr(), int(kind),
-        int(grid), int(cluster), int(stair), stream)
+        int(grid), int(cluster), int(stair), *_lib.knob_args(knobs), stream)
     _lib.check(rc, "mpc_sqp_mega")
     (sqp_solve_mega_pcg if kind == SOLVE_PCG
      else sqp_solve_mega_pcg_grid).cluster_size = iscratch[2]
@@ -309,12 +319,13 @@ def _launch(lib, tab, X, U, goals, xs, lam0, rho, drho, merit0,
 
 
 def _solve_on(lib, kind: int, model, X, U, goals, xs, lam0, rho, drho,
-              merit0, *rest):
+              merit0, *rest, knobs: _lib.Knobs = _lib.DEFAULT_KNOBS):
     """One K5 or K5g launch (kind) through library lib; counts it."""
     grid = check_mega_fit(X.shape[0], lib, kind)
     rho = torch.as_tensor(rho, dtype=torch.float32, device=X.device)
     out = _launch(lib, _lib.model_tables(model), X, U, goals, xs, lam0, rho,
-                  drho, merit0, *rest, grid, _lib.stream_of(X), kind)
+                  drho, merit0, *rest, grid, _lib.stream_of(X), kind,
+                  knobs=knobs)
     wrapper = (sqp_solve_mega_pcg if kind == SOLVE_PCG
                else sqp_solve_mega_pcg_grid)
     wrapper.launches += 1
@@ -335,25 +346,27 @@ def _card_library(X, model, iiwa_only: str = ""):
 def sqp_solve_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit0,
                        max_iter: int, exit_tol, n_sqp_iter: int, dt,
                        qd_cost, r_cost, gravity, mu, num_alphas: int,
-                       rho_factor, rho_min, rho_max,
-                       rho_reset) -> MegaResult:
+                       rho_factor, rho_min, rho_max, rho_reset,
+                       knobs: _lib.Knobs = _lib.DEFAULT_KNOBS) -> MegaResult:
     """Run n_sqp_iter SQP iterations (stair-PCG dual solve, 8-alpha line
     search, rho schedule, bail freeze) from X (N, nx), U (N-1, nu), warm
-    duals lam0 (N, nx), goals (N, >=3), xs (nx,); rho and merit0 are 0-d
-    tensors (merit0 the merit of (X, U), from K2), drho, max_iter and
-    exit_tol host numbers.  K5 where its cluster CG fits, else K5g."""
+    duals lam0 (N, nx), goals (N, >=3; (N, nx) under joint tracking), xs
+    (nx,); rho and merit0 are 0-d tensors (merit0 the merit of (X, U),
+    from K2), drho, max_iter and exit_tol host numbers.  K5 where its
+    cluster CG fits, else K5g."""
     args = (model, X, U, goals, xs, lam0, rho, drho, merit0, max_iter,
             exit_tol, n_sqp_iter, dt, qd_cost, r_cost, gravity, mu,
             num_alphas, rho_factor, rho_min, rho_max, rho_reset)
     if X.device.type == "cpu":
-        return sqp_solve_mega_pcg_reference(*args)
-    return _solve_pcg_on(_card_library(X, model), *args)
+        return sqp_solve_mega_pcg_reference(*args, knobs=knobs)
+    return _solve_pcg_on(_card_library(X, model), *args, knobs=knobs)
 
 
-def _solve_pcg_on(lib, model, X, *rest):
+def _solve_pcg_on(lib, model, X, *rest,
+                  knobs: _lib.Knobs = _lib.DEFAULT_KNOBS):
     """K5 where its cluster CG fits, else K5g, through library lib."""
     return _solve_on(lib, pcg_kind(X.shape[0], lib, SOLVE_PCG), model, X,
-                     *rest)
+                     *rest, knobs=knobs)
 
 
 sqp_solve_mega_pcg.launches = 0
@@ -363,16 +376,18 @@ sqp_solve_mega_pcg.cluster_size = None
 def sqp_solve_mega_pcg_grid(model, X, U, goals, xs, lam0, rho, drho, merit0,
                             max_iter: int, exit_tol, n_sqp_iter: int, dt,
                             qd_cost, r_cost, gravity, mu, num_alphas: int,
-                            rho_factor, rho_min, rho_max,
-                            rho_reset) -> MegaResult:
+                            rho_factor, rho_min, rho_max, rho_reset,
+                            knobs: _lib.Knobs = _lib.DEFAULT_KNOBS
+                            ) -> MegaResult:
     """K5g: sqp_solve_mega_pcg's solve with its CG joined across the
     launch's clusters (grid_plan), at any N."""
     args = (model, X, U, goals, xs, lam0, rho, drho, merit0, max_iter,
             exit_tol, n_sqp_iter, dt, qd_cost, r_cost, gravity, mu,
             num_alphas, rho_factor, rho_min, rho_max, rho_reset)
     if X.device.type == "cpu":
-        return sqp_solve_mega_pcg_reference(*args)
-    return _solve_on(_card_library(X, model), SOLVE_PCG_GRID, *args)
+        return sqp_solve_mega_pcg_reference(*args, knobs=knobs)
+    return _solve_on(_card_library(X, model), SOLVE_PCG_GRID, *args,
+                     knobs=knobs)
 
 
 sqp_solve_mega_pcg_grid.launches = 0
@@ -382,21 +397,23 @@ sqp_solve_mega_pcg_grid.cluster_size = None
 def sqp_iter_mega_pcg_reference(model, X, U, goals, xs, lam0, rho, drho,
                                 merit, max_iter: int, exit_tol, dt, qd_cost,
                                 r_cost, gravity, mu, num_alphas: int,
-                                rho_factor, rho_min, rho_max,
-                                rho_reset) -> IterResult:
+                                rho_factor, rho_min, rho_max, rho_reset,
+                                knobs: _lib.Knobs = _lib.DEFAULT_KNOBS
+                                ) -> IterResult:
     step = _plain_step(model, goals, xs, _pcg_solve(max_iter, exit_tol), True,
                        dt, qd_cost, r_cost, gravity, mu, num_alphas,
-                       rho_factor, rho_min, rho_max, rho_reset)
+                       rho_factor, rho_min, rho_max, rho_reset, knobs)
     return step(X, U, lam0, *_scalars(X, rho, drho, merit))
 
 
 def sqp_iter_mega_reference(model, X, U, goals, xs, rho, drho, merit, dt,
                             qd_cost, r_cost, gravity, mu, num_alphas: int,
-                            rho_factor, rho_min, rho_max,
-                            rho_reset) -> IterResult:
+                            rho_factor, rho_min, rho_max, rho_reset,
+                            knobs: _lib.Knobs = _lib.DEFAULT_KNOBS
+                            ) -> IterResult:
     step = _plain_step(model, goals, xs, lambda ks, lam: bcr_dz_reference(ks),
                        False, dt, qd_cost, r_cost, gravity, mu, num_alphas,
-                       rho_factor, rho_min, rho_max, rho_reset)
+                       rho_factor, rho_min, rho_max, rho_reset, knobs)
     return step(X, U, torch.zeros_like(X), *_scalars(X, rho, drho, merit))
 
 
@@ -404,14 +421,15 @@ def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
                  max_iter: int, exit_tol, dt, qd_cost, r_cost, gravity, mu,
                  num_alphas: int, rho_factor, rho_min, rho_max, rho_reset,
                  grid: int, stream, stair: int = -1,
-                 cluster: int = 0) -> IterResult:
+                 cluster: int = 0,
+                 knobs: _lib.Knobs = _lib.DEFAULT_KNOBS) -> IterResult:
     """One launch of K9p or K9pg (kind ITER_PCG or ITER_PCG_GRID, lam0 the
     warm start; stair and cluster as _launch's) or K9b (ITER_BCR, lam0
     None; cluster as check_mega_fit's, and on the host build a size of
     1-16 that its block emulation runs on grid / C clusters)."""
     dev = X.device
     n, nx, nu = _expect_iterate(lib, tab, X, U, goals, xs, rho, merit,
-                                num_alphas)
+                                num_alphas, knobs)
     _lib.expect(drho, "drho", (), dev)
     f32 = dict(dtype=torch.float32, device=dev)
     Xo = torch.empty((n, nx), **f32)
@@ -437,7 +455,7 @@ def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
             *head, lam0.data_ptr(), rho.data_ptr(), drho.data_ptr(),
             merit.data_ptr(), int(max_iter), float(exit_tol), *schedule,
             *tail[:-2], int(kind), tail[-2], int(cluster), int(stair),
-            tail[-1])
+            *_lib.knob_args(knobs), tail[-1])
         _lib.check(rc, "mpc_sqp_iter_mega_pcg")
         (sqp_iter_mega_pcg if kind == ITER_PCG
          else sqp_iter_mega_pcg_grid).cluster_size = iscratch[2]
@@ -447,7 +465,8 @@ def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
                              f"power-of-2 horizon, got N = {n}")
         rc = lib.mpc_sqp_iter_mega(*head, rho.data_ptr(), drho.data_ptr(),
                                    merit.data_ptr(), *schedule, *tail[:-1],
-                                   int(cluster), tail[-1])
+                                   int(cluster), *_lib.knob_args(knobs),
+                                   tail[-1])
         _lib.check(rc, "mpc_sqp_iter_mega")
         sqp_iter_mega.cluster_size = iscratch[2]
     return IterResult(X=Xo, U=Uo, lam=lam, rho=scal[0], drho=scal[1],
@@ -456,12 +475,13 @@ def _launch_iter(lib, kind: int, tab, X, U, goals, xs, lam0, rho, drho, merit,
 
 
 def _iter_on(lib, kind: int, model, X, U, goals, xs, lam0, rho, drho, merit,
-             *rest):
+             *rest, knobs: _lib.Knobs = _lib.DEFAULT_KNOBS):
     """One K9p, K9pg or K9b launch (kind) through library lib; counts it."""
     grid = check_mega_fit(X.shape[0], lib, kind)
     rho, drho, merit = _scalars(X, rho, drho, merit)
     out = _launch_iter(lib, kind, _lib.model_tables(model), X, U, goals, xs,
-                       lam0, rho, drho, merit, *rest, grid, _lib.stream_of(X))
+                       lam0, rho, drho, merit, *rest, grid, _lib.stream_of(X),
+                       knobs=knobs)
     {ITER_PCG: sqp_iter_mega_pcg, ITER_PCG_GRID: sqp_iter_mega_pcg_grid,
      ITER_BCR: sqp_iter_mega}[kind].launches += 1
     return out
@@ -470,26 +490,28 @@ def _iter_on(lib, kind: int, model, X, U, goals, xs, lam0, rho, drho, merit,
 def sqp_iter_mega_pcg(model, X, U, goals, xs, lam0, rho, drho, merit,
                       max_iter: int, exit_tol, dt, qd_cost, r_cost, gravity,
                       mu, num_alphas: int, rho_factor, rho_min, rho_max,
-                      rho_reset) -> IterResult:
+                      rho_reset,
+                      knobs: _lib.Knobs = _lib.DEFAULT_KNOBS) -> IterResult:
     """K9p (K9pg past its cluster fit): one SQP iteration (K3's stages
     with the stair, the warm-started stair-PCG from lam0 and dz, the
     8-alpha line search, the accept test and rho schedule) from X (N, nx),
-    U (N-1, nu), goals (N, >=3), xs (nx,); rho, drho and merit (the
-    incumbent's) are 0-d tensors (or numbers), max_iter and exit_tol host
-    numbers."""
+    U (N-1, nu), goals (N, >=3; (N, nx) under joint tracking), xs (nx,);
+    rho, drho and merit (the incumbent's) are 0-d tensors (or numbers),
+    max_iter and exit_tol host numbers."""
     args = (model, X, U, goals, xs, lam0, rho, drho, merit, max_iter,
             exit_tol, dt, qd_cost, r_cost, gravity, mu, num_alphas,
             rho_factor, rho_min, rho_max, rho_reset)
     if X.device.type == "cpu":
-        return sqp_iter_mega_pcg_reference(*args)
+        return sqp_iter_mega_pcg_reference(*args, knobs=knobs)
     return _iter_pcg_on(_card_library(X, model, "K9p (sqp_iter_mega_pcg)"),
-                        *args)
+                        *args, knobs=knobs)
 
 
-def _iter_pcg_on(lib, model, X, *rest):
+def _iter_pcg_on(lib, model, X, *rest,
+                 knobs: _lib.Knobs = _lib.DEFAULT_KNOBS):
     """K9p where its cluster CG fits, else K9pg, through library lib."""
     return _iter_on(lib, pcg_kind(X.shape[0], lib, ITER_PCG), model, X,
-                    *rest)
+                    *rest, knobs=knobs)
 
 
 sqp_iter_mega_pcg.launches = 0
@@ -499,16 +521,18 @@ sqp_iter_mega_pcg.cluster_size = None
 def sqp_iter_mega_pcg_grid(model, X, U, goals, xs, lam0, rho, drho, merit,
                            max_iter: int, exit_tol, dt, qd_cost, r_cost,
                            gravity, mu, num_alphas: int, rho_factor, rho_min,
-                           rho_max, rho_reset) -> IterResult:
+                           rho_max, rho_reset,
+                           knobs: _lib.Knobs = _lib.DEFAULT_KNOBS
+                           ) -> IterResult:
     """K9pg: sqp_iter_mega_pcg's iteration with its CG joined across the
     launch's clusters (K5g's plan), at any N."""
     args = (model, X, U, goals, xs, lam0, rho, drho, merit, max_iter,
             exit_tol, dt, qd_cost, r_cost, gravity, mu, num_alphas,
             rho_factor, rho_min, rho_max, rho_reset)
     if X.device.type == "cpu":
-        return sqp_iter_mega_pcg_reference(*args)
+        return sqp_iter_mega_pcg_reference(*args, knobs=knobs)
     return _iter_on(_card_library(X, model, "K9pg (sqp_iter_mega_pcg_grid)"),
-                    ITER_PCG_GRID, *args)
+                    ITER_PCG_GRID, *args, knobs=knobs)
 
 
 sqp_iter_mega_pcg_grid.launches = 0
@@ -517,18 +541,21 @@ sqp_iter_mega_pcg_grid.cluster_size = None
 
 def sqp_iter_mega(model, X, U, goals, xs, rho, drho, merit, dt, qd_cost,
                   r_cost, gravity, mu, num_alphas: int, rho_factor, rho_min,
-                  rho_max, rho_reset) -> IterResult:
+                  rho_max, rho_reset,
+                  knobs: _lib.Knobs = _lib.DEFAULT_KNOBS) -> IterResult:
     """K9b: one SQP iteration with the refined BCR dual solve (no stair, no
     warm start; pcg_iters 0, hit_max False); N a power of 2.  Arguments as
     sqp_iter_mega_pcg's, less lam0, max_iter and exit_tol."""
     if X.device.type == "cpu":
         return sqp_iter_mega_reference(
             model, X, U, goals, xs, rho, drho, merit, dt, qd_cost, r_cost,
-            gravity, mu, num_alphas, rho_factor, rho_min, rho_max, rho_reset)
+            gravity, mu, num_alphas, rho_factor, rho_min, rho_max, rho_reset,
+            knobs)
     return _iter_on(_card_library(X, model, "K9b (sqp_iter_mega)"), ITER_BCR,
                     model, X, U, goals, xs, None,
                     rho, drho, merit, 0, 0.0, dt, qd_cost, r_cost, gravity,
-                    mu, num_alphas, rho_factor, rho_min, rho_max, rho_reset)
+                    mu, num_alphas, rho_factor, rho_min, rho_max, rho_reset,
+                    knobs=knobs)
 
 
 sqp_iter_mega.launches = 0
@@ -551,24 +578,22 @@ def sqp_solve_mega_pcg_packed_reference(model, X, U, goals, xs, lam0, rho,
                                         n_sqp_iter: int, dt, qd_cost, r_cost,
                                         gravity, mu, num_alphas: int,
                                         rho_factor, rho_min, rho_max,
-                                        rho_reset, integrator_type: int = 0,
-                                        hessian: str = "reference",
-                                        angle_wrap: bool = False,
-                                        tracking: str = "eepos",
-                                        q_cost: float = 1.0) -> PackedResult:
+                                        rho_reset,
+                                        knobs: _lib.Knobs = _lib.DEFAULT_KNOBS
+                                        ) -> PackedResult:
     """The plain version of K10: sqp.iterate over the arm-batched plain
     modules (KKT, Schur with the stair preconditioner, the CG with its
     shared exit, dz, the candidate merits), the incumbent merit computed
-    first, on the tensors' device.  integrator_type, hessian, angle_wrap,
-    tracking and q_cost reach the plain modules as the JAX packed kernel's
-    do; with tracking="joint" goals are the (B, N, nx) joint rows."""
+    first, on the tensors' device.  The knobs reach the plain modules as
+    the JAX packed kernel's do; with tracking="joint" goals are the
+    (B, N, nx) joint rows."""
     from mpcgpu_tpu_torch.sqp import iterate, staged_step
 
-    knobs = dict(angle_wrap=angle_wrap, tracking=tracking, q_cost=q_cost)
+    mkw = dict(gravity=gravity, **knobs.merit_kw())
 
     def linearize_and_solve(Xc, Uc, lamc, rhoc):
         kkt = form_kkt(model, Xc, Uc, goals, xs, dt, qd_cost, r_cost,
-                       integrator_type, gravity, hessian, **knobs)
+                       gravity=gravity, **knobs.kkt_kw())
         sd = form_schur(kkt, rhoc)
         res = pcg(sd.S, sd.Pinv, sd.gamma, lamc, max_iter, exit_tol,
                   shared_exit=True)
@@ -578,12 +603,12 @@ def sqp_solve_mega_pcg_packed_reference(model, X, U, goals, xs, lam0, rho,
     def eval_merits(Xc, Uc, dX, dU):
         return merit_ops.line_search_merits(
             model, Xc, Uc, dX, dU, alphas_for(num_alphas, Xc), goals, xs, dt,
-            mu, qd_cost, r_cost, integrator_type, gravity, **knobs)
+            mu, qd_cost, r_cost, **mkw)
 
     f32 = dict(dtype=X.dtype, device=X.device)
     b = X.shape[0]
     merit0 = merit_ops.merit(model, X, U, goals, xs, dt, mu, qd_cost, r_cost,
-                             integrator_type, gravity, **knobs)
+                             **mkw)
     (Xo, Uo, lam, rho_o, _drho, merit, iters, done, pcg_iters, _hit,
      _acc) = iterate(X, U, lam0, torch.as_tensor(rho, **f32).expand(b),
                      torch.as_tensor(drho, **f32).expand(b), merit0,
@@ -633,7 +658,8 @@ def _launch_packed(lib, tab, X, U, goals, xs, lam0, rho, drho,
                    max_iter: int, exit_tol, n_sqp_iter: int, dt, qd_cost,
                    r_cost, gravity, mu, num_alphas: int, rho_factor, rho_min,
                    rho_max, rho_reset, grid: int, stream, cluster: int = 0,
-                   stair: int = -1, scratch=None) -> PackedResult:
+                   stair: int = -1, scratch=None,
+                   knobs: _lib.Knobs = _lib.DEFAULT_KNOBS) -> PackedResult:
     """One K10 launch on `grid` blocks: cluster 0 the one-block form, 2-16
     the cluster form (stair as mpc_mega_packed_plan's).  scratch, when
     given, is the launch's float32 scratch (mpc_sqp_mega_packed_scratch_
@@ -654,9 +680,7 @@ def _launch_packed(lib, tab, X, U, goals, xs, lam0, rho, drho,
     _lib.expect(xs, "xs", (b, nx), dev)
     _lib.expect(rho, "rho", (b,), dev)
     _lib.expect(drho, "drho", (b,), dev)
-    if goals.dim() != 3 or goals.shape[:2] != (b, n) or goals.shape[2] < 3:
-        raise ValueError(f"goals must be ({b}, {n}, >=3), got "
-                         f"{tuple(goals.shape)}")
+    _lib.expect_goals(goals, n, nx, knobs, lead=(b,))
     garm = 0 if goals.stride(0) == 0 else n * goals.shape[2]
     base = goals[0] if garm == 0 else goals
     _lib.expect(base, "goals", tuple(base.shape), dev)
@@ -682,7 +706,8 @@ def _launch_packed(lib, tab, X, U, goals, xs, lam0, rho, drho,
         int(num_alphas), float(rho_factor), float(rho_min), float(rho_max),
         float(rho_reset), Xo.data_ptr(), Uo.data_ptr(), lam.data_ptr(),
         rho_o.data_ptr(), merit.data_ptr(), ints.data_ptr(),
-        scratch.data_ptr(), int(grid), int(cluster), int(stair), stream)
+        scratch.data_ptr(), int(grid), int(cluster), int(stair),
+        *_lib.knob_args(knobs), stream)
     _lib.check(rc, "mpc_sqp_mega_packed")
     sqp_solve_mega_pcg_packed.cluster_size = ints[2 * b + 1]
     return PackedResult(X=Xo, U=Uo, lam=lam, rho=rho_o, merit=merit,
@@ -693,8 +718,9 @@ def _launch_packed(lib, tab, X, U, goals, xs, lam0, rho, drho,
 def sqp_solve_mega_pcg_packed(model, X, U, goals, xs, lam0, rho, drho,
                               max_iter: int, exit_tol, n_sqp_iter: int, dt,
                               qd_cost, r_cost, gravity, mu, num_alphas: int,
-                              rho_factor, rho_min, rho_max,
-                              rho_reset) -> PackedResult:
+                              rho_factor, rho_min, rho_max, rho_reset,
+                              knobs: _lib.Knobs = _lib.DEFAULT_KNOBS
+                              ) -> PackedResult:
     """Run n_sqp_iter SQP iterations for each of B arms (module doc for the
     layout): per-arm rho, drho, merit (computed first, in-kernel), accept
     and bail freeze, one CG per arm with the shared exit; rho and drho are
@@ -703,14 +729,15 @@ def sqp_solve_mega_pcg_packed(model, X, U, goals, xs, lam0, rho, drho,
         return sqp_solve_mega_pcg_packed_reference(
             model, X, U, goals, xs, lam0, rho, drho, max_iter, exit_tol,
             n_sqp_iter, dt, qd_cost, r_cost, gravity, mu, num_alphas,
-            rho_factor, rho_min, rho_max, rho_reset)
+            rho_factor, rho_min, rho_max, rho_reset, knobs)
     lib = _card_library(X, model, "K10 (sqp_solve_mega_pcg_packed)")
     plan = packed_plan(X.shape[1], X.shape[0], num_alphas, lib)
     out = _launch_packed(lib, _lib.model_tables(model), X, U, goals, xs,
                          lam0, rho, drho, max_iter, exit_tol, n_sqp_iter, dt,
                          qd_cost, r_cost, gravity, mu, num_alphas,
                          rho_factor, rho_min, rho_max, rho_reset, plan.grid,
-                         _lib.stream_of(X), plan.cluster, plan.stair)
+                         _lib.stream_of(X), plan.cluster, plan.stair,
+                         knobs=knobs)
     sqp_solve_mega_pcg_packed.launches += 1
     sqp_solve_mega_pcg_packed.form_launches[
         "cluster" if plan.cluster else "one_block"] += 1

@@ -50,6 +50,7 @@ from mpcgpu_tpu_torch.config import SolverConfig
 from mpcgpu_tpu_torch.models import dynamics as dyn
 from mpcgpu_tpu_torch.models.robot import RobotModel
 from mpcgpu_tpu_torch.ops.btridiag import spmv
+from mpcgpu_tpu_torch.ops.cuda._lib import knobs_of
 from mpcgpu_tpu_torch.ops.cuda.rollout_kernel import plant_rollout
 from mpcgpu_tpu_torch.ops.cuda.sqp_megakernel import (
     sqp_solve_mega_pcg_packed, sqp_solve_mega_pcg_packed_reference)
@@ -626,10 +627,10 @@ def simulate_mpc_scan_packed(model: RobotModel, cfg: SolverConfig, xu_traj,
     wrappers (a CUDA tensor launches K10 and K1 or raises; a CPU tensor
     runs their plain versions), and the configuration must be one the
     kernels serve (check_fused_config); without, the plain versions run on
-    the tensors' device, with the configuration's integrator, Hessian,
-    angle wrap and tracking (joint tracking: the goals are ee_traj's rows,
-    the joint reference), as the JAX packed loop runs them.  Each solve
-    runs cfg.sqp_max_iter iterations with drho reset to 1, per-arm rho
+    the tensors' device.  Both take the configuration's integrator,
+    Hessian, angle wrap and tracking (joint tracking: the goals are
+    ee_traj's rows, the joint reference), as the JAX packed loop does.
+    Each solve runs cfg.sqp_max_iter iterations with drho reset to 1, per-arm rho
     carried across updates, and the CG's shared exit of the JAX packed
     kernel.  Returns tracking_errors,
     sqp_iters and rho_bailed (B, n_updates), pcg_iters_total (n_updates,)
@@ -649,14 +650,9 @@ def simulate_mpc_scan_packed(model: RobotModel, cfg: SolverConfig, xu_traj,
     period = cfg.simulation_period_us
     max_substeps = max_substeps_for(cfg)
     cc = cfg.cost
-    if cfg.fused_stages:
-        solve = sqp_solve_mega_pcg_packed
-    else:
-        solve = functools.partial(
-            sqp_solve_mega_pcg_packed_reference,
-            integrator_type=cfg.integrator_type, hessian=cc.hessian,
-            angle_wrap=cfg.angle_wrap, tracking=cc.tracking,
-            q_cost=cc.q_cost)
+    solve = functools.partial(
+        sqp_solve_mega_pcg_packed if cfg.fused_stages
+        else sqp_solve_mega_pcg_packed_reference, knobs=knobs_of(cfg))
     if timing:
         events = _update_events(X, n_updates)
 

@@ -34,7 +34,10 @@ device memory, in the same masked loop as the staged path.  Otherwise
 each iteration runs K3 (KKT + Schur, with the stair preconditioner for
 "pcg" and "pcg_pallas"), then K4 (stair-PCG + dz; "pcg_pallas" too, as
 the JAX package runs it), K6 (BCR-preconditioned CG + dz, "bcr_pcg") or
-K7 (refined BCR + dz, "bcr"), then K2 (line-search merits).  Fused
+K7 (refined BCR + dz, "bcr"), then K2 (line-search merits).  Every
+fused route passes the configuration's knobs to its kernels (joint
+tracking with q_cost, the Gauss-Newton Hessian, semi-implicit Euler, the
+angle wrap: ``_lib.knobs_of``), in float32.  Fused
 "dense" and "qdldl" raise: the JAX package runs its stair-PCG kernel
 under those names there (its sqp_solve never calls the named backend
 with pallas_stages), and the port does not copy that.  Off, the plain
@@ -190,14 +193,10 @@ def check_fused_config(cfg: SolverConfig, linsys: str,
     unsupported = []
     if linsys not in ("pcg", "pcg_pallas", "bcr", "bcr_pcg"):
         unsupported.append(f"linsys={linsys!r}")
-    if cfg.cost.tracking != "eepos":
-        unsupported.append(f"tracking={cfg.cost.tracking!r}")
-    if cfg.cost.hessian != "reference":
-        unsupported.append(f"hessian={cfg.cost.hessian!r}")
-    if cfg.integrator_type != 0:
-        unsupported.append(f"integrator_type={cfg.integrator_type}")
-    if cfg.angle_wrap:
-        unsupported.append("angle_wrap=True")
+    try:
+        _lib.knob_args(_lib.knobs_of(cfg))
+    except ValueError as e:
+        unsupported.append(str(e))
     if cfg.dtype != "float32":
         unsupported.append(f"dtype={cfg.dtype!r}")
     nq = cfg.control_size
@@ -228,12 +227,13 @@ def _stages(model: RobotModel, cfg: SolverConfig, goals, xs,
     alphas = _alphas(cfg, xs)
     if cfg.fused_stages:
         check_fused_config(cfg, linsys, whole_solve)
+        knobs = _lib.knobs_of(cfg)
 
         def merits_with_base(Xc, Uc, dX, dU):
             return line_search_merits(
                 model, Xc, Uc, dX, dU, cfg.num_alphas, goals, xs,
                 cfg.timestep, cfg.merit_mu, cc.qd_cost, cc.r_cost,
-                cfg.gravity)
+                cfg.gravity, knobs)
 
         def eval_merits(Xc, Uc, dX, dU):
             return merits_with_base(Xc, Uc, dX, dU)[:cfg.num_alphas]
@@ -260,7 +260,7 @@ def _stages(model: RobotModel, cfg: SolverConfig, goals, xs,
         def linearize_and_solve(Xc, Uc, lamc, rhoc):
             ks = form_kkt_schur(model, Xc, Uc, goals, xs, rhoc,
                                 cfg.timestep, cc.qd_cost, cc.r_cost,
-                                cfg.gravity, precond)
+                                cfg.gravity, precond, knobs)
             if linsys == "bcr":   # exact: no warm start, no tolerance
                 out = bcr_dz(ks)
             elif linsys == "bcr_pcg":
@@ -286,7 +286,8 @@ def _mega_kw(cfg: SolverConfig) -> dict:
     cc = cfg.cost
     return dict(dt=cfg.timestep, qd_cost=cc.qd_cost, r_cost=cc.r_cost,
                 gravity=cfg.gravity, mu=cfg.merit_mu,
-                num_alphas=cfg.num_alphas, **_schedule(cfg))
+                num_alphas=cfg.num_alphas, knobs=_lib.knobs_of(cfg),
+                **_schedule(cfg))
 
 
 def _alphas(cfg: SolverConfig, X):

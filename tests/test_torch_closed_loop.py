@@ -195,12 +195,20 @@ def test_shift_schedule_matches_jax():
 
 
 def test_fused_path_rejects_configs_the_kernels_do_not_serve(traj_0_0):
+    """The fused route refuses float64 by name (the kernels are float32)
+    before any stage runs, and takes the solver knobs it once refused:
+    integrator_type=1 now reaches the kernel wrappers."""
     X, U, goals, xs = _start(traj_0_0)
+    model = iiwa14(device="cpu")
+    args = (T(X), T(U), torch.zeros(N, 14), T(goals), T(xs), 1e-3, 1e-8)
     cfg = SolverConfig.for_knots(N, sqp_max_iter=1, fused_stages=True,
-                                 integrator_type=1)
-    with pytest.raises(ValueError, match="integrator_type"):
-        sqp_solve(iiwa14(device="cpu"), cfg, T(X), T(U), torch.zeros(N, 14),
-                  T(goals), T(xs), 1e-3, 1e-8)
+                                 dtype="float64")
+    with pytest.raises(ValueError, match="dtype='float64'"):
+        sqp_solve(model, cfg, *args)
+    cfg = dataclasses.replace(cfg, dtype="float32", integrator_type=1)
+    res = sqp_solve(model, cfg, *args)
+    assert int(res.stats.sqp_iters) == 1
+    assert torch.isfinite(res.X).all()
 
 
 def test_kernel_wrappers_refuse_other_devices():

@@ -12,6 +12,7 @@ lanedyn.cuh, K1 and K3 also run with the block's threads emulated, 32
 lanes a warp, which one thread taking every lane cannot check.
 """
 import contextlib
+import functools
 import shutil
 
 import numpy as np
@@ -31,9 +32,12 @@ from mpcgpu_tpu_torch.ops.cuda import rollout_kernel as k1
 from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k5
 from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k9
 from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k10
-from tests.torch_systems import (bcr_iteration_given_lam, packed_arms,
-                                 random_knot_schur, random_system,
-                                 relative_residual, with_resting_arm)
+from tests.torch_systems import (KNOB_CASES, SOLVE_TOLS, as_float64,
+                                 bcr_iteration_given_lam, knob_inputs,
+                                 packed_arms, random_knot_schur,
+                                 random_system, relative_residual,
+                                 residual_near_float64, with_resting_arm,
+                                 within_twice_plain, wrap_changes_defects)
 from tests.test_torch_kkt_schur import DT, QD_COST, R_COST, RHO, problem
 
 torch.set_num_threads(1)
@@ -55,14 +59,44 @@ def _close(got, want, rtol, atol):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("precond", [True, False])
-def test_k3_host_build_matches_plain(host, traj_0_0, precond):
+@functools.lru_cache(maxsize=None)
+def _model64():
+    return iiwa14(device="cpu", dtype=torch.float64)
+
+
+def _knobbed(traj_0_0, X, goals, knob):
+    """(X, goals, knobs) of knob case `knob` (tests/torch_systems.py
+    KNOB_CASES; None: the defaults, X and goals as given) from a start X
+    (..., n, 14) near fixture 0_0's states; goals keep X's leading axes."""
+    if knob is None:
+        return X, goals, _lib.DEFAULT_KNOBS
+    knobs = KNOB_CASES[knob]
+    Xk, gk = knob_inputs(*traj_0_0, X.numpy(), knobs)
+    return T(Xk), T(gk).expand(X.shape[:-2] + gk.shape), knobs
+
+
+# The knob cases of the kernels' tests: each knob alone and the two
+# combinations, beside each test's default cases (whose ids they keep).
+KNOBBED = list(KNOB_CASES)
+
+
+@pytest.mark.parametrize("precond,knob", [
+    pytest.param(True, None, id="True"), pytest.param(False, None, id="False"),
+    *(pytest.param(True, k, id=k) for k in KNOBBED)])
+def test_k3_host_build_matches_plain(host, traj_0_0, precond, knob):
+    """K3 against its plain version, rtol and atol 3e-3
+    (tests/test_kkt_schur_pallas.py:33), under the defaults and under each
+    knob case, whose wrap cases change the defects."""
     lib, model, tab = host
     X, U, goals, xs = (T(a) for a in problem(traj_0_0))
+    X, goals, knobs = _knobbed(traj_0_0, X, goals, knob)
+    if knobs.angle_wrap:
+        assert wrap_changes_defects(model, X, U, DT, knobs.integrator_type)
     want = k3.form_kkt_schur_reference(model, X, U, goals, xs, RHO, DT,
-                                       QD_COST, R_COST, precond=precond)
+                                       QD_COST, R_COST, precond=precond,
+                                       knobs=knobs)
     got = k3._launch(lib, tab, X, U, goals, torch.tensor(RHO), DT, QD_COST,
-                     R_COST, 0.0, precond, None)
+                     R_COST, 0.0, precond, None, knobs)
     for f in k3.KnotSchur._fields:
         _close(getattr(got, f), getattr(want, f), 3e-3, 3e-3)
 
@@ -304,16 +338,31 @@ def _k4_plan(lib, n, form, cluster, place=-1, dz=True):
 
 
 def test_k2_host_build_matches_plain(host, traj_0_0):
+    _check_k2(host, traj_0_0, None)
+
+
+@pytest.mark.parametrize("knob", KNOBBED)
+def test_k2_host_build_matches_plain_under_a_knob(host, traj_0_0, knob):
+    """test_k2_host_build_matches_plain under each knob case (the wrap
+    cases change the defects)."""
+    _check_k2(host, traj_0_0, knob)
+
+
+def _check_k2(host, traj_0_0, knob):
     lib, model, tab = host
-    X, U, goals, xs = (T(a) for a in problem(traj_0_0))
+    X0, U, goals, xs = (T(a) for a in problem(traj_0_0))
+    X, goals, knobs = _knobbed(traj_0_0, X0, goals, knob)
+    if knobs.angle_wrap:
+        assert wrap_changes_defects(model, X, U, DT, knobs.integrator_type)
     rng = np.random.default_rng(5)
     dX = T((0.05 * rng.normal(size=tuple(X.shape))).astype(np.float32))
     dU = T((0.05 * rng.normal(size=tuple(U.shape))).astype(np.float32))
-    xs = xs + 0.01
+    xs = xs + (X[0] - X0[0]) + 0.01  # moved with the wrap cases' joints
     want = k2.line_search_merits_reference(model, X, U, dX, dU, 8, goals, xs,
-                                           DT, 10.0, QD_COST, R_COST)
+                                           DT, 10.0, QD_COST, R_COST,
+                                           knobs=knobs)
     got = k2._launch(lib, tab, X, U, dX, dU, 8, goals, xs, DT, 10.0, QD_COST,
-                     R_COST, 0.0, None)
+                     R_COST, 0.0, None, knobs=knobs)
     _close(got, want, 2e-4, 2e-4)
 
 
@@ -380,7 +429,8 @@ def test_group_merit_contribution_matches_plain(host, traj_0_0, group, lanes):
                 _ptr(tab), _ptr(X), _ptr(U), _ptr(dX) if step else None,
                 _ptr(dU) if step else None, _ptr(goals), goals.shape[1],
                 _ptr(xs), n, k, alpha if step else 0.0, DT, mu, QD_COST,
-                R_COST, 0.0, group, _ptr(out))
+                R_COST, 0.0, group, _ptr(out),
+                *_lib.knob_args(_lib.DEFAULT_KNOBS))
             return out
 
         with _lanes(lib, lanes):
@@ -708,9 +758,13 @@ def test_cluster_dot_sums_the_partials_in_rank_order(host, n, clusters):
     assert torch.equal(sums, torch.full((clusters,), float(want)))
 
 
-@pytest.mark.parametrize("n,tol,rho_max", [(4, 1e-6, 10.0), (8, 5e-5, 10.0),
-                                           (8, 5e-5, 1e-3)])
-def test_k5_host_build_matches_plain(host, traj_0_0, n, tol, rho_max):
+@pytest.mark.parametrize("n,tol,rho_max,knob", [
+    pytest.param(4, 1e-6, 10.0, None, id="4-1e-06-10.0"),
+    pytest.param(8, 5e-5, 10.0, None, id="8-5e-05-10.0"),
+    pytest.param(8, 5e-5, 1e-3, None, id="8-5e-05-0.001"),
+    *(pytest.param(8, 5e-5, 10.0, k, id=f"8-5e-05-10.0-{k}")
+      for k in KNOBBED)])
+def test_k5_host_build_matches_plain(host, traj_0_0, n, tol, rho_max, knob):
     """The whole solve through the host build (one block walks every
     knot, the grid barriers are no-ops) against the staged plain loop,
     perturbed start, 5 SQP iterations; rho_max = rho_min bails at the
@@ -718,26 +772,35 @@ def test_k5_host_build_matches_plain(host, traj_0_0, n, tol, rho_max):
     X, U at rtol 1e-3, atol 1e-5; lam at rtol 1e-3, atol 1e-4; decisions
     identical; CG iterations within 2 per SQP iteration.  Tight exit
     tolerances only at N = 4: where both CG loops stop at the cap
-    unconverged, their float32 sums in different orders part by more."""
+    unconverged, their float32 sums in different orders part by more.  The
+    knob cases (tests/torch_systems.py KNOB_CASES) start from the same
+    perturbation."""
     lib, model, tab = host
     xu, ee = traj_0_0
     rng = np.random.default_rng(5)
     X = T((xu[:n, :14] + 0.02 * rng.normal(size=(n, 14))).astype(np.float32))
     U, goals = T(xu[:n - 1, 14:].copy()), T(ee[:n].copy())
+    X, goals, knobs = _knobbed(traj_0_0, X, goals, knob)
     xs, lam0, rho = X[0].clone(), torch.zeros(n, 14), torch.tensor(1e-3)
     kw = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
               num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=rho_max,
-              rho_reset=1e-3)
+              rho_reset=1e-3, knobs=knobs)
     merit0 = k2.line_search_merits_reference(
         model, X, U, torch.zeros_like(X), torch.zeros_like(U), 8, goals, xs,
-        DT, 10.0, QD_COST, R_COST)[8]
-    args = (X, U, goals, xs, lam0, rho, 1.0, merit0, 40, tol, 5)
+        DT, 10.0, QD_COST, R_COST, knobs=knobs)[8]
+    n_sqp = 5 if knob is None else 1
+    args = (X, U, goals, xs, lam0, rho, 1.0, merit0, 40, tol, n_sqp)
     want = k5.sqp_solve_mega_pcg_reference(model, *args, **kw)
     assert k5.check_mega_fit(n, lib) == 1
     got = k5._launch(lib, tab, *args, grid=1, stream=None, **kw)
-    _close(got.X, want.X, 1e-3, 1e-5)
-    _close(got.U, want.U, 1e-3, 1e-5)
-    _close(got.lam, want.lam, 1e-3, 1e-4)
+    if knob is None:
+        _close(got.X, want.X, 1e-3, 1e-5)
+        _close(got.U, want.U, 1e-3, 1e-5)
+        _close(got.lam, want.lam, 1e-3, 1e-4)
+    else:
+        want64 = k5.sqp_solve_mega_pcg_reference(_model64(), *as_float64(args),
+                                                 **kw)
+        within_twice_plain(got, want, want64, SOLVE_TOLS)
     for f in ("rho", "drho"):
         _close(getattr(got, f), getattr(want, f), 1e-6, 0)
     for f in ("sqp_iters", "bailed", "hit_max", "accepted"):
@@ -746,7 +809,7 @@ def test_k5_host_build_matches_plain(host, traj_0_0, n, tol, rho_max):
     assert torch.equal(its < 0, want_its < 0)
     assert int((its - want_its).abs().max()) <= 2
     if rho_max == 1e-3:
-        assert bool(got.bailed) and int(got.sqp_iters) < 5
+        assert bool(got.bailed) and int(got.sqp_iters) < n_sqp
 
 
 @pytest.mark.parametrize("rho", [0.1, 0.3])
@@ -794,17 +857,23 @@ def _arms(traj_0_0, n, b, seed):
     return X, U, T(ee[:n].copy()).expand(b, n, 6), X[:, 0].clone()
 
 
-@pytest.mark.parametrize("n,rhos,tol,rho_max,seed", [
+@pytest.mark.parametrize("n,rhos,tol,rho_max,seed,knob", [
     # arms 0 and 1 from rho 1e-3 and 0.1, CGs at the cap and before it
-    (8, (1e-3, 0.1), 5e-5, 10.0, 5),
+    pytest.param(8, (1e-3, 0.1), 5e-5, 10.0, 5, None,
+                 id="8-rhos0-5e-05-10.0-5"),
     # three arms whose lone CGs stop at different counts (the shared exit)
-    (4, (0.02, 0.1, 0.3), 1e-4, 10.0, 7),
+    pytest.param(4, (0.02, 0.1, 0.3), 1e-4, 10.0, 7, None,
+                 id="4-rhos1-0.0001-10.0-7"),
     # arm 1 starts above rho_max = 0.05 and bails at its first rejected
     # step (iteration 2) while arm 0 stays live through all 5
-    (4, (1e-3, 0.1), 1e-4, 0.05, 6),
+    pytest.param(4, (1e-3, 0.1), 1e-4, 0.05, 6, None,
+                 id="4-rhos2-0.0001-0.05-6"),
+    # the first case under each knob case
+    *(pytest.param(8, (1e-3, 0.1), 5e-5, 10.0, 5, k,
+                   id=f"8-rhos0-5e-05-10.0-5-{k}") for k in KNOBBED),
 ])
 def test_k10_host_build_matches_plain(host, traj_0_0, n, rhos, tol, rho_max,
-                                      seed):
+                                      seed, knob):
     """The arm-packed whole solve through the host build (one block owns
     every arm's CG and walks every (arm, knot) pair; the grid barriers,
     the shared exit's among them, are no-ops) against its plain version,
@@ -815,17 +884,24 @@ def test_k10_host_build_matches_plain(host, traj_0_0, n, rhos, tol, rho_max,
     lib, model, tab = host
     b = len(rhos)
     X, U, goals, xs = _arms(traj_0_0, n, b, seed)
+    X, goals, knobs = _knobbed(traj_0_0, X, goals[0], knob)
+    goals, xs = goals.expand((b,) + goals.shape[-2:]), X[:, 0].clone()
     kw = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
               num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=rho_max,
-              rho_reset=1e-3)
+              rho_reset=1e-3, knobs=knobs)
     args = (X, U, goals, xs, torch.zeros(b, n, 14), torch.tensor(rhos),
-            torch.ones(b), 40, tol, 5)
+            torch.ones(b), 40, tol, 5 if knob is None else 1)
     want = k10.sqp_solve_mega_pcg_packed_reference(model, *args, **kw)
     assert k10.packed_plan(n, b, 8, lib).grid == 1
     got = k10._launch_packed(lib, tab, *args, grid=1, stream=None, **kw)
-    _close(got.X, want.X, 1e-3, 1e-5)
-    _close(got.U, want.U, 1e-3, 1e-5)
-    _close(got.lam, want.lam, 1e-3, 1e-4)
+    if knob is None:
+        _close(got.X, want.X, 1e-3, 1e-5)
+        _close(got.U, want.U, 1e-3, 1e-5)
+        _close(got.lam, want.lam, 1e-3, 1e-4)
+    else:
+        want64 = k10.sqp_solve_mega_pcg_packed_reference(
+            _model64(), *as_float64(args), **kw)
+        within_twice_plain(got, want, want64, SOLVE_TOLS)
     _close(got.rho, want.rho, 1e-6, 0)
     _close(got.merit, want.merit, 1e-3, 0)
     for f in ("sqp_iters", "bailed", "pcg_iters_total"):
@@ -1133,17 +1209,23 @@ def test_split_paths_through_the_host_build_match_the_one_block_kernels(host):
         assert bool(got[4]) == bool(want[4])
 
 
-def _k9_start(traj_0_0, n, rho):
+def _k9_start(traj_0_0, n, rho, knob=None):
+    """(X, U, goals, xs): fixture 0_0's first n states perturbed (knot 0
+    kept, xs), as knob case `knob` makes them (None: the defaults)."""
     xu, ee = traj_0_0
     pert = 0.02 * np.random.default_rng(5).normal(size=(n, 14))
     pert[0] = 0.0
     X = T((xu[:n, :14] + pert).astype(np.float32))
-    return X, T(xu[:n - 1, 14:].copy()), T(ee[:n].copy()), T(xu[0, :14])
+    X, goals, _ = _knobbed(traj_0_0, X, T(ee[:n].copy()), knob)
+    return X, T(xu[:n - 1, 14:].copy()), goals, X[0].clone()
 
 
-@pytest.mark.parametrize("rho,rho_max", [(1e-3, 10.0), (0.1, 10.0),
-                                         (0.3, 0.3)])
-def test_k9p_host_build_matches_plain(host, traj_0_0, rho, rho_max):
+@pytest.mark.parametrize("rho,rho_max,knob", [
+    pytest.param(1e-3, 10.0, None, id="0.001-10.0"),
+    pytest.param(0.1, 10.0, None, id="0.1-10.0"),
+    pytest.param(0.3, 0.3, None, id="0.3-0.3"),
+    *(pytest.param(1e-3, 10.0, k, id=f"0.001-10.0-{k}") for k in KNOBBED)])
+def test_k9p_host_build_matches_plain(host, traj_0_0, rho, rho_max, knob):
     """One K9p launch against one staged plain iteration, N = 8, cold
     duals, drho 1.3 and the incumbent merit from device memory: X, U at
     rtol 1e-3, atol 1e-5 and lam at rtol 1e-3, atol 1e-4
@@ -1152,22 +1234,28 @@ def test_k9p_host_build_matches_plain(host, traj_0_0, rho, rho_max):
     rejected step."""
     lib, model, tab = host
     n = 8
-    X, U, goals, xs = _k9_start(traj_0_0, n, rho)
+    X, U, goals, xs = _k9_start(traj_0_0, n, rho, knob)
+    knobs = KNOB_CASES[knob] if knob else _lib.DEFAULT_KNOBS
     kw = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
               num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=rho_max,
-              rho_reset=1e-3)
+              rho_reset=1e-3, knobs=knobs)
     merit = k2.line_search_merits_reference(
         model, X, U, torch.zeros_like(X), torch.zeros_like(U), 8, goals, xs,
-        DT, 10.0, QD_COST, R_COST)[8]
+        DT, 10.0, QD_COST, R_COST, knobs=knobs)[8]
     args = (X, U, goals, xs, torch.zeros(n, 14), torch.tensor(rho),
             torch.tensor(1.3), merit * (0.5 if rho_max == rho else 1.0))
     want = k9.sqp_iter_mega_pcg_reference(model, *args, 40, 5e-5, **kw)
     assert k9.check_mega_fit(n, lib, k9.ITER_PCG) == 1
     got = k9._launch_iter(lib, k9.ITER_PCG, tab, *args, 40, 5e-5, **kw,
                           grid=1, stream=None)
-    _close(got.X, want.X, 1e-3, 1e-5)
-    _close(got.U, want.U, 1e-3, 1e-5)
-    _close(got.lam, want.lam, 1e-3, 1e-4)
+    if knob is None:
+        _close(got.X, want.X, 1e-3, 1e-5)
+        _close(got.U, want.U, 1e-3, 1e-5)
+        _close(got.lam, want.lam, 1e-3, 1e-4)
+    else:
+        want64 = k9.sqp_iter_mega_pcg_reference(
+            _model64(), *as_float64(args), 40, 5e-5, **kw)
+        within_twice_plain(got, want, want64, SOLVE_TOLS)
     for f in ("rho", "drho", "merit"):
         _close(getattr(got, f), getattr(want, f), 1e-6 if f != "merit"
                else 1e-3, 0)
@@ -1179,14 +1267,18 @@ def test_k9p_host_build_matches_plain(host, traj_0_0, rho, rho_max):
         assert torch.equal(got.X, X) and float(got.rho) == pytest.approx(1e-3)
 
 
-@pytest.mark.parametrize("rho", [1e-3, 0.1])
-def test_k9b_host_build_matches_plain(host, traj_0_0, rho):
+@pytest.mark.parametrize("rho,knob", [
+    pytest.param(1e-3, None, id="0.001"), pytest.param(0.1, None, id="0.1"),
+    *(pytest.param(1e-3, k, id=f"0.001-{k}") for k in KNOBBED)])
+def test_k9b_host_build_matches_plain(host, traj_0_0, rho, knob):
     """One K9b launch, N = 8: against the independent plain iteration,
     accept and bail equal, X and U at rtol 1e-3, atol 1e-5, CG count 0;
     lam by relative residual on S(X), within 1e-5; and against the plain
     iteration given the kernel's own lam (tests/torch_systems.py), X, U
-    and merit at rtol 1e-3, atol 1e-5."""
-    _check_k9b(host, traj_0_0, 8, rho)
+    and merit at rtol 1e-3, atol 1e-5; under the defaults and each knob
+    case (there X and U against float64 by within_twice_plain, lam by
+    residual_near_float64)."""
+    _check_k9b(host, traj_0_0, 8, rho, knob)
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -1196,15 +1288,16 @@ def test_k9b_host_build_matches_plain_at_short_horizons(host, traj_0_0, n):
     _check_k9b(host, traj_0_0, n, 1e-3)
 
 
-def _check_k9b(host, traj_0_0, n, rho):
+def _check_k9b(host, traj_0_0, n, rho, knob=None):
     lib, model, tab = host
-    X, U, goals, xs = _k9_start(traj_0_0, n, rho)
+    X, U, goals, xs = _k9_start(traj_0_0, n, rho, knob)
+    knobs = KNOB_CASES[knob] if knob else _lib.DEFAULT_KNOBS
     kw = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
               num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=10.0,
-              rho_reset=1e-3)
+              rho_reset=1e-3, knobs=knobs)
     merit = k2.line_search_merits_reference(
         model, X, U, torch.zeros_like(X), torch.zeros_like(U), 8, goals, xs,
-        DT, 10.0, QD_COST, R_COST)[8]
+        DT, 10.0, QD_COST, R_COST, knobs=knobs)[8]
     args = (X, U, goals, xs, torch.tensor(rho), torch.tensor(1.0), merit)
     want = k9.sqp_iter_mega_reference(model, *args, **kw)
     assert k9.check_mega_fit(n, lib, k9.ITER_BCR) == 1
@@ -1212,10 +1305,17 @@ def _check_k9b(host, traj_0_0, n, rho):
                           0, 0.0, **kw, grid=1, stream=None)
     for f in ("accept", "bail", "hit_max", "pcg_iters"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
-    _close(got.X, want.X, 1e-3, 1e-5)
-    _close(got.U, want.U, 1e-3, 1e-5)
     given, ks = bcr_iteration_given_lam(model, *args, got.lam, **kw)
-    assert relative_residual(ks, got.lam) < 1e-5
+    if knob is None:
+        _close(got.X, want.X, 1e-3, 1e-5)
+        _close(got.U, want.U, 1e-3, 1e-5)
+        assert relative_residual(ks, got.lam) < 1e-5
+    else:
+        want64 = k9.sqp_iter_mega_reference(_model64(), *as_float64(args),
+                                            **kw)
+        within_twice_plain(got, want, want64,
+                           {f: SOLVE_TOLS[f] for f in ("X", "U")})
+        residual_near_float64(ks, got.lam, want.lam, want64.lam)
     for f in ("X", "U", "merit", "rho", "drho"):
         _close(getattr(got, f), getattr(given, f), 1e-3, 1e-5)
 

@@ -196,6 +196,58 @@ def test_k3_two_joints_matches_plain(host, fixture, precond, lanes):
         assert err <= 1e-5 * scale, f"A column {col}: {err}"
 
 
+# joint tracking (q_cost 2.0, the fixture's state rows as goals) with
+# semi-implicit Euler: the knob case of K3 and K2 at two joints
+JOINT_SEMI = _lib.Knobs(tracking="joint", integrator_type=1, q_cost=2.0)
+
+
+def _joint_problem(fixture):
+    X, U, _, xs = _problem(fixture)
+    return X, U, T(fixture[0][:N, :NX].copy()), xs
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_k3_two_joints_under_joint_tracking_and_semi_implicit_euler(
+        host, fixture, lanes):
+    """K3 at two joints under JOINT_SEMI against its plain version, at
+    test_k3_two_joints_matches_plain's tolerances (A's columns too), and
+    at 32 emulated lanes the bits of one lane."""
+    lib, model, tab = host
+    X, U, goals, xs = _joint_problem(fixture)
+    want = k3.form_kkt_schur_reference(model, X, U, goals, xs, RHO, DT,
+                                       QD_COST, R_COST, knobs=JOINT_SEMI)
+    got = k3.KnotSchur(*_both_lanes(lib, lanes, lambda: k3._launch(
+        lib, tab, X, U, goals, torch.tensor(RHO), DT, QD_COST, R_COST, 0.0,
+        True, None, JOINT_SEMI)))
+    for f in k3.KnotSchur._fields:
+        _close(getattr(got, f), getattr(want, f), 3e-3, 3e-3)
+    scale = float(want.A.abs().max())
+    for col in range(NX):
+        err = float((got.A[:-1, :, col] - want.A[:-1, :, col]).abs().max())
+        assert err <= 1e-5 * scale, f"A column {col}: {err}"
+
+
+def test_k2_two_joints_under_joint_tracking_and_semi_implicit_euler(
+        host, fixture):
+    """K2 at two joints under JOINT_SEMI: the plain merits at K2's
+    tolerances, and with its threads emulated one thread's bits."""
+    lib, model, tab = host
+    X, U, goals, xs = _joint_problem(fixture)
+    rng = np.random.default_rng(5)
+    dX = T((0.05 * rng.normal(size=tuple(X.shape))).astype(np.float32))
+    dU = T((0.05 * rng.normal(size=tuple(U.shape))).astype(np.float32))
+    want = k2.line_search_merits_reference(model, X, U, dX, dU, 8, goals, xs,
+                                           DT, MU, QD_COST, R_COST,
+                                           knobs=JOINT_SEMI)
+    args = (lib, tab, X, U, dX, dU, 8, goals, xs, DT, MU, QD_COST, R_COST,
+            0.0, None)
+    with _lanes(lib, 1):
+        one = k2._launch(*args, knobs=JOINT_SEMI)
+    _close(one, want, 2e-4, 2e-4)
+    with _lanes(lib, 32):
+        assert torch.equal(k2._launch(*args, knobs=JOINT_SEMI), one)
+
+
 @pytest.mark.parametrize("lanes", LANES)
 @pytest.mark.parametrize("offset_us,sim_time_us",
                          [(0.0, 2000.0), (2000.0, 2000.0), (1500.0, 700.0)])

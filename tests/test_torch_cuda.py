@@ -9,7 +9,10 @@ the card admits (K10 also in its one-block form), and K11 over every
 local shard in one launch, against their plain versions, on the card;
 and the card twins of tests/test_torch_host_loop.py: the real-time host
 loop's launches, the host loop against the scan, the fine-grained mode's
-K4b, the time box's K9p and the forward-kinematics fixture trace.
+K4b, the time box's K9p and the forward-kinematics fixture trace; and the
+solver knobs' cases of tests/test_torch_csrc_host.py (K3 and K2 at N = 64,
+K5, K9p, K9b and K10 at N = 8, one SQP iteration, held with the float64
+plain version as the yardstick).
 
 Marked ``cuda``: each test needs a CUDA device and skips without one.
 The file uses no fixture of tests/conftest.py, which imports JAX, so on a
@@ -48,9 +51,11 @@ from mpcgpu_tpu_torch.ops.cuda import sqp_megakernel as k10
 from mpcgpu_tpu_torch.utils.trajfiles import load_fixture_pair
 # by its bare name (pytest puts tests/ on sys.path): the card machine may
 # have another package named "tests"
-from torch_systems import (bcr_iteration_given_lam, packed_arms,
+from torch_systems import (K3_TOLS, KNOB_CASES, SOLVE_TOLS, as_float64,
+                           bcr_iteration_given_lam, knob_start, packed_arms,
                            random_knot_schur, relative_residual,
-                           with_resting_arm)
+                           residual_near_float64, with_resting_arm,
+                           within_twice_plain, wrap_changes_defects)
 
 pytestmark = pytest.mark.cuda
 
@@ -1348,3 +1353,113 @@ def test_two_joint_wrappers_of_the_iiwa_only_kernels_raise_by_name(arm2):
     for kid, call in calls.items():
         with pytest.raises(ValueError, match=kid):
             call()
+
+
+# ---- the solver knobs (torch_systems.KNOB_CASES: each knob alone and the
+# two combinations), as tests/test_torch_csrc_host.py holds the host build
+
+def _knob_start(knob, n, dev, seed=5):
+    """torch_systems.knob_start on dev."""
+    xu, ee = load_fixture_pair(Path(__file__).resolve().parent / "fixtures")
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                 for a in knob_start(xu, ee, n, knob, seed))
+
+
+_KNOB_KW = dict(dt=DT, qd_cost=QD_COST, r_cost=R_COST, gravity=0.0, mu=10.0,
+                num_alphas=8, rho_factor=1.2, rho_min=1e-3, rho_max=10.0,
+                rho_reset=1e-3)
+
+
+@pytest.mark.parametrize("knob", list(KNOB_CASES))
+def test_k3_and_k2_kernels_under_a_knob_match_plain(card, knob):
+    """K3 (rtol, atol 3e-3; where the end-effector position block is near
+    singular at rho 1e-3 -- the Gauss-Newton Hessian, and the wrap cases'
+    moved joints under eepos tracking -- against the float64 plain
+    version, entry by entry, row by row: within_twice_plain at K3's rtol,
+    atol) and
+    K2 at a seeded 0.05 step (rtol, atol 2e-4) under each knob case at
+    N = 64, the wrap cases' defects changed by the wrap."""
+    kn, dev = KNOB_CASES[knob], card["X"].device
+    X, U, goals, xs = _knob_start(knob, 64, dev)
+    if kn.angle_wrap:
+        assert wrap_changes_defects(card["model"], X, U, DT,
+                                    kn.integrator_type)
+    a3 = (card["model"], X, U, goals, xs, card["rho"], DT, QD_COST, R_COST)
+    ks, ks_ref = (k3.form_kkt_schur(*a3, knobs=kn),
+                  k3.form_kkt_schur_reference(*a3, knobs=kn))
+    if kn.hessian == "gauss_newton" or (kn.tracking == "eepos"
+                                        and kn.angle_wrap):
+        # the position block near singular (chip_smoke.py phase 15): the
+        # float64 plain version as the yardstick
+        ks64 = k3.form_kkt_schur_reference(
+            iiwa14(device=dev, dtype=torch.float64), *as_float64(a3[1:]),
+            knobs=kn)
+        within_twice_plain(ks, ks_ref, ks64, K3_TOLS, per_row=True)
+    else:
+        for g, w in zip(ks, ks_ref):
+            _close(g, w, 3e-3, 3e-3)
+    rng = np.random.default_rng(5)
+    step = [torch.as_tensor((0.05 * rng.normal(size=tuple(t.shape))).astype(
+        np.float32), device=dev) for t in (X, U)]
+    a2 = (card["model"], X, U, *step, 8, goals, xs, DT, 10.0, QD_COST,
+          R_COST)
+    _close(k2.line_search_merits(*a2, knobs=kn),
+           k2.line_search_merits_reference(*a2, knobs=kn), 2e-4, 2e-4)
+
+
+@pytest.mark.parametrize("knob", list(KNOB_CASES))
+@pytest.mark.parametrize("kernel", ["K5", "K9p", "K9b", "K10"])
+def test_solve_kernels_under_a_knob_match_plain(card, kernel, knob):
+    """One SQP iteration of K5, K9p, K9b and K10 (two arms) under each
+    knob case at N = 8, cold duals, rho 1e-3: the decisions and CG counts
+    of the plain version, X, U and lam no farther from the float64 plain
+    version than twice the float32 one's largest distance, beyond the
+    default checks' tolerances (torch_systems.within_twice_plain); K9b's
+    duals by relative residual, within three times the float64 plain
+    solve's rounded to float32 (torch_systems.residual_near_float64: the
+    wrap cases' pi-sized defects on systems of condition ~1e7), and X, U
+    and merit at rtol 1e-3, atol 2e-4 against the plain iteration given
+    the kernel's duals."""
+    kn, dev, model = KNOB_CASES[knob], card["X"].device, card["model"]
+    model64 = iiwa14(device=dev, dtype=torch.float64)
+    n = 8
+    X, U, goals, xs = _knob_start(knob, n, dev)
+    lam0, rho = torch.zeros_like(X), torch.tensor(1e-3, device=dev)
+    kw = dict(_KNOB_KW, knobs=kn)
+    merit = k2.line_search_merits_reference(
+        model, X, U, torch.zeros_like(X), torch.zeros_like(U), 8, goals, xs,
+        DT, 10.0, QD_COST, R_COST, knobs=kn)[8]
+    one = torch.tensor(1.0, device=dev)
+    if kernel == "K5":
+        args = (X, U, goals, xs, lam0, rho, 1.0, merit, 40, 5e-5, 1)
+        run, plain = k5.sqp_solve_mega_pcg, k5.sqp_solve_mega_pcg_reference
+        same = ("sqp_iters", "bailed", "accepted", "pcg_iters")
+    elif kernel == "K9p":
+        args = (X, U, goals, xs, lam0, rho, one, merit, 40, 5e-5)
+        run, plain = k9.sqp_iter_mega_pcg, k9.sqp_iter_mega_pcg_reference
+        same = ("accept", "bail", "pcg_iters")
+    elif kernel == "K9b":
+        args = (X, U, goals, xs, rho, one, merit)
+        run, plain = k9.sqp_iter_mega, k9.sqp_iter_mega_reference
+        same = ("accept", "bail")
+    else:
+        X2 = _knob_start(knob, n, dev, seed=6)[0]
+        Xb = torch.stack([X, X2])
+        args = (Xb, U.expand(2, n - 1, 7).contiguous(),
+                goals.expand((2,) + goals.shape), Xb[:, 0].contiguous(),
+                torch.zeros_like(Xb), torch.tensor([1e-3, 0.1], device=dev),
+                torch.ones(2, device=dev), 40, 5e-5, 1)
+        run = k10.sqp_solve_mega_pcg_packed
+        plain = k10.sqp_solve_mega_pcg_packed_reference
+        same = ("sqp_iters", "bailed", "pcg_iters_total")
+    got, want = run(model, *args, **kw), plain(model, *args, **kw)
+    want64 = plain(model64, *as_float64(args), **kw)
+    for f in same:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    within_twice_plain(got, want, want64, {
+        f: t for f, t in SOLVE_TOLS.items() if kernel != "K9b" or f != "lam"})
+    if kernel == "K9b":
+        given, ks = bcr_iteration_given_lam(model, *args, got.lam, **kw)
+        residual_near_float64(ks, got.lam, want.lam, want64.lam)
+        for f in ("X", "U", "merit"):
+            _close(getattr(got, f), getattr(given, f), 1e-3, 2e-4)

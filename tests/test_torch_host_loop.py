@@ -344,19 +344,17 @@ def test_drivers_refuse_to_run_without_a_card_or_cpu(monkeypatch):
     ("bcr", "reference", "bcr: K2, K9b"),
     ("pcg_pallas", "reference", "pcg_pallas: K3, K4, K2"),
     ("qdldl", "reference", "no kernel serves 'qdldl'"),
-    ("pcg", "gauss_newton", None)])
+    ("pcg", "gauss_newton", "pcg: K2, K5")])
 def test_driver_route_on_the_card(linsys, hessian, want):
     """The driver's configuration on a CUDA device (no launch): the
-    kernels' route, the plain stages for dense and qdldl, and a raise
-    with check_fused_config's message where the kernels refuse."""
+    kernels' route, the plain stages for dense and qdldl, and the
+    Gauss-Newton Hessian on the kernels' route (a knob they take), with
+    the knob in the configuration the route runs."""
     mod = _driver()
     args = mod.parse_args(["--linsys", linsys, "--hessian", hessian])
     cuda = torch.device("cuda", 0)
     cfg = mod.solver_config(args, cuda)
-    if want is None:
-        with pytest.raises(ValueError, match="hessian='gauss_newton'"):
-            mod.route(cfg, linsys, cuda)
-        return
+    assert cfg.cost.hessian == hessian
     assert want in mod.route(cfg, linsys, cuda)
     args = mod.parse_args(["--linsys", "pcg", "--no-precond"])
     cfg = mod.solver_config(args, cuda)

@@ -30,6 +30,7 @@ from mpcgpu_tpu.sim import (
     simulate_mpc_scan_batched as jax_simulate_mpc_scan_batched)
 from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SolverConfig
 from mpcgpu_tpu_torch.models.robot import iiwa14
+from mpcgpu_tpu_torch.ops.cuda._lib import knobs_of
 from mpcgpu_tpu_torch.ops.cuda.sqp_megakernel import (
     sqp_solve_mega_pcg_packed, sqp_solve_mega_pcg_packed_reference)
 from mpcgpu_tpu_torch.sim import (arm_starts, simulate_mpc_scan_batched,
@@ -171,9 +172,7 @@ def joint_case(iiwa, traj_0_0):
         cost=CostConfig(tracking="joint", q_cost=1.0, r_cost=1e-4))
     args = (T(X), T(U), T(goals).expand(b, N, 14), T(X[:, 0]),
             torch.zeros(b, N, 14), T(rhos), torch.ones(b), CAP, TOL, K_SQP)
-    kw = dict(_solve_kw(tcfg), tracking="joint", q_cost=1.0,
-              integrator_type=tcfg.integrator_type, hessian=tcfg.cost.hessian,
-              angle_wrap=tcfg.angle_wrap)
+    kw = dict(_solve_kw(tcfg), knobs=knobs_of(tcfg))
     return ref, args, kw
 
 

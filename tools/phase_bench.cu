@@ -119,7 +119,8 @@ __global__ void perknot_twice(const float* tab_g, int N, const float* X,
   ld::load_tables(tab, tab_g);
   for (int pass = 0; pass < 2; ++pass)
     k3::perknot(tab, 0, N, X, U, goals, 3, rho, 0.01f, 1e-2f, 1e-3f, -9.81f,
-                A, B, Qinv, Rinv, q, r, AQi, T, tvec, Qiq, fpred);
+                ld::Knobs{}, A, B, Qinv, Rinv, q, r, AQi, T, tvec, Qiq,
+                fpred);
 }
 
 struct Dev {
@@ -195,7 +196,8 @@ void bench_k3(const float* tab, int N, double ghz) {
   auto launch = [&] {
     return mpc_kkt_schur(tab, N, Xd, Ud, gd, 3, rd, 0.01f, 1e-2f, 1e-3f,
                          -9.81f, 1, SL, SD, SU, PL, PD, PU, gam, Qinv, Rinv,
-                         A, B, q, r, AQi, T, tv, Qiq, fp, nullptr);
+                         A, B, q, r, AQi, T, tv, Qiq, fp, 0, 0, 0, 0, 1.0f,
+                         nullptr);
   };
   std::vector<std::vector<long long>> ph(N_K3_PHASES + 2);
   for (int rep = 0; rep < REPS + 3; ++rep) {
@@ -310,7 +312,7 @@ void bench_k2(const float* tab, int N, int group, double ghz) {
   auto launch = [&] {
     return k2src::mpc_merits(tab, Xd, Ud, dXd, dUd, gd, 3, xsd, N, 8, 0.01f,
                              1.0f, 1e-2f, 1e-3f, -9.81f, contrib, done, group,
-                             out, nullptr);
+                             out, 0, 0, 0, 0, 1.0f, nullptr);
   };
   std::vector<std::vector<long long>> ph(N_K2_PHASES + 1);
   for (int rep = 0; rep < REPS + 3; ++rep) {
@@ -355,7 +357,8 @@ void bench_k5(const float* tab, int N, int group, double ghz) {
     return k5src::mpc_sqp_mega(
         tab, N, X0, U0, gd, 3, xsd, lam0, rho0, merit0, 1.0f, 0, 5e-5f, n_sqp,
         0.01f, 1e-2f, 1e-3f, -9.81f, 1.0f, 8, 1.2f, 1e-3f, 1e3f, 1e-3f, X, U,
-        lam, scal, ints, stats, scratch, iscratch, kind, grid, 0, -1, nullptr);
+        lam, scal, ints, stats, scratch, iscratch, kind, grid, 0, -1, 0, 0, 0,
+        0, 1.0f, nullptr);
   };
   std::vector<std::vector<long long>> s5(n_sqp), s6(n_sqp);
   for (int rep = 0; rep < REPS + 3; ++rep) {
@@ -410,7 +413,7 @@ __global__ void merit_pair_probe(const float* tab_g, const float* X,
   const float v = k2::merit_contrib<G>(
       ld::group(G, true), tab, area + k2::AREA_FLOATS * (threadIdx.x / G), X,
       dX, U, dU, k, N, alpha, goals + 3 * k, xs, 0.01f, 1.0f, 1e-2f, 1e-3f,
-      -9.81f);
+      -9.81f, ld::Knobs{});
   __syncwarp();
   if (threadIdx.x == 0) {
     for (int e = 0; e < k2::AREA_FLOATS; ++e) out[e] = area[e];
